@@ -1,10 +1,18 @@
-"""Vocabulary metadata from a mapped-to-ids dataset directory.
+"""Mapped-to-ids datasets: vocabulary metadata and training prefix records.
 
-Counterpart of the metadata half of
-``open_knowledge_graph_embeddings_tpu/data/dataset.py``: the id maps and the
-dense [num_items, max_len] token-id matrices the token encoders read.  The
-cache is the same npz under the same key in ``<dataset>/.oket_cache/``, so
-either package can read what the other wrote.
+Counterpart of ``open_knowledge_graph_embeddings_tpu/data/dataset.py``:
+
+* the metadata half: the id maps and the dense [num_items, max_len]
+  token-id matrices the token encoders read;
+* the training half: the 5-column triple reader (its Python branch; the
+  JAX package's native parser is pinned to it by its own tests), the 1-vs-N
+  prefix records of both directions, and
+  :class:`OneToNMentionRelationDataset` for a training split.
+
+Both caches are the same npz under the same key in
+``<dataset>/.oket_cache/``, so either package can read what the other
+wrote.  The filter index of the eval splits comes with eval (ROADMAP Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -17,6 +25,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from open_knowledge_graph_embeddings_tpu_torch.data.vocab import BOS, EOS, PAD, UNK
+
+SLOT_PO = 0  # prefix = (rel, obj), predict subject
+SLOT_SP = 2  # prefix = (subj, rel), predict object
 
 _CACHE_VERSION = 4
 
@@ -188,3 +199,251 @@ def _atomic_savez(path: str, **arrays) -> None:
     tmp = path + f".tmp{os.getpid()}.npz"
     np.savez(tmp, **arrays)
     os.replace(tmp, path)
+
+
+# ----------------------------------------------------------- triple file I/O
+
+
+def read_triple_file(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Parse a 5-column mapped file: ``subj rel obj subj_mentions
+    obj_mentions`` (TAB-separated, mentions space-separated).
+
+    Returns (triples [T, 3] int32, subj_offsets [T+1], subj_mentions,
+    obj_offsets [T+1], obj_mentions): the mention columns in CSR form.
+    Empty or missing mention columns fall back to columns 1 / 3."""
+    triples: List[Tuple[int, int, int]] = []
+    subj_offs = [0]
+    obj_offs = [0]
+    subj_vals: List[int] = []
+    obj_vals: List[int] = []
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            if len(parts) < 3:
+                continue
+            s, r, o = int(parts[0]), int(parts[1]), int(parts[2])
+            triples.append((s, r, o))
+            s_m = [int(x) for x in parts[3].split()] if len(parts) >= 5 else []
+            o_m = [int(x) for x in parts[4].split()] if len(parts) >= 5 else []
+            subj_vals.extend(s_m if s_m else [s])
+            obj_vals.extend(o_m if o_m else [o])
+            subj_offs.append(len(subj_vals))
+            obj_offs.append(len(obj_vals))
+    return (
+        np.asarray(triples, dtype=np.int32).reshape(-1, 3),
+        np.asarray(subj_offs, dtype=np.int64),
+        np.asarray(subj_vals, dtype=np.int32),
+        np.asarray(obj_offs, dtype=np.int64),
+        np.asarray(obj_vals, dtype=np.int32),
+    )
+
+
+# ------------------------------------------------------------ prefix records
+
+
+@dataclass
+class PrefixRecords:
+    """CSR store of 1-vs-N prefix examples for one split (both directions).
+
+    Row i: prefix ``(p1[i], p2[i])`` with slot[i] in {SLOT_PO, SLOT_SP}; its
+    gold answers are groups ``group_offsets[i]..group_offsets[i+1]``, and
+    group g covers mention ids ``mentions[mention_offsets[g]:mention_offsets[g+1]]``
+    (one group per triple line: the mention alternatives of one gold
+    entity).  ``row_has_dup[i]``: the example holds one mention twice
+    across its groups (None: unknown, treated as maybe)."""
+
+    p1: np.ndarray  # [P] int32
+    p2: np.ndarray  # [P] int32
+    slot: np.ndarray  # [P] int8
+    group_offsets: np.ndarray  # [P+1] int64
+    mention_offsets: np.ndarray  # [G+1] int64
+    mentions: np.ndarray  # [M] int32
+    row_has_dup: Optional[np.ndarray] = None  # [P] bool
+
+    def __len__(self) -> int:
+        return len(self.p1)
+
+    @property
+    def num_positives(self) -> int:
+        return int(self.mention_offsets[-1])
+
+
+def _group_direction(
+    triples: np.ndarray, ans_offsets: np.ndarray, ans_values: np.ndarray,
+    pref_cols: Tuple[int, int], slot: int,
+) -> dict:
+    """Group triples by their ``pref_cols`` prefix (lexsort, then segment);
+    each line is one answer group."""
+    t = triples
+    order = np.lexsort((t[:, pref_cols[1]], t[:, pref_cols[0]]))
+    p1 = t[order, pref_cols[0]]
+    p2 = t[order, pref_cols[1]]
+    new_prefix = np.ones(len(order), dtype=bool)
+    if len(order) > 1:
+        new_prefix[1:] = (p1[1:] != p1[:-1]) | (p2[1:] != p2[:-1])
+    prefix_starts = np.flatnonzero(new_prefix)
+    group_counts = np.diff(np.append(prefix_starts, len(order)))
+
+    lens = (ans_offsets[1:] - ans_offsets[:-1])[order]
+    mention_offsets = np.zeros(len(order) + 1, dtype=np.int64)
+    np.cumsum(lens, out=mention_offsets[1:])
+    starts = ans_offsets[:-1][order]
+    idx = np.repeat(starts, lens) + (np.arange(mention_offsets[-1]) - np.repeat(mention_offsets[:-1], lens))
+    group_offsets = np.zeros(len(prefix_starts) + 1, dtype=np.int64)
+    np.cumsum(group_counts, out=group_offsets[1:])
+    return dict(
+        p1=p1[prefix_starts].astype(np.int32),
+        p2=p2[prefix_starts].astype(np.int32),
+        slot=np.full(len(prefix_starts), slot, dtype=np.int8),
+        group_offsets=group_offsets,
+        mention_offsets=mention_offsets,
+        mentions=ans_values[idx.astype(np.int64)].astype(np.int32),
+    )
+
+
+def _concat_directions(sp: dict, po: dict) -> PrefixRecords:
+    """sp_o records first, then po_s (the reference's file layout)."""
+
+    def cat_offsets(key):
+        return np.concatenate([sp[key], sp[key][-1] + po[key][1:]])
+
+    return PrefixRecords(
+        p1=np.concatenate([sp["p1"], po["p1"]]),
+        p2=np.concatenate([sp["p2"], po["p2"]]),
+        slot=np.concatenate([sp["slot"], po["slot"]]),
+        group_offsets=cat_offsets("group_offsets"),
+        mention_offsets=cat_offsets("mention_offsets"),
+        mentions=np.concatenate([sp["mentions"], po["mentions"]]),
+    )
+
+
+def _compute_dup_flags(rec: PrefixRecords) -> np.ndarray:
+    """[P] bool: the example has one mention in more than one position
+    across its groups (one vectorized sort, cached with the records)."""
+    P = len(rec)
+    row_lens = (
+        rec.mention_offsets[rec.group_offsets[1:]] - rec.mention_offsets[rec.group_offsets[:-1]]
+    ).astype(np.int64)
+    flags = np.zeros(P, dtype=bool)
+    if rec.mentions.size == 0:
+        return flags
+    ex = np.repeat(np.arange(P, dtype=np.int64), row_lens)
+    stride = np.int64(rec.mentions.max(initial=0)) + 1
+    key = np.sort(ex * stride + rec.mentions)
+    dup = key[1:][key[1:] == key[:-1]]
+    if dup.size:
+        flags[np.unique(dup // stride)] = True
+    return flags
+
+
+def _split_large_prefixes(rec: PrefixRecords, max_groups: int) -> PrefixRecords:
+    """Split training prefixes with more than ``max_groups`` answer groups
+    into repeated examples of at most ``max_groups`` groups each
+    (``max_size_prefix_label``).  The chunks tile each prefix's groups in
+    order, so the mentions and their offsets are unchanged."""
+    if max_groups is None or max_groups <= 1:
+        return rec
+    counts = np.diff(rec.group_offsets)
+    if counts.max(initial=0) <= max_groups:
+        return rec
+    reps = (-(-counts // max_groups)).astype(np.int64)  # 0-group prefixes drop
+    rep_counts = np.repeat(counts, reps)
+    first = np.repeat(np.cumsum(reps) - reps, reps)
+    idx_in_prefix = np.arange(int(reps.sum()), dtype=np.int64) - first
+    sizes = np.minimum(max_groups, rep_counts - idx_in_prefix * max_groups)
+    goff = np.zeros(len(sizes) + 1, dtype=np.int64)
+    np.cumsum(sizes, out=goff[1:])
+    return PrefixRecords(
+        p1=np.repeat(rec.p1, reps),
+        p2=np.repeat(rec.p2, reps),
+        slot=np.repeat(rec.slot, reps),
+        group_offsets=goff,
+        mention_offsets=np.asarray(rec.mention_offsets, dtype=np.int64) - rec.mention_offsets[0],
+        mentions=np.asarray(rec.mentions),
+    )
+
+
+# ------------------------------------------------------------------- dataset
+
+
+class OneToNMentionRelationDataset:
+    """1-vs-N prefix dataset over mention-annotated triples, for a training
+    split; the batches are built by :class:`..data.batching.BatchBuilder`.
+    The config keys of the JAX class are accepted; an eval split
+    (``is_training_data=False``) needs the filter index, which comes with
+    eval."""
+
+    def __init__(
+        self,
+        dataset_dir: str,
+        input_file: str,
+        is_training_data: bool,
+        batch_size: int = 512,
+        use_batch_shared_entities: bool = False,
+        min_size_batch_labels: int = -1,
+        max_size_prefix_label: int = -1,
+        max_lengths_tuple: Tuple[int, int] = (10, 10),
+        loss: str = "bce",
+        cache_dir: Optional[str] = None,
+        batch_size_for_backward: Optional[int] = None,
+        replace_entities_by_tokens: bool = False,
+        replace_relations_by_tokens: bool = False,
+        copy_data_to_dev_shm: bool = False,
+    ):
+        if not is_training_data:
+            raise NotImplementedError(
+                "eval splits (filter index, eval batches) come with eval: ROADMAP Queue 1 item 8"
+            )
+        if copy_data_to_dev_shm:
+            raise NotImplementedError("copy_data_to_dev_shm is not ported: ROADMAP Queue 1 item 1")
+        self.dataset_dir = dataset_dir
+        self.input_file_name = input_file
+        self.is_training_data = is_training_data
+        self.batch_size = batch_size
+        self.batch_size_for_backward = batch_size_for_backward
+        self.use_batch_shared_entities = use_batch_shared_entities
+        self.min_size_batch_labels = min_size_batch_labels
+        self.max_size_prefix_label = max_size_prefix_label
+        self.loss = loss
+        self.cache_dir = _resolve_cache_dir(dataset_dir, cache_dir)
+        self.meta = load_meta(dataset_dir, max_lengths_tuple, cache_dir=self.cache_dir)
+        self.records = self._build_records()
+
+    def _records_cache_path(self) -> str:
+        key = f"records-v{_CACHE_VERSION}-{self.input_file_name}-{self.max_size_prefix_label}"
+        return os.path.join(self.cache_dir, key + ".npz")
+
+    def _build_records(self) -> PrefixRecords:
+        path = self._records_cache_path()
+        if os.path.exists(path):
+            with np.load(path) as z:
+                return PrefixRecords(
+                    p1=z["p1"], p2=z["p2"], slot=z["slot"],
+                    group_offsets=z["group_offsets"], mention_offsets=z["mention_offsets"],
+                    mentions=z["mentions"],
+                    row_has_dup=z["row_has_dup"] if "row_has_dup" in z.files else None,
+                )
+        triples, s_off, s_val, o_off, o_val = read_triple_file(
+            os.path.join(self.dataset_dir, self.input_file_name)
+        )
+        sp = _group_direction(triples, o_off, o_val, (0, 1), SLOT_SP)
+        po = _group_direction(triples, s_off, s_val, (1, 2), SLOT_PO)
+        rec = _split_large_prefixes(_concat_directions(sp, po), self.max_size_prefix_label)
+        rec.row_has_dup = _compute_dup_flags(rec)
+        _atomic_savez(
+            path,
+            p1=rec.p1, p2=rec.p2, slot=rec.slot,
+            group_offsets=rec.group_offsets, mention_offsets=rec.mention_offsets,
+            mentions=rec.mentions, row_has_dup=rec.row_has_dup,
+        )
+        return rec
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def __repr__(self) -> str:
+        return (
+            f"{type(self).__name__}(file={self.input_file_name}, prefixes={len(self)}, "
+            f"positives={self.records.num_positives}, entities={self.meta.entities_size}, "
+            f"relations={self.meta.relations_size}, batch_shared={self.use_batch_shared_entities})"
+        )

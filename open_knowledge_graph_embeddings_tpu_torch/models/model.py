@@ -1,8 +1,14 @@
 """Scorer x embedder composition and the model registry.
 
 Counterpart of ``open_knowledge_graph_embeddings_tpu/models/model.py``
-limited to serving: per-row query vectors for a mixed sp/po batch, the
-candidate encode, and the chunked full-vocabulary candidate cache.
+on one device: per-row query vectors for a mixed sp/po batch, the candidate
+encode, the train step's encode stage (candidates and query entities in one
+LSTM pass) and the chunked full-vocabulary candidate cache.  The mesh
+branch of the encode stage comes with multi-device training (ROADMAP Queue 1
+item 14).
+
+Randomness (dropout in train mode) is drawn from one ``torch.Generator`` in
+the JAX package's encode order: candidates, query entities, relations.
 """
 
 from __future__ import annotations
@@ -46,22 +52,50 @@ class KGEModel:
     def init(self, generator: torch.Generator) -> Variables:
         return self.embedder.init(generator)
 
-    def queries(self, variables: Variables, ent_ids, rel_ids, is_sp, *, train: bool = False):
+    def queries(self, variables: Variables, ent_ids, rel_ids, is_sp, *, train: bool = False,
+                generator: Optional[torch.Generator] = None, ent_inv=None, rel_inv=None):
         """Per-row query vectors [B, d] for a mixed sp/po prefix batch ->
-        ``(q, state, reg)``."""
-        e, state, reg_e = self.embedder.encode_entity(variables, ent_ids, is_sp=is_sp, train=train)
+        ``(q, state, reg)``.  With query dedup, ``ent_ids``/``rel_ids`` hold
+        unique ids and ``ent_inv``/``rel_inv`` gather the encoded rows back
+        to per-row before batchnorm and dropout."""
+        e, state, reg_e = self.embedder.encode_entity(
+            variables, ent_ids, is_sp=is_sp, train=train, generator=generator, inv=ent_inv)
         variables = {**variables, "state": state}
-        r, state, reg_r = self.embedder.encode_relation(variables, rel_ids, train=train)
+        r, state, reg_r = self.embedder.encode_relation(
+            variables, rel_ids, train=train, generator=generator, inv=rel_inv)
         return QUERY_FNS[self.scorer](e, r, is_sp), state, reg_e + reg_r
 
-    def encode_candidates(self, variables: Variables, cand_ids: Optional[torch.Tensor], *, train=False):
+    def encode_candidates(self, variables: Variables, cand_ids: Optional[torch.Tensor], *,
+                          train=False, generator: Optional[torch.Generator] = None):
         """Encode the candidate label space; ``None`` means every entity id
         from ``meta.min_entities_size`` on.  Candidates use the object
         encoding."""
         if cand_ids is None:
             device = variables["buffers"]["entity_token_ids"].device
             cand_ids = torch.arange(self.meta.min_entities_size, self.meta.entities_size, device=device)
-        return self.embedder.encode_entity(variables, cand_ids, is_sp=None, train=train)
+        return self.embedder.encode_entity(variables, cand_ids, is_sp=None, train=train, generator=generator)
+
+    def prefix_queries_and_candidates(self, variables: Variables, ent_ids, rel_ids, is_sp,
+                                      cand_ids=None, *, train: bool = False,
+                                      generator: Optional[torch.Generator] = None,
+                                      ent_inv=None, rel_inv=None):
+        """The train step's encode stage -> ``(q [B, d], cand_emb [N, d],
+        state, reg)``, without the score product (the loss fuses it).  With
+        batch-shared candidates, the candidates and the query entities go
+        through ONE LSTM pass (``encode_entity_pair``, candidates first);
+        batchnorm still sees each group alone."""
+        if cand_ids is not None:
+            cand_emb, e, state, reg_c = self.embedder.encode_entity_pair(
+                variables, cand_ids, ent_ids, train=train, generator=generator, inv_b=ent_inv)
+            variables = {**variables, "state": state}
+            r, state, reg_r = self.embedder.encode_relation(
+                variables, rel_ids, train=train, generator=generator, inv=rel_inv)
+            return QUERY_FNS[self.scorer](e, r, is_sp), cand_emb, state, reg_c + reg_r
+        cand_emb, state, reg_c = self.encode_candidates(variables, None, train=train, generator=generator)
+        q, state, reg_q = self.queries(
+            {**variables, "state": state}, ent_ids, rel_ids, is_sp, train=train,
+            generator=generator, ent_inv=ent_inv, rel_inv=rel_inv)
+        return q, cand_emb, state, reg_c + reg_q
 
     @torch.no_grad()
     def encode_all_entities(self, variables: Variables, chunk_size: int = 32768) -> torch.Tensor:

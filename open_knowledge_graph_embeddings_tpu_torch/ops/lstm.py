@@ -2,8 +2,8 @@
 the stable length sort, and the last-state encoder the embedders call.
 
 Counterpart of ``open_knowledge_graph_embeddings_tpu/ops/lstm.py``.  The
-port has one forward: the fused length-aware last-state LSTM
-(:mod:`.lstm_kernel`), whose CPU path is its plain PyTorch version.
+port has one LSTM: the fused length-aware last-state LSTM and its backward
+(:mod:`.lstm_kernel`), whose CPU path is their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -49,7 +49,8 @@ def lstm_last_fused(
     """``emb_tm`` [L, B, D] with rows sorted by descending length -> each
     row's last non-pad state [B, H] in ``emb_tm``'s dtype.  The weights are
     cast to the compute dtype here, once per encode, in the gate-major
-    layout the kernel reads."""
+    layout the kernel reads; autograd carries their gradients back through
+    the cast to the f32 parameters, as JAX's ``astype`` VJP does."""
     dtype = emb_tm.dtype
     w_ih = params["w_ih"].to(dtype).contiguous()
     w_hh = params["w_hh"].to(dtype).contiguous()

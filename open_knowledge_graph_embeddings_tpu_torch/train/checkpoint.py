@@ -1,9 +1,10 @@
 """The single-file checkpoint format, read and written by both packages.
 
 One directory per checkpoint: ``arrays.npz`` holds params, batch-norm state
-and optimizer accumulators flattened to slash-joined keys
-(``params/entity_lstm/w_ih``, ``state/entity_bn/mean``, ``opt/...``) and
-``meta.json`` holds counters and the config.  Buffers (token-id matrices)
+and optimizer state flattened to slash-joined keys
+(``params/entity_lstm/w_ih``, ``state/entity_bn/mean``,
+``opt/entity_lstm/w_ih/sum``, ``opt/entity_lstm/w_ih/step``) and
+``meta.json`` holds counters, the config and the optimizer's host state.  Buffers (token-id matrices)
 are not saved: they are rebuilt from the dataset.  The per-shard format of
 multi-process runs belongs to the port's multi-device work (ROADMAP Queue 1
 item 14).
@@ -35,18 +36,15 @@ def flatten_arrays(tree: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
     return out
 
 
-def variables_from_jax_arrays(arrays: Dict[str, np.ndarray]) -> Dict[str, Dict[str, Any]]:
-    """The JAX package's flattened ``params/...`` and ``state/...`` arrays
-    (a checkpoint's ``arrays.npz``, or ``flatten_arrays`` of its variables)
-    -> ``{"params": ..., "state": ...}`` nested dicts of CPU tensors with the
-    same names and shapes.  Every weight that crosses between the packages
-    passes through here; ``opt/...`` keys are ignored."""
-    out: Dict[str, Dict[str, Any]] = {"params": {}, "state": {}}
+def unflatten_arrays(arrays: Dict[str, np.ndarray], top: str) -> Dict[str, Any]:
+    """The ``top/...`` entries of flattened arrays -> a nested dict of CPU
+    tensors (the inverse of :func:`flatten_arrays`)."""
+    out: Dict[str, Any] = {}
     for key, value in arrays.items():
-        top, _, rest = key.partition("/")
-        if top not in out or not rest:
+        head, _, rest = key.partition("/")
+        if head != top or not rest:
             continue
-        node = out[top]
+        node = out
         *path, leaf = rest.split("/")
         for p in path:
             node = node.setdefault(p, {})
@@ -54,13 +52,25 @@ def variables_from_jax_arrays(arrays: Dict[str, np.ndarray]) -> Dict[str, Dict[s
     return out
 
 
+def variables_from_jax_arrays(arrays: Dict[str, np.ndarray]) -> Dict[str, Dict[str, Any]]:
+    """The JAX package's flattened ``params/...`` and ``state/...`` arrays
+    (a checkpoint's ``arrays.npz``, or ``flatten_arrays`` of its variables)
+    -> ``{"params": ..., "state": ...}`` nested dicts of CPU tensors with the
+    same names and shapes.  Every weight that crosses between the packages
+    passes through here; ``opt/...`` keys are ignored."""
+    return {"params": unflatten_arrays(arrays, "params"), "state": unflatten_arrays(arrays, "state")}
+
+
 def save_checkpoint(
-    directory: str, name: str, variables: Dict[str, Any], meta: Dict[str, Any]
+    directory: str, name: str, variables: Dict[str, Any], meta: Dict[str, Any],
+    opt_state: Optional[Dict[str, Any]] = None,
 ) -> str:
-    """Write ``variables``' params and state as ``<directory>/<name>``."""
+    """Write ``variables``' params and state, and ``opt_state`` under
+    ``opt/``, as ``<directory>/<name>``."""
     arrays: Dict[str, np.ndarray] = {}
     arrays.update(flatten_arrays(variables.get("params", {}), "params"))
     arrays.update(flatten_arrays(variables.get("state", {}), "state"))
+    arrays.update(flatten_arrays(opt_state or {}, "opt"))
     path = os.path.join(directory, name)
     tmp = path + ".tmp"
     os.makedirs(tmp, exist_ok=True)
@@ -92,20 +102,37 @@ def _merge(target: Dict[str, Any], loaded: Dict[str, Any], prefix: str) -> Dict[
     return out
 
 
-def load_checkpoint(path: str, variables: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """Restore a single-file checkpoint (written by either package) into
-    ``variables`` -> ``(variables, meta)``."""
+def _arrays_path(path: str) -> str:
     if not os.path.exists(os.path.join(path, "arrays.npz")):
         raise NotImplementedError(
             f"{path} has no arrays.npz: per-shard checkpoints are not ported yet "
             "(ROADMAP Queue 1 item 14)"
         )
-    with np.load(os.path.join(path, "arrays.npz")) as z:
+    return os.path.join(path, "arrays.npz")
+
+
+def load_checkpoint_meta(path: str) -> Dict[str, Any]:
+    with open(os.path.join(path, "meta.json")) as f:
+        return json.load(f)
+
+
+def load_checkpoint(path: str, variables: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Restore a single-file checkpoint (written by either package) into
+    ``variables`` -> ``(variables, meta)``."""
+    with np.load(_arrays_path(path)) as z:
         loaded = variables_from_jax_arrays({k: z[k] for k in z.files if not k.startswith("opt/")})
     new_vars = dict(variables)
     new_vars["params"] = _merge(variables["params"], loaded["params"], "params")
     new_vars["state"] = _merge(variables.get("state", {}), loaded["state"], "state")
-    with open(os.path.join(path, "meta.json")) as f:
-        meta = json.load(f)
+    meta = load_checkpoint_meta(path)
     logger.info("loaded checkpoint %s (training_steps=%s)", path, meta.get("training_steps"))
     return new_vars, meta
+
+
+def load_opt_state(path: str, opt_state: Dict[str, Any]) -> Dict[str, Any]:
+    """Restore the ``opt/...`` arrays of a checkpoint (written by either
+    package) into ``opt_state``, leaf by leaf; leaves the checkpoint lacks
+    keep their value."""
+    with np.load(_arrays_path(path)) as z:
+        loaded = unflatten_arrays({k: z[k] for k in z.files if k.startswith("opt/")}, "opt")
+    return _merge(opt_state, loaded, "opt")

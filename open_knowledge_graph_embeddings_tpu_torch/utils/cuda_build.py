@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file exposes a plain C interface, so it compiles in
 seconds without PyTorch's headers.  The shared libraries go to a git-ignored
-directory inside the package (``_build/``), named by a digest of the source
-and the flags, so an unchanged source is built once.  Nothing here runs at
+directory inside the package (``_build/``), named by a digest of the source,
+the shared ``csrc/*.cuh`` headers and the flags, so an unchanged source is
+built once.  Nothing here runs at
 import time: kernels are built on first use, on a machine with a card.
 """
 
@@ -46,7 +47,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC_DIR / name).read_bytes()
+    # the shared headers count too: a changed header rebuilds every source
+    src = b"".join(p.read_bytes() for p in [CSRC_DIR / name, *sorted(CSRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{Path(name).stem}-{digest}.so"
 

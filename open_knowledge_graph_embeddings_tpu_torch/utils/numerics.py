@@ -29,6 +29,17 @@ MAX_ULPS = 4
 MAX_UNEQUAL_SHARE = 0.02
 #: the port against the JAX package, both on the CPU
 MAX_UNEQUAL_SHARE_CPU = 0.005
+#: the LSTM backward's bf16 outputs (demb, dW), kernel against plain version
+#: on the card.  A one-ulp flip of a rounded dgate feeds the f32 dh carry of
+#: every earlier step, so flips compound toward step 0, and the kernel's
+#: tensor-core accumulation flips more of them than a plain f32 product
+#: does.  chip_smoke.py on an H100 at d=512: the kernel reads 2.2-4.4 % at
+#: the training shapes and 6.1 % at B=37 with lengths uniform in 0..10; the
+#: plain version with TF32 tensor-core products against itself with f32
+#: products 3.5-5.2 %; its planted misplaced rounding points 17-39 % (c_t
+#: read in f32, dgates left unrounded), a dropped carry or a skipped
+#: injection tens of ulps.
+MAX_UNEQUAL_SHARE_BWD = 0.10
 
 
 def bf16_ulp(x: float) -> float:
