@@ -31,12 +31,26 @@ Phases (any failure exits non-zero before the final line):
    rounding points), print the yardsticks of the backward's share rule, and
    time the kernel, the plain version and one PyTorch library call where
    one computes the same function;
-7. the serving path on the trained checkpoint: ``cli.predict`` answers text
-   queries and ``Predictor.predict`` batches of 1024 queries, with the launch
-   counts set to 0 just before and read just after; check ids, scores, cache
-   rows and top-k scores against a plain CPU encode;
-8. print the timings, one JSON line with every kernel's numbers, and last
-   ``{"ok": true, "device": {...}}``.
+7. the fused every-state LSTM (kernels 5 and 6, the every-state modes of the
+   fused kernels) against its plain versions on the recorded entity pass and
+   at ragged B, with a planted fault each, timed; then the op that reaches
+   them (``ops/lstm.py::lstm_forward_tm_sorted``) forward and backward with
+   the counts set to 0 just before and read just after;
+8. the unfused training path: the same ``cli.train`` run with
+   ``OKET_DISABLE_LSTM_FUSED=1`` set in this process for that run only (the
+   input projection, then kernels 7 and 8 over every row and step), checked
+   and timed as in 5; then kernels 7 and 8 against their plain versions on
+   its recorded first step and at ragged B, with planted faults, timed;
+9. the serving path on the trained checkpoint: ``cli.predict`` answers text
+   queries and ``Predictor.predict`` batches of 1024 queries and single
+   queries, with the launch counts set to 0 just before and read just after
+   (the cache chunks and the batches take the fused kernel, the single
+   queries, B = 1, the unfused path, by the JAX package's rule); check ids,
+   scores, cache rows and top-k scores against a plain CPU encode; then the
+   same on the unfused run's checkpoint with the switch set (every encode
+   unfused);
+10. print the timings, one JSON line with every kernel's numbers (eight
+   rows, launches by path), and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Needs one card; writes only under ``.bench_cache/``
 and the package's ``_build/``.
@@ -62,6 +76,9 @@ PKG = "open_knowledge_graph_embeddings_tpu_torch"
 FLAGSHIP = ROOT / "configs" / "olpbench" / "synth-olpbench-2m47-demo.yaml"
 DATA_DIR = ROOT / ".bench_cache" / "synth_olp_2m47_smoke"
 TRAIN_DIR = ROOT / ".bench_cache" / "smoke_train"
+TRAIN_DIR_UNFUSED = ROOT / ".bench_cache" / "smoke_train_unfused"
+# the JAX package's switch that sends every LSTM encode down the unfused path
+UNFUSED_SWITCH = "OKET_DISABLE_LSTM_FUSED"
 SEED = 0
 # OLPBench's vocabulary sizes; 80000 triples give 104626 training prefixes,
 # 25 steps of 4096 (counted on the CPU); serving reads only the vocabulary
@@ -92,6 +109,12 @@ SCORE_RTOL = 2 ** -8
 # and held to the bf16 rule with the backward's share of unequal elements
 # (utils/numerics.py MAX_UNEQUAL_SHARE_BWD).
 DB_RTOL = 1e-4
+# Kernels 6 and 8 take a cotangent at every step, so one flipped dgate of a
+# long row feeds the dh carry of every earlier step of that row, and the
+# share of unequal elements is a statistic over independent rows: on an H100
+# one row of length 10 read 12.0 % (kernel 6, demb) where 37 rows and more
+# read 1.2-1.6 %.  Below this many rows only the ulp bound is held.
+SHARE_MIN_ROWS = 32
 
 
 class SmokeFailure(RuntimeError):
@@ -299,20 +322,24 @@ def summary(ms):
     return {"n": len(ms), "median": float(np.median(ms)), "max": max(ms)}
 
 
-def phase_main_path(torch, timings, ckpt=None):
-    """The serving path on ``ckpt`` (a seeded random init when None)."""
+def phase_main_path(torch, timings, ckpt=None, unfused=False):
+    """The serving path on ``ckpt`` (a seeded random init when None).  With
+    ``unfused`` the switch is set for the whole phase and every encode takes
+    the unfused path; without it the cache chunks and the 1024-query
+    batches take the fused one and the single queries (B = 1) the unfused
+    one, by the JAX package's rule."""
     from open_knowledge_graph_embeddings_tpu_torch.cli import predict as cli_predict
     from open_knowledge_graph_embeddings_tpu_torch.inference import Predictor
-    from open_knowledge_graph_embeddings_tpu_torch.ops.lstm_kernel import lstm_encode_last_fused
     from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import (
         load_checkpoint,
         save_checkpoint,
     )
 
+    pre = "unfused_" if unfused else ""
     timings.setdefault("dataset_gen_s", ensure_dataset())
     t0 = time.perf_counter()
     args, meta, model, variables = load_user_path(torch)
-    timings["meta_and_init_s"] = time.perf_counter() - t0
+    timings[pre + "meta_and_init_s"] = time.perf_counter() - t0
     if ckpt is None:
         ckpt = save_checkpoint(str(DATA_DIR.parent), "smoke_ckpt", variables, {"training_steps": 0})
     del variables
@@ -332,7 +359,9 @@ def phase_main_path(torch, timings, ckpt=None):
     n_timed = 10  # per direction: 20 timed batches, 20 timed single queries
 
     # ---- the main path: counts set to 0 just before, read just after
-    lstm_encode_last_fused.launches = 0
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
     out, err = io.StringIO(), io.StringIO()
     stdin = sys.stdin
     sys.stdin = io.StringIO("\n".join(queries) + "\n")
@@ -344,7 +373,7 @@ def phase_main_path(torch, timings, ckpt=None):
     finally:
         sys.stdin = stdin
     torch.cuda.synchronize()
-    timings["cli_predict_s"] = time.perf_counter() - t0
+    timings[pre + "cli_predict_s"] = time.perf_counter() - t0
 
     _, _, model, variables = load_user_path(torch)
     variables, _ = load_checkpoint(ckpt, variables)
@@ -352,7 +381,7 @@ def phase_main_path(torch, timings, ckpt=None):
     t0 = time.perf_counter()
     predictor = Predictor(model, variables)  # ids only: the cache encode alone is timed
     torch.cuda.synchronize()
-    timings["cache_encode_s"] = time.perf_counter() - t0
+    timings[pre + "cache_encode_s"] = time.perf_counter() - t0
     results, batch_ms, single_ms = {}, [], []
     for direction in ("subj", "obj"):
         kw = {direction: ent_ids, "rel": rel_ids, "k": 10}
@@ -361,9 +390,9 @@ def phase_main_path(torch, timings, ckpt=None):
             batch_ms.append(wall_ms(lambda: predictor.predict(**kw)))
         single_ms += [wall_ms(lambda: predictor.predict(
             **{direction: ent_ids[i : i + 1]}, rel=rel_ids[i : i + 1], k=10)) for i in range(n_timed)]
-    timings[f"predict_{nq}_ms"] = summary(batch_ms)
-    timings["predict_1_ms"] = summary(single_ms)
-    launches = lstm_encode_last_fused.launches
+    timings[f"{pre}predict_{nq}_ms"] = summary(batch_ms)
+    timings[pre + "predict_1_ms"] = summary(single_ms)
+    launches = {name: fn.launches for name, fn in counters.items()}
     # ---- end of the main path
 
     # checks
@@ -380,22 +409,34 @@ def phase_main_path(torch, timings, ckpt=None):
         check(np.isfinite(scores).all(), f"{direction}: non-finite scores")
         check((np.diff(scores, axis=1) <= 0).all(), f"{direction}: scores increase along k")
         check(((ids >= meta.min_entities_size) & (ids < E)).all(), f"{direction}: ids out of range")
-    # encodes: the cache twice (cli.predict, Predictor), an entity and a
-    # relation encode per query batch; each runs one launch per step
-    encodes = 2 * n_chunks + 2 * (len(queries) + 2 * (1 + 2 * n_timed))
-    want = encodes * meta.max_length[0]
-    check(meta.max_length[0] == meta.max_length[1], "entity and relation lengths differ")
-    check(launches == want, f"lstm kernel launched {launches} times, want {want}")
-    print(f"main path: lstm_last_fwd launches={launches} = {encodes} encodes ({n_chunks} cache "
-          f"chunks x 2 + query encodes) x L={meta.max_length[0]} steps")
+    # encodes: the cache twice (cli.predict, Predictor; every chunk padded
+    # to 32768 rows), an entity and a relation encode per predict call: 4
+    # text queries and 20 single queries (B = 1), 22 batches of 1024; each
+    # encode runs one launch per step
+    L = meta.max_length[0]
+    check(L == meta.max_length[1], "entity and relation lengths differ")
+    fused_encodes = 2 * n_chunks + 2 * 2 * (1 + n_timed)
+    single_encodes = 2 * (len(queries) + 2 * n_timed)
+    if unfused:
+        fused_encodes, single_encodes = 0, fused_encodes + single_encodes
+    want = {name: 0 for name in counters}
+    want["lstm_last_fwd"], want["lstm_scan_fwd"] = fused_encodes * L, single_encodes * L
+    check(all(launches[k] > 0 for k, v in want.items() if v), f"a serving kernel was never launched: {launches}")
+    check(launches == want, f"serving launches {launches}, want {want}")
+    print(f"main path{' (' + UNFUSED_SWITCH + '=1)' if unfused else ''}: lstm_last_fwd launches="
+          f"{launches['lstm_last_fwd']} = {fused_encodes} fused encodes x L={L}; lstm_scan_fwd launches="
+          f"{launches['lstm_scan_fwd']} = {single_encodes} unfused encodes x L={L} ({n_chunks} cache chunks, "
+          f"1024-query batches {'un' if unfused else ''}fused, single queries unfused)")
 
     check_against_plain(torch, model, predictor, ent_ids, rel_ids)
     ids = torch.arange(meta.min_entities_size, meta.min_entities_size + chunk, device="cuda")
     with torch.no_grad():
-        device_breakdown(torch, f"cache chunk encode ({chunk} rows)",
+        device_breakdown(torch, f"{pre}cache chunk encode ({chunk} rows)",
                          lambda: model.embedder.encode_entity(predictor.variables, ids))
-    device_breakdown(torch, f"predict ({nq} subj queries, k=10)",
+    device_breakdown(torch, f"{pre}predict ({nq} subj queries, k=10)",
                      lambda: predictor.predict(subj=ent_ids, rel=rel_ids, k=10))
+    device_breakdown(torch, f"{pre}predict (1 subj query, k=10)",
+                     lambda: predictor.predict(subj=ent_ids[:1], rel=rel_ids[:1], k=10))
     return launches
 
 
@@ -462,20 +503,29 @@ class Capture:
     """Records the first training step's inputs to each training kernel: the
     two LSTM forward launches that write the hs/cs residuals (entity pass,
     then relation pass) with what they returned, the two LSTM backward
-    launches (relation pass, then entity pass), the dense Adagrad of one
+    launches (relation pass, then entity pass), the same four of the
+    recurrence-only LSTM on the unfused path, the dense Adagrad of one
     [2048, 512] LSTM weight and the row updates of the token tables (p and
     acc cloned before the in-place update).  It wraps the modules' CUDA
     launchers and calls them through, so the wrappers launch and count as
     they do without it."""
 
     def __init__(self):
-        from open_knowledge_graph_embeddings_tpu_torch.ops import adagrad_kernel, lstm_kernel, scatter_adagrad_kernel
+        from open_knowledge_graph_embeddings_tpu_torch.ops import (
+            adagrad_kernel,
+            lstm_kernel,
+            lstm_scan_kernel,
+            scatter_adagrad_kernel,
+        )
 
         self.fwd, self.bwd, self.dense, self.rows = [], [], None, []
+        self.scan_fwd, self.scan_bwd = [], []
         self._patches = [(lstm_kernel, "_launch_backward", self._bwd),
                          (adagrad_kernel, "_launch", self._dense),
                          (scatter_adagrad_kernel, "_launch", self._rows),
-                         (lstm_kernel, "_launch_forward", self._fwd)]
+                         (lstm_kernel, "_launch_forward", self._fwd),
+                         (lstm_scan_kernel, "_launch_forward", self._scan_fwd),
+                         (lstm_scan_kernel, "_launch_backward", self._scan_bwd)]
         self._orig = [getattr(mod, name) for mod, name, _ in self._patches]
 
     def __enter__(self):
@@ -510,13 +560,33 @@ class Capture:
             self.fwd.append(((emb_tm, w_ih, w_hh, bias, lengths), (last.clone(), hs, cs)))
         return out
 
+    def _scan_fwd(self, x_proj, w_hh):
+        hs, cs = self._orig[4](x_proj, w_hh)
+        if len(self.scan_fwd) < 2:
+            self.scan_fwd.append(((x_proj, w_hh), (hs, cs)))
+        return hs, cs
+
+    def _scan_bwd(self, *args):
+        if len(self.scan_bwd) < 2:
+            self.scan_bwd.append(args)
+        return self._orig[5](*args)
+
 
 def kernel_counters():
-    from open_knowledge_graph_embeddings_tpu_torch.ops import adagrad_kernel, lstm_kernel, scatter_adagrad_kernel
+    """Every kernel wrapper's launch counter, by the kernel's row name."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import (
+        adagrad_kernel,
+        lstm_kernel,
+        lstm_scan_kernel,
+        scatter_adagrad_kernel,
+    )
 
     return {"lstm_last_fwd": lstm_kernel.lstm_encode_last_fused, "lstm_last_bwd": lstm_kernel.lstm_last_backward,
             "adagrad_update": adagrad_kernel.adagrad_update,
-            "scatter_adagrad": scatter_adagrad_kernel.scatter_adagrad}
+            "scatter_adagrad": scatter_adagrad_kernel.scatter_adagrad,
+            "lstm_all_fwd": lstm_kernel.lstm_all_forward, "lstm_all_bwd": lstm_kernel.lstm_all_backward,
+            "lstm_scan_fwd": lstm_scan_kernel.lstm_scan_forward,
+            "lstm_scan_bwd": lstm_scan_kernel.lstm_scan_backward}
 
 
 def count_train_steps():
@@ -530,32 +600,53 @@ def count_train_steps():
     return len(ds), len(ds) // ds.batch_size
 
 
-def phase_train(torch, timings):
+@contextlib.contextmanager
+def unfused_switch(on=True):
+    """``OKET_DISABLE_LSTM_FUSED=1`` in this process while the block runs."""
+    import os
+
+    if on:
+        os.environ[UNFUSED_SWITCH] = "1"
+    try:
+        yield
+    finally:
+        if on:
+            os.environ.pop(UNFUSED_SWITCH, None)
+
+
+def phase_train(torch, timings, unfused=False):
+    """``cli.train`` on the flagship, two passes; with ``unfused`` the switch
+    is set in this process for this run only and the run writes to its own
+    experiment directory."""
     from open_knowledge_graph_embeddings_tpu_torch.cli import train as cli_train
 
-    timings["dataset_gen_s"] = ensure_dataset()
+    pre = "unfused_" if unfused else ""
+    timings.setdefault("dataset_gen_s", ensure_dataset())
     t0 = time.perf_counter()
     n_records, n_steps = count_train_steps()
-    timings["train_records_s"] = time.perf_counter() - t0
+    timings[pre + "train_records_s"] = time.perf_counter() - t0
     print(f"training set: {n_records} prefixes, {n_steps} steps of 4096 (counted on the CPU)")
     check(n_steps >= MIN_TRAIN_STEPS, f"one epoch has {n_steps} steps, want >= {MIN_TRAIN_STEPS}")
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out_dir = TRAIN_DIR_UNFUSED if unfused else TRAIN_DIR
+    shutil.rmtree(out_dir, ignore_errors=True)
+    args = [a if a != str(TRAIN_DIR) else str(out_dir) for a in TRAIN_ARGS] + ["--device", "cuda"]
 
-    # ---- the training path: counts set to 0 just before, read just after
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    with Capture() as capture:
-        trainer = cli_train.cli_main(TRAIN_ARGS + ["--device", "cuda"])
-    torch.cuda.synchronize()
-    timings["cli_train_s"] = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    # ---- end of the training path
+    with unfused_switch(unfused):
+        # ---- the training path: counts set to 0 just before, read just after
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with Capture() as capture:
+            trainer = cli_train.cli_main(args)
+        torch.cuda.synchronize()
+        timings[pre + "cli_train_s"] = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        # ---- end of the training path
     return trainer, capture, launches, n_steps
 
 
-def check_training(torch, trainer, launches, n_steps):
+def check_training(torch, trainer, launches, n_steps, unfused=False):
     from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import load_checkpoint, load_opt_state
     from open_knowledge_graph_embeddings_tpu_torch.train.optim import leaves
 
@@ -575,11 +666,15 @@ def check_training(torch, trainer, launches, n_steps):
     L = trainer.model.meta.max_length[0]
     n_sparse = sum(sparse.values())
     n_dense = 12 * n_steps + 2 * n_steps - n_sparse  # 12 LSTM and batchnorm leaves + dense tables
-    want = {"lstm_last_fwd": 2 * n_steps * L, "lstm_last_bwd": 2 * n_steps * (2 * L + 1),
-            "adagrad_update": n_dense, "scatter_adagrad": n_sparse}
-    print(f"training path launches: {launches} (want {want}: two LSTM passes per step, one launch per step "
-          f"forward, 2 per step + 1 backward; one dense Adagrad per dense leaf, one row update per sparse table)")
-    check(all(launches[k] > 0 for k in want), f"a training kernel was never launched: {launches}")
+    want = {name: 0 for name in launches}
+    want.update({"adagrad_update": n_dense, "scatter_adagrad": n_sparse})
+    if unfused:  # every step of every row forward, a gate and (from step 1) a product launch per step backward
+        want.update({"lstm_scan_fwd": 2 * n_steps * L, "lstm_scan_bwd": 2 * n_steps * (2 * L - 1)})
+    else:  # both passes fused (B % 8 == 0 at the flagship's 512-row buckets)
+        want.update({"lstm_last_fwd": 2 * n_steps * L, "lstm_last_bwd": 2 * n_steps * (2 * L + 1)})
+    print(f"training path launches{' (' + UNFUSED_SWITCH + '=1)' if unfused else ''}: {launches} (want {want}: "
+          "two LSTM passes per step; one dense Adagrad per dense leaf, one row update per sparse table)")
+    check(all(launches[k] > 0 for k, v in want.items() if v), f"a training kernel was never launched: {launches}")
     check(launches == want, f"training launches {launches}, want {want}")
 
     ckpt = Path(trainer.save_path) / "checkpoint0"
@@ -595,9 +690,10 @@ def check_training(torch, trainer, launches, n_steps):
     return str(ckpt)
 
 
-def time_train_steps(torch, trainer, timings, n=8):
+def time_train_steps(torch, trainer, timings, n=8, pre=""):
     """Steps after warm-up with a synchronize around each (device-bound, no
-    host overlap), the host plan per batch, and a profile of one step."""
+    host overlap), the host plan per batch, and a profile of one step;
+    timings keyed with the prefix ``pre``."""
     builder, plan = trainer.train_builder, trainer._sparse_plan
     order = np.random.default_rng(SEED + 1).permutation(len(builder.rec))
     batch_ms, plan_ms, batches = [], [], []
@@ -618,18 +714,18 @@ def time_train_steps(torch, trainer, timings, n=8):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         positives += float(stats["normalizer_metric"])
-    timings["train_step_ms"] = summary(step_ms)
-    timings["train_items_per_s"] = positives / (sum(step_ms) / 1e3)
-    timings["host_plan_ms_per_batch"] = summary(plan_ms)
-    timings["host_batch_ms_per_batch"] = summary(batch_ms)
-    timings["cli_epoch_items_per_s"] = trainer.last_epoch["items_per_s"]
-    timings["cli_epoch_host_wait_ms"] = summary([s["wait_ms"] for s in trainer.step_log[1:]])
-    print(f"train step (synchronized, after warm-up): median {np.median(step_ms):.3f} ms, max {max(step_ms):.3f} ms, "
-          f"{timings['train_items_per_s']:.0f} items/s; host plan {np.median(plan_ms):.3f} ms/batch, "
-          f"batch build {np.median(batch_ms):.3f} ms/batch (one host thread each); cli epoch "
-          f"{timings['cli_epoch_items_per_s']:.0f} items/s")
-    device_breakdown(torch, "train step (4096 x 4096, d=512, bf16)", lambda: trainer.train_step(
-        trainer.variables, trainer.opt_state, trainer.regimes.hparams(), dev[n], trainer.generator), top=12)
+    timings[pre + "train_step_ms"] = summary(step_ms)
+    timings[pre + "train_items_per_s"] = positives / (sum(step_ms) / 1e3)
+    timings[pre + "host_plan_ms_per_batch"] = summary(plan_ms)
+    timings[pre + "host_batch_ms_per_batch"] = summary(batch_ms)
+    timings[pre + "cli_epoch_items_per_s"] = trainer.last_epoch["items_per_s"]
+    timings[pre + "cli_epoch_host_wait_ms"] = summary([s["wait_ms"] for s in trainer.step_log[1:]])
+    print(f"{pre}train step (synchronized, after warm-up): median {np.median(step_ms):.3f} ms, max "
+          f"{max(step_ms):.3f} ms, {timings[pre + 'train_items_per_s']:.0f} items/s; host plan "
+          f"{np.median(plan_ms):.3f} ms/batch, batch build {np.median(batch_ms):.3f} ms/batch (one host thread "
+          f"each); cli epoch {timings[pre + 'cli_epoch_items_per_s']:.0f} items/s")
+    device_breakdown(torch, f"{pre}train step (4096 x 4096, d=512, bf16)", lambda: trainer.train_step(
+        trainer.variables, trainer.opt_state, trainer.regimes.hparams(), dev[n], trainer.generator), top=16)
 
 
 def active_mask(torch, args):
@@ -695,10 +791,11 @@ def check_lstm_residuals(torch, captured):
     return max_err
 
 
-def backward_agreement(torch, args, got, want):
-    """Kernel 2's outputs against the plain version's: demb at the positions
-    each row reaches and both dW by the bf16 rule with the backward's share,
-    db to DB_RTOL of max|db|.  Returns (ok, text, largest error)."""
+def backward_agreement(torch, args, got, want, share=True):
+    """Kernel 2's (or 6's) outputs against the plain version's: demb at the
+    positions each row reaches and both dW by the bf16 rule with the
+    backward's share (without ``share`` the ulp bound alone), db to DB_RTOL
+    of max|db|.  Returns (ok, text, largest error)."""
     from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_UNEQUAL_SHARE_BWD, bf16_agreement
 
     want = [w.to(got[0].device) for w in want]
@@ -707,7 +804,7 @@ def backward_agreement(torch, args, got, want):
              bf16_agreement(got[2], want[2])]
     db_err = (got[3] - want[3]).abs().max().item()
     db_ok = db_err <= DB_RTOL * want[3].abs().max().item()
-    ok = all(a.ok(MAX_UNEQUAL_SHARE_BWD) for a in agree) and db_ok
+    ok = all(a.ok(MAX_UNEQUAL_SHARE_BWD if share else 1.0) for a in agree) and db_ok
     text = (f"demb {agree[0]}; dW_ih {agree[1]}; dW_hh {agree[2]}; db max err {db_err:.3e} "
             f"({db_err / max(want[3].abs().max().item(), 1e-30):.2e} of max|db|, tol {DB_RTOL})")
     return ok, text, max([a.max_abs_err for a in agree] + [db_err])
@@ -853,7 +950,6 @@ def check_lstm_backward(torch, captured):
               + 2 * 4 * H * (D + H) * 2  # both weights in, both dW out
               + n_steps * D * 2 + 4 * H * 4)  # demb, db out
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, bytes_ / PEAK_BYTES_PER_S * 1e3
-    print_unported_bounds(L, B, D, H, n_steps)
     print(f"lstm_last_bwd timing entity pass B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
           f"{library_ms} ms ({note}), bound {max(t_ops, t_bytes):.4f} ms ({flops:.4e} FLOP, {bytes_:.4e} B, "
           f"{n_steps} row-steps)")
@@ -864,28 +960,27 @@ def check_lstm_backward(torch, captured):
             "library_ms": library_ms}, fwd_err
 
 
-def print_unported_bounds(L, B, D, H, n_steps):
-    """Bounds of the TPU kernels not ported yet (PERF.md rows 5-8) at the
-    entity pass's shape: L steps, B rows, n_steps active row-steps.  Rows 5
-    and 6 are the fused length-aware LSTM writing every hs (and its backward
-    with a full dhs): the work of rows 1 and 2, plus the hs/cs (and dhs)
-    bytes.  Rows 7 and 8 are the scan recurrence over a precomputed
-    x_proj [L, B, 4H]: every row every step, the h products from step 1 on
-    (the backward: the recompute and dh; its dW is an einsum outside the
-    kernel)."""
+def lstm_bound(row, L, B, D, H, n_steps):
+    """(operations, bytes) of PERF.md's LSTM kernel rows 5-8 for L steps of B
+    rows with n_steps active row-steps.  Rows 5 and 6 are the fused
+    length-aware LSTM writing every hs and cs (and its backward with a full
+    dhs): the work of rows 1 and 2, plus the hs/cs (and dhs) bytes.  Rows 7
+    and 8 are the recurrence over a precomputed x_proj [L, B, 4H]: every row
+    every step, the h products from step 1 on (the backward: the recompute
+    and dh; its dW_hh is a product outside the kernels)."""
     fwd_ops = n_steps * 2 * D * 4 * H + (n_steps - B) * 2 * H * 4 * H
     w = (D + H) * 4 * H * 2
-    rows = {
-        5: (fwd_ops, n_steps * D * 2 + w + 4 * H * 4 + 2 * n_steps * H * 2),
-        6: (3 * fwd_ops, n_steps * (D + 3 * H) * 2 + 2 * w + 4 * H * 4 + n_steps * D * 2 + 4 * H * 4),
+    return {
+        5: (fwd_ops, n_steps * D * 2 + w + 4 * H * 4 + B * 4 + 2 * n_steps * H * 2),
+        6: (3 * fwd_ops, n_steps * (D + 3 * H) * 2 + B * 4 + 4 * H * 4 + 2 * w + n_steps * D * 2 + 4 * H * 4),
         7: ((L - 1) * B * 2 * H * 4 * H, L * B * 4 * H * 2 + H * 4 * H * 2 + 2 * L * B * H * 2),
         8: (2 * (L - 1) * B * 2 * H * 4 * H, L * B * (4 * H + 3 * H) * 2 + H * 4 * H * 2 + L * B * 4 * H * 2),
-    }
-    for row, (ops, bytes_) in rows.items():
-        t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, bytes_ / PEAK_BYTES_PER_S * 1e3
-        print(f"bound of TPU kernel row {row} (not ported) at L={L} B={B} D=H={D}, {n_steps} row-steps: "
-              f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
-              f"{ops:.4e} FLOP, {bytes_:.4e} B)")
+    }[row]
+
+
+def bound_ms(ops, bytes_):
+    t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, bytes_ / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def library_lstm_backward_ms(torch, args):
@@ -910,6 +1005,307 @@ def library_lstm_backward_ms(torch, args):
     except RuntimeError as e:  # a library build without bf16 LSTM backward
         return None, f"nn.LSTM bf16 backward unavailable: {str(e).splitlines()[0]}"
     return ms, "nn.LSTM packed bf16 backward (cuDNN), h_n cotangent into inputs and weights"
+
+
+# ------------------------------------------------- kernels 7 and 8: the unfused path
+
+
+def scan_inputs(torch, gen, L, B, H):
+    """Random inputs of the recurrence at the unfused path's scale: x_proj
+    (the projection of token embeddings of std 0.1, plus the bias) and
+    W_hh as ``nn.LSTM`` initializes it, in bf16."""
+    k = 1.0 / H ** 0.5
+    x_proj = (torch.randn(L, B, 4 * H, generator=gen, device=gen.device) * 0.5).to(torch.bfloat16)
+    w_hh = torch.empty(4 * H, H, device=gen.device).uniform_(-k, k, generator=gen).to(torch.bfloat16)
+    return x_proj, w_hh
+
+
+def scan_agreement(torch, got, want, backward=False):
+    """Kernel 7's (hs, cs) or kernel 8's dx_proj against the plain version's
+    by the bf16 rule with the forward's 2 % share: dx_proj is the rounded
+    dgates themselves, not a product of them (a misplaced rounding point
+    moves ~10 % of it).  Below SHARE_MIN_ROWS rows kernel 8 is held to the
+    ulp bound alone.  Returns (ok, text, largest error)."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_UNEQUAL_SHARE, bf16_agreement
+
+    if backward:
+        a = bf16_agreement(got, want.to(got.device))
+        share = MAX_UNEQUAL_SHARE if got.shape[1] >= SHARE_MIN_ROWS else 1.0
+        return a.ok(share), f"dx_proj {a} (tol {share:.0%})", a.max_abs_err
+    hs, cs = (bf16_agreement(g, w.to(g.device)) for g, w in zip(got, want))
+    return (hs.ok(MAX_UNEQUAL_SHARE) and cs.ok(MAX_UNEQUAL_SHARE), f"hs {hs}; cs {cs} (tol {MAX_UNEQUAL_SHARE:.0%})",
+            max(hs.max_abs_err, cs.max_abs_err))
+
+
+def check_scan(torch, captured_fwd, captured_bwd, ragged=(1, 37, 4099)):
+    """Kernels 7 and 8 against their plain versions on the first unfused
+    step's entity and relation passes (as the training run launched them)
+    and at ragged B, with planted faults that must fail: x_proj of step t+1
+    read at t (forward); a dropped dc*f carry, dhs[t] not added, dgates not
+    rounded before the dh product (backward).  The device is the tensors'.
+    Returns (forward error, backward error)."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    fwd_err = bwd_err = 0.0
+    cases = [(f"training {name}", args, out) for name, (args, out) in zip(("entity pass", "relation pass"),
+                                                                           captured_fwd)]
+    x_proj, w_hh = captured_fwd[0][0]
+    gen = torch.Generator(device=x_proj.device).manual_seed(SEED + 5)
+    for b in ragged:
+        args = scan_inputs(torch, gen, x_proj.shape[0], b, w_hh.shape[1])
+        cases.append((f"B={b}", args, sk.lstm_scan_forward(*args)))
+    for label, args, got in cases:
+        ok, text, err = scan_agreement(torch, got, sk.lstm_scan_forward_plain(*args))
+        print(f"lstm_scan_fwd {label} B={args[0].shape[1]}: {text}")
+        check(ok, f"the recurrence kernel disagrees with its plain version at {label}")
+        fwd_err = max(fwd_err, err)
+        if label.startswith("B="):  # kernel 8 on kernel 7's residuals and a random cotangent
+            dhs = (torch.randn(*got[0].shape, generator=gen, device=gen.device) * 0.1).to(torch.bfloat16)
+            bargs = (*args, *got, dhs)
+            ok, text, err = scan_agreement(torch, sk.lstm_scan_backward(*bargs),
+                                           sk.lstm_scan_backward_plain(*bargs), backward=True)
+            print(f"lstm_scan_bwd {label}: {text}")
+            check(ok, f"the recurrence backward kernel disagrees with its plain version at {label}")
+            bwd_err = max(bwd_err, err)
+    # autograd runs the relation pass's backward first (it was encoded last)
+    for name, bargs in zip(("relation pass", "entity pass"), captured_bwd):
+        got, want = sk.lstm_scan_backward(*bargs), sk.lstm_scan_backward_plain(*bargs)
+        ok, text, err = scan_agreement(torch, got, want, backward=True)
+        print(f"lstm_scan_bwd training {name} B={bargs[0].shape[1]}: {text}")
+        check(ok, f"the recurrence backward kernel disagrees with its plain version on the {name}")
+        bwd_err = max(bwd_err, err)
+
+    # planted faults, on the entity pass
+    args, got = captured_fwd[0]
+    late = (torch.cat([args[0][1:], args[0][-1:]]), args[1])
+    ok, text, _ = scan_agreement(torch, got, sk.lstm_scan_forward_plain(*late))
+    print(f"planted fault x_proj of step t+1 read at t: {text}")
+    check(not ok, "the rule passes a planted fault (x_proj of step t+1 read at t)")
+    bargs = captured_bwd[1]
+    kernel_out = sk.lstm_scan_backward(*bargs)
+    cell = lk._bwd_cell
+
+    def with_cell(fn):
+        def run():
+            lk._bwd_cell = fn
+            try:
+                return sk.lstm_scan_backward_plain(*bargs)
+            finally:
+                lk._bwd_cell = cell
+        return run
+
+    faults = {
+        "dc*f carry dropped": with_cell(
+            lambda g, cp, ct, dh, dc, d: (cell(g, cp, ct, dh, dc, d)[0], torch.zeros_like(dc))),
+        "dhs[t] not added": with_cell(lambda g, cp, ct, dh, dc, d: cell(g, cp, ct, dh, dc, torch.zeros_like(d))),
+        "dgates not rounded before the dh product":
+            lambda: sk.lstm_scan_backward_plain(*(x.float() for x in bargs)).to(bargs[0].dtype),
+    }
+    for fault, run in faults.items():
+        ok, text, _ = scan_agreement(torch, kernel_out, run(), backward=True)
+        print(f"planted fault {fault}: {text}")
+        check(not ok, f"the rule passes a planted fault ({fault})")
+    return fwd_err, bwd_err
+
+
+def library_lstm_all_ms(torch, D, H, emb, lens=None, grad=None):
+    """One cuDNN ``nn.LSTM`` call (bf16) over ``emb`` [L, B, D]: unpacked, or
+    packed by ``lens`` (every output returned either way).  With ``grad``
+    (the outputs' cotangent) the backward alone, timed over a retained
+    graph.  Timed, never used by the port; returns (ms or None, note)."""
+    lstm = torch.nn.LSTM(D, H).to(device="cuda", dtype=torch.bfloat16)
+    # cuDNN's flat weight buffer does not take bf16, so each call packs the
+    # 4 MiB of weights anew (a few microseconds) and warns about it
+    warnings.filterwarnings("ignore", message="RNN module weights are not part")
+    x = emb.detach().clone().requires_grad_(grad is not None)
+    form = "packed" if lens is not None else "unpacked"
+
+    def pack(t):
+        return t if lens is None else torch.nn.utils.rnn.pack_padded_sequence(
+            t, lens.clamp(min=1).cpu(), enforce_sorted=True)
+
+    try:
+        inp = pack(x)
+        if grad is None:
+            with torch.no_grad():
+                return cuda_ms(lambda: lstm(inp), iters=10), f"nn.LSTM {form} bf16 forward (cuDNN), every output"
+        out, _ = lstm(inp)
+        out, g = (out, grad) if lens is None else (out.data, pack(grad).data)
+        return (cuda_ms(lambda: out.backward(g, retain_graph=True), iters=10),
+                f"nn.LSTM {form} bf16 backward (cuDNN), every output's cotangent into inputs and weights")
+    except RuntimeError as e:  # a library build without bf16 LSTM support
+        return None, f"nn.LSTM bf16 {form} unavailable: {str(e).splitlines()[0]}"
+
+
+def time_scan(torch, captured_fwd, captured_bwd, fwd_err, bwd_err):
+    """Kernels 7 and 8 on the first unfused step's entity pass: kernel,
+    plain version, bound, and cuDNN's unpacked ``nn.LSTM`` (which also does
+    the input projection) forward and backward.  Returns the two rows."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    (x_proj, w_hh), _ = captured_fwd[0]
+    bargs = captured_bwd[1]
+    L, B, H4 = x_proj.shape
+    H = H4 // 4
+    emb = torch.randn(L, B, H, device="cuda").to(torch.bfloat16) * 0.1
+    rows = []
+    for name, row, fn, plain, grad, err in (
+            ("lstm_scan_fwd", 7, lambda: sk.lstm_scan_forward(x_proj, w_hh),
+             lambda: sk.lstm_scan_forward_plain(x_proj, w_hh), None, fwd_err),
+            ("lstm_scan_bwd", 8, lambda: sk.lstm_scan_backward(*bargs),
+             lambda: sk.lstm_scan_backward_plain(*bargs), bargs[4], bwd_err)):
+        ms = cuda_ms(fn, iters=10)
+        plain_ms = cuda_ms(plain, iters=3)
+        library_ms, note = library_lstm_all_ms(torch, H, H, emb, grad=grad)
+        ops, bytes_ = lstm_bound(row, L, B, H, H, L * B)
+        bound, by = bound_ms(ops, bytes_)
+        print(f"{name} timing training entity pass L={L} B={B} H={H}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {library_ms} ms ({note}), bound {bound:.4f} ms ({by}: {ops:.4e} FLOP, {bytes_:.4e} B)")
+        rows.append({"name": name, "route": "cuda", "source": f"{PKG}/csrc/lstm_scan.cu",
+                     "replaces": "open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:"
+                                 + ("47" if row == 7 else "110"),
+                     "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": library_ms})
+    return rows
+
+
+# ----------------------------------- kernels 5 and 6: the fused every-state LSTM
+
+
+def every_state_agreement(torch, args, got, want):
+    """Kernel 5's (hs, cs) against the plain version's at the positions each
+    row reaches, by the forward's bf16 rule."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_UNEQUAL_SHARE, bf16_agreement
+
+    act = active_mask(torch, args)
+    hs, cs = (bf16_agreement(g[act], w.to(g.device)[act]) for g, w in zip(got, want))
+    return (hs.ok() and cs.ok(), f"hs {hs}; cs {cs} (tol {MAX_UNEQUAL_SHARE:.0%})",
+            max(hs.max_abs_err, cs.max_abs_err))
+
+
+def every_state_cases(torch, fwd_args, ragged):
+    """The recorded fused entity pass and ragged B of the same width: each
+    case's forward arguments and a cotangent of every state, zero at the
+    positions a row never reaches."""
+    emb = fwd_args[0]
+    D, H = emb.shape[2], fwd_args[2].shape[1]
+    gen = torch.Generator(device=emb.device).manual_seed(SEED + 6)
+    rng = np.random.default_rng(SEED + 6)
+    cases = [(f"training entity pass B={emb.shape[1]}", fwd_args)]
+    for b in ragged:
+        e, wi, wh, bi, ln, _ = lstm_inputs(torch, gen, emb.shape[0], b, D, H, synth_lengths(rng, b))
+        cases.append((f"B={b}", (e, wi, wh, bi, ln)))
+    out = []
+    for label, args in cases:
+        act = active_mask(torch, args)
+        L, B = act.shape
+        dhs = (torch.randn(L, B, H, generator=gen, device=emb.device) * 0.1 * act[..., None]).to(emb.dtype)
+        out.append((label, args, dhs))
+    return out
+
+
+def check_every_state(torch, fwd_args, ragged=(1, 37, 4099)):
+    """Kernels 5 and 6 against their plain versions on the first fused
+    step's recorded entity pass and at ragged B, with a planted fault each
+    (hs written one step late; the cotangent added only at each row's last
+    step).  Returns (forward error, backward error)."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+
+    fwd_err = bwd_err = 0.0
+    cases = every_state_cases(torch, fwd_args, ragged)
+    for label, args, dhs in cases:
+        hs, cs = lk.lstm_all_forward(*args)
+        ok, text, err = every_state_agreement(torch, args, (hs, cs), lk.lstm_all_forward_plain(*args))
+        print(f"lstm_all_fwd {label}: {text}")
+        check(ok, f"the every-state forward kernel disagrees with its plain version at {label}")
+        fwd_err = max(fwd_err, err)
+        bargs = (*args, hs, cs, dhs)
+        share = args[0].shape[1] >= SHARE_MIN_ROWS
+        ok, text, err = backward_agreement(torch, bargs, lk.lstm_all_backward(*bargs),
+                                           lk.lstm_all_backward_plain(*bargs), share=share)
+        print(f"lstm_all_bwd {label}: {text}{'' if share else ' (ulp bound only: one row)'}")
+        check(ok, f"the every-state backward kernel disagrees with its plain version at {label}")
+        bwd_err = max(bwd_err, err)
+
+    _, args, dhs = cases[0]
+    got = lk.lstm_all_forward(*args)
+    hs, cs = lk.lstm_all_forward_plain(*args)
+    ok, text, _ = every_state_agreement(torch, args, got, (torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]), cs))
+    print(f"planted fault hs one step late: {text}")
+    check(not ok, "the rule passes a planted fault (hs one step late)")
+    bargs = (*args, *got, dhs)
+    lens = args[4].clamp(min=1).long()
+    dlast = dhs[lens - 1, torch.arange(len(lens), device=lens.device)]
+    ok, text, _ = backward_agreement(torch, bargs, lk.lstm_all_backward(*bargs),
+                                     lk.lstm_last_backward_plain(*args, *got, dlast))
+    print(f"planted fault cotangent added only at each row's last step: {text}")
+    check(not ok, "the rule passes a planted fault (cotangent only at the last step)")
+    return fwd_err, bwd_err
+
+
+def time_every_state(torch, fwd_args, fwd_err, bwd_err):
+    """Kernels 5 and 6 on the first fused step's entity pass: kernel, plain
+    version, bound, and cuDNN's packed ``nn.LSTM`` returning every output
+    (forward, and backward of every output's cotangent).  Returns the two
+    rows."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+
+    _, args, dhs = every_state_cases(torch, fwd_args, ())[0]
+    hs, cs = lk.lstm_all_forward(*args)
+    bargs = (*args, hs, cs, dhs)
+    emb, lens = args[0], args[4]
+    L, B, D = emb.shape
+    H = args[2].shape[1]
+    n_steps = int(lens.clamp(min=1).sum().item())
+    rows = []
+    for name, row, fn, plain, grad, err, src, line in (
+            ("lstm_all_fwd", 5, lambda: lk.lstm_all_forward(*args), lambda: lk.lstm_all_forward_plain(*args),
+             None, fwd_err, "lstm_last_fwd.cu", "272"),
+            ("lstm_all_bwd", 6, lambda: lk.lstm_all_backward(*bargs), lambda: lk.lstm_all_backward_plain(*bargs),
+             dhs, bwd_err, "lstm_last_bwd.cu", "341")):
+        ms = cuda_ms(fn, iters=10)
+        plain_ms = cuda_ms(plain, iters=3)
+        library_ms, note = library_lstm_all_ms(torch, D, H, emb, lens=lens, grad=grad)
+        ops, bytes_ = lstm_bound(row, L, B, D, H, n_steps)
+        bound, by = bound_ms(ops, bytes_)
+        print(f"{name} timing training entity pass L={L} B={B} D=H={D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, library {library_ms} ms ({note}), bound {bound:.4f} ms ({by}: {ops:.4e} FLOP, {bytes_:.4e} B, "
+              f"{n_steps} row-steps)")
+        rows.append({"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}",
+                     "replaces": f"open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:{line}",
+                     "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": library_ms})
+    return rows
+
+
+def phase_every_state_op(torch, fwd_args):
+    """The op that reaches kernels 5 and 6, ``ops/lstm.py::lstm_forward_tm_sorted``
+    (the JAX package's tests are its only callers), forward and backward on
+    the recorded entity pass with f32 parameters, counts set to 0 just
+    before and read just after."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops.lstm import lstm_forward_tm_sorted
+
+    emb, w_ih, w_hh, bias, lens = fwd_args
+    params = {"w_ih": w_ih.detach().float().requires_grad_(), "w_hh": w_hh.detach().float().requires_grad_(),
+              "b_ih": bias.detach().clone().requires_grad_(), "b_hh": torch.zeros_like(bias).requires_grad_()}
+    x = emb.detach().clone().requires_grad_()
+    act = active_mask(torch, fwd_args)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    hs = lstm_forward_tm_sorted(params, x, lens)
+    (torch.where(act[..., None], hs.float(), 0.0) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    L = emb.shape[0]
+    want = {name: 0 for name in counters}
+    want.update({"lstm_all_fwd": L, "lstm_all_bwd": 2 * L + 1})
+    grads_ok = all(torch.isfinite(p.grad).all().item() for p in (*params.values(), x))
+    print(f"lstm_forward_tm_sorted forward and backward, entity pass B={emb.shape[1]}: launches {launches}, "
+          f"finite gradients {grads_ok}")
+    check(launches == want and grads_ok, f"lstm_forward_tm_sorted launches {launches}, want {want}")
+    return launches
 
 
 def _adagrad_state(torch, gen, shape):
@@ -1031,7 +1427,7 @@ def build_kernels(torch, timings):
     from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.build(["lstm_last_fwd.cu", "lstm_last_bwd.cu"])
+    cuda_build.build(["lstm_last_fwd.cu", "lstm_last_bwd.cu", "lstm_scan.cu"])
     timings["build_cuda_s"] = time.perf_counter() - t0
     for name, log in cuda_build.BUILD_LOGS.items():
         info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
@@ -1044,7 +1440,7 @@ def build_kernels(torch, timings):
                     torch.ones(4, dtype=torch.bool, device="cuda"), x.clone(), x.clone(), clr, 0.0, 1e-10)
     torch.cuda.synchronize()
     timings["build_triton_s"] = time.perf_counter() - t0
-    print(f"build: nvcc {timings['build_cuda_s']:.2f} s (2 sources in parallel), Triton "
+    print(f"build: nvcc {timings['build_cuda_s']:.2f} s (3 sources in parallel), Triton "
           f"{timings['build_triton_s']:.2f} s (2 kernels)")
 
 
@@ -1076,8 +1472,9 @@ def main() -> int:
     try:
         build_kernels(torch, timings)
         row_fwd = phase_kernels(torch)
-        trainer, capture, train_launches, n_steps = phase_train(torch, timings)
-        ckpt = check_training(torch, trainer, train_launches, n_steps)
+        by_path = {}
+        trainer, capture, by_path["train"], n_steps = phase_train(torch, timings)
+        ckpt = check_training(torch, trainer, by_path["train"], n_steps)
         time_train_steps(torch, trainer, timings)
         table_heights = [trainer.variables["params"][t].shape[0]
                          for t in ("entity_token_embedding", "relation_token_embedding")]
@@ -1088,17 +1485,34 @@ def main() -> int:
         rows = [row_fwd, row_bwd,
                 check_adagrad(torch, capture.dense, table_heights),
                 check_row_adagrad(torch, capture.rows)]
+        fused_entity_pass = capture.fwd[0][0]
+        del capture
+        rows += time_every_state(torch, fused_entity_pass, *check_every_state(torch, fused_entity_pass))
+        by_path["op"] = phase_every_state_op(torch, fused_entity_pass)
+        del fused_entity_pass
+        torch.cuda.empty_cache()
+
+        trainer, capture, by_path["train_unfused"], n_steps = phase_train(torch, timings, unfused=True)
+        check(not (capture.fwd or capture.bwd) and len(capture.scan_fwd) == len(capture.scan_bwd) == 2,
+              "the unfused run recorded fused launches or missed the recurrence's")
+        ckpt_unfused = check_training(torch, trainer, by_path["train_unfused"], n_steps, unfused=True)
+        with unfused_switch():
+            time_train_steps(torch, trainer, timings, pre="unfused_")
+        del trainer
+        rows += time_scan(torch, capture.scan_fwd, capture.scan_bwd,
+                          *check_scan(torch, capture.scan_fwd, capture.scan_bwd))
         del capture
         torch.cuda.empty_cache()
-        serve_launches = phase_main_path(torch, timings, ckpt=ckpt)
+
+        by_path["serve"] = phase_main_path(torch, timings, ckpt=ckpt)
+        with unfused_switch():
+            by_path["serve_unfused"] = phase_main_path(torch, timings, ckpt=ckpt_unfused, unfused=True)
     except (SmokeFailure, RuntimeError, subprocess.SubprocessError, OSError) as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
-    by_path = {row["name"]: {"train": train_launches[row["name"]]} for row in rows}
-    by_path["lstm_last_fwd"]["serve"] = serve_launches
     for row in rows:
-        row["launches"] = sum(by_path[row["name"]].values())
-        row["launches_by_path"] = by_path[row["name"]]
+        row["launches_by_path"] = {path: counts[row["name"]] for path, counts in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     print("timings: " + json.dumps(timings))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,14 +1,16 @@
-// The gate product of one LSTM recurrence step, shared by the forward
-// (lstm_last_fwd.cu) and the backward (lstm_last_bwd.cu), so the backward's
-// gate recompute is the same code, and on the card the same numbers, as the
-// forward's:
+// The gate product of one LSTM recurrence step, shared by the forwards
+// (lstm_last_fwd.cu, lstm_scan.cu) and the backwards (lstm_last_bwd.cu,
+// lstm_scan.cu), so a backward's gate recompute is the same code, and on the
+// card the same numbers, as its forward's:
 //   acc = x_t . W_ih^T + bf16(h_{t-1}) . W_hh^T   (bf16 operands, f32 accumulation)
 // for BM rows x the four gate columns {j, H+j, 2H+j, 3H+j} of BN hidden units.
 // K runs over the x part (D) and then the h part (H, skipped at t == 0 where
-// h_0 = 0); tiles of A (x or h rows) and of the gate-major weights are staged
-// through shared memory with cp.async, double buffered, and multiplied with
-// mma.sync m16n8k16.  Rows with s_len[r] <= t are zero-filled.  D and H are
-// multiples of 8, so every tile row is whole 16-byte copies.
+// h_0 = 0); with D == 0 only the h part runs (the recurrence-only LSTM, whose
+// input projection comes precomputed).  Tiles of A (x or h rows) and of the
+// gate-major weights are staged through shared memory with cp.async, double
+// buffered, and multiplied with mma.sync m16n8k16.  Rows with s_len[r] <= t
+// are zero-filled.  D and H are multiples of 8, so every tile row is whole
+// 16-byte copies.  Also here: the backward's cell arithmetic (bwd_cell).
 
 #pragma once
 
@@ -116,7 +118,7 @@ __device__ __forceinline__ void gate_product(const GateArgs& p, long long row0, 
     const int nk0 = (p.D + BK - 1) / BK;
     const int nk = nk0 + (p.t > 0 ? (p.H + BK - 1) / BK : 0);  // h_0 = 0: no h part at t == 0
 
-    load_gate_tile(p, 0, nk0, row0, j0, s_len, As[0], Bs[0]);
+    if (nk > 0) load_gate_tile(p, 0, nk0, row0, j0, s_len, As[0], Bs[0]);
     cp_async_commit();
     for (int kt = 0; kt < nk; ++kt) {
         const int s = kt & 1;
@@ -152,6 +154,27 @@ __device__ __forceinline__ void gate_product(const GateArgs& p, long long row0, 
         }
         __syncthreads();
     }
+}
+
+// One (row, unit) cell of an LSTM backward step, f32, in torch gate order:
+// from the pre-activations pre = (i, f, g, o), c_t and c_{t-1} (bf16
+// residuals, read as f32), the dh entering this step (carry plus cotangent)
+// and the dc carry, writes the four dgates to d and returns the dc carry
+// of step t-1 (dc * f).
+__device__ __forceinline__ float bwd_cell(const float (&pre)[4], float c_t, float c_prev, float dh, float dc_in,
+                                          float (&d)[4]) {
+    const float gi = sigmoidf(pre[0]);
+    const float gf = sigmoidf(pre[1]);
+    const float gg = tanhf(pre[2]);
+    const float go = sigmoidf(pre[3]);
+    const float tc = tanhf(c_t);
+    const float d_o = dh * tc;
+    const float dc = dc_in + dh * go * (1.f - tc * tc);
+    d[0] = dc * gg * gi * (1.f - gi);
+    d[1] = dc * c_prev * gf * (1.f - gf);
+    d[2] = dc * gi * (1.f - gg * gg);
+    d[3] = d_o * go * (1.f - go);
+    return dc * gf;
 }
 
 // Each block loads its rows' lengths max(len, 1) (0 past B) and returns

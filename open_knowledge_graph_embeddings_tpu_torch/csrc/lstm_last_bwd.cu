@@ -1,13 +1,18 @@
-// Backward of the length-aware last-state LSTM (lstm_last_fwd.cu), bf16 operands,
-// f32 carries and accumulators.
+// Backward of the length-aware fused LSTM (lstm_last_fwd.cu), bf16 operands,
+// f32 carries and accumulators, in two modes.
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
 // open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py::_fused_bwd_last
-// (kernel body _fused_bwd_last_kernel :569-651).  For rows sorted by descending
-// length, in reverse over t, on the rows active at t (max(len, 1) > t):
+// (kernel body _fused_bwd_last_kernel :569-651; the cotangent is each row's
+// last state, dlast [B, H]) and ::_fused_bwd (kernel body _fused_bwd_kernel
+// :341-422; the cotangent is every state, dhs [L, B, H]).  The two differ only
+// in where the cotangent enters.  For rows sorted by descending length, in
+// reverse over t, on the rows active at t (max(len, 1) > t):
 //   gates  = recomputed from x_t, bf16(h_{t-1}) = hs[t-1] and the bias (the
 //            forward's own gate product, lstm_gates.cuh)
-//   dh     = dh_carry + (len == t+1 ? dlast : 0)      (f32; dlast arrives in bf16)
+//   dh     = dh_carry + (len == t+1 ? dlast : 0)      (last-state mode)
+//   dh     = dh_carry + dhs[t]                        (every-state mode)
+//            (f32; the cotangent arrives in bf16)
 //   tc     = tanh(c_t), c_t read from the bf16 residual cs[t]
 //   dc     = dc_carry + dh * o * (1 - tc^2);  dc_carry <- dc * f
 //   dgates = [dc*g*i*(1-i), dc*c_{t-1}*f*(1-f), dc*i*(1-g^2), dh*tc*o*(1-o)]  (f32)
@@ -34,9 +39,10 @@
 //      place (one owner per cell), and writes the block's column sums of the
 //      f32 dgates to db_part[t][row block] (a fixed-order shuffle and shared
 //      memory sum: no atomics);
-//   2. lstm_bwd_product_kernel, per step: [dh_carry | demb[t]] = dg[t] . [W_hh | W_ih]
-//      over K = 4H, reading the gate-major weights as they are ([4H, H] and
-//      [4H, D]: K rows of contiguous output columns) with ldmatrix.trans;
+//   2. lstm_bwd_product_kernel (lstm_product.cuh, shared with lstm_scan.cu),
+//      per step: [dh_carry | demb[t]] = dg[t] . [W_hh | W_ih] over K = 4H,
+//      reading the gate-major weights as they are ([4H, H] and [4H, D]: K
+//      rows of contiguous output columns) with ldmatrix.trans;
 //   3. lstm_bwd_dw_kernel, once: dW = sum over t of dg[t]^T . [x_t | hs[t-1]]
 //      over the active rows of each step, one block per 128 x 128 tile of dW
 //      that walks every (t, row chunk) in order; and db = the sum of db_part
@@ -48,7 +54,7 @@
 // never read: every load of a row past the step's active prefix is
 // zero-filled.  Any B; D and H multiples of 8.
 
-#include "lstm_gates.cuh"
+#include "lstm_product.cuh"
 
 namespace {
 
@@ -60,7 +66,8 @@ struct GateBwdArgs {
     const int* lens;          // [B]
     const uint16_t* cs_t;     // [B, H] bf16(c_t)
     const uint16_t* cs_prev;  // [B, H] bf16(c_{t-1}); unread at t == 0
-    const uint16_t* dlast;    // [B, H]
+    const uint16_t* dlast;    // [B, H]: dlast, or dhs[t] in the every-state mode
+    int every_step;           // 1: add dlast at every active step (dhs[t]); 0: at len == t+1
     const float* dh;          // [B, H] dh carry from step t+1 (0 for rows first active at t)
     float* dc;                // [B, H] dc carry in, dc * f out
     uint16_t* dg;             // [B, 4H] bf16(dgates) of step t
@@ -100,23 +107,15 @@ __global__ void __launch_bounds__(NT) lstm_bwd_gate_kernel(const GateBwdArgs p) 
                 const int j = j0 + wn * WN + ni * 8 + tig * 2 + (e & 1);
                 const int len = s_len[r];
                 if (len <= t || j >= H) continue;
-                const float gi = sigmoidf(acc[mi][0][ni][e] + p.bias[j]);
-                const float gf = sigmoidf(acc[mi][1][ni][e] + p.bias[H + j]);
-                const float gg = tanhf(acc[mi][2][ni][e] + p.bias[2 * H + j]);
-                const float go = sigmoidf(acc[mi][3][ni][e] + p.bias[3 * H + j]);
                 const size_t o = (size_t)(row0 + r) * H + j;
                 const float c_t = bf16_to_f32(p.cs_t[o]);
                 const float c_prev = t > 0 ? bf16_to_f32(p.cs_prev[o]) : 0.f;
-                const float dh = p.dh[o] + (len == t + 1 ? bf16_to_f32(p.dlast[o]) : 0.f);
-                const float tc = tanhf(c_t);
-                const float d_o = dh * tc;
-                const float dc = p.dc[o] + dh * go * (1.f - tc * tc);
-                p.dc[o] = dc * gf;
+                const bool inject = p.every_step || len == t + 1;
+                const float dh = p.dh[o] + (inject ? bf16_to_f32(p.dlast[o]) : 0.f);
+                const float pre[4] = {acc[mi][0][ni][e] + p.bias[j], acc[mi][1][ni][e] + p.bias[H + j],
+                                      acc[mi][2][ni][e] + p.bias[2 * H + j], acc[mi][3][ni][e] + p.bias[3 * H + j]};
                 float d[4];
-                d[0] = dc * gg * gi * (1.f - gi);
-                d[1] = dc * c_prev * gf * (1.f - gf);
-                d[2] = dc * gi * (1.f - gg * gg);
-                d[3] = d_o * go * (1.f - go);
+                p.dc[o] = bwd_cell(pre, c_t, c_prev, dh, p.dc[o], d);
                 uint16_t* dg_row = p.dg + (size_t)(row0 + r) * 4 * H + j;
 #pragma unroll
                 for (int g = 0; g < 4; ++g) {
@@ -146,138 +145,6 @@ __global__ void __launch_bounds__(NT) lstm_bwd_gate_kernel(const GateBwdArgs p) 
             p.db_part[(size_t)blockIdx.x * 4 * H + (size_t)g * H + j] =
                 ((s_db[0][i] + s_db[1][i]) + s_db[2][i]) + s_db[3][i];
     }
-}
-
-// Rows active at step t: lens is sorted descending, so they are the prefix
-// of rows with max(len, 1) > t.
-__device__ __forceinline__ int active_rows(const int* lens, long long B, int t) {
-    long long lo = 0, hi = B;
-    while (lo < hi) {
-        const long long mid = (lo + hi) / 2;
-        if (max(__ldg(lens + mid), 1) > t)
-            lo = mid + 1;
-        else
-            hi = mid;
-    }
-    return (int)lo;
-}
-
-// Four 8x8 bf16 tiles from shared memory, transposed: with rows k and
-// contiguous columns n, each thread gets the (k = 2*tig, 2*tig+1; n = gid)
-// pairs of an mma B fragment.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const uint16_t* smem) {
-    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(s));
-}
-
-constexpr int PBN = 128;        // output columns per product block
-constexpr int PLD = PBN + 8;    // smem row stride of the weight tile (272 B: conflict-free ldmatrix)
-
-struct ProdArgs {
-    const uint16_t* dg;    // [B, 4H] step t
-    const uint16_t* w_hh;  // [4H, H]
-    const uint16_t* w_ih;  // [4H, D]
-    const int* lens;       // [B], sorted descending
-    float* dh;             // [B, H] out: dg . W_hh (t > 0)
-    uint16_t* demb;        // [B, D] out: bf16(dg . W_ih), step t
-    long long B;
-    int D, H, t;
-};
-
-__device__ __forceinline__ void load_product_tile(const ProdArgs& p, int kt, long long row0, int n0,
-                                                  int nrows, uint16_t (*As)[LDS], uint16_t (*Bs)[PLD]) {
-    const int K = 4 * p.H, k0 = kt * BK;
-    constexpr int CH = BK / 8;
-    for (int i = threadIdx.x; i < BM * CH; i += NT) {
-        const int r = i / CH, kc = (i % CH) * 8, k = k0 + kc;
-        const uint16_t* src = p.dg + (size_t)(row0 + r) * K + k;
-        const bool ok = row0 + r < nrows && k < K;
-        cp_async16(&As[r][kc], ok ? src : p.dg, ok ? 16 : 0);
-    }
-    // weight rows k of the output columns [n0, n0 + PBN): columns [0, H) are
-    // dh (W_hh), then demb (W_ih); H % 8 == 0, so no copy straddles the two
-    constexpr int CN = PBN / 8;
-    for (int i = threadIdx.x; i < BK * CN; i += NT) {
-        const int kr = i / CN, c = (i % CN) * 8, k = k0 + kr, n = n0 + c;
-        const bool hpart = n < p.H;
-        const uint16_t* src = hpart ? p.w_hh + (size_t)k * p.H + n : p.w_ih + (size_t)k * p.D + (n - p.H);
-        const bool ok = n < p.H + p.D && k < K;
-        cp_async16(&Bs[kr][c], ok ? src : p.w_hh, ok ? 16 : 0);
-    }
-}
-
-__global__ void __launch_bounds__(NT) lstm_bwd_product_kernel(const ProdArgs p) {
-    __shared__ __align__(16) uint16_t As[2][BM][LDS];
-    __shared__ __align__(16) uint16_t Bs[2][BK][PLD];
-
-    const int nrows = active_rows(p.lens, p.B, p.t);
-    const long long row0 = (long long)blockIdx.x * BM;
-    const int n0 = blockIdx.y * PBN;
-    if (row0 >= nrows) return;
-    if (p.t == 0 && n0 + PBN <= p.H) return;  // dh of step 0 is never read
-
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int gid = lane >> 2, tig = lane & 3;
-    const int wm = warp & 3, wn = warp >> 2;  // 4 x 32 rows, 2 x 64 columns
-    float acc[2][8][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-    const int nk = (4 * p.H + BK - 1) / BK;
-    load_product_tile(p, 0, row0, n0, nrows, As[0], Bs[0]);
-    cp_async_commit();
-    for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt & 1;
-        if (kt + 1 < nk) load_product_tile(p, kt + 1, row0, n0, nrows, As[s ^ 1], Bs[s ^ 1]);
-        cp_async_commit();
-        cp_async_wait_1();
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            uint32_t a[2][4], b[8][2];
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-                const int r = wm * 32 + mi * 16 + gid;
-                a[mi][0] = ld_pair(&As[s][r][kk + tig * 2]);
-                a[mi][1] = ld_pair(&As[s][r + 8][kk + tig * 2]);
-                a[mi][2] = ld_pair(&As[s][r][kk + tig * 2 + 8]);
-                a[mi][3] = ld_pair(&As[s][r + 8][kk + tig * 2 + 8]);
-            }
-            // lanes 0-7 / 8-15 address k rows 0-7 / 8-15 of an n8 tile, lanes
-            // 16-31 the same rows of the next n8 tile
-            const int kr = kk + (lane & 15);
-#pragma unroll
-            for (int nj = 0; nj < 4; ++nj)
-                ldmatrix_x4_trans(&b[2 * nj][0], &Bs[s][kr][wn * 64 + nj * 16 + (lane >> 4) * 8]);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-                for (int ni = 0; ni < 8; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const long long row = row0 + wm * 32 + mi * 16 + gid + ((e >> 1) << 3);
-                const int n = n0 + wn * 64 + ni * 8 + tig * 2 + (e & 1);
-                if (row >= nrows || n >= p.H + p.D) continue;
-                if (n < p.H) {
-                    if (p.t > 0) p.dh[(size_t)row * p.H + n] = acc[mi][ni][e];
-                } else {
-                    p.demb[(size_t)row * p.D + (n - p.H)] = f32_to_bf16(acc[mi][ni][e]);
-                }
-            }
 }
 
 constexpr int WB = 128;       // dW tile: 128 gate columns x 128 output columns
@@ -444,11 +311,13 @@ __global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel(const DwArgs p) {
 }  // namespace
 
 // Step t of the reverse loop, part 1 (gate math; grid over rows x units).
+// every_step = 0: dlast [B, H] enters at each row's last step; 1: dlast is
+// dhs[t] and enters at every active step.
 extern "C" int oket_lstm_bwd_gate_bf16(const void* x, const void* h_prev, const void* w_ih,
                                        const void* w_hh, const void* bias, const void* lens,
                                        const void* cs_t, const void* cs_prev, const void* dlast,
-                                       const void* dh, void* dc, void* dg, void* db_part, long long B,
-                                       int D, int H, int t, void* stream) {
+                                       int every_step, const void* dh, void* dc, void* dg, void* db_part,
+                                       long long B, int D, int H, int t, void* stream) {
     GateBwdArgs p;
     p.g.x = static_cast<const uint16_t*>(x);
     p.g.h_prev = static_cast<const uint16_t*>(h_prev);
@@ -463,6 +332,7 @@ extern "C" int oket_lstm_bwd_gate_bf16(const void* x, const void* h_prev, const 
     p.cs_t = static_cast<const uint16_t*>(cs_t);
     p.cs_prev = static_cast<const uint16_t*>(cs_prev);
     p.dlast = static_cast<const uint16_t*>(dlast);
+    p.every_step = every_step;
     p.dh = static_cast<const float*>(dh);
     p.dc = static_cast<float*>(dc);
     p.dg = static_cast<uint16_t*>(dg);
@@ -487,9 +357,7 @@ extern "C" int oket_lstm_bwd_product_bf16(const void* dg, const void* w_hh, cons
     p.D = D;
     p.H = H;
     p.t = t;
-    const dim3 grid((unsigned)((B + BM - 1) / BM), (unsigned)((H + D + PBN - 1) / PBN));
-    lstm_bwd_product_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
-    return static_cast<int>(cudaGetLastError());
+    return launch_bwd_product(p, stream);
 }
 
 // After the loop: dW_ih [4H, D] and dW_hh [4H, H] in bf16, db [4H] in f32.

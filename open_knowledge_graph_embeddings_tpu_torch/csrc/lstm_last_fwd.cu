@@ -1,11 +1,15 @@
 // Length-aware fused LSTM forward, one time step per launch, bf16 in / f32 state.
 //
-// Replaces the forward half of the TPU kernel
+// Replaces the TPU kernels
 // open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py::_fused_fwd_last
-// (kernel body _fused_fwd_last_kernel): torch gate order (i, f, g, o),
+// (kernel body _fused_fwd_last_kernel :479-522) and ::_fused_fwd (kernel body
+// _fused_fwd_kernel :272-302): torch gate order (i, f, g, o),
 //   gates = x_t . W_ih^T + bias + bf16(h_{t-1}) . W_hh^T   (f32 accumulation)
 //   c_t = f * c_{t-1} + i * g,  h_t = o * tanh(c_t)        (f32)
-// and each row's output is bf16(h) at its step max(len, 1).
+// and each row's output is bf16(h) at its step max(len, 1) (last-state mode,
+// `last` given) or bf16(h) and bf16(c) at every step it reaches (every-state
+// mode: `last` null, hs[t] and cs[t] written; the positions a row never
+// reaches hold unread garbage, as on the TPU, :266-269).
 //
 // Bound on an H100: both products are in the kernel, 2 * (D + H) * 4H
 // operations per active (row, step); at D = H = 512 that is ~4 MFLOP against
@@ -27,10 +31,11 @@
 //   * h is written as bf16 (the value the next step's product consumes is
 //     exactly bf16(h)), c is f32 and updated in place (a (row, unit) cell has
 //     one owner per step);
-//   * for training, the caller passes h_next = hs[t] and cs_out = cs[t]: the
-//     hs / cs residuals of the TPU forward (:510-511), in bf16, which the
-//     backward (lstm_last_bwd.cu) reads.  Serving passes two alternating h
-//     buffers and no cs_out, and writes nothing more.
+//   * for training and the every-state mode, the caller passes h_next = hs[t]
+//     and cs_out = cs[t]: the hs / cs residuals of the TPU forward
+//     (:510-511), in bf16, which the backward (lstm_last_bwd.cu) reads.
+//     Serving passes two alternating h buffers and no cs_out, and writes
+//     nothing more.
 // Any B; D and H multiples of 8 (every tile row is whole 16-byte copies; the
 // wrapper checks this and the 16-byte alignment of each base pointer).  Rows,
 // units and K tails are masked.
@@ -48,7 +53,7 @@ struct StepArgs {
     float* c;           // [B, H]
     uint16_t* h_next;   // [B, H]
     uint16_t* cs_out;   // [B, H] bf16(c_t), or null
-    uint16_t* last;     // [B, H]
+    uint16_t* last;     // [B, H], or null (every-state mode)
 };
 
 __global__ void __launch_bounds__(NT) lstm_last_step_kernel(const StepArgs p) {
@@ -89,14 +94,14 @@ __global__ void __launch_bounds__(NT) lstm_last_step_kernel(const StepArgs p) {
                 p.c[o] = c_new;
                 p.h_next[o] = h;
                 if (p.cs_out) p.cs_out[o] = f32_to_bf16(c_new);
-                if (len == t + 1) p.last[o] = h;
+                if (p.last && len == t + 1) p.last[o] = h;
             }
 }
 
 }  // namespace
 
 // One recurrence step t over rows [0, B).  Pointers are 16-byte aligned device
-// pointers, D % 8 == H % 8 == 0; cs_out may be null; the stream is a
+// pointers, D % 8 == H % 8 == 0; cs_out and last may be null; the stream is a
 // cudaStream_t.  Returns the cudaError_t of the launch.
 extern "C" int oket_lstm_last_step_bf16(const void* x, const void* h_prev, const void* w_ih,
                                         const void* w_hh, const void* bias, const void* lens, void* c,

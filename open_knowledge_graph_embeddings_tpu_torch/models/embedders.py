@@ -8,10 +8,13 @@ package's names and shapes, so checkpoints cross over key for key
 (train/checkpoint.py).
 
 Encode pipeline of one row batch: token gather (:func:`token_gather_tm`,
-whose backward is a scatter-add or the host-planned gather-sum) -> stable
-descending-length sort -> fused last-state LSTM (the CUDA kernels on the
-card) -> unsort -> [query dedup gather] -> batchnorm in f32 (batch
-statistics in train mode) -> cast to the compute dtype -> dropout (train).
+whose backward is a scatter-add or the host-planned gather-sum) -> the LSTM,
+fused or unfused by JAX's rule (``ops/lstm.py::lstm_fused_supported``): the
+fused path sorts the rows by descending length and runs the last-state
+kernels, the unfused path projects the inputs and runs the recurrence over
+every row and step, then selects each row's last state -> unsort ->
+[query dedup gather] -> batchnorm in f32 (batch statistics in train mode) ->
+cast to the compute dtype -> dropout (train).
 """
 
 from __future__ import annotations
@@ -25,7 +28,10 @@ from open_knowledge_graph_embeddings_tpu_torch.data.dataset import DatasetMeta
 from open_knowledge_graph_embeddings_tpu_torch.data.vocab import PAD
 from open_knowledge_graph_embeddings_tpu_torch.ops.lstm import (
     init_lstm_params,
+    last_states,
     length_sort_perm,
+    lstm_forward_tm,
+    lstm_fused_supported,
     lstm_last_fused,
 )
 from open_knowledge_graph_embeddings_tpu_torch.ops.norm import apply_batchnorm, init_batchnorm
@@ -209,19 +215,27 @@ class LSTMEmbedder(TokenEmbedderBase):
         return {"params": params, "state": state, "buffers": buffers}
 
     def _lstm_states_core(self, table, lstm, toks, plan) -> torch.Tensor:
-        """Token gather + sort + fused last-state LSTM + unsort on a [R, L]
-        token block -> raw [R, H].  Rows sorted by descending length make
-        the rows active at step t a prefix, which lets the kernels skip
-        finished rows; the gather-sum plan indexes this sorted time-major
-        layout."""
+        """Token gather + LSTM + last-state select on a [R, L] token block
+        -> raw [R, H], on the path the JAX package takes for this shape
+        (``models/embedders.py:784-807``).  The rows are sorted by descending
+        length when the path is fused (the rows active at step t are then a
+        prefix, which lets the kernels skip finished rows) or a gather-sum
+        plan is present (it indexes the sorted time-major layout); the
+        unfused path runs every step of every row, sorted or not."""
         toks_tm = toks.t()  # [L, R]
-        L = toks_tm.shape[0]
+        L, B = toks_tm.shape
+        fused = lstm_fused_supported(B, L, table.shape[1], lstm["w_hh"].shape[1])
+        use_sorted = fused or plan is not None
         lengths = (toks_tm > 0).sum(0)
-        order, unsort = length_sort_perm(lengths, L)
-        toks_tm = toks_tm[:, order]
+        if use_sorted:
+            order, unsort = length_sort_perm(lengths, L)
+            toks_tm, lengths = toks_tm[:, order], lengths[order]
         emb_tm = token_gather_tm(table, toks_tm, self._cdtype, grad_plan=plan)  # [L, R, d]
-        x = lstm_last_fused(lstm, emb_tm, lengths[order])
-        return x[unsort]
+        if fused:
+            x = lstm_last_fused(lstm, emb_tm, lengths)
+        else:
+            x = last_states(lstm_forward_tm(lstm, emb_tm), lengths)
+        return x[unsort] if use_sorted else x
 
     def _lstm_states(self, variables, ids, kind, table_name, lstm_name, train=False) -> torch.Tensor:
         # the gather-sum plan rides in the buffers of a sparse train batch

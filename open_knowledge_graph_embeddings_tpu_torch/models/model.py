@@ -101,13 +101,17 @@ class KGEModel:
     def encode_all_entities(self, variables: Variables, chunk_size: int = 32768) -> torch.Tensor:
         """Candidate embeddings for every entity id [E, d], in the embedder's
         compute dtype, encoded in chunks of ``chunk_size`` rows to bound the
-        per-chunk activations (the last chunk is shorter)."""
+        per-chunk activations.  As in the JAX package (``models/model.py``
+        :379-408), the last chunk is padded to ``chunk_size`` with ids clipped
+        to E - 1 and the padding rows are dropped, so every chunk has the
+        same B and takes the same LSTM path."""
         E = self.meta.entities_size
         device = variables["buffers"]["entity_token_ids"].device
         cache = torch.empty(E, self.embedder.entity_dim, dtype=self.embedder._cdtype, device=device)
         for start in range(0, E, chunk_size):
-            ids = torch.arange(start, min(start + chunk_size, E), device=device)
-            cache[start : start + ids.numel()], _, _ = self.embedder.encode_entity(variables, ids)
+            ids = torch.arange(start, start + chunk_size, device=device).clamp(max=E - 1)
+            n = min(chunk_size, E - start)
+            cache[start : start + n] = self.embedder.encode_entity(variables, ids)[0][:n]
         return cache
 
 

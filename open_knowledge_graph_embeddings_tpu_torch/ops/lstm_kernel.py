@@ -1,13 +1,17 @@
-"""Length-aware fused LSTM that returns each row's last state, with its backward.
+"""Length-aware fused LSTM, in two forms, with its backward.
 
 Port of ``open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py::
-lstm_encode_last_fused``: the forward ``_fused_fwd_last`` (kernel
-``_fused_fwd_last_kernel``) and the backward ``_fused_bwd_last`` (kernel
-``_fused_bwd_last_kernel``), joined by a custom VJP there and by
-:class:`_LstmLast` (an ``autograd.Function``) here.  Two versions of each half:
+lstm_encode_last_fused`` (the forward ``_fused_fwd_last``, kernel
+``_fused_fwd_last_kernel``, and the backward ``_fused_bwd_last``, kernel
+``_fused_bwd_last_kernel``), which returns each row's last state, and of
+``::lstm_encode_fused`` (``_fused_fwd`` / ``_fused_fwd_kernel`` and
+``_fused_bwd`` / ``_fused_bwd_kernel``), which returns every state.  A custom
+VJP joins each pair there, an ``autograd.Function`` here (:class:`_LstmLast`,
+:class:`_LstmAll`).  Two versions of each half:
 
-* the plain PyTorch versions, :func:`lstm_encode_last_plain` and
-  :func:`lstm_last_backward_plain` — loops over t with ``torch.matmul`` that
+* the plain PyTorch versions, :func:`lstm_encode_last_plain`,
+  :func:`lstm_last_backward_plain`, :func:`lstm_all_forward_plain` and
+  :func:`lstm_all_backward_plain` — loops over t with ``torch.matmul`` that
   repeat the kernels' arithmetic: f32 products of the compute-dtype operands
   (bf16 x bf16 is exact in f32), f32 gate math, cell state and carries, h
   rounded to the weight dtype before the recurrent product, and in the
@@ -15,13 +19,16 @@ lstm_encode_last_fused``: the forward ``_fused_fwd_last`` (kernel
   before every product.  CPU tensors go here, and ``chip_smoke.py`` holds the
   kernels against them on the card;
 * the hand-written CUDA kernels ``csrc/lstm_last_fwd.cu`` (one launch per
-  step; with residuals it also writes hs/cs) and ``csrc/lstm_last_bwd.cu``
-  (two launches per step and one for dW and db).  Both are bound by tensor-core
-  operations on an H100; their design notes are at the top of the sources.
+  step; with residuals it also writes hs/cs, and without ``last`` it is the
+  every-state forward) and ``csrc/lstm_last_bwd.cu`` (two launches per step
+  and one for dW and db; the cotangent enters at each row's last step or at
+  every step).  Both are bound by tensor-core operations on an H100; their
+  design notes are at the top of the sources.
 
-:func:`lstm_encode_last_fused` and :func:`lstm_last_backward` are the
-wrappers: a CPU tensor takes the plain version, a CUDA tensor takes the
-kernel or raises.  Each counts its kernel launches in ``.launches``.
+:func:`lstm_encode_last_fused`, :func:`lstm_last_backward`,
+:func:`lstm_all_forward` and :func:`lstm_all_backward` are the wrappers: a
+CPU tensor takes the plain version, a CUDA tensor takes the kernel or
+raises.  Each counts its kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -61,8 +68,9 @@ def _check(emb_tm, w_ih, w_hh, bias, lengths):
     return L, B, D, H
 
 
-def _check_residuals(L, B, H, dtype, hs, cs, dlast, device):
-    for name, x, shape in (("hs", hs, (L, B, H)), ("cs", cs, (L, B, H)), ("dlast", dlast, (B, H))):
+def _check_residuals(L, B, H, dtype, hs, cs, cot, device, every_step=False):
+    cot_name, cot_shape = ("dhs", (L, B, H)) if every_step else ("dlast", (B, H))
+    for name, x, shape in (("hs", hs, (L, B, H)), ("cs", cs, (L, B, H)), (cot_name, cot, cot_shape)):
         if tuple(x.shape) != shape or x.dtype != dtype or x.device != device:
             raise ValueError(f"{name} must be {dtype} {list(shape)} on {device}, "
                              f"got {x.dtype} {tuple(x.shape)} on {x.device}")
@@ -137,10 +145,32 @@ def lstm_last_backward_plain(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast):
     the demb, dh and dW products, db sums the unrounded f32 dgates, and dW
     accumulates in f32 and is rounded to the weight dtype at the end.
     demb is 0 at the positions a row never reaches."""
+    return _backward_plain(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast, every_step=False)
+
+
+def lstm_all_forward_plain(emb_tm, w_ih, w_hh, bias, lengths):
+    """The every-state forward (``_fused_fwd``): same contract as
+    :func:`lstm_encode_last_plain` but returns ``(hs, cs)`` [L, B, H] in
+    ``emb_tm``'s dtype.  Every row runs all L steps here; only the positions
+    a row reaches (step < ``max(len, 1)``) are defined, the kernel leaves the
+    others unwritten."""
+    _, hs, cs = lstm_encode_last_plain(emb_tm, w_ih, w_hh, bias, lengths, residuals=True)
+    return hs, cs
+
+
+def lstm_all_backward_plain(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dhs):
+    """The backward of :func:`lstm_all_forward_plain` (``_fused_bwd``): as
+    :func:`lstm_last_backward_plain`, but the cotangent ``dhs`` [L, B, H]
+    of every state enters at every step a row reaches (``dhs[t]`` for the
+    rows active at t; the other positions of ``dhs`` are not read)."""
+    return _backward_plain(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dhs, every_step=True)
+
+
+def _backward_plain(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step):
     L, B, D, H = _check(emb_tm, w_ih, w_hh, bias, lengths)
     dt = emb_tm.dtype
     dev = emb_tm.device
-    _check_residuals(L, B, H, dt, hs, cs, dlast, dev)
+    _check_residuals(L, B, H, dt, hs, cs, cot, dev, every_step)
     lens = lengths.clamp(min=1)
     w_ih32, w_hh32 = w_ih.float(), w_hh.float()
     w_ih_t, w_hh_t = w_ih32.t(), w_hh32.t()
@@ -150,7 +180,6 @@ def lstm_last_backward_plain(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast):
     dw_ih = torch.zeros(4 * H, D, dtype=torch.float32, device=dev)
     dw_hh = torch.zeros(4 * H, H, dtype=torch.float32, device=dev)
     db = torch.zeros(4 * H, dtype=torch.float32, device=dev)
-    dl = dlast.float()
     for t in reversed(range(L)):
         active = (lens > t)[:, None]
         # rows inactive at t are never read (the kernels' residuals hold
@@ -158,8 +187,11 @@ def lstm_last_backward_plain(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast):
         h_prev = torch.where(active, hs[t - 1], 0.0) if t > 0 else torch.zeros(B, H, dtype=dt, device=dev)
         c_prev = cs[t - 1].float() if t > 0 else zeros
         gates = _gates(emb_tm[t], h_prev, w_ih_t, w_hh_t, bias)
-        dlast_in = torch.where((lens == t + 1)[:, None], dl, 0.0)
-        dgates, dc_prev = _bwd_cell(gates, c_prev, cs[t].float(), dh, dc, dlast_in)
+        # the cotangent entering at t: dhs[t] on every active row, or dlast
+        # on the rows whose last step is t
+        enters = active if every_step else (lens == t + 1)[:, None]
+        cot_in = torch.where(enters, (cot[t] if every_step else cot).float(), 0.0)
+        dgates, dc_prev = _bwd_cell(gates, c_prev, cs[t].float(), dh, dc, cot_in)
         dgates = torch.where(active, dgates, 0.0)
         dg = dgates.to(dt).float()
         demb[t] = torch.matmul(dg, w_ih32).to(dt)
@@ -193,7 +225,7 @@ def _bwd_fns():
 
     lib = cuda_build.load(_BWD_SOURCE)
     gate, prod, dw = lib.oket_lstm_bwd_gate_bf16, lib.oket_lstm_bwd_product_bf16, lib.oket_lstm_bwd_dw_bf16
-    gate.argtypes = [_P] * 13 + [_LL, _I, _I, _I, _P]
+    gate.argtypes = [_P] * 9 + [_I] + [_P] * 4 + [_LL, _I, _I, _I, _P]
     prod.argtypes = [_P] * 6 + [_LL, _I, _I, _I, _P]
     dw.argtypes = [_P] * 8 + [_LL, _I, _I, _I, _P]
     for fn in (gate, prod, dw):
@@ -220,6 +252,18 @@ def _raise_on(err, what):
 
 
 def _launch_forward(emb_tm, w_ih, w_hh, bias, lengths, residuals):
+    """Kernel 1: ``last`` [B, H], and with ``residuals`` also hs, cs."""
+    last, hs, cs = _launch_steps(emb_tm, w_ih, w_hh, bias, lengths, residuals, True, lstm_encode_last_fused)
+    return (last, hs, cs) if residuals else last
+
+
+def _launch_all_forward(emb_tm, w_ih, w_hh, bias, lengths):
+    """Kernel 5, the every-state mode of the same kernel: ``(hs, cs)``."""
+    _, hs, cs = _launch_steps(emb_tm, w_ih, w_hh, bias, lengths, True, False, lstm_all_forward)
+    return hs, cs
+
+
+def _launch_steps(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, counter):
     L, B, D, H = _check(emb_tm, w_ih, w_hh, bias, lengths)
     _check_kernel_inputs(emb_tm.dtype, D, H, emb_tm=emb_tm, w_ih=w_ih, w_hh=w_hh)
     fn = _fwd_fn()
@@ -227,7 +271,7 @@ def _launch_forward(emb_tm, w_ih, w_hh, bias, lengths, residuals):
     lens = lengths.to(torch.int32).contiguous()
     dev, dt = emb_tm.device, emb_tm.dtype
     c = torch.empty(B, H, dtype=torch.float32, device=dev)
-    last = torch.zeros(B, H, dtype=dt, device=dev)
+    last = torch.zeros(B, H, dtype=dt, device=dev) if with_last else None
     if residuals:
         # the h of step t is written straight into its residual slice hs[t]
         hs = torch.empty(L, B, H, dtype=dt, device=dev)
@@ -244,18 +288,29 @@ def _launch_forward(emb_tm, w_ih, w_hh, bias, lengths, residuals):
             err = fn(
                 emb_tm[t].data_ptr(), h_prev.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
                 bias.data_ptr(), lens.data_ptr(), c.data_ptr(), h_next.data_ptr(),
-                cs[t].data_ptr() if residuals else None, last.data_ptr(), B, D, H, t, stream,
+                cs[t].data_ptr() if residuals else None, last.data_ptr() if with_last else None,
+                B, D, H, t, stream,
             )
             _raise_on(err, f"lstm_last_fwd step {t}")
-            lstm_encode_last_fused.launches += 1
-    return (last, hs, cs) if residuals else last
+            counter.launches += 1
+    return last, hs, cs
 
 
 def _launch_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast):
+    """Kernel 2: the cotangent ``dlast`` [B, H] enters at each row's last step."""
+    return _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast, False, lstm_last_backward)
+
+
+def _launch_all_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dhs):
+    """Kernel 6: the cotangent ``dhs`` [L, B, H] enters at every active step."""
+    return _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dhs, True, lstm_all_backward)
+
+
+def _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step, counter):
     L, B, D, H = _check(emb_tm, w_ih, w_hh, bias, lengths)
     dev, dt = emb_tm.device, emb_tm.dtype
-    _check_residuals(L, B, H, dt, hs, cs, dlast, dev)
-    _check_kernel_inputs(dt, D, H, emb_tm=emb_tm, w_ih=w_ih, w_hh=w_hh, hs=hs, cs=cs, dlast=dlast)
+    _check_residuals(L, B, H, dt, hs, cs, cot, dev, every_step)
+    _check_kernel_inputs(dt, D, H, emb_tm=emb_tm, w_ih=w_ih, w_hh=w_hh, hs=hs, cs=cs, cotangent=cot)
     gate, prod, dw = _bwd_fns()
     bias = bias.contiguous()
     lens = lengths.to(torch.int32).contiguous()
@@ -277,7 +332,8 @@ def _launch_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast):
         err = gate(
             emb_tm[t].data_ptr(), hs[prev].data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
             bias.data_ptr(), lens.data_ptr(), cs[t].data_ptr(), cs[prev].data_ptr(),
-            dlast.data_ptr(), dh.data_ptr(), dc.data_ptr(), dg[t].data_ptr(), db_part[t].data_ptr(),
+            (cot[t] if every_step else cot).data_ptr(), int(every_step),
+            dh.data_ptr(), dc.data_ptr(), dg[t].data_ptr(), db_part[t].data_ptr(),
             B, D, H, t, stream,
         )
         _raise_on(err, f"lstm_last_bwd gate step {t}")
@@ -286,23 +342,30 @@ def _launch_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast):
             dh.data_ptr(), demb[t].data_ptr(), B, D, H, t, stream,
         )
         _raise_on(err, f"lstm_last_bwd product step {t}")
-        lstm_last_backward.launches += 2
+        counter.launches += 2
     err = dw(dg.data_ptr(), emb_tm.data_ptr(), hs.data_ptr(), lens.data_ptr(), db_part.data_ptr(),
              dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(), B, D, H, L, stream)
     _raise_on(err, "lstm_last_bwd dW and db")
-    lstm_last_backward.launches += 1
+    counter.launches += 1
     return demb, dw_ih, dw_hh, db
 
 
 # ------------------------------------------------------------------ wrappers
 
 
+def _on_device(x, kernel, plain):
+    """The dispatch rule of every wrapper: a CUDA tensor launches the kernel
+    (or raises), a CPU tensor takes the plain version."""
+    if x.is_cuda:
+        return kernel
+    if x.device.type != "cpu":
+        raise ValueError(f"no LSTM kernel for device {x.device}")
+    return plain
+
+
 def _forward(emb_tm, w_ih, w_hh, bias, lengths, residuals):
-    if emb_tm.is_cuda:
-        return _launch_forward(emb_tm, w_ih, w_hh, bias, lengths, residuals)
-    if emb_tm.device.type != "cpu":
-        raise ValueError(f"no LSTM kernel for device {emb_tm.device}")
-    return lstm_encode_last_plain(emb_tm, w_ih, w_hh, bias, lengths, residuals)
+    run = _on_device(emb_tm, _launch_forward, lstm_encode_last_plain)
+    return run(emb_tm, w_ih, w_hh, bias, lengths, residuals)
 
 
 def lstm_last_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast):
@@ -311,11 +374,27 @@ def lstm_last_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast):
     per step and one for dW and db, counted in ``lstm_last_backward.launches``);
     CPU tensors take the plain version.  On the card demb holds unread
     garbage at the positions a row never reaches."""
-    if emb_tm.is_cuda:
-        return _launch_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast)
-    if emb_tm.device.type != "cpu":
-        raise ValueError(f"no LSTM kernel for device {emb_tm.device}")
-    return lstm_last_backward_plain(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast)
+    run = _on_device(emb_tm, _launch_backward, lstm_last_backward_plain)
+    return run(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast)
+
+
+def lstm_all_forward(emb_tm, w_ih, w_hh, bias, lengths):
+    """The every-state fused forward (kernel 5): same contract as
+    :func:`lstm_all_forward_plain`.  CUDA tensors launch the forward kernel
+    without ``last`` (one launch per step, counted in
+    ``lstm_all_forward.launches``); the positions a row never reaches hold
+    unread garbage there."""
+    run = _on_device(emb_tm, _launch_all_forward, lstm_all_forward_plain)
+    return run(emb_tm, w_ih, w_hh, bias, lengths)
+
+
+def lstm_all_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dhs):
+    """Backward of the every-state fused LSTM (kernel 6): same contract as
+    :func:`lstm_all_backward_plain`.  CUDA tensors launch the backward
+    kernels with the cotangent added at every active step (2 launches per
+    step and one for dW and db, counted in ``lstm_all_backward.launches``)."""
+    run = _on_device(emb_tm, _launch_all_backward, lstm_all_backward_plain)
+    return run(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dhs)
 
 
 class _LstmLast(torch.autograd.Function):
@@ -338,6 +417,29 @@ class _LstmLast(torch.autograd.Function):
         return demb, dw_ih, dw_hh, db, None
 
 
+class _LstmAll(torch.autograd.Function):
+    """The custom VJP of ``lstm_encode_fused`` (JAX :783-801): hs and cs
+    are the residuals, the backward runs :func:`lstm_all_backward`."""
+
+    @staticmethod
+    def forward(ctx, emb_tm, w_ih, w_hh, bias, lengths):
+        hs, cs = lstm_all_forward(emb_tm, w_ih, w_hh, bias, lengths)
+        ctx.save_for_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        emb_tm, w_ih, w_hh, bias, lengths, hs, cs = ctx.saved_tensors
+        demb, dw_ih, dw_hh, db = lstm_all_backward(
+            emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dhs.to(emb_tm.dtype).contiguous()
+        )
+        return demb, dw_ih, dw_hh, db, None
+
+
+def _needs_grad(*xs):
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def lstm_encode_last_fused(emb_tm, w_ih, w_hh, bias, lengths):
     """Length-aware fused LSTM forward: same contract as
     :func:`lstm_encode_last_plain`, differentiable in ``emb_tm``, the
@@ -345,10 +447,24 @@ def lstm_encode_last_fused(emb_tm, w_ih, w_hh, bias, lengths):
     step, counted in ``lstm_encode_last_fused.launches``); CPU tensors take
     the plain version.  The hs/cs residuals are written only when autograd
     will need them, so serving writes none."""
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (emb_tm, w_ih, w_hh, bias)):
+    if _needs_grad(emb_tm, w_ih, w_hh, bias):
         return _LstmLast.apply(emb_tm, w_ih, w_hh, bias, lengths)
     return _forward(emb_tm, w_ih, w_hh, bias, lengths, residuals=False)
 
 
+def lstm_encode_fused(emb_tm, w_ih, w_hh, bias, lengths):
+    """Length-aware fused LSTM returning every state: ``emb_tm`` [L, B, D]
+    (rows sorted by descending length), gate-major weights in its dtype,
+    ``bias`` [4H] f32, ``lengths`` [B] -> ``hs`` [L, B, H] in ``emb_tm``'s
+    dtype; the positions at or past a row's length hold unread garbage on the
+    card.  Differentiable in ``emb_tm``, the weights and the bias through
+    :func:`lstm_all_forward` and :func:`lstm_all_backward`."""
+    if _needs_grad(emb_tm, w_ih, w_hh, bias):
+        return _LstmAll.apply(emb_tm, w_ih, w_hh, bias, lengths)
+    return lstm_all_forward(emb_tm, w_ih, w_hh, bias, lengths)[0]
+
+
 lstm_encode_last_fused.launches = 0
 lstm_last_backward.launches = 0
+lstm_all_forward.launches = 0
+lstm_all_backward.launches = 0

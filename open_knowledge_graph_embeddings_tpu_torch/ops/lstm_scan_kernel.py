@@ -1,0 +1,248 @@
+"""Recurrence-only LSTM over a precomputed input projection, with its backward.
+
+Port of ``open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py::
+lstm_scan_pallas`` (:213-231): the forward ``_lstm_fwd_pallas`` (kernel
+``_fwd_kernel``) and the backward ``_lstm_bwd_pallas`` (kernel
+``_bwd_kernel``), joined by a custom VJP there and by :class:`_LstmScan`
+here.  ``ops/lstm.py::lstm_forward_tm`` runs it after the input projection
+whenever the fused encoder does not apply.  Every row runs every step;
+``x_proj`` [L, B, 4H] holds ``x·W_ihᵀ + b`` rounded to the compute dtype,
+``w_hh`` [4H, H] is gate-major (as ``nn.LSTM`` stores it).  Two versions
+of each half:
+
+* the plain PyTorch versions, :func:`lstm_scan_forward_plain` and
+  :func:`lstm_scan_backward_plain`: loops over t that repeat the kernels'
+  arithmetic (f32 products of compute-dtype operands, f32 gate math, cell
+  state and carries, h rounded to the weight dtype before the recurrent
+  product; in the backward c read from the compute-dtype residual ``cs`` and
+  dgates rounded to the compute dtype before the dh product).  CPU tensors
+  go here, and ``chip_smoke.py`` holds the kernels against them on the card;
+* the hand-written CUDA kernels of ``csrc/lstm_scan.cu``: one launch per
+  forward step; per backward step a gate launch and, from step 1 on, a
+  product launch.  Design notes and bound at the top of the source.
+
+:func:`lstm_scan_forward` and :func:`lstm_scan_backward` are the wrappers: a
+CPU tensor takes the plain version, a CUDA tensor takes the kernel or raises.
+Each counts its kernel launches in ``.launches``.  ``dW_hh`` is one large
+product outside the kernels (:func:`dw_hh_product`), as on the TPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel
+from open_knowledge_graph_embeddings_tpu_torch.ops.lstm_kernel import _on_device, _raise_on
+
+_SOURCE = "lstm_scan.cu"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for 2-D operands of one dtype, accumulated and returned in
+    f32 (JAX's ``preferred_element_type=float32``).  bf16 operands on the
+    card take cuBLAS's bf16 product with f32 output; elsewhere the operands
+    are widened to f32 (exact) first."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+def _check(x_proj, w_hh):
+    if x_proj.dim() != 3:
+        raise ValueError(f"x_proj must be [L, B, 4H], got {tuple(x_proj.shape)}")
+    L, B, H4 = x_proj.shape
+    H = w_hh.shape[-1]
+    if tuple(w_hh.shape) != (4 * H, H) or H4 != 4 * H:
+        raise ValueError(f"w_hh must be [4H, H] with 4H = {H4}, got {tuple(w_hh.shape)}")
+    if w_hh.dtype != x_proj.dtype:
+        raise ValueError("w_hh must have x_proj's dtype")
+    if w_hh.device != x_proj.device:
+        raise ValueError(f"all inputs must be on one device, got {x_proj.device} and {w_hh.device}")
+    return L, B, H
+
+
+def _check_residuals(L, B, H, x_proj, **tensors):
+    for name, x in tensors.items():
+        if tuple(x.shape) != (L, B, H) or x.dtype != x_proj.dtype or x.device != x_proj.device:
+            raise ValueError(f"{name} must be {x_proj.dtype} [{L}, {B}, {H}] on {x_proj.device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def _cell(gates, c):
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def lstm_scan_forward_plain(x_proj, w_hh):
+    """``x_proj`` [L, B, 4H] and ``w_hh`` [4H, H] in one dtype -> ``(hs, cs)``
+    [L, B, H] in that dtype: ``gates = x_proj[t] + bf16(h_{t-1})·W_hhᵀ`` in
+    f32, the cell state carried in f32, every row every step (``_fwd_kernel``
+    :47-70)."""
+    L, B, H = _check(x_proj, w_hh)
+    dt = x_proj.dtype
+    w_hh_t = w_hh.float().t()
+    h = torch.zeros(B, H, dtype=dt, device=x_proj.device)
+    c = torch.zeros(B, H, dtype=torch.float32, device=x_proj.device)
+    hs, cs = [], []
+    for t in range(L):
+        h32, c = _cell(x_proj[t].float() + torch.matmul(h.float(), w_hh_t), c)
+        h = h32.to(dt)
+        hs.append(h)
+        cs.append(c.to(dt))
+    return torch.stack(hs), torch.stack(cs)
+
+
+def lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs):
+    """The backward of :func:`lstm_scan_forward_plain` from its residuals
+    ``hs``, ``cs`` and the cotangent ``dhs`` [L, B, H] (all in x_proj's
+    dtype) -> ``dx_proj`` [L, B, 4H] in that dtype (``_bwd_kernel``
+    :110-165): in reverse over t, the gates recomputed from ``x_proj[t]`` and
+    ``hs[t-1]`` (zero state at t = 0), ``dh = carry + dhs[t]``, c read from
+    ``cs``, ``dx_proj[t] = dtype(dgates)``, the dh carry ``dtype(dgates)·W_hh``
+    and the dc carry ``dc·f`` in f32."""
+    L, B, H = _check(x_proj, w_hh)
+    _check_residuals(L, B, H, x_proj, hs=hs, cs=cs, dhs=dhs)
+    dt = x_proj.dtype
+    w_hh32 = w_hh.float()
+    zeros = torch.zeros(B, H, dtype=torch.float32, device=x_proj.device)
+    dh, dc = zeros, zeros
+    dxp = torch.empty_like(x_proj)
+    for t in reversed(range(L)):
+        gates = x_proj[t].float()
+        if t > 0:
+            gates = gates + torch.matmul(hs[t - 1].float(), w_hh32.t())
+        c_prev = cs[t - 1].float() if t > 0 else zeros
+        dgates, dc = lstm_kernel._bwd_cell(gates, c_prev, cs[t].float(), dh, dc, dhs[t].float())
+        dxp[t] = dgates.to(dt)
+        dh = torch.matmul(dxp[t].float(), w_hh32)
+    return dxp
+
+
+# ------------------------------------------------------------ CUDA kernels
+
+
+@functools.lru_cache(maxsize=None)
+def _fns():
+    """The C entry points (forward step, backward gate, backward product),
+    built and loaded on first use."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load(_SOURCE)
+    fwd, gate, prod = lib.oket_lstm_scan_step_bf16, lib.oket_lstm_scan_bwd_gate_bf16, lib.oket_lstm_scan_bwd_product_bf16
+    fwd.argtypes = [_P] * 6 + [_LL, _I, _I, _P]
+    gate.argtypes = [_P] * 9 + [_LL, _I, _I, _P]
+    prod.argtypes = [_P] * 3 + [_LL, _I, _I, _P]
+    for fn in (fwd, gate, prod):
+        fn.restype = _I
+    return fwd, gate, prod
+
+
+def _launch_forward(x_proj, w_hh):
+    L, B, H = _check(x_proj, w_hh)
+    lstm_kernel._check_kernel_inputs(x_proj.dtype, 0, H, x_proj=x_proj, w_hh=w_hh)  # no input part: D = 0
+    fwd, _, _ = _fns()
+    dev = x_proj.device
+    hs = torch.empty(L, B, H, dtype=x_proj.dtype, device=dev)
+    cs = torch.empty_like(hs)
+    c = torch.empty(B, H, dtype=torch.float32, device=dev)
+    if B and H:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for t in range(L):
+            err = fwd(x_proj[t].data_ptr(), hs[max(t - 1, 0)].data_ptr(), w_hh.data_ptr(), c.data_ptr(),
+                      hs[t].data_ptr(), cs[t].data_ptr(), B, H, t, stream)
+            _raise_on(err, f"lstm_scan forward step {t}")
+            lstm_scan_forward.launches += 1
+    return hs, cs
+
+
+def _launch_backward(x_proj, w_hh, hs, cs, dhs):
+    L, B, H = _check(x_proj, w_hh)
+    _check_residuals(L, B, H, x_proj, hs=hs, cs=cs, dhs=dhs)
+    lstm_kernel._check_kernel_inputs(x_proj.dtype, 0, H, x_proj=x_proj, w_hh=w_hh, hs=hs, cs=cs, dhs=dhs)
+    _, gate, prod = _fns()
+    dev = x_proj.device
+    dxp = torch.empty_like(x_proj)
+    dh = torch.zeros(B, H, dtype=torch.float32, device=dev)
+    dc = torch.zeros(B, H, dtype=torch.float32, device=dev)
+    if not (B and H):
+        return dxp.zero_()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for t in reversed(range(L)):
+        prev = max(t - 1, 0)
+        err = gate(x_proj[t].data_ptr(), hs[prev].data_ptr(), w_hh.data_ptr(), cs[t].data_ptr(),
+                   cs[prev].data_ptr(), dhs[t].data_ptr(), dh.data_ptr(), dc.data_ptr(), dxp[t].data_ptr(),
+                   B, H, t, stream)
+        _raise_on(err, f"lstm_scan backward gate step {t}")
+        lstm_scan_backward.launches += 1
+        if t > 0:  # the dh carry into step 0 is never read
+            err = prod(dxp[t].data_ptr(), w_hh.data_ptr(), dh.data_ptr(), B, H, t, stream)
+            _raise_on(err, f"lstm_scan backward product step {t}")
+            lstm_scan_backward.launches += 1
+    return dxp
+
+
+# ------------------------------------------------------------------ wrappers
+
+
+def lstm_scan_forward(x_proj, w_hh):
+    """Kernel 7: same contract as :func:`lstm_scan_forward_plain`.  CUDA
+    tensors launch the kernel (one launch per step, counted in
+    ``lstm_scan_forward.launches``); CPU tensors take the plain version."""
+    return _on_device(x_proj, _launch_forward, lstm_scan_forward_plain)(x_proj, w_hh)
+
+
+def lstm_scan_backward(x_proj, w_hh, hs, cs, dhs):
+    """Kernel 8: same contract as :func:`lstm_scan_backward_plain`.  CUDA
+    tensors launch the kernels (a gate launch per step and a product launch
+    per step from step 1 on, ``2L - 1`` in all, counted in
+    ``lstm_scan_backward.launches``); CPU tensors take the plain version."""
+    return _on_device(x_proj, _launch_backward, lstm_scan_backward_plain)(x_proj, w_hh, hs, cs, dhs)
+
+
+def dw_hh_product(dxp, hs):
+    """``dW_hh`` [4H, H] = Σ_{t≥1} dx_proj[t]ᵀ·hs[t-1], accumulated in f32 and
+    rounded to the weight dtype, as JAX's einsum outside the kernel
+    (:201-206, :228).  The t = 0 term is absent: h_0 = 0."""
+    H4, H = dxp.shape[-1], hs.shape[-1]
+    return matmul_f32(dxp[1:].reshape(-1, H4).t(), hs[:-1].reshape(-1, H)).to(dxp.dtype)
+
+
+class _LstmScan(torch.autograd.Function):
+    """The custom VJP of ``lstm_scan_pallas`` (JAX :213-231): the forward
+    saves ``(x_proj, w_hh, hs, cs)`` as ``_vjp_fwd`` does; the backward runs
+    kernel 8 for ``dx_proj`` and :func:`dw_hh_product` for ``dW_hh``."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh):
+        hs, cs = lstm_scan_forward(x_proj, w_hh)
+        ctx.save_for_backward(x_proj, w_hh, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        x_proj, w_hh, hs, cs = ctx.saved_tensors
+        dxp = lstm_scan_backward(x_proj, w_hh, hs, cs, dhs.to(x_proj.dtype).contiguous())
+        return dxp, dw_hh_product(dxp, hs)
+
+
+def lstm_scan(x_proj, w_hh):
+    """Time-major LSTM recurrence: ``x_proj`` [L, B, 4H] x ``w_hh`` [4H, H]
+    -> ``hs`` [L, B, H] in x_proj's dtype, differentiable in both."""
+    if torch.is_grad_enabled() and (x_proj.requires_grad or w_hh.requires_grad):
+        return _LstmScan.apply(x_proj, w_hh)
+    return lstm_scan_forward(x_proj, w_hh)[0]
+
+
+lstm_scan_forward.launches = 0
+lstm_scan_backward.launches = 0

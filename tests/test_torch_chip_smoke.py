@@ -71,3 +71,47 @@ def test_backward_faults_fail_the_share_rule(smoke, lstm_case, capsys):
     out = capsys.readouterr().out
     assert out.count("planted fault") == 4
     assert lk._bwd_cell.__name__ == "_bwd_cell"  # the patch is undone
+
+
+@pytest.fixture(scope="module")
+def scan_case(smoke):
+    """Two recurrence passes at d=64 as the unfused training step hands them
+    to kernels 7 and 8: the forward's inputs and outputs (entity pass, then
+    relation pass), and the backward's inputs (relation pass first)."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    gen = torch.Generator().manual_seed(1)
+    fwd = []
+    for B in (300, 120):
+        args = smoke.scan_inputs(torch, gen, 10, B, 64)
+        fwd.append((args, sk.lstm_scan_forward(*args)))
+    bwd = [(*args, *out, (torch.randn(*out[0].shape, generator=gen) * 0.1).to(torch.bfloat16))
+           for args, out in reversed(fwd)]
+    return fwd, bwd
+
+
+def test_scan_checks_pass_plain_and_fail_planted_faults(smoke, scan_case, capsys):
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+
+    fwd_err, bwd_err = smoke.check_scan(torch, *scan_case, ragged=(1, 37))
+    assert fwd_err == bwd_err == 0.0
+    out = capsys.readouterr().out
+    assert out.count("planted fault") == 4
+    assert lk._bwd_cell.__name__ == "_bwd_cell"  # the patch is undone
+
+
+def test_every_state_checks_pass_plain_and_fail_planted_faults(smoke, lstm_case, capsys):
+    fwd_args, _, _ = lstm_case
+    fwd_err, bwd_err = smoke.check_every_state(torch, fwd_args, ragged=(1, 37))
+    assert fwd_err == bwd_err == 0.0
+    out = capsys.readouterr().out
+    assert out.count("planted fault") == 2
+
+
+def test_kernel_rows_cover_every_tpu_kernel(smoke):
+    """One launch counter for each of the eight TPU kernels, and the bounds
+    of rows 5-8 at the entity pass's shape (L=10, B=5632, D=H=512, 26,636
+    active row-steps) as PERF.md states them."""
+    assert len(smoke.kernel_counters()) == 8
+    bounds = [smoke.bound_ms(*smoke.lstm_bound(row, 10, 5632, 512, 512, 26636))[0] for row in (5, 6, 7, 8)]
+    np.testing.assert_allclose(bounds, [0.1010, 0.3031, 0.1075, 0.2150], atol=6e-5)

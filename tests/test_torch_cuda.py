@@ -232,3 +232,122 @@ def test_scatter_adagrad_kernel_bit_equal_on_card(cuda, V, U, n_valid):
     assert sk.scatter_adagrad.launches == before + 1
     assert torch.equal(acc, acc2) and torch.equal(p, p2)
     assert not torch.equal(p[0], _adagrad_state(V, 512, seed=U)[1][0].to(cuda))  # row 0 was updated
+
+
+# ------------------------------------------------ the unfused path and kernels 5-8
+
+
+def _scan_inputs(B, H, L=10, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy((rng.standard_normal(s) * 0.5).astype(np.float32))  # noqa: E731
+    w_hh = torch.from_numpy(rng.uniform(-1 / np.sqrt(H), 1 / np.sqrt(H), (4 * H, H)).astype(np.float32))
+    return f(L, B, 4 * H).to(torch.bfloat16), w_hh.to(torch.bfloat16), f(L, B, H).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,H", [(333, 128), (1, 512), (37, 512), (4099, 64), (37, 40)],
+                         ids=["ragged-333", "one-row", "ragged-37-d512", "ragged-4099", "h40-unit-tail"])
+def test_scan_kernels_match_plain_on_card(cuda, B, H):
+    """Kernels 7 and 8 (csrc/lstm_scan.cu) against their plain versions:
+    hs and cs by the forward's rule, dx_proj by the backward's share; one
+    forward launch per step, a gate launch per step and a product launch
+    from step 1 on."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    x_proj, w_hh, dhs = (x.to(cuda) for x in _scan_inputs(B, H, seed=B))
+    L = x_proj.shape[0]
+    before = (sk.lstm_scan_forward.launches, sk.lstm_scan_backward.launches)
+    hs, cs = sk.lstm_scan_forward(x_proj, w_hh)
+    dxp = sk.lstm_scan_backward(x_proj, w_hh, hs, cs, dhs)
+    want_hs, want_cs = sk.lstm_scan_forward_plain(x_proj, w_hh)
+    want_dxp = sk.lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs)
+    torch.cuda.synchronize()
+    assert (sk.lstm_scan_forward.launches, sk.lstm_scan_backward.launches) == (before[0] + L, before[1] + 2 * L - 1)
+    assert_bf16_close(hs, want_hs)
+    assert_bf16_close(cs, want_cs)
+    assert_bf16_close(dxp, want_dxp, MAX_UNEQUAL_SHARE_BWD)
+
+
+@pytest.mark.parametrize("B,D", [(333, 128), (1, 512), (37, 512), (4099, 64), (37, 40)],
+                         ids=["ragged-333", "one-row", "ragged-37-d512", "ragged-4099", "d40-unit-tail"])
+def test_every_state_kernels_match_plain_on_card(cuda, B, D):
+    """Kernels 5 and 6 (the every-state modes of csrc/lstm_last_{fwd,bwd}.cu)
+    against their plain versions at the positions each row reaches."""
+    emb, w_ih, w_hh, bias, lens, _ = (x.to(cuda) for x in _train_inputs(B, D, seed=B))
+    L = emb.shape[0]
+    act = torch.from_numpy(_active(lens.cpu().numpy(), L)).to(cuda)
+    dhs = (torch.randn(L, B, D, device=cuda) * 0.5 * act[..., None]).to(torch.bfloat16)
+    before = (lstm_kernel.lstm_all_forward.launches, lstm_kernel.lstm_all_backward.launches)
+    hs, cs = lstm_kernel.lstm_all_forward(emb, w_ih, w_hh, bias, lens)
+    got = lstm_kernel.lstm_all_backward(emb, w_ih, w_hh, bias, lens, hs, cs, dhs)
+    want_hs, want_cs = lstm_kernel.lstm_all_forward_plain(emb, w_ih, w_hh, bias, lens)
+    want = lstm_kernel.lstm_all_backward_plain(emb, w_ih, w_hh, bias, lens, hs, cs, dhs)
+    torch.cuda.synchronize()
+    assert (lstm_kernel.lstm_all_forward.launches, lstm_kernel.lstm_all_backward.launches) == (
+        before[0] + L, before[1] + 2 * L + 1)
+    assert_bf16_close(hs[act], want_hs[act])
+    assert_bf16_close(cs[act], want_cs[act])
+    assert_bf16_close(got[0][act], want[0][act], MAX_UNEQUAL_SHARE_BWD)
+    assert_bf16_close(got[1], want[1], MAX_UNEQUAL_SHARE_BWD)
+    assert_bf16_close(got[2], want[2], MAX_UNEQUAL_SHARE_BWD)
+    assert (got[3] - want[3]).abs().max().item() <= DB_RTOL * want[3].abs().max().item()
+
+
+def test_matmul_f32_on_card(cuda):
+    """The unfused path's projection product: bf16 operands, f32 output,
+    against the same product of the f32-widened operands."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops.lstm_scan_kernel import matmul_f32
+
+    a = torch.randn(1000, 512, device=cuda).to(torch.bfloat16)
+    b = torch.randn(512, 2048, device=cuda).to(torch.bfloat16)
+    got = matmul_f32(a, b)
+    assert got.dtype == torch.float32
+    want = torch.matmul(a.float(), b.float())
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_unfused_autograd_on_card_matches_cpu(cuda):
+    """``ops/lstm.py::lstm_forward_tm`` (projection, kernels 7 and 8, dW_hh)
+    on the card against the CPU, through the f32 -> bf16 weight cast."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm as port_lstm
+
+    emb, w_ih, w_hh, bias, lens, _ = _train_inputs(96, 64, seed=5)
+    dhs = torch.randn(emb.shape[0], 96, 64, generator=torch.Generator().manual_seed(5))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        params = {"w_ih": w_ih.float().to(dev).requires_grad_(), "w_hh": w_hh.float().to(dev).requires_grad_(),
+                  "b_ih": bias.to(dev).requires_grad_(), "b_hh": torch.zeros_like(bias).to(dev).requires_grad_()}
+        x = emb.float().to(dev).requires_grad_()
+        out = port_lstm.lstm_forward_tm(params, x.to(torch.bfloat16))
+        (out.float() * dhs.to(dev)).sum().backward()
+        grads.append([g.cpu() for g in (out, x.grad, params["w_ih"].grad, params["w_hh"].grad, params["b_ih"].grad)])
+    (go, gx, gwi, gwh, gb), (co, cx, cwi, cwh, cb) = grads
+    assert_bf16_close(go, co)
+    assert_bf16_close(gx, cx, MAX_UNEQUAL_SHARE_BWD)
+    assert_bf16_close(gwi, cwi, MAX_UNEQUAL_SHARE_BWD)
+    assert_bf16_close(gwh, cwh, MAX_UNEQUAL_SHARE_BWD)
+    assert (gb - cb).abs().max().item() <= DB_RTOL * cb.abs().max().item()
+
+
+def test_unfused_serving_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """With OKET_DISABLE_LSTM_FUSED set every encode takes the unfused path:
+    the cache is encoded through kernel 7, and matches the CPU's."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    monkeypatch.setenv("OKET_DISABLE_LSTM_FUSED", "1")
+    subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "make_synth_olpbench.py"), str(tmp_path),
+         "--mentions", "600", "--relations", "40", "--triples", "300",
+         "--eval-size", "20", "--ent-tokens", "150", "--rel-tokens", "30", "--seed", "6"],
+        check=True, capture_output=True, timeout=120,
+    )
+    meta = load_meta(str(tmp_path), (10, 10))
+    model = build_model("LSTMComplexRelationModel", meta, entity_slot_size=128,
+                        normalize="batchnorm", dtype="bfloat16", sparse=True, init_std=0.1)
+    cpu_vars = model.init(torch.Generator().manual_seed(0))
+    to = lambda tree, dev: {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}  # noqa: E731
+    before = (lstm_kernel.lstm_encode_last_fused.launches, sk.lstm_scan_forward.launches)
+    on_card = Predictor(model, to(cpu_vars, cuda))
+    torch.cuda.synchronize()
+    assert lstm_kernel.lstm_encode_last_fused.launches == before[0]
+    assert sk.lstm_scan_forward.launches == before[1] + 10 * -(-meta.entities_size // 32768)
+    assert_bf16_close(on_card.cand_emb.cpu(), Predictor(model, cpu_vars).cand_emb)

@@ -1,10 +1,12 @@
 """LSTM-ComplEx / LSTM-DistMult serving forward of the torch port against the
 JAX package, with the JAX weights converted by ``variables_from_jax_arrays``.
 
-At f32 the port is held against both JAX paths: the CPU scan path and the
-fused Pallas kernel forced on in interpret mode.  At bf16 only against the
-fused path, because the scan path rounds the hoisted input projection to
-bf16 where the fused kernel (and the port) keep it in f32."""
+At f32 the port is held against both JAX paths: the JAX package as it runs
+on the CPU (the unfused scan path) and as it runs on a TPU (the Pallas
+kernels in interpret mode, fused where its shape rule says so: D, H % 128
+== 0 and B % 8 == 0).  The port takes the path of that rule on every
+device, so at bf16 it is held against the TPU form, which is fused at these
+shapes (the unfused path at bf16: tests/test_torch_unfused.py)."""
 
 import pathlib
 import subprocess
@@ -18,7 +20,7 @@ import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
-import open_knowledge_graph_embeddings_tpu.models.embedders as jax_embedders
+import open_knowledge_graph_embeddings_tpu.ops.pallas.lstm_kernel as jax_kernels
 from open_knowledge_graph_embeddings_tpu.data.dataset import load_meta as jax_load_meta
 from open_knowledge_graph_embeddings_tpu.models import build_model as jax_build_model
 from open_knowledge_graph_embeddings_tpu.train.checkpoint import flatten_arrays
@@ -88,9 +90,14 @@ def _np(x):
 
 
 def _run_jax(fn, fused, monkeypatch):
+    """``fused``: JAX's LSTM paths as on a TPU, the Pallas kernels in
+    interpret mode, picked by ``pallas_supported``'s shape rule (the port's
+    ``ops/lstm.py::lstm_fused_supported``), so both packages take the fused
+    path at the same B; else the JAX package as it runs on the CPU."""
     if not fused:
         return fn()
-    monkeypatch.setattr(jax_embedders, "lstm_fused_supported", lambda *a: True)
+    monkeypatch.setattr(jax_kernels, "pallas_supported",
+                        lambda B, L, H: H % 128 == 0 and jax_kernels._pick_tile(B) >= 8)
     with pltpu.force_tpu_interpret_mode():
         return fn()
 
@@ -108,7 +115,8 @@ IDS = ["complex-f32-scan", "complex-f32-fused", "complex-bf16-fused", "distmult-
 def test_encode_all_entities_matches_jax(synth_dir, monkeypatch, name, dtype, fused, tol):
     jmodel, jv, model, pv = _models(synth_dir, name, dtype)
     want = _run_jax(lambda: jmodel.encode_all_entities(jv, chunk_size=64), fused, monkeypatch)
-    got = model.encode_all_entities(pv, chunk_size=100)  # other chunking, short last chunk
+    # other chunking, short last chunk (padded to 96 rows: B % 8 == 0, fused as JAX's 64)
+    got = model.encode_all_entities(pv, chunk_size=96)
     assert got.dtype == getattr(torch, dtype)
     assert tuple(got.shape) == (model.meta.entities_size, 128)
     _assert_close(got, want, tol)

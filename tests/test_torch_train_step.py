@@ -30,6 +30,7 @@ from open_knowledge_graph_embeddings_tpu.train.checkpoint import flatten_arrays 
 from open_knowledge_graph_embeddings_tpu.train.optim import OptimizerRegimes as JaxRegimes
 from open_knowledge_graph_embeddings_tpu.train.sparse import SparsePlanBuilder as JaxPlanBuilder
 from open_knowledge_graph_embeddings_tpu.train.sparse import make_sparse_train_step as jax_sparse_step
+import open_knowledge_graph_embeddings_tpu_torch.models.embedders as port_embedders
 from open_knowledge_graph_embeddings_tpu_torch.data.batching import BatchBuilder
 from open_knowledge_graph_embeddings_tpu_torch.data.dataset import OneToNMentionRelationDataset
 from open_knowledge_graph_embeddings_tpu_torch.models.model import build_model
@@ -168,9 +169,9 @@ def test_sparse_plans_match_jax(synth_dir, ratio, dedup_bucket):
 # --------------------------------------------------------- train encodes
 
 
-def _models(path, dtype, opt=None):
+def _models(path, dtype, opt=None, d=D):
     j, p = _datasets(path)
-    cfg = dict(entity_slot_size=D, normalize="batchnorm", dtype=dtype, sparse=True, init_std=0.1, dropout=0.0)
+    cfg = dict(entity_slot_size=d, normalize="batchnorm", dtype=dtype, sparse=True, init_std=0.1, dropout=0.0)
     jmodel = jax_build_model("LSTMComplexRelationModel", j.meta, **cfg)
     jv = jmodel.init(jax.random.key(0))
     model = build_model("LSTMComplexRelationModel", p.meta, **cfg)
@@ -180,9 +181,14 @@ def _models(path, dtype, opt=None):
 
 
 def _run_jax(fn, fused, monkeypatch):
+    """``fused``: both packages forced onto the fused LSTM path (the JAX
+    package's Pallas kernels in interpret mode), whatever the width; else
+    each package on the path its rule picks (the JAX package as it runs on
+    the CPU: unfused; the port: unfused below d=128)."""
     if not fused:
         return fn()
     monkeypatch.setattr(jax_embedders, "lstm_fused_supported", lambda *a: True)
+    monkeypatch.setattr(port_embedders, "lstm_fused_supported", lambda *a: True)
     with pltpu.force_tpu_interpret_mode():
         return fn()
 
@@ -215,8 +221,8 @@ def _jax_to_np(tree):
     return {k: np.asarray(v) for k, v in tree.items()}
 
 
-def _steps(synth_dir, dtype, opt, n_steps, monkeypatch, fused):
-    j, p, jmodel, jv, model, pv = _models(synth_dir, dtype)
+def _steps(synth_dir, dtype, opt, n_steps, monkeypatch, fused, d=D):
+    j, p, jmodel, jv, model, pv = _models(synth_dir, dtype, d=d)
     jreg, preg = JaxRegimes(opt), OptimizerRegimes(opt)
     jreg.update(1, 0)
     preg.update(1, 0)
@@ -275,7 +281,10 @@ def test_sparse_adagrad_steps_match_jax(synth_dir, monkeypatch):
 
 
 def test_sparse_steps_bf16_fused_match_jax(synth_dir, monkeypatch):
-    """bf16 with JAX's fused Pallas path forced (interpret mode), SGD lr 0.5:
+    """bf16 with both packages forced onto the fused LSTM path (JAX's
+    Pallas kernels in interpret mode; at d=32 the rule of both picks the
+    unfused path, whose bf16 steps tests/test_torch_unfused.py holds), SGD
+    lr 0.5:
     each parameter's first update (new - old) rounded to bf16 against JAX's
     under the bf16 rule with the 2 % share of another summation order (one
     element of a 128-element bias is 0.8 %; measured at most 0.8 %), and the
