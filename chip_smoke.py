@@ -8,7 +8,9 @@ Phases (any failure exits non-zero before the final line):
    one nvcc each, all started together, and the two Triton kernels (compiled
    by a first launch on a few elements); print the build seconds;
 3. hold the forward LSTM kernel against its plain PyTorch version at the
-   serving shapes (B=32768) and at ragged B, with two planted faults;
+   serving shapes (B=32768) and at ragged B, with two planted faults; time it
+   in turns with cuDNN's packed ``nn.LSTM`` on the same inputs, beside its
+   bound and its two measuring variants (no epilogue, no products);
 4. the training path, the way a user drives it, at the flagship's full width
    (``configs/olpbench/synth-olpbench-2m47-demo.yaml``: LSTM-ComplEx, d=512,
    bf16, sparse token tables, Adagrad, 4096 prefixes x 4096 batch-shared
@@ -30,7 +32,8 @@ Phases (any failure exits non-zero before the final line):
    shapes, with planted faults that must fail (among them misplaced bf16
    rounding points), print the yardsticks of the backward's share rule, and
    time the kernel, the plain version and one PyTorch library call where
-   one computes the same function;
+   one computes the same function (the forward on both recorded passes as
+   in 3);
 7. the fused every-state LSTM (kernels 5 and 6, the every-state modes of the
    fused kernels) against its plain versions on the recorded entity pass and
    at ragged B, with a planted fault each, timed; then the op that reaches
@@ -208,65 +211,103 @@ def phase_kernels(torch):
         check(agree.ok(), f"kernel disagrees at B={b}: {agree}")
         max_err = max(max_err, agree.max_abs_err)
 
-    ms = cuda_ms(lambda: lk.lstm_encode_last_fused(emb, wih, whh, bias, lens_t), iters=20)
+    timing = time_forward(torch, f"cache chunk B={B}", (emb, wih, whh, bias, lens_t), residuals=False)
     plain_ms = cuda_ms(lambda: lk.lstm_encode_last_plain(emb, wih, whh, bias, lens_t), iters=5)
-    library_ms, library_note = library_lstm_ms(torch, p, emb, lens, ref)
-
-    # the work these lengths need: every active (row, step) multiplies x by
-    # W_ih; h by W_hh only from step 1 on (h_0 = 0).  Bytes: the active
-    # token rows, both weights, bias and lengths read once, last written once.
-    n_steps = int(np.maximum(lens, 1).sum())
-    flops = n_steps * 2 * D * 4 * H + (n_steps - B) * 2 * H * 4 * H
-    bytes_ = n_steps * D * 2 + (D + H) * 4 * H * 2 + 4 * H * 4 + B * 4 + B * H * 2
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, bytes_ / PEAK_BYTES_PER_S * 1e3
-    row = {
+    print(f"lstm_last_fwd plain version B={B}: {plain_ms:.4f} ms")
+    return {
         "name": "lstm_last_fwd",
         "route": "cuda",
         "source": f"{PKG}/csrc/lstm_last_fwd.cu",
         "replaces": "open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:479",
         "launches": None,  # filled from the main path's run
         "max_abs_err": max_err,
-        "ms": ms,
+        "ms": timing["ms"],
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
+        "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+        "library_ms": timing["library_ms"],
     }
-    print(
-        f"lstm_last_fwd timing B={B} L={L} d={D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library {library_ms} ms ({library_note}), bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}: {flops:.4e} FLOP, {bytes_:.4e} B, {n_steps} row-steps)"
-    )
-    return row
 
 
-def library_lstm_ms(torch, p, emb, lens, ref):
+def forward_bound(args):
+    """Kernel 1's least time on this card for the work these lengths need:
+    every active (row, step) multiplies x by W_ih, and h by W_hh from step 1
+    on (h_0 = 0); the active token rows, both weights, bias and lengths are
+    read once and last written once.  Returns (ms, "operations" or "bytes",
+    FLOP, bytes, active row-steps)."""
+    emb, w_ih, w_hh, _, lens = args
+    _, B, D = emb.shape
+    H = w_hh.shape[1]
+    n_steps = int(lens.clamp(min=1).sum().item())
+    flops = n_steps * 2 * D * 4 * H + (n_steps - B) * 2 * H * 4 * H
+    bytes_ = n_steps * D * 2 + (D + H) * 4 * H * 2 + 4 * H * 4 + B * 4 + B * H * 2
+    bound, by = bound_ms(flops, bytes_)
+    return bound, by, flops, bytes_, n_steps
+
+
+def time_forward(torch, label, args, residuals, reps=3):
+    """Kernel 1 on ``args`` as its caller runs it (with the hs/cs residuals
+    in training), timed in turns with cuDNN's packed ``nn.LSTM`` forward on
+    the same inputs so that their ratio holds within this call (median of
+    ``reps`` turns), beside its bound and its two measuring variants (no
+    epilogue, no products: what the stream of tiles with the products, and
+    with the epilogue, take alone)."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+
+    def run(variant="kernel"):
+        return lambda: lk._launch_steps(*args, residuals, True, lk.lstm_encode_last_fused, variant=variant)
+
+    ms, lib = [], []
+    for _ in range(reps):
+        ms.append(cuda_ms(run(), iters=20))
+        lib_ms, note = library_lstm_ms(torch, args)
+        lib.append(lib_ms)
+    variants = {v: cuda_ms(run(v), iters=20) for v in lk.FORWARD_VARIANTS if v != "kernel"}
+    bound, by, flops, bytes_, n_steps = forward_bound(args)
+    out = {"ms": float(np.median(ms)), "bound_ms": bound, "bound_by": by,
+           "library_ms": None if None in lib else float(np.median(lib))}
+    print(f"lstm_last_fwd timing {label} L={args[0].shape[0]} d={args[0].shape[2]}"
+          f"{' with residuals' if residuals else ''}: kernel {out['ms']:.4f} ms (turns {ms}), library "
+          f"{out['library_ms']} ms (turns {lib}; {note}), kernel/library "
+          f"{out['ms'] / out['library_ms'] if out['library_ms'] else float('nan'):.3f}, bound {bound:.4f} ms "
+          f"({by}: {flops:.4e} FLOP, {bytes_:.4e} B, {n_steps} row-steps; {bound / out['ms']:.1%} of it); "
+          + ", ".join(f"{v} {t:.4f} ms" for v, t in variants.items()))
+    return out
+
+
+def library_lstm_ms(torch, args):
     """One PyTorch call computing the same function: nn.LSTM over a packed
     sequence, whose h_n is each row's last state.  Timed, never used by the
-    port."""
-    D = emb.shape[2]
-    H = p["w_hh"].shape[1]
+    port.  Returns (ms or None, note)."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+
+    emb, w_ih, w_hh, bias, lens = args
+    D, H = emb.shape[2], w_hh.shape[1]
     lstm = torch.nn.LSTM(D, H).to(device="cuda", dtype=torch.bfloat16)
     with torch.no_grad():
-        lstm.weight_ih_l0.copy_(p["w_ih"])
-        lstm.weight_hh_l0.copy_(p["w_hh"])
-        lstm.bias_ih_l0.copy_(p["b_ih"])
-        lstm.bias_hh_l0.copy_(p["b_hh"])
+        lstm.weight_ih_l0.copy_(w_ih)
+        lstm.weight_hh_l0.copy_(w_hh)
+        lstm.bias_ih_l0.copy_(bias)
+        lstm.bias_hh_l0.zero_()
     # cuDNN's flat weight buffer does not take bf16, so each call packs the
     # 4 MiB of weights anew (a few microseconds) and warns about it
     warnings.filterwarnings("ignore", message="RNN module weights are not part")
-    packed = torch.nn.utils.rnn.pack_padded_sequence(
-        emb, torch.as_tensor(np.maximum(lens, 1)), enforce_sorted=True
-    )
+    packed = torch.nn.utils.rnn.pack_padded_sequence(emb, lens.clamp(min=1).cpu(), enforce_sorted=True)
     try:
         with torch.no_grad():
             _, (h_n, _) = lstm(packed)
-            torch.cuda.synchronize()
-            diff = (h_n[0].float() - ref.float()).abs().max().item()
+            diff = (h_n[0].float() - lk.lstm_encode_last_plain(*args).float()).abs().max().item()
             ms = cuda_ms(lambda: lstm(packed), iters=10)
     except RuntimeError as e:  # a library build without bf16 LSTM support
         return None, f"nn.LSTM bf16 unavailable: {str(e).splitlines()[0]}"
-    return ms, f"nn.LSTM packed bf16, max |h_n - plain| {diff:.3e}"
+    return ms, f"nn.LSTM packed bf16 forward (cuDNN), max |h_n - plain| {diff:.3e}"
+
+
+def time_forward_passes(torch, captured):
+    """Kernel 1 on the first training step's entity and relation passes as
+    the training run launched them (with residuals)."""
+    for name, (args, _) in zip(("entity pass", "relation pass"), captured):
+        time_forward(torch, f"training {name} B={args[0].shape[1]}", args, residuals=True)
 
 
 def ensure_dataset():
@@ -1410,13 +1451,36 @@ def check_row_adagrad(torch, captured):
     n_valid, d = int(v_.sum()), g_.shape[1]
     bytes_ = 5 * 4 * n_valid * d + len(u_) * (u_.element_size() + 1)
     bound = bytes_ / PEAK_BYTES_PER_S * 1e3
+    library_ms, note = library_row_adagrad_ms(torch, g_, u_, v_, p_, a_, c_, e_)
     print(f"scatter_adagrad timing entity token table {list(p_.shape)}, {n_valid} rows: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, library none (no single PyTorch call computes a row-sparse Adagrad with "
-          f"weight decay), bound {bound:.4f} ms (bytes: {bytes_:.4e} B)")
+          f"plain {plain_ms:.4f} ms, library {library_ms} ms ({note}), bound {bound:.4f} ms "
+          f"(bytes: {bytes_:.4e} B)")
     return {"name": "scatter_adagrad", "route": "triton", "source": f"{PKG}/ops/scatter_adagrad_kernel.py",
             "replaces": "open_knowledge_graph_embeddings_tpu/ops/pallas/scatter_adagrad_kernel.py:52",
             "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "bytes", "library_ms": None}
+            "bound_by": "bytes", "library_ms": library_ms}
+
+
+def library_row_adagrad_ms(torch, g_rows, uids, valid, p, acc, clr, eps):
+    """``torch.optim.Adagrad.step`` on a sparse COO gradient of the same rows
+    of the same table and accumulator, with ``weight_decay=0``: torch refuses
+    weight decay with sparse gradients, so this is the row update without
+    the kernel's lazy weight decay.  Timed, never used by the port."""
+    warnings.filterwarnings("ignore", message="Sparse invariant checks")
+    try:
+        idx = uids[valid]
+        grad = torch.sparse_coo_tensor(idx[None], g_rows[valid], p.shape).coalesce()
+        param = torch.nn.Parameter(p.clone())
+        opt = torch.optim.Adagrad([param], lr=float(clr), eps=eps, weight_decay=0)
+        opt.state[param]["sum"].copy_(acc)
+
+        def step():
+            param.grad = grad
+            opt.step()
+
+        return cuda_ms(step, iters=50), "torch.optim.Adagrad.step, sparse COO gradient of the same rows, weight_decay=0"
+    except (RuntimeError, TypeError, ValueError) as e:
+        return None, f"torch.optim.Adagrad with a sparse gradient unavailable: {str(e).splitlines()[0]}"
 
 
 def build_kernels(torch, timings):
@@ -1481,6 +1545,7 @@ def main() -> int:
         del trainer
         row_bwd, fwd_err = check_lstm_backward(torch, capture.bwd)
         fwd_err = max(fwd_err, check_lstm_residuals(torch, capture.fwd))
+        time_forward_passes(torch, capture.fwd)
         row_fwd["max_abs_err"] = max(row_fwd["max_abs_err"], fwd_err)
         rows = [row_fwd, row_bwd,
                 check_adagrad(torch, capture.dense, table_heights),

@@ -213,9 +213,27 @@ def _fwd_fn():
     from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
 
     fn = cuda_build.load(_FWD_SOURCE).oket_lstm_last_step_bf16
-    fn.argtypes = [_P] * 10 + [_LL, _I, _I, _I, _P]
+    fn.argtypes = [_P] * 10 + [_I] * 9 + [_P]
     fn.restype = _I
     return fn
+
+
+# Kernel 1's tiles: 128 rows x 32 hidden units x the 4 gates (csrc/lstm_last_fwd.cu)
+_ROW_TILE = 128
+_UNIT_TILE = 32
+
+
+def forward_grid(B: int, H: int, n_sm: int) -> int:
+    """Kernel 1's persistent grid for B rows of H hidden units on a card with
+    ``n_sm`` SMs: one block per SM, or per tile where there are fewer tiles
+    (each block walks its tiles, and the kernel walks only the row tiles
+    active at each step)."""
+    return max(1, min(-(-B // _ROW_TILE) * -(-H // _UNIT_TILE), n_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -247,6 +265,8 @@ def _check_kernel_inputs(dtype, D, H, **tensors):
 
 
 def _raise_on(err, what):
+    if err == -1:
+        raise RuntimeError(f"{what}: the driver could not encode the kernel's TMA tensor maps")
     if err != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
@@ -263,11 +283,19 @@ def _launch_all_forward(emb_tm, w_ih, w_hh, bias, lengths):
     return hs, cs
 
 
-def _launch_steps(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, counter):
+# what a launch of kernel 1 runs: the kernel, or for measuring it, the
+# kernel without its epilogue or without its products (chip_smoke.py)
+FORWARD_VARIANTS = {"kernel": 0, "no epilogue": 1, "no products": 2}
+
+
+def _launch_steps(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, counter, variant="kernel"):
     L, B, D, H = _check(emb_tm, w_ih, w_hh, bias, lengths)
     _check_kernel_inputs(emb_tm.dtype, D, H, emb_tm=emb_tm, w_ih=w_ih, w_hh=w_hh)
     fn = _fwd_fn()
+    grid = forward_grid(B, H, _sm_count(emb_tm.device.index))
     bias = bias.contiguous()
+    if bias.data_ptr() % 8:  # the kernel reads the bias of a unit pair as one float2
+        bias = bias.clone()
     lens = lengths.to(torch.int32).contiguous()
     dev, dt = emb_tm.device, emb_tm.dtype
     c = torch.empty(B, H, dtype=torch.float32, device=dev)
@@ -276,20 +304,21 @@ def _launch_steps(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, count
         # the h of step t is written straight into its residual slice hs[t]
         hs = torch.empty(L, B, H, dtype=dt, device=dev)
         cs = torch.empty(L, B, H, dtype=dt, device=dev)
-        h_bufs = [hs[t] for t in range(L)]
+        h_buf = hs
     else:
         hs = cs = None
-        h_bufs = [torch.empty(B, H, dtype=dt, device=dev) for _ in range(2)]
+        h_buf = torch.empty(2, B, H, dtype=dt, device=dev)  # h_{t-1} and h_t, in turns
     if B and H:
         stream = torch.cuda.current_stream(dev).cuda_stream
+        slots, step = h_buf.shape[0], B * H * h_buf.element_size()  # bytes of one [B, H] slice
+        ptrs = [x.data_ptr() for x in (emb_tm, h_buf, w_ih, w_hh, bias, lens, c)]
+        cs_ptr = cs.data_ptr() if residuals else None
+        last_ptr = last.data_ptr() if with_last else None
+        code = FORWARD_VARIANTS[variant]
         for t in range(L):
-            h_prev = h_bufs[(t - 1) % len(h_bufs)]
-            h_next = h_bufs[t % len(h_bufs)]
             err = fn(
-                emb_tm[t].data_ptr(), h_prev.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
-                bias.data_ptr(), lens.data_ptr(), c.data_ptr(), h_next.data_ptr(),
-                cs[t].data_ptr() if residuals else None, last.data_ptr() if with_last else None,
-                B, D, H, t, stream,
+                *ptrs, ptrs[1] + t % slots * step, None if cs_ptr is None else cs_ptr + t * step, last_ptr,
+                L, B, D, H, slots, (t - 1) % slots, t, grid, code, stream,
             )
             _raise_on(err, f"lstm_last_fwd step {t}")
             counter.launches += 1

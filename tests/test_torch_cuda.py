@@ -71,6 +71,35 @@ def test_kernel_matches_plain_on_card(cuda, B, D):
     assert_bf16_close(got, want)
 
 
+@pytest.mark.parametrize(
+    "B,D",
+    [(1, 512), (37, 40), (129, 64), (4099, 128), (5632, 512), (3072, 512), (129, 200)],
+    ids=["one-row", "d40-unit-and-k-tail", "row-tile-edge", "ragged-4099", "entity-pass", "relation-pass",
+         "d200-unit-tail"],
+)
+def test_forward_modes_across_tile_edges_on_card(cuda, B, D):
+    """Kernel 1 across the edges of its 128-row and 32-unit tiles and of its
+    64-wide K stages, with one tile per block and several (the two consumer
+    warpgroups taking turns), in its three modes: serving (last), training
+    (last, hs, cs) and every state (kernel 5: hs, cs), each against the plain
+    version at the positions the rows reach."""
+    args = [x.to(cuda) for x in _inputs(B, D, seed=B + D)]
+    L = args[0].shape[0]
+    want_last, want_hs, want_cs = lstm_kernel.lstm_encode_last_plain(*args, residuals=True)
+    act = torch.from_numpy(_active(args[4].cpu().numpy(), L)).to(cuda)
+    count = lstm_kernel.lstm_encode_last_fused
+    serve, _, _ = lstm_kernel._launch_steps(*args, False, True, count)
+    last, hs, cs = lstm_kernel._launch_steps(*args, True, True, count)
+    _, all_hs, all_cs = lstm_kernel._launch_steps(*args, True, False, count)
+    torch.cuda.synchronize()
+    assert_bf16_close(serve, want_last)
+    assert torch.equal(serve, last)
+    assert_bf16_close(last, want_last)
+    for got_hs, got_cs in ((hs, cs), (all_hs, all_cs)):
+        assert_bf16_close(got_hs[act], want_hs[act])
+        assert_bf16_close(got_cs[act], want_cs[act])
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     emb, w_ih, w_hh, bias, lens = (x.to(cuda) for x in _inputs(8, 64))
     with pytest.raises(TypeError, match="bfloat16"):
