@@ -52,8 +52,19 @@ Phases (any failure exits non-zero before the final line):
    scores, cache rows and top-k scores against a plain CPU encode; then the
    same on the unfused run's checkpoint with the switch set (every encode
    unfused);
-10. print the timings, one JSON line with every kernel's numbers (eight
-   rows, launches by path), and last ``{"ok": true, "device": {...}}``.
+10. the f32 model: the flagship config with its ``dtype`` line removed (a
+   copy under ``.bench_cache/``), through the same entry points: kernel 1's
+   f32 mode at B=32768 and ragged B, ``cli.train`` fused and unfused, each
+   f32 mode (kernels 1, 2, 5-8) against its plain version on the recorded
+   passes and ragged B by the f32 rule of ``utils/numerics.py`` with planted
+   faults (the TF32 yardstick, a dropped bias or recurrent product), the op
+   of kernels 5 and 6, and serving of the f32 checkpoint; then the unfused
+   path at H = 100 in bf16 and f32 (kernels 7 and 8 through the padded
+   route);
+11. print the timings, one JSON line with every kernel's numbers (the
+   eight ports and the f32 modes of the six LSTM kernels, launches by path:
+   an LSTM row counts the paths of its dtype), and last
+   ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Needs one card; writes only under ``.bench_cache/``
 and the package's ``_build/``.
@@ -78,18 +89,30 @@ ROOT = Path(__file__).resolve().parent
 PKG = "open_knowledge_graph_embeddings_tpu_torch"
 FLAGSHIP = ROOT / "configs" / "olpbench" / "synth-olpbench-2m47-demo.yaml"
 DATA_DIR = ROOT / ".bench_cache" / "synth_olp_2m47_smoke"
-TRAIN_DIR = ROOT / ".bench_cache" / "smoke_train"
-TRAIN_DIR_UNFUSED = ROOT / ".bench_cache" / "smoke_train_unfused"
+# the flagship with its dtype line removed: the f32 model (written by
+# write_f32_config under the git-ignored cache; configs/ is not edited)
+F32_CONFIG = ROOT / ".bench_cache" / "synth-olpbench-2m47-demo-f32.yaml"
 # the JAX package's switch that sends every LSTM encode down the unfused path
 UNFUSED_SWITCH = "OKET_DISABLE_LSTM_FUSED"
 SEED = 0
+# every CUDA source of the port's kernels, one nvcc each
+CUDA_SOURCES = ["lstm_last_fwd.cu", "lstm_last_fwd_f32.cu", "lstm_last_bwd.cu", "lstm_scan.cu"]
+# the kernels line, in order: the port of each TPU kernel (PERF.md rows 1-8),
+# then the f32 modes of the LSTM kernels (rows 1, 2, 5-8 at f32)
+KERNEL_ROWS = ["lstm_last_fwd", "lstm_last_bwd", "adagrad_update", "scatter_adagrad", "lstm_all_fwd", "lstm_all_bwd",
+               "lstm_scan_fwd", "lstm_scan_bwd", "lstm_last_fwd_f32", "lstm_last_bwd_f32", "lstm_all_fwd_f32",
+               "lstm_all_bwd_f32", "lstm_scan_fwd_f32", "lstm_scan_bwd_f32"]
 # OLPBench's vocabulary sizes; 80000 triples give 104626 training prefixes,
 # 25 steps of 4096 (counted on the CPU); serving reads only the vocabulary
 DATA_ARGS = ["--mentions", "2470000", "--relations", "50000", "--triples", "80000",
              "--ent-tokens", "200000", "--rel-tokens", "50000", "--eval-size", "1000", "--seed", str(SEED)]
 MIN_TRAIN_STEPS = 20
-TRAIN_ARGS = [str(FLAGSHIP), "--dataset_dir", str(DATA_DIR), "--eval_epoch_freq", "0", "--epochs", "2",
-              "--experiment_dir", str(TRAIN_DIR)]
+
+
+def train_args(config, out_dir):
+    """cli.train's arguments: two passes over the smoke set, no eval."""
+    return [str(config), "--dataset_dir", str(DATA_DIR), "--eval_epoch_freq", "0", "--epochs", "2",
+            "--experiment_dir", str(out_dir)]
 
 # H100 SXM published peaks (dense bf16 tensor-core rate, HBM3 bandwidth)
 PEAK_BF16_FLOPS = 989e12
@@ -152,72 +175,89 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(stop) / iters
 
 
-def lstm_inputs(torch, gen, L, B, D, H, lens_np):
+def tf32_operands(*args, keep=(3,)):
+    """The planted TF32 yardstick of the f32 rule: ``args`` with every f32
+    tensor but those at ``keep`` (the bias, which no product reads; the cell
+    states) rounded to TF32's 10 mantissa bits, as a TF32 tensor-core product
+    would round its operands."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import round_to_tf32
+
+    return tuple(round_to_tf32(x) if i not in keep and getattr(x, "dtype", None) is not None
+                 and str(x.dtype) == "torch.float32" else x for i, x in enumerate(args))
+
+
+def lstm_inputs(torch, gen, L, B, D, H, lens_np, dtype=None):
+    """Random inputs of the fused LSTM in ``dtype`` (bf16 by default)."""
     from open_knowledge_graph_embeddings_tpu_torch.ops.lstm import init_lstm_params
 
+    dtype = dtype or torch.bfloat16
     p = init_lstm_params(gen, D, H, gen.device)
-    emb = (torch.randn(L, B, D, generator=gen, device=gen.device) * 0.1).to(torch.bfloat16)
+    emb = (torch.randn(L, B, D, generator=gen, device=gen.device) * 0.1).to(dtype)
     return (
         emb,
-        p["w_ih"].to(torch.bfloat16),
-        p["w_hh"].to(torch.bfloat16),
+        p["w_ih"].to(dtype),
+        p["w_hh"].to(dtype),
         (p["b_ih"] + p["b_hh"]).float(),
         torch.as_tensor(lens_np, device=gen.device),
         p,
     )
 
 
-def phase_kernels(torch):
-    """Kernel vs plain version at full width and ragged shapes, with timings."""
+def phase_kernels(torch, dtype=None):
+    """Kernel 1 vs plain version at full width and ragged shapes, with
+    timings, in ``dtype`` (bf16 by default; f32: its f32 mode)."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
-    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import (
-        MAX_UNEQUAL_SHARE as share,
-        bf16_agreement,
-    )
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import agreement
 
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    sfx = "_f32" if f32 else ""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     L, B, D = 10, 32768, 512
     H = D
     lens = synth_lengths(rng, B, L)
-    emb, wih, whh, bias, lens_t, p = lstm_inputs(torch, gen, L, B, D, H, lens)
+    emb, wih, whh, bias, lens_t, p = lstm_inputs(torch, gen, L, B, D, H, lens, dtype)
     out = lk.lstm_encode_last_fused(emb, wih, whh, bias, lens_t)
     ref = lk.lstm_encode_last_plain(emb, wih, whh, bias, lens_t)
     torch.cuda.synchronize()
     check(torch.isfinite(out.float()).all().item(), "kernel output not finite")
-    agree = bf16_agreement(out, ref)
-    print(f"lstm_last_fwd B={B} L={L} D=H={D} bf16: {agree} (tol {share:.0%})")
+    agree = agreement(out, ref)
+    print(f"lstm_last_fwd{sfx} B={B} L={L} D=H={D} {dtype}: {agree}")
     check(agree.ok(), f"kernel disagrees with plain version: {agree}")
     max_err = agree.max_abs_err
 
-    # the rule must fail a kernel that dropped the recurrent product or a bias
+    # the rule must fail a kernel that dropped the recurrent product or a
+    # bias, and at f32 the plain version with TF32 operands
     faults = {
         "W_hh = 0": (emb, wih, torch.zeros_like(whh), bias, lens_t),
         "bias = b_ih only": (emb, wih, whh, p["b_ih"].float(), lens_t),
     }
+    if f32:
+        faults["TF32 operands (yardstick)"] = tf32_operands(emb, wih, whh, bias, lens_t)
     for fault, args in faults.items():
-        planted = bf16_agreement(lk.lstm_encode_last_plain(*args), ref)
+        planted = agreement(lk.lstm_encode_last_plain(*args), ref)
         print(f"planted fault {fault}: {planted}")
-        check(not planted.ok(), f"the bf16 rule passes a planted fault ({fault}): {planted}")
+        check(not planted.ok(), f"the {dtype} rule passes a planted fault ({fault}): {planted}")
 
     for b in (1, 37, 4099):
         lr = synth_lengths(rng, b, L)
-        e, wi, wh, bi, ln, _ = lstm_inputs(torch, gen, L, b, D, H, lr)
+        e, wi, wh, bi, ln, _ = lstm_inputs(torch, gen, L, b, D, H, lr, dtype)
         o = lk.lstm_encode_last_fused(e, wi, wh, bi, ln)
         r = lk.lstm_encode_last_plain(e, wi, wh, bi, ln)
         torch.cuda.synchronize()
-        agree = bf16_agreement(o, r)
-        print(f"lstm_last_fwd B={b} D=H={D}: {agree} (tol {share:.0%})")
+        agree = agreement(o, r)
+        print(f"lstm_last_fwd{sfx} B={b} D=H={D}: {agree}")
         check(agree.ok(), f"kernel disagrees at B={b}: {agree}")
         max_err = max(max_err, agree.max_abs_err)
 
     timing = time_forward(torch, f"cache chunk B={B}", (emb, wih, whh, bias, lens_t), residuals=False)
     plain_ms = cuda_ms(lambda: lk.lstm_encode_last_plain(emb, wih, whh, bias, lens_t), iters=5)
-    print(f"lstm_last_fwd plain version B={B}: {plain_ms:.4f} ms")
+    print(f"lstm_last_fwd{sfx} plain version B={B}: {plain_ms:.4f} ms")
     return {
-        "name": "lstm_last_fwd",
+        "name": "lstm_last_fwd" + sfx,
         "route": "cuda",
-        "source": f"{PKG}/csrc/lstm_last_fwd.cu",
+        "source": f"{PKG}/csrc/lstm_last_fwd{sfx}.cu",
         "replaces": "open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:479",
         "launches": None,  # filled from the main path's run
         "max_abs_err": max_err,
@@ -233,15 +273,16 @@ def forward_bound(args):
     """Kernel 1's least time on this card for the work these lengths need:
     every active (row, step) multiplies x by W_ih, and h by W_hh from step 1
     on (h_0 = 0); the active token rows, both weights, bias and lengths are
-    read once and last written once.  Returns (ms, "operations" or "bytes",
-    FLOP, bytes, active row-steps)."""
+    read once and last written once, in the inputs' dtype at its peak rate.
+    Returns (ms, "operations" or "bytes", FLOP, bytes, active row-steps)."""
     emb, w_ih, w_hh, _, lens = args
     _, B, D = emb.shape
     H = w_hh.shape[1]
+    es = emb.element_size()
     n_steps = int(lens.clamp(min=1).sum().item())
     flops = n_steps * 2 * D * 4 * H + (n_steps - B) * 2 * H * 4 * H
-    bytes_ = n_steps * D * 2 + (D + H) * 4 * H * 2 + 4 * H * 4 + B * 4 + B * H * 2
-    bound, by = bound_ms(flops, bytes_)
+    bytes_ = n_steps * D * es + (D + H) * 4 * H * es + 4 * H * 4 + B * 4 + B * H * es
+    bound, by = bound_ms(flops, bytes_, peak_flops(emb.dtype))
     return bound, by, flops, bytes_, n_steps
 
 
@@ -262,11 +303,12 @@ def time_forward(torch, label, args, residuals, reps=3):
         ms.append(cuda_ms(run(), iters=20))
         lib_ms, note = library_lstm_ms(torch, args)
         lib.append(lib_ms)
-    variants = {v: cuda_ms(run(v), iters=20) for v in lk.FORWARD_VARIANTS if v != "kernel"}
+    variants = ({v: cuda_ms(run(v), iters=20) for v in lk.FORWARD_VARIANTS if v != "kernel"}
+                if args[0].dtype != torch.float32 else {})  # the bf16 Hopper kernel's measuring variants
     bound, by, flops, bytes_, n_steps = forward_bound(args)
     out = {"ms": float(np.median(ms)), "bound_ms": bound, "bound_by": by,
            "library_ms": None if None in lib else float(np.median(lib))}
-    print(f"lstm_last_fwd timing {label} L={args[0].shape[0]} d={args[0].shape[2]}"
+    print(f"lstm_last_fwd timing {label} L={args[0].shape[0]} d={args[0].shape[2]} {args[0].dtype}"
           f"{' with residuals' if residuals else ''}: kernel {out['ms']:.4f} ms (turns {ms}), library "
           f"{out['library_ms']} ms (turns {lib}; {note}), kernel/library "
           f"{out['ms'] / out['library_ms'] if out['library_ms'] else float('nan'):.3f}, bound {bound:.4f} ms "
@@ -283,7 +325,8 @@ def library_lstm_ms(torch, args):
 
     emb, w_ih, w_hh, bias, lens = args
     D, H = emb.shape[2], w_hh.shape[1]
-    lstm = torch.nn.LSTM(D, H).to(device="cuda", dtype=torch.bfloat16)
+    dt = str(emb.dtype).replace("torch.", "")
+    lstm = torch.nn.LSTM(D, H).to(device="cuda", dtype=emb.dtype)
     with torch.no_grad():
         lstm.weight_ih_l0.copy_(w_ih)
         lstm.weight_hh_l0.copy_(w_hh)
@@ -298,9 +341,9 @@ def library_lstm_ms(torch, args):
             _, (h_n, _) = lstm(packed)
             diff = (h_n[0].float() - lk.lstm_encode_last_plain(*args).float()).abs().max().item()
             ms = cuda_ms(lambda: lstm(packed), iters=10)
-    except RuntimeError as e:  # a library build without bf16 LSTM support
-        return None, f"nn.LSTM bf16 unavailable: {str(e).splitlines()[0]}"
-    return ms, f"nn.LSTM packed bf16 forward (cuDNN), max |h_n - plain| {diff:.3e}"
+    except RuntimeError as e:  # a library build without LSTM support in this dtype
+        return None, f"nn.LSTM {dt} unavailable: {str(e).splitlines()[0]}"
+    return ms, f"nn.LSTM packed {dt} forward (cuDNN), max |h_n - plain| {diff:.3e}"
 
 
 def time_forward_passes(torch, captured):
@@ -337,14 +380,14 @@ def first_names(path, n, skip=0):
     return out
 
 
-def load_user_path(torch):
+def load_user_path(torch, config=FLAGSHIP):
     """What cli.predict does before it serves: config, metadata, model,
     seeded init."""
     from open_knowledge_graph_embeddings_tpu_torch.config.options import load_config
     from open_knowledge_graph_embeddings_tpu_torch.data.dataset import load_meta
     from open_knowledge_graph_embeddings_tpu_torch.models.model import build_model
 
-    args = load_config(str(FLAGSHIP), ["--dataset_dir", str(DATA_DIR)])
+    args = load_config(str(config), ["--dataset_dir", str(DATA_DIR)])
     meta = load_meta(args["dataset_dir"], tuple(args["experiment_settings"]["max_lengths_tuple"]))
     model = build_model(args["model"], meta, **args["model_config"])
     variables = model.init(torch.Generator(device="cuda").manual_seed(SEED))
@@ -363,12 +406,13 @@ def summary(ms):
     return {"n": len(ms), "median": float(np.median(ms)), "max": max(ms)}
 
 
-def phase_main_path(torch, timings, ckpt=None, unfused=False):
-    """The serving path on ``ckpt`` (a seeded random init when None).  With
-    ``unfused`` the switch is set for the whole phase and every encode takes
-    the unfused path; without it the cache chunks and the 1024-query
-    batches take the fused one and the single queries (B = 1) the unfused
-    one, by the JAX package's rule."""
+def phase_main_path(torch, timings, ckpt=None, unfused=False, config=FLAGSHIP, tag=""):
+    """The serving path of ``config``'s model on ``ckpt`` (a seeded random
+    init when None).  With ``unfused`` the switch is set for the whole phase
+    and every encode takes the unfused path; without it the cache chunks and
+    the 1024-query batches take the fused one and the single queries (B = 1)
+    the unfused one, by the JAX package's rule.  ``tag`` prefixes the
+    timings' keys."""
     from open_knowledge_graph_embeddings_tpu_torch.cli import predict as cli_predict
     from open_knowledge_graph_embeddings_tpu_torch.inference import Predictor
     from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import (
@@ -376,10 +420,10 @@ def phase_main_path(torch, timings, ckpt=None, unfused=False):
         save_checkpoint,
     )
 
-    pre = "unfused_" if unfused else ""
+    pre = tag + ("unfused_" if unfused else "")
     timings.setdefault("dataset_gen_s", ensure_dataset())
     t0 = time.perf_counter()
-    args, meta, model, variables = load_user_path(torch)
+    args, meta, model, variables = load_user_path(torch, config)
     timings[pre + "meta_and_init_s"] = time.perf_counter() - t0
     if ckpt is None:
         ckpt = save_checkpoint(str(DATA_DIR.parent), "smoke_ckpt", variables, {"training_steps": 0})
@@ -409,14 +453,14 @@ def phase_main_path(torch, timings, ckpt=None, unfused=False):
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            cli_predict.main([str(FLAGSHIP), "--resume", ckpt, "--dataset_dir", str(DATA_DIR),
+            cli_predict.main([str(config), "--resume", ckpt, "--dataset_dir", str(DATA_DIR),
                               "-k", "10", "--device", "cuda"])
     finally:
         sys.stdin = stdin
     torch.cuda.synchronize()
     timings[pre + "cli_predict_s"] = time.perf_counter() - t0
 
-    _, _, model, variables = load_user_path(torch)
+    _, _, model, variables = load_user_path(torch, config)
     variables, _ = load_checkpoint(ckpt, variables)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -505,12 +549,10 @@ def device_breakdown(torch, label, fn, top=8):
 
 
 def check_against_plain(torch, model, predictor, ent_ids, rel_ids):
-    """Sampled cache rows and top-k scores against a plain encode on the CPU."""
+    """Sampled cache rows and top-k scores against a plain encode on the CPU,
+    by the rule of the model's dtype (at f32 the scores too)."""
     from open_knowledge_graph_embeddings_tpu_torch.ops.scoring import score_against_candidates
-    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import (
-        MAX_UNEQUAL_SHARE as share,
-        bf16_agreement,
-    )
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_REL_ERR_F32, agreement
 
     def to_cpu(tree):
         return {k: to_cpu(x) if isinstance(x, dict) else x.cpu() for k, x in tree.items()}
@@ -521,8 +563,8 @@ def check_against_plain(torch, model, predictor, ent_ids, rel_ids):
     ids = torch.as_tensor(rng.integers(off, predictor.meta.entities_size, 4096))
     want, _, _ = model.embedder.encode_entity(cpu, ids)
     got = predictor.cand_emb[(ids - off).to(predictor.device)].cpu()
-    agree = bf16_agreement(got, want)
-    print(f"cache rows vs plain CPU encode (4096 ids): {agree} (tol {share:.0%})")
+    agree = agreement(got, want)
+    print(f"cache rows vs plain CPU encode (4096 ids, {want.dtype}): {agree}")
     check(agree.ok(), f"cache rows disagree with the plain encode: {agree}")
 
     n = 16
@@ -533,8 +575,9 @@ def check_against_plain(torch, model, predictor, ent_ids, rel_ids):
     want_s = want_s.values.cpu().numpy()
     got_s, _ = predictor.predict(subj=ent_ids[:n], rel=rel_ids[:n], k=10)
     rel_err = np.abs(got_s - want_s).max() / max(np.abs(want_s).max(), 1e-6)
-    print(f"top-10 scores vs plain CPU queries ({n} queries): max rel err={rel_err:.3e} (tol {SCORE_RTOL:.3e})")
-    check(rel_err <= SCORE_RTOL, f"top-k scores disagree with the plain path: {rel_err}")
+    tol = SCORE_RTOL if want.dtype == torch.bfloat16 else MAX_REL_ERR_F32
+    print(f"top-10 scores vs plain CPU queries ({n} queries): max rel err={rel_err:.3e} (tol {tol:.3e})")
+    check(rel_err <= tol, f"top-k scores disagree with the plain path: {rel_err}")
 
 
 # ------------------------------------------------------------------ training
@@ -549,7 +592,9 @@ class Capture:
     [2048, 512] LSTM weight and the row updates of the token tables (p and
     acc cloned before the in-place update).  It wraps the modules' CUDA
     launchers and calls them through, so the wrappers launch and count as
-    they do without it."""
+    they do without it.  The recorded inputs are copies: at f32 the weights
+    a kernel gets are the parameters themselves (``.to`` of an f32 tensor
+    returns it), which the optimizer then updates in place."""
 
     def __init__(self):
         from open_knowledge_graph_embeddings_tpu_torch.ops import (
@@ -580,7 +625,7 @@ class Capture:
 
     def _bwd(self, *args):
         if len(self.bwd) < 2:
-            self.bwd.append(args)
+            self.bwd.append(_copies(args))
         return self._orig[0](*args)
 
     def _dense(self, g, p, acc, clr, wd, eps):
@@ -598,19 +643,23 @@ class Capture:
         out = self._orig[3](emb_tm, w_ih, w_hh, bias, lengths, residuals)
         if residuals and len(self.fwd) < 2:
             last, hs, cs = out
-            self.fwd.append(((emb_tm, w_ih, w_hh, bias, lengths), (last.clone(), hs, cs)))
+            self.fwd.append((_copies((emb_tm, w_ih, w_hh, bias, lengths)), _copies(out)))
         return out
 
     def _scan_fwd(self, x_proj, w_hh):
         hs, cs = self._orig[4](x_proj, w_hh)
         if len(self.scan_fwd) < 2:
-            self.scan_fwd.append(((x_proj, w_hh), (hs, cs)))
+            self.scan_fwd.append((_copies((x_proj, w_hh)), _copies((hs, cs))))
         return hs, cs
 
     def _scan_bwd(self, *args):
         if len(self.scan_bwd) < 2:
-            self.scan_bwd.append(args)
+            self.scan_bwd.append(_copies(args))
         return self._orig[5](*args)
+
+
+def _copies(tensors):
+    return tuple(x.clone() for x in tensors)
 
 
 def kernel_counters():
@@ -630,13 +679,14 @@ def kernel_counters():
             "lstm_scan_bwd": lstm_scan_kernel.lstm_scan_backward}
 
 
-def count_train_steps():
+def count_train_steps(config):
     """Training prefixes and steps of the smoke set, built on the CPU (this
     also writes the metadata and records caches the run then reads)."""
     from open_knowledge_graph_embeddings_tpu_torch.cli.train import setup_dataset
     from open_knowledge_graph_embeddings_tpu_torch.config.options import load_config
 
-    args = load_config(TRAIN_ARGS[0], TRAIN_ARGS[1:])
+    args = train_args(config, ROOT / ".bench_cache" / "smoke_train")
+    args = load_config(args[0], args[1:])
     ds = setup_dataset(args)
     return len(ds), len(ds) // ds.batch_size
 
@@ -655,22 +705,23 @@ def unfused_switch(on=True):
             os.environ.pop(UNFUSED_SWITCH, None)
 
 
-def phase_train(torch, timings, unfused=False):
-    """``cli.train`` on the flagship, two passes; with ``unfused`` the switch
-    is set in this process for this run only and the run writes to its own
-    experiment directory."""
+def phase_train(torch, timings, unfused=False, config=FLAGSHIP, tag=""):
+    """``cli.train`` on ``config`` (the flagship by default), two passes;
+    with ``unfused`` the switch is set in this process for this run only.
+    Each run writes to its own experiment directory; ``tag`` prefixes the
+    timings' keys and names the directory."""
     from open_knowledge_graph_embeddings_tpu_torch.cli import train as cli_train
 
-    pre = "unfused_" if unfused else ""
+    pre = tag + ("unfused_" if unfused else "")
     timings.setdefault("dataset_gen_s", ensure_dataset())
     t0 = time.perf_counter()
-    n_records, n_steps = count_train_steps()
+    n_records, n_steps = count_train_steps(config)
     timings[pre + "train_records_s"] = time.perf_counter() - t0
     print(f"training set: {n_records} prefixes, {n_steps} steps of 4096 (counted on the CPU)")
     check(n_steps >= MIN_TRAIN_STEPS, f"one epoch has {n_steps} steps, want >= {MIN_TRAIN_STEPS}")
-    out_dir = TRAIN_DIR_UNFUSED if unfused else TRAIN_DIR
+    out_dir = ROOT / ".bench_cache" / ("smoke_train" + ("_" + pre.rstrip("_") if pre else ""))
     shutil.rmtree(out_dir, ignore_errors=True)
-    args = [a if a != str(TRAIN_DIR) else str(out_dir) for a in TRAIN_ARGS] + ["--device", "cuda"]
+    args = train_args(config, out_dir) + ["--device", "cuda"]
 
     with unfused_switch(unfused):
         # ---- the training path: counts set to 0 just before, read just after
@@ -765,7 +816,8 @@ def time_train_steps(torch, trainer, timings, n=8, pre=""):
           f"{max(step_ms):.3f} ms, {timings[pre + 'train_items_per_s']:.0f} items/s; host plan "
           f"{np.median(plan_ms):.3f} ms/batch, batch build {np.median(batch_ms):.3f} ms/batch (one host thread "
           f"each); cli epoch {timings[pre + 'cli_epoch_items_per_s']:.0f} items/s")
-    device_breakdown(torch, f"{pre}train step (4096 x 4096, d=512, bf16)", lambda: trainer.train_step(
+    label = f"{pre}train step (4096 x 4096, d=512, {trainer.model.embedder.dtype})"
+    device_breakdown(torch, label, lambda: trainer.train_step(
         trainer.variables, trainer.opt_state, trainer.regimes.hparams(), dev[n], trainer.generator), top=16)
 
 
@@ -791,14 +843,14 @@ def plain_c_f32(torch, args, hs):
 
 
 def residual_agreement(torch, args, got, want):
-    """Kernel 1's training outputs against the plain version's by the bf16
-    rule: last, and hs and cs at the positions each row reaches (the kernel
-    leaves the others unwritten)."""
-    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import bf16_agreement
+    """Kernel 1's training outputs against the plain version's by the rule
+    of their dtype: last, and hs and cs at the positions each row reaches
+    (the kernel leaves the others unwritten)."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import agreement
 
     act = active_mask(torch, args)
-    agree = {"last": bf16_agreement(got[0], want[0]), "hs": bf16_agreement(got[1][act], want[1][act]),
-             "cs": bf16_agreement(got[2][act], want[2][act])}
+    agree = {"last": agreement(got[0], want[0]), "hs": agreement(got[1][act], want[1][act]),
+             "cs": agreement(got[2][act], want[2][act])}
     text = "; ".join(f"{k} {a}" for k, a in agree.items())
     return all(a.ok() for a in agree.values()), text, max(a.max_abs_err for a in agree.values())
 
@@ -808,23 +860,28 @@ def check_lstm_residuals(torch, captured):
     version on the first step's entity and relation passes, as the training
     run launched it, with planted faults; returns the largest error."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
-    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_UNEQUAL_SHARE as share
 
     max_err = 0.0
     for name, (args, got) in zip(("entity pass", "relation pass"), captured):
         want = lk.lstm_encode_last_plain(*args, residuals=True)
         ok, text, err = residual_agreement(torch, args, got, want)
-        print(f"lstm_last_fwd with residuals, training {name} B={args[0].shape[1]}: {text} (tol {share:.0%})")
+        print(f"lstm_last_fwd with residuals, training {name} B={args[0].shape[1]} {args[0].dtype}: {text}")
         check(ok, f"the forward kernel's residuals disagree with the plain version on the {name}")
         max_err = max(max_err, err)
 
-    # planted faults: hs written one step late, cs stored in f32 (not rounded)
+    # planted faults: hs written one step late; at bf16 cs stored in f32 (not
+    # rounded), at f32 the TF32 yardstick and a dropped bias
     args, got = captured[0]
     last, hs, cs = lk.lstm_encode_last_plain(*args, residuals=True)
-    c32 = plain_c_f32(torch, args, hs)
-    check(torch.equal(c32.to(cs.dtype), cs), "the f32 cell states do not round to the plain version's cs")
-    faults = {"hs one step late": (last, torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]), cs),
-              "cs not rounded to bf16": (last, hs, c32)}
+    faults = {"hs one step late": (last, torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]), cs)}
+    if cs.dtype == torch.bfloat16:
+        c32 = plain_c_f32(torch, args, hs)
+        check(torch.equal(c32.to(cs.dtype), cs), "the f32 cell states do not round to the plain version's cs")
+        faults["cs not rounded to bf16"] = (last, hs, c32)
+    else:
+        faults["TF32 operands (yardstick)"] = lk.lstm_encode_last_plain(*tf32_operands(*args), residuals=True)
+        faults["bias dropped"] = lk.lstm_encode_last_plain(*args[:3], torch.zeros_like(args[3]), args[4],
+                                                           residuals=True)
     for fault, planted in faults.items():
         ok, text, _ = residual_agreement(torch, args, got, planted)
         print(f"planted fault {fault}: {text}")
@@ -834,44 +891,56 @@ def check_lstm_residuals(torch, captured):
 
 def backward_agreement(torch, args, got, want, share=True):
     """Kernel 2's (or 6's) outputs against the plain version's: demb at the
-    positions each row reaches and both dW by the bf16 rule with the
-    backward's share (without ``share`` the ulp bound alone), db to DB_RTOL
-    of max|db|.  Returns (ok, text, largest error)."""
-    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_UNEQUAL_SHARE_BWD, bf16_agreement
+    positions each row reaches and both dW by the rule of their dtype (bf16:
+    with the backward's share, or without ``share`` the ulp bound alone), db
+    to DB_RTOL of max|db| at bf16 and by the f32 rule at f32.  Returns (ok,
+    text, largest error)."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import (
+        MAX_UNEQUAL_SHARE_BWD,
+        agreement,
+        f32_agreement,
+    )
 
     want = [w.to(got[0].device) for w in want]
     act = active_mask(torch, args).to(got[0].device)
-    agree = [bf16_agreement(got[0][act], want[0][act]), bf16_agreement(got[1], want[1]),
-             bf16_agreement(got[2], want[2])]
-    db_err = (got[3] - want[3]).abs().max().item()
-    db_ok = db_err <= DB_RTOL * want[3].abs().max().item()
+    agree = [agreement(got[0][act], want[0][act]), agreement(got[1], want[1]), agreement(got[2], want[2])]
+    if got[0].dtype == torch.bfloat16:
+        db_err = (got[3] - want[3]).abs().max().item()
+        db_ok = db_err <= DB_RTOL * want[3].abs().max().item()
+        db_text = (f"db max err {db_err:.3e} ({db_err / max(want[3].abs().max().item(), 1e-30):.2e} of max|db|, "
+                   f"tol {DB_RTOL})")
+    else:
+        db_agree = f32_agreement(got[3], want[3])
+        db_err, db_ok, db_text = db_agree.max_abs_err, db_agree.ok(), f"db {db_agree}"
     ok = all(a.ok(MAX_UNEQUAL_SHARE_BWD if share else 1.0) for a in agree) and db_ok
-    text = (f"demb {agree[0]}; dW_ih {agree[1]}; dW_hh {agree[2]}; db max err {db_err:.3e} "
-            f"({db_err / max(want[3].abs().max().item(), 1e-30):.2e} of max|db|, tol {DB_RTOL})")
+    text = f"demb {agree[0]}; dW_ih {agree[1]}; dW_hh {agree[2]}; {db_text}"
     return ok, text, max([a.max_abs_err for a in agree] + [db_err])
 
 
 def demb_shares_by_step(torch, args, got, want):
-    """The share of demb elements not bit-equal, step by step."""
-    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import bf16_agreement
+    """The share of demb elements not bit-equal (bf16), or demb's error
+    relative to its max (f32), step by step."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import agreement
 
     act = active_mask(torch, args).to(got[0].device)
-    shares = [bf16_agreement(got[0][t][act[t]], want[0][t].to(got[0].device)[act[t]]).unequal_share
-              for t in range(len(act))]
-    return f"  demb unequal share by step t=0..{len(act) - 1}: " + " ".join(f"{x:.2%}" for x in shares)
+    steps = [agreement(got[0][t][act[t]], want[0][t].to(got[0].device)[act[t]]) for t in range(len(act))]
+    if got[0].dtype == torch.bfloat16:
+        return f"  demb unequal share by step t=0..{len(act) - 1}: " + " ".join(f"{a.unequal_share:.2%}" for a in steps)
+    return f"  demb relative error by step t=0..{len(act) - 1}: " + " ".join(f"{a.rel_err:.2e}" for a in steps)
 
 
 def check_backward_faults(torch, args, kernel_out):
     """Planted faults in the plain backward must fail the rule against the
-    kernel's ``kernel_out`` on ``args``: two in the cell arithmetic, and two
-    misplaced bf16 rounding points (c_t read in f32; dgates not rounded
+    kernel's ``kernel_out`` on ``args``: two in the cell arithmetic; at bf16
+    two misplaced bf16 rounding points (c_t read in f32; dgates not rounded
     before the products: the plain version at f32 on the same bf16 values,
-    its outputs rounded where the bf16 version rounds them)."""
+    its outputs rounded where the bf16 version rounds them), at f32 the TF32
+    yardstick and a dropped bias."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
 
     emb, w_ih, w_hh, bias, lens, hs, cs, dlast = args
     L = emb.shape[0]
-    c32 = plain_c_f32(torch, args, hs)
+    c32 = plain_c_f32(torch, args, hs) if emb.dtype == torch.bfloat16 else None
     cell = lk._bwd_cell
     steps = []
 
@@ -898,9 +967,13 @@ def check_backward_faults(torch, args, kernel_out):
             lambda g, cp, ct, dh, dc, dl: (cell(g, cp, ct, dh, dc, dl)[0], torch.zeros_like(dc))),
         "dlast injection skipped": with_cell(
             lambda g, cp, ct, dh, dc, dl: cell(g, cp, ct, dh, dc, torch.zeros_like(dl))),
-        "c_t read in f32": with_cell(c_t_f32),
-        "dgates not rounded before the products": unrounded_dgates,
     }
+    if emb.dtype == torch.bfloat16:
+        faults["c_t read in f32"] = with_cell(c_t_f32)
+        faults["dgates not rounded before the products"] = unrounded_dgates
+    else:
+        faults["TF32 operands (yardstick)"] = lambda: lk.lstm_last_backward_plain(*tf32_operands(*args, keep=(3, 6)))
+        faults["bias dropped"] = lambda: lk.lstm_last_backward_plain(*args[:3], torch.zeros_like(bias), *args[4:])
     for fault, run in faults.items():
         planted = run()
         ok, text, _ = backward_agreement(torch, args, kernel_out, planted)
@@ -924,7 +997,8 @@ def check_lstm_backward(torch, captured):
         want = plain[name] = lk.lstm_last_backward_plain(*args)
         torch.cuda.synchronize()
         ok, text, err = backward_agreement(torch, args, got, want)
-        print(f"lstm_last_bwd {name} B={args[0].shape[1]} L={args[0].shape[0]} D=H={args[0].shape[2]}: {text}")
+        print(f"lstm_last_bwd {name} B={args[0].shape[1]} L={args[0].shape[0]} D=H={args[0].shape[2]} "
+              f"{args[0].dtype}: {text}")
         print(demb_shares_by_step(torch, args, got, want))
         check(ok, f"LSTM backward kernel disagrees with its plain version on the {name}")
         max_err = max(max_err, err)
@@ -932,7 +1006,8 @@ def check_lstm_backward(torch, captured):
     # version on the card against the same on the CPU (f32 products in other
     # summation orders), and the plain version with tensor-core products
     # (TF32, exact for bf16 operands, f32 accumulation as in the kernel's
-    # mma) against the same with f32 SIMT products
+    # mma) against the same with f32 SIMT products.  At f32 the TF32 products
+    # round the operands: the f32 rule must fail them.
     args = relation
     cpu_want = lk.lstm_last_backward_plain(*(x.cpu() for x in args))
     _, text, _ = backward_agreement(torch, args, plain["relation pass"], cpu_want)
@@ -943,12 +1018,15 @@ def check_lstm_backward(torch, captured):
         tensor_core = lk.lstm_last_backward_plain(*args)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    _, text, _ = backward_agreement(torch, args, tensor_core, plain["relation pass"])
+    ok, text, _ = backward_agreement(torch, args, tensor_core, plain["relation pass"])
     print(f"lstm_last_bwd relation pass, plain with TF32 tensor-core products vs plain with f32 products: {text}")
     print(demb_shares_by_step(torch, args, tensor_core, plain["relation pass"]))
+    check(args[0].dtype == torch.bfloat16 or not ok, "the f32 rule passes the plain version's TF32 products")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rng = np.random.default_rng(SEED + 2)
+    dtype = args[0].dtype
+    sfx = "_f32" if dtype == torch.float32 else ""
     fwd_err = 0.0
     # ragged B with the synthetic lengths, and lengths uniform in 0..10 (rows
     # of length 0 and 1, and more long rows: the share of unequal elements
@@ -957,19 +1035,19 @@ def check_lstm_backward(torch, captured):
     cases.append(("B=37, lengths uniform in 0..10", np.sort(rng.integers(0, 11, 37)).astype(np.int32)[::-1].copy()))
     for label, lens in cases:
         b = len(lens)
-        emb, wih, whh, bias, lens_t, _ = lstm_inputs(torch, gen, 10, b, 512, 512, lens)
+        emb, wih, whh, bias, lens_t, _ = lstm_inputs(torch, gen, 10, b, 512, 512, lens, dtype)
         fwd_args = (emb, wih, whh, bias, lens_t)
         last, hs, cs = lk._forward(*fwd_args, residuals=True)
         ok, text, err = residual_agreement(torch, fwd_args, (last, hs, cs),
                                            lk.lstm_encode_last_plain(*fwd_args, residuals=True))
-        print(f"lstm_last_fwd with residuals {label}: {text}")
+        print(f"lstm_last_fwd{sfx} with residuals {label}: {text}")
         check(ok, f"the forward kernel's residuals disagree at {label}")
         fwd_err = max(fwd_err, err)
-        dlast = (torch.randn(b, 512, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        dlast = (torch.randn(b, 512, generator=gen, device="cuda") * 0.1).to(dtype)
         args = (*fwd_args, hs, cs, dlast)
         got, want = lk.lstm_last_backward(*args), lk.lstm_last_backward_plain(*args)
         ok, text, err = backward_agreement(torch, args, got, want)
-        print(f"lstm_last_bwd {label}: {text}")
+        print(f"lstm_last_bwd{sfx} {label}: {text}")
         check(ok, f"LSTM backward kernel disagrees at {label}")
         max_err = max(max_err, err)
 
@@ -984,44 +1062,66 @@ def check_lstm_backward(torch, captured):
     H = w_hh.shape[1]
     lens_np = lens.clamp(min=1).cpu().numpy()
     n_steps = int(lens_np.sum())
+    es = emb.element_size()
     # 3x the forward's work: gate recompute, demb and dW_ih per active
     # row-step; dh, the h half of the recompute and dW_hh from step 1 on
     flops = 3 * (n_steps * 2 * D * 4 * H + (n_steps - B) * 2 * H * 4 * H)
-    bytes_ = (n_steps * (D + 2 * H) * 2 + B * H * 2 + B * 4 + 4 * H * 4  # emb, hs, cs, dlast, lens, bias in
-              + 2 * 4 * H * (D + H) * 2  # both weights in, both dW out
-              + n_steps * D * 2 + 4 * H * 4)  # demb, db out
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, bytes_ / PEAK_BYTES_PER_S * 1e3
-    print(f"lstm_last_bwd timing entity pass B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+    bytes_ = (n_steps * (D + 2 * H) * es + B * H * es + B * 4 + 4 * H * 4  # emb, hs, cs, dlast, lens, bias in
+              + 2 * 4 * H * (D + H) * es  # both weights in, both dW out
+              + n_steps * D * es + 4 * H * 4)  # demb, db out
+    t_ops, t_bytes = flops / peak_flops(dtype) * 1e3, bytes_ / PEAK_BYTES_PER_S * 1e3
+    print(f"lstm_last_bwd{sfx} timing entity pass B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
           f"{library_ms} ms ({note}), bound {max(t_ops, t_bytes):.4f} ms ({flops:.4e} FLOP, {bytes_:.4e} B, "
           f"{n_steps} row-steps)")
-    return {"name": "lstm_last_bwd", "route": "cuda", "source": f"{PKG}/csrc/lstm_last_bwd.cu",
+    return {"name": "lstm_last_bwd" + sfx, "route": "cuda", "source": f"{PKG}/csrc/lstm_last_bwd.cu",
             "replaces": "open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:569",
             "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms}, fwd_err
 
 
-def lstm_bound(row, L, B, D, H, n_steps):
+def lstm_bound(row, L, B, D, H, n_steps, es=2):
     """(operations, bytes) of PERF.md's LSTM kernel rows 5-8 for L steps of B
-    rows with n_steps active row-steps.  Rows 5 and 6 are the fused
-    length-aware LSTM writing every hs and cs (and its backward with a full
-    dhs): the work of rows 1 and 2, plus the hs/cs (and dhs) bytes.  Rows 7
-    and 8 are the recurrence over a precomputed x_proj [L, B, 4H]: every row
-    every step, the h products from step 1 on (the backward: the recompute
-    and dh; its dW_hh is a product outside the kernels)."""
+    rows with n_steps active row-steps, with elements of ``es`` bytes (2:
+    bf16, 4: f32).  Rows 5 and 6 are the fused length-aware LSTM writing every
+    hs and cs (and its backward with a full dhs): the work of rows 1 and 2,
+    plus the hs/cs (and dhs) bytes.  Rows 7 and 8 are the recurrence over a
+    precomputed x_proj [L, B, 4H]: every row every step, the h products from
+    step 1 on (the backward: the recompute and dh; its dW_hh is a product
+    outside the kernels)."""
     fwd_ops = n_steps * 2 * D * 4 * H + (n_steps - B) * 2 * H * 4 * H
-    w = (D + H) * 4 * H * 2
+    w = (D + H) * 4 * H * es
     return {
-        5: (fwd_ops, n_steps * D * 2 + w + 4 * H * 4 + B * 4 + 2 * n_steps * H * 2),
-        6: (3 * fwd_ops, n_steps * (D + 3 * H) * 2 + B * 4 + 4 * H * 4 + 2 * w + n_steps * D * 2 + 4 * H * 4),
-        7: ((L - 1) * B * 2 * H * 4 * H, L * B * 4 * H * 2 + H * 4 * H * 2 + 2 * L * B * H * 2),
-        8: (2 * (L - 1) * B * 2 * H * 4 * H, L * B * (4 * H + 3 * H) * 2 + H * 4 * H * 2 + L * B * 4 * H * 2),
+        5: (fwd_ops, n_steps * D * es + w + 4 * H * 4 + B * 4 + 2 * n_steps * H * es),
+        6: (3 * fwd_ops, n_steps * (D + 3 * H) * es + B * 4 + 4 * H * 4 + 2 * w + n_steps * D * es + 4 * H * 4),
+        7: ((L - 1) * B * 2 * H * 4 * H, L * B * 4 * H * es + H * 4 * H * es + 2 * L * B * H * es),
+        8: (2 * (L - 1) * B * 2 * H * 4 * H, L * B * (4 * H + 3 * H) * es + H * 4 * H * es + L * B * 4 * H * es),
     }[row]
 
 
-def bound_ms(ops, bytes_):
-    t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, bytes_ / PEAK_BYTES_PER_S * 1e3
+def bound_ms(ops, bytes_, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = ops / peak * 1e3, bytes_ / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+# The card's FP32 rate outside the tensor cores (FFMA: 128 lanes per SM, 2
+# FLOP each per clock), computed by read_fp32_peak from the SM count and the
+# card's maximum SM clock; the f32 kernels' bounds are taken at it.
+PEAK_FP32_FLOPS = None
+
+
+def read_fp32_peak(torch):
+    """SM count x 128 lanes x 2 FLOP x the maximum SM clock nvidia-smi reads."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 128 * 2 * mhz * 1e6, sms, mhz
+
+
+def peak_flops(dtype):
+    """The peak rate the kernels of ``dtype`` are bound by: bf16 tensor cores,
+    or f32 FFMA on the CUDA cores."""
+    return PEAK_FP32_FLOPS if str(dtype) == "torch.float32" else PEAK_BF16_FLOPS
 
 
 def library_lstm_backward_ms(torch, args):
@@ -1030,7 +1130,8 @@ def library_lstm_backward_ms(torch, args):
     retained graph; never used by the port."""
     emb, w_ih, w_hh, bias, lens, _, _, dlast = args
     D, H = emb.shape[2], w_hh.shape[1]
-    lstm = torch.nn.LSTM(D, H).to(device="cuda", dtype=torch.bfloat16)
+    dt = str(emb.dtype).replace("torch.", "")
+    lstm = torch.nn.LSTM(D, H).to(device="cuda", dtype=emb.dtype)
     with torch.no_grad():
         lstm.weight_ih_l0.copy_(w_ih)
         lstm.weight_hh_l0.copy_(w_hh)
@@ -1043,37 +1144,38 @@ def library_lstm_backward_ms(torch, args):
         _, (h_n, _) = lstm(packed)
         grad = dlast[None]
         ms = cuda_ms(lambda: h_n.backward(grad, retain_graph=True), iters=10)
-    except RuntimeError as e:  # a library build without bf16 LSTM backward
-        return None, f"nn.LSTM bf16 backward unavailable: {str(e).splitlines()[0]}"
-    return ms, "nn.LSTM packed bf16 backward (cuDNN), h_n cotangent into inputs and weights"
+    except RuntimeError as e:  # a library build without this dtype's LSTM backward
+        return None, f"nn.LSTM {dt} backward unavailable: {str(e).splitlines()[0]}"
+    return ms, f"nn.LSTM packed {dt} backward (cuDNN), h_n cotangent into inputs and weights"
 
 
 # ------------------------------------------------- kernels 7 and 8: the unfused path
 
 
-def scan_inputs(torch, gen, L, B, H):
+def scan_inputs(torch, gen, L, B, H, dtype=None):
     """Random inputs of the recurrence at the unfused path's scale: x_proj
     (the projection of token embeddings of std 0.1, plus the bias) and
-    W_hh as ``nn.LSTM`` initializes it, in bf16."""
+    W_hh as ``nn.LSTM`` initializes it, in ``dtype`` (bf16 by default)."""
+    dtype = dtype or torch.bfloat16
     k = 1.0 / H ** 0.5
-    x_proj = (torch.randn(L, B, 4 * H, generator=gen, device=gen.device) * 0.5).to(torch.bfloat16)
-    w_hh = torch.empty(4 * H, H, device=gen.device).uniform_(-k, k, generator=gen).to(torch.bfloat16)
+    x_proj = (torch.randn(L, B, 4 * H, generator=gen, device=gen.device) * 0.5).to(dtype)
+    w_hh = torch.empty(4 * H, H, device=gen.device).uniform_(-k, k, generator=gen).to(dtype)
     return x_proj, w_hh
 
 
 def scan_agreement(torch, got, want, backward=False):
     """Kernel 7's (hs, cs) or kernel 8's dx_proj against the plain version's
-    by the bf16 rule with the forward's 2 % share: dx_proj is the rounded
-    dgates themselves, not a product of them (a misplaced rounding point
-    moves ~10 % of it).  Below SHARE_MIN_ROWS rows kernel 8 is held to the
-    ulp bound alone.  Returns (ok, text, largest error)."""
-    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_UNEQUAL_SHARE, bf16_agreement
+    by the rule of their dtype; at bf16 with the forward's 2 % share: dx_proj
+    is the rounded dgates themselves, not a product of them (a misplaced
+    rounding point moves ~10 % of it), and below SHARE_MIN_ROWS rows kernel 8
+    is held to the ulp bound alone.  Returns (ok, text, largest error)."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_UNEQUAL_SHARE, agreement
 
     if backward:
-        a = bf16_agreement(got, want.to(got.device))
+        a = agreement(got, want.to(got.device))
         share = MAX_UNEQUAL_SHARE if got.shape[1] >= SHARE_MIN_ROWS else 1.0
         return a.ok(share), f"dx_proj {a} (tol {share:.0%})", a.max_abs_err
-    hs, cs = (bf16_agreement(g, w.to(g.device)) for g, w in zip(got, want))
+    hs, cs = (agreement(g, w.to(g.device)) for g, w in zip(got, want))
     return (hs.ok(MAX_UNEQUAL_SHARE) and cs.ok(MAX_UNEQUAL_SHARE), f"hs {hs}; cs {cs} (tol {MAX_UNEQUAL_SHARE:.0%})",
             max(hs.max_abs_err, cs.max_abs_err))
 
@@ -1092,37 +1194,45 @@ def check_scan(torch, captured_fwd, captured_bwd, ragged=(1, 37, 4099)):
     cases = [(f"training {name}", args, out) for name, (args, out) in zip(("entity pass", "relation pass"),
                                                                            captured_fwd)]
     x_proj, w_hh = captured_fwd[0][0]
+    dtype = x_proj.dtype
+    sfx = "_f32" if dtype == torch.float32 else ""
     gen = torch.Generator(device=x_proj.device).manual_seed(SEED + 5)
     for b in ragged:
-        args = scan_inputs(torch, gen, x_proj.shape[0], b, w_hh.shape[1])
+        args = scan_inputs(torch, gen, x_proj.shape[0], b, w_hh.shape[1], dtype)
         cases.append((f"B={b}", args, sk.lstm_scan_forward(*args)))
     for label, args, got in cases:
         ok, text, err = scan_agreement(torch, got, sk.lstm_scan_forward_plain(*args))
-        print(f"lstm_scan_fwd {label} B={args[0].shape[1]}: {text}")
+        print(f"lstm_scan_fwd{sfx} {label} B={args[0].shape[1]}: {text}")
         check(ok, f"the recurrence kernel disagrees with its plain version at {label}")
         fwd_err = max(fwd_err, err)
         if label.startswith("B="):  # kernel 8 on kernel 7's residuals and a random cotangent
-            dhs = (torch.randn(*got[0].shape, generator=gen, device=gen.device) * 0.1).to(torch.bfloat16)
+            dhs = (torch.randn(*got[0].shape, generator=gen, device=gen.device) * 0.1).to(dtype)
             bargs = (*args, *got, dhs)
             ok, text, err = scan_agreement(torch, sk.lstm_scan_backward(*bargs),
                                            sk.lstm_scan_backward_plain(*bargs), backward=True)
-            print(f"lstm_scan_bwd {label}: {text}")
+            print(f"lstm_scan_bwd{sfx} {label}: {text}")
             check(ok, f"the recurrence backward kernel disagrees with its plain version at {label}")
             bwd_err = max(bwd_err, err)
     # autograd runs the relation pass's backward first (it was encoded last)
     for name, bargs in zip(("relation pass", "entity pass"), captured_bwd):
         got, want = sk.lstm_scan_backward(*bargs), sk.lstm_scan_backward_plain(*bargs)
         ok, text, err = scan_agreement(torch, got, want, backward=True)
-        print(f"lstm_scan_bwd training {name} B={bargs[0].shape[1]}: {text}")
+        print(f"lstm_scan_bwd{sfx} training {name} B={bargs[0].shape[1]}: {text}")
         check(ok, f"the recurrence backward kernel disagrees with its plain version on the {name}")
         bwd_err = max(bwd_err, err)
 
-    # planted faults, on the entity pass
+    # planted faults, on the entity pass; at f32 also the TF32 yardstick and a
+    # dropped recurrent product
     args, got = captured_fwd[0]
     late = (torch.cat([args[0][1:], args[0][-1:]]), args[1])
-    ok, text, _ = scan_agreement(torch, got, sk.lstm_scan_forward_plain(*late))
-    print(f"planted fault x_proj of step t+1 read at t: {text}")
-    check(not ok, "the rule passes a planted fault (x_proj of step t+1 read at t)")
+    fwd_faults = {"x_proj of step t+1 read at t": late}
+    if dtype == torch.float32:
+        fwd_faults.update({"TF32 operands (yardstick)": tf32_operands(*args, keep=()),
+                           "W_hh = 0": (args[0], torch.zeros_like(args[1]))})
+    for fault, fargs in fwd_faults.items():
+        ok, text, _ = scan_agreement(torch, got, sk.lstm_scan_forward_plain(*fargs))
+        print(f"planted fault {fault}: {text}")
+        check(not ok, f"the rule passes a planted fault ({fault})")
     bargs = captured_bwd[1]
     kernel_out = sk.lstm_scan_backward(*bargs)
     cell = lk._bwd_cell
@@ -1140,9 +1250,12 @@ def check_scan(torch, captured_fwd, captured_bwd, ragged=(1, 37, 4099)):
         "dc*f carry dropped": with_cell(
             lambda g, cp, ct, dh, dc, d: (cell(g, cp, ct, dh, dc, d)[0], torch.zeros_like(dc))),
         "dhs[t] not added": with_cell(lambda g, cp, ct, dh, dc, d: cell(g, cp, ct, dh, dc, torch.zeros_like(d))),
-        "dgates not rounded before the dh product":
-            lambda: sk.lstm_scan_backward_plain(*(x.float() for x in bargs)).to(bargs[0].dtype),
     }
+    if dtype == torch.bfloat16:
+        faults["dgates not rounded before the dh product"] = (
+            lambda: sk.lstm_scan_backward_plain(*(x.float() for x in bargs)).to(bargs[0].dtype))
+    else:
+        faults["TF32 operands (yardstick)"] = lambda: sk.lstm_scan_backward_plain(*tf32_operands(*bargs, keep=(3,)))
     for fault, run in faults.items():
         ok, text, _ = scan_agreement(torch, kernel_out, run(), backward=True)
         print(f"planted fault {fault}: {text}")
@@ -1151,11 +1264,13 @@ def check_scan(torch, captured_fwd, captured_bwd, ragged=(1, 37, 4099)):
 
 
 def library_lstm_all_ms(torch, D, H, emb, lens=None, grad=None):
-    """One cuDNN ``nn.LSTM`` call (bf16) over ``emb`` [L, B, D]: unpacked, or
-    packed by ``lens`` (every output returned either way).  With ``grad``
-    (the outputs' cotangent) the backward alone, timed over a retained
-    graph.  Timed, never used by the port; returns (ms or None, note)."""
-    lstm = torch.nn.LSTM(D, H).to(device="cuda", dtype=torch.bfloat16)
+    """One cuDNN ``nn.LSTM`` call in ``emb``'s dtype over ``emb`` [L, B, D]:
+    unpacked, or packed by ``lens`` (every output returned either way).  With
+    ``grad`` (the outputs' cotangent) the backward alone, timed over a
+    retained graph.  Timed, never used by the port; returns (ms or None,
+    note)."""
+    dt = str(emb.dtype).replace("torch.", "")
+    lstm = torch.nn.LSTM(D, H).to(device="cuda", dtype=emb.dtype)
     # cuDNN's flat weight buffer does not take bf16, so each call packs the
     # 4 MiB of weights anew (a few microseconds) and warns about it
     warnings.filterwarnings("ignore", message="RNN module weights are not part")
@@ -1170,13 +1285,13 @@ def library_lstm_all_ms(torch, D, H, emb, lens=None, grad=None):
         inp = pack(x)
         if grad is None:
             with torch.no_grad():
-                return cuda_ms(lambda: lstm(inp), iters=10), f"nn.LSTM {form} bf16 forward (cuDNN), every output"
+                return cuda_ms(lambda: lstm(inp), iters=10), f"nn.LSTM {form} {dt} forward (cuDNN), every output"
         out, _ = lstm(inp)
         out, g = (out, grad) if lens is None else (out.data, pack(grad).data)
         return (cuda_ms(lambda: out.backward(g, retain_graph=True), iters=10),
-                f"nn.LSTM {form} bf16 backward (cuDNN), every output's cotangent into inputs and weights")
-    except RuntimeError as e:  # a library build without bf16 LSTM support
-        return None, f"nn.LSTM bf16 {form} unavailable: {str(e).splitlines()[0]}"
+                f"nn.LSTM {form} {dt} backward (cuDNN), every output's cotangent into inputs and weights")
+    except RuntimeError as e:  # a library build without LSTM support in this dtype
+        return None, f"nn.LSTM {dt} {form} unavailable: {str(e).splitlines()[0]}"
 
 
 def time_scan(torch, captured_fwd, captured_bwd, fwd_err, bwd_err):
@@ -1189,7 +1304,9 @@ def time_scan(torch, captured_fwd, captured_bwd, fwd_err, bwd_err):
     bargs = captured_bwd[1]
     L, B, H4 = x_proj.shape
     H = H4 // 4
-    emb = torch.randn(L, B, H, device="cuda").to(torch.bfloat16) * 0.1
+    dtype = x_proj.dtype
+    sfx = "_f32" if dtype == torch.float32 else ""
+    emb = torch.randn(L, B, H, device="cuda").to(dtype) * 0.1
     rows = []
     for name, row, fn, plain, grad, err in (
             ("lstm_scan_fwd", 7, lambda: sk.lstm_scan_forward(x_proj, w_hh),
@@ -1199,11 +1316,11 @@ def time_scan(torch, captured_fwd, captured_bwd, fwd_err, bwd_err):
         ms = cuda_ms(fn, iters=10)
         plain_ms = cuda_ms(plain, iters=3)
         library_ms, note = library_lstm_all_ms(torch, H, H, emb, grad=grad)
-        ops, bytes_ = lstm_bound(row, L, B, H, H, L * B)
-        bound, by = bound_ms(ops, bytes_)
-        print(f"{name} timing training entity pass L={L} B={B} H={H}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {library_ms} ms ({note}), bound {bound:.4f} ms ({by}: {ops:.4e} FLOP, {bytes_:.4e} B)")
-        rows.append({"name": name, "route": "cuda", "source": f"{PKG}/csrc/lstm_scan.cu",
+        ops, bytes_ = lstm_bound(row, L, B, H, H, L * B, x_proj.element_size())
+        bound, by = bound_ms(ops, bytes_, peak_flops(dtype))
+        print(f"{name}{sfx} timing training entity pass L={L} B={B} H={H}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, library {library_ms} ms ({note}), bound {bound:.4f} ms ({by}: {ops:.4e} FLOP, {bytes_:.4e} B)")
+        rows.append({"name": name + sfx, "route": "cuda", "source": f"{PKG}/csrc/lstm_scan.cu",
                      "replaces": "open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:"
                                  + ("47" if row == 7 else "110"),
                      "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -1216,13 +1333,12 @@ def time_scan(torch, captured_fwd, captured_bwd, fwd_err, bwd_err):
 
 def every_state_agreement(torch, args, got, want):
     """Kernel 5's (hs, cs) against the plain version's at the positions each
-    row reaches, by the forward's bf16 rule."""
-    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_UNEQUAL_SHARE, bf16_agreement
+    row reaches, by the forward's rule of their dtype."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import agreement
 
     act = active_mask(torch, args)
-    hs, cs = (bf16_agreement(g[act], w.to(g.device)[act]) for g, w in zip(got, want))
-    return (hs.ok() and cs.ok(), f"hs {hs}; cs {cs} (tol {MAX_UNEQUAL_SHARE:.0%})",
-            max(hs.max_abs_err, cs.max_abs_err))
+    hs, cs = (agreement(g[act], w.to(g.device)[act]) for g, w in zip(got, want))
+    return hs.ok() and cs.ok(), f"hs {hs}; cs {cs}", max(hs.max_abs_err, cs.max_abs_err)
 
 
 def every_state_cases(torch, fwd_args, ragged):
@@ -1235,7 +1351,7 @@ def every_state_cases(torch, fwd_args, ragged):
     rng = np.random.default_rng(SEED + 6)
     cases = [(f"training entity pass B={emb.shape[1]}", fwd_args)]
     for b in ragged:
-        e, wi, wh, bi, ln, _ = lstm_inputs(torch, gen, emb.shape[0], b, D, H, synth_lengths(rng, b))
+        e, wi, wh, bi, ln, _ = lstm_inputs(torch, gen, emb.shape[0], b, D, H, synth_lengths(rng, b), emb.dtype)
         cases.append((f"B={b}", (e, wi, wh, bi, ln)))
     out = []
     for label, args in cases:
@@ -1250,38 +1366,54 @@ def check_every_state(torch, fwd_args, ragged=(1, 37, 4099)):
     """Kernels 5 and 6 against their plain versions on the first fused
     step's recorded entity pass and at ragged B, with a planted fault each
     (hs written one step late; the cotangent added only at each row's last
-    step).  Returns (forward error, backward error)."""
+    step), and at f32 the TF32 yardstick and a dropped bias each.  Returns
+    (forward error, backward error)."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
 
     fwd_err = bwd_err = 0.0
+    f32 = fwd_args[0].dtype == torch.float32
+    sfx = "_f32" if f32 else ""
     cases = every_state_cases(torch, fwd_args, ragged)
     for label, args, dhs in cases:
         hs, cs = lk.lstm_all_forward(*args)
         ok, text, err = every_state_agreement(torch, args, (hs, cs), lk.lstm_all_forward_plain(*args))
-        print(f"lstm_all_fwd {label}: {text}")
+        print(f"lstm_all_fwd{sfx} {label}: {text}")
         check(ok, f"the every-state forward kernel disagrees with its plain version at {label}")
         fwd_err = max(fwd_err, err)
         bargs = (*args, hs, cs, dhs)
         share = args[0].shape[1] >= SHARE_MIN_ROWS
         ok, text, err = backward_agreement(torch, bargs, lk.lstm_all_backward(*bargs),
                                            lk.lstm_all_backward_plain(*bargs), share=share)
-        print(f"lstm_all_bwd {label}: {text}{'' if share else ' (ulp bound only: one row)'}")
+        print(f"lstm_all_bwd{sfx} {label}: {text}{'' if share or f32 else ' (ulp bound only: one row)'}")
         check(ok, f"the every-state backward kernel disagrees with its plain version at {label}")
         bwd_err = max(bwd_err, err)
 
     _, args, dhs = cases[0]
     got = lk.lstm_all_forward(*args)
     hs, cs = lk.lstm_all_forward_plain(*args)
-    ok, text, _ = every_state_agreement(torch, args, got, (torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]), cs))
-    print(f"planted fault hs one step late: {text}")
-    check(not ok, "the rule passes a planted fault (hs one step late)")
+    no_bias = (*args[:3], torch.zeros_like(args[3]), args[4])
+    fwd_faults = {"hs one step late": (torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]), cs)}
+    if f32:
+        fwd_faults.update({"TF32 operands (yardstick)": lk.lstm_all_forward_plain(*tf32_operands(*args)),
+                           "bias dropped": lk.lstm_all_forward_plain(*no_bias)})
+    for fault, planted in fwd_faults.items():
+        ok, text, _ = every_state_agreement(torch, args, got, planted)
+        print(f"planted fault {fault}: {text}")
+        check(not ok, f"the rule passes a planted fault ({fault})")
     bargs = (*args, *got, dhs)
     lens = args[4].clamp(min=1).long()
     dlast = dhs[lens - 1, torch.arange(len(lens), device=lens.device)]
-    ok, text, _ = backward_agreement(torch, bargs, lk.lstm_all_backward(*bargs),
-                                     lk.lstm_last_backward_plain(*args, *got, dlast))
-    print(f"planted fault cotangent added only at each row's last step: {text}")
-    check(not ok, "the rule passes a planted fault (cotangent only at the last step)")
+    bwd_faults = {"cotangent added only at each row's last step": lambda: lk.lstm_last_backward_plain(
+        *args, *got, dlast)}
+    if f32:
+        bwd_faults.update({
+            "TF32 operands (yardstick)": lambda: lk.lstm_all_backward_plain(*tf32_operands(*bargs, keep=(3, 6))),
+            "bias dropped": lambda: lk.lstm_all_backward_plain(*no_bias, *got, dhs)})
+    kernel_out = lk.lstm_all_backward(*bargs)
+    for fault, run in bwd_faults.items():
+        ok, text, _ = backward_agreement(torch, bargs, kernel_out, run())
+        print(f"planted fault {fault}: {text}")
+        check(not ok, f"the rule passes a planted fault ({fault})")
     return fwd_err, bwd_err
 
 
@@ -1298,22 +1430,23 @@ def time_every_state(torch, fwd_args, fwd_err, bwd_err):
     emb, lens = args[0], args[4]
     L, B, D = emb.shape
     H = args[2].shape[1]
+    sfx = "_f32" if emb.dtype == torch.float32 else ""
     n_steps = int(lens.clamp(min=1).sum().item())
     rows = []
     for name, row, fn, plain, grad, err, src, line in (
             ("lstm_all_fwd", 5, lambda: lk.lstm_all_forward(*args), lambda: lk.lstm_all_forward_plain(*args),
-             None, fwd_err, "lstm_last_fwd.cu", "272"),
+             None, fwd_err, f"lstm_last_fwd{sfx}.cu", "272"),
             ("lstm_all_bwd", 6, lambda: lk.lstm_all_backward(*bargs), lambda: lk.lstm_all_backward_plain(*bargs),
              dhs, bwd_err, "lstm_last_bwd.cu", "341")):
         ms = cuda_ms(fn, iters=10)
         plain_ms = cuda_ms(plain, iters=3)
         library_ms, note = library_lstm_all_ms(torch, D, H, emb, lens=lens, grad=grad)
-        ops, bytes_ = lstm_bound(row, L, B, D, H, n_steps)
-        bound, by = bound_ms(ops, bytes_)
-        print(f"{name} timing training entity pass L={L} B={B} D=H={D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, library {library_ms} ms ({note}), bound {bound:.4f} ms ({by}: {ops:.4e} FLOP, {bytes_:.4e} B, "
-              f"{n_steps} row-steps)")
-        rows.append({"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}",
+        ops, bytes_ = lstm_bound(row, L, B, D, H, n_steps, emb.element_size())
+        bound, by = bound_ms(ops, bytes_, peak_flops(emb.dtype))
+        print(f"{name}{sfx} timing training entity pass L={L} B={B} D=H={D}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {library_ms} ms ({note}), bound {bound:.4f} ms ({by}: {ops:.4e} FLOP, "
+              f"{bytes_:.4e} B, {n_steps} row-steps)")
+        rows.append({"name": name + sfx, "route": "cuda", "source": f"{PKG}/csrc/{src}",
                      "replaces": f"open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:{line}",
                      "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": by, "library_ms": library_ms})
@@ -1342,10 +1475,13 @@ def phase_every_state_op(torch, fwd_args):
     L = emb.shape[0]
     want = {name: 0 for name in counters}
     want.update({"lstm_all_fwd": L, "lstm_all_bwd": 2 * L + 1})
-    grads_ok = all(torch.isfinite(p.grad).all().item() for p in (*params.values(), x))
+    # x.grad (demb) holds unread garbage at the positions a row never reaches
+    grads = {**{n: p.grad for n, p in params.items()}, "x": x.grad[act]}
+    finite = {n: torch.isfinite(g).all().item() for n, g in grads.items()}
     print(f"lstm_forward_tm_sorted forward and backward, entity pass B={emb.shape[1]}: launches {launches}, "
-          f"finite gradients {grads_ok}")
-    check(launches == want and grads_ok, f"lstm_forward_tm_sorted launches {launches}, want {want}")
+          f"finite gradients {finite}")
+    check(launches == want, f"lstm_forward_tm_sorted launches {launches}, want {want}")
+    check(all(finite.values()), f"lstm_forward_tm_sorted gave non-finite gradients: {finite}")
     return launches
 
 
@@ -1483,6 +1619,111 @@ def library_row_adagrad_ms(torch, g_rows, uids, valid, p, acc, clr, eps):
         return None, f"torch.optim.Adagrad with a sparse gradient unavailable: {str(e).splitlines()[0]}"
 
 
+# ------------------------------------------------------------ the f32 model
+
+
+def write_f32_config():
+    """The flagship config with its ``dtype`` line removed, so the model
+    computes in float32, the default of both packages."""
+    import yaml
+
+    cfg = yaml.safe_load(FLAGSHIP.read_text())
+    cfg["model_config"].pop("dtype")
+    F32_CONFIG.parent.mkdir(parents=True, exist_ok=True)
+    F32_CONFIG.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return F32_CONFIG
+
+
+def phase_f32(torch, timings, by_path):
+    """The f32 model through the same entry points as the bf16 phases, with
+    the f32 modes of kernels 1, 2 and 5-8 held to their plain versions by the
+    f32 rule (the TF32 yardstick, a dropped bias and a dropped recurrent
+    product must fail it); fills ``by_path`` with the launch counts of its
+    paths and returns the six f32 kernel rows."""
+    config = write_f32_config()
+    rows = [phase_kernels(torch, torch.float32)]
+    trainer, capture, by_path["train_f32"], n_steps = phase_train(torch, timings, config=config, tag="f32_")
+    check(trainer.model.embedder.dtype == "float32", f"the f32 config built a {trainer.model.embedder.dtype} model")
+    ckpt = check_training(torch, trainer, by_path["train_f32"], n_steps)
+    time_train_steps(torch, trainer, timings, pre="f32_")
+    del trainer
+    row_bwd, fwd_err = check_lstm_backward(torch, capture.bwd)
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], fwd_err, check_lstm_residuals(torch, capture.fwd))
+    rows.append(row_bwd)
+    entity_pass = capture.fwd[0][0]
+    del capture
+    rows += time_every_state(torch, entity_pass, *check_every_state(torch, entity_pass))
+    by_path["op_f32"] = phase_every_state_op(torch, entity_pass)
+    del entity_pass
+    torch.cuda.empty_cache()
+
+    trainer, capture, by_path["train_unfused_f32"], n_steps = phase_train(
+        torch, timings, unfused=True, config=config, tag="f32_")
+    check(not (capture.fwd or capture.bwd) and len(capture.scan_fwd) == len(capture.scan_bwd) == 2,
+          "the unfused f32 run recorded fused launches or missed the recurrence's")
+    check_training(torch, trainer, by_path["train_unfused_f32"], n_steps, unfused=True)
+    del trainer
+    rows += time_scan(torch, capture.scan_fwd, capture.scan_bwd, *check_scan(torch, capture.scan_fwd, capture.scan_bwd))
+    del capture
+    torch.cuda.empty_cache()
+
+    by_path["serve_f32"] = phase_main_path(torch, timings, ckpt=ckpt, config=config, tag="f32_")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_any_h(torch):
+    """The unfused path at H = 100 (D = 64), in bf16 and f32: kernels 7 and 8
+    through the padded route (bf16 pads H to 104, f32 takes 100 as it is)
+    against their plain versions on the same inputs, and the op
+    ``ops/lstm.py::lstm_forward_tm`` forward and backward on the card against
+    the CPU, with exact launch counts."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm as port_lstm
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import (
+        MAX_UNEQUAL_SHARE,
+        MAX_UNEQUAL_SHARE_BWD,
+        agreement,
+    )
+
+    L, B, D, H = 10, 1024, 64, 100
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        x_proj, w_hh = scan_inputs(torch, gen, L, B, H, dtype)
+        dhs = (torch.randn(L, B, H, generator=gen, device="cuda") * 0.1).to(dtype)
+        before = (sk.lstm_scan_forward.launches, sk.lstm_scan_backward.launches)
+        hs, cs = sk.lstm_scan_forward(x_proj, w_hh)
+        dxp = sk.lstm_scan_backward(x_proj, w_hh, hs, cs, dhs)
+        launches = (sk.lstm_scan_forward.launches - before[0], sk.lstm_scan_backward.launches - before[1])
+        want_hs, want_cs = sk.lstm_scan_forward_plain(x_proj, w_hh)
+        checks = {"hs": agreement(hs, want_hs), "cs": agreement(cs, want_cs),
+                  "dx_proj": agreement(dxp, sk.lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs))}
+        print(f"H={H} {dtype} kernels 7/8 vs plain, B={B}: launches {launches}; "
+              + "; ".join(f"{k} {a}" for k, a in checks.items()))
+        check(launches == (L, 2 * L - 1), f"H={H} {dtype}: launches {launches}, want {(L, 2 * L - 1)}")
+        check(all(a.ok(MAX_UNEQUAL_SHARE_BWD if k == "dx_proj" else MAX_UNEQUAL_SHARE) for k, a in checks.items()),
+              f"H={H} {dtype}: kernels 7/8 disagree with their plain versions")
+
+        rng = np.random.default_rng(SEED + 7)
+        init = {"w_ih": (4 * H, D), "w_hh": (4 * H, H), "b_ih": (4 * H,), "b_hh": (4 * H,)}
+        params = {n: rng.uniform(-0.1, 0.1, s).astype(np.float32) for n, s in init.items()}
+        x = (rng.standard_normal((L, B, D)) * 0.5).astype(np.float32)
+        cot = torch.from_numpy((rng.standard_normal((L, B, H)) * 0.5).astype(np.float32))
+        res = []
+        for dev in ("cuda", "cpu"):
+            p = {n: torch.from_numpy(v).to(dev).requires_grad_() for n, v in params.items()}
+            px = torch.from_numpy(x).to(dev).requires_grad_()
+            out = port_lstm.lstm_forward_tm(p, px.to(dtype))
+            (out.float() * cot.to(dev)).sum().backward()
+            res.append([t.detach().cpu() for t in (out, px.grad, p["w_ih"].grad, p["w_hh"].grad)])
+        names = ("hs", "dx", "dW_ih", "dW_hh")
+        agree = {n: agreement(g.to(dtype), w.to(dtype)) for n, g, w in zip(names, *res)}
+        print(f"H={H} {dtype} lstm_forward_tm on the card vs the CPU, B={B} D={D}: "
+              + "; ".join(f"{k} {a}" for k, a in agree.items()))
+        check(all(a.ok(MAX_UNEQUAL_SHARE if k == "hs" else MAX_UNEQUAL_SHARE_BWD) for k, a in agree.items()),
+              f"H={H} {dtype}: the unfused op on the card disagrees with the CPU")
+
+
 def build_kernels(torch, timings):
     """nvcc for every CUDA source (started together), then one launch of each
     Triton kernel on a few elements, which compiles it."""
@@ -1491,7 +1732,7 @@ def build_kernels(torch, timings):
     from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.build(["lstm_last_fwd.cu", "lstm_last_bwd.cu", "lstm_scan.cu"])
+    cuda_build.build(CUDA_SOURCES)
     timings["build_cuda_s"] = time.perf_counter() - t0
     for name, log in cuda_build.BUILD_LOGS.items():
         info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
@@ -1504,7 +1745,7 @@ def build_kernels(torch, timings):
                     torch.ones(4, dtype=torch.bool, device="cuda"), x.clone(), x.clone(), clr, 0.0, 1e-10)
     torch.cuda.synchronize()
     timings["build_triton_s"] = time.perf_counter() - t0
-    print(f"build: nvcc {timings['build_cuda_s']:.2f} s (3 sources in parallel), Triton "
+    print(f"build: nvcc {timings['build_cuda_s']:.2f} s ({len(CUDA_SOURCES)} sources in parallel), Triton "
           f"{timings['build_triton_s']:.2f} s (2 kernels)")
 
 
@@ -1534,6 +1775,10 @@ def main() -> int:
 
     timings = {}
     try:
+        global PEAK_FP32_FLOPS
+        PEAK_FP32_FLOPS, sms, mhz = read_fp32_peak(torch)
+        print(f"FP32 peak outside the tensor cores: {sms} SMs x 128 lanes x 2 FLOP x {mhz:.0f} MHz (max SM clock) = "
+              f"{PEAK_FP32_FLOPS / 1e12:.2f} TFLOP/s")
         build_kernels(torch, timings)
         row_fwd = phase_kernels(torch)
         by_path = {}
@@ -1572,11 +1817,21 @@ def main() -> int:
         by_path["serve"] = phase_main_path(torch, timings, ckpt=ckpt)
         with unfused_switch():
             by_path["serve_unfused"] = phase_main_path(torch, timings, ckpt=ckpt_unfused, unfused=True)
+        torch.cuda.empty_cache()
+
+        by_path_f32 = {}
+        rows += phase_f32(torch, timings, by_path_f32)
+        phase_any_h(torch)
+        check([row["name"] for row in rows] == KERNEL_ROWS, f"kernel rows {[row['name'] for row in rows]}")
     except (SmokeFailure, RuntimeError, subprocess.SubprocessError, OSError) as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     for row in rows:
-        row["launches_by_path"] = {path: counts[row["name"]] for path, counts in by_path.items()}
+        # an LSTM row counts the paths of its dtype; the Adagrads run on both
+        name = row["name"].removesuffix("_f32")
+        paths = (by_path_f32 if row["name"].endswith("_f32") else by_path) if name.startswith("lstm_") else {
+            **by_path, **by_path_f32}
+        row["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     print("timings: " + json.dumps(timings))
     print(json.dumps({"kernels": rows}))

@@ -53,8 +53,18 @@
 // a prefix, found by a binary search over the lengths.  Inactive rows are
 // never read: every load of a row past the step's active prefix is
 // zero-filled.  Any B; D and H multiples of 8.
+//
+// The f32 mode (the *_f32 entries; the TPU kernels take their inputs' dtype)
+// computes the same with the rounding points dropped: the residuals, the
+// cotangent, dg, demb and dW in f32, every product in true f32 FFMA on the
+// CUDA cores (lstm_f32.cuh; no TF32), bound by FP32 operations.  The same
+// three launches: lstm_bwd_gate_kernel_f32 (gate_product_f32 and the same
+// cell math, db_part from a fixed-order sum), lstm_bwd_product_kernel_f32
+// and lstm_bwd_dw_kernel_f32 (a register-tiled FFMA product over the same
+// (t, row chunk) walk, summed in blocks of 256 rows, then the same db
+// reduction).  D and H multiples of 4.
 
-#include "lstm_product.cuh"
+#include "lstm_f32.cuh"
 
 namespace {
 
@@ -165,11 +175,12 @@ struct DwArgs {
     int D, H, L;
 };
 
-// Next (step, row chunk) of the K walk: row chunks of BK over each step's
-// active rows (nrows at step t), steps in order, steps with no active row
-// skipped.
-__device__ __forceinline__ void dw_advance(const DwArgs& p, int& t, int& k0, int& nrows) {
-    k0 += BK;
+// Next (step, row chunk) of the K walk: row chunks of `chunk` over each
+// step's active rows (nrows at step t), steps in order, steps with no active
+// row skipped.
+template <typename Args>
+__device__ __forceinline__ void dw_advance(const Args& p, int chunk, int& t, int& k0, int& nrows) {
+    k0 += chunk;
     while (t < p.L && k0 >= nrows) {
         ++t;
         k0 = 0;
@@ -181,7 +192,8 @@ __device__ __forceinline__ void dw_advance(const DwArgs& p, int& t, int& k0, int
 // rb active at t (its first row is), for this block's columns: thread
 // (lane = tid / DBC) sums the (t, rb) entries lane, lane + NT / DBC, ... in
 // order, then one thread per column adds the partial sums in order.
-__device__ void db_reduce(const DwArgs& p) {
+template <typename Args>
+__device__ void db_reduce(const Args& p) {
     __shared__ float part[NT / DBC][DBC];
     const int H4 = 4 * p.H;
     const int nrb = (int)((p.B + BM - 1) / BM);
@@ -254,12 +266,12 @@ __global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel(const DwArgs p) {
 
     int t = hh ? 1 : 0, k0 = -BK;
     int nrows = t < p.L ? active_rows(p.lens, p.B, t) : 0;
-    dw_advance(p, t, k0, nrows);
+    dw_advance(p, BK, t, k0, nrows);
     if (t < p.L) {
         int s = 0;
         load(t, k0, nrows, s);
         cp_async_commit();
-        dw_advance(p, t, k0, nrows);
+        dw_advance(p, BK, t, k0, nrows);
         while (true) {
             const bool more = t < p.L;
             if (more) load(t, k0, nrows, s ^ 1);
@@ -291,7 +303,7 @@ __global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel(const DwArgs p) {
             }
             __syncthreads();
             if (!more) break;
-            dw_advance(p, t, k0, nrows);
+            dw_advance(p, BK, t, k0, nrows);
             s ^= 1;
         }
     }
@@ -306,6 +318,220 @@ __global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel(const DwArgs p) {
                 const int n = n0 + wn * 64 + ni * 8 + tig * 2 + (e & 1);
                 if (m < H4 && n < N) out[(size_t)m * N + n] = f32_to_bf16(acc[mi][ni][e]);
             }
+}
+
+// ------------------------------------------------------------------ f32 mode
+
+struct GateBwdArgsF32 {
+    GateArgsF32 g;         // x = emb[t], h_prev = hs[t-1]
+    const float* bias;     // [4H]
+    const int* lens;       // [B]
+    const float* cs_t;     // [B, H] c_t
+    const float* cs_prev;  // [B, H] c_{t-1}; unread at t == 0
+    const float* dlast;    // [B, H]: dlast, or dhs[t] in the every-state mode
+    int every_step;        // 1: add dlast at every active step (dhs[t]); 0: at len == t+1
+    const float* dh;       // [B, H] dh carry from step t+1 (0 for rows first active at t)
+    float* dc;             // [B, H] dc carry in, dc * f out
+    float* dg;             // [B, 4H] dgates of step t
+    float* db_part;        // [gridDim.x, 4H] per-row-block sums of the dgates of step t
+};
+
+__global__ void __launch_bounds__(NT) lstm_bwd_gate_kernel_f32(const GateBwdArgsF32 p) {
+    __shared__ __align__(16) TileAF As[2];
+    __shared__ __align__(16) TileWF Bs[2];
+    __shared__ int s_len[BM];
+    __shared__ float s_db[NT / 32][4 * BN];  // [warp][gate column of the block]
+
+    const long long row0 = (long long)blockIdx.x * BM;
+    const int j0 = blockIdx.y * BN;
+    const int t = p.g.t, H = p.g.H;
+    if (!load_lengths(p.lens, p.g.B, row0, t, s_len)) return;
+
+    float acc[FRM][4][FUN];
+    gate_product_f32(p.g, row0, j0, s_len, As, Bs, acc);
+
+    float dbs[4][FUN] = {};  // [gate][unit]: this thread's rows, in order
+#pragma unroll
+    for (int i = 0; i < FRM; ++i) {
+        const int r = f32_row(i);
+        const int len = s_len[r];
+        if (len <= t) continue;
+#pragma unroll
+        for (int u = 0; u < FUN; ++u) {
+            const int j = j0 + f32_unit(u);
+            if (j >= H) continue;
+            const size_t o = (size_t)(row0 + r) * H + j;
+            const float c_prev = t > 0 ? p.cs_prev[o] : 0.f;
+            const bool inject = p.every_step || len == t + 1;
+            const float dh = p.dh[o] + (inject ? p.dlast[o] : 0.f);
+            const float pre[4] = {acc[i][0][u] + p.bias[j], acc[i][1][u] + p.bias[H + j],
+                                  acc[i][2][u] + p.bias[2 * H + j], acc[i][3][u] + p.bias[3 * H + j]};
+            float d[4];
+            p.dc[o] = bwd_cell(pre, p.cs_t[o], c_prev, dh, p.dc[o], d);
+            float* dg_row = p.dg + (size_t)(row0 + r) * 4 * H + j;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+                dg_row[(size_t)g * H] = d[g];
+                dbs[g][u] += d[g];
+            }
+        }
+    }
+
+    // db: the two row groups of a warp (lanes l and l ^ 16), then the eight
+    // warps in a fixed order
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int u = 0; u < FUN; ++u) {
+            const float v = dbs[g][u] + __shfl_xor_sync(0xffffffffu, dbs[g][u], 16);
+            if (lane < 16) s_db[warp][g * BN + f32_unit(u)] = v;
+        }
+    __syncthreads();
+    for (int i = threadIdx.x; i < 4 * BN; i += NT) {
+        const int g = i / BN, j = j0 + i % BN;
+        if (j >= H) continue;
+        float v = 0.f;
+        for (int w = 0; w < NT / 32; ++w) v += s_db[w][i];
+        p.db_part[(size_t)blockIdx.x * 4 * H + (size_t)g * H + j] = v;
+    }
+}
+
+constexpr int FWLD = WB + 4;  // smem row stride of the k-major f32 tiles
+// dW sums over every active (row, step), 26636 terms on the flagship's entity
+// pass: one f32 accumulator taking them in turn drifted from the plain
+// version's per-step products by 1.2e-5 of max|dW| on an H100, too near the
+// f32 rule's limit.  So the kernel sums blocks of DW_BLOCK chunks (256 rows) apart and
+// adds the block sums into a second accumulator.
+constexpr int DW_BLOCK = 16;
+
+struct DwArgsF32 {
+    const float* dg;       // [L, B, 4H]
+    const float* x;        // [L, B, D]
+    const float* hs;       // [L, B, H]
+    const int* lens;       // [B], sorted descending
+    const float* db_part;  // [L, ceil(B / BM), 4H]: written for the active row blocks only
+    float* dw_ih;          // [4H, D]
+    float* dw_hh;          // [4H, H]
+    float* db;             // [4H]
+    long long B;
+    int D, H, L;
+};
+
+// The dW tile walk of lstm_bwd_dw_kernel with an FFMA product: thread (tm =
+// tid / 16, tn = tid % 16) holds gate columns m0 + 4 tm + 64 w + e and output
+// columns n0 + 4 tn + 64 v + e, both read as float4 from the k-major tiles.
+__global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel_f32(const DwArgsF32 p) {
+    __shared__ __align__(16) float As[2][FBK][FWLD];  // dg rows (k) x gate columns (m)
+    __shared__ __align__(16) float Bs[2][FBK][FWLD];  // x or h rows (k) x output columns (n)
+
+    const int H4 = 4 * p.H;
+    const int nyd = (p.D + WB - 1) / WB;
+    const bool hh = (int)blockIdx.y >= nyd;
+    const int N = hh ? p.H : p.D;
+    const int m0 = blockIdx.x * WB;
+    const int n0 = (hh ? blockIdx.y - nyd : blockIdx.y) * WB;
+    float* out = hh ? p.dw_hh : p.dw_ih;
+    const int tm = threadIdx.x / 16, tn = threadIdx.x % 16;
+    float acc[2][4][2][4], sum[2][4][2][4];  // this block of chunks; the blocks before it
+    // sum += acc, acc = 0 (fixed order: the walk is the same in every thread)
+    auto flush = [&]() {
+#pragma unroll
+        for (int w = 0; w < 2; ++w)
+#pragma unroll
+            for (int em = 0; em < 4; ++em)
+#pragma unroll
+                for (int v = 0; v < 2; ++v)
+#pragma unroll
+                    for (int en = 0; en < 4; ++en) {
+                        sum[w][em][v][en] += acc[w][em][v][en];
+                        acc[w][em][v][en] = 0.f;
+                    }
+    };
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+#pragma unroll
+        for (int em = 0; em < 4; ++em)
+#pragma unroll
+            for (int v = 0; v < 2; ++v)
+#pragma unroll
+                for (int en = 0; en < 4; ++en) acc[w][em][v][en] = sum[w][em][v][en] = 0.f;
+
+    db_reduce(p);
+
+    // dW_hh pairs dg[t] with h_{t-1} = hs[t-1]: no term at t = 0 (h_0 = 0)
+    auto load = [&](int t, int k0, int nrows, int s) {
+        const float* a = p.dg + (size_t)t * p.B * H4;
+        const float* b = hh ? p.hs + (size_t)(t - 1) * p.B * p.H : p.x + (size_t)t * p.B * p.D;
+        constexpr int CH = WB / 4;  // 16-byte chunks per tile row
+        for (int i = threadIdx.x; i < FBK * CH; i += NT) {
+            const int kr = i / CH, c = (i % CH) * 4;
+            const long long row = k0 + kr;
+            const float* asrc = a + (size_t)row * H4 + m0 + c;
+            const bool aok = row < nrows && m0 + c < H4;
+            cp_async16(&As[s][kr][c], aok ? asrc : a, aok ? 16 : 0);
+            const float* bsrc = b + (size_t)row * N + n0 + c;
+            const bool bok = row < nrows && n0 + c < N;
+            cp_async16(&Bs[s][kr][c], bok ? bsrc : b, bok ? 16 : 0);
+        }
+    };
+
+    int t = hh ? 1 : 0, k0 = -FBK;
+    int nrows = t < p.L ? active_rows(p.lens, p.B, t) : 0;
+    dw_advance(p, FBK, t, k0, nrows);
+    if (t < p.L) {
+        int s = 0;
+        load(t, k0, nrows, s);
+        cp_async_commit();
+        dw_advance(p, FBK, t, k0, nrows);
+        for (int chunk = 1;; ++chunk) {
+            const bool more = t < p.L;
+            if (more) load(t, k0, nrows, s ^ 1);
+            cp_async_commit();
+            cp_async_wait_1();
+            __syncthreads();
+#pragma unroll
+            for (int k = 0; k < FBK; ++k) {
+                float4 a[2], b[2];
+#pragma unroll
+                for (int w = 0; w < 2; ++w) a[w] = *reinterpret_cast<const float4*>(&As[s][k][tm * 4 + 64 * w]);
+#pragma unroll
+                for (int v = 0; v < 2; ++v) b[v] = *reinterpret_cast<const float4*>(&Bs[s][k][tn * 4 + 64 * v]);
+#pragma unroll
+                for (int w = 0; w < 2; ++w) {
+                    const float av[4] = {a[w].x, a[w].y, a[w].z, a[w].w};
+#pragma unroll
+                    for (int em = 0; em < 4; ++em)
+#pragma unroll
+                        for (int v = 0; v < 2; ++v) {
+                            acc[w][em][v][0] = fmaf(av[em], b[v].x, acc[w][em][v][0]);
+                            acc[w][em][v][1] = fmaf(av[em], b[v].y, acc[w][em][v][1]);
+                            acc[w][em][v][2] = fmaf(av[em], b[v].z, acc[w][em][v][2]);
+                            acc[w][em][v][3] = fmaf(av[em], b[v].w, acc[w][em][v][3]);
+                        }
+                }
+            }
+            __syncthreads();
+            if (chunk % DW_BLOCK == 0) flush();
+            if (!more) break;
+            dw_advance(p, FBK, t, k0, nrows);
+            s ^= 1;
+        }
+    }
+    flush();
+
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+#pragma unroll
+        for (int em = 0; em < 4; ++em)
+#pragma unroll
+            for (int v = 0; v < 2; ++v)
+#pragma unroll
+                for (int en = 0; en < 4; ++en) {
+                    const int m = m0 + tm * 4 + 64 * w + em;
+                    const int n = n0 + tn * 4 + 64 * v + en;
+                    if (m < H4 && n < N) out[(size_t)m * N + n] = sum[w][em][v][en];
+                }
 }
 
 }  // namespace
@@ -379,5 +605,73 @@ extern "C" int oket_lstm_bwd_dw_bf16(const void* dg, const void* x, const void* 
     p.L = L;
     const dim3 grid((unsigned)((4 * H + WB - 1) / WB), (unsigned)((D + WB - 1) / WB + (H + WB - 1) / WB));
     lstm_bwd_dw_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 mode: the same three entries for f32 x, hs, cs, dlast (or dhs[t]),
+// weights, dg, demb and dW (lens int32, bias, dh, dc, db_part and db f32, as
+// in the bf16 entries); D % 4 == H % 4 == 0.
+extern "C" int oket_lstm_bwd_gate_f32(const void* x, const void* h_prev, const void* w_ih, const void* w_hh,
+                                      const void* bias, const void* lens, const void* cs_t, const void* cs_prev,
+                                      const void* dlast, int every_step, const void* dh, void* dc, void* dg,
+                                      void* db_part, long long B, int D, int H, int t, void* stream) {
+    GateBwdArgsF32 p;
+    p.g.x = static_cast<const float*>(x);
+    p.g.h_prev = static_cast<const float*>(h_prev);
+    p.g.w_ih = static_cast<const float*>(w_ih);
+    p.g.w_hh = static_cast<const float*>(w_hh);
+    p.g.B = B;
+    p.g.D = D;
+    p.g.H = H;
+    p.g.t = t;
+    p.bias = static_cast<const float*>(bias);
+    p.lens = static_cast<const int*>(lens);
+    p.cs_t = static_cast<const float*>(cs_t);
+    p.cs_prev = static_cast<const float*>(cs_prev);
+    p.dlast = static_cast<const float*>(dlast);
+    p.every_step = every_step;
+    p.dh = static_cast<const float*>(dh);
+    p.dc = static_cast<float*>(dc);
+    p.dg = static_cast<float*>(dg);
+    p.db_part = static_cast<float*>(db_part);
+    const dim3 grid((unsigned)((B + BM - 1) / BM), (unsigned)((H + BN - 1) / BN));
+    lstm_bwd_gate_kernel_f32<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int oket_lstm_bwd_product_f32(const void* dg, const void* w_hh, const void* w_ih, const void* lens,
+                                         void* dh, void* demb, long long B, int D, int H, int t, void* stream) {
+    ProdArgsF32 p;
+    p.dg = static_cast<const float*>(dg);
+    p.w_hh = static_cast<const float*>(w_hh);
+    p.w_ih = static_cast<const float*>(w_ih);
+    p.lens = static_cast<const int*>(lens);
+    p.dh = static_cast<float*>(dh);
+    p.demb = static_cast<float*>(demb);
+    p.B = B;
+    p.D = D;
+    p.H = H;
+    p.t = t;
+    return launch_bwd_product_f32(p, stream);
+}
+
+extern "C" int oket_lstm_bwd_dw_f32(const void* dg, const void* x, const void* hs, const void* lens,
+                                    const void* db_part, void* dw_ih, void* dw_hh, void* db, long long B, int D,
+                                    int H, int L, void* stream) {
+    DwArgsF32 p;
+    p.dg = static_cast<const float*>(dg);
+    p.x = static_cast<const float*>(x);
+    p.hs = static_cast<const float*>(hs);
+    p.lens = static_cast<const int*>(lens);
+    p.db_part = static_cast<const float*>(db_part);
+    p.dw_ih = static_cast<float*>(dw_ih);
+    p.dw_hh = static_cast<float*>(dw_hh);
+    p.db = static_cast<float*>(db);
+    p.B = B;
+    p.D = D;
+    p.H = H;
+    p.L = L;
+    const dim3 grid((unsigned)((4 * H + WB - 1) / WB), (unsigned)((D + WB - 1) / WB + (H + WB - 1) / WB));
+    lstm_bwd_dw_kernel_f32<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
     return static_cast<int>(cudaGetLastError());
 }

@@ -39,8 +39,16 @@
 //     K = 4H, from step 1 on (the dh of step 0 is never read, so the wrapper
 //     does not launch it at t = 0).
 // Any B; H a multiple of 8.  Rows and units past B and H are masked.
+//
+// The f32 mode (the *_f32 entries; the TPU kernels take their inputs' dtype):
+// the same three launches for f32 x_proj, w_hh, hs, cs, dhs and dx_proj, with
+// the rounding points dropped, every product in true f32 FFMA on the CUDA
+// cores (lstm_f32.cuh::gate_product_f32 with D = 0 and
+// lstm_bwd_product_kernel_f32; no TF32), bound by FP32 operations; H a
+// multiple of 4.  Any other H reaches the kernels zero-padded by the wrapper
+// (ops/lstm_scan_kernel.py).
 
-#include "lstm_product.cuh"
+#include "lstm_f32.cuh"
 
 namespace {
 
@@ -167,6 +175,112 @@ GateArgs recurrent_args(const void* h_prev, const void* w_hh, long long B, int H
 
 dim3 step_grid(long long B, int H) { return dim3((unsigned)((B + BM - 1) / BM), (unsigned)((H + BN - 1) / BN)); }
 
+// ------------------------------------------------------------------ f32 mode
+
+struct ScanArgsF32 {
+    GateArgsF32 g;    // D = 0; h_prev = hs[t-1], unread at t == 0
+    const float* xp;  // [B, 4H] x_proj[t]
+    float* c;         // [B, H] cell state, updated in place
+    float* hs_t;      // [B, H] out: h_t
+    float* cs_t;      // [B, H] out: c_t
+};
+
+__global__ void __launch_bounds__(NT) lstm_scan_step_kernel_f32(const ScanArgsF32 p) {
+    __shared__ __align__(16) TileAF As[2];
+    __shared__ __align__(16) TileWF Bs[2];
+    __shared__ int s_len[BM];
+
+    const long long row0 = (long long)blockIdx.x * BM;
+    const int j0 = blockIdx.y * BN;
+    const int t = p.g.t, H = p.g.H;
+    all_rows(p.g.B, row0, t, s_len);
+
+    float acc[FRM][4][FUN];
+    gate_product_f32(p.g, row0, j0, s_len, As, Bs, acc);
+
+#pragma unroll
+    for (int i = 0; i < FRM; ++i) {
+        const int r = f32_row(i);
+        if (s_len[r] == 0) continue;
+#pragma unroll
+        for (int u = 0; u < FUN; ++u) {
+            const int j = j0 + f32_unit(u);
+            if (j >= H) continue;
+            const float* xp = p.xp + (size_t)(row0 + r) * 4 * H + j;
+            const float gi = sigmoidf(acc[i][0][u] + xp[0]);
+            const float gf = sigmoidf(acc[i][1][u] + xp[H]);
+            const float gg = tanhf(acc[i][2][u] + xp[2 * H]);
+            const float go = sigmoidf(acc[i][3][u] + xp[3 * H]);
+            const size_t o = (size_t)(row0 + r) * H + j;
+            const float c_prev = t > 0 ? p.c[o] : 0.f;
+            const float c_new = gf * c_prev + gi * gg;
+            p.c[o] = c_new;
+            p.hs_t[o] = go * tanhf(c_new);
+            p.cs_t[o] = c_new;
+        }
+    }
+}
+
+struct ScanBwdArgsF32 {
+    GateArgsF32 g;         // D = 0; h_prev = hs[t-1], unread at t == 0
+    const float* xp;       // [B, 4H] x_proj[t]
+    const float* cs_t;     // [B, H] c_t
+    const float* cs_prev;  // [B, H] c_{t-1}; unread at t == 0
+    const float* dhs_t;    // [B, H] the cotangent of hs[t]
+    const float* dh;       // [B, H] dh carry from step t+1 (0 at t = L-1)
+    float* dc;             // [B, H] dc carry in, dc * f out
+    float* dxp;            // [B, 4H] out: dgates of step t
+};
+
+__global__ void __launch_bounds__(NT) lstm_scan_bwd_gate_kernel_f32(const ScanBwdArgsF32 p) {
+    __shared__ __align__(16) TileAF As[2];
+    __shared__ __align__(16) TileWF Bs[2];
+    __shared__ int s_len[BM];
+
+    const long long row0 = (long long)blockIdx.x * BM;
+    const int j0 = blockIdx.y * BN;
+    const int t = p.g.t, H = p.g.H;
+    all_rows(p.g.B, row0, t, s_len);
+
+    float acc[FRM][4][FUN];
+    gate_product_f32(p.g, row0, j0, s_len, As, Bs, acc);
+
+#pragma unroll
+    for (int i = 0; i < FRM; ++i) {
+        const int r = f32_row(i);
+        if (s_len[r] == 0) continue;
+#pragma unroll
+        for (int u = 0; u < FUN; ++u) {
+            const int j = j0 + f32_unit(u);
+            if (j >= H) continue;
+            const size_t row = (size_t)(row0 + r);
+            const float* xp = p.xp + row * 4 * H + j;
+            const float pre[4] = {acc[i][0][u] + xp[0], acc[i][1][u] + xp[H], acc[i][2][u] + xp[2 * H],
+                                  acc[i][3][u] + xp[3 * H]};
+            const size_t o = row * H + j;
+            const float c_prev = t > 0 ? p.cs_prev[o] : 0.f;
+            float d[4];
+            p.dc[o] = bwd_cell(pre, p.cs_t[o], c_prev, p.dh[o] + p.dhs_t[o], p.dc[o], d);
+            float* dxp = p.dxp + row * 4 * H + j;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) dxp[(size_t)g * H] = d[g];
+        }
+    }
+}
+
+GateArgsF32 recurrent_args_f32(const void* h_prev, const void* w_hh, long long B, int H, int t) {
+    GateArgsF32 g;
+    g.x = nullptr;
+    g.h_prev = static_cast<const float*>(h_prev);
+    g.w_ih = nullptr;
+    g.w_hh = static_cast<const float*>(w_hh);
+    g.B = B;
+    g.D = 0;
+    g.H = H;
+    g.t = t;
+    return g;
+}
+
 }  // namespace
 
 // Forward step t over rows [0, B): x_proj[t] [B, 4H], h_prev = hs[t-1] (any
@@ -218,4 +332,50 @@ extern "C" int oket_lstm_scan_bwd_product_bf16(const void* dxp, const void* w_hh
     p.H = H;
     p.t = t;
     return launch_bwd_product(p, stream);
+}
+
+// The f32 mode: the same three entries for f32 x_proj, w_hh, hs, cs, dhs and
+// dx_proj (c, dh and dc f32, as in the bf16 entries); H % 4 == 0.
+extern "C" int oket_lstm_scan_step_f32(const void* xp, const void* h_prev, const void* w_hh, void* c, void* hs_t,
+                                       void* cs_t, long long B, int H, int t, void* stream) {
+    ScanArgsF32 p;
+    p.g = recurrent_args_f32(h_prev, w_hh, B, H, t);
+    p.xp = static_cast<const float*>(xp);
+    p.c = static_cast<float*>(c);
+    p.hs_t = static_cast<float*>(hs_t);
+    p.cs_t = static_cast<float*>(cs_t);
+    lstm_scan_step_kernel_f32<<<step_grid(B, H), NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int oket_lstm_scan_bwd_gate_f32(const void* xp, const void* h_prev, const void* w_hh, const void* cs_t,
+                                           const void* cs_prev, const void* dhs_t, const void* dh, void* dc,
+                                           void* dxp, long long B, int H, int t, void* stream) {
+    ScanBwdArgsF32 p;
+    p.g = recurrent_args_f32(h_prev, w_hh, B, H, t);
+    p.xp = static_cast<const float*>(xp);
+    p.cs_t = static_cast<const float*>(cs_t);
+    p.cs_prev = static_cast<const float*>(cs_prev);
+    p.dhs_t = static_cast<const float*>(dhs_t);
+    p.dh = static_cast<const float*>(dh);
+    p.dc = static_cast<float*>(dc);
+    p.dxp = static_cast<float*>(dxp);
+    lstm_scan_bwd_gate_kernel_f32<<<step_grid(B, H), NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int oket_lstm_scan_bwd_product_f32(const void* dxp, const void* w_hh, void* dh, long long B, int H, int t,
+                                              void* stream) {
+    ProdArgsF32 p;
+    p.dg = static_cast<const float*>(dxp);
+    p.w_hh = static_cast<const float*>(w_hh);
+    p.w_ih = nullptr;
+    p.lens = nullptr;
+    p.dh = static_cast<float*>(dh);
+    p.demb = nullptr;
+    p.B = B;
+    p.D = 0;
+    p.H = H;
+    p.t = t;
+    return launch_bwd_product_f32(p, stream);
 }

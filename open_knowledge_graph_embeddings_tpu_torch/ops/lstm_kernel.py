@@ -22,13 +22,15 @@ VJP joins each pair there, an ``autograd.Function`` here (:class:`_LstmLast`,
   step; with residuals it also writes hs/cs, and without ``last`` it is the
   every-state forward) and ``csrc/lstm_last_bwd.cu`` (two launches per step
   and one for dW and db; the cotangent enters at each row's last step or at
-  every step).  Both are bound by tensor-core operations on an H100; their
-  design notes are at the top of the sources.
+  every step).  At bf16 both are bound by tensor-core operations on an H100.
+  Their f32 modes (``csrc/lstm_last_fwd_f32.cu`` and the ``*_f32`` entries of
+  ``lstm_last_bwd.cu``) take true f32 products on the CUDA cores and are
+  bound by FP32 operations.  Design notes are at the top of the sources.
 
 :func:`lstm_encode_last_fused`, :func:`lstm_last_backward`,
 :func:`lstm_all_forward` and :func:`lstm_all_backward` are the wrappers: a
 CPU tensor takes the plain version, a CUDA tensor takes the kernel or
-raises.  Each counts its kernel launches in ``.launches``.
+raises.  Each counts its kernel launches in ``.launches``, in either dtype.
 """
 
 from __future__ import annotations
@@ -39,7 +41,10 @@ import functools
 import torch
 
 _FWD_SOURCE = "lstm_last_fwd.cu"
+_FWD_F32_SOURCE = "lstm_last_fwd_f32.cu"
 _BWD_SOURCE = "lstm_last_bwd.cu"
+# the C entry points' suffix by compute dtype
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -237,12 +242,23 @@ def _sm_count(device_index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_fns():
-    """The backward kernels' C entry points (gate, product, dW)."""
+def _fwd_f32_fn():
+    """The f32 forward kernel's C entry point (one launch per step)."""
     from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load(_BWD_SOURCE)
-    gate, prod, dw = lib.oket_lstm_bwd_gate_bf16, lib.oket_lstm_bwd_product_bf16, lib.oket_lstm_bwd_dw_bf16
+    fn = cuda_build.load(_FWD_F32_SOURCE).oket_lstm_last_step_f32
+    fn.argtypes = [_P] * 10 + [_LL, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fns(dtype):
+    """The backward kernels' C entry points (gate, product, dW) for ``dtype``."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
+
+    lib, sfx = cuda_build.load(_BWD_SOURCE), _SUFFIX[dtype]
+    gate, prod, dw = (getattr(lib, f"oket_lstm_bwd_{part}_{sfx}") for part in ("gate", "product", "dw"))
     gate.argtypes = [_P] * 9 + [_I] + [_P] * 4 + [_LL, _I, _I, _I, _P]
     prod.argtypes = [_P] * 6 + [_LL, _I, _I, _I, _P]
     dw.argtypes = [_P] * 8 + [_LL, _I, _I, _I, _P]
@@ -251,14 +267,20 @@ def _bwd_fns():
     return gate, prod, dw
 
 
+def kernel_multiple(dtype) -> int:
+    """The multiple of D and H the LSTM kernels take at ``dtype``: a tile row
+    is whole 16-byte copies (8 bf16 or 4 f32 values)."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
+
+
 def _check_kernel_inputs(dtype, D, H, **tensors):
-    if dtype != torch.bfloat16:
-        raise TypeError(
-            f"the CUDA LSTM kernels take bfloat16 inputs, got {dtype}; "
-            "run an f32 model with device='cpu'"
-        )
-    if D % 8 or H % 8:
-        raise ValueError(f"the CUDA LSTM kernels take D and H divisible by 8, got D={D} H={H}")
+    if dtype not in _SUFFIX:
+        raise TypeError(f"the CUDA LSTM kernels take bfloat16 or float32 inputs, got {dtype}")
+    m = kernel_multiple(dtype)
+    if D % m or H % m:
+        # the model sends the fused kernels D and H divisible by 128 only
+        # (ops/lstm.py::lstm_fused_supported); the recurrence pads H
+        raise ValueError(f"the CUDA LSTM kernels take D and H divisible by {m} at {dtype}, got D={D} H={H}")
     for name, x in tensors.items():
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
@@ -291,6 +313,10 @@ FORWARD_VARIANTS = {"kernel": 0, "no epilogue": 1, "no products": 2}
 def _launch_steps(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, counter, variant="kernel"):
     L, B, D, H = _check(emb_tm, w_ih, w_hh, bias, lengths)
     _check_kernel_inputs(emb_tm.dtype, D, H, emb_tm=emb_tm, w_ih=w_ih, w_hh=w_hh)
+    if emb_tm.dtype == torch.float32:
+        if variant != "kernel":
+            raise ValueError(f"the measuring variant {variant!r} is the bf16 kernel's")
+        return _launch_steps_f32(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, counter)
     fn = _fwd_fn()
     grid = forward_grid(B, H, _sm_count(emb_tm.device.index))
     bias = bias.contiguous()
@@ -325,6 +351,38 @@ def _launch_steps(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, count
     return last, hs, cs
 
 
+def _launch_steps_f32(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, counter):
+    """Kernels 1 and 5 in f32 (``csrc/lstm_last_fwd_f32.cu``): one launch per
+    step over the grid of row and unit tiles; the same buffers as the bf16
+    kernel's."""
+    L, B, D, H = emb_tm.shape[0], emb_tm.shape[1], emb_tm.shape[2], w_hh.shape[1]
+    fn = _fwd_f32_fn()
+    bias = bias.contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    dev, dt = emb_tm.device, emb_tm.dtype
+    c = torch.empty(B, H, dtype=torch.float32, device=dev)
+    last = torch.zeros(B, H, dtype=dt, device=dev) if with_last else None
+    if residuals:
+        hs = torch.empty(L, B, H, dtype=dt, device=dev)  # h of step t written into hs[t]
+        cs = torch.empty(L, B, H, dtype=dt, device=dev)
+        h_buf = hs
+    else:
+        hs = cs = None
+        h_buf = torch.empty(2, B, H, dtype=dt, device=dev)  # h_{t-1} and h_t, in turns
+    if B and H:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        slots, step = h_buf.shape[0], B * H * 4  # bytes of one [B, H] slice
+        emb, h0, cs0 = emb_tm.data_ptr(), h_buf.data_ptr(), cs.data_ptr() if residuals else None
+        ptrs = [x.data_ptr() for x in (w_ih, w_hh, bias, lens, c)]
+        last_ptr = last.data_ptr() if with_last else None
+        for t in range(L):
+            err = fn(emb + t * B * D * 4, h0 + (t - 1) % slots * step, *ptrs, h0 + t % slots * step,
+                     None if cs0 is None else cs0 + t * step, last_ptr, B, D, H, t, stream)
+            _raise_on(err, f"lstm_last_fwd_f32 step {t}")
+            counter.launches += 1
+    return last, hs, cs
+
+
 def _launch_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast):
     """Kernel 2: the cotangent ``dlast`` [B, H] enters at each row's last step."""
     return _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast, False, lstm_last_backward)
@@ -340,7 +398,7 @@ def _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step
     dev, dt = emb_tm.device, emb_tm.dtype
     _check_residuals(L, B, H, dt, hs, cs, cot, dev, every_step)
     _check_kernel_inputs(dt, D, H, emb_tm=emb_tm, w_ih=w_ih, w_hh=w_hh, hs=hs, cs=cs, cotangent=cot)
-    gate, prod, dw = _bwd_fns()
+    gate, prod, dw = _bwd_fns(dt)
     bias = bias.contiguous()
     lens = lengths.to(torch.int32).contiguous()
     dh = torch.zeros(B, H, dtype=torch.float32, device=dev)

@@ -19,7 +19,13 @@ of each half:
   go here, and ``chip_smoke.py`` holds the kernels against them on the card;
 * the hand-written CUDA kernels of ``csrc/lstm_scan.cu``: one launch per
   forward step; per backward step a gate launch and, from step 1 on, a
-  product launch.  Design notes and bound at the top of the source.
+  product launch, in bf16 or f32 (the ``*_f32`` entries: true f32 products on
+  the CUDA cores).  Design notes and bound at the top of the source.  They
+  take H in multiples of :func:`~.lstm_kernel.kernel_multiple`; any other H
+  is zero-padded per gate block on the way in and sliced on the way out
+  (:func:`padded_forward`, :func:`padded_backward`), which is exact: a padded
+  unit has zero pre-activations, so c = h = 0 at every step, and its zero
+  W_hh column adds nothing to the others.
 
 :func:`lstm_scan_forward` and :func:`lstm_scan_backward` are the wrappers: a
 CPU tensor takes the plain version, a CUDA tensor takes the kernel or raises.
@@ -133,13 +139,13 @@ def lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs):
 
 
 @functools.lru_cache(maxsize=None)
-def _fns():
-    """The C entry points (forward step, backward gate, backward product),
-    built and loaded on first use."""
+def _fns(dtype):
+    """The C entry points (forward step, backward gate, backward product) for
+    ``dtype``, built and loaded on first use."""
     from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load(_SOURCE)
-    fwd, gate, prod = lib.oket_lstm_scan_step_bf16, lib.oket_lstm_scan_bwd_gate_bf16, lib.oket_lstm_scan_bwd_product_bf16
+    lib, sfx = cuda_build.load(_SOURCE), lstm_kernel._SUFFIX[dtype]
+    fwd, gate, prod = (getattr(lib, f"oket_lstm_scan_{part}_{sfx}") for part in ("step", "bwd_gate", "bwd_product"))
     fwd.argtypes = [_P] * 6 + [_LL, _I, _I, _P]
     gate.argtypes = [_P] * 9 + [_LL, _I, _I, _P]
     prod.argtypes = [_P] * 3 + [_LL, _I, _I, _P]
@@ -148,10 +154,55 @@ def _fns():
     return fwd, gate, prod
 
 
+def _pad_units(x, Hp, gates=False):
+    """``x`` [..., H] (or [..., 4H] with ``gates``: four gate blocks) with
+    zeros appended to each block up to Hp units."""
+    H = x.shape[-1] // (4 if gates else 1)
+    if gates:
+        x = x.reshape(*x.shape[:-1], 4, H)
+    x = torch.nn.functional.pad(x, (0, Hp - H))
+    return x.reshape(*x.shape[:-2], 4 * Hp) if gates else x
+
+
+def _unpad_units(x, H, gates=False):
+    """The inverse of :func:`_pad_units`: the first H units of each block."""
+    if gates:
+        Hp = x.shape[-1] // 4
+        return x.reshape(*x.shape[:-1], 4, Hp)[..., :H].reshape(*x.shape[:-1], 4 * H).contiguous()
+    return x[..., :H].contiguous()
+
+
+def padded_forward(forward, x_proj, w_hh, Hp):
+    """``forward`` (kernel 7 or its plain version) over H zero-padded to Hp
+    units: x_proj [L, B, 4H] -> [L, B, 4Hp] and w_hh [4H, H] -> [4Hp, Hp] per
+    gate block; hs and cs sliced back to H."""
+    H = w_hh.shape[-1]
+    w_pad = _pad_units(_pad_units(w_hh, Hp).t(), Hp, gates=True).t().contiguous()
+    hs, cs = forward(_pad_units(x_proj, Hp, gates=True), w_pad)
+    return _unpad_units(hs, H), _unpad_units(cs, H)
+
+
+def padded_backward(backward, x_proj, w_hh, hs, cs, dhs, Hp):
+    """``backward`` (kernel 8 or its plain version) over H zero-padded to Hp
+    units (hs, cs and dhs padded with zeros, the padded forward's values);
+    dx_proj sliced back to [L, B, 4H]."""
+    H = w_hh.shape[-1]
+    w_pad = _pad_units(_pad_units(w_hh, Hp).t(), Hp, gates=True).t().contiguous()
+    dxp = backward(_pad_units(x_proj, Hp, gates=True), w_pad, *(_pad_units(x, Hp) for x in (hs, cs, dhs)))
+    return _unpad_units(dxp, H, gates=True)
+
+
+def _padded_h(H, dtype):
+    m = lstm_kernel.kernel_multiple(dtype)
+    return -(-H // m) * m
+
+
 def _launch_forward(x_proj, w_hh):
     L, B, H = _check(x_proj, w_hh)
+    if _padded_h(H, x_proj.dtype) != H:
+        return padded_forward(_launch_forward, x_proj, w_hh, _padded_h(H, x_proj.dtype))
     lstm_kernel._check_kernel_inputs(x_proj.dtype, 0, H, x_proj=x_proj, w_hh=w_hh)  # no input part: D = 0
-    fwd, _, _ = _fns()
+    fwd, _, _ = _fns(x_proj.dtype)
     dev = x_proj.device
     hs = torch.empty(L, B, H, dtype=x_proj.dtype, device=dev)
     cs = torch.empty_like(hs)
@@ -169,8 +220,10 @@ def _launch_forward(x_proj, w_hh):
 def _launch_backward(x_proj, w_hh, hs, cs, dhs):
     L, B, H = _check(x_proj, w_hh)
     _check_residuals(L, B, H, x_proj, hs=hs, cs=cs, dhs=dhs)
+    if _padded_h(H, x_proj.dtype) != H:
+        return padded_backward(_launch_backward, x_proj, w_hh, hs, cs, dhs, _padded_h(H, x_proj.dtype))
     lstm_kernel._check_kernel_inputs(x_proj.dtype, 0, H, x_proj=x_proj, w_hh=w_hh, hs=hs, cs=cs, dhs=dhs)
-    _, gate, prod = _fns()
+    _, gate, prod = _fns(x_proj.dtype)
     dev = x_proj.device
     dxp = torch.empty_like(x_proj)
     dh = torch.zeros(B, H, dtype=torch.float32, device=dev)
@@ -196,15 +249,15 @@ def _launch_backward(x_proj, w_hh, hs, cs, dhs):
 
 
 def lstm_scan_forward(x_proj, w_hh):
-    """Kernel 7: same contract as :func:`lstm_scan_forward_plain`.  CUDA
-    tensors launch the kernel (one launch per step, counted in
+    """Kernel 7: same contract as :func:`lstm_scan_forward_plain`, any H.
+    CUDA tensors launch the kernel (one launch per step, counted in
     ``lstm_scan_forward.launches``); CPU tensors take the plain version."""
     return _on_device(x_proj, _launch_forward, lstm_scan_forward_plain)(x_proj, w_hh)
 
 
 def lstm_scan_backward(x_proj, w_hh, hs, cs, dhs):
-    """Kernel 8: same contract as :func:`lstm_scan_backward_plain`.  CUDA
-    tensors launch the kernels (a gate launch per step and a product launch
+    """Kernel 8: same contract as :func:`lstm_scan_backward_plain`, any H.
+    CUDA tensors launch the kernels (a gate launch per step and a product launch
     per step from step 1 on, ``2L - 1`` in all, counted in
     ``lstm_scan_backward.launches``); CPU tensors take the plain version."""
     return _on_device(x_proj, _launch_backward, lstm_scan_backward_plain)(x_proj, w_hh, hs, cs, dhs)

@@ -20,7 +20,11 @@ from open_knowledge_graph_embeddings_tpu_torch.data.dataset import load_meta
 from open_knowledge_graph_embeddings_tpu_torch.inference import Predictor
 from open_knowledge_graph_embeddings_tpu_torch.models.model import build_model
 from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel
-from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_UNEQUAL_SHARE_BWD, assert_bf16_close
+from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import (
+    MAX_UNEQUAL_SHARE_BWD,
+    assert_bf16_close,
+    assert_f32_close,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -101,9 +105,16 @@ def test_forward_modes_across_tile_edges_on_card(cuda, B, D):
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
+    """f32 is taken (the JAX package's default compute dtype); what is
+    refused: another dtype, a strided or misplaced input, and at the fused
+    kernels a D or H that is not whole 16-byte rows (the model sends them D
+    and H divisible by 128 only, as the JAX package does its fused kernel).
+    The unfused path takes any H (test_scan_kernels_take_any_h_on_card)."""
     emb, w_ih, w_hh, bias, lens = (x.to(cuda) for x in _inputs(8, 64))
-    with pytest.raises(TypeError, match="bfloat16"):
-        lstm_kernel.lstm_encode_last_fused(emb.float(), w_ih.float(), w_hh.float(), bias, lens)
+    f32 = (emb.float(), w_ih.float(), w_hh.float(), bias, lens)
+    assert_f32_close(lstm_kernel.lstm_encode_last_fused(*f32), lstm_kernel.lstm_encode_last_plain(*f32))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        lstm_kernel.lstm_encode_last_fused(emb.half(), w_ih.half(), w_hh.half(), bias, lens)
     with pytest.raises(ValueError, match="contiguous"):
         lstm_kernel.lstm_encode_last_fused(emb.transpose(0, 1).contiguous().transpose(0, 1),
                                            w_ih, w_hh, bias, lens)
@@ -112,6 +123,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     e, wi, wh, b, ln = (x.to(cuda) for x in _inputs(8, 100))
     with pytest.raises(ValueError, match="divisible by 8"):
         lstm_kernel.lstm_encode_last_fused(e, wi, wh, b, ln)
+    e, wi, wh, b, ln = (x.to(cuda) for x in _inputs(8, 102))
+    with pytest.raises(ValueError, match="divisible by 4"):
+        lstm_kernel.lstm_encode_last_fused(e.float(), wi.float(), wh.float(), b, ln)
 
 
 def test_serving_on_card_matches_cpu(cuda, tmp_path):
@@ -380,3 +394,174 @@ def test_unfused_serving_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     assert lstm_kernel.lstm_encode_last_fused.launches == before[0]
     assert sk.lstm_scan_forward.launches == before[1] + 10 * -(-meta.entities_size // 32768)
     assert_bf16_close(on_card.cand_emb.cpu(), Predictor(model, cpu_vars).cand_emb)
+
+
+# ------------------------------------------------------------------ f32 modes
+
+# Every f32 mode against its plain version across the tile edges: 128-row
+# and 32-unit gate tiles, 16-wide K tiles, 128-column product and dW tiles,
+# with D != H both ways.  Held to utils/numerics.py's f32 rule (largest
+# difference relative to max|want|).
+F32_SHAPES = [(b, d, h) for b in (1, 37, 128, 129, 4099) for d, h in ((128, 256), (256, 128))]
+F32_IDS = [f"B{b}-D{d}-H{h}" for b, d, h in F32_SHAPES]
+
+
+def _f32_inputs(B, D, H, L=10, seed=0):
+    """Seeded f32 inputs on the CPU: lengths 0..L sorted descending,
+    embeddings, gate-major weights, bias, and a cotangent of every state
+    (zero where a row never reaches) and of the last state."""
+    rng = np.random.default_rng(seed)
+    lens = np.sort(rng.integers(0, L + 1, B).astype(np.int32))[::-1].copy()
+    f = lambda *s, sc=0.5: torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32))  # noqa: E731
+    u = lambda *s, k: torch.from_numpy(rng.uniform(-k, k, s).astype(np.float32))  # noqa: E731
+    act = torch.from_numpy(_active(lens, L))
+    emb, w_ih, w_hh = f(L, B, D), u(4 * H, D, k=1 / np.sqrt(D)), u(4 * H, H, k=1 / np.sqrt(H))
+    return emb, w_ih, w_hh, u(4 * H, k=2 / np.sqrt(H)), torch.from_numpy(lens), f(L, B, H) * act[..., None], f(B, H)
+
+
+@pytest.mark.parametrize("B,D,H", F32_SHAPES, ids=F32_IDS)
+def test_f32_forward_modes_across_tile_edges_on_card(cuda, B, D, H):
+    """Kernels 1 and 5 in f32 (csrc/lstm_last_fwd_f32.cu): serving (last),
+    training (last, hs, cs) and every state (hs, cs), one launch per step."""
+    emb, w_ih, w_hh, bias, lens, _, _ = (x.to(cuda) for x in _f32_inputs(B, D, H, seed=B + D))
+    args = (emb, w_ih, w_hh, bias, lens)
+    L = emb.shape[0]
+    act = torch.from_numpy(_active(lens.cpu().numpy(), L)).to(cuda)
+    want_last, want_hs, want_cs = lstm_kernel.lstm_encode_last_plain(*args, residuals=True)
+    count = lstm_kernel.lstm_encode_last_fused
+    before = count.launches
+    serve, _, _ = lstm_kernel._launch_steps(*args, False, True, count)
+    last, hs, cs = lstm_kernel._launch_steps(*args, True, True, count)
+    _, all_hs, all_cs = lstm_kernel._launch_steps(*args, True, False, count)
+    torch.cuda.synchronize()
+    assert count.launches == before + 3 * L
+    assert serve.dtype == hs.dtype == torch.float32 and torch.equal(serve, last)
+    assert_f32_close(last, want_last)
+    for got_hs, got_cs in ((hs, cs), (all_hs, all_cs)):
+        assert_f32_close(got_hs[act], want_hs[act])
+        assert_f32_close(got_cs[act], want_cs[act])
+
+
+@pytest.mark.parametrize("B,D,H", F32_SHAPES, ids=F32_IDS)
+def test_f32_backward_modes_across_tile_edges_on_card(cuda, B, D, H):
+    """Kernels 2 and 6 in f32 (the *_f32 entries of csrc/lstm_last_bwd.cu)
+    on kernel 1's f32 residuals: demb at the positions each row reaches, dW,
+    db; 2L + 1 launches each."""
+    emb, w_ih, w_hh, bias, lens, dhs, dlast = (x.to(cuda) for x in _f32_inputs(B, D, H, seed=B + H))
+    args = (emb, w_ih, w_hh, bias, lens)
+    L = emb.shape[0]
+    act = torch.from_numpy(_active(lens.cpu().numpy(), L)).to(cuda)
+    _, hs, cs = lstm_kernel._forward(*args, residuals=True)
+    before = (lstm_kernel.lstm_last_backward.launches, lstm_kernel.lstm_all_backward.launches)
+    got = {"last": lstm_kernel.lstm_last_backward(*args, hs, cs, dlast),
+           "every": lstm_kernel.lstm_all_backward(*args, hs, cs, dhs)}
+    want = {"last": lstm_kernel.lstm_last_backward_plain(*args, hs, cs, dlast),
+            "every": lstm_kernel.lstm_all_backward_plain(*args, hs, cs, dhs)}
+    torch.cuda.synchronize()
+    assert (lstm_kernel.lstm_last_backward.launches, lstm_kernel.lstm_all_backward.launches) == (
+        before[0] + 2 * L + 1, before[1] + 2 * L + 1)
+    for mode in got:
+        g, w = got[mode], want[mode]
+        assert all(x.dtype == torch.float32 for x in g)
+        assert_f32_close(g[0][act], w[0][act])
+        for i in (1, 2, 3):
+            assert_f32_close(g[i], w[i])
+
+
+@pytest.mark.parametrize("B,H", [(b, h) for b in (1, 37, 128, 129, 4099) for h in (128, 256)],
+                         ids=[f"B{b}-H{h}" for b in (1, 37, 128, 129, 4099) for h in (128, 256)])
+def test_f32_scan_kernels_across_tile_edges_on_card(cuda, B, H):
+    """Kernels 7 and 8 in f32 (the *_f32 entries of csrc/lstm_scan.cu):
+    L forward launches, 2L - 1 backward launches."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    x_proj, w_hh, dhs = (x.float().to(cuda) for x in _scan_inputs(B, H, seed=B + H))
+    L = x_proj.shape[0]
+    before = (sk.lstm_scan_forward.launches, sk.lstm_scan_backward.launches)
+    hs, cs = sk.lstm_scan_forward(x_proj, w_hh)
+    dxp = sk.lstm_scan_backward(x_proj, w_hh, hs, cs, dhs)
+    want_hs, want_cs = sk.lstm_scan_forward_plain(x_proj, w_hh)
+    want_dxp = sk.lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs)
+    torch.cuda.synchronize()
+    assert (sk.lstm_scan_forward.launches, sk.lstm_scan_backward.launches) == (before[0] + L, before[1] + 2 * L - 1)
+    assert hs.dtype == dxp.dtype == torch.float32
+    assert_f32_close(hs, want_hs)
+    assert_f32_close(cs, want_cs)
+    assert_f32_close(dxp, want_dxp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H", [100, 37])
+def test_scan_kernels_take_any_h_on_card(cuda, dtype, H):
+    """Kernels 7 and 8 at an H the kernels' tiles do not divide: the
+    wrappers pad H per gate block and launch the kernels (no plain
+    fallback), against the plain version at the same H."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    x_proj, w_hh, dhs = (x.float().to(dtype).to(cuda) for x in _scan_inputs(37, H, seed=H))
+    L = x_proj.shape[0]
+    before = (sk.lstm_scan_forward.launches, sk.lstm_scan_backward.launches)
+    hs, cs = sk.lstm_scan_forward(x_proj, w_hh)
+    dxp = sk.lstm_scan_backward(x_proj, w_hh, hs, cs, dhs)
+    want_hs, want_cs = sk.lstm_scan_forward_plain(x_proj, w_hh)
+    want_dxp = sk.lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs)
+    torch.cuda.synchronize()
+    assert (sk.lstm_scan_forward.launches, sk.lstm_scan_backward.launches) == (before[0] + L, before[1] + 2 * L - 1)
+    assert tuple(hs.shape) == (L, 37, H) and tuple(dxp.shape) == (L, 37, 4 * H)
+    if dtype == torch.bfloat16:
+        assert_bf16_close(hs, want_hs)
+        assert_bf16_close(cs, want_cs)
+        assert_bf16_close(dxp, want_dxp, MAX_UNEQUAL_SHARE_BWD)
+    else:
+        for got, want in ((hs, want_hs), (cs, want_cs), (dxp, want_dxp)):
+            assert_f32_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_unfused_any_h_autograd_on_card_matches_cpu(cuda, dtype):
+    """``ops/lstm.py::lstm_forward_tm`` at H = 100 (D = 64) on the card
+    (projection, kernels 7 and 8 through the padded route) against the CPU,
+    value and every gradient."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm as port_lstm
+
+    rng = np.random.default_rng(7)
+    D, H, L, B = 64, 100, 10, 37
+    init = {"w_ih": (4 * H, D), "w_hh": (4 * H, H), "b_ih": (4 * H,), "b_hh": (4 * H,)}
+    params = {n: rng.uniform(-0.1, 0.1, s).astype(np.float32) for n, s in init.items()}
+    x = (rng.standard_normal((L, B, D)) * 0.5).astype(np.float32)
+    dhs = (rng.standard_normal((L, B, H)) * 0.5).astype(np.float32)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        p = {n: torch.from_numpy(v).to(dev).requires_grad_() for n, v in params.items()}
+        px = torch.from_numpy(x).to(dev).requires_grad_()
+        out = port_lstm.lstm_forward_tm(p, px.to(dtype))
+        (out.float() * torch.from_numpy(dhs).to(dev)).sum().backward()
+        res.append([t.detach().cpu() for t in (out, px.grad, *(p[n].grad for n in init))])
+    for i, (got, want) in enumerate(zip(*res)):
+        if dtype == torch.float32:
+            assert_f32_close(got, want)
+        elif i == 0:
+            assert_bf16_close(got, want)
+        else:
+            # the unfused db is an f32 sum of the bf16 dx_proj, so a dgate
+            # flipped by one bf16 ulp moves it by that ulp (2^-9 at max|db|
+            # 14.8 on an H100): held by the bf16 rule like dx and dW
+            assert_bf16_close(got.to(dtype), want.to(dtype), MAX_UNEQUAL_SHARE_BWD)
+
+
+def test_f32_autograd_on_card_matches_cpu(cuda):
+    """The fused autograd Function at f32 on the card (kernels 1 and 2)
+    against the CPU (plain versions)."""
+    emb, w_ih, w_hh, bias, lens, _, dlast = _f32_inputs(96, 128, 128, seed=3)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [x.to(dev).requires_grad_() for x in (emb, w_ih, w_hh, bias)]
+        last = lstm_kernel.lstm_encode_last_fused(*leaves, lens.to(dev))
+        (last * dlast.to(dev)).sum().backward()
+        grads.append([last.detach().cpu()] + [x.grad.cpu() for x in leaves])
+    act = torch.from_numpy(_active(lens.numpy(), emb.shape[0]))
+    (g_last, gx, gwi, gwh, gb), (c_last, cx, cwi, cwh, cb) = grads
+    assert_f32_close(g_last, c_last)
+    assert_f32_close(gx[act], cx[act])
+    for got, want in ((gwi, cwi), (gwh, cwh), (gb, cb)):
+        assert_f32_close(got, want)
