@@ -57,8 +57,11 @@ Phases (any failure exits non-zero before the final line):
    f32 mode at B=32768 and ragged B, ``cli.train`` fused and unfused, each
    f32 mode (kernels 1, 2, 5-8) against its plain version on the recorded
    passes and ragged B by the f32 rule of ``utils/numerics.py`` with planted
-   faults (the TF32 yardstick, a dropped bias or recurrent product), the op
-   of kernels 5 and 6, and serving of the f32 checkpoint; then the unfused
+   faults (the TF32 yardstick, a dropped bias or recurrent product, and for
+   the 3xTF32 backward of kernels 2 and 6 its 1xTF32 variant), the
+   backward's launches (split, gate, product, dW) timed each against its
+   part of the 3xTF32 bound, the op of kernels 5 and 6, and serving of the
+   f32 checkpoint; then the unfused
    path at H = 100 in bf16 and f32 (kernels 7 and 8 through the padded
    route);
 11. print the timings, one JSON line with every kernel's numbers (the
@@ -117,6 +120,10 @@ def train_args(config, out_dir):
 # H100 SXM published peaks (dense bf16 tensor-core rate, HBM3 bandwidth)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# The least time for f32-accurate products: 3xTF32 on the tensor cores, three
+# TF32 products (at half the bf16 rate) for each f32 one.  The f32 kernels'
+# bounds are taken at it (the FFMA bound, their bound before, is printed beside them).
+PEAK_3XTF32_FLOPS = PEAK_BF16_FLOPS / 6
 
 # Kernel vs plain version, and cache rows vs a plain CPU encode, are held to
 # utils/numerics.py's bf16 rule: at most 4 bf16 ulps of max|want| and at most
@@ -312,8 +319,8 @@ def time_forward(torch, label, args, residuals, reps=3):
           f"{' with residuals' if residuals else ''}: kernel {out['ms']:.4f} ms (turns {ms}), library "
           f"{out['library_ms']} ms (turns {lib}; {note}), kernel/library "
           f"{out['ms'] / out['library_ms'] if out['library_ms'] else float('nan'):.3f}, bound {bound:.4f} ms "
-          f"({by}: {flops:.4e} FLOP, {bytes_:.4e} B, {n_steps} row-steps; {bound / out['ms']:.1%} of it); "
-          + ", ".join(f"{v} {t:.4f} ms" for v, t in variants.items()))
+          f"({by}: {flops:.4e} FLOP, {bytes_:.4e} B, {n_steps} row-steps; {bound / out['ms']:.1%} of it"
+          f"{ffma_note(flops, args[0].dtype)}); " + ", ".join(f"{v} {t:.4f} ms" for v, t in variants.items()))
     return out
 
 
@@ -763,7 +770,8 @@ def check_training(torch, trainer, launches, n_steps, unfused=False):
     if unfused:  # every step of every row forward, a gate and (from step 1) a product launch per step backward
         want.update({"lstm_scan_fwd": 2 * n_steps * L, "lstm_scan_bwd": 2 * n_steps * (2 * L - 1)})
     else:  # both passes fused (B % 8 == 0 at the flagship's 512-row buckets)
-        want.update({"lstm_last_fwd": 2 * n_steps * L, "lstm_last_bwd": 2 * n_steps * (2 * L + 1)})
+        want.update({"lstm_last_fwd": 2 * n_steps * L,
+                     "lstm_last_bwd": 2 * n_steps * backward_launches(L, trainer.model.embedder.dtype)})
     print(f"training path launches{' (' + UNFUSED_SWITCH + '=1)' if unfused else ''}: {launches} (want {want}: "
           "two LSTM passes per step; one dense Adagrad per dense leaf, one row update per sparse table)")
     check(all(launches[k] > 0 for k, v in want.items() if v), f"a training kernel was never launched: {launches}")
@@ -1065,19 +1073,107 @@ def check_lstm_backward(torch, captured):
     es = emb.element_size()
     # 3x the forward's work: gate recompute, demb and dW_ih per active
     # row-step; dh, the h half of the recompute and dW_hh from step 1 on
-    flops = 3 * (n_steps * 2 * D * 4 * H + (n_steps - B) * 2 * H * 4 * H)
+    parts = backward_parts(B, D, H, n_steps)
+    flops = sum(parts.values())
     bytes_ = (n_steps * (D + 2 * H) * es + B * H * es + B * 4 + 4 * H * 4  # emb, hs, cs, dlast, lens, bias in
               + 2 * 4 * H * (D + H) * es  # both weights in, both dW out
               + n_steps * D * es + 4 * H * 4)  # demb, db out
     t_ops, t_bytes = flops / peak_flops(dtype) * 1e3, bytes_ / PEAK_BYTES_PER_S * 1e3
     print(f"lstm_last_bwd{sfx} timing entity pass B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-          f"{library_ms} ms ({note}), bound {max(t_ops, t_bytes):.4f} ms ({flops:.4e} FLOP, {bytes_:.4e} B, "
-          f"{n_steps} row-steps)")
+          f"{library_ms} ms ({note}), kernel/library {ms / library_ms if library_ms else float('nan'):.3f}, bound "
+          f"{max(t_ops, t_bytes):.4f} ms ({flops:.4e} FLOP, {bytes_:.4e} B, {n_steps} row-steps)"
+          f"{ffma_note(flops, dtype)}")
+    if dtype == torch.float32:
+        check_1xtf32_variant(torch, args, False, plain["entity pass"])
+        by_kind = backward_launch_ms(torch, lambda: lk.lstm_last_backward(*args))
+        if by_kind is None:
+            print("lstm_last_bwd_f32 launches: no device time in the trace (not measured)")
+        else:
+            print(f"lstm_last_bwd_f32 launches on the entity pass, device ms per call (torch.profiler): "
+                  + ", ".join(f"{k} {v:.4f}" + (f" (3xTF32 bound of its part {parts[k] / PEAK_3XTF32_FLOPS * 1e3:.4f}"
+                                                f", {parts[k] / PEAK_3XTF32_FLOPS * 1e3 / v:.1%} of it)"
+                                                if k in parts and v else "")
+                              for k, v in by_kind.items())
+                  + f"; sum {sum(by_kind.values()):.4f}")
     return {"name": "lstm_last_bwd" + sfx, "route": "cuda", "source": f"{PKG}/csrc/lstm_last_bwd.cu",
             "replaces": "open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:569",
             "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms}, fwd_err
+
+
+def backward_launches(L, dtype):
+    """Launches of one call of kernel 2 or 6 over L steps at ``dtype``
+    ("bfloat16"/"float32", or a torch dtype): a gate and a product launch per
+    step and one for dW and db; at f32 one more, the weight split."""
+    return 2 * L + (2 if str(dtype).removeprefix("torch.") == "float32" else 1)
+
+
+def backward_parts(B, D, H, n_steps):
+    """FLOP of the three product parts of kernel 2 (and 6) for B rows and
+    n_steps active row-steps: the gate recompute (x part per active
+    row-step, h part from step 1 on), the dh/demb product (demb per active
+    row-step, dh from step 1 on) and dW (dW_ih, and dW_hh from step 1 on).
+    Each is the forward's work."""
+    part = n_steps * 2 * D * 4 * H + (n_steps - B) * 2 * H * 4 * H
+    return {"gate": part, "product": part, "dW": part}
+
+
+def ffma_note(ops, dtype):
+    """At f32, the bound at the FFMA rate (the f32 kernels' bound before
+    3xTF32), for comparison; empty at bf16."""
+    if str(dtype) != "torch.float32":
+        return ""
+    return f"; FFMA bound {ops / PEAK_FP32_FLOPS * 1e3:.4f} ms"
+
+
+def backward_launch_ms(torch, fn, reps=5):
+    """Device ms per call of each kind of launch of the f32 backward (split,
+    gate, product, dW: all the call's launches of that kind), from
+    torch.profiler over ``reps`` calls of ``fn``; None where the trace has
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kinds = {"split": "split_kernel_tf32", "gate": "gate_kernel_tf32", "product": "product_kernel_tf32",
+             "dW": "dw_kernel_tf32"}
+    out = {k: 0.0 for k in kinds}
+    for e in prof.key_averages():
+        for k, sub in kinds.items():
+            if sub in e.key:
+                out[k] += e.self_device_time_total / 1e3 / reps
+    return out if any(out.values()) else None
+
+
+def check_1xtf32_variant(torch, args, every_step, want):
+    """The f32 backward's planted 1xTF32 variant (one TF32 product where the
+    kernel takes three) against the plain version ``want`` must fail the f32
+    rule: the rule sees the correction products.  On the CPU, where there is
+    no kernel, the variant is the plain version with each product emulated
+    as one TF32 product (``utils/numerics.py::matmul_3xtf32``)."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import matmul_3xtf32
+
+    class Uncounted:
+        launches = 0
+
+    if args[0].is_cuda:
+        got = lk._launch_bwd_steps(*args, every_step, Uncounted, variant="1xTF32")
+    else:
+        matmul = torch.matmul
+        torch.matmul = lambda a, b: matmul_3xtf32(a, b, passes=1)
+        try:
+            got = (lk.lstm_all_backward_plain if every_step else lk.lstm_last_backward_plain)(*args)
+        finally:
+            torch.matmul = matmul
+    ok, text, _ = backward_agreement(torch, args, got, want)
+    print(f"planted fault 1xTF32 variant of lstm_{'all' if every_step else 'last'}_bwd_f32: {text}")
+    check(not ok, "the f32 rule passes the backward kernel's 1xTF32 variant")
 
 
 def lstm_bound(row, L, B, D, H, n_steps, es=2):
@@ -1106,7 +1202,8 @@ def bound_ms(ops, bytes_, peak=PEAK_BF16_FLOPS):
 
 # The card's FP32 rate outside the tensor cores (FFMA: 128 lanes per SM, 2
 # FLOP each per clock), computed by read_fp32_peak from the SM count and the
-# card's maximum SM clock; the f32 kernels' bounds are taken at it.
+# card's maximum SM clock; the FFMA bound of the f32 kernels, printed beside
+# their 3xTF32 bounds.
 PEAK_FP32_FLOPS = None
 
 
@@ -1120,8 +1217,8 @@ def read_fp32_peak(torch):
 
 def peak_flops(dtype):
     """The peak rate the kernels of ``dtype`` are bound by: bf16 tensor cores,
-    or f32 FFMA on the CUDA cores."""
-    return PEAK_FP32_FLOPS if str(dtype) == "torch.float32" else PEAK_BF16_FLOPS
+    or at f32 the 3xTF32 rate (the least time for f32-accurate products)."""
+    return PEAK_3XTF32_FLOPS if str(dtype) == "torch.float32" else PEAK_BF16_FLOPS
 
 
 def library_lstm_backward_ms(torch, args):
@@ -1319,7 +1416,8 @@ def time_scan(torch, captured_fwd, captured_bwd, fwd_err, bwd_err):
         ops, bytes_ = lstm_bound(row, L, B, H, H, L * B, x_proj.element_size())
         bound, by = bound_ms(ops, bytes_, peak_flops(dtype))
         print(f"{name}{sfx} timing training entity pass L={L} B={B} H={H}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, library {library_ms} ms ({note}), bound {bound:.4f} ms ({by}: {ops:.4e} FLOP, {bytes_:.4e} B)")
+              f"ms, library {library_ms} ms ({note}), bound {bound:.4f} ms ({by}: {ops:.4e} FLOP, {bytes_:.4e} B)"
+              f"{ffma_note(ops, dtype)}")
         rows.append({"name": name + sfx, "route": "cuda", "source": f"{PKG}/csrc/lstm_scan.cu",
                      "replaces": "open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:"
                                  + ("47" if row == 7 else "110"),
@@ -1414,6 +1512,8 @@ def check_every_state(torch, fwd_args, ragged=(1, 37, 4099)):
         ok, text, _ = backward_agreement(torch, bargs, kernel_out, run())
         print(f"planted fault {fault}: {text}")
         check(not ok, f"the rule passes a planted fault ({fault})")
+    if f32:
+        check_1xtf32_variant(torch, bargs, True, lk.lstm_all_backward_plain(*bargs))
     return fwd_err, bwd_err
 
 
@@ -1444,8 +1544,9 @@ def time_every_state(torch, fwd_args, fwd_err, bwd_err):
         ops, bytes_ = lstm_bound(row, L, B, D, H, n_steps, emb.element_size())
         bound, by = bound_ms(ops, bytes_, peak_flops(emb.dtype))
         print(f"{name}{sfx} timing training entity pass L={L} B={B} D=H={D}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library {library_ms} ms ({note}), bound {bound:.4f} ms ({by}: {ops:.4e} FLOP, "
-              f"{bytes_:.4e} B, {n_steps} row-steps)")
+              f"{plain_ms:.4f} ms, library {library_ms} ms ({note}), kernel/library "
+              f"{ms / library_ms if library_ms else float('nan'):.3f}, bound {bound:.4f} ms ({by}: {ops:.4e} FLOP, "
+              f"{bytes_:.4e} B, {n_steps} row-steps){ffma_note(ops, emb.dtype)}")
         rows.append({"name": name + sfx, "route": "cuda", "source": f"{PKG}/csrc/{src}",
                      "replaces": f"open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:{line}",
                      "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -1474,7 +1575,7 @@ def phase_every_state_op(torch, fwd_args):
     launches = {name: fn.launches for name, fn in counters.items()}
     L = emb.shape[0]
     want = {name: 0 for name in counters}
-    want.update({"lstm_all_fwd": L, "lstm_all_bwd": 2 * L + 1})
+    want.update({"lstm_all_fwd": L, "lstm_all_bwd": backward_launches(L, str(emb.dtype))})
     # x.grad (demb) holds unread garbage at the positions a row never reaches
     grads = {**{n: p.grad for n, p in params.items()}, "x": x.grad[act]}
     finite = {n: torch.isfinite(g).all().item() for n, g in grads.items()}
@@ -1778,7 +1879,8 @@ def main() -> int:
         global PEAK_FP32_FLOPS
         PEAK_FP32_FLOPS, sms, mhz = read_fp32_peak(torch)
         print(f"FP32 peak outside the tensor cores: {sms} SMs x 128 lanes x 2 FLOP x {mhz:.0f} MHz (max SM clock) = "
-              f"{PEAK_FP32_FLOPS / 1e12:.2f} TFLOP/s")
+              f"{PEAK_FP32_FLOPS / 1e12:.2f} TFLOP/s; 3xTF32 (the f32 kernels' bound): {PEAK_BF16_FLOPS / 1e12:.0f} / 6 = "
+              f"{PEAK_3XTF32_FLOPS / 1e12:.2f} TFLOP/s")
         build_kernels(torch, timings)
         row_fwd = phase_kernels(torch)
         by_path = {}

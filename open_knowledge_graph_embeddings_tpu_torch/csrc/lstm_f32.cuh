@@ -2,8 +2,9 @@
 // (FFMA, no TF32: the plain versions and the JAX reference take f32 products,
 // and a TF32 product keeps 10 mantissa bits, which is another result):
 //   * gate_product_f32, the gate product of one recurrence step, shared by the
-//     f32 forwards (lstm_last_fwd_f32.cu, lstm_scan.cu) and the f32 backwards'
-//     gate recompute (lstm_last_bwd.cu, lstm_scan.cu):
+//     f32 forwards (lstm_last_fwd_f32.cu, lstm_scan.cu) and the recurrence
+//     backward's gate recompute (lstm_scan.cu; the fused backward of
+//     lstm_last_bwd.cu takes 3xTF32 on the tensor cores instead):
 //       acc = x_t . W_ih^T + h_{t-1} . W_hh^T   (f32 operands, f32 FFMA)
 //     with the tile and accumulator contract of lstm_gates.cuh::gate_product:
 //     a block of NT threads owns BM rows x the four gate columns {j, H+j,
@@ -11,8 +12,8 @@
 //     h part (H, skipped at t == 0 where h_0 = 0; D == 0 for the
 //     recurrence-only LSTM), rows with s_len[r] <= t are zero-filled, and the
 //     thread that holds a cell's accumulators holds all four of its gates;
-//   * lstm_bwd_product_kernel_f32, the product launch of one backward step
-//     (lstm_product.cuh's contract in f32):
+//   * lstm_bwd_product_kernel_f32, the product launch of one step of the
+//     recurrence backward (lstm_scan.cu; lstm_product.cuh's contract in f32):
 //       [dh_carry | demb] = dg . [W_hh | W_ih]   over K = 4H.
 // Tiles are staged through shared memory with cp.async in 16-byte chunks,
 // double buffered, so D and H are multiples of 4; each thread keeps a

@@ -56,15 +56,41 @@
 //
 // The f32 mode (the *_f32 entries; the TPU kernels take their inputs' dtype)
 // computes the same with the rounding points dropped: the residuals, the
-// cotangent, dg, demb and dW in f32, every product in true f32 FFMA on the
-// CUDA cores (lstm_f32.cuh; no TF32), bound by FP32 operations.  The same
-// three launches: lstm_bwd_gate_kernel_f32 (gate_product_f32 and the same
-// cell math, db_part from a fixed-order sum), lstm_bwd_product_kernel_f32
-// and lstm_bwd_dw_kernel_f32 (a register-tiled FFMA product over the same
-// (t, row chunk) walk, summed in blocks of 256 rows, then the same db
-// reduction).  D and H multiples of 4.
+// cotangent, dg, demb and dW in f32.  Every product runs on the tensor cores
+// in 3xTF32: each f32 operand x is split into hi = tf32(x) and lo =
+// tf32(x - hi) (lstm_sm90.cuh::tf32_split; 10 + 10 mantissa bits, so x is
+// kept to ~2^-22), and a product sums lo.hi' + hi.lo' + hi.hi' in f32: as
+// accurate as an f32 product (utils/numerics.py's f32 rule), where one TF32
+// product (hi.hi' alone, the 1xTF32 variant) is not.  Bound on an H100: the
+// 3xTF32 rate, a third of the 495 TFLOP/s TF32 rate (165 TFLOP/s, 2.5x the
+// 67 TFLOP/s of f32 FFMA).  Four kinds of launch:
+//   0. lstm_bwd_split_kernel_tf32, once per call: hi and lo of W_ih and W_hh
+//      gate-major (for the gate launch) and of [W_hh | W_ih]^T (for the
+//      product launch: TF32 wgmma reads only K-major operands, there is no
+//      transposed form as for 16-bit types);
+//   1. lstm_bwd_gate_kernel_tf32, per step: kernel 1's Hopper shape (TMA
+//      ring of 4 slots of A + W_hi + W_lo, 48 KB each, one producer thread,
+//      two consumer warpgroups taking 128-row x 32-unit tiles in turns) with
+//      wgmma m64n128k8 TF32, A from registers (read from the swizzled slot
+//      and split there), B the split weights; then the cell math of the bf16
+//      kernel per cell, dg[t] in f32, dc in place, db_part by a fixed-order
+//      sum;
+//   2. lstm_bwd_product_kernel_tf32, per step: [dh | demb[t]] = dg[t] .
+//      [W_hh | W_ih] on the same ring and consumers, 128 x 128 output tiles;
+//   3. lstm_bwd_dw_kernel_tf32, once: the dW walk of the bf16 kernel with
+//      mma.sync m16n8k8 TF32 fragments loaded from the k-major shared tiles
+//      (wgmma would need K-major copies of dg, emb and hs: dW reduces over
+//      rows), 64-row chunks through a 3-slot cp.async ring, blocks of 256
+//      rows summed apart, then the same db reduction.
+// No float atomics: dW and db do not change from run to run.  D and H
+// multiples of 4 (TMA strides are multiples of 16 bytes); K tails, rows
+// past B and units past H read as zero.  On an H100 (chip_smoke.py; numbers
+// in PERF.md) the gate and product launches reach about half of their parts
+// of the bound and the dW launch a third, and the whole backward runs below
+// cuDNN's packed f32 LSTM backward on the training passes.
 
-#include "lstm_f32.cuh"
+#include "lstm_product.cuh"
+#include "lstm_sm90.cuh"
 
 namespace {
 
@@ -322,95 +348,463 @@ __global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel(const DwArgs p) {
 
 // ------------------------------------------------------------------ f32 mode
 
-struct GateBwdArgsF32 {
-    GateArgsF32 g;         // x = emb[t], h_prev = hs[t-1]
-    const float* bias;     // [4H]
-    const int* lens;       // [B]
-    const float* cs_t;     // [B, H] c_t
-    const float* cs_prev;  // [B, H] c_{t-1}; unread at t == 0
-    const float* dlast;    // [B, H]: dlast, or dhs[t] in the every-state mode
-    int every_step;        // 1: add dlast at every active step (dhs[t]); 0: at len == t+1
-    const float* dh;       // [B, H] dh carry from step t+1 (0 for rows first active at t)
-    float* dc;             // [B, H] dc carry in, dc * f out
-    float* dg;             // [B, 4H] dgates of step t
-    float* db_part;        // [gridDim.x, 4H] per-row-block sums of the dgates of step t
+namespace tf32 {
+
+using namespace oket_sm90;
+
+constexpr int TM = 128;     // rows per tile
+constexpr int TU = 32;      // hidden units per gate tile: 4 gate slabs of TU weight rows
+constexpr int TN = 128;     // columns per tile (gate: 4 x TU; product: 128 of [dh | demb])
+constexpr int NB = TU / 8;  // 8-unit column blocks per gate slab
+constexpr int TK = 32;      // K per stage: 128 bytes of f32, one swizzle row
+constexpr int STAGES = 4;
+constexpr int A_BYTES = TM * TK * 4;  // 16 KB
+constexpr int W_BYTES = TN * TK * 4;  // 16 KB, once for hi and once for lo
+constexpr int STAGE_BYTES = A_BYTES + 2 * W_BYTES;
+// the ring, its barriers, and slack to align the ring to 1024 bytes
+constexpr int SMEM = STAGES * STAGE_BYTES + (2 * STAGES + 2) * 8 + 1024;
+constexpr int THREADS = 384;  // warpgroups 0 and 1 consume, warpgroup 2 produces
+
+// What a launch computes: the kernel (3xTF32), or hi.hi' alone (1xTF32),
+// planted by chip_smoke.py to show that the f32 rule sees the correction
+// products.
+enum Variant { X3 = 0, X1 = 1 };
+
+// Rows active at step t (max(len, 1) > t): a prefix [0, n) of the sorted
+// lengths, searched by every thread of the block at once (the search of
+// lstm_last_fwd.cu): each round probes THREADS evenly spaced rows.
+__device__ int active_prefix(const int* lens, int B, int t) {
+    if (t == 0) return B;
+    int lo = 0, n = B;  // rows < lo are active, the first inactive row is in [lo, lo + n]
+    while (n > 0) {
+        const int stride = (n + THREADS - 1) / THREADS;
+        const int off = threadIdx.x * stride;
+        const int hits = __syncthreads_count(off < n && lens[lo + off] > t);
+        if (hits == 0) break;
+        lo += (hits - 1) * stride + 1;
+        n = min(stride - 1, n - (hits - 1) * stride - 1);
+    }
+    return lo;
+}
+
+// The ring of STAGES slots (A, W_hi, W_lo), a full and an empty mbarrier
+// each, and the two consumer warpgroups' turn barriers.
+struct Ring {
+    uint8_t* slots;
+    uint64_t* full;
+    uint64_t* empty;
+    uint64_t* turn;  // turn[w]: the other warpgroup finished a tile's products
 };
 
-__global__ void __launch_bounds__(NT) lstm_bwd_gate_kernel_f32(const GateBwdArgsF32 p) {
-    __shared__ __align__(16) TileAF As[2];
-    __shared__ __align__(16) TileWF Bs[2];
-    __shared__ int s_len[BM];
-    __shared__ float s_db[NT / 32][4 * BN];  // [warp][gate column of the block]
-
-    const long long row0 = (long long)blockIdx.x * BM;
-    const int j0 = blockIdx.y * BN;
-    const int t = p.g.t, H = p.g.H;
-    if (!load_lengths(p.lens, p.g.B, row0, t, s_len)) return;
-
-    float acc[FRM][4][FUN];
-    gate_product_f32(p.g, row0, j0, s_len, As, Bs, acc);
-
-    float dbs[4][FUN] = {};  // [gate][unit]: this thread's rows, in order
-#pragma unroll
-    for (int i = 0; i < FRM; ++i) {
-        const int r = f32_row(i);
-        const int len = s_len[r];
-        if (len <= t) continue;
-#pragma unroll
-        for (int u = 0; u < FUN; ++u) {
-            const int j = j0 + f32_unit(u);
-            if (j >= H) continue;
-            const size_t o = (size_t)(row0 + r) * H + j;
-            const float c_prev = t > 0 ? p.cs_prev[o] : 0.f;
-            const bool inject = p.every_step || len == t + 1;
-            const float dh = p.dh[o] + (inject ? p.dlast[o] : 0.f);
-            const float pre[4] = {acc[i][0][u] + p.bias[j], acc[i][1][u] + p.bias[H + j],
-                                  acc[i][2][u] + p.bias[2 * H + j], acc[i][3][u] + p.bias[3 * H + j]};
-            float d[4];
-            p.dc[o] = bwd_cell(pre, p.cs_t[o], c_prev, dh, p.dc[o], d);
-            float* dg_row = p.dg + (size_t)(row0 + r) * 4 * H + j;
-#pragma unroll
-            for (int g = 0; g < 4; ++g) {
-                dg_row[(size_t)g * H] = d[g];
-                dbs[g][u] += d[g];
-            }
+__device__ __forceinline__ Ring make_ring(uint8_t* smem_raw) {
+    Ring r;
+    r.slots = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    r.full = reinterpret_cast<uint64_t*>(r.slots + STAGES * STAGE_BYTES);
+    r.empty = r.full + STAGES;
+    r.turn = r.empty + STAGES;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&r.full[s], 1);
+            mbar_init(&r.empty[s], 4);  // the four warps of the warpgroup that read the slot
         }
+        mbar_init(&r.turn[0], 4);
+        mbar_init(&r.turn[1], 4);
+        mbar_fence_init();
     }
+    return r;
+}
 
-    // db: the two row groups of a warp (lanes l and l ^ 16), then the eight
-    // warps in a fixed order
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int u = 0; u < FUN; ++u) {
-            const float v = dbs[g][u] + __shfl_xor_sync(0xffffffffu, dbs[g][u], 16);
-            if (lane < 16) s_db[warp][g * BN + f32_unit(u)] = v;
+// The producer thread: stage kt of each of the block's tiles, in order,
+// loaded by load(tile, kt, a, w_hi, w_lo, bar) into the next slot.
+template <typename Load>
+__device__ __forceinline__ void produce(const Ring& r, int tiles, int nk, Load load) {
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+            const int s = it % STAGES;
+            mbar_wait(&r.empty[s], ((it / STAGES) & 1) ^ 1);
+            mbar_arrive_expect_tx(&r.full[s], STAGE_BYTES);
+            uint8_t* a = r.slots + s * STAGE_BYTES;
+            load(tile, kt, a, a + A_BYTES, a + A_BYTES + W_BYTES, &r.full[s]);
         }
-    __syncthreads();
-    for (int i = threadIdx.x; i < 4 * BN; i += NT) {
-        const int g = i / BN, j = j0 + i % BN;
-        if (j >= H) continue;
-        float v = 0.f;
-        for (int w = 0; w < NT / 32; ++w) v += s_db[w][i];
-        p.db_part[(size_t)blockIdx.x * 4 * H + (size_t)g * H + j] = v;
+}
+
+// acc[m] += A[64 m .. 64 m + 63, :] . W^T over the nk stages of the block's
+// tile q, in 3xTF32: per k8 step, A's fragments are read from the swizzled
+// slot into registers and split there, then lo.W_hi and hi.W_lo are
+// accumulated before hi.W_hi (the correction products first, as CUTLASS's
+// fast-f32 product does), all into the one accumulator.  One k8 step's
+// products stay in flight while the next step's fragments are split (two
+// sets of fragment registers, by step parity).  The products of tile q start
+// when the other warpgroup's of tile q - 1 are done.
+template <int V>
+__device__ __forceinline__ void tile_products(const Ring& r, int q, int nk, int wg, int warp, int lane,
+                                              float (&acc)[2][TN / 2]) {
+    if (q > 0) mbar_wait(&r.turn[wg], ((q - 1) / 2) & 1);
+    uint32_t hi[2][2][4], lo[2][2][4];  // [k8 step parity][64-row half][fragment register]
+    int prev = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+        const int it = q * nk + kt, s = it % STAGES;
+        mbar_wait(&r.full[s], (it / STAGES) & 1);
+        const uint8_t* a = r.slots + s * STAGE_BYTES;
+        const uint8_t* w_hi = a + A_BYTES;
+        const uint8_t* w_lo = w_hi + W_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < TK / 8; ++kk) {
+            const int b = kk & 1;
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    // register i: row 16 warp + lane / 4 + 8 (i % 2), k = lane % 4 + 4 (i / 2)
+                    const int row = 64 * m + 16 * warp + (lane >> 2) + 8 * (i & 1);
+                    const int k = kk * 8 + (lane & 3) + 4 * (i >> 1);
+                    const float x = *reinterpret_cast<const float*>(a + row * 128 + (((k >> 2) ^ (row & 7)) << 4) +
+                                                                    (k & 3) * 4);
+                    tf32_split(x, hi[b][m][i], lo[b][m][i]);
+                }
+            wgmma_fence_regs(acc[0]);
+            wgmma_fence_regs(acc[1]);
+            wgmma_fence();
+            const uint64_t d_hi = wgmma_desc(w_hi + kk * 32), d_lo = wgmma_desc(w_lo + kk * 32);
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+                if (V == X3) {
+                    wgmma_m64n128k8_tf32(acc[m], lo[b][m], d_hi);
+                    wgmma_m64n128k8_tf32(acc[m], hi[b][m], d_lo);
+                }
+                wgmma_m64n128k8_tf32(acc[m], hi[b][m], d_hi);
+            }
+            wgmma_commit();
+            wgmma_wait<1>();  // the previous k8 step's products are done
+            wgmma_fence_regs(acc[0]);
+            wgmma_fence_regs(acc[1]);
+            // so at the first k8 step of a stage, the previous stage is read
+            if (kk == 0 && kt > 0 && lane == 0) mbar_arrive(&r.empty[prev]);
+        }
+        prev = s;
+    }
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc[0]);
+    wgmma_fence_regs(acc[1]);
+    if (lane == 0) {
+        if (nk > 0) mbar_arrive(&r.empty[prev]);
+        mbar_arrive(&r.turn[1 - wg]);
     }
 }
 
-constexpr int FWLD = WB + 4;  // smem row stride of the k-major f32 tiles
+struct Tf32GateArgs {
+    const float* bias;     // [4H]
+    const int* lens;       // [B], sorted descending
+    const float* cs_t;     // [B, H] c_t
+    const float* cs_prev;  // [B, H] c_{t-1}; unread at t == 0
+    const float* cot;      // [B, H]: dlast, or dhs[t] in the every-state mode
+    const float* dh;       // [B, H] dh carry from step t+1 (0 for rows first active at t)
+    float* dc;             // [B, H] dc carry in, dc * f out
+    float* dg;             // [B, 4H] dgates of step t
+    float* db_part;        // [ceil(B / TM), 4H] per-row-tile sums of the dgates of step t
+    int every_step;        // 1: add cot at every active step (dhs[t]); 0: at len == t+1
+    int B, D, H, t;
+};
+
+// Gate launch of step t: the forward's gate product recomputed in 3xTF32
+// for a tile of 128 rows x 32 units (x the four gates, as in kernel 1:
+// the thread that holds gate 0 of a cell holds its gates 1-3 too), then
+// the cell math of the bf16 kernel (bwd_cell) in that thread; writes dg[t],
+// updates dc in place (one owner per cell), and the tile's column sums of
+// dg to db_part (a fixed-order shuffle and shared-memory sum: no atomics).
+template <int V>
+__global__ void __launch_bounds__(THREADS, 1)
+    lstm_bwd_gate_kernel_tf32(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_h,
+                              const __grid_constant__ CUtensorMap map_wih_hi,
+                              const __grid_constant__ CUtensorMap map_wih_lo,
+                              const __grid_constant__ CUtensorMap map_whh_hi,
+                              const __grid_constant__ CUtensorMap map_whh_lo, const Tf32GateArgs p) {
+    extern __shared__ uint8_t smem_raw[];
+    __shared__ float s_db[2][4][TN];  // [consumer warpgroup][warp][gate column of the tile]
+    const Ring r = make_ring(smem_raw);
+    const int n_act_all = active_prefix(p.lens, p.B, p.t);
+    __syncthreads();
+    // block-uniform values made warp-uniform for the compiler (a wgmma on
+    // what it takes for a divergent path is serialised)
+    const int n_act = __shfl_sync(0xffffffff, n_act_all, 0);
+    const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+    const int unit_tiles = (p.H + TU - 1) / TU;
+    const int tiles = (n_act + TM - 1) / TM * unit_tiles;
+    if ((int)blockIdx.x >= tiles) return;
+    const int nkx = (p.D + TK - 1) / TK;
+    const int nk = nkx + (p.t > 0 ? (p.H + TK - 1) / TK : 0);  // h_0 = 0: no h part at t == 0
+
+    if (wg == 2) {
+        setmaxnreg_dec<40>();
+        if (threadIdx.x == 256) {
+            tma_prefetch_map(&map_x);
+            tma_prefetch_map(&map_wih_hi);
+            tma_prefetch_map(&map_wih_lo);
+            if (nk > nkx) {
+                tma_prefetch_map(&map_h);
+                tma_prefetch_map(&map_whh_hi);
+                tma_prefetch_map(&map_whh_lo);
+            }
+            // x_t at (t, row0) of emb, h_{t-1} at (t - 1, row0) of hs; each
+            // weight as [4][H][K], one box holding the four gate slabs
+            produce(r, tiles, nk, [&](int tile, int kt, uint8_t* a, uint8_t* w_hi, uint8_t* w_lo, uint64_t* bar) {
+                const int row0 = tile / unit_tiles * TM, u0 = tile % unit_tiles * TU;
+                if (kt < nkx) {
+                    tma_load_3d(a, &map_x, bar, kt * TK, row0, p.t);
+                    tma_load_3d(w_hi, &map_wih_hi, bar, kt * TK, u0, 0);
+                    tma_load_3d(w_lo, &map_wih_lo, bar, kt * TK, u0, 0);
+                } else {
+                    tma_load_3d(a, &map_h, bar, (kt - nkx) * TK, row0, p.t - 1);
+                    tma_load_3d(w_hi, &map_whh_hi, bar, (kt - nkx) * TK, u0, 0);
+                    tma_load_3d(w_lo, &map_whh_lo, bar, (kt - nkx) * TK, u0, 0);
+                }
+            });
+        }
+    } else {
+        setmaxnreg_inc<232>();
+        const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+        const int H = p.H, t = p.t;
+        // acc[m][4 (g NB + n8) + e] holds gate g of row r0 + 64 m + 8 (e/2),
+        // unit u0 + 8 n8 + 2 (lane%4) + e%2, for r0 = row0 + 16 warp + lane/4
+        float acc[2][TN / 2];
+        for (int q = wg;; q += 2) {
+            const int tile = blockIdx.x + q * gridDim.x;
+            if (tile >= tiles) break;
+            const int row0 = tile / unit_tiles * TM, u0 = tile % unit_tiles * TU;
+            const int r0 = row0 + warp * 16 + (lane >> 2);
+            // the bias seeds the accumulators
+#pragma unroll
+            for (int n8 = 0; n8 < NB; ++n8) {
+                const int u = u0 + n8 * 8 + (lane & 3) * 2;  // and u + 1; H is even
+#pragma unroll
+                for (int g = 0; g < 4; ++g) {
+                    const float2 b =
+                        u < H ? __ldg(reinterpret_cast<const float2*>(p.bias + g * H + u)) : make_float2(0.f, 0.f);
+#pragma unroll
+                    for (int m = 0; m < 2; ++m) {
+                        acc[m][(g * NB + n8) * 4] = acc[m][(g * NB + n8) * 4 + 2] = b.x;
+                        acc[m][(g * NB + n8) * 4 + 1] = acc[m][(g * NB + n8) * 4 + 3] = b.y;
+                    }
+                }
+            }
+            tile_products<V>(r, q, nk, wg, warp, lane, acc);
+
+            // epilogue: the cell math of each (row, unit) this thread holds
+            float dbs[4][NB][2];  // [gate][n8][unit parity]: this thread's rows, in order
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+#pragma unroll
+                for (int n8 = 0; n8 < NB; ++n8) dbs[g][n8][0] = dbs[g][n8][1] = 0.f;
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+#pragma unroll
+                for (int hr = 0; hr < 2; ++hr) {
+                    const int row = r0 + 64 * m + 8 * hr;
+                    if (row >= n_act) continue;  // finished at t, or past B
+                    const bool inject = p.every_step || max(p.lens[row], 1) == t + 1;
+                    const size_t ro = (size_t)row * H;
+#pragma unroll
+                    for (int n8 = 0; n8 < NB; ++n8) {
+                        const int u = u0 + n8 * 8 + (lane & 3) * 2;
+                        if (u >= H) continue;
+                        const float2 c_t = *reinterpret_cast<const float2*>(p.cs_t + ro + u);
+                        const float2 c_prev =
+                            t > 0 ? *reinterpret_cast<const float2*>(p.cs_prev + ro + u) : make_float2(0.f, 0.f);
+                        const float2 dh_in = *reinterpret_cast<const float2*>(p.dh + ro + u);
+                        const float2 cot =
+                            inject ? *reinterpret_cast<const float2*>(p.cot + ro + u) : make_float2(0.f, 0.f);
+                        float2* dc = reinterpret_cast<float2*>(p.dc + ro + u);
+                        const float2 dc_in = *dc;
+                        float d[2][4], dc_out[2];
+#pragma unroll
+                        for (int x = 0; x < 2; ++x) {
+                            const int e = 2 * hr + x;
+                            const float pre[4] = {acc[m][n8 * 4 + e], acc[m][(NB + n8) * 4 + e],
+                                                  acc[m][(2 * NB + n8) * 4 + e], acc[m][(3 * NB + n8) * 4 + e]};
+                            dc_out[x] = bwd_cell(pre, x ? c_t.y : c_t.x, x ? c_prev.y : c_prev.x,
+                                                 x ? dh_in.y + cot.y : dh_in.x + cot.x, x ? dc_in.y : dc_in.x, d[x]);
+                        }
+                        *dc = make_float2(dc_out[0], dc_out[1]);
+                        float* dg_row = p.dg + (size_t)row * 4 * H + u;
+#pragma unroll
+                        for (int g = 0; g < 4; ++g) {
+                            *reinterpret_cast<float2*>(dg_row + (size_t)g * H) = make_float2(d[0][g], d[1][g]);
+                            dbs[g][n8][0] += d[0][g];
+                            dbs[g][n8][1] += d[1][g];
+                        }
+                    }
+                }
+            // db: this warp's 16 rows per half (the lanes differing in
+            // lane / 4), then the four warps in a fixed order
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+#pragma unroll
+                for (int n8 = 0; n8 < NB; ++n8)
+#pragma unroll
+                    for (int x = 0; x < 2; ++x) {
+                        float v = dbs[g][n8][x];
+                        v += __shfl_xor_sync(0xffffffffu, v, 4);
+                        v += __shfl_xor_sync(0xffffffffu, v, 8);
+                        v += __shfl_xor_sync(0xffffffffu, v, 16);
+                        if (lane < 4) s_db[wg][warp][g * TU + n8 * 8 + lane * 2 + x] = v;
+                    }
+            named_barrier(1 + wg, 128);
+            const int i = threadIdx.x % 128, u = u0 + i % TU;
+            if (u < H)
+                p.db_part[(size_t)(row0 / TM) * 4 * H + (size_t)(i / TU) * H + u] =
+                    ((s_db[wg][0][i] + s_db[wg][1][i]) + s_db[wg][2][i]) + s_db[wg][3][i];
+            named_barrier(1 + wg, 128);  // s_db is read before the next tile writes it
+        }
+    }
+}
+
+struct Tf32ProdArgs {
+    const int* lens;  // [B], sorted descending
+    float* dh;        // [B, H] out: dg . W_hh (t > 0)
+    float* demb;      // [B, D] out: dg . W_ih, step t
+    int B, D, H, t;
+};
+
+// Product launch of step t: [dh | demb[t]] = dg[t] . [W_hh | W_ih] over
+// K = 4H in 3xTF32, a tile of 128 rows x 128 output columns; B is the split
+// copy of [W_hh | W_ih]^T ([H + D, 4H], K-major), as TF32 wgmma reads only
+// K-major operands.  Rows past the active prefix are computed and not
+// written; at t == 0 only the tiles holding demb columns run (dh of step 0
+// is never read).
+template <int V>
+__global__ void __launch_bounds__(THREADS, 1)
+    lstm_bwd_product_kernel_tf32(const __grid_constant__ CUtensorMap map_dg,
+                                 const __grid_constant__ CUtensorMap map_wt_hi,
+                                 const __grid_constant__ CUtensorMap map_wt_lo, const Tf32ProdArgs p) {
+    extern __shared__ uint8_t smem_raw[];
+    const Ring r = make_ring(smem_raw);
+    const int n_act_all = active_prefix(p.lens, p.B, p.t);
+    __syncthreads();
+    const int n_act = __shfl_sync(0xffffffff, n_act_all, 0);
+    const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+    const int N = p.H + p.D;
+    const int n_first = p.t > 0 ? 0 : p.H / TN;  // the first column tile that holds a demb column
+    const int col_tiles = (N + TN - 1) / TN - n_first;
+    const int tiles = (n_act + TM - 1) / TM * col_tiles;
+    if ((int)blockIdx.x >= tiles) return;
+    const int nk = (4 * p.H + TK - 1) / TK;
+
+    if (wg == 2) {
+        setmaxnreg_dec<40>();
+        if (threadIdx.x == 256) {
+            tma_prefetch_map(&map_dg);
+            tma_prefetch_map(&map_wt_hi);
+            tma_prefetch_map(&map_wt_lo);
+            produce(r, tiles, nk, [&](int tile, int kt, uint8_t* a, uint8_t* w_hi, uint8_t* w_lo, uint64_t* bar) {
+                const int row0 = tile / col_tiles * TM, n0 = (tile % col_tiles + n_first) * TN;
+                tma_load_3d(a, &map_dg, bar, kt * TK, row0, p.t);
+                tma_load_3d(w_hi, &map_wt_hi, bar, kt * TK, n0, 0);
+                tma_load_3d(w_lo, &map_wt_lo, bar, kt * TK, n0, 0);
+            });
+        }
+    } else {
+        setmaxnreg_inc<232>();
+        const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+        // acc[m][4 n8 + e] holds row r0 + 64 m + 8 (e/2), column
+        // n0 + 8 n8 + 2 (lane%4) + e%2, for r0 = row0 + 16 warp + lane/4
+        float acc[2][TN / 2];
+        for (int q = wg;; q += 2) {
+            const int tile = blockIdx.x + q * gridDim.x;
+            if (tile >= tiles) break;
+            const int row0 = tile / col_tiles * TM, n0 = (tile % col_tiles + n_first) * TN;
+            const int r0 = row0 + warp * 16 + (lane >> 2);
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+#pragma unroll
+                for (int i = 0; i < TN / 2; ++i) acc[m][i] = 0.f;
+            tile_products<V>(r, q, nk, wg, warp, lane, acc);
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+#pragma unroll
+                for (int hr = 0; hr < 2; ++hr) {
+                    const int row = r0 + 64 * m + 8 * hr;
+                    if (row >= n_act) continue;
+#pragma unroll
+                    for (int n8 = 0; n8 < TN / 8; ++n8) {
+                        const int n = n0 + n8 * 8 + (lane & 3) * 2;  // and n + 1: H and N are even
+                        const float2 v = make_float2(acc[m][n8 * 4 + 2 * hr], acc[m][n8 * 4 + 2 * hr + 1]);
+                        if (n >= N) continue;
+                        if (n < p.H) {
+                            if (p.t > 0) *reinterpret_cast<float2*>(p.dh + (size_t)row * p.H + n) = v;
+                        } else {
+                            *reinterpret_cast<float2*>(p.demb + (size_t)row * p.D + (n - p.H)) = v;
+                        }
+                    }
+                }
+        }
+    }
+}
+
+// Split launch, once per backward call: the hi and lo parts of W_ih and
+// W_hh in their gate-major layout (for the gate launch) and of
+// [W_hh | W_ih]^T (for the product launch), through a 32 x 32 shared tile.
+// w_split holds w_ih_hi [4H, D], w_ih_lo, w_hh_hi [4H, H], w_hh_lo,
+// wt_hi [H + D, 4H], wt_lo, in that order.
+__global__ void __launch_bounds__(256) lstm_bwd_split_kernel_tf32(const float* w_ih, const float* w_hh,
+                                                                   float* w_split, int D, int H) {
+    __shared__ float t_hi[32][33], t_lo[32][33];
+    const int H4 = 4 * H, N = H + D;
+    float* wih_hi = w_split;
+    float* wih_lo = wih_hi + (size_t)H4 * D;
+    float* whh_hi = wih_lo + (size_t)H4 * D;
+    float* whh_lo = whh_hi + (size_t)H4 * H;
+    float* wt_hi = whh_lo + (size_t)H4 * H;
+    float* wt_lo = wt_hi + (size_t)N * H4;
+    const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32, tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+    for (int i = ty; i < 32; i += 8) {
+        const int k = k0 + i, n = n0 + tx;  // [W_hh | W_ih] row k (a gate column), column n
+        if (k < H4 && n < N) {
+            const size_t o = n < H ? (size_t)k * H + n : (size_t)k * D + (n - H);
+            uint32_t hi, lo;
+            tf32_split(n < H ? w_hh[o] : w_ih[o], hi, lo);
+            (n < H ? whh_hi : wih_hi)[o] = __uint_as_float(hi);
+            (n < H ? whh_lo : wih_lo)[o] = __uint_as_float(lo);
+            t_hi[i][tx] = __uint_as_float(hi);
+            t_lo[i][tx] = __uint_as_float(lo);
+        }
+    }
+    __syncthreads();
+    for (int i = ty; i < 32; i += 8) {
+        const int n = n0 + i, k = k0 + tx;
+        if (k < H4 && n < N) {
+            wt_hi[(size_t)n * H4 + k] = t_hi[tx][i];
+            wt_lo[(size_t)n * H4 + k] = t_lo[tx][i];
+        }
+    }
+}
+
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+constexpr int DBK = 64;       // dW rows per chunk: eight k8 steps between barriers
+constexpr int DSTAGES = 3;    // chunks in the cp.async ring: two in flight while one is multiplied
+constexpr int DLD = WB + 8;   // smem row stride: 136 = 8 mod 32, so a fragment load (k = lane%4, + 4;
+                              // column lane/4, + 8) reads 32 distinct banks
+constexpr int DW_SMEM = DSTAGES * 2 * DBK * DLD * 4;  // 204 KB: the ring of dg and x / h tiles
 // dW sums over every active (row, step), 26636 terms on the flagship's entity
 // pass: one f32 accumulator taking them in turn drifted from the plain
 // version's per-step products by 1.2e-5 of max|dW| on an H100, too near the
-// f32 rule's limit.  So the kernel sums blocks of DW_BLOCK chunks (256 rows) apart and
-// adds the block sums into a second accumulator.
-constexpr int DW_BLOCK = 16;
+// f32 rule's limit.  So the kernel sums blocks of DW_BLOCK chunks (256 rows)
+// apart and adds the block sums into a second accumulator.
+constexpr int DW_BLOCK = 256 / DBK;
 
-struct DwArgsF32 {
+struct Tf32DwArgs {
     const float* dg;       // [L, B, 4H]
     const float* x;        // [L, B, D]
     const float* hs;       // [L, B, H]
     const int* lens;       // [B], sorted descending
-    const float* db_part;  // [L, ceil(B / BM), 4H]: written for the active row blocks only
+    const float* db_part;  // [L, ceil(B / BM), 4H]: written for the active row tiles only
     float* dw_ih;          // [4H, D]
     float* dw_hh;          // [4H, H]
     float* db;             // [4H]
@@ -418,12 +812,21 @@ struct DwArgsF32 {
     int D, H, L;
 };
 
-// The dW tile walk of lstm_bwd_dw_kernel with an FFMA product: thread (tm =
-// tid / 16, tn = tid % 16) holds gate columns m0 + 4 tm + 64 w + e and output
-// columns n0 + 4 tn + 64 v + e, both read as float4 from the k-major tiles.
-__global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel_f32(const DwArgsF32 p) {
-    __shared__ __align__(16) float As[2][FBK][FWLD];  // dg rows (k) x gate columns (m)
-    __shared__ __align__(16) float Bs[2][FBK][FWLD];  // x or h rows (k) x output columns (n)
+// dW launch, once per call: dW = sum over t of dg[t]^T . [x_t | hs[t-1]]
+// on mma.sync m16n8k8 in 3xTF32 (fragments read from the k-major shared
+// tiles, split in registers; the correction products first), over the
+// (t, row chunk) walk of lstm_bwd_dw_kernel, one block per 128 x 128 tile
+// of dW, blocks of 256 rows summed apart; and db by db_reduce.  Warp
+// (wm = warp % 4, wn = warp / 4) holds gate columns m0 + 32 wm + [0, 32)
+// and output columns n0 + 64 wn + [0, 64).  The chunks stream through a
+// ring of DSTAGES slots of 64 rows (cp.async, 16-byte copies): on an H100
+// this ran faster than 16-row chunks double buffered, whose barrier every
+// two k8 steps held the eight warps back.
+template <int V>
+__global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel_tf32(const Tf32DwArgs p) {
+    extern __shared__ __align__(16) float dw_smem[];
+    float* As = dw_smem;                         // [DSTAGES][DBK][DLD] dg rows (k) x gate columns (m)
+    float* Bs = dw_smem + DSTAGES * DBK * DLD;   // [DSTAGES][DBK][DLD] x or h rows (k) x output columns (n)
 
     const int H4 = 4 * p.H;
     const int nyd = (p.D + WB - 1) / WB;
@@ -432,30 +835,28 @@ __global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel_f32(const DwArgsF32 p) 
     const int m0 = blockIdx.x * WB;
     const int n0 = (hh ? blockIdx.y - nyd : blockIdx.y) * WB;
     float* out = hh ? p.dw_hh : p.dw_ih;
-    const int tm = threadIdx.x / 16, tn = threadIdx.x % 16;
-    float acc[2][4][2][4], sum[2][4][2][4];  // this block of chunks; the blocks before it
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int gid = lane >> 2, tig = lane & 3;
+    const int wm = warp & 3, wn = warp >> 2;
+    float acc[2][8][4], sum[2][8][4];  // this block of chunks; the blocks before it
     // sum += acc, acc = 0 (fixed order: the walk is the same in every thread)
     auto flush = [&]() {
 #pragma unroll
-        for (int w = 0; w < 2; ++w)
+        for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-            for (int em = 0; em < 4; ++em)
+            for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-                for (int v = 0; v < 2; ++v)
-#pragma unroll
-                    for (int en = 0; en < 4; ++en) {
-                        sum[w][em][v][en] += acc[w][em][v][en];
-                        acc[w][em][v][en] = 0.f;
-                    }
+                for (int e = 0; e < 4; ++e) {
+                    sum[mi][ni][e] += acc[mi][ni][e];
+                    acc[mi][ni][e] = 0.f;
+                }
     };
 #pragma unroll
-    for (int w = 0; w < 2; ++w)
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int em = 0; em < 4; ++em)
+        for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-            for (int v = 0; v < 2; ++v)
-#pragma unroll
-                for (int en = 0; en < 4; ++en) acc[w][em][v][en] = sum[w][em][v][en] = 0.f;
+            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = sum[mi][ni][e] = 0.f;
 
     db_reduce(p);
 
@@ -464,75 +865,114 @@ __global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel_f32(const DwArgsF32 p) 
         const float* a = p.dg + (size_t)t * p.B * H4;
         const float* b = hh ? p.hs + (size_t)(t - 1) * p.B * p.H : p.x + (size_t)t * p.B * p.D;
         constexpr int CH = WB / 4;  // 16-byte chunks per tile row
-        for (int i = threadIdx.x; i < FBK * CH; i += NT) {
+        for (int i = threadIdx.x; i < DBK * CH; i += NT) {
             const int kr = i / CH, c = (i % CH) * 4;
             const long long row = k0 + kr;
             const float* asrc = a + (size_t)row * H4 + m0 + c;
             const bool aok = row < nrows && m0 + c < H4;
-            cp_async16(&As[s][kr][c], aok ? asrc : a, aok ? 16 : 0);
+            cp_async16(As + (s * DBK + kr) * DLD + c, aok ? asrc : a, aok ? 16 : 0);
             const float* bsrc = b + (size_t)row * N + n0 + c;
             const bool bok = row < nrows && n0 + c < N;
-            cp_async16(&Bs[s][kr][c], bok ? bsrc : b, bok ? 16 : 0);
+            cp_async16(Bs + (s * DBK + kr) * DLD + c, bok ? bsrc : b, bok ? 16 : 0);
         }
     };
 
-    int t = hh ? 1 : 0, k0 = -FBK;
+    // the loads walk DSTAGES - 1 chunks ahead of the products; rows past a
+    // step's active prefix are zero-filled, so the products need no walk
+    int t = hh ? 1 : 0, k0 = -DBK;
     int nrows = t < p.L ? active_rows(p.lens, p.B, t) : 0;
-    dw_advance(p, FBK, t, k0, nrows);
-    if (t < p.L) {
-        int s = 0;
-        load(t, k0, nrows, s);
+    dw_advance(p, DBK, t, k0, nrows);
+    int loaded = 0;
+    for (int s = 0; s < DSTAGES - 1; ++s) {
+        if (t < p.L) {
+            load(t, k0, nrows, s);
+            ++loaded;
+            dw_advance(p, DBK, t, k0, nrows);
+        }
         cp_async_commit();
-        dw_advance(p, FBK, t, k0, nrows);
-        for (int chunk = 1;; ++chunk) {
-            const bool more = t < p.L;
-            if (more) load(t, k0, nrows, s ^ 1);
-            cp_async_commit();
-            cp_async_wait_1();
-            __syncthreads();
+    }
+    for (int chunk = 0; chunk < loaded; ++chunk) {
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(DSTAGES - 2));
+        __syncthreads();  // the chunk has landed, and every warp is done with the slot loaded next
+        if (t < p.L) {
+            load(t, k0, nrows, (chunk + DSTAGES - 1) % DSTAGES);
+            ++loaded;
+            dw_advance(p, DBK, t, k0, nrows);
+        }
+        cp_async_commit();
+        const float* A = As + (chunk % DSTAGES) * DBK * DLD;
+        const float* Bt = Bs + (chunk % DSTAGES) * DBK * DLD;
 #pragma unroll
-            for (int k = 0; k < FBK; ++k) {
-                float4 a[2], b[2];
+        for (int kk = 0; kk < DBK; kk += 8) {
+            uint32_t a_hi[2][4], a_lo[2][4];
 #pragma unroll
-                for (int w = 0; w < 2; ++w) a[w] = *reinterpret_cast<const float4*>(&As[s][k][tm * 4 + 64 * w]);
+            for (int mi = 0; mi < 2; ++mi) {
+                const int m = wm * 32 + mi * 16 + gid;
+                tf32_split(A[(kk + tig) * DLD + m], a_hi[mi][0], a_lo[mi][0]);
+                tf32_split(A[(kk + tig) * DLD + m + 8], a_hi[mi][1], a_lo[mi][1]);
+                tf32_split(A[(kk + tig + 4) * DLD + m], a_hi[mi][2], a_lo[mi][2]);
+                tf32_split(A[(kk + tig + 4) * DLD + m + 8], a_hi[mi][3], a_lo[mi][3]);
+            }
 #pragma unroll
-                for (int v = 0; v < 2; ++v) b[v] = *reinterpret_cast<const float4*>(&Bs[s][k][tn * 4 + 64 * v]);
+            for (int ni = 0; ni < 8; ++ni) {
+                const int n = wn * 64 + ni * 8 + gid;
+                uint32_t b_hi[2], b_lo[2];
+                tf32_split(Bt[(kk + tig) * DLD + n], b_hi[0], b_lo[0]);
+                tf32_split(Bt[(kk + tig + 4) * DLD + n], b_hi[1], b_lo[1]);
 #pragma unroll
-                for (int w = 0; w < 2; ++w) {
-                    const float av[4] = {a[w].x, a[w].y, a[w].z, a[w].w};
-#pragma unroll
-                    for (int em = 0; em < 4; ++em)
-#pragma unroll
-                        for (int v = 0; v < 2; ++v) {
-                            acc[w][em][v][0] = fmaf(av[em], b[v].x, acc[w][em][v][0]);
-                            acc[w][em][v][1] = fmaf(av[em], b[v].y, acc[w][em][v][1]);
-                            acc[w][em][v][2] = fmaf(av[em], b[v].z, acc[w][em][v][2]);
-                            acc[w][em][v][3] = fmaf(av[em], b[v].w, acc[w][em][v][3]);
-                        }
+                for (int mi = 0; mi < 2; ++mi) {
+                    if (V == X3) {
+                        mma_tf32(acc[mi][ni], a_lo[mi], b_hi);
+                        mma_tf32(acc[mi][ni], a_hi[mi], b_lo);
+                    }
+                    mma_tf32(acc[mi][ni], a_hi[mi], b_hi);
                 }
             }
-            __syncthreads();
-            if (chunk % DW_BLOCK == 0) flush();
-            if (!more) break;
-            dw_advance(p, FBK, t, k0, nrows);
-            s ^= 1;
         }
+        if ((chunk + 1) % DW_BLOCK == 0) flush();
     }
     flush();
 
 #pragma unroll
-    for (int w = 0; w < 2; ++w)
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int em = 0; em < 4; ++em)
+        for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-            for (int v = 0; v < 2; ++v)
-#pragma unroll
-                for (int en = 0; en < 4; ++en) {
-                    const int m = m0 + tm * 4 + 64 * w + em;
-                    const int n = n0 + tn * 4 + 64 * v + en;
-                    if (m < H4 && n < N) out[(size_t)m * N + n] = sum[w][em][v][en];
-                }
+            for (int e = 0; e < 4; ++e) {
+                const int m = m0 + wm * 32 + mi * 16 + gid + ((e >> 1) << 3);
+                const int n = n0 + wn * 64 + ni * 8 + tig * 2 + (e & 1);
+                if (m < H4 && n < N) out[(size_t)m * N + n] = sum[mi][ni][e];
+            }
 }
+
+// cudaFuncSetAttribute for the `bytes` of dynamic shared memory of
+// `Kernel`, once per device.
+template <auto Kernel, int bytes = SMEM>
+int allow_smem() {
+    static bool done[64] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+    if (!done[dev]) {
+        const cudaError_t e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        done[dev] = true;
+    }
+    return 0;
+}
+
+// The split weights' parts (see lstm_bwd_split_kernel_tf32).
+struct SplitWeights {
+    const float *wih_hi, *wih_lo, *whh_hi, *whh_lo, *wt_hi, *wt_lo;
+};
+
+inline SplitWeights split_parts(const void* w_split, int D, int H) {
+    const float* base = static_cast<const float*>(w_split);
+    const size_t ih = (size_t)4 * H * D, hh = (size_t)4 * H * H, t = (size_t)(H + D) * 4 * H;
+    return {base, base + ih, base + 2 * ih, base + 2 * ih + hh, base + 2 * ih + 2 * hh, base + 2 * ih + 2 * hh + t};
+}
+
+}  // namespace tf32
 
 }  // namespace
 
@@ -608,43 +1048,80 @@ extern "C" int oket_lstm_bwd_dw_bf16(const void* dg, const void* x, const void* 
     return static_cast<int>(cudaGetLastError());
 }
 
-// The f32 mode: the same three entries for f32 x, hs, cs, dlast (or dhs[t]),
-// weights, dg, demb and dW (lens int32, bias, dh, dc, db_part and db f32, as
-// in the bf16 entries); D % 4 == H % 4 == 0.
-extern "C" int oket_lstm_bwd_gate_f32(const void* x, const void* h_prev, const void* w_ih, const void* w_hh,
-                                      const void* bias, const void* lens, const void* cs_t, const void* cs_prev,
-                                      const void* dlast, int every_step, const void* dh, void* dc, void* dg,
-                                      void* db_part, long long B, int D, int H, int t, void* stream) {
-    GateBwdArgsF32 p;
-    p.g.x = static_cast<const float*>(x);
-    p.g.h_prev = static_cast<const float*>(h_prev);
-    p.g.w_ih = static_cast<const float*>(w_ih);
-    p.g.w_hh = static_cast<const float*>(w_hh);
-    p.g.B = B;
-    p.g.D = D;
-    p.g.H = H;
-    p.g.t = t;
+
+// The f32 mode (3xTF32): emb [L, B, D], hs and cs [L, B, H], the cotangent
+// (dlast [B, H] or dhs[t]), weights, dg [L, B, 4H], demb and dW in f32;
+// lens int32, bias, dh, dc, db_part and db f32, as in the bf16 entries.
+// D % 4 == H % 4 == 0 (TMA strides are multiples of 16 bytes) and every
+// pointer 16-byte aligned.  w_split is the split launch's output (4 (H + D)
+// 4H floats); variant is 0 (3xTF32) or 1 (1xTF32, the planted check); grid
+// is the number of persistent blocks.  Returns the cudaError_t of the
+// launch, or -1 if the driver could not encode the tensor maps.
+
+// Once per backward call, before the steps: split W_ih and W_hh into w_split.
+extern "C" int oket_lstm_bwd_split_f32(const void* w_ih, const void* w_hh, void* w_split, int D, int H,
+                                       void* stream) {
+    const dim3 grid((unsigned)((4 * H + 31) / 32), (unsigned)((H + D + 31) / 32));
+    tf32::lstm_bwd_split_kernel_tf32<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(w_ih), static_cast<const float*>(w_hh), static_cast<float*>(w_split), D, H);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Step t, part 1: the gate recompute and the cell math.  cs_t, cs_prev and
+// cot are [B, H] (cs[t], cs[t-1] (unread at t == 0), dlast or dhs[t]).
+extern "C" int oket_lstm_bwd_gate_f32(const void* emb, const void* hs, const void* w_split, const void* bias,
+                                      const void* lens, const void* cs_t, const void* cs_prev, const void* cot,
+                                      int every_step, const void* dh, void* dc, void* dg, void* db_part, int L,
+                                      int B, int D, int H, int t, int grid, int variant, void* stream) {
+    using namespace tf32;
+    Tf32GateArgs p;
     p.bias = static_cast<const float*>(bias);
     p.lens = static_cast<const int*>(lens);
     p.cs_t = static_cast<const float*>(cs_t);
     p.cs_prev = static_cast<const float*>(cs_prev);
-    p.dlast = static_cast<const float*>(dlast);
-    p.every_step = every_step;
+    p.cot = static_cast<const float*>(cot);
     p.dh = static_cast<const float*>(dh);
     p.dc = static_cast<float*>(dc);
     p.dg = static_cast<float*>(dg);
     p.db_part = static_cast<float*>(db_part);
-    const dim3 grid((unsigned)((B + BM - 1) / BM), (unsigned)((H + BN - 1) / BN));
-    lstm_bwd_gate_kernel_f32<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
+    p.every_step = every_step;
+    p.B = B;
+    p.D = D;
+    p.H = H;
+    p.t = t;
+    // x_t and h_{t-1} in 128 x 32 boxes (rows past B read as zero); each
+    // weight part as [4][H][K], one box holding the four gate slabs of 32
+    // units (units past H and K tails read as zero)
+    static thread_local oket_sm90::CachedMap cache[6];
+    const SplitWeights w = split_parts(w_split, D, H);
+    const uint64_t b = B, d = D, h = H, l = L;
+    const uint32_t box_a[3] = {TK, TM, 1}, box_w[3] = {TK, TU, 4};
+    const CUtensorMap* const maps[6] = {
+        oket_sm90::f32_map(cache[0], emb, {d, b, l}, box_a),   oket_sm90::f32_map(cache[1], hs, {h, b, l}, box_a),
+        oket_sm90::f32_map(cache[2], w.wih_hi, {d, h, 4}, box_w), oket_sm90::f32_map(cache[3], w.wih_lo, {d, h, 4}, box_w),
+        oket_sm90::f32_map(cache[4], w.whh_hi, {h, h, 4}, box_w), oket_sm90::f32_map(cache[5], w.whh_lo, {h, h, 4}, box_w)};
+    for (const CUtensorMap* m : maps)
+        if (!m) return -1;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (variant == X3) {
+        if (const int e = allow_smem<lstm_bwd_gate_kernel_tf32<X3>>()) return e;
+        lstm_bwd_gate_kernel_tf32<X3><<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], *maps[3], *maps[4],
+                                                                  *maps[5], p);
+    } else if (variant == X1) {
+        if (const int e = allow_smem<lstm_bwd_gate_kernel_tf32<X1>>()) return e;
+        lstm_bwd_gate_kernel_tf32<X1><<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], *maps[3], *maps[4],
+                                                                  *maps[5], p);
+    } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int oket_lstm_bwd_product_f32(const void* dg, const void* w_hh, const void* w_ih, const void* lens,
-                                         void* dh, void* demb, long long B, int D, int H, int t, void* stream) {
-    ProdArgsF32 p;
-    p.dg = static_cast<const float*>(dg);
-    p.w_hh = static_cast<const float*>(w_hh);
-    p.w_ih = static_cast<const float*>(w_ih);
+// Step t, part 2: [dh | demb[t]] = dg[t] . [W_hh | W_ih]; dg is [L, B, 4H].
+extern "C" int oket_lstm_bwd_product_f32(const void* dg, const void* w_split, const void* lens, void* dh, void* demb,
+                                         int L, int B, int D, int H, int t, int grid, int variant, void* stream) {
+    using namespace tf32;
+    Tf32ProdArgs p;
     p.lens = static_cast<const int*>(lens);
     p.dh = static_cast<float*>(dh);
     p.demb = static_cast<float*>(demb);
@@ -652,13 +1129,36 @@ extern "C" int oket_lstm_bwd_product_f32(const void* dg, const void* w_hh, const
     p.D = D;
     p.H = H;
     p.t = t;
-    return launch_bwd_product_f32(p, stream);
+    // dg[t] in 128 x 32 boxes, [W_hh | W_ih]^T in 128 x 32 boxes (columns
+    // past H + D and K tails read as zero)
+    static thread_local oket_sm90::CachedMap cache[3];
+    const SplitWeights w = split_parts(w_split, D, H);
+    const uint64_t k = 4 * (uint64_t)H, n = (uint64_t)H + D;
+    const uint32_t box[3] = {TK, TM, 1};
+    const CUtensorMap* const maps[3] = {oket_sm90::f32_map(cache[0], dg, {k, (uint64_t)B, (uint64_t)L}, box),
+                                        oket_sm90::f32_map(cache[1], w.wt_hi, {k, n, 1}, box),
+                                        oket_sm90::f32_map(cache[2], w.wt_lo, {k, n, 1}, box)};
+    for (const CUtensorMap* m : maps)
+        if (!m) return -1;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (variant == X3) {
+        if (const int e = allow_smem<lstm_bwd_product_kernel_tf32<X3>>()) return e;
+        lstm_bwd_product_kernel_tf32<X3><<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], p);
+    } else if (variant == X1) {
+        if (const int e = allow_smem<lstm_bwd_product_kernel_tf32<X1>>()) return e;
+        lstm_bwd_product_kernel_tf32<X1><<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], p);
+    } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
 }
 
+// After the loop: dW_ih [4H, D], dW_hh [4H, H] and db [4H].
 extern "C" int oket_lstm_bwd_dw_f32(const void* dg, const void* x, const void* hs, const void* lens,
                                     const void* db_part, void* dw_ih, void* dw_hh, void* db, long long B, int D,
-                                    int H, int L, void* stream) {
-    DwArgsF32 p;
+                                    int H, int L, int variant, void* stream) {
+    using namespace tf32;
+    Tf32DwArgs p;
     p.dg = static_cast<const float*>(dg);
     p.x = static_cast<const float*>(x);
     p.hs = static_cast<const float*>(hs);
@@ -672,6 +1172,15 @@ extern "C" int oket_lstm_bwd_dw_f32(const void* dg, const void* x, const void* h
     p.H = H;
     p.L = L;
     const dim3 grid((unsigned)((4 * H + WB - 1) / WB), (unsigned)((D + WB - 1) / WB + (H + WB - 1) / WB));
-    lstm_bwd_dw_kernel_f32<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (variant == X3) {
+        if (const int e = allow_smem<lstm_bwd_dw_kernel_tf32<X3>, DW_SMEM>()) return e;
+        lstm_bwd_dw_kernel_tf32<X3><<<grid, NT, DW_SMEM, s>>>(p);
+    } else if (variant == X1) {
+        if (const int e = allow_smem<lstm_bwd_dw_kernel_tf32<X1>, DW_SMEM>()) return e;
+        lstm_bwd_dw_kernel_tf32<X1><<<grid, NT, DW_SMEM, s>>>(p);
+    } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     return static_cast<int>(cudaGetLastError());
 }

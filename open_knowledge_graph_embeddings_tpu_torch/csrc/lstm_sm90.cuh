@@ -1,11 +1,15 @@
 // Hopper (sm_90a) building blocks of the port's CUDA kernels, in inline PTX:
 // mbarriers, TMA tile loads (cp.async.bulk.tensor) and their tensor maps,
-// wgmma descriptors, fences and the bf16 product m64n128k16 with f32
-// accumulators, and setmaxnreg.  Used by lstm_last_fwd.cu.
+// wgmma descriptors, fences, the bf16 product m64n128k16 and the TF32
+// product m64n128k8 (A from registers) with f32 accumulators, the TF32
+// split of an f32 value, named barriers and setmaxnreg.  Used by
+// lstm_last_fwd.cu (bf16) and the f32 backward of lstm_last_bwd.cu (TF32).
 //
 // Shared-memory tiles are K-major with the 128-byte swizzle: each tile row
-// is 64 bf16 (128 bytes) of K, rows grouped by 8 into 1024-byte atoms, and
-// the 16-byte chunk c of row r stored at chunk c ^ (r % 8).  TMA writes that
+// is 128 bytes of K (64 bf16 or 32 f32), rows grouped by 8 into 1024-byte
+// atoms, and the 16-byte chunk c of row r stored at chunk c ^ (r % 8).  A
+// k16 bf16 step and a k8 TF32 step are both 32 bytes of a row, so the
+// descriptor walk along K is the same for both.  TMA writes that
 // layout (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma reads it (descriptor layout
 // type 1), both from the address bits, so every tile starts on a 1024-byte
 // boundary.  Tensor maps are encoded on the host with the driver's
@@ -133,6 +137,56 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
         : "l"(a), "l"(b), "r"(1));
 }
 
+// d[64 x 128] += A[64 x 8] . B[128 x 8]^T, TF32 operands: A from registers
+// (a[i] the f32 bit pattern of row 16 w + l / 4 + 8 (i % 2), column
+// l % 4 + 4 (i / 2) of thread (warp w, lane l) of the warpgroup), B K-major
+// from shared memory; the tensor core reads the top 19 bits of each f32
+// (sign, exponent, 10 mantissa bits) and ignores the rest.  The
+// accumulator layout is wgmma_m64n128k16's.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// x = hi + lo + (a rest below 2^-22 |x|): hi = x rounded to nearest (ties
+// away) at TF32's 10 mantissa bits, lo = the remainder x - hi (exact in
+// f32) rounded the same way.  The tensor core truncates an f32 operand to
+// those bits, so hi is rounded explicitly, or it would lose the bit that lo
+// carries.  3xTF32 sums lo.hi' + hi.lo' + hi.hi', f32-accurate.  The
+// rounding is cvt.rna.tf32.f32's for finite x, in two integer instructions:
+// adding half a TF32 ulp (0x1000) to the bit pattern carries into bit 13
+// exactly when the dropped bits are at least half an ulp, and the mask
+// drops them.  ptxas expands cvt.rna.tf32.f32 with a compare and a select
+// per value for Inf and NaN, which the operands here are not; on an H100
+// this form gave the dW launch the same bits, faster.
+__device__ __forceinline__ uint32_t tf32_round(float x) { return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u; }
+
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = tf32_round(x);
+    lo = tf32_round(x - __uint_as_float(hi));
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -180,22 +234,23 @@ struct CachedMap {
     CUtensorMap map;
 };
 
-// A bf16 tensor map over the contiguous 3-D array at `base` (dims[0] the
-// contiguous dimension), read in boxes of `box`, 128-byte swizzled, the
-// elements outside the array read as zero; made anew only when `m` was
-// made for another array or box, so the steps of a recurrence, which pass
-// the same arrays, encode nothing.  Null if the driver cannot encode it.
-static const CUtensorMap* bf16_map(CachedMap& m, const void* base, const uint64_t (&dims)[3],
-                                   const uint32_t (&box)[3]) {
+// A tensor map of elements of `type` (`bytes` each) over the contiguous 3-D
+// array at `base` (dims[0] the contiguous dimension), read in boxes of
+// `box`, 128-byte swizzled, the elements outside the array read as zero;
+// made anew only when `m` was made for another array or box, so the steps
+// of a recurrence, which pass the same arrays, encode nothing.  Null if the
+// driver cannot encode it.
+static const CUtensorMap* tiled_map(CachedMap& m, CUtensorMapDataType type, int bytes, const void* base,
+                                    const uint64_t (&dims)[3], const uint32_t (&box)[3]) {
     bool same = m.base == base;
     for (int i = 0; i < 3; ++i) same = same && m.dims[i] == dims[i] && m.box[i] == box[i];
     if (same) return &m.map;
     m.base = nullptr;
     EncodeTiledFn fn = encode_tiled_fn();
     if (!fn) return nullptr;
-    const cuuint64_t d[3] = {dims[0], dims[1], dims[2]}, s[2] = {dims[0] * 2, dims[0] * dims[1] * 2};
+    const cuuint64_t d[3] = {dims[0], dims[1], dims[2]}, s[2] = {dims[0] * bytes, dims[0] * dims[1] * bytes};
     const cuuint32_t b[3] = {box[0], box[1], box[2]}, e[3] = {1, 1, 1};
-    if (fn(&m.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), d, s, b, e,
+    if (fn(&m.map, type, 3, const_cast<void*>(base), d, s, b, e,
            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
         return nullptr;
@@ -205,6 +260,16 @@ static const CUtensorMap* bf16_map(CachedMap& m, const void* base, const uint64_
         m.box[i] = box[i];
     }
     return &m.map;
+}
+
+static const CUtensorMap* bf16_map(CachedMap& m, const void* base, const uint64_t (&dims)[3],
+                                   const uint32_t (&box)[3]) {
+    return tiled_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims, box);
+}
+
+static const CUtensorMap* f32_map(CachedMap& m, const void* base, const uint64_t (&dims)[3],
+                                  const uint32_t (&box)[3]) {
+    return tiled_map(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, box);
 }
 
 }  // namespace oket_sm90

@@ -23,9 +23,11 @@ VJP joins each pair there, an ``autograd.Function`` here (:class:`_LstmLast`,
   every-state forward) and ``csrc/lstm_last_bwd.cu`` (two launches per step
   and one for dW and db; the cotangent enters at each row's last step or at
   every step).  At bf16 both are bound by tensor-core operations on an H100.
-  Their f32 modes (``csrc/lstm_last_fwd_f32.cu`` and the ``*_f32`` entries of
-  ``lstm_last_bwd.cu``) take true f32 products on the CUDA cores and are
-  bound by FP32 operations.  Design notes are at the top of the sources.
+  The forward's f32 mode (``csrc/lstm_last_fwd_f32.cu``) takes true f32
+  products on the CUDA cores; the backward's (the ``*_f32`` entries of
+  ``lstm_last_bwd.cu``) takes 3xTF32 products on the tensor cores, as
+  accurate as f32 (one more launch per call splits the weights).  Design
+  notes are at the top of the sources.
 
 :func:`lstm_encode_last_fused`, :func:`lstm_last_backward`,
 :func:`lstm_all_forward` and :func:`lstm_all_backward` are the wrappers: a
@@ -236,6 +238,17 @@ def forward_grid(B: int, H: int, n_sm: int) -> int:
     return max(1, min(-(-B // _ROW_TILE) * -(-H // _UNIT_TILE), n_sm))
 
 
+# The f32 backward's product tiles: 128 rows x 128 columns of [dh | demb]
+_PRODUCT_TILE = 128
+
+
+def backward_product_grid(B: int, H: int, D: int, n_sm: int) -> int:
+    """The persistent grid of the f32 backward's product launch for B rows
+    and the H + D columns of ``[dh | demb]``; its gate launch takes
+    :func:`forward_grid` (the same 128-row x 32-unit tiles as kernel 1)."""
+    return max(1, min(-(-B // _ROW_TILE) * -(-(H + D) // _PRODUCT_TILE), n_sm))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -253,18 +266,35 @@ def _fwd_f32_fn():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_fns(dtype):
-    """The backward kernels' C entry points (gate, product, dW) for ``dtype``."""
+def _bwd_fns():
+    """The bf16 backward kernels' C entry points (gate, product, dW)."""
     from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
 
-    lib, sfx = cuda_build.load(_BWD_SOURCE), _SUFFIX[dtype]
-    gate, prod, dw = (getattr(lib, f"oket_lstm_bwd_{part}_{sfx}") for part in ("gate", "product", "dw"))
+    lib = cuda_build.load(_BWD_SOURCE)
+    gate, prod, dw = (getattr(lib, f"oket_lstm_bwd_{part}_bf16") for part in ("gate", "product", "dw"))
     gate.argtypes = [_P] * 9 + [_I] + [_P] * 4 + [_LL, _I, _I, _I, _P]
     prod.argtypes = [_P] * 6 + [_LL, _I, _I, _I, _P]
     dw.argtypes = [_P] * 8 + [_LL, _I, _I, _I, _P]
     for fn in (gate, prod, dw):
         fn.restype = _I
     return gate, prod, dw
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_f32_fns():
+    """The f32 (3xTF32) backward kernels' C entry points: split, gate,
+    product, dW."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load(_BWD_SOURCE)
+    split, gate, prod, dw = (getattr(lib, f"oket_lstm_bwd_{part}_f32") for part in ("split", "gate", "product", "dw"))
+    split.argtypes = [_P] * 3 + [_I, _I, _P]
+    gate.argtypes = [_P] * 8 + [_I] + [_P] * 4 + [_I] * 7 + [_P]
+    prod.argtypes = [_P] * 5 + [_I] * 7 + [_P]
+    dw.argtypes = [_P] * 8 + [_LL, _I, _I, _I, _I, _P]
+    for fn in (split, gate, prod, dw):
+        fn.restype = _I
+    return split, gate, prod, dw
 
 
 def kernel_multiple(dtype) -> int:
@@ -393,12 +423,22 @@ def _launch_all_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dhs):
     return _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dhs, True, lstm_all_backward)
 
 
-def _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step, counter):
+# what a launch of the f32 backward computes: the kernel (3xTF32), or for the
+# planted check of chip_smoke.py, one TF32 product (1xTF32), which the f32
+# rule must fail
+BACKWARD_F32_VARIANTS = {"kernel": 0, "1xTF32": 1}
+
+
+def _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step, counter, variant="kernel"):
     L, B, D, H = _check(emb_tm, w_ih, w_hh, bias, lengths)
     dev, dt = emb_tm.device, emb_tm.dtype
     _check_residuals(L, B, H, dt, hs, cs, cot, dev, every_step)
     _check_kernel_inputs(dt, D, H, emb_tm=emb_tm, w_ih=w_ih, w_hh=w_hh, hs=hs, cs=cs, cotangent=cot)
-    gate, prod, dw = _bwd_fns(dt)
+    if dt == torch.float32:
+        return _launch_bwd_steps_f32(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step, counter, variant)
+    if variant != "kernel":
+        raise ValueError(f"the variant {variant!r} is the f32 backward's")
+    gate, prod, dw = _bwd_fns()
     bias = bias.contiguous()
     lens = lengths.to(torch.int32).contiguous()
     dh = torch.zeros(B, H, dtype=torch.float32, device=dev)
@@ -437,6 +477,57 @@ def _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step
     return demb, dw_ih, dw_hh, db
 
 
+def _launch_bwd_steps_f32(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step, counter, variant):
+    """Kernels 2 and 6 in f32 (the 3xTF32 entries of ``csrc/lstm_last_bwd.cu``):
+    the weight split, a gate and a product launch per step, dW and db: 2L + 2
+    launches."""
+    L, B, D, H = emb_tm.shape[0], emb_tm.shape[1], emb_tm.shape[2], w_hh.shape[1]
+    split, gate, prod, dw = _bwd_f32_fns()
+    code = BACKWARD_F32_VARIANTS[variant]
+    dev, f32 = emb_tm.device, torch.float32
+    bias = bias.contiguous()
+    if bias.data_ptr() % 8:  # the gate kernel reads the bias of a unit pair as one float2
+        bias = bias.clone()
+    lens = lengths.to(torch.int32).contiguous()
+    dh = torch.zeros(B, H, dtype=f32, device=dev)
+    dc = torch.zeros(B, H, dtype=f32, device=dev)
+    dg = torch.empty(L, B, 4 * H, dtype=f32, device=dev)
+    # per step and row tile of 128 (the gate kernel's): written for the
+    # active tiles, which are the only ones the dW kernel sums into db
+    db_part = torch.empty(L, -(-B // 128), 4 * H, dtype=f32, device=dev)
+    demb = torch.empty(L, B, D, dtype=f32, device=dev)
+    dw_ih = torch.empty(4 * H, D, dtype=f32, device=dev)
+    dw_hh = torch.empty(4 * H, H, dtype=f32, device=dev)
+    db = torch.empty(4 * H, dtype=f32, device=dev)
+    if not (B and H):
+        return demb.zero_(), dw_ih.zero_(), dw_hh.zero_(), db.zero_()
+    # hi and lo of W_ih, W_hh (gate-major) and of [W_hh | W_ih]^T
+    w_split = torch.empty(4 * 4 * H * (H + D), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(split(w_ih.data_ptr(), w_hh.data_ptr(), w_split.data_ptr(), D, H, stream), "lstm_last_bwd_f32 split")
+    counter.launches += 1
+    n_sm = _sm_count(dev.index)
+    grid_gate, grid_prod = forward_grid(B, H, n_sm), backward_product_grid(B, H, D, n_sm)
+    step = B * H * 4  # bytes of one [B, H] slice
+    emb, hs0, cs0, ws, cot0 = (x.data_ptr() for x in (emb_tm, hs, cs, w_split, cot))
+    for t in reversed(range(L)):
+        err = gate(
+            emb, hs0, ws, bias.data_ptr(), lens.data_ptr(), cs0 + t * step, cs0 + max(t - 1, 0) * step,
+            cot0 + (t * step if every_step else 0), int(every_step), dh.data_ptr(), dc.data_ptr(),
+            dg.data_ptr() + t * B * 4 * H * 4, db_part[t].data_ptr(), L, B, D, H, t, grid_gate, code, stream,
+        )
+        _raise_on(err, f"lstm_last_bwd_f32 gate step {t}")
+        err = prod(dg.data_ptr(), ws, lens.data_ptr(), dh.data_ptr(), demb[t].data_ptr(), L, B, D, H, t,
+                   grid_prod, code, stream)
+        _raise_on(err, f"lstm_last_bwd_f32 product step {t}")
+        counter.launches += 2
+    err = dw(dg.data_ptr(), emb, hs0, lens.data_ptr(), db_part.data_ptr(), dw_ih.data_ptr(), dw_hh.data_ptr(),
+             db.data_ptr(), B, D, H, L, code, stream)
+    _raise_on(err, "lstm_last_bwd_f32 dW and db")
+    counter.launches += 1
+    return demb, dw_ih, dw_hh, db
+
+
 # ------------------------------------------------------------------ wrappers
 
 
@@ -458,9 +549,10 @@ def _forward(emb_tm, w_ih, w_hh, bias, lengths, residuals):
 def lstm_last_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast):
     """Backward of the fused last-state LSTM: same contract as
     :func:`lstm_last_backward_plain`.  CUDA tensors launch the kernels (two
-    per step and one for dW and db, counted in ``lstm_last_backward.launches``);
-    CPU tensors take the plain version.  On the card demb holds unread
-    garbage at the positions a row never reaches."""
+    per step and one for dW and db, and at f32 one more that splits the
+    weights, counted in ``lstm_last_backward.launches``); CPU tensors take
+    the plain version.  On the card demb holds unread garbage at the
+    positions a row never reaches."""
     run = _on_device(emb_tm, _launch_backward, lstm_last_backward_plain)
     return run(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast)
 
@@ -479,7 +571,8 @@ def lstm_all_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dhs):
     """Backward of the every-state fused LSTM (kernel 6): same contract as
     :func:`lstm_all_backward_plain`.  CUDA tensors launch the backward
     kernels with the cotangent added at every active step (2 launches per
-    step and one for dW and db, counted in ``lstm_all_backward.launches``)."""
+    step, one for dW and db, and at f32 the weight split, counted in
+    ``lstm_all_backward.launches``)."""
     run = _on_device(emb_tm, _launch_all_backward, lstm_all_backward_plain)
     return run(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dhs)
 

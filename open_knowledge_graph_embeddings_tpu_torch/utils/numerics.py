@@ -21,7 +21,9 @@ step.  Two bounds follow, each tight enough to fail a real mistake:
 rounding level: the largest difference relative to ``max|want|`` of each
 output, bounded by :data:`MAX_REL_ERR_F32`.  Its yardstick is the same
 computation with TF32 operands (:func:`round_to_tf32`): the rule must fail
-it, as it must fail a dropped bias or recurrent product.
+it, as it must fail a dropped bias or recurrent product.  The f32 LSTM
+backward on the card takes 3xTF32 products on the tensor cores, which the
+rule passes; :func:`matmul_3xtf32` emulates them for the tests.
 """
 
 from __future__ import annotations
@@ -100,12 +102,16 @@ def assert_bf16_close(got, want, max_unequal_share: float = MAX_UNEQUAL_SHARE) -
 
 #: f32 results, kernel against its plain version on the card: the largest
 #: difference relative to max|want| of each output (last, hs, cs, demb,
-#: dW_ih, dW_hh, db, dx_proj).  Both sides take true f32 products in another
-#: summation order, so they differ at f32 rounding level; the same plain
-#: version with its operands rounded to TF32's 10 mantissa bits (what a TF32
-#: tensor-core product would give) differs at ~2^-11.  The limit lies between
-#: the two, at least 4x from each: on an H100 the kernels read at most
-#: 1.85e-6 and TF32 products at least 1.27e-4 (PERF.md, the chip_smoke.py run).
+#: dW_ih, dW_hh, db, dx_proj).  Both sides take f32-accurate products in
+#: another summation order (true f32, or 3xTF32 in the backward of kernels 2
+#: and 6), so they differ at f32 rounding level; the same plain version with
+#: its operands rounded to TF32's 10 mantissa bits (what one TF32
+#: tensor-core product would give) differs at ~2^-11.  The limit lies
+#: between the two: on an H100 (PERF.md, the chip_smoke.py runs) the FFMA
+#: kernels read at most 1.85e-6, the 3xTF32 backward up to 1.3e-5 (its
+#: dh/demb product: the tensor cores' f32 accumulation drifts over
+#: 3 * 4H / 8 accumulating products), and one TF32 product per product at
+#: least 1.27e-4 on some output of each kernel.
 MAX_REL_ERR_F32 = 3e-5
 
 
@@ -157,3 +163,20 @@ def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
     bits = x.float().contiguous().view(torch.int32)
     bits = (bits + 0xFFF + ((bits >> 13) & 1)) & -0x2000
     return bits.view(torch.float32)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """``a @ b`` (f32) as 3xTF32 tensor-core products compute it, emulated in
+    f32: each operand split into ``hi = round_to_tf32(x)`` and ``lo =
+    round_to_tf32(x - hi)``, and ``lo·hi' + hi·lo'`` summed before
+    ``hi·hi'`` (the small terms first), as the f32 LSTM backward's kernels
+    do.  ``passes=1`` keeps ``hi·hi'`` alone: one TF32 product, which the
+    f32 rule must fail.  For the tests and ``chip_smoke.py``; the port's
+    plain versions take true f32 products."""
+    a_hi, b_hi = round_to_tf32(a), round_to_tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    if passes != 3:
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    a_lo, b_lo = round_to_tf32(a.float() - a_hi), round_to_tf32(b.float() - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi

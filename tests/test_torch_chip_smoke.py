@@ -175,17 +175,33 @@ def test_f32_scan_checks_fail_planted_faults(smoke, capsys):
 
 
 def test_f32_every_state_checks_fail_planted_faults(smoke, f32_case, capsys):
+    """Kernels 5 and 6 in f32: hs one step late, the cotangent at the last
+    step only, the TF32 yardstick and a dropped bias each, and kernel 6's
+    1xTF32 variant (emulated here, where there is no kernel)."""
     fwd_args, _, _ = f32_case
     fwd_err, bwd_err = smoke.check_every_state(torch, fwd_args, ragged=(1, 37))
     assert fwd_err == bwd_err == 0.0
     out = capsys.readouterr().out
-    assert out.count("planted fault") == 6 and out.count("TF32 operands") == 2
+    assert out.count("planted fault") == 7 and out.count("TF32 operands") == 2
+    assert "planted fault 1xTF32 variant of lstm_all_bwd_f32" in out
+
+
+def test_f32_1xtf32_variant_check_fails_the_variant(smoke, f32_case, capsys):
+    """Kernel 2's 1xTF32 check on the CPU (the emulated variant) passes,
+    that is the variant fails the f32 rule, and it restores torch.matmul."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+
+    _, _, bwd_args = f32_case
+    matmul = torch.matmul
+    smoke.check_1xtf32_variant(torch, bwd_args, False, lk.lstm_last_backward_plain(*bwd_args))
+    assert torch.matmul is matmul
+    assert "planted fault 1xTF32 variant of lstm_last_bwd_f32" in capsys.readouterr().out
 
 
 def test_kernel_rows_list_the_f32_modes(smoke):
     """The kernels line lists the f32 mode of kernels 1, 2 and 5-8 beside the
     eight ports, each with a launch counter; every CUDA source is built; the
-    f32 bounds take 4-byte elements at the FP32 peak."""
+    f32 bounds take 4-byte elements at the 3xTF32 rate."""
     counters = smoke.kernel_counters()
     f32_rows = [r for r in smoke.KERNEL_ROWS if r.endswith("_f32")]
     assert len(smoke.KERNEL_ROWS) == 14 and smoke.KERNEL_ROWS[:8] == list(counters)
@@ -195,5 +211,24 @@ def test_kernel_rows_list_the_f32_modes(smoke):
     ops2, bytes2 = smoke.lstm_bound(7, 10, 5632, 512, 512, 56320)
     ops4, bytes4 = smoke.lstm_bound(7, 10, 5632, 512, 512, 56320, es=4)
     assert ops4 == ops2 and bytes4 == 2 * bytes2
-    assert smoke.peak_flops(torch.float32) is smoke.PEAK_FP32_FLOPS
+    assert smoke.peak_flops(torch.float32) == smoke.PEAK_3XTF32_FLOPS == smoke.PEAK_BF16_FLOPS / 6
     assert smoke.peak_flops(torch.bfloat16) == smoke.PEAK_BF16_FLOPS
+
+
+def test_f32_backward_launches_and_bound_parts(smoke, monkeypatch):
+    """Kernels 2 and 6 launch 2L + 2 times a call at f32 (the weight split
+    besides the bf16 kernel's 2L + 1); their work is three equal parts (gate
+    recompute, dh/demb, dW), on the entity pass 2.9972e11 FLOP in all: 1.818
+    ms at the 3xTF32 rate, 0.606 ms a part, and 4.4796 ms at the FFMA rate
+    (132 SMs at 1980 MHz), which the f32 rows print beside it."""
+    assert smoke.backward_launches(10, "float32") == smoke.backward_launches(10, torch.float32) == 22
+    assert smoke.backward_launches(10, "bfloat16") == smoke.backward_launches(10, torch.bfloat16) == 21
+    parts = smoke.backward_parts(5632, 512, 512, 26636)
+    assert list(parts) == ["gate", "product", "dW"] and len(set(parts.values())) == 1
+    np.testing.assert_allclose(sum(parts.values()), 2.9972e11, rtol=1e-4)
+    whole, by = smoke.bound_ms(sum(parts.values()), 0, smoke.peak_flops(torch.float32))
+    np.testing.assert_allclose([whole, parts["gate"] / smoke.PEAK_3XTF32_FLOPS * 1e3], [1.818, 0.606], atol=6e-4)
+    assert by == "operations"
+    monkeypatch.setattr(smoke, "PEAK_FP32_FLOPS", 132 * 128 * 2 * 1980e6)
+    assert smoke.ffma_note(sum(parts.values()), torch.float32) == "; FFMA bound 4.4796 ms"
+    assert smoke.ffma_note(sum(parts.values()), torch.bfloat16) == ""

@@ -24,6 +24,7 @@ from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import (
     MAX_UNEQUAL_SHARE_BWD,
     assert_bf16_close,
     assert_f32_close,
+    f32_agreement,
 )
 
 pytestmark = pytest.mark.cuda
@@ -399,10 +400,12 @@ def test_unfused_serving_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
 # ------------------------------------------------------------------ f32 modes
 
 # Every f32 mode against its plain version across the tile edges: 128-row
-# and 32-unit gate tiles, 16-wide K tiles, 128-column product and dW tiles,
-# with D != H both ways.  Held to utils/numerics.py's f32 rule (largest
-# difference relative to max|want|).
-F32_SHAPES = [(b, d, h) for b in (1, 37, 128, 129, 4099) for d, h in ((128, 256), (256, 128))]
+# and 32-unit gate tiles, 16-wide K tiles (the forward) and 32-wide K stages
+# (the 3xTF32 backward), 128-column product and dW tiles, with D != H both
+# ways, and D = 132, H = 100 (multiples of 4, not of 32: the backward's unit
+# tile and its K tails are crossed).  Held to utils/numerics.py's f32 rule
+# (largest difference relative to max|want|).
+F32_SHAPES = [(b, d, h) for b in (1, 37, 128, 129, 4099) for d, h in ((128, 256), (256, 128), (132, 100))]
 F32_IDS = [f"B{b}-D{d}-H{h}" for b, d, h in F32_SHAPES]
 
 
@@ -444,9 +447,10 @@ def test_f32_forward_modes_across_tile_edges_on_card(cuda, B, D, H):
 
 @pytest.mark.parametrize("B,D,H", F32_SHAPES, ids=F32_IDS)
 def test_f32_backward_modes_across_tile_edges_on_card(cuda, B, D, H):
-    """Kernels 2 and 6 in f32 (the *_f32 entries of csrc/lstm_last_bwd.cu)
-    on kernel 1's f32 residuals: demb at the positions each row reaches, dW,
-    db; 2L + 1 launches each."""
+    """Kernels 2 and 6 in f32 (the 3xTF32 *_f32 entries of
+    csrc/lstm_last_bwd.cu) on kernel 1's f32 residuals: demb at the
+    positions each row reaches, dW, db; 2L + 2 launches each (the weight
+    split, a gate and a product launch per step, dW and db)."""
     emb, w_ih, w_hh, bias, lens, dhs, dlast = (x.to(cuda) for x in _f32_inputs(B, D, H, seed=B + H))
     args = (emb, w_ih, w_hh, bias, lens)
     L = emb.shape[0]
@@ -459,13 +463,40 @@ def test_f32_backward_modes_across_tile_edges_on_card(cuda, B, D, H):
             "every": lstm_kernel.lstm_all_backward_plain(*args, hs, cs, dhs)}
     torch.cuda.synchronize()
     assert (lstm_kernel.lstm_last_backward.launches, lstm_kernel.lstm_all_backward.launches) == (
-        before[0] + 2 * L + 1, before[1] + 2 * L + 1)
+        before[0] + 2 * L + 2, before[1] + 2 * L + 2)
     for mode in got:
         g, w = got[mode], want[mode]
         assert all(x.dtype == torch.float32 for x in g)
         assert_f32_close(g[0][act], w[0][act])
         for i in (1, 2, 3):
             assert_f32_close(g[i], w[i])
+
+
+@pytest.mark.parametrize("every_step", [False, True], ids=["kernel2", "kernel6"])
+def test_f32_backward_1xtf32_variant_fails_the_f32_rule_on_card(cuda, every_step):
+    """The backward's planted 1xTF32 variant (hi·hi' alone, one TF32
+    product per product) must fail the f32 rule on some output where the
+    kernel (3xTF32) passes it: the rule sees the correction products."""
+    emb, w_ih, w_hh, bias, lens, dhs, dlast = (x.to(cuda) for x in _f32_inputs(512, 512, 512, seed=11))
+    args = (emb, w_ih, w_hh, bias, lens)
+    act = torch.from_numpy(_active(lens.cpu().numpy(), emb.shape[0])).to(cuda)
+    _, hs, cs = lstm_kernel._forward(*args, residuals=True)
+    cot = dhs if every_step else dlast
+    plain = lstm_kernel.lstm_all_backward_plain if every_step else lstm_kernel.lstm_last_backward_plain
+    want = plain(*args, hs, cs, cot)
+
+    class Uncounted:
+        launches = 0
+
+    run = {v: lstm_kernel._launch_bwd_steps(*args, hs, cs, cot, every_step, Uncounted, variant=v)
+           for v in ("kernel", "1xTF32")}
+    torch.cuda.synchronize()
+    assert Uncounted.launches == 2 * (2 * emb.shape[0] + 2)
+    ok = {}
+    for v, got in run.items():
+        ok[v] = [f32_agreement(g[act] if i == 0 else g, w[act] if i == 0 else w).ok()
+                 for i, (g, w) in enumerate(zip(got, want))]
+    assert all(ok["kernel"]) and not all(ok["1xTF32"]), ok
 
 
 @pytest.mark.parametrize("B,H", [(b, h) for b in (1, 37, 128, 129, 4099) for h in (128, 256)],

@@ -8,6 +8,10 @@ not tile against the JAX package.
   yardstick (the same plain version with its operands rounded to 10 mantissa
   bits: 1.5-3.8e-4 here) and a dropped bias or recurrent product, for each
   f32 mode (kernels 1, 2, 5, 6, 7, 8) at d=128.
+* The numerics of the f32 backward's 3xTF32 kernels (kernels 2 and 6 on
+  the card): the plain f32 backward with every product emulated as 3xTF32
+  (``utils/numerics.py::matmul_3xtf32``) meets the f32 rule against the
+  plain version at D = H = 512, and with one TF32 product (1xTF32) fails it.
 * The any-H route (``ops/lstm_scan_kernel.py::padded_forward`` /
   ``padded_backward``): H padded per gate block with zeros is exact, so the
   padded plain version equals the unpadded one (f32 rule; bf16 rule).
@@ -42,6 +46,7 @@ from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import (
     assert_bf16_close,
     assert_f32_close,
     f32_agreement,
+    matmul_3xtf32,
     round_to_tf32,
 )
 
@@ -106,6 +111,57 @@ def test_f32_rule_fails_tf32_yardstick_and_dropped_bias_fused(mode):
     # the yardstick is far from the limit on every output, not on one alone
     yard = {name: f32_agreement(g, w).rel_err for (name, g), (_, w) in zip(planted["TF32 operands"], want)}
     assert min(yard.values()) > 2 * MAX_REL_ERR_F32, yard
+
+
+def test_matmul_3xtf32_splits_and_orders_its_products():
+    """hi + lo keeps an f32 value to ~2^-22 of it, hi·hi' alone is one TF32
+    product, and 3xTF32 is as close to the f32 product as f32 itself."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((64, 256)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((256, 96)).astype(np.float32))
+    hi = round_to_tf32(a)
+    assert (((a - hi) - round_to_tf32(a - hi)).abs() <= a.abs() * 2.0**-21).all()
+    exact = (a.double() @ b.double()).float()
+    assert torch.equal(matmul_3xtf32(a, b, passes=1), round_to_tf32(a) @ round_to_tf32(b))
+    err3 = f32_agreement(matmul_3xtf32(a, b), exact).rel_err
+    err1 = f32_agreement(matmul_3xtf32(a, b, passes=1), exact).rel_err
+    err32 = f32_agreement(a @ b, exact).rel_err
+    assert err3 <= 4 * err32 + 1e-7 and err1 > 30 * err3, (err3, err1, err32)
+    with pytest.raises(ValueError, match="passes"):
+        matmul_3xtf32(a, b, passes=2)
+
+
+@pytest.fixture(scope="module")
+def flagship_width_case():
+    """One ragged pass at the flagship's width (D = H = 512, L = 10, 64
+    rows), f32, with the plain forward's residuals and both cotangents."""
+    (emb, w_ih, w_hh, bias, lens), act, dlast, dhs = _fused_case(B=64, D=512, seed=7)
+    args = (emb, w_ih, w_hh, bias, lens)
+    _, hs, cs = lk.lstm_encode_last_plain(*args, residuals=True)
+    return args, act, hs, cs, dlast, dhs
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xTF32", "1xTF32"])
+@pytest.mark.parametrize("mode", ["kernel 2", "kernel 6"])
+def test_3xtf32_backward_meets_the_f32_rule_and_1xtf32_fails_it(monkeypatch, flagship_width_case, mode, passes):
+    """Kernels 2 and 6 in f32 take every product (gate recompute, demb,
+    dh, dW) as 3xTF32 on the card: the plain f32 backward with every
+    product emulated so meets the f32 rule against the plain version on
+    every output; with one TF32 product per product (1xTF32, the variant
+    chip_smoke.py plants) it fails the rule."""
+    args, act, hs, cs, dlast, dhs = flagship_width_case
+    fn, cot = (lk.lstm_last_backward_plain, dlast) if mode == "kernel 2" else (lk.lstm_all_backward_plain, dhs)
+    want = fn(*args, hs, cs, cot)
+    monkeypatch.setattr(torch, "matmul", lambda a, b: matmul_3xtf32(a, b, passes=passes))
+    got = fn(*args, hs, cs, cot)
+    monkeypatch.undo()
+    readings = {name: f32_agreement(g[act] if name == "demb" else g, w[act] if name == "demb" else w)
+                for name, g, w in zip(("demb", "dW_ih", "dW_hh", "db"), got, want)}
+    if passes == 3:
+        assert all(r.ok() for r in readings.values()), readings
+        assert max(r.rel_err for r in readings.values()) < MAX_REL_ERR_F32 / 4, readings
+    else:
+        assert not all(r.ok() for r in readings.values()), readings
 
 
 @pytest.mark.parametrize("mode", ["kernel 7", "kernel 8"])
