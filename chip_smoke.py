@@ -54,14 +54,16 @@ Phases (any failure exits non-zero before the final line):
    unfused);
 10. the f32 model: the flagship config with its ``dtype`` line removed (a
    copy under ``.bench_cache/``), through the same entry points: kernel 1's
-   f32 mode at B=32768 and ragged B, ``cli.train`` fused and unfused, each
+   f32 mode at B=32768 and ragged B, timed with its measuring variants and
+   its split and step launches apart, ``cli.train`` fused and unfused, each
    f32 mode (kernels 1, 2, 5-8) against its plain version on the recorded
    passes and ragged B by the f32 rule of ``utils/numerics.py`` with planted
    faults (the TF32 yardstick, a dropped bias or recurrent product, and for
-   the 3xTF32 backward of kernels 2 and 6 its 1xTF32 variant), the
-   backward's launches (split, gate, product, dW) timed each against its
-   part of the 3xTF32 bound, the op of kernels 5 and 6, and serving of the
-   f32 checkpoint; then the unfused
+   the 3xTF32 kernels 1, 2, 5 and 6 their 1xTF32 variants), the backward's
+   launches (split, gate, product, dW) timed each against its part of the
+   3xTF32 bound, the op of kernels 5 and 6, and serving of the f32
+   checkpoint, with exact launch counts (``forward_launches``: a fused f32
+   forward is L + 1 launches, the weight split and L steps); then the unfused
    path at H = 100 in bf16 and f32 (kernels 7 and 8 through the padded
    route);
 11. print the timings, one JSON line with every kernel's numbers (the
@@ -117,13 +119,24 @@ def train_args(config, out_dir):
     return [str(config), "--dataset_dir", str(DATA_DIR), "--eval_epoch_freq", "0", "--epochs", "2",
             "--experiment_dir", str(out_dir)]
 
-# H100 SXM published peaks (dense bf16 tensor-core rate, HBM3 bandwidth)
-PEAK_BF16_FLOPS = 989e12
+# H100 SXM HBM3 bandwidth (published)
 PEAK_BYTES_PER_S = 3.35e12
-# The least time for f32-accurate products: 3xTF32 on the tensor cores, three
-# TF32 products (at half the bf16 rate) for each f32 one.  The f32 kernels'
-# bounds are taken at it (the FFMA bound, their bound before, is printed beside them).
-PEAK_3XTF32_FLOPS = PEAK_BF16_FLOPS / 6
+
+
+def card_peaks(sms, mhz):
+    """(bf16 tensor-core, 3xTF32, FP32 FFMA) FLOP/s of ``sms`` SMs at ``mhz``:
+    per SM and clock, 4096 dense bf16 FLOP on the tensor cores (NVIDIA's
+    published 989 TFLOP/s is 132 SMs at 1830 MHz, below the 1980 MHz the SMs
+    reach) and 128 lanes x 2 FLOP of FFMA.  3xTF32, the least time for
+    f32-accurate products and the f32 kernels' bound, takes three TF32
+    products (at half the bf16 rate) for each f32 one."""
+    bf16 = sms * 4096 * mhz * 1e6
+    return bf16, bf16 / 6, sms * 128 * 2 * mhz * 1e6
+
+
+# The peak rates of the bounds, from the card's SM count and maximum SM clock
+# (read_peaks, in main); until then an H100 SXM's 132 SMs at 1980 MHz.
+PEAK_BF16_FLOPS, PEAK_3XTF32_FLOPS, PEAK_FP32_FLOPS = card_peaks(132, 1980)
 
 # Kernel vs plain version, and cache rows vs a plain CPU encode, are held to
 # utils/numerics.py's bf16 rule: at most 4 bf16 ulps of max|want| and at most
@@ -246,6 +259,8 @@ def phase_kernels(torch, dtype=None):
         planted = agreement(lk.lstm_encode_last_plain(*args), ref)
         print(f"planted fault {fault}: {planted}")
         check(not planted.ok(), f"the {dtype} rule passes a planted fault ({fault}): {planted}")
+    if f32:
+        check_forward_1xtf32_variant(torch, (emb, wih, whh, bias, lens_t), (ref,), residuals=False, with_last=True)
 
     for b in (1, 37, 4099):
         lr = synth_lengths(rng, b, L)
@@ -261,6 +276,9 @@ def phase_kernels(torch, dtype=None):
     timing = time_forward(torch, f"cache chunk B={B}", (emb, wih, whh, bias, lens_t), residuals=False)
     plain_ms = cuda_ms(lambda: lk.lstm_encode_last_plain(emb, wih, whh, bias, lens_t), iters=5)
     print(f"lstm_last_fwd{sfx} plain version B={B}: {plain_ms:.4f} ms")
+    if f32:
+        print_forward_launch_ms(torch, f"lstm_last_fwd_f32 cache chunk B={B}", (emb, wih, whh, bias, lens_t),
+                                lambda: lk.lstm_encode_last_fused(emb, wih, whh, bias, lens_t))
     return {
         "name": "lstm_last_fwd" + sfx,
         "route": "cuda",
@@ -297,9 +315,11 @@ def time_forward(torch, label, args, residuals, reps=3):
     """Kernel 1 on ``args`` as its caller runs it (with the hs/cs residuals
     in training), timed in turns with cuDNN's packed ``nn.LSTM`` forward on
     the same inputs so that their ratio holds within this call (median of
-    ``reps`` turns), beside its bound and its two measuring variants (no
+    ``reps`` turns), beside its bound and its measuring variants (no
     epilogue, no products: what the stream of tiles with the products, and
-    with the epilogue, take alone)."""
+    with the epilogue, take alone; "no epilogue" multiplies an h drawn like
+    a real one, as it writes none; at f32 also 1xTF32, a third of the
+    products)."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
 
     def run(variant="kernel"):
@@ -310,8 +330,8 @@ def time_forward(torch, label, args, residuals, reps=3):
         ms.append(cuda_ms(run(), iters=20))
         lib_ms, note = library_lstm_ms(torch, args)
         lib.append(lib_ms)
-    variants = ({v: cuda_ms(run(v), iters=20) for v in lk.FORWARD_VARIANTS if v != "kernel"}
-                if args[0].dtype != torch.float32 else {})  # the bf16 Hopper kernel's measuring variants
+    names = lk.FORWARD_F32_VARIANTS if args[0].dtype == torch.float32 else lk.FORWARD_VARIANTS
+    variants = {v: cuda_ms(run(v), iters=20) for v in names if v != "kernel"}
     bound, by, flops, bytes_, n_steps = forward_bound(args)
     out = {"ms": float(np.median(ms)), "bound_ms": bound, "bound_by": by,
            "library_ms": None if None in lib else float(np.median(lib))}
@@ -320,7 +340,8 @@ def time_forward(torch, label, args, residuals, reps=3):
           f"{out['library_ms']} ms (turns {lib}; {note}), kernel/library "
           f"{out['ms'] / out['library_ms'] if out['library_ms'] else float('nan'):.3f}, bound {bound:.4f} ms "
           f"({by}: {flops:.4e} FLOP, {bytes_:.4e} B, {n_steps} row-steps; {bound / out['ms']:.1%} of it"
-          f"{ffma_note(flops, args[0].dtype)}); " + ", ".join(f"{v} {t:.4f} ms" for v, t in variants.items()))
+          f"{ffma_note(flops, args[0].dtype)}); " + ", ".join(f"{v} {t:.4f} ms ({bound / t:.1%} of the bound)"
+                                                            for v, t in variants.items()))
     return out
 
 
@@ -504,24 +525,27 @@ def phase_main_path(torch, timings, ckpt=None, unfused=False, config=FLAGSHIP, t
     # encodes: the cache twice (cli.predict, Predictor; every chunk padded
     # to 32768 rows), an entity and a relation encode per predict call: 4
     # text queries and 20 single queries (B = 1), 22 batches of 1024; each
-    # encode runs one launch per step
+    # encode runs one launch per step, and a fused f32 encode one more
     L = meta.max_length[0]
     check(L == meta.max_length[1], "entity and relation lengths differ")
     fused_encodes = 2 * n_chunks + 2 * 2 * (1 + n_timed)
     single_encodes = 2 * (len(queries) + 2 * n_timed)
     if unfused:
         fused_encodes, single_encodes = 0, fused_encodes + single_encodes
-    want = {name: 0 for name in counters}
-    want["lstm_last_fwd"], want["lstm_scan_fwd"] = fused_encodes * L, single_encodes * L
+    dtype = model.embedder.dtype
+    want = serving_launches(counters, L, fused_encodes, single_encodes, dtype)
     check(all(launches[k] > 0 for k, v in want.items() if v), f"a serving kernel was never launched: {launches}")
     check(launches == want, f"serving launches {launches}, want {want}")
     print(f"main path{' (' + UNFUSED_SWITCH + '=1)' if unfused else ''}: lstm_last_fwd launches="
-          f"{launches['lstm_last_fwd']} = {fused_encodes} fused encodes x L={L}; lstm_scan_fwd launches="
+          f"{launches['lstm_last_fwd']} = {fused_encodes} fused encodes x {forward_launches(L, dtype)} (L={L} steps"
+          f"{', the weight split' if forward_launches(L, dtype) > L else ''}); lstm_scan_fwd launches="
           f"{launches['lstm_scan_fwd']} = {single_encodes} unfused encodes x L={L} ({n_chunks} cache chunks, "
           f"1024-query batches {'un' if unfused else ''}fused, single queries unfused)")
 
     check_against_plain(torch, model, predictor, ent_ids, rel_ids)
     ids = torch.arange(meta.min_entities_size, meta.min_entities_size + chunk, device="cuda")
+    if model.embedder.dtype == "float32":
+        check_trained_backward(torch, check_trained_forward(torch, model, predictor.variables, ids[:4096]))
     with torch.no_grad():
         device_breakdown(torch, f"{pre}cache chunk encode ({chunk} rows)",
                          lambda: model.embedder.encode_entity(predictor.variables, ids))
@@ -585,6 +609,160 @@ def check_against_plain(torch, model, predictor, ent_ids, rel_ids):
     tol = SCORE_RTOL if want.dtype == torch.bfloat16 else MAX_REL_ERR_F32
     print(f"top-10 scores vs plain CPU queries ({n} queries): max rel err={rel_err:.3e} (tol {tol:.3e})")
     check(rel_err <= tol, f"top-k scores disagree with the plain path: {rel_err}")
+
+
+def check_trained_forward(torch, model, variables, ids):
+    """Kernel 1 f32 on a trained checkpoint's entity encode of ``ids`` (the
+    inputs the serving encode hands the kernel) against the same recurrence
+    in f64, beside the plain version on the card (cuBLAS f32 products)
+    against both.  The trained recurrence amplifies every gate error (the
+    initial weights do not), so this is where the products' accuracy shows.
+    The plain version's own error is of the same order there (2.3e-5 and
+    2.6e-5 of max|want| in two runs on an H100, near the f32 rule's limit),
+    so the kernel passes by the f32 rule against f64 or, where the f32
+    products themselves come near the limit, by reading within twice the
+    plain version's error (one tensor-core accumulator over all of K read
+    22-37 times it on an H100).  Returns the recorded inputs."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import agreement
+
+    got = []
+    forward = lk._forward
+
+    def record(*args, **kw):
+        got.append(_copies(args[:5]))
+        return forward(*args, **kw)
+
+    lk._forward = record
+    try:
+        with torch.no_grad():
+            model.embedder.encode_entity(variables, ids)
+    finally:
+        lk._forward = forward
+    check(len(got) == 1, f"the entity encode ran the fused forward {len(got)} times, want once")
+    args = got[0]
+    kernel = lk._launch_steps(*args, False, True, Uncounted)[0] if args[0].is_cuda else lk.lstm_encode_last_plain(*args)
+    plain = lk.lstm_encode_last_plain(*args)
+    exact = plain_last_f64(torch, *args)
+    yard = agreement(plain.double(), exact)
+
+    def holds(got):
+        agree = agreement(got.double(), exact)
+        return agree.ok() or agree.rel_err <= 2 * yard.rel_err, agree
+
+    ok, agree = holds(kernel)
+    print(f"lstm_last_fwd_f32 on the trained checkpoint's entity encode ({len(ids)} ids), kernel vs f64: {agree}; "
+          f"plain (cuBLAS f32) vs f64: {yard}; kernel/plain error {agree.rel_err / max(yard.rel_err, 1e-30):.2f} "
+          f"(at most 2 where the rule fails); kernel vs plain {agreement(kernel, plain)}")
+    check(ok, f"the f32 forward kernel is less accurate than f32 products on trained weights: {agree}; plain {yard}")
+    if args[0].is_cuda:  # the planted fault: one tensor-core accumulator over all of K, no fold
+        ok, planted = holds(lk._launch_steps(*args, False, True, Uncounted, variant="one accumulator")[0])
+        print(f"planted fault one accumulator (no fold) of lstm_last_fwd_f32, vs f64: {planted}; "
+              f"{planted.rel_err / max(yard.rel_err, 1e-30):.2f} times the plain version's error")
+        check(not ok, "the trained-weights check passes the forward kernel without its fold")
+    return args
+
+
+def check_trained_backward(torch, args):
+    """Kernel 2 f32 on the trained checkpoint's entity encode (``args``, as
+    ``check_trained_forward`` recorded it), with the residuals kernel 1
+    writes there and a cotangent made from the seed, against the same
+    backward in f64, beside the plain version (cuBLAS f32 on the card)
+    against both: each output (demb where rows reach, dW_ih, dW_hh, db) by
+    the f32 rule against f64, or within twice the plain version's error.
+    The planted 1xTF32 variant must fail it (on the CPU, emulated); the
+    variant with one tensor-core accumulator over all of K in the gate and
+    product launches (no fold) is measured beside it."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import agreement
+
+    emb = args[0]
+    B, H = emb.shape[1], args[2].shape[1]
+    forward = lk._launch_steps if emb.is_cuda else lambda *a: lk.lstm_encode_last_plain(*a[:5], residuals=True)
+    _, hs, cs = forward(*args, True, True, Uncounted)
+    gen = torch.Generator().manual_seed(SEED)
+    rest = (hs, cs, torch.randn(B, H, generator=gen).to(emb.device))
+    act = active_mask(torch, args)
+    names = ("demb", "dW_ih", "dW_hh", "db")
+
+    def parts(out):
+        return [out[0][act], *out[1:]]
+
+    exact = parts(plain_last_backward_f64(torch, *args, *rest))
+    yard = [agreement(p.double(), e) for p, e in zip(parts(lk.lstm_last_backward_plain(*args, *rest)), exact)]
+
+    def holds(out):
+        agree = [agreement(g.double(), e) for g, e in zip(parts(out), exact)]
+        return all(a.ok() or a.rel_err <= 2 * y.rel_err for a, y in zip(agree, yard)), agree
+
+    def text(agree):
+        return "; ".join(f"{n} {a.rel_err:.3e} ({a.rel_err / max(y.rel_err, 1e-30):.2f}x plain)"
+                         for n, a, y in zip(names, agree, yard))
+
+    def run(variant="kernel"):
+        if emb.is_cuda:
+            return lk._launch_bwd_steps(*args, *rest, False, Uncounted, variant=variant)
+        with one_tf32_product(torch) if variant == "1xTF32" else contextlib.nullcontext():
+            return lk.lstm_last_backward_plain(*args, *rest)
+
+    ok, agree = holds(run())
+    print(f"lstm_last_bwd_f32 on the trained checkpoint's entity encode ({B} ids), error vs f64 relative to "
+          f"max|want| (limit 3e-5, or twice the plain version's): kernel {text(agree)}; plain (cuBLAS f32) "
+          + "; ".join(f"{n} {y.rel_err:.3e}" for n, y in zip(names, yard)))
+    check(ok, f"the f32 backward kernel is less accurate than f32 products on trained weights: {text(agree)}")
+    for variant in ("1xTF32", "one accumulator") if emb.is_cuda else ("1xTF32",):
+        v_ok, v_agree = holds(run(variant))
+        print(f"{'planted fault' if variant == '1xTF32' else 'measured'} {variant} variant of lstm_last_bwd_f32 on "
+              f"trained weights, vs f64: {text(v_agree)}; {'passes' if v_ok else 'fails'}")
+        if variant == "1xTF32":
+            check(not v_ok, "the trained-weights check passes the backward kernel's 1xTF32 variant")
+
+
+def plain_last_f64(torch, emb, w_ih, w_hh, bias, lengths):
+    """The last state of ``lstm_encode_last_plain``'s recurrence in f64."""
+    f = lambda x: x.double()  # noqa: E731
+    w_ih_t, w_hh_t = f(w_ih).t(), f(w_hh).t()
+    lens = lengths.clamp(min=1)
+    h = torch.zeros(emb.shape[1], w_hh.shape[1], dtype=torch.float64, device=emb.device)
+    c, last = torch.zeros_like(h), torch.zeros_like(h)
+    for t in range(emb.shape[0]):
+        i, g_f, g, o = (f(emb[t]) @ w_ih_t + f(bias) + h @ w_hh_t).chunk(4, dim=-1)
+        c = torch.sigmoid(g_f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        last = torch.where((lens == t + 1)[:, None], h, last)
+    return last
+
+
+def plain_last_backward_f64(torch, emb, w_ih, w_hh, bias, lengths, hs, cs, dlast):
+    """``lstm_last_backward_plain``'s loop in f64 on the same inputs (the f32
+    residuals and cotangent): (demb, dW_ih, dW_hh, db)."""
+    f = lambda x: x.double()  # noqa: E731
+    L, B, D = emb.shape
+    H = w_hh.shape[1]
+    lens = lengths.clamp(min=1)
+    zeros = torch.zeros(B, H, dtype=torch.float64, device=emb.device)
+    dh, dc = zeros, zeros
+    demb = torch.zeros(L, B, D, dtype=torch.float64, device=emb.device)
+    dw_ih, dw_hh, db = torch.zeros_like(f(w_ih)), torch.zeros_like(f(w_hh)), torch.zeros_like(f(bias))
+    for t in reversed(range(L)):
+        active = (lens > t)[:, None]
+        h_prev = torch.where(active, f(hs[t - 1]), 0.0) if t > 0 else zeros
+        c_prev = f(cs[t - 1]) if t > 0 else zeros
+        i, g_f, g, o = (f(emb[t]) @ f(w_ih).t() + f(bias) + h_prev @ f(w_hh).t()).chunk(4, dim=-1)
+        i, g_f, g, o = torch.sigmoid(i), torch.sigmoid(g_f), torch.tanh(g), torch.sigmoid(o)
+        dh = dh + torch.where((lens == t + 1)[:, None], f(dlast), 0.0)
+        tc = torch.tanh(f(cs[t]))
+        dc = dc + dh * o * (1.0 - tc * tc)
+        dg = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * g_f * (1.0 - g_f), dc * i * (1.0 - g * g),
+                        dh * tc * o * (1.0 - o)], dim=-1)
+        dg = torch.where(active, dg, 0.0)
+        demb[t] = dg @ f(w_ih)
+        dw_ih += dg.t() @ f(emb[t])
+        dw_hh += dg.t() @ h_prev
+        db += dg.sum(0)
+        dh = torch.where(active, dg @ f(w_hh), 0.0)
+        dc = torch.where(active, dc * g_f, 0.0)
+    return demb, dw_ih, dw_hh, db
 
 
 # ------------------------------------------------------------------ training
@@ -765,13 +943,7 @@ def check_training(torch, trainer, launches, n_steps, unfused=False):
     L = trainer.model.meta.max_length[0]
     n_sparse = sum(sparse.values())
     n_dense = 12 * n_steps + 2 * n_steps - n_sparse  # 12 LSTM and batchnorm leaves + dense tables
-    want = {name: 0 for name in launches}
-    want.update({"adagrad_update": n_dense, "scatter_adagrad": n_sparse})
-    if unfused:  # every step of every row forward, a gate and (from step 1) a product launch per step backward
-        want.update({"lstm_scan_fwd": 2 * n_steps * L, "lstm_scan_bwd": 2 * n_steps * (2 * L - 1)})
-    else:  # both passes fused (B % 8 == 0 at the flagship's 512-row buckets)
-        want.update({"lstm_last_fwd": 2 * n_steps * L,
-                     "lstm_last_bwd": 2 * n_steps * backward_launches(L, trainer.model.embedder.dtype)})
+    want = training_launches(launches, L, n_steps, n_dense, n_sparse, trainer.model.embedder.dtype, unfused)
     print(f"training path launches{' (' + UNFUSED_SWITCH + '=1)' if unfused else ''}: {launches} (want {want}: "
           "two LSTM passes per step; one dense Adagrad per dense leaf, one row update per sparse table)")
     check(all(launches[k] > 0 for k, v in want.items() if v), f"a training kernel was never launched: {launches}")
@@ -878,7 +1050,8 @@ def check_lstm_residuals(torch, captured):
         max_err = max(max_err, err)
 
     # planted faults: hs written one step late; at bf16 cs stored in f32 (not
-    # rounded), at f32 the TF32 yardstick and a dropped bias
+    # rounded), at f32 the TF32 yardstick, a dropped bias and the kernel's
+    # 1xTF32 variant
     args, got = captured[0]
     last, hs, cs = lk.lstm_encode_last_plain(*args, residuals=True)
     faults = {"hs one step late": (last, torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]), cs)}
@@ -894,6 +1067,8 @@ def check_lstm_residuals(torch, captured):
         ok, text, _ = residual_agreement(torch, args, got, planted)
         print(f"planted fault {fault}: {text}")
         check(not ok, f"the rule passes a planted fault ({fault})")
+    if cs.dtype == torch.float32:
+        check_forward_1xtf32_variant(torch, args, (last, hs, cs), residuals=True, with_last=True)
     return max_err
 
 
@@ -1085,7 +1260,7 @@ def check_lstm_backward(torch, captured):
           f"{ffma_note(flops, dtype)}")
     if dtype == torch.float32:
         check_1xtf32_variant(torch, args, False, plain["entity pass"])
-        by_kind = backward_launch_ms(torch, lambda: lk.lstm_last_backward(*args))
+        by_kind = launch_ms(torch, lambda: lk.lstm_last_backward(*args))
         if by_kind is None:
             print("lstm_last_bwd_f32 launches: no device time in the trace (not measured)")
         else:
@@ -1109,6 +1284,45 @@ def backward_launches(L, dtype):
     return 2 * L + (2 if str(dtype).removeprefix("torch.") == "float32" else 1)
 
 
+def forward_launches(L, dtype):
+    """Launches of one call of kernel 1 or 5 over L steps at ``dtype``
+    ("bfloat16"/"float32", or a torch dtype): one per step; at f32 one more,
+    the weight split."""
+    return L + (1 if str(dtype).removeprefix("torch.") == "float32" else 0)
+
+
+def training_launches(names, L, n_steps, n_dense, n_sparse, dtype, unfused=False):
+    """The launches a cli.train run of ``n_steps`` steps must count, by
+    kernel row: two LSTM passes per step, fused (kernels 1 and 2) or unfused
+    (kernels 7 and 8: every step of every row forward; a gate and, from step
+    1 on, a product launch per step backward); one dense Adagrad per dense
+    leaf and one row update per sparse table."""
+    want = {name: 0 for name in names}
+    want.update({"adagrad_update": n_dense, "scatter_adagrad": n_sparse})
+    if unfused:
+        want.update({"lstm_scan_fwd": 2 * n_steps * L, "lstm_scan_bwd": 2 * n_steps * (2 * L - 1)})
+    else:  # both passes fused (B % 8 == 0 at the flagship's 512-row buckets)
+        want.update({"lstm_last_fwd": 2 * n_steps * forward_launches(L, dtype),
+                     "lstm_last_bwd": 2 * n_steps * backward_launches(L, dtype)})
+    return want
+
+
+def serving_launches(names, L, fused_encodes, single_encodes, dtype):
+    """The launches a serving run must count: kernel 1 per fused encode,
+    kernel 7 (L steps) per unfused one."""
+    want = {name: 0 for name in names}
+    want.update({"lstm_last_fwd": fused_encodes * forward_launches(L, dtype), "lstm_scan_fwd": single_encodes * L})
+    return want
+
+
+def op_launches(names, L, dtype):
+    """The launches of one forward and backward of
+    ``lstm_forward_tm_sorted``: kernels 5 and 6."""
+    want = {name: 0 for name in names}
+    want.update({"lstm_all_fwd": forward_launches(L, dtype), "lstm_all_bwd": backward_launches(L, dtype)})
+    return want
+
+
 def backward_parts(B, D, H, n_steps):
     """FLOP of the three product parts of kernel 2 (and 6) for B rows and
     n_steps active row-steps: the gate recompute (x part per active
@@ -1127,11 +1341,17 @@ def ffma_note(ops, dtype):
     return f"; FFMA bound {ops / PEAK_FP32_FLOPS * 1e3:.4f} ms"
 
 
-def backward_launch_ms(torch, fn, reps=5):
-    """Device ms per call of each kind of launch of the f32 backward (split,
-    gate, product, dW: all the call's launches of that kind), from
-    torch.profiler over ``reps`` calls of ``fn``; None where the trace has
-    no device time."""
+# the kinds of launch of the f32 kernels, by a part of their kernel's name
+BACKWARD_F32_KINDS = {"split": "split_kernel_tf32", "gate": "gate_kernel_tf32", "product": "product_kernel_tf32",
+                      "dW": "dw_kernel_tf32"}
+FORWARD_F32_KINDS = {"split": "split_kernel_tf32", "steps": "fwd_step_kernel_tf32"}
+
+
+def launch_ms(torch, fn, kinds=BACKWARD_F32_KINDS, reps=5):
+    """Device ms per call of each kind of launch of ``fn`` (all the call's
+    launches of that kind; the f32 backward's split, gate, product, dW by
+    default), from torch.profiler over ``reps`` calls of ``fn``; None where
+    the trace has no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1140,8 +1360,6 @@ def backward_launch_ms(torch, fn, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kinds = {"split": "split_kernel_tf32", "gate": "gate_kernel_tf32", "product": "product_kernel_tf32",
-             "dW": "dw_kernel_tf32"}
     out = {k: 0.0 for k in kinds}
     for e in prof.key_averages():
         for k, sub in kinds.items():
@@ -1157,23 +1375,81 @@ def check_1xtf32_variant(torch, args, every_step, want):
     no kernel, the variant is the plain version with each product emulated
     as one TF32 product (``utils/numerics.py::matmul_3xtf32``)."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
-    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import matmul_3xtf32
-
-    class Uncounted:
-        launches = 0
 
     if args[0].is_cuda:
         got = lk._launch_bwd_steps(*args, every_step, Uncounted, variant="1xTF32")
     else:
-        matmul = torch.matmul
-        torch.matmul = lambda a, b: matmul_3xtf32(a, b, passes=1)
-        try:
+        with one_tf32_product(torch):
             got = (lk.lstm_all_backward_plain if every_step else lk.lstm_last_backward_plain)(*args)
-        finally:
-            torch.matmul = matmul
     ok, text, _ = backward_agreement(torch, args, got, want)
     print(f"planted fault 1xTF32 variant of lstm_{'all' if every_step else 'last'}_bwd_f32: {text}")
     check(not ok, "the f32 rule passes the backward kernel's 1xTF32 variant")
+
+
+class Uncounted:
+    """A launch counter for the launches that compare a kernel with its
+    plain version (not the main path's)."""
+
+    launches = 0
+
+
+@contextlib.contextmanager
+def one_tf32_product(torch):
+    """``torch.matmul`` as one TF32 product (hi.hi' alone) while the block
+    runs: the 1xTF32 variants of the f32 kernels, emulated on the CPU
+    (``utils/numerics.py::matmul_3xtf32``), where there is no kernel."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import matmul_3xtf32
+
+    matmul = torch.matmul
+    torch.matmul = lambda a, b: matmul_3xtf32(a, b, passes=1)
+    try:
+        yield
+    finally:
+        torch.matmul = matmul
+
+
+def check_forward_1xtf32_variant(torch, args, want, residuals, with_last):
+    """The f32 forward's planted 1xTF32 variant (one TF32 product where the
+    kernel takes three) in the mode ``residuals`` / ``with_last`` must fail
+    the f32 rule against the plain outputs ``want`` (those the mode writes,
+    in the order last, hs, cs; hs and cs at the positions each row
+    reaches).  On the CPU the variant is the plain version with each
+    product emulated as one TF32 product."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import agreement
+
+    if args[0].is_cuda:
+        out = lk._launch_steps(*args, residuals, with_last, Uncounted, variant="1xTF32")
+    else:
+        with one_tf32_product(torch):
+            out = lk.lstm_encode_last_plain(*args, residuals=True)
+    names = [n for n, keep in (("last", with_last), ("hs", residuals), ("cs", residuals)) if keep]
+    got = [x for x, keep in zip(out, (with_last, residuals, residuals)) if keep]
+    act = active_mask(torch, args)
+    agree = {n: agreement(g, w) if n == "last" else agreement(g[act], w[act]) for n, g, w in zip(names, got, want)}
+    text = "; ".join(f"{n} {a}" for n, a in agree.items())
+    kernel = "lstm_last_fwd_f32" if with_last else "lstm_all_fwd_f32"
+    print(f"planted fault 1xTF32 variant of {kernel}{' with residuals' if with_last and residuals else ''}: {text}")
+    check(not all(a.ok() for a in agree.values()), "the f32 rule passes the forward kernel's 1xTF32 variant")
+
+
+def print_forward_launch_ms(torch, label, args, fn):
+    """The f32 forward's split launch and its L step launches apart (device
+    ms per call of ``fn``, torch.profiler), each beside its bound: the
+    split moves bytes (both weights read, their hi and lo parts written),
+    the steps do the forward's products (``forward_bound``)."""
+    kinds = launch_ms(torch, fn, FORWARD_F32_KINDS)
+    if kinds is None:
+        print(f"{label} launches: no device time in the trace (not measured)")
+        return
+    w_ih, w_hh = args[1], args[2]
+    split_bytes = 3 * (w_ih.numel() + w_hh.numel()) * 4
+    split_bound = split_bytes / PEAK_BYTES_PER_S * 1e3
+    step_bound = forward_bound(args)[0]
+    print(f"{label} launches, device ms per call (torch.profiler): split {kinds['split']:.4f} (bytes bound "
+          f"{split_bound:.4f}, {split_bytes:.4e} B), steps {kinds['steps']:.4f} (3xTF32 bound {step_bound:.4f}, "
+          f"{step_bound / kinds['steps'] if kinds['steps'] else float('nan'):.1%} of it); sum "
+          f"{sum(kinds.values()):.4f}")
 
 
 def lstm_bound(row, L, B, D, H, n_steps, es=2):
@@ -1195,24 +1471,20 @@ def lstm_bound(row, L, B, D, H, n_steps, es=2):
     }[row]
 
 
-def bound_ms(ops, bytes_, peak=PEAK_BF16_FLOPS):
-    t_ops, t_bytes = ops / peak * 1e3, bytes_ / PEAK_BYTES_PER_S * 1e3
+def bound_ms(ops, bytes_, peak=None):
+    t_ops, t_bytes = ops / (peak or PEAK_BF16_FLOPS) * 1e3, bytes_ / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-# The card's FP32 rate outside the tensor cores (FFMA: 128 lanes per SM, 2
-# FLOP each per clock), computed by read_fp32_peak from the SM count and the
-# card's maximum SM clock; the FFMA bound of the f32 kernels, printed beside
-# their 3xTF32 bounds.
-PEAK_FP32_FLOPS = None
-
-
-def read_fp32_peak(torch):
-    """SM count x 128 lanes x 2 FLOP x the maximum SM clock nvidia-smi reads."""
+def read_peaks(torch):
+    """Sets the peak rates from this card's SM count and the maximum SM clock
+    nvidia-smi reads; returns (SMs, MHz)."""
+    global PEAK_BF16_FLOPS, PEAK_3XTF32_FLOPS, PEAK_FP32_FLOPS
     mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                                capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * 128 * 2 * mhz * 1e6, sms, mhz
+    PEAK_BF16_FLOPS, PEAK_3XTF32_FLOPS, PEAK_FP32_FLOPS = card_peaks(sms, mhz)
+    return sms, mhz
 
 
 def peak_flops(dtype):
@@ -1464,8 +1736,8 @@ def check_every_state(torch, fwd_args, ragged=(1, 37, 4099)):
     """Kernels 5 and 6 against their plain versions on the first fused
     step's recorded entity pass and at ragged B, with a planted fault each
     (hs written one step late; the cotangent added only at each row's last
-    step), and at f32 the TF32 yardstick and a dropped bias each.  Returns
-    (forward error, backward error)."""
+    step), and at f32 the TF32 yardstick, a dropped bias and the kernels'
+    1xTF32 variants.  Returns (forward error, backward error)."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
 
     fwd_err = bwd_err = 0.0
@@ -1498,6 +1770,8 @@ def check_every_state(torch, fwd_args, ragged=(1, 37, 4099)):
         ok, text, _ = every_state_agreement(torch, args, got, planted)
         print(f"planted fault {fault}: {text}")
         check(not ok, f"the rule passes a planted fault ({fault})")
+    if f32:
+        check_forward_1xtf32_variant(torch, args, (hs, cs), residuals=True, with_last=False)
     bargs = (*args, *got, dhs)
     lens = args[4].clamp(min=1).long()
     dlast = dhs[lens - 1, torch.arange(len(lens), device=lens.device)]
@@ -1547,6 +1821,8 @@ def time_every_state(torch, fwd_args, fwd_err, bwd_err):
               f"{plain_ms:.4f} ms, library {library_ms} ms ({note}), kernel/library "
               f"{ms / library_ms if library_ms else float('nan'):.3f}, bound {bound:.4f} ms ({by}: {ops:.4e} FLOP, "
               f"{bytes_:.4e} B, {n_steps} row-steps){ffma_note(ops, emb.dtype)}")
+        if sfx and row == 5:
+            print_forward_launch_ms(torch, f"lstm_all_fwd_f32 training entity pass B={B}", args, fn)
         rows.append({"name": name + sfx, "route": "cuda", "source": f"{PKG}/csrc/{src}",
                      "replaces": f"open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:{line}",
                      "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -1574,8 +1850,7 @@ def phase_every_state_op(torch, fwd_args):
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     L = emb.shape[0]
-    want = {name: 0 for name in counters}
-    want.update({"lstm_all_fwd": L, "lstm_all_bwd": backward_launches(L, str(emb.dtype))})
+    want = op_launches(counters, L, emb.dtype)
     # x.grad (demb) holds unread garbage at the positions a row never reaches
     grads = {**{n: p.grad for n, p in params.items()}, "x": x.grad[act]}
     finite = {n: torch.isfinite(g).all().item() for n, g in grads.items()}
@@ -1750,6 +2025,7 @@ def phase_f32(torch, timings, by_path):
     del trainer
     row_bwd, fwd_err = check_lstm_backward(torch, capture.bwd)
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], fwd_err, check_lstm_residuals(torch, capture.fwd))
+    time_forward_passes(torch, capture.fwd)
     rows.append(row_bwd)
     entity_pass = capture.fwd[0][0]
     del capture
@@ -1876,11 +2152,11 @@ def main() -> int:
 
     timings = {}
     try:
-        global PEAK_FP32_FLOPS
-        PEAK_FP32_FLOPS, sms, mhz = read_fp32_peak(torch)
-        print(f"FP32 peak outside the tensor cores: {sms} SMs x 128 lanes x 2 FLOP x {mhz:.0f} MHz (max SM clock) = "
-              f"{PEAK_FP32_FLOPS / 1e12:.2f} TFLOP/s; 3xTF32 (the f32 kernels' bound): {PEAK_BF16_FLOPS / 1e12:.0f} / 6 = "
-              f"{PEAK_3XTF32_FLOPS / 1e12:.2f} TFLOP/s")
+        sms, mhz = read_peaks(torch)
+        print(f"peaks at {sms} SMs x {mhz:.0f} MHz (max SM clock): bf16 tensor cores x 4096 FLOP = "
+              f"{PEAK_BF16_FLOPS / 1e12:.2f} TFLOP/s (published: 989 at 1830 MHz); 3xTF32 (the f32 kernels' bound) "
+              f"a sixth of it, {PEAK_3XTF32_FLOPS / 1e12:.2f} TFLOP/s; FP32 FFMA x 128 lanes x 2 FLOP = "
+              f"{PEAK_FP32_FLOPS / 1e12:.2f} TFLOP/s")
         build_kernels(torch, timings)
         row_fwd = phase_kernels(torch)
         by_path = {}

@@ -62,21 +62,24 @@
 // kept to ~2^-22), and a product sums lo.hi' + hi.lo' + hi.hi' in f32: as
 // accurate as an f32 product (utils/numerics.py's f32 rule), where one TF32
 // product (hi.hi' alone, the 1xTF32 variant) is not.  Bound on an H100: the
-// 3xTF32 rate, a third of the 495 TFLOP/s TF32 rate (165 TFLOP/s, 2.5x the
-// 67 TFLOP/s of f32 FFMA).  Four kinds of launch:
-//   0. lstm_bwd_split_kernel_tf32, once per call: hi and lo of W_ih and W_hh
-//      gate-major (for the gate launch) and of [W_hh | W_ih]^T (for the
-//      product launch: TF32 wgmma reads only K-major operands, there is no
-//      transposed form as for 16-bit types);
-//   1. lstm_bwd_gate_kernel_tf32, per step: kernel 1's Hopper shape (TMA
-//      ring of 4 slots of A + W_hi + W_lo, 48 KB each, one producer thread,
-//      two consumer warpgroups taking 128-row x 32-unit tiles in turns) with
-//      wgmma m64n128k8 TF32, A from registers (read from the swizzled slot
-//      and split there), B the split weights; then the cell math of the bf16
-//      kernel per cell, dg[t] in f32, dc in place, db_part by a fixed-order
-//      sum;
+// 3xTF32 rate, a third of the tensor cores' TF32 rate (2.7x f32 FFMA's).
+// Four kinds of launch:
+//   0. lstm_tf32.cuh::lstm_split_kernel_tf32<true>, once per call: hi and
+//      lo of W_ih and W_hh gate-major (for the gate launch) and of
+//      [W_hh | W_ih]^T (for the product launch: TF32 wgmma reads only
+//      K-major operands, there is no transposed form as for 16-bit types);
+//   1. lstm_bwd_gate_kernel_tf32, per step: the gate loop of lstm_tf32.cuh,
+//      the one the f32 forward (lstm_last_fwd_f32.cu) runs, so the gates
+//      recomputed here are the forward's, summed in the same order (kernel
+//      1's Hopper shape: TMA ring of 4 slots of A + W_hi + W_lo, 48 KB
+//      each, one producer thread, two consumer warpgroups sharing each
+//      128-row x 32-unit tile, 64 rows each, wgmma m64n128k8 TF32, A from
+//      registers, read from the swizzled slot and split there, B the split
+//      weights, each K chunk of 32 folded into an f32 sum); then the cell
+//      math of the bf16 kernel per cell, dg[t] in f32, dc in place, db_part
+//      by a fixed-order sum;
 //   2. lstm_bwd_product_kernel_tf32, per step: [dh | demb[t]] = dg[t] .
-//      [W_hh | W_ih] on the same ring and consumers, 128 x 128 output tiles;
+//      [W_hh | W_ih] on the same ring and loop, 128 x 128 output tiles;
 //   3. lstm_bwd_dw_kernel_tf32, once: the dW walk of the bf16 kernel with
 //      mma.sync m16n8k8 TF32 fragments loaded from the k-major shared tiles
 //      (wgmma would need K-major copies of dg, emb and hs: dW reduces over
@@ -90,7 +93,7 @@
 // cuDNN's packed f32 LSTM backward on the training passes.
 
 #include "lstm_product.cuh"
-#include "lstm_sm90.cuh"
+#include "lstm_tf32.cuh"
 
 namespace {
 
@@ -350,148 +353,7 @@ __global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel(const DwArgs p) {
 
 namespace tf32 {
 
-using namespace oket_sm90;
-
-constexpr int TM = 128;     // rows per tile
-constexpr int TU = 32;      // hidden units per gate tile: 4 gate slabs of TU weight rows
-constexpr int TN = 128;     // columns per tile (gate: 4 x TU; product: 128 of [dh | demb])
-constexpr int NB = TU / 8;  // 8-unit column blocks per gate slab
-constexpr int TK = 32;      // K per stage: 128 bytes of f32, one swizzle row
-constexpr int STAGES = 4;
-constexpr int A_BYTES = TM * TK * 4;  // 16 KB
-constexpr int W_BYTES = TN * TK * 4;  // 16 KB, once for hi and once for lo
-constexpr int STAGE_BYTES = A_BYTES + 2 * W_BYTES;
-// the ring, its barriers, and slack to align the ring to 1024 bytes
-constexpr int SMEM = STAGES * STAGE_BYTES + (2 * STAGES + 2) * 8 + 1024;
-constexpr int THREADS = 384;  // warpgroups 0 and 1 consume, warpgroup 2 produces
-
-// What a launch computes: the kernel (3xTF32), or hi.hi' alone (1xTF32),
-// planted by chip_smoke.py to show that the f32 rule sees the correction
-// products.
-enum Variant { X3 = 0, X1 = 1 };
-
-// Rows active at step t (max(len, 1) > t): a prefix [0, n) of the sorted
-// lengths, searched by every thread of the block at once (the search of
-// lstm_last_fwd.cu): each round probes THREADS evenly spaced rows.
-__device__ int active_prefix(const int* lens, int B, int t) {
-    if (t == 0) return B;
-    int lo = 0, n = B;  // rows < lo are active, the first inactive row is in [lo, lo + n]
-    while (n > 0) {
-        const int stride = (n + THREADS - 1) / THREADS;
-        const int off = threadIdx.x * stride;
-        const int hits = __syncthreads_count(off < n && lens[lo + off] > t);
-        if (hits == 0) break;
-        lo += (hits - 1) * stride + 1;
-        n = min(stride - 1, n - (hits - 1) * stride - 1);
-    }
-    return lo;
-}
-
-// The ring of STAGES slots (A, W_hi, W_lo), a full and an empty mbarrier
-// each, and the two consumer warpgroups' turn barriers.
-struct Ring {
-    uint8_t* slots;
-    uint64_t* full;
-    uint64_t* empty;
-    uint64_t* turn;  // turn[w]: the other warpgroup finished a tile's products
-};
-
-__device__ __forceinline__ Ring make_ring(uint8_t* smem_raw) {
-    Ring r;
-    r.slots = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-    r.full = reinterpret_cast<uint64_t*>(r.slots + STAGES * STAGE_BYTES);
-    r.empty = r.full + STAGES;
-    r.turn = r.empty + STAGES;
-    if (threadIdx.x == 0) {
-        for (int s = 0; s < STAGES; ++s) {
-            mbar_init(&r.full[s], 1);
-            mbar_init(&r.empty[s], 4);  // the four warps of the warpgroup that read the slot
-        }
-        mbar_init(&r.turn[0], 4);
-        mbar_init(&r.turn[1], 4);
-        mbar_fence_init();
-    }
-    return r;
-}
-
-// The producer thread: stage kt of each of the block's tiles, in order,
-// loaded by load(tile, kt, a, w_hi, w_lo, bar) into the next slot.
-template <typename Load>
-__device__ __forceinline__ void produce(const Ring& r, int tiles, int nk, Load load) {
-    int it = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
-        for (int kt = 0; kt < nk; ++kt, ++it) {
-            const int s = it % STAGES;
-            mbar_wait(&r.empty[s], ((it / STAGES) & 1) ^ 1);
-            mbar_arrive_expect_tx(&r.full[s], STAGE_BYTES);
-            uint8_t* a = r.slots + s * STAGE_BYTES;
-            load(tile, kt, a, a + A_BYTES, a + A_BYTES + W_BYTES, &r.full[s]);
-        }
-}
-
-// acc[m] += A[64 m .. 64 m + 63, :] . W^T over the nk stages of the block's
-// tile q, in 3xTF32: per k8 step, A's fragments are read from the swizzled
-// slot into registers and split there, then lo.W_hi and hi.W_lo are
-// accumulated before hi.W_hi (the correction products first, as CUTLASS's
-// fast-f32 product does), all into the one accumulator.  One k8 step's
-// products stay in flight while the next step's fragments are split (two
-// sets of fragment registers, by step parity).  The products of tile q start
-// when the other warpgroup's of tile q - 1 are done.
-template <int V>
-__device__ __forceinline__ void tile_products(const Ring& r, int q, int nk, int wg, int warp, int lane,
-                                              float (&acc)[2][TN / 2]) {
-    if (q > 0) mbar_wait(&r.turn[wg], ((q - 1) / 2) & 1);
-    uint32_t hi[2][2][4], lo[2][2][4];  // [k8 step parity][64-row half][fragment register]
-    int prev = 0;
-    for (int kt = 0; kt < nk; ++kt) {
-        const int it = q * nk + kt, s = it % STAGES;
-        mbar_wait(&r.full[s], (it / STAGES) & 1);
-        const uint8_t* a = r.slots + s * STAGE_BYTES;
-        const uint8_t* w_hi = a + A_BYTES;
-        const uint8_t* w_lo = w_hi + W_BYTES;
-#pragma unroll
-        for (int kk = 0; kk < TK / 8; ++kk) {
-            const int b = kk & 1;
-#pragma unroll
-            for (int m = 0; m < 2; ++m)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    // register i: row 16 warp + lane / 4 + 8 (i % 2), k = lane % 4 + 4 (i / 2)
-                    const int row = 64 * m + 16 * warp + (lane >> 2) + 8 * (i & 1);
-                    const int k = kk * 8 + (lane & 3) + 4 * (i >> 1);
-                    const float x = *reinterpret_cast<const float*>(a + row * 128 + (((k >> 2) ^ (row & 7)) << 4) +
-                                                                    (k & 3) * 4);
-                    tf32_split(x, hi[b][m][i], lo[b][m][i]);
-                }
-            wgmma_fence_regs(acc[0]);
-            wgmma_fence_regs(acc[1]);
-            wgmma_fence();
-            const uint64_t d_hi = wgmma_desc(w_hi + kk * 32), d_lo = wgmma_desc(w_lo + kk * 32);
-#pragma unroll
-            for (int m = 0; m < 2; ++m) {
-                if (V == X3) {
-                    wgmma_m64n128k8_tf32(acc[m], lo[b][m], d_hi);
-                    wgmma_m64n128k8_tf32(acc[m], hi[b][m], d_lo);
-                }
-                wgmma_m64n128k8_tf32(acc[m], hi[b][m], d_hi);
-            }
-            wgmma_commit();
-            wgmma_wait<1>();  // the previous k8 step's products are done
-            wgmma_fence_regs(acc[0]);
-            wgmma_fence_regs(acc[1]);
-            // so at the first k8 step of a stage, the previous stage is read
-            if (kk == 0 && kt > 0 && lane == 0) mbar_arrive(&r.empty[prev]);
-        }
-        prev = s;
-    }
-    wgmma_wait<0>();
-    wgmma_fence_regs(acc[0]);
-    wgmma_fence_regs(acc[1]);
-    if (lane == 0) {
-        if (nk > 0) mbar_arrive(&r.empty[prev]);
-        mbar_arrive(&r.turn[1 - wg]);
-    }
-}
+using namespace oket_tf32;
 
 struct Tf32GateArgs {
     const float* bias;     // [4H]
@@ -509,11 +371,14 @@ struct Tf32GateArgs {
 
 // Gate launch of step t: the forward's gate product recomputed in 3xTF32
 // for a tile of 128 rows x 32 units (x the four gates, as in kernel 1:
-// the thread that holds gate 0 of a cell holds its gates 1-3 too), then
-// the cell math of the bf16 kernel (bwd_cell) in that thread; writes dg[t],
-// updates dc in place (one owner per cell), and the tile's column sums of
-// dg to db_part (a fixed-order shuffle and shared-memory sum: no atomics).
-template <int V>
+// the thread that holds gate 0 of a cell holds its gates 1-3 too) by the
+// f32 forward's loop on the same tiles (lstm_tf32.cuh::tile_products, so
+// the same sums in the same order), then the cell math of the bf16 kernel
+// (bwd_cell) in that thread; writes dg[t], updates dc in place (one owner
+// per cell), and the tile's column sums of dg to db_part (a fixed-order
+// shuffle and shared-memory sum: no atomics).  FOLD = false keeps one
+// tensor-core accumulator over all of K (for measuring what the fold buys).
+template <int V, bool FOLD = true>
 __global__ void __launch_bounds__(THREADS, 1)
     lstm_bwd_gate_kernel_tf32(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_h,
                               const __grid_constant__ CUtensorMap map_wih_hi,
@@ -565,30 +430,16 @@ __global__ void __launch_bounds__(THREADS, 1)
         setmaxnreg_inc<232>();
         const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
         const int H = p.H, t = p.t;
-        // acc[m][4 (g NB + n8) + e] holds gate g of row r0 + 64 m + 8 (e/2),
-        // unit u0 + 8 n8 + 2 (lane%4) + e%2, for r0 = row0 + 16 warp + lane/4
-        float acc[2][TN / 2];
-        for (int q = wg;; q += 2) {
+        // acc[4 (g NB + n8) + e] holds gate g of row r0 + 8 (e/2), unit
+        // u0 + 8 n8 + 2 (lane%4) + e%2, for r0 = row0 + 64 wg + 16 warp + lane/4
+        float acc[TN / 2];
+        for (int q = 0;; ++q) {  // q: the tile's place in the block's sequence
             const int tile = blockIdx.x + q * gridDim.x;
             if (tile >= tiles) break;
             const int row0 = tile / unit_tiles * TM, u0 = tile % unit_tiles * TU;
-            const int r0 = row0 + warp * 16 + (lane >> 2);
-            // the bias seeds the accumulators
-#pragma unroll
-            for (int n8 = 0; n8 < NB; ++n8) {
-                const int u = u0 + n8 * 8 + (lane & 3) * 2;  // and u + 1; H is even
-#pragma unroll
-                for (int g = 0; g < 4; ++g) {
-                    const float2 b =
-                        u < H ? __ldg(reinterpret_cast<const float2*>(p.bias + g * H + u)) : make_float2(0.f, 0.f);
-#pragma unroll
-                    for (int m = 0; m < 2; ++m) {
-                        acc[m][(g * NB + n8) * 4] = acc[m][(g * NB + n8) * 4 + 2] = b.x;
-                        acc[m][(g * NB + n8) * 4 + 1] = acc[m][(g * NB + n8) * 4 + 3] = b.y;
-                    }
-                }
-            }
-            tile_products<V>(r, q, nk, wg, warp, lane, acc);
+            const int r0 = row0 + 64 * wg + warp * 16 + (lane >> 2);
+            seed_bias(p.bias, H, u0, lane, acc);  // the bias seeds the sum
+            tile_products<V, FOLD>(r, q, nk, wg, warp, lane, acc);
 
             // epilogue: the cell math of each (row, unit) this thread holds
             float dbs[4][NB][2];  // [gate][n8][unit parity]: this thread's rows, in order
@@ -597,46 +448,44 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
                 for (int n8 = 0; n8 < NB; ++n8) dbs[g][n8][0] = dbs[g][n8][1] = 0.f;
 #pragma unroll
-            for (int m = 0; m < 2; ++m)
+            for (int hr = 0; hr < 2; ++hr) {
+                const int row = r0 + 8 * hr;
+                if (row >= n_act) continue;  // finished at t, or past B
+                const bool inject = p.every_step || max(p.lens[row], 1) == t + 1;
+                const size_t ro = (size_t)row * H;
 #pragma unroll
-                for (int hr = 0; hr < 2; ++hr) {
-                    const int row = r0 + 64 * m + 8 * hr;
-                    if (row >= n_act) continue;  // finished at t, or past B
-                    const bool inject = p.every_step || max(p.lens[row], 1) == t + 1;
-                    const size_t ro = (size_t)row * H;
+                for (int n8 = 0; n8 < NB; ++n8) {
+                    const int u = u0 + n8 * 8 + (lane & 3) * 2;
+                    if (u >= H) continue;
+                    const float2 c_t = *reinterpret_cast<const float2*>(p.cs_t + ro + u);
+                    const float2 c_prev =
+                        t > 0 ? *reinterpret_cast<const float2*>(p.cs_prev + ro + u) : make_float2(0.f, 0.f);
+                    const float2 dh_in = *reinterpret_cast<const float2*>(p.dh + ro + u);
+                    const float2 cot =
+                        inject ? *reinterpret_cast<const float2*>(p.cot + ro + u) : make_float2(0.f, 0.f);
+                    float2* dc = reinterpret_cast<float2*>(p.dc + ro + u);
+                    const float2 dc_in = *dc;
+                    float d[2][4], dc_out[2];
 #pragma unroll
-                    for (int n8 = 0; n8 < NB; ++n8) {
-                        const int u = u0 + n8 * 8 + (lane & 3) * 2;
-                        if (u >= H) continue;
-                        const float2 c_t = *reinterpret_cast<const float2*>(p.cs_t + ro + u);
-                        const float2 c_prev =
-                            t > 0 ? *reinterpret_cast<const float2*>(p.cs_prev + ro + u) : make_float2(0.f, 0.f);
-                        const float2 dh_in = *reinterpret_cast<const float2*>(p.dh + ro + u);
-                        const float2 cot =
-                            inject ? *reinterpret_cast<const float2*>(p.cot + ro + u) : make_float2(0.f, 0.f);
-                        float2* dc = reinterpret_cast<float2*>(p.dc + ro + u);
-                        const float2 dc_in = *dc;
-                        float d[2][4], dc_out[2];
+                    for (int x = 0; x < 2; ++x) {
+                        const int e = 2 * hr + x;
+                        const float pre[4] = {acc[n8 * 4 + e], acc[(NB + n8) * 4 + e], acc[(2 * NB + n8) * 4 + e],
+                                              acc[(3 * NB + n8) * 4 + e]};
+                        dc_out[x] = bwd_cell(pre, x ? c_t.y : c_t.x, x ? c_prev.y : c_prev.x,
+                                             x ? dh_in.y + cot.y : dh_in.x + cot.x, x ? dc_in.y : dc_in.x, d[x]);
+                    }
+                    *dc = make_float2(dc_out[0], dc_out[1]);
+                    float* dg_row = p.dg + (size_t)row * 4 * H + u;
 #pragma unroll
-                        for (int x = 0; x < 2; ++x) {
-                            const int e = 2 * hr + x;
-                            const float pre[4] = {acc[m][n8 * 4 + e], acc[m][(NB + n8) * 4 + e],
-                                                  acc[m][(2 * NB + n8) * 4 + e], acc[m][(3 * NB + n8) * 4 + e]};
-                            dc_out[x] = bwd_cell(pre, x ? c_t.y : c_t.x, x ? c_prev.y : c_prev.x,
-                                                 x ? dh_in.y + cot.y : dh_in.x + cot.x, x ? dc_in.y : dc_in.x, d[x]);
-                        }
-                        *dc = make_float2(dc_out[0], dc_out[1]);
-                        float* dg_row = p.dg + (size_t)row * 4 * H + u;
-#pragma unroll
-                        for (int g = 0; g < 4; ++g) {
-                            *reinterpret_cast<float2*>(dg_row + (size_t)g * H) = make_float2(d[0][g], d[1][g]);
-                            dbs[g][n8][0] += d[0][g];
-                            dbs[g][n8][1] += d[1][g];
-                        }
+                    for (int g = 0; g < 4; ++g) {
+                        *reinterpret_cast<float2*>(dg_row + (size_t)g * H) = make_float2(d[0][g], d[1][g]);
+                        dbs[g][n8][0] += d[0][g];
+                        dbs[g][n8][1] += d[1][g];
                     }
                 }
-            // db: this warp's 16 rows per half (the lanes differing in
-            // lane / 4), then the four warps in a fixed order
+            }
+            // db: this warp's 16 rows (the lanes differing in lane / 4),
+            // then the eight consumer warps in a fixed order
 #pragma unroll
             for (int g = 0; g < 4; ++g)
 #pragma unroll
@@ -649,12 +498,15 @@ __global__ void __launch_bounds__(THREADS, 1)
                         v += __shfl_xor_sync(0xffffffffu, v, 16);
                         if (lane < 4) s_db[wg][warp][g * TU + n8 * 8 + lane * 2 + x] = v;
                     }
-            named_barrier(1 + wg, 128);
-            const int i = threadIdx.x % 128, u = u0 + i % TU;
-            if (u < H)
-                p.db_part[(size_t)(row0 / TM) * 4 * H + (size_t)(i / TU) * H + u] =
-                    ((s_db[wg][0][i] + s_db[wg][1][i]) + s_db[wg][2][i]) + s_db[wg][3][i];
-            named_barrier(1 + wg, 128);  // s_db is read before the next tile writes it
+            named_barrier(1, 256);
+            const int i = threadIdx.x, u = u0 + i % TU;
+            if (i < TN && u < H) {
+                float v = 0.f;
+#pragma unroll
+                for (int w = 0; w < 8; ++w) v += s_db[w / 4][w % 4][i];
+                p.db_part[(size_t)(row0 / TM) * 4 * H + (size_t)(i / TU) * H + u] = v;
+            }
+            named_barrier(1, 256);  // s_db is read before the next tile writes it
         }
     }
 }
@@ -671,8 +523,9 @@ struct Tf32ProdArgs {
 // copy of [W_hh | W_ih]^T ([H + D, 4H], K-major), as TF32 wgmma reads only
 // K-major operands.  Rows past the active prefix are computed and not
 // written; at t == 0 only the tiles holding demb columns run (dh of step 0
-// is never read).
-template <int V>
+// is never read).  The products are the gate loop's (tile_products, the
+// sum from 0).
+template <int V, bool FOLD = true>
 __global__ void __launch_bounds__(THREADS, 1)
     lstm_bwd_product_kernel_tf32(const __grid_constant__ CUtensorMap map_dg,
                                  const __grid_constant__ CUtensorMap map_wt_hi,
@@ -706,77 +559,55 @@ __global__ void __launch_bounds__(THREADS, 1)
     } else {
         setmaxnreg_inc<232>();
         const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-        // acc[m][4 n8 + e] holds row r0 + 64 m + 8 (e/2), column
-        // n0 + 8 n8 + 2 (lane%4) + e%2, for r0 = row0 + 16 warp + lane/4
-        float acc[2][TN / 2];
-        for (int q = wg;; q += 2) {
+        // acc[4 n8 + e] holds row r0 + 8 (e/2), column n0 + 8 n8 + 2
+        // (lane%4) + e%2, for r0 = row0 + 64 wg + 16 warp + lane/4
+        float acc[TN / 2];
+        for (int q = 0;; ++q) {
             const int tile = blockIdx.x + q * gridDim.x;
             if (tile >= tiles) break;
             const int row0 = tile / col_tiles * TM, n0 = (tile % col_tiles + n_first) * TN;
-            const int r0 = row0 + warp * 16 + (lane >> 2);
+            const int r0 = row0 + 64 * wg + warp * 16 + (lane >> 2);
 #pragma unroll
-            for (int m = 0; m < 2; ++m)
+            for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+            tile_products<V, FOLD>(r, q, nk, wg, warp, lane, acc);
 #pragma unroll
-                for (int i = 0; i < TN / 2; ++i) acc[m][i] = 0.f;
-            tile_products<V>(r, q, nk, wg, warp, lane, acc);
+            for (int hr = 0; hr < 2; ++hr) {
+                const int row = r0 + 8 * hr;
+                if (row >= n_act) continue;
 #pragma unroll
-            for (int m = 0; m < 2; ++m)
-#pragma unroll
-                for (int hr = 0; hr < 2; ++hr) {
-                    const int row = r0 + 64 * m + 8 * hr;
-                    if (row >= n_act) continue;
-#pragma unroll
-                    for (int n8 = 0; n8 < TN / 8; ++n8) {
-                        const int n = n0 + n8 * 8 + (lane & 3) * 2;  // and n + 1: H and N are even
-                        const float2 v = make_float2(acc[m][n8 * 4 + 2 * hr], acc[m][n8 * 4 + 2 * hr + 1]);
-                        if (n >= N) continue;
-                        if (n < p.H) {
-                            if (p.t > 0) *reinterpret_cast<float2*>(p.dh + (size_t)row * p.H + n) = v;
-                        } else {
-                            *reinterpret_cast<float2*>(p.demb + (size_t)row * p.D + (n - p.H)) = v;
-                        }
+                for (int n8 = 0; n8 < TN / 8; ++n8) {
+                    const int n = n0 + n8 * 8 + (lane & 3) * 2;  // and n + 1: H and N are even
+                    const float2 v = make_float2(acc[n8 * 4 + 2 * hr], acc[n8 * 4 + 2 * hr + 1]);
+                    if (n >= N) continue;
+                    if (n < p.H) {
+                        if (p.t > 0) *reinterpret_cast<float2*>(p.dh + (size_t)row * p.H + n) = v;
+                    } else {
+                        *reinterpret_cast<float2*>(p.demb + (size_t)row * p.D + (n - p.H)) = v;
                     }
                 }
+            }
         }
     }
 }
 
-// Split launch, once per backward call: the hi and lo parts of W_ih and
-// W_hh in their gate-major layout (for the gate launch) and of
-// [W_hh | W_ih]^T (for the product launch), through a 32 x 32 shared tile.
-// w_split holds w_ih_hi [4H, D], w_ih_lo, w_hh_hi [4H, H], w_hh_lo,
-// wt_hi [H + D, 4H], wt_lo, in that order.
-__global__ void __launch_bounds__(256) lstm_bwd_split_kernel_tf32(const float* w_ih, const float* w_hh,
-                                                                   float* w_split, int D, int H) {
-    __shared__ float t_hi[32][33], t_lo[32][33];
-    const int H4 = 4 * H, N = H + D;
-    float* wih_hi = w_split;
-    float* wih_lo = wih_hi + (size_t)H4 * D;
-    float* whh_hi = wih_lo + (size_t)H4 * D;
-    float* whh_lo = whh_hi + (size_t)H4 * H;
-    float* wt_hi = whh_lo + (size_t)H4 * H;
-    float* wt_lo = wt_hi + (size_t)N * H4;
-    const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32, tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-    for (int i = ty; i < 32; i += 8) {
-        const int k = k0 + i, n = n0 + tx;  // [W_hh | W_ih] row k (a gate column), column n
-        if (k < H4 && n < N) {
-            const size_t o = n < H ? (size_t)k * H + n : (size_t)k * D + (n - H);
-            uint32_t hi, lo;
-            tf32_split(n < H ? w_hh[o] : w_ih[o], hi, lo);
-            (n < H ? whh_hi : wih_hi)[o] = __uint_as_float(hi);
-            (n < H ? whh_lo : wih_lo)[o] = __uint_as_float(lo);
-            t_hi[i][tx] = __uint_as_float(hi);
-            t_lo[i][tx] = __uint_as_float(lo);
-        }
-    }
-    __syncthreads();
-    for (int i = ty; i < 32; i += 8) {
-        const int n = n0 + i, k = k0 + tx;
-        if (k < H4 && n < N) {
-            wt_hi[(size_t)n * H4 + k] = t_hi[tx][i];
-            wt_lo[(size_t)n * H4 + k] = t_lo[tx][i];
-        }
-    }
+// What the f32 entries launch (their `variant`): the kernel; one TF32
+// product (hi.hi' alone), the planted check; or one tensor-core
+// accumulator over all of K in the gate and product launches (no fold).
+enum BackwardVariant { KERNEL = 0, ONE_TF32 = 1, UNFOLDED = 2 };
+
+template <int V, bool FOLD>
+int launch_gate(const CUtensorMap* const (&maps)[6], const Tf32GateArgs& p, int grid, cudaStream_t s) {
+    if (const int e = allow_smem<lstm_bwd_gate_kernel_tf32<V, FOLD>>()) return e;
+    lstm_bwd_gate_kernel_tf32<V, FOLD>
+        <<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], *maps[3], *maps[4], *maps[5], p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int V, bool FOLD>
+int launch_product(const CUtensorMap* const (&maps)[3], const Tf32ProdArgs& p, int grid, cudaStream_t s) {
+    if (const int e = allow_smem<lstm_bwd_product_kernel_tf32<V, FOLD>>()) return e;
+    lstm_bwd_product_kernel_tf32<V, FOLD><<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], p);
+    return static_cast<int>(cudaGetLastError());
 }
 
 __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
@@ -945,33 +776,6 @@ __global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel_tf32(const Tf32DwArgs p
             }
 }
 
-// cudaFuncSetAttribute for the `bytes` of dynamic shared memory of
-// `Kernel`, once per device.
-template <auto Kernel, int bytes = SMEM>
-int allow_smem() {
-    static bool done[64] = {};
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-    if (!done[dev]) {
-        const cudaError_t e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        done[dev] = true;
-    }
-    return 0;
-}
-
-// The split weights' parts (see lstm_bwd_split_kernel_tf32).
-struct SplitWeights {
-    const float *wih_hi, *wih_lo, *whh_hi, *whh_lo, *wt_hi, *wt_lo;
-};
-
-inline SplitWeights split_parts(const void* w_split, int D, int H) {
-    const float* base = static_cast<const float*>(w_split);
-    const size_t ih = (size_t)4 * H * D, hh = (size_t)4 * H * H, t = (size_t)(H + D) * 4 * H;
-    return {base, base + ih, base + 2 * ih, base + 2 * ih + hh, base + 2 * ih + 2 * hh, base + 2 * ih + 2 * hh + t};
-}
-
 }  // namespace tf32
 
 }  // namespace
@@ -1054,17 +858,15 @@ extern "C" int oket_lstm_bwd_dw_bf16(const void* dg, const void* x, const void* 
 // lens int32, bias, dh, dc, db_part and db f32, as in the bf16 entries.
 // D % 4 == H % 4 == 0 (TMA strides are multiples of 16 bytes) and every
 // pointer 16-byte aligned.  w_split is the split launch's output (4 (H + D)
-// 4H floats); variant is 0 (3xTF32) or 1 (1xTF32, the planted check); grid
-// is the number of persistent blocks.  Returns the cudaError_t of the
+// 4H floats); variant is 0 (3xTF32), 1 (1xTF32, the planted check) or 2
+// (one accumulator over K in the gate and product launches); grid is the
+// number of persistent blocks.  Returns the cudaError_t of the
 // launch, or -1 if the driver could not encode the tensor maps.
 
 // Once per backward call, before the steps: split W_ih and W_hh into w_split.
 extern "C" int oket_lstm_bwd_split_f32(const void* w_ih, const void* w_hh, void* w_split, int D, int H,
                                        void* stream) {
-    const dim3 grid((unsigned)((4 * H + 31) / 32), (unsigned)((H + D + 31) / 32));
-    tf32::lstm_bwd_split_kernel_tf32<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(w_ih), static_cast<const float*>(w_hh), static_cast<float*>(w_split), D, H);
-    return static_cast<int>(cudaGetLastError());
+    return oket_tf32::launch_split<true>(w_ih, w_hh, w_split, D, H, stream);
 }
 
 // Step t, part 1: the gate recompute and the cell math.  cs_t, cs_prev and
@@ -1103,18 +905,10 @@ extern "C" int oket_lstm_bwd_gate_f32(const void* emb, const void* hs, const voi
     for (const CUtensorMap* m : maps)
         if (!m) return -1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (variant == X3) {
-        if (const int e = allow_smem<lstm_bwd_gate_kernel_tf32<X3>>()) return e;
-        lstm_bwd_gate_kernel_tf32<X3><<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], *maps[3], *maps[4],
-                                                                  *maps[5], p);
-    } else if (variant == X1) {
-        if (const int e = allow_smem<lstm_bwd_gate_kernel_tf32<X1>>()) return e;
-        lstm_bwd_gate_kernel_tf32<X1><<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], *maps[3], *maps[4],
-                                                                  *maps[5], p);
-    } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return static_cast<int>(cudaGetLastError());
+    if (variant == KERNEL) return launch_gate<X3, true>(maps, p, grid, s);
+    if (variant == ONE_TF32) return launch_gate<X1, true>(maps, p, grid, s);
+    if (variant == UNFOLDED) return launch_gate<X3, false>(maps, p, grid, s);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Step t, part 2: [dh | demb[t]] = dg[t] . [W_hh | W_ih]; dg is [L, B, 4H].
@@ -1141,16 +935,10 @@ extern "C" int oket_lstm_bwd_product_f32(const void* dg, const void* w_split, co
     for (const CUtensorMap* m : maps)
         if (!m) return -1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (variant == X3) {
-        if (const int e = allow_smem<lstm_bwd_product_kernel_tf32<X3>>()) return e;
-        lstm_bwd_product_kernel_tf32<X3><<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], p);
-    } else if (variant == X1) {
-        if (const int e = allow_smem<lstm_bwd_product_kernel_tf32<X1>>()) return e;
-        lstm_bwd_product_kernel_tf32<X1><<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], p);
-    } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return static_cast<int>(cudaGetLastError());
+    if (variant == KERNEL) return launch_product<X3, true>(maps, p, grid, s);
+    if (variant == ONE_TF32) return launch_product<X1, true>(maps, p, grid, s);
+    if (variant == UNFOLDED) return launch_product<X3, false>(maps, p, grid, s);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // After the loop: dW_ih [4H, D], dW_hh [4H, H] and db [4H].
@@ -1173,10 +961,10 @@ extern "C" int oket_lstm_bwd_dw_f32(const void* dg, const void* x, const void* h
     p.L = L;
     const dim3 grid((unsigned)((4 * H + WB - 1) / WB), (unsigned)((D + WB - 1) / WB + (H + WB - 1) / WB));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (variant == X3) {
+    if (variant == KERNEL || variant == UNFOLDED) {  // dW sums apart already (blocks of 256 rows)
         if (const int e = allow_smem<lstm_bwd_dw_kernel_tf32<X3>, DW_SMEM>()) return e;
         lstm_bwd_dw_kernel_tf32<X3><<<grid, NT, DW_SMEM, s>>>(p);
-    } else if (variant == X1) {
+    } else if (variant == ONE_TF32) {
         if (const int e = allow_smem<lstm_bwd_dw_kernel_tf32<X1>, DW_SMEM>()) return e;
         lstm_bwd_dw_kernel_tf32<X1><<<grid, NT, DW_SMEM, s>>>(p);
     } else {

@@ -43,10 +43,9 @@
 // The f32 mode (the *_f32 entries; the TPU kernels take their inputs' dtype):
 // the same three launches for f32 x_proj, w_hh, hs, cs, dhs and dx_proj, with
 // the rounding points dropped, every product in true f32 FFMA on the CUDA
-// cores (lstm_f32.cuh::gate_product_f32 with D = 0 and
-// lstm_bwd_product_kernel_f32; no TF32), bound by FP32 operations; H a
-// multiple of 4.  Any other H reaches the kernels zero-padded by the wrapper
-// (ops/lstm_scan_kernel.py).
+// cores (lstm_f32.cuh::gate_product_f32 and lstm_bwd_product_kernel_f32;
+// no TF32), bound by FP32 operations; H a multiple of 4.  Any other H
+// reaches the kernels zero-padded by the wrapper (ops/lstm_scan_kernel.py).
 
 #include "lstm_f32.cuh"
 
@@ -178,7 +177,7 @@ dim3 step_grid(long long B, int H) { return dim3((unsigned)((B + BM - 1) / BM), 
 // ------------------------------------------------------------------ f32 mode
 
 struct ScanArgsF32 {
-    GateArgsF32 g;    // D = 0; h_prev = hs[t-1], unread at t == 0
+    GateArgsF32 g;    // h_prev = hs[t-1], unread at t == 0
     const float* xp;  // [B, 4H] x_proj[t]
     float* c;         // [B, H] cell state, updated in place
     float* hs_t;      // [B, H] out: h_t
@@ -222,7 +221,7 @@ __global__ void __launch_bounds__(NT) lstm_scan_step_kernel_f32(const ScanArgsF3
 }
 
 struct ScanBwdArgsF32 {
-    GateArgsF32 g;         // D = 0; h_prev = hs[t-1], unread at t == 0
+    GateArgsF32 g;         // h_prev = hs[t-1], unread at t == 0
     const float* xp;       // [B, 4H] x_proj[t]
     const float* cs_t;     // [B, H] c_t
     const float* cs_prev;  // [B, H] c_{t-1}; unread at t == 0
@@ -270,12 +269,9 @@ __global__ void __launch_bounds__(NT) lstm_scan_bwd_gate_kernel_f32(const ScanBw
 
 GateArgsF32 recurrent_args_f32(const void* h_prev, const void* w_hh, long long B, int H, int t) {
     GateArgsF32 g;
-    g.x = nullptr;
     g.h_prev = static_cast<const float*>(h_prev);
-    g.w_ih = nullptr;
     g.w_hh = static_cast<const float*>(w_hh);
     g.B = B;
-    g.D = 0;
     g.H = H;
     g.t = t;
     return g;
@@ -369,12 +365,8 @@ extern "C" int oket_lstm_scan_bwd_product_f32(const void* dxp, const void* w_hh,
     ProdArgsF32 p;
     p.dg = static_cast<const float*>(dxp);
     p.w_hh = static_cast<const float*>(w_hh);
-    p.w_ih = nullptr;
-    p.lens = nullptr;
     p.dh = static_cast<float*>(dh);
-    p.demb = nullptr;
     p.B = B;
-    p.D = 0;
     p.H = H;
     p.t = t;
     return launch_bwd_product_f32(p, stream);

@@ -3,7 +3,8 @@
 // wgmma descriptors, fences, the bf16 product m64n128k16 and the TF32
 // product m64n128k8 (A from registers) with f32 accumulators, the TF32
 // split of an f32 value, named barriers and setmaxnreg.  Used by
-// lstm_last_fwd.cu (bf16) and the f32 backward of lstm_last_bwd.cu (TF32).
+// lstm_last_fwd.cu (bf16) and the 3xTF32 gate loop of lstm_tf32.cuh (the
+// f32 forward and backward).
 //
 // Shared-memory tiles are K-major with the 128-byte swizzle: each tile row
 // is 128 bytes of K (64 bf16 or 32 f32), rows grouped by 8 into 1024-byte
@@ -142,8 +143,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
 // l % 4 + 4 (i / 2) of thread (warp w, lane l) of the warpgroup), B K-major
 // from shared memory; the tensor core reads the top 19 bits of each f32
 // (sign, exponent, 10 mantissa bits) and ignores the rest.  The
-// accumulator layout is wgmma_m64n128k16's.
-__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+// accumulator layout is wgmma_m64n128k16's.  With scale_d = 0 the product
+// overwrites d instead (d = A . B^T).
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                                     int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
@@ -161,7 +164,7 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint3
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 // x = hi + lo + (a rest below 2^-22 |x|): hi = x rounded to nearest (ties

@@ -23,11 +23,11 @@ VJP joins each pair there, an ``autograd.Function`` here (:class:`_LstmLast`,
   every-state forward) and ``csrc/lstm_last_bwd.cu`` (two launches per step
   and one for dW and db; the cotangent enters at each row's last step or at
   every step).  At bf16 both are bound by tensor-core operations on an H100.
-  The forward's f32 mode (``csrc/lstm_last_fwd_f32.cu``) takes true f32
-  products on the CUDA cores; the backward's (the ``*_f32`` entries of
-  ``lstm_last_bwd.cu``) takes 3xTF32 products on the tensor cores, as
-  accurate as f32 (one more launch per call splits the weights).  Design
-  notes are at the top of the sources.
+  Their f32 modes (``csrc/lstm_last_fwd_f32.cu`` and the ``*_f32`` entries of
+  ``lstm_last_bwd.cu``) take 3xTF32 products on the tensor cores, as
+  accurate as f32, through one gate loop (``csrc/lstm_tf32.cuh``); one more
+  launch per call splits the weights.  Design notes are at the top of the
+  sources.
 
 :func:`lstm_encode_last_fused`, :func:`lstm_last_backward`,
 :func:`lstm_all_forward` and :func:`lstm_all_backward` are the wrappers: a
@@ -255,14 +255,18 @@ def _sm_count(device_index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_f32_fn():
-    """The f32 forward kernel's C entry point (one launch per step)."""
+def _fwd_f32_fns():
+    """The f32 (3xTF32) forward's C entry points: the weight split and the
+    step."""
     from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
 
-    fn = cuda_build.load(_FWD_F32_SOURCE).oket_lstm_last_step_f32
-    fn.argtypes = [_P] * 10 + [_LL, _I, _I, _I, _P]
-    fn.restype = _I
-    return fn
+    lib = cuda_build.load(_FWD_F32_SOURCE)
+    split, step = lib.oket_lstm_fwd_split_f32, lib.oket_lstm_last_step_f32
+    split.argtypes = [_P] * 3 + [_I, _I, _P]
+    step.argtypes = [_P] * 9 + [_I] * 9 + [_P]
+    for fn in (split, step):
+        fn.restype = _I
+    return split, step
 
 
 @functools.lru_cache(maxsize=None)
@@ -336,19 +340,21 @@ def _launch_all_forward(emb_tm, w_ih, w_hh, bias, lengths):
 
 
 # what a launch of kernel 1 runs: the kernel, or for measuring it, the
-# kernel without its epilogue or without its products (chip_smoke.py)
+# kernel without its epilogue or without its products (chip_smoke.py); at
+# f32 also the planted checks that the f32 rule sees the correction
+# products (1xTF32: one TF32 product where the kernel takes three) and the
+# fold of the tensor cores' sums ("one accumulator" over all of K)
 FORWARD_VARIANTS = {"kernel": 0, "no epilogue": 1, "no products": 2}
+FORWARD_F32_VARIANTS = {**FORWARD_VARIANTS, "1xTF32": 3, "one accumulator": 4}
 
 
 def _launch_steps(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, counter, variant="kernel"):
     L, B, D, H = _check(emb_tm, w_ih, w_hh, bias, lengths)
     _check_kernel_inputs(emb_tm.dtype, D, H, emb_tm=emb_tm, w_ih=w_ih, w_hh=w_hh)
-    if emb_tm.dtype == torch.float32:
-        if variant != "kernel":
-            raise ValueError(f"the measuring variant {variant!r} is the bf16 kernel's")
-        return _launch_steps_f32(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, counter)
-    fn = _fwd_fn()
-    grid = forward_grid(B, H, _sm_count(emb_tm.device.index))
+    f32 = emb_tm.dtype == torch.float32
+    variants = FORWARD_F32_VARIANTS if f32 else FORWARD_VARIANTS
+    if variant not in variants:
+        raise ValueError(f"the {emb_tm.dtype} forward has no variant {variant!r}; it has {list(variants)}")
     bias = bias.contiguous()
     if bias.data_ptr() % 8:  # the kernel reads the bias of a unit pair as one float2
         bias = bias.clone()
@@ -364,52 +370,38 @@ def _launch_steps(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, count
     else:
         hs = cs = None
         h_buf = torch.empty(2, B, H, dtype=dt, device=dev)  # h_{t-1} and h_t, in turns
-    if B and H:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        slots, step = h_buf.shape[0], B * H * h_buf.element_size()  # bytes of one [B, H] slice
-        ptrs = [x.data_ptr() for x in (emb_tm, h_buf, w_ih, w_hh, bias, lens, c)]
-        cs_ptr = cs.data_ptr() if residuals else None
-        last_ptr = last.data_ptr() if with_last else None
-        code = FORWARD_VARIANTS[variant]
-        for t in range(L):
-            err = fn(
-                *ptrs, ptrs[1] + t % slots * step, None if cs_ptr is None else cs_ptr + t * step, last_ptr,
-                L, B, D, H, slots, (t - 1) % slots, t, grid, code, stream,
-            )
-            _raise_on(err, f"lstm_last_fwd step {t}")
-            counter.launches += 1
-    return last, hs, cs
-
-
-def _launch_steps_f32(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, counter):
-    """Kernels 1 and 5 in f32 (``csrc/lstm_last_fwd_f32.cu``): one launch per
-    step over the grid of row and unit tiles; the same buffers as the bf16
-    kernel's."""
-    L, B, D, H = emb_tm.shape[0], emb_tm.shape[1], emb_tm.shape[2], w_hh.shape[1]
-    fn = _fwd_f32_fn()
-    bias = bias.contiguous()
-    lens = lengths.to(torch.int32).contiguous()
-    dev, dt = emb_tm.device, emb_tm.dtype
-    c = torch.empty(B, H, dtype=torch.float32, device=dev)
-    last = torch.zeros(B, H, dtype=dt, device=dev) if with_last else None
-    if residuals:
-        hs = torch.empty(L, B, H, dtype=dt, device=dev)  # h of step t written into hs[t]
-        cs = torch.empty(L, B, H, dtype=dt, device=dev)
-        h_buf = hs
+    if not (B and H):
+        return last, hs, cs
+    if variant == "no epilogue":
+        # the variant writes no h, so it would multiply stale memory, on which
+        # the tensor cores can run faster than on the h a kernel writes
+        h_buf.normal_(0.0, 0.1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    grid = forward_grid(B, H, _sm_count(dev.index))
+    if f32:
+        # kernels 1 and 5 in f32 (csrc/lstm_last_fwd_f32.cu, 3xTF32): the hi
+        # and lo parts of both weights, gate-major, once per call
+        split, fn = _fwd_f32_fns()
+        w_split = torch.empty(2 * 4 * H * (D + H), dtype=torch.float32, device=dev)
+        _raise_on(split(w_ih.data_ptr(), w_hh.data_ptr(), w_split.data_ptr(), D, H, stream), "lstm_last_fwd_f32 split")
+        counter.launches += 1
+        weights, name = [w_split.data_ptr()], "lstm_last_fwd_f32"
     else:
-        hs = cs = None
-        h_buf = torch.empty(2, B, H, dtype=dt, device=dev)  # h_{t-1} and h_t, in turns
-    if B and H:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        slots, step = h_buf.shape[0], B * H * 4  # bytes of one [B, H] slice
-        emb, h0, cs0 = emb_tm.data_ptr(), h_buf.data_ptr(), cs.data_ptr() if residuals else None
-        ptrs = [x.data_ptr() for x in (w_ih, w_hh, bias, lens, c)]
-        last_ptr = last.data_ptr() if with_last else None
-        for t in range(L):
-            err = fn(emb + t * B * D * 4, h0 + (t - 1) % slots * step, *ptrs, h0 + t % slots * step,
-                     None if cs0 is None else cs0 + t * step, last_ptr, B, D, H, t, stream)
-            _raise_on(err, f"lstm_last_fwd_f32 step {t}")
-            counter.launches += 1
+        fn = _fwd_fn()
+        weights, name = [w_ih.data_ptr(), w_hh.data_ptr()], "lstm_last_fwd"
+    slots, step = h_buf.shape[0], B * H * h_buf.element_size()  # bytes of one [B, H] slice
+    emb, h0 = emb_tm.data_ptr(), h_buf.data_ptr()
+    rest = [x.data_ptr() for x in (bias, lens, c)]
+    cs0 = cs.data_ptr() if residuals else None
+    last_ptr = last.data_ptr() if with_last else None
+    code = variants[variant]
+    for t in range(L):
+        err = fn(
+            emb, h0, *weights, *rest, h0 + t % slots * step, None if cs0 is None else cs0 + t * step, last_ptr,
+            L, B, D, H, slots, (t - 1) % slots, t, grid, code, stream,
+        )
+        _raise_on(err, f"{name} step {t}")
+        counter.launches += 1
     return last, hs, cs
 
 
@@ -423,10 +415,11 @@ def _launch_all_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dhs):
     return _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dhs, True, lstm_all_backward)
 
 
-# what a launch of the f32 backward computes: the kernel (3xTF32), or for the
-# planted check of chip_smoke.py, one TF32 product (1xTF32), which the f32
-# rule must fail
-BACKWARD_F32_VARIANTS = {"kernel": 0, "1xTF32": 1}
+# what a launch of the f32 backward computes: the kernel (3xTF32), or for
+# chip_smoke.py's checks one TF32 product (1xTF32), which the f32 rule must
+# fail, or one tensor-core accumulator over all of K in the gate and product
+# launches ("one accumulator", no fold: what the fold buys on trained weights)
+BACKWARD_F32_VARIANTS = {"kernel": 0, "1xTF32": 1, "one accumulator": 2}
 
 
 def _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step, counter, variant="kernel"):
@@ -560,8 +553,8 @@ def lstm_last_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dlast):
 def lstm_all_forward(emb_tm, w_ih, w_hh, bias, lengths):
     """The every-state fused forward (kernel 5): same contract as
     :func:`lstm_all_forward_plain`.  CUDA tensors launch the forward kernel
-    without ``last`` (one launch per step, counted in
-    ``lstm_all_forward.launches``); the positions a row never reaches hold
+    without ``last`` (one launch per step, and at f32 the weight split,
+    counted in ``lstm_all_forward.launches``); the positions a row never reaches hold
     unread garbage there."""
     run = _on_device(emb_tm, _launch_all_forward, lstm_all_forward_plain)
     return run(emb_tm, w_ih, w_hh, bias, lengths)
@@ -624,7 +617,8 @@ def lstm_encode_last_fused(emb_tm, w_ih, w_hh, bias, lengths):
     """Length-aware fused LSTM forward: same contract as
     :func:`lstm_encode_last_plain`, differentiable in ``emb_tm``, the
     weights and the bias.  CUDA tensors launch the kernel (one launch per
-    step, counted in ``lstm_encode_last_fused.launches``); CPU tensors take
+    step, and at f32 one more that splits the weights, counted in
+    ``lstm_encode_last_fused.launches``); CPU tensors take
     the plain version.  The hs/cs residuals are written only when autograd
     will need them, so serving writes none."""
     if _needs_grad(emb_tm, w_ih, w_hh, bias):

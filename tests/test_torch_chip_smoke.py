@@ -111,10 +111,11 @@ def test_every_state_checks_pass_plain_and_fail_planted_faults(smoke, lstm_case,
 def test_kernel_rows_cover_every_tpu_kernel(smoke):
     """One launch counter for each of the eight TPU kernels, and the bounds
     of rows 5-8 at the entity pass's shape (L=10, B=5632, D=H=512, 26,636
-    active row-steps) as PERF.md states them."""
+    active row-steps) as PERF.md states them, at an H100 SXM's peaks (132
+    SMs at 1980 MHz)."""
     assert len(smoke.kernel_counters()) == 8
     bounds = [smoke.bound_ms(*smoke.lstm_bound(row, 10, 5632, 512, 512, 26636))[0] for row in (5, 6, 7, 8)]
-    np.testing.assert_allclose(bounds, [0.1010, 0.3031, 0.1075, 0.2150], atol=6e-5)
+    np.testing.assert_allclose(bounds, [0.0933, 0.2800, 0.1039, 0.1986], atol=6e-5)
 
 
 # ---------------------------------------------------------------- the f32 modes
@@ -137,12 +138,14 @@ def f32_case(smoke):
 
 
 def test_f32_residual_checks_fail_planted_faults(smoke, f32_case, capsys):
-    """Kernel 1's f32 check: hs one step late, the TF32 yardstick and a
-    dropped bias must fail the f32 rule."""
+    """Kernel 1's f32 check: hs one step late, the TF32 yardstick, a
+    dropped bias and the kernel's 1xTF32 variant (emulated here, where there
+    is no kernel) must fail the f32 rule."""
     fwd_args, got, _ = f32_case
     smoke.check_lstm_residuals(torch, [(fwd_args, got), (fwd_args, got)])
     out = capsys.readouterr().out
-    assert out.count("planted fault") == 3 and "TF32 operands" in out and "bias dropped" in out
+    assert out.count("planted fault") == 4 and "TF32 operands" in out and "bias dropped" in out
+    assert "planted fault 1xTF32 variant of lstm_last_fwd_f32 with residuals" in out
 
 
 def test_f32_backward_faults_fail_the_rule(smoke, f32_case, capsys):
@@ -176,14 +179,15 @@ def test_f32_scan_checks_fail_planted_faults(smoke, capsys):
 
 def test_f32_every_state_checks_fail_planted_faults(smoke, f32_case, capsys):
     """Kernels 5 and 6 in f32: hs one step late, the cotangent at the last
-    step only, the TF32 yardstick and a dropped bias each, and kernel 6's
-    1xTF32 variant (emulated here, where there is no kernel)."""
+    step only, the TF32 yardstick and a dropped bias each, and the 1xTF32
+    variants of kernels 5 and 6 (emulated here, where there is no kernel)."""
     fwd_args, _, _ = f32_case
     fwd_err, bwd_err = smoke.check_every_state(torch, fwd_args, ragged=(1, 37))
     assert fwd_err == bwd_err == 0.0
     out = capsys.readouterr().out
-    assert out.count("planted fault") == 7 and out.count("TF32 operands") == 2
+    assert out.count("planted fault") == 8 and out.count("TF32 operands") == 2
     assert "planted fault 1xTF32 variant of lstm_all_bwd_f32" in out
+    assert "planted fault 1xTF32 variant of lstm_all_fwd_f32" in out
 
 
 def test_f32_1xtf32_variant_check_fails_the_variant(smoke, f32_case, capsys):
@@ -213,21 +217,91 @@ def test_kernel_rows_list_the_f32_modes(smoke):
     assert ops4 == ops2 and bytes4 == 2 * bytes2
     assert smoke.peak_flops(torch.float32) == smoke.PEAK_3XTF32_FLOPS == smoke.PEAK_BF16_FLOPS / 6
     assert smoke.peak_flops(torch.bfloat16) == smoke.PEAK_BF16_FLOPS
+    # the tensor cores' peak from SMs x clock: NVIDIA's published 989 TFLOP/s is 132 SMs at 1830 MHz
+    np.testing.assert_allclose(smoke.card_peaks(132, 1830)[0], 989e12, rtol=1e-3)
+    np.testing.assert_allclose(smoke.card_peaks(132, 1980)[2], 67e12, rtol=2e-3)
+
+
+def test_forward_launches_and_the_f32_paths_expected_counts(smoke):
+    """Kernels 1 and 5 launch L times a call at bf16 and L + 1 at f32 (the
+    weight split before the steps); the exact counts that train_f32,
+    serve_f32 and op_f32 are held to take it: 50 steps of two fused passes
+    give 1100 forward launches (1000 at bf16), each fused serving encode
+    11, the op 11 and 22."""
+    assert smoke.forward_launches(10, "bfloat16") == smoke.forward_launches(10, torch.bfloat16) == 10
+    assert smoke.forward_launches(10, "float32") == smoke.forward_launches(10, torch.float32) == 11
+    names = list(smoke.kernel_counters())
+    train = smoke.training_launches(names, 10, 50, 600, 100, "float32")
+    assert train == {**dict.fromkeys(names, 0), "lstm_last_fwd": 1100, "lstm_last_bwd": 2200,
+                     "adagrad_update": 600, "scatter_adagrad": 100}
+    assert smoke.training_launches(names, 10, 50, 600, 100, "bfloat16")["lstm_last_fwd"] == 1000
+    unfused = smoke.training_launches(names, 10, 50, 600, 100, "float32", unfused=True)
+    assert unfused["lstm_last_fwd"] == unfused["lstm_last_bwd"] == 0 and unfused["lstm_scan_fwd"] == 1000
+    serve = smoke.serving_launches(names, 10, 196, 48, "float32")
+    assert serve == {**dict.fromkeys(names, 0), "lstm_last_fwd": 196 * 11, "lstm_scan_fwd": 480}
+    assert smoke.serving_launches(names, 10, 196, 48, "bfloat16")["lstm_last_fwd"] == 1960
+    assert smoke.op_launches(names, 10, torch.float32) == {**dict.fromkeys(names, 0), "lstm_all_fwd": 11,
+                                                           "lstm_all_bwd": 22}
+    assert smoke.op_launches(names, 10, torch.bfloat16)["lstm_all_fwd"] == 10
+
+
+def test_trained_forward_check_holds_the_kernel_to_f64(smoke, f32_case, capsys):
+    """The check on a trained checkpoint records the one fused forward of an
+    entity encode and holds its output to the same recurrence in f64 (here,
+    without a kernel, the plain version: f32 products, within the f32 rule
+    of f64); the f64 recurrence is the plain version's arithmetic."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import f32_agreement
+
+    fwd_args, (last, _, _), _ = f32_case
+    exact = smoke.plain_last_f64(torch, *fwd_args)
+    assert exact.dtype == torch.float64 and f32_agreement(last.double(), exact).rel_err < 1e-6
+
+    class Embedder:
+        def encode_entity(self, variables, ids):
+            return lk.lstm_encode_last_fused(*fwd_args)[ids]
+
+    model = type("Model", (), {"embedder": Embedder()})()
+    recorded = smoke.check_trained_forward(torch, model, {}, torch.arange(8))
+    out = capsys.readouterr().out
+    assert "trained checkpoint's entity encode (8 ids), kernel vs f64" in out
+    assert len(recorded) == 5 and all(torch.equal(a, b) for a, b in zip(recorded, fwd_args))
+
+
+def test_trained_backward_check_holds_the_kernel_to_f64(smoke, f32_case, capsys):
+    """The backward's check on trained weights: the f64 backward is the plain
+    version's arithmetic (within the f32 rule of it at every output), the
+    kernel (here the plain version) passes, and the 1xTF32 variant (emulated)
+    fails it."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import f32_agreement
+
+    fwd_args, _, bwd_args = f32_case
+    exact = smoke.plain_last_backward_f64(torch, *bwd_args)
+    plain = lk.lstm_last_backward_plain(*bwd_args)
+    act = smoke.active_mask(torch, fwd_args)
+    assert all(e.dtype == torch.float64 for e in exact)
+    assert f32_agreement(plain[0][act], exact[0][act]).rel_err < 1e-6
+    assert all(f32_agreement(p, e).rel_err < 1e-6 for p, e in zip(plain[1:], exact[1:]))
+    smoke.check_trained_backward(torch, fwd_args)
+    out = capsys.readouterr().out
+    assert "lstm_last_bwd_f32 on the trained checkpoint's entity encode (300 ids)" in out
+    assert "planted fault 1xTF32 variant of lstm_last_bwd_f32 on trained weights" in out and "; fails" in out
 
 
 def test_f32_backward_launches_and_bound_parts(smoke, monkeypatch):
     """Kernels 2 and 6 launch 2L + 2 times a call at f32 (the weight split
     besides the bf16 kernel's 2L + 1); their work is three equal parts (gate
-    recompute, dh/demb, dW), on the entity pass 2.9972e11 FLOP in all: 1.818
-    ms at the 3xTF32 rate, 0.606 ms a part, and 4.4796 ms at the FFMA rate
-    (132 SMs at 1980 MHz), which the f32 rows print beside it."""
+    recompute, dh/demb, dW), on the entity pass 2.9972e11 FLOP in all, at
+    132 SMs and 1980 MHz: 1.680 ms at the 3xTF32 rate, 0.560 ms a part, and
+    4.4796 ms at the FFMA rate, which the f32 rows print beside it."""
     assert smoke.backward_launches(10, "float32") == smoke.backward_launches(10, torch.float32) == 22
     assert smoke.backward_launches(10, "bfloat16") == smoke.backward_launches(10, torch.bfloat16) == 21
     parts = smoke.backward_parts(5632, 512, 512, 26636)
     assert list(parts) == ["gate", "product", "dW"] and len(set(parts.values())) == 1
     np.testing.assert_allclose(sum(parts.values()), 2.9972e11, rtol=1e-4)
     whole, by = smoke.bound_ms(sum(parts.values()), 0, smoke.peak_flops(torch.float32))
-    np.testing.assert_allclose([whole, parts["gate"] / smoke.PEAK_3XTF32_FLOPS * 1e3], [1.818, 0.606], atol=6e-4)
+    np.testing.assert_allclose([whole, parts["gate"] / smoke.PEAK_3XTF32_FLOPS * 1e3], [1.680, 0.560], atol=6e-4)
     assert by == "operations"
     monkeypatch.setattr(smoke, "PEAK_FP32_FLOPS", 132 * 128 * 2 * 1980e6)
     assert smoke.ffma_note(sum(parts.values()), torch.float32) == "; FFMA bound 4.4796 ms"

@@ -424,8 +424,9 @@ def _f32_inputs(B, D, H, L=10, seed=0):
 
 @pytest.mark.parametrize("B,D,H", F32_SHAPES, ids=F32_IDS)
 def test_f32_forward_modes_across_tile_edges_on_card(cuda, B, D, H):
-    """Kernels 1 and 5 in f32 (csrc/lstm_last_fwd_f32.cu): serving (last),
-    training (last, hs, cs) and every state (hs, cs), one launch per step."""
+    """Kernels 1 and 5 in f32 (csrc/lstm_last_fwd_f32.cu, 3xTF32): serving
+    (last), training (last, hs, cs) and every state (hs, cs); a call is the
+    weight split and one launch per step."""
     emb, w_ih, w_hh, bias, lens, _, _ = (x.to(cuda) for x in _f32_inputs(B, D, H, seed=B + D))
     args = (emb, w_ih, w_hh, bias, lens)
     L = emb.shape[0]
@@ -437,12 +438,61 @@ def test_f32_forward_modes_across_tile_edges_on_card(cuda, B, D, H):
     last, hs, cs = lstm_kernel._launch_steps(*args, True, True, count)
     _, all_hs, all_cs = lstm_kernel._launch_steps(*args, True, False, count)
     torch.cuda.synchronize()
-    assert count.launches == before + 3 * L
+    assert count.launches == before + 3 * (L + 1)
     assert serve.dtype == hs.dtype == torch.float32 and torch.equal(serve, last)
     assert_f32_close(last, want_last)
     for got_hs, got_cs in ((hs, cs), (all_hs, all_cs)):
         assert_f32_close(got_hs[act], want_hs[act])
         assert_f32_close(got_cs[act], want_cs[act])
+
+
+@pytest.mark.parametrize("mode", ["kernel1", "kernel5"])
+def test_f32_forward_1xtf32_variant_fails_the_f32_rule_on_card(cuda, mode):
+    """The f32 forward's planted 1xTF32 variant (hi·hi' alone, one TF32
+    product per product) must fail the f32 rule on some output at D = H =
+    512 where the kernel (3xTF32) passes it, in the training mode of kernel
+    1 (last, hs, cs) and the every-state mode of kernel 5 (hs, cs)."""
+    emb, w_ih, w_hh, bias, lens, _, _ = (x.to(cuda) for x in _f32_inputs(512, 512, 512, seed=13))
+    args = (emb, w_ih, w_hh, bias, lens)
+    act = torch.from_numpy(_active(lens.cpu().numpy(), emb.shape[0])).to(cuda)
+    want = lstm_kernel.lstm_encode_last_plain(*args, residuals=True)
+    with_last = mode == "kernel1"
+
+    class Uncounted:
+        launches = 0
+
+    ok = {}
+    for v in ("kernel", "1xTF32"):
+        last, hs, cs = lstm_kernel._launch_steps(*args, True, with_last, Uncounted, variant=v)
+        got = ([(last, want[0])] if with_last else []) + [(hs[act], want[1][act]), (cs[act], want[2][act])]
+        ok[v] = [f32_agreement(g, w).ok() for g, w in got]
+    torch.cuda.synchronize()
+    assert Uncounted.launches == 2 * (emb.shape[0] + 1)
+    assert all(ok["kernel"]) and not all(ok["1xTF32"]), ok
+
+
+def test_f32_forward_serving_and_training_paths_give_equal_last_on_card(cuda):
+    """Serving's two-slot h buffer (fresh each call, its tensor maps looked up
+    by base) and training's hs residual as the h buffer give the same last
+    state bit for bit at B = 4099, call after call; each public call is
+    L + 1 launches (the weight split, then one per step)."""
+    emb, w_ih, w_hh, bias, lens, _, _ = (x.to(cuda) for x in _f32_inputs(4099, 512, 512, seed=17))
+    args = (emb, w_ih, w_hh, bias, lens)
+    L = emb.shape[0]
+    count = lstm_kernel.lstm_encode_last_fused
+    before = count.launches
+    serve = [lstm_kernel.lstm_encode_last_fused(*args) for _ in range(2)]
+    assert count.launches == before + 2 * (L + 1)
+    train, _, _ = lstm_kernel._forward(*args, residuals=True)
+    every = lstm_kernel.lstm_all_forward
+    before_all = every.launches
+    hs, _ = every(*args)
+    torch.cuda.synchronize()
+    assert every.launches == before_all + L + 1
+    assert torch.equal(serve[0], serve[1]) and torch.equal(serve[0], train)
+    rows = torch.arange(emb.shape[1], device=cuda)
+    assert torch.equal(hs[lens.clamp(min=1).long() - 1, rows], train)
+    assert_f32_close(train, lstm_kernel.lstm_encode_last_plain(*args))
 
 
 @pytest.mark.parametrize("B,D,H", F32_SHAPES, ids=F32_IDS)

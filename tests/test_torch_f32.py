@@ -8,10 +8,11 @@ not tile against the JAX package.
   yardstick (the same plain version with its operands rounded to 10 mantissa
   bits: 1.5-3.8e-4 here) and a dropped bias or recurrent product, for each
   f32 mode (kernels 1, 2, 5, 6, 7, 8) at d=128.
-* The numerics of the f32 backward's 3xTF32 kernels (kernels 2 and 6 on
-  the card): the plain f32 backward with every product emulated as 3xTF32
-  (``utils/numerics.py::matmul_3xtf32``) meets the f32 rule against the
-  plain version at D = H = 512, and with one TF32 product (1xTF32) fails it.
+* The numerics of the f32 3xTF32 kernels (kernels 1, 2, 5 and 6 on the
+  card): the plain f32 forward and backward with every product emulated as
+  3xTF32 (``utils/numerics.py::matmul_3xtf32``) meet the f32 rule against
+  the plain versions at D = H = 512, and with one TF32 product (1xTF32) fail
+  it.
 * The any-H route (``ops/lstm_scan_kernel.py::padded_forward`` /
   ``padded_backward``): H padded per gate block with zeros is exact, so the
   padded plain version equals the unpadded one (f32 rule; bf16 rule).
@@ -157,6 +158,29 @@ def test_3xtf32_backward_meets_the_f32_rule_and_1xtf32_fails_it(monkeypatch, fla
     monkeypatch.undo()
     readings = {name: f32_agreement(g[act] if name == "demb" else g, w[act] if name == "demb" else w)
                 for name, g, w in zip(("demb", "dW_ih", "dW_hh", "db"), got, want)}
+    if passes == 3:
+        assert all(r.ok() for r in readings.values()), readings
+        assert max(r.rel_err for r in readings.values()) < MAX_REL_ERR_F32 / 4, readings
+    else:
+        assert not all(r.ok() for r in readings.values()), readings
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xTF32", "1xTF32"])
+@pytest.mark.parametrize("mode", ["kernel 1", "kernel 5"])
+def test_3xtf32_forward_meets_the_f32_rule_and_1xtf32_fails_it(monkeypatch, flagship_width_case, mode, passes):
+    """Kernels 1 and 5 in f32 take the gate products (x.W_ih^T and
+    h.W_hh^T) as 3xTF32 on the card, through the gate loop the backward
+    recomputes them with: the plain f32 forward with both products emulated
+    so meets the f32 rule against the plain version on last, hs and cs (the
+    outputs the mode writes, at the positions the rows reach), the error
+    carried through h for ten steps; with one TF32 product per product
+    (1xTF32, the variant chip_smoke.py plants) it fails the rule."""
+    args, act, _, _, dlast, dhs = flagship_width_case
+    want = _fused_outputs(mode, args, act, dlast, dhs)
+    monkeypatch.setattr(torch, "matmul", lambda a, b: matmul_3xtf32(a, b, passes=passes))
+    got = _fused_outputs(mode, args, act, dlast, dhs)
+    monkeypatch.undo()
+    readings = {name: f32_agreement(g, w) for (name, g), (_, w) in zip(got, want)}
     if passes == 3:
         assert all(r.ok() for r in readings.values()), readings
         assert max(r.rel_err for r in readings.values()) < MAX_REL_ERR_F32 / 4, readings

@@ -57,17 +57,47 @@ def test_backward_product_grid_is_one_block_per_sm_or_per_tile(B, H, D, n_sm, gr
     assert lstm_kernel.backward_product_grid(B, H, D, n_sm) == grid
 
 
-def test_f32_backward_source_is_3xtf32_on_the_tensor_cores():
-    """The f32 entries of the backward split their operands and multiply on
-    the tensor cores (wgmma for the gate and product launches, mma.sync for
-    dW); no FFMA product is left on their path."""
-    src = (CSRC / "lstm_last_bwd.cu").read_text()
+def _tf32_gate_loop():
+    """The shared 3xTF32 gate loop (lstm_tf32.cuh: one loop, which both the
+    forward and the backward run) and the Hopper helpers it is built from
+    (lstm_sm90.cuh)."""
     helpers = (CSRC / "lstm_sm90.cuh").read_text()
     assert "tf32_split(" in helpers and "0xFFFFE000u" in helpers and "m64n128k8.f32.tf32.tf32" in helpers
-    f32 = src[src.index("// ------------------------------------------------------------------ f32 mode"):]
-    for call in ("tf32_split(", "wgmma_m64n128k8_tf32(", "tma_load_3d(", "mma_tf32(", "setmaxnreg_inc<"):
+    header = (CSRC / "lstm_tf32.cuh").read_text()
+    assert len(re.findall(r"__device__ __forceinline__ void tile_products\w*\(", header)) == 1
+    return header
+
+
+def test_f32_backward_source_is_3xtf32_on_the_tensor_cores():
+    """The f32 entries of the backward split their operands and multiply on
+    the tensor cores (wgmma for the gate and product launches through the
+    shared gate loop of lstm_tf32.cuh, mma.sync for dW); no FFMA product is
+    left on their path."""
+    src = (CSRC / "lstm_last_bwd.cu").read_text()
+    header = _tf32_gate_loop()
+    assert '#include "lstm_tf32.cuh"' in src
+    f32 = src[src.index("// ------------------------------------------------------------------ f32 mode"):] + header
+    for call in ("tf32_split(", "wgmma_m64n128k8_tf32(", "tma_load_3d(", "mma_tf32(", "setmaxnreg_inc<",
+                 "tile_products<V, FOLD>("):
         assert call in f32, call
     assert not re.search(r"\b(fmaf|fma4|gate_product_f32|launch_bwd_product_f32)\(", f32)
     assert '#include "lstm_f32.cuh"' not in src
     for entry in ("split", "gate", "product", "dw"):
         assert f'extern "C" int oket_lstm_bwd_{entry}_f32(' in src
+
+
+def test_f32_forward_source_is_3xtf32_on_the_tensor_cores():
+    """Kernels 1 and 5 at f32 run the shared 3xTF32 gate loop (lstm_tf32.cuh:
+    TMA ring, wgmma m64n128k8 TF32, A split in registers, in its form that
+    folds each K chunk into an f32 sum) with the forward's epilogue; the FFMA
+    gate product is no longer on their path."""
+    src = (CSRC / "lstm_last_fwd_f32.cu").read_text()
+    header = _tf32_gate_loop()
+    assert '#include "lstm_tf32.cuh"' in src and '#include "lstm_f32.cuh"' not in src
+    for call in ("tile_products<P, FOLD>(", "produce(", "tma_load_3d(", "setmaxnreg_inc<", "launch_split<false>("):
+        assert call in src, call
+    for call in ("tf32_split(", "wgmma_m64n128k8_tf32(", "mbar_wait("):
+        assert call in header, call
+    assert not re.search(r"\b(fmaf|fma4|gate_product_f32|load_gate_tile_f32)\(", src)
+    for entry in ("oket_lstm_fwd_split_f32", "oket_lstm_last_step_f32"):
+        assert f'extern "C" int {entry}(' in src
