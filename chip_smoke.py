@@ -33,7 +33,11 @@ Phases (any failure exits non-zero before the final line):
    rounding points), print the yardsticks of the backward's share rule, and
    time the kernel, the plain version and one PyTorch library call where
    one computes the same function (the forward on both recorded passes as
-   in 3);
+   in 3), and the backward's launches by kind (gate, product, dW) each
+   beside its part of the bound; in bf16 hold the backward's recomputed
+   gates to kernel 1's bitwise (both in their measuring variant that stores
+   the f32 pre-activation gates, on the entity pass and at B=37 with
+   lengths uniform in 0..10: 0 elements may differ);
 7. the fused every-state LSTM (kernels 5 and 6, the every-state modes of the
    fused kernels) against its plain versions on the recorded entity pass and
    at ragged B, with a planted fault each, timed; then the op that reaches
@@ -1216,10 +1220,14 @@ def check_lstm_backward(torch, captured):
     # runs higher there)
     cases = [(f"B={b}", synth_lengths(rng, b)) for b in (1, 37, 4099)]
     cases.append(("B=37, lengths uniform in 0..10", np.sort(rng.integers(0, 11, 37)).astype(np.int32)[::-1].copy()))
+    if dtype == torch.bfloat16:
+        check_gates_bitwise(torch, f"training entity pass B={entity[0].shape[1]}", entity[:5])
     for label, lens in cases:
         b = len(lens)
         emb, wih, whh, bias, lens_t, _ = lstm_inputs(torch, gen, 10, b, 512, 512, lens, dtype)
         fwd_args = (emb, wih, whh, bias, lens_t)
+        if dtype == torch.bfloat16 and "uniform" in label:
+            check_gates_bitwise(torch, label, fwd_args)
         last, hs, cs = lk._forward(*fwd_args, residuals=True)
         ok, text, err = residual_agreement(torch, fwd_args, (last, hs, cs),
                                            lk.lstm_encode_last_plain(*fwd_args, residuals=True))
@@ -1260,16 +1268,7 @@ def check_lstm_backward(torch, captured):
           f"{ffma_note(flops, dtype)}")
     if dtype == torch.float32:
         check_1xtf32_variant(torch, args, False, plain["entity pass"])
-        by_kind = launch_ms(torch, lambda: lk.lstm_last_backward(*args))
-        if by_kind is None:
-            print("lstm_last_bwd_f32 launches: no device time in the trace (not measured)")
-        else:
-            print(f"lstm_last_bwd_f32 launches on the entity pass, device ms per call (torch.profiler): "
-                  + ", ".join(f"{k} {v:.4f}" + (f" (3xTF32 bound of its part {parts[k] / PEAK_3XTF32_FLOPS * 1e3:.4f}"
-                                                f", {parts[k] / PEAK_3XTF32_FLOPS * 1e3 / v:.1%} of it)"
-                                                if k in parts and v else "")
-                              for k, v in by_kind.items())
-                  + f"; sum {sum(by_kind.values()):.4f}")
+    print_backward_launch_ms(torch, f"lstm_last_bwd{sfx}", args, lambda: lk.lstm_last_backward(*args))
     return {"name": "lstm_last_bwd" + sfx, "route": "cuda", "source": f"{PKG}/csrc/lstm_last_bwd.cu",
             "replaces": "open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:569",
             "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -1344,6 +1343,10 @@ def ffma_note(ops, dtype):
 # the kinds of launch of the f32 kernels, by a part of their kernel's name
 BACKWARD_F32_KINDS = {"split": "split_kernel_tf32", "gate": "gate_kernel_tf32", "product": "product_kernel_tf32",
                       "dW": "dw_kernel_tf32"}
+# and of the bf16 backward (the f32 kernels' names hold these too, so they
+# are read only from a bf16 call)
+BACKWARD_BF16_KINDS = {"gate": "lstm_bwd_gate_kernel", "product": "lstm_bwd_product_kernel",
+                       "dW": "lstm_bwd_dw_kernel"}
 FORWARD_F32_KINDS = {"split": "split_kernel_tf32", "steps": "fwd_step_kernel_tf32"}
 
 
@@ -1366,6 +1369,65 @@ def launch_ms(torch, fn, kinds=BACKWARD_F32_KINDS, reps=5):
             if sub in e.key:
                 out[k] += e.self_device_time_total / 1e3 / reps
     return out if any(out.values()) else None
+
+
+def print_backward_launch_ms(torch, name, args, fn):
+    """The launches of one call ``fn`` of kernel 2 or 6 on ``args`` by kind
+    (device ms per call, torch.profiler): at bf16 gate, product and dW, at
+    f32 also the split; each product kind beside the bound of its part
+    (``backward_parts``, at the dtype's peak rate).  Returns the ms by kind,
+    or None where the trace has no device time."""
+    emb, lens = args[0], args[4]
+    f32 = emb.dtype == torch.float32
+    by_kind = launch_ms(torch, fn, BACKWARD_F32_KINDS if f32 else BACKWARD_BF16_KINDS)
+    if by_kind is None:
+        print(f"{name} launches: no device time in the trace (not measured)")
+        return None
+    parts = backward_parts(emb.shape[1], emb.shape[2], args[2].shape[1], int(lens.clamp(min=1).sum().item()))
+    peak = peak_flops(emb.dtype)
+    rate = "3xTF32" if f32 else "bf16"
+
+    def part(k, v):
+        if k not in parts or not v:
+            return ""
+        bound = parts[k] / peak * 1e3
+        return f" ({rate} bound of its part {bound:.4f}, {bound / v:.1%} of it)"
+
+    print(f"{name} launches on the entity pass B={emb.shape[1]}, device ms per call (torch.profiler): "
+          + ", ".join(f"{k} {v:.4f}{part(k, v)}" for k, v in by_kind.items()) + f"; sum {sum(by_kind.values()):.4f}")
+    return by_kind
+
+
+def gates_unequal(torch, fwd_args, fwd_gates, bwd_gates):
+    """(elements not bitwise equal, elements compared) of two [L, B, 4H]
+    f32 stores of the pre-activation gates at the positions each row
+    reaches; the others are never written."""
+    act = active_mask(torch, fwd_args)
+    got, want = fwd_gates[act].view(torch.int32), bwd_gates[act].view(torch.int32)
+    return int((got != want).sum().item()), got.numel()
+
+
+def check_gates_bitwise(torch, label, fwd_args, stored=None):
+    """Kernel 1 (with residuals, as training runs it) and the bf16
+    backward's gate launch on its residuals, each in its measuring variant
+    that stores the f32 pre-activation gates of every step: the two must be
+    bitwise equal (they run one loop, lstm_bf16.cuh, on the same tiles).
+    ``stored`` gives the two stores instead of running the launches (the
+    CPU test plants a difference there)."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+
+    emb, w_hh = fwd_args[0], fwd_args[2]
+    if stored is None:
+        L, B, H = emb.shape[0], emb.shape[1], w_hh.shape[1]
+        stored = [torch.zeros(L, B, 4 * H, dtype=torch.float32, device=emb.device) for _ in range(2)]
+        _, hs, cs = lk._launch_steps(*fwd_args, True, True, Uncounted, gates=stored[0])
+        dlast = torch.zeros(B, H, dtype=emb.dtype, device=emb.device)
+        lk._launch_bwd_steps(*fwd_args, hs, cs, dlast, False, Uncounted, gates=stored[1])
+        torch.cuda.synchronize()
+    n, total = gates_unequal(torch, fwd_args, *stored)
+    print(f"gates bitwise, kernel 1 vs the backward's gate launch, {label}: {n} of {total} f32 pre-activation "
+          f"gates unequal")
+    check(n == 0, f"the backward's gate launch does not recompute kernel 1's gates bitwise at {label}: {n} unequal")
 
 
 def check_1xtf32_variant(torch, args, every_step, want):
@@ -1823,6 +1885,8 @@ def time_every_state(torch, fwd_args, fwd_err, bwd_err):
               f"{bytes_:.4e} B, {n_steps} row-steps){ffma_note(ops, emb.dtype)}")
         if sfx and row == 5:
             print_forward_launch_ms(torch, f"lstm_all_fwd_f32 training entity pass B={B}", args, fn)
+        if row == 6:
+            print_backward_launch_ms(torch, name + sfx, bargs, fn)
         rows.append({"name": name + sfx, "route": "cuda", "source": f"{PKG}/csrc/{src}",
                      "replaces": f"open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:{line}",
                      "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -2139,9 +2203,9 @@ def main() -> int:
     if not (ROOT / PKG).is_dir() or not FLAGSHIP.exists():
         print(f"chip_smoke: run from a checkout of the repository ({PKG}/ missing)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, str(ROOT))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

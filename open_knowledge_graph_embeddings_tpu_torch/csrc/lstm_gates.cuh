@@ -1,7 +1,8 @@
-// The gate product of one LSTM recurrence step, shared by the forwards
-// (lstm_last_fwd.cu, lstm_scan.cu) and the backwards (lstm_last_bwd.cu,
-// lstm_scan.cu), so a backward's gate recompute is the same code, and on the
-// card the same numbers, as its forward's:
+// The gate product of one LSTM recurrence step, shared by the forward and
+// the backward of the recurrence-only LSTM (lstm_scan.cu, kernels 7 and 8),
+// so the backward's gate recompute is the same code, and on the card the
+// same numbers, as its forward's (the fused kernels 1, 2, 5 and 6 share
+// lstm_bf16.cuh's wgmma loop instead):
 //   acc = x_t . W_ih^T + bf16(h_{t-1}) . W_hh^T   (bf16 operands, f32 accumulation)
 // for BM rows x the four gate columns {j, H+j, 2H+j, 3H+j} of BN hidden units.
 // K runs over the x part (D) and then the h part (H, skipped at t == 0 where
@@ -10,7 +11,9 @@
 // gate-major weights are staged through shared memory with cp.async, double
 // buffered, and multiplied with mma.sync m16n8k16.  Rows with s_len[r] <= t
 // are zero-filled.  D and H are multiples of 8, so every tile row is whole
-// 16-byte copies.  Also here: the backward's cell arithmetic (bwd_cell).
+// 16-byte copies.  Also here: the backward's cell arithmetic (bwd_cell),
+// bf16 conversions, the mma.sync and cp.async helpers and the search for a
+// step's active rows, which the fused backward's dW launch uses too.
 
 #pragma once
 
@@ -175,6 +178,20 @@ __device__ __forceinline__ float bwd_cell(const float (&pre)[4], float c_t, floa
     d[2] = dc * gi * (1.f - gg * gg);
     d[3] = d_o * go * (1.f - go);
     return dc * gf;
+}
+
+// Rows active at step t: lens is sorted descending, so they are the prefix
+// of rows with max(len, 1) > t.
+__device__ __forceinline__ int active_rows(const int* lens, long long B, int t) {
+    long long lo = 0, hi = B;
+    while (lo < hi) {
+        const long long mid = (lo + hi) / 2;
+        if (max(__ldg(lens + mid), 1) > t)
+            lo = mid + 1;
+        else
+            hi = mid;
+    }
+    return (int)lo;
 }
 
 // Each block loads its rows' lengths max(len, 1) (0 past B) and returns

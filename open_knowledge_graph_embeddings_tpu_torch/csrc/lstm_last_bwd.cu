@@ -8,8 +8,8 @@
 // :341-422; the cotangent is every state, dhs [L, B, H]).  The two differ only
 // in where the cotangent enters.  For rows sorted by descending length, in
 // reverse over t, on the rows active at t (max(len, 1) > t):
-//   gates  = recomputed from x_t, bf16(h_{t-1}) = hs[t-1] and the bias (the
-//            forward's own gate product, lstm_gates.cuh)
+//   gates  = recomputed from x_t, bf16(h_{t-1}) = hs[t-1] and the bias by
+//            kernel 1's own loop (lstm_bf16.cuh): bitwise the forward's
 //   dh     = dh_carry + (len == t+1 ? dlast : 0)      (last-state mode)
 //   dh     = dh_carry + dhs[t]                        (every-state mode)
 //            (f32; the cotangent arrives in bf16)
@@ -32,18 +32,25 @@
 // step alone: demb and dh_carry need every gate column of a row (K = 4H),
 // while the gate math needs the four gate columns of a unit together.  So a
 // step is two launches, and dW a third after the loop, all with weights
-// streamed from L2:
-//   1. lstm_bwd_gate_kernel, per step: the forward's gate product for BM rows
-//      x BN units (all four gates), then the cell math above in the thread that
-//      holds the four gates; writes dg[t] (bf16 [B, 4H]), updates dc_carry in
-//      place (one owner per cell), and writes the block's column sums of the
-//      f32 dgates to db_part[t][row block] (a fixed-order shuffle and shared
-//      memory sum: no atomics);
-//   2. lstm_bwd_product_kernel (lstm_product.cuh, shared with lstm_scan.cu),
-//      per step: [dh_carry | demb[t]] = dg[t] . [W_hh | W_ih] over K = 4H,
-//      reading the gate-major weights as they are ([4H, H] and [4H, D]: K
-//      rows of contiguous output columns) with ldmatrix.trans;
-//   3. lstm_bwd_dw_kernel, once: dW = sum over t of dg[t]^T . [x_t | hs[t-1]]
+// streamed from L2.  The two per-step launches have kernel 1's Hopper shape
+// and loop (lstm_bf16.cuh: a persistent block, one producer thread loading
+// 64-wide K stages by TMA into a 6-slot mbarrier ring, two consumer
+// warpgroups taking 128-row tiles in turns with wgmma m64n128k16):
+//   1. bf16::lstm_bwd_gate_kernel_bf16, per step: kernel 1's gate product on
+//      its tiles (128 rows x 32 units x the four gates) and tensor maps, so
+//      the recomputed pre-activations are the forward's bit for bit; then the
+//      cell math above in the thread that holds the four gates; writes dg[t]
+//      (bf16 [B, 4H]), updates dc_carry in place (one owner per cell), and
+//      writes the tile's column sums of the f32 dgates to db_part[t][row
+//      tile] (a fixed-order shuffle and shared memory sum: no atomics);
+//   2. bf16::lstm_bwd_product_kernel_bf16, per step: [dh_carry | demb[t]] =
+//      dg[t] . [W_hh | W_ih] over K = 4H, 128 x 128 output tiles, reading the
+//      gate-major weights as they are ([4H, H] and [4H, D]: K rows of
+//      contiguous output columns) through wgmma's transposed-B form; both
+//      consumer warpgroups share each tile and fold every K stage into an
+//      f32 sum (the tensor cores' own accumulation over K = 4H flipped too
+//      many bf16 roundings of demb);
+//   3. lstm_bwd_dw_kernel, once (mma.sync m16n8k16): dW = sum over t of dg[t]^T . [x_t | hs[t-1]]
 //      over the active rows of each step, one block per 128 x 128 tile of dW
 //      that walks every (t, row chunk) in order; and db = the sum of db_part
 //      over (t, active row block), each column summed by one block in a
@@ -92,99 +99,13 @@
 // of the bound and the dW launch a third, and the whole backward runs below
 // cuDNN's packed f32 LSTM backward on the training passes.
 
-#include "lstm_product.cuh"
+#include "lstm_bf16.cuh"
+#include "lstm_gates.cuh"
 #include "lstm_tf32.cuh"
 
 namespace {
 
 using namespace oket_lstm;
-
-struct GateBwdArgs {
-    GateArgs g;               // x = emb[t], h_prev = hs[t-1]
-    const float* bias;        // [4H]
-    const int* lens;          // [B]
-    const uint16_t* cs_t;     // [B, H] bf16(c_t)
-    const uint16_t* cs_prev;  // [B, H] bf16(c_{t-1}); unread at t == 0
-    const uint16_t* dlast;    // [B, H]: dlast, or dhs[t] in the every-state mode
-    int every_step;           // 1: add dlast at every active step (dhs[t]); 0: at len == t+1
-    const float* dh;          // [B, H] dh carry from step t+1 (0 for rows first active at t)
-    float* dc;                // [B, H] dc carry in, dc * f out
-    uint16_t* dg;             // [B, 4H] bf16(dgates) of step t
-    float* db_part;           // [gridDim.x, 4H] per-row-block sums of the f32 dgates of step t
-};
-
-__global__ void __launch_bounds__(NT) lstm_bwd_gate_kernel(const GateBwdArgs p) {
-    __shared__ __align__(16) TileA As[2];
-    __shared__ __align__(16) TileW Bs[2];
-    __shared__ int s_len[BM];
-    __shared__ float s_db[4][4 * BN];  // [row warp][gate column of the block]
-
-    const long long row0 = (long long)blockIdx.x * BM;
-    const int j0 = blockIdx.y * BN;
-    const int t = p.g.t, H = p.g.H;
-    if (!load_lengths(p.lens, p.g.B, row0, t, s_len)) return;
-
-    float acc[2][4][2][4];
-    gate_product(p.g, row0, j0, s_len, As, Bs, acc);
-
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int gid = lane >> 2, tig = lane & 3;
-    const int wm = warp & 3, wn = warp >> 2;
-    float dbs[4][2][2];  // [gate][n8 tile][column parity]: this thread's rows
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni) dbs[g][ni][0] = dbs[g][ni][1] = 0.f;
-
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int r = wm * WM + mi * 16 + gid + ((e >> 1) << 3);
-                const int j = j0 + wn * WN + ni * 8 + tig * 2 + (e & 1);
-                const int len = s_len[r];
-                if (len <= t || j >= H) continue;
-                const size_t o = (size_t)(row0 + r) * H + j;
-                const float c_t = bf16_to_f32(p.cs_t[o]);
-                const float c_prev = t > 0 ? bf16_to_f32(p.cs_prev[o]) : 0.f;
-                const bool inject = p.every_step || len == t + 1;
-                const float dh = p.dh[o] + (inject ? bf16_to_f32(p.dlast[o]) : 0.f);
-                const float pre[4] = {acc[mi][0][ni][e] + p.bias[j], acc[mi][1][ni][e] + p.bias[H + j],
-                                      acc[mi][2][ni][e] + p.bias[2 * H + j], acc[mi][3][ni][e] + p.bias[3 * H + j]};
-                float d[4];
-                p.dc[o] = bwd_cell(pre, c_t, c_prev, dh, p.dc[o], d);
-                uint16_t* dg_row = p.dg + (size_t)(row0 + r) * 4 * H + j;
-#pragma unroll
-                for (int g = 0; g < 4; ++g) {
-                    dg_row[(size_t)g * H] = f32_to_bf16(d[g]);
-                    dbs[g][ni][e & 1] += d[g];
-                }
-            }
-
-    // db: sum this warp's 32 rows (lanes differing in gid), then the four row
-    // warps in a fixed order
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-                float v = dbs[g][ni][c];
-                v += __shfl_xor_sync(0xffffffffu, v, 4);
-                v += __shfl_xor_sync(0xffffffffu, v, 8);
-                v += __shfl_xor_sync(0xffffffffu, v, 16);
-                if (gid == 0) s_db[wm][g * BN + wn * WN + ni * 8 + tig * 2 + c] = v;
-            }
-    __syncthreads();
-    for (int i = threadIdx.x; i < 4 * BN; i += NT) {
-        const int g = i / BN, j = j0 + i % BN;
-        if (j < H)
-            p.db_part[(size_t)blockIdx.x * 4 * H + (size_t)g * H + j] =
-                ((s_db[0][i] + s_db[1][i]) + s_db[2][i]) + s_db[3][i];
-    }
-}
 
 constexpr int WB = 128;       // dW tile: 128 gate columns x 128 output columns
 constexpr int WLD = WB + 8;   // smem row stride of the k-major tiles
@@ -349,6 +270,265 @@ __global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel(const DwArgs p) {
             }
 }
 
+// ------------------------------------------------- bf16 gate and product launches
+
+namespace bf16 {
+
+using namespace oket_bf16;
+
+struct GateArgs16 {
+    const float* bias;        // [4H]
+    const int* lens;          // [B], sorted descending
+    const uint16_t* cs_t;     // [B, H] bf16(c_t)
+    const uint16_t* cs_prev;  // [B, H] bf16(c_{t-1}); unread at t == 0
+    const uint16_t* cot;      // [B, H]: dlast, or dhs[t] in the every-state mode
+    const float* dh;          // [B, H] dh carry from step t+1 (0 for rows first active at t)
+    float* dc;                // [B, H] dc carry in, dc * f out
+    uint16_t* dg;             // [B, 4H] bf16(dgates) of step t
+    float* db_part;           // [ceil(B / TM), 4H] per-row-tile sums of the f32 dgates of step t
+    float* gates;             // [B, 4H] the recomputed pre-activation gates (STORE_GATES), or null
+    int every_step;           // 1: add cot at every active step (dhs[t]); 0: at len == t+1
+    int B, D, H, t;
+};
+
+// What the bf16 gate entry launches (its `variant`): the kernel, or the
+// kernel that also stores its f32 pre-activation gates (to hold them to
+// kernel 1's, bitwise).
+enum GateVariant { KERNEL = 0, STORE_GATES = 1 };
+
+__device__ __forceinline__ float2 bf16x2_to_f32(uint32_t v) {
+    return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xFFFF0000u));
+}
+
+// Gate launch of step t: the forward's gate product recomputed by kernel
+// 1's loop (lstm_bf16.cuh: the same tiles, tensor maps, bias seed and
+// wgmma sequence, so the same f32 sums bit for bit), then in the thread
+// that holds a cell's four gates the cell math (bwd_cell) from bf16 c_t,
+// c_{t-1} and cotangent and the f32 dh and dc carries; writes dg[t] in
+// bf16, updates dc in place (one owner per cell), and the tile's column
+// sums of the f32 dgates to db_part[t][row tile] (a fixed-order shuffle and
+// shared-memory sum: no atomics).  The warpgroups take the tiles in turns,
+// as in kernel 1, so one's epilogue runs under the other's products.
+template <int V>
+__global__ void __launch_bounds__(THREADS, 1)
+    lstm_bwd_gate_kernel_bf16(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_h,
+                              const __grid_constant__ CUtensorMap map_wih,
+                              const __grid_constant__ CUtensorMap map_whh, const GateArgs16 p) {
+    extern __shared__ uint8_t smem_raw[];
+    __shared__ float s_db[2][4][TN];  // [consumer warpgroup][warp][gate column of the tile]
+    const int n_act_all = active_prefix<THREADS>(p.lens, p.B, p.t);
+    const Ring r = make_ring(smem_raw);
+    __syncthreads();
+    // block-uniform values made warp-uniform for the compiler (a wgmma on
+    // what it takes for a divergent path is serialised)
+    const int n_act = __shfl_sync(0xffffffff, n_act_all, 0);
+    const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+    const int unit_tiles = (p.H + TU - 1) / TU;
+    const int tiles = (n_act + TM - 1) / TM * unit_tiles;
+    if ((int)blockIdx.x >= tiles) return;
+    const int nkx = (p.D + TK - 1) / TK;
+    const int nk = nkx + (p.t > 0 ? (p.H + TK - 1) / TK : 0);  // h_0 = 0: no h part at t == 0
+
+    if (wg == 2) {
+        setmaxnreg_dec<40>();
+        // x_t at (t, row0) of emb, h_{t-1} at (t - 1, row0) of hs
+        if (threadIdx.x == 256)
+            produce_gate_tiles(r, tiles, unit_tiles, nkx, nk, &map_x, &map_h, &map_wih, &map_whh, p.t, p.t - 1);
+    } else {
+        setmaxnreg_inc<232>();
+        const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+        const int H = p.H, t = p.t;
+        // acc[m][4 (g NB + n8) + e] holds gate g of row r0 + 64 m + 8 (e/2),
+        // unit u0 + 8 n8 + 2 (lane%4) + e%2, for r0 = row0 + 16 warp + lane/4
+        float acc[2][TN / 2];
+        int len[2][2];
+        for (int q = wg;; q += 2) {  // q: the tile's place in the block's sequence
+            const int tile = blockIdx.x + q * gridDim.x;
+            if (tile >= tiles) break;
+            const int row0 = tile / unit_tiles * TM, u0 = tile % unit_tiles * TU;
+            const int r0 = row0 + warp * 16 + (lane >> 2);
+            seed_bias(p.bias, H, u0, lane, acc, [](int, int) {});
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+#pragma unroll
+                for (int hr = 0; hr < 2; ++hr) {
+                    const int row = r0 + 64 * m + 8 * hr;
+                    len[m][hr] = row < n_act ? max(p.lens[row], 1) : 0;
+                }
+            tile_products<true>(r, q, nk, wg, lane, acc);
+            if constexpr (V == STORE_GATES) store_gate_tile(p.gates, H, n_act, r0, u0, lane, acc);
+
+            // epilogue: the cell math of each (row, unit pair) this thread
+            // holds, one 8-unit block at a time; db sums this thread's rows,
+            // then this warp's 32 rows (the lanes differing in lane / 4)
+#pragma unroll
+            for (int n8 = 0; n8 < NB; ++n8) {
+                const int u = u0 + n8 * 8 + (lane & 3) * 2;  // and u + 1; H is even
+                float dbs[4][2] = {};  // [gate][unit parity]
+#pragma unroll
+                for (int m = 0; m < 2; ++m)
+#pragma unroll
+                    for (int hr = 0; hr < 2; ++hr) {
+                        if (len[m][hr] <= t || u >= H) continue;  // finished at t, past B or past H
+                        const int row = r0 + 64 * m + 8 * hr;
+                        const size_t o = (size_t)row * H + u;
+                        const bool inject = p.every_step || len[m][hr] == t + 1;
+                        const float2 c_t = bf16x2_to_f32(*reinterpret_cast<const uint32_t*>(p.cs_t + o));
+                        const float2 c_prev = t > 0 ? bf16x2_to_f32(*reinterpret_cast<const uint32_t*>(p.cs_prev + o))
+                                                    : make_float2(0.f, 0.f);
+                        const float2 dh_in = *reinterpret_cast<const float2*>(p.dh + o);
+                        const float2 cot = inject ? bf16x2_to_f32(*reinterpret_cast<const uint32_t*>(p.cot + o))
+                                                  : make_float2(0.f, 0.f);
+                        float2* dc = reinterpret_cast<float2*>(p.dc + o);
+                        const float2 dc_in = *dc;
+                        float d[2][4], dc_out[2];
+#pragma unroll
+                        for (int x = 0; x < 2; ++x) {
+                            const int e = 2 * hr + x;
+                            const float pre[4] = {acc[m][n8 * 4 + e], acc[m][(NB + n8) * 4 + e],
+                                                  acc[m][(2 * NB + n8) * 4 + e], acc[m][(3 * NB + n8) * 4 + e]};
+                            dc_out[x] = bwd_cell(pre, x ? c_t.y : c_t.x, x ? c_prev.y : c_prev.x,
+                                                 x ? dh_in.y + cot.y : dh_in.x + cot.x, x ? dc_in.y : dc_in.x, d[x]);
+                        }
+                        *dc = make_float2(dc_out[0], dc_out[1]);
+                        uint16_t* dg_row = p.dg + (size_t)row * 4 * H + u;
+#pragma unroll
+                        for (int g = 0; g < 4; ++g) {
+                            *reinterpret_cast<uint32_t*>(dg_row + (size_t)g * H) =
+                                (uint32_t)f32_to_bf16(d[0][g]) | ((uint32_t)f32_to_bf16(d[1][g]) << 16);
+                            dbs[g][0] += d[0][g];
+                            dbs[g][1] += d[1][g];
+                        }
+                    }
+#pragma unroll
+                for (int g = 0; g < 4; ++g)
+#pragma unroll
+                    for (int x = 0; x < 2; ++x) {
+                        float v = dbs[g][x];
+                        v += __shfl_xor_sync(0xffffffffu, v, 4);
+                        v += __shfl_xor_sync(0xffffffffu, v, 8);
+                        v += __shfl_xor_sync(0xffffffffu, v, 16);
+                        if (lane < 4) s_db[wg][warp][g * TU + n8 * 8 + lane * 2 + x] = v;
+                    }
+            }
+            // then the warpgroup's four warps in a fixed order, one column a thread
+            named_barrier(1 + wg, 128);
+            const int i = threadIdx.x % 128, u = u0 + i % TU;
+            if (u < H)
+                p.db_part[(size_t)(row0 / TM) * 4 * H + (size_t)(i / TU) * H + u] =
+                    ((s_db[wg][0][i] + s_db[wg][1][i]) + s_db[wg][2][i]) + s_db[wg][3][i];
+            named_barrier(1 + wg, 128);  // s_db is read before the next tile writes it
+        }
+    }
+}
+
+struct ProdArgs16 {
+    const int* lens;  // [B], sorted descending
+    float* dh;        // [B, H] out: dg . W_hh (t > 0)
+    uint16_t* demb;   // [B, D] out: bf16(dg . W_ih), step t
+    int B, D, H, t;
+};
+
+// Product launch of step t: [dh | demb[t]] = dg[t] . [W_hh | W_ih] over
+// K = 4H, on kernel 1's ring, 128 rows x 128 output columns a tile, both
+// consumer warpgroups on each tile (64 rows each), every 64-wide K stage
+// folded into an f32 sum (lstm_bf16.cuh::tile_products_folded, see there
+// why).  A is dg[t] (K-major); B is the gate-major weights as they are,
+// [4H, H] and [4H, D]: K rows of contiguous output columns, MN-major, read
+// by wgmma's transposed-B form from two TMA boxes of 64 k-rows x 64 columns
+// per stage (no transposed copy).  The column tiles of dh (ceil(H / 128),
+// from W_hh) and of demb (ceil(D / 128), from W_ih) are counted apart, so no
+// tile straddles the two weights; columns past H or D read as zero (a box
+// wholly past them is not loaded) and are not written.  Rows past the
+// active prefix are computed and not written; at t == 0 only the demb tiles
+// run (dh of step 0 is never read).
+__global__ void __launch_bounds__(THREADS, 1)
+    lstm_bwd_product_kernel_bf16(const __grid_constant__ CUtensorMap map_dg,
+                                 const __grid_constant__ CUtensorMap map_whh,
+                                 const __grid_constant__ CUtensorMap map_wih, const ProdArgs16 p) {
+    extern __shared__ uint8_t smem_raw[];
+    const int n_act_all = active_prefix<THREADS>(p.lens, p.B, p.t);
+    const Ring r = make_ring(smem_raw, 8);
+    __syncthreads();
+    const int n_act = __shfl_sync(0xffffffff, n_act_all, 0);
+    const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+    const int h_tiles = (p.H + TN - 1) / TN;
+    const int n_first = p.t > 0 ? 0 : h_tiles;  // the first column tile that runs
+    const int col_tiles = h_tiles + (p.D + TN - 1) / TN - n_first;
+    const int tiles = (n_act + TM - 1) / TM * col_tiles;
+    if ((int)blockIdx.x >= tiles) return;
+    const int nk = (4 * p.H + TK - 1) / TK;
+
+    if (wg == 2) {
+        setmaxnreg_dec<40>();
+        if (threadIdx.x == 256) {
+            tma_prefetch_map(&map_dg);
+            tma_prefetch_map(&map_wih);
+            if (p.t > 0) tma_prefetch_map(&map_whh);
+            int it = 0;
+            for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+                const int row0 = tile / col_tiles * TM, j = tile % col_tiles + n_first;
+                const bool hpart = j < h_tiles;
+                const int n0 = (hpart ? j : j - h_tiles) * TN, width = hpart ? p.H : p.D;
+                const CUtensorMap* map = hpart ? &map_whh : &map_wih;
+                const bool second = n0 + TN / 2 < width;  // the second 64-column box holds a column
+                for (int kt = 0; kt < nk; ++kt, ++it) {
+                    const int s = it % STAGES;
+                    mbar_wait(&r.empty[s], ((it / STAGES) & 1) ^ 1);
+                    mbar_arrive_expect_tx(&r.full[s], A_BYTES + (second ? W_BYTES : W_BYTES / 2));
+                    uint8_t* a = r.slots + s * STAGE_BYTES;
+                    uint8_t* w = a + A_BYTES;
+                    tma_load_3d(a, &map_dg, &r.full[s], kt * TK, row0, p.t);
+                    tma_load_3d(w, map, &r.full[s], n0, kt * TK, 0);
+                    if (second) tma_load_3d(w + W_BYTES / 2, map, &r.full[s], n0 + TN / 2, kt * TK, 0);
+                }
+            }
+        }
+    } else {
+        setmaxnreg_inc<232>();
+        const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+        // acc[4 n8 + e] holds row r0 + 8 (e/2), column n0 + 8 n8 + 2
+        // (lane%4) + e%2, for r0 = row0 + 64 wg + 16 warp + lane/4
+        float acc[TN / 2];
+        for (int q = 0;; ++q) {  // q: the tile's place in the block's sequence
+            const int tile = blockIdx.x + q * gridDim.x;
+            if (tile >= tiles) break;
+            const int row0 = tile / col_tiles * TM, j = tile % col_tiles + n_first;
+            const bool hpart = j < h_tiles;
+            const int n0 = (hpart ? j : j - h_tiles) * TN, width = hpart ? p.H : p.D;
+            const int r0 = row0 + 64 * wg + warp * 16 + (lane >> 2);
+#pragma unroll
+            for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+            tile_products_folded(r, q, nk, wg, lane, acc);
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+                const int row = r0 + 8 * hr;
+                if (row >= n_act) continue;
+#pragma unroll
+                for (int n8 = 0; n8 < TN / 8; ++n8) {
+                    const int n = n0 + n8 * 8 + (lane & 3) * 2;  // and n + 1: H and D are even
+                    if (n >= width) continue;
+                    const float v0 = acc[n8 * 4 + 2 * hr], v1 = acc[n8 * 4 + 2 * hr + 1];
+                    if (hpart)
+                        *reinterpret_cast<float2*>(p.dh + (size_t)row * p.H + n) = make_float2(v0, v1);
+                    else
+                        *reinterpret_cast<uint32_t*>(p.demb + (size_t)row * p.D + n) =
+                            (uint32_t)f32_to_bf16(v0) | ((uint32_t)f32_to_bf16(v1) << 16);
+                }
+            }
+        }
+    }
+}
+
+template <int V>
+int launch_gate(const CUtensorMap* const (&maps)[4], const GateArgs16& p, int grid, cudaStream_t s) {
+    if (const int e = allow_smem<lstm_bwd_gate_kernel_bf16<V>, SMEM>()) return e;
+    lstm_bwd_gate_kernel_bf16<V><<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], *maps[3], p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bf16
+
 // ------------------------------------------------------------------ f32 mode
 
 namespace tf32 {
@@ -388,7 +568,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     extern __shared__ uint8_t smem_raw[];
     __shared__ float s_db[2][4][TN];  // [consumer warpgroup][warp][gate column of the tile]
     const Ring r = make_ring(smem_raw);
-    const int n_act_all = active_prefix(p.lens, p.B, p.t);
+    const int n_act_all = active_prefix<THREADS>(p.lens, p.B, p.t);
     __syncthreads();
     // block-uniform values made warp-uniform for the compiler (a wgmma on
     // what it takes for a divergent path is serialised)
@@ -532,7 +712,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                                  const __grid_constant__ CUtensorMap map_wt_lo, const Tf32ProdArgs p) {
     extern __shared__ uint8_t smem_raw[];
     const Ring r = make_ring(smem_raw);
-    const int n_act_all = active_prefix(p.lens, p.B, p.t);
+    const int n_act_all = active_prefix<THREADS>(p.lens, p.B, p.t);
     __syncthreads();
     const int n_act = __shfl_sync(0xffffffff, n_act_all, 0);
     const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
@@ -597,7 +777,7 @@ enum BackwardVariant { KERNEL = 0, ONE_TF32 = 1, UNFOLDED = 2 };
 
 template <int V, bool FOLD>
 int launch_gate(const CUtensorMap* const (&maps)[6], const Tf32GateArgs& p, int grid, cudaStream_t s) {
-    if (const int e = allow_smem<lstm_bwd_gate_kernel_tf32<V, FOLD>>()) return e;
+    if (const int e = allow_smem<lstm_bwd_gate_kernel_tf32<V, FOLD>, SMEM>()) return e;
     lstm_bwd_gate_kernel_tf32<V, FOLD>
         <<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], *maps[3], *maps[4], *maps[5], p);
     return static_cast<int>(cudaGetLastError());
@@ -605,7 +785,7 @@ int launch_gate(const CUtensorMap* const (&maps)[6], const Tf32GateArgs& p, int 
 
 template <int V, bool FOLD>
 int launch_product(const CUtensorMap* const (&maps)[3], const Tf32ProdArgs& p, int grid, cudaStream_t s) {
-    if (const int e = allow_smem<lstm_bwd_product_kernel_tf32<V, FOLD>>()) return e;
+    if (const int e = allow_smem<lstm_bwd_product_kernel_tf32<V, FOLD>, SMEM>()) return e;
     lstm_bwd_product_kernel_tf32<V, FOLD><<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], p);
     return static_cast<int>(cudaGetLastError());
 }
@@ -780,46 +960,66 @@ __global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel_tf32(const Tf32DwArgs p
 
 }  // namespace
 
-// Step t of the reverse loop, part 1 (gate math; grid over rows x units).
-// every_step = 0: dlast [B, H] enters at each row's last step; 1: dlast is
-// dhs[t] and enters at every active step.
-extern "C" int oket_lstm_bwd_gate_bf16(const void* x, const void* h_prev, const void* w_ih,
-                                       const void* w_hh, const void* bias, const void* lens,
-                                       const void* cs_t, const void* cs_prev, const void* dlast,
-                                       int every_step, const void* dh, void* dc, void* dg, void* db_part,
-                                       long long B, int D, int H, int t, void* stream) {
-    GateBwdArgs p;
-    p.g.x = static_cast<const uint16_t*>(x);
-    p.g.h_prev = static_cast<const uint16_t*>(h_prev);
-    p.g.w_ih = static_cast<const uint16_t*>(w_ih);
-    p.g.w_hh = static_cast<const uint16_t*>(w_hh);
-    p.g.B = B;
-    p.g.D = D;
-    p.g.H = H;
-    p.g.t = t;
+// The bf16 entries: emb [L, B, D], hs and cs [L, B, H], the cotangent
+// (dlast [B, H] or dhs[t]), weights, dg [L, B, 4H], demb and dW in bf16;
+// lens int32, bias, dh, dc, db_part and db f32.  D % 8 == H % 8 == 0 (TMA
+// strides are multiples of 16 bytes), every pointer 16-byte aligned (the
+// bias 8-byte); grid is the number of persistent blocks.  Each returns the
+// cudaError_t of its launch, or -1 if the driver could not encode the
+// tensor maps.
+
+// Step t, part 1: the gate recompute and the cell math.  cs_t, cs_prev and
+// cot are [B, H] (cs[t], cs[t-1] (unread at t == 0), dlast or dhs[t]);
+// every_step = 0: cot enters at each row's last step, 1: at every active
+// step.  variant is 0 (the kernel) or 1 (the kernel, which also stores the
+// recomputed f32 pre-activation gates of the active rows into gates
+// [B, 4H]; null otherwise).
+extern "C" int oket_lstm_bwd_gate_bf16(const void* emb, const void* hs, const void* w_ih, const void* w_hh,
+                                       const void* bias, const void* lens, const void* cs_t, const void* cs_prev,
+                                       const void* cot, int every_step, const void* dh, void* dc, void* dg,
+                                       void* db_part, void* gates, int L, int B, int D, int H, int t, int grid,
+                                       int variant, void* stream) {
+    using namespace bf16;
+    GateArgs16 p;
     p.bias = static_cast<const float*>(bias);
     p.lens = static_cast<const int*>(lens);
     p.cs_t = static_cast<const uint16_t*>(cs_t);
     p.cs_prev = static_cast<const uint16_t*>(cs_prev);
-    p.dlast = static_cast<const uint16_t*>(dlast);
-    p.every_step = every_step;
+    p.cot = static_cast<const uint16_t*>(cot);
     p.dh = static_cast<const float*>(dh);
     p.dc = static_cast<float*>(dc);
     p.dg = static_cast<uint16_t*>(dg);
     p.db_part = static_cast<float*>(db_part);
-    const dim3 grid((unsigned)((B + BM - 1) / BM), (unsigned)((H + BN - 1) / BN));
-    lstm_bwd_gate_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
-    return static_cast<int>(cudaGetLastError());
+    p.gates = static_cast<float*>(gates);
+    p.every_step = every_step;
+    p.B = B;
+    p.D = D;
+    p.H = H;
+    p.t = t;
+    // kernel 1's maps in training: x_t at (t, row0) of emb, h_{t-1} at
+    // (t - 1, row0) of hs, in 128 x 64 boxes (rows past B read as zero);
+    // each weight as [4][H][K], one box holding the four gate slabs of 32
+    // units (units past H and K tails read as zero)
+    static thread_local oket_sm90::CachedMap cache[4];
+    const uint64_t b = B, d = D, h = H, l = L;
+    const uint32_t box_a[3] = {TK, TM, 1}, box_w[3] = {TK, TU, 4};
+    const CUtensorMap* const maps[4] = {
+        oket_sm90::bf16_map(cache[0], emb, {d, b, l}, box_a), oket_sm90::bf16_map(cache[1], hs, {h, b, l}, box_a),
+        oket_sm90::bf16_map(cache[2], w_ih, {d, h, 4}, box_w), oket_sm90::bf16_map(cache[3], w_hh, {h, h, 4}, box_w)};
+    for (const CUtensorMap* m : maps)
+        if (!m) return -1;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (variant == KERNEL) return launch_gate<KERNEL>(maps, p, grid, s);
+    if (variant == STORE_GATES && gates) return launch_gate<STORE_GATES>(maps, p, grid, s);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Step t of the reverse loop, part 2 ([dh | demb] = dg . [W_hh | W_ih]).
-extern "C" int oket_lstm_bwd_product_bf16(const void* dg, const void* w_hh, const void* w_ih,
-                                          const void* lens, void* dh, void* demb, long long B, int D,
-                                          int H, int t, void* stream) {
-    ProdArgs p;
-    p.dg = static_cast<const uint16_t*>(dg);
-    p.w_hh = static_cast<const uint16_t*>(w_hh);
-    p.w_ih = static_cast<const uint16_t*>(w_ih);
+// Step t, part 2: [dh | demb[t]] = dg[t] . [W_hh | W_ih]; dg is [L, B, 4H].
+extern "C" int oket_lstm_bwd_product_bf16(const void* dg, const void* w_hh, const void* w_ih, const void* lens,
+                                          void* dh, void* demb, int L, int B, int D, int H, int t, int grid,
+                                          void* stream) {
+    using namespace bf16;
+    ProdArgs16 p;
     p.lens = static_cast<const int*>(lens);
     p.dh = static_cast<float*>(dh);
     p.demb = static_cast<uint16_t*>(demb);
@@ -827,7 +1027,22 @@ extern "C" int oket_lstm_bwd_product_bf16(const void* dg, const void* w_hh, cons
     p.D = D;
     p.H = H;
     p.t = t;
-    return launch_bwd_product(p, stream);
+    // dg[t] in 128 x 64 boxes; each weight as it is, [4H] rows (K) of
+    // contiguous columns, in boxes of 64 columns x 64 k-rows (columns past H
+    // or D and K tails read as zero)
+    static thread_local oket_sm90::CachedMap cache[3];
+    const uint64_t k = 4 * (uint64_t)H;
+    const uint32_t box_a[3] = {TK, TM, 1}, box_w[3] = {TN / 2, TK, 1};
+    const CUtensorMap* const maps[3] = {
+        oket_sm90::bf16_map(cache[0], dg, {k, (uint64_t)B, (uint64_t)L}, box_a),
+        oket_sm90::bf16_map(cache[1], w_hh, {(uint64_t)H, k, 1}, box_w),
+        oket_sm90::bf16_map(cache[2], w_ih, {(uint64_t)D, k, 1}, box_w)};
+    for (const CUtensorMap* m : maps)
+        if (!m) return -1;
+    if (const int e = allow_smem<lstm_bwd_product_kernel_bf16, SMEM>()) return e;
+    lstm_bwd_product_kernel_bf16<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(*maps[0], *maps[1],
+                                                                                            *maps[2], p);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // After the loop: dW_ih [4H, D] and dW_hh [4H, H] in bf16, db [4H] in f32.

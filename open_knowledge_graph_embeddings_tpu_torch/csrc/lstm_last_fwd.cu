@@ -42,6 +42,10 @@
 //     products kept in flight), and a turn mbarrier starts one's products
 //     when the other's are done, so one warpgroup's epilogue runs while the
 //     other's products keep the tensor cores busy;
+//   * the ring, its producer, the bias seed and the product loop are in
+//     lstm_bf16.cuh, shared with the bf16 backward's gate launch
+//     (lstm_last_bwd.cu), which so recomputes these pre-activations bit for
+//     bit (the STORE_GATES variant stores them, chip_smoke.py compares);
 //   * the tensor maps are 3-D: x over [L, B, D] read at (t, row0), h over
 //     its [slots, B, H] buffer (hs in training, two slots in turns when
 //     serving) at (slot of t - 1, row0), so rows past B read as zero and
@@ -83,12 +87,12 @@
 
 #include <cuda_bf16.h>
 
+#include "lstm_bf16.cuh"
 #include "lstm_gates.cuh"
-#include "lstm_sm90.cuh"
 
 namespace {
 
-using namespace oket_sm90;
+using namespace oket_bf16;
 using oket_lstm::f32_to_bf16;
 
 // The sigmoid from the hardware exponential and reciprocal (ex2.approx,
@@ -99,22 +103,11 @@ using oket_lstm::f32_to_bf16;
 // version's by half.
 __device__ __forceinline__ float fast_sigmoid(float x) { return __fdividef(1.f, 1.f + __expf(-x)); }
 
-constexpr int TM = 128;  // rows per tile
-constexpr int TU = 32;   // hidden units per tile
-constexpr int TN = 4 * TU;  // weight rows per tile: four gate slabs of TU units
-constexpr int NB = TU / 8;  // 8-unit column blocks per gate slab
-constexpr int TK = 64;   // K per stage: 128 bytes of bf16, one swizzle row
-constexpr int STAGES = 6;
-constexpr int A_BYTES = TM * TK * 2;  // 16 KB
-constexpr int W_BYTES = TN * TK * 2;  // 16 KB
-constexpr int STAGE_BYTES = A_BYTES + W_BYTES;
-// the ring, its barriers, and slack to align the ring to 1024 bytes
-constexpr int SMEM = STAGES * STAGE_BYTES + (2 * STAGES + 2) * 8 + 1024;
-constexpr int THREADS = 384;  // warpgroups 0 and 1 consume, warpgroup 2 produces
-
 // What a launch runs: the kernel, or for measuring it, the kernel without
-// its epilogue (no loads of c or stores) or without its products.
-enum Variant { FULL = 0, NO_EPILOGUE = 1, NO_PRODUCTS = 2 };
+// its epilogue (no loads of c or stores) or without its products, or the
+// kernel that also stores its f32 pre-activation gates (to hold the
+// backward's recompute to them).
+enum Variant { FULL = 0, NO_EPILOGUE = 1, NO_PRODUCTS = 2, STORE_GATES = 3 };
 
 struct StepArgs {
     const float* bias;  // [4H]
@@ -123,27 +116,10 @@ struct StepArgs {
     uint16_t* h_next;   // [B, H]
     uint16_t* cs_out;   // [B, H] bf16(c_t), or null
     uint16_t* last;     // [B, H], or null (every-state mode)
+    float* gates;       // [B, 4H] the step's pre-activation gates (STORE_GATES), or null
     int B, D, H, t;
     int h_prev_slot;  // h_{t-1} is slot h_prev_slot of the h buffer
 };
-
-// Rows active at step t (max(len, 1) > t): a prefix [0, n), the lengths
-// being sorted.  Every thread of the block takes part: each round probes
-// THREADS evenly spaced rows of the interval still in doubt at once, so
-// B = 32768 takes two rounds of one load per thread.
-__device__ int active_rows(const int* lens, int B, int t) {
-    if (t == 0) return B;
-    int lo = 0, n = B;  // rows < lo are active, the first inactive row is in [lo, lo + n]
-    while (n > 0) {
-        const int stride = (n + THREADS - 1) / THREADS;
-        const int off = threadIdx.x * stride;
-        const int hits = __syncthreads_count(off < n && lens[lo + off] > t);
-        if (hits == 0) break;
-        lo += (hits - 1) * stride + 1;
-        n = min(stride - 1, n - (hits - 1) * stride - 1);
-    }
-    return lo;
-}
 
 template <int V>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -151,21 +127,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                           const __grid_constant__ CUtensorMap map_wih, const __grid_constant__ CUtensorMap map_whh,
                           const StepArgs p) {
     extern __shared__ uint8_t smem_raw[];
-    uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-    uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
-    uint64_t* empty = full + STAGES;
-    uint64_t* turn = empty + STAGES;  // turn[w]: the other warpgroup finished a tile's products
-
-    const int n_act_all = active_rows(p.lens, p.B, p.t);
-    if (threadIdx.x == 0) {
-        for (int s = 0; s < STAGES; ++s) {
-            mbar_init(&full[s], 1);
-            mbar_init(&empty[s], 4);  // the four warps of the warpgroup that read the slot
-        }
-        mbar_init(&turn[0], 4);
-        mbar_init(&turn[1], 4);
-        mbar_fence_init();
-    }
+    const int n_act_all = active_prefix<THREADS>(p.lens, p.B, p.t);
+    const Ring r = make_ring(smem_raw);
     __syncthreads();
     // block-uniform values made warp-uniform for the compiler (a wgmma on
     // what it takes for a divergent path is serialised)
@@ -180,32 +143,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (wg == 2) {
         // ---- producer: one thread loads the block's tiles, in order, into the ring
         setmaxnreg_dec<40>();
-        if (threadIdx.x == 256) {
-            tma_prefetch_map(&map_x);
-            tma_prefetch_map(&map_wih);
-            if (nk > nkx) {
-                tma_prefetch_map(&map_h);
-                tma_prefetch_map(&map_whh);
-            }
-            int it = 0;
-            for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-                const int row0 = tile / unit_tiles * TM, u0 = tile % unit_tiles * TU;
-                for (int kt = 0; kt < nk; ++kt, ++it) {
-                    const int s = it % STAGES;
-                    mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-                    mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
-                    uint8_t* a = ring + s * STAGE_BYTES;
-                    uint8_t* w = a + A_BYTES;
-                    if (kt < nkx) {
-                        tma_load_3d(a, &map_x, &full[s], kt * TK, row0, p.t);
-                        tma_load_3d(w, &map_wih, &full[s], kt * TK, u0, 0);
-                    } else {
-                        tma_load_3d(a, &map_h, &full[s], (kt - nkx) * TK, row0, p.h_prev_slot);
-                        tma_load_3d(w, &map_whh, &full[s], (kt - nkx) * TK, u0, 0);
-                    }
-                }
-            }
-        }
+        if (threadIdx.x == 256)
+            produce_gate_tiles(r, tiles, unit_tiles, nkx, nk, &map_x, &map_h, &map_wih, &map_whh, p.t,
+                               p.h_prev_slot);
     } else {
         // ---- consumers: the block's tiles alternate between warpgroups 0 and
         // 1, so one's epilogue runs while the other's products keep the
@@ -226,19 +166,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             // the bias seeds the accumulators, and the cells' c_{t-1} and the
             // rows' lengths are loaded before the products, so their latency
             // hides under the main loop
-#pragma unroll
-            for (int n8 = 0; n8 < NB; ++n8) {
-                const int u = u0 + n8 * 8 + (lane & 3) * 2;  // and u + 1; H is even
-#pragma unroll
-                for (int g = 0; g < 4; ++g) {
-                    const float2 b =
-                        u < H ? __ldg(reinterpret_cast<const float2*>(p.bias + g * H + u)) : make_float2(0.f, 0.f);
-#pragma unroll
-                    for (int m = 0; m < 2; ++m) {
-                        acc[m][(g * NB + n8) * 4] = acc[m][(g * NB + n8) * 4 + 2] = b.x;
-                        acc[m][(g * NB + n8) * 4 + 1] = acc[m][(g * NB + n8) * 4 + 3] = b.y;
-                    }
-                }
+            seed_bias(p.bias, H, u0, lane, acc, [&](int n8, int u) {  // u and u + 1; H is even
 #pragma unroll
                 for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -248,7 +176,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                                                 ? *reinterpret_cast<const float2*>(p.c + (size_t)row * H + u)
                                                 : make_float2(0.f, 0.f);
                     }
-            }
+            });
 #pragma unroll
             for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -257,45 +185,9 @@ __global__ void __launch_bounds__(THREADS, 1)
                     len[m][hr] = row < n_act ? max(p.lens[row], 1) : 0;
                 }
 
-            // The products of tile q start when the other warpgroup's of tile
-            // q - 1 are done.  So the two main loops take turns on the tensor
-            // cores, and a warpgroup never waits on a ring slot more than one
-            // phase ahead of it (a wait on a later phase would pass at once).
-            if (q > 0) mbar_wait(&turn[wg], ((q - 1) / 2) & 1);
             // the finished rows of an active tile are multiplied all the same
-            int prev = 0;
-            for (int kt = 0; kt < nk; ++kt) {
-                const int it = q * nk + kt, s = it % STAGES;
-                mbar_wait(&full[s], (it / STAGES) & 1);
-                if (V != NO_PRODUCTS) {
-                    const uint8_t* a = ring + s * STAGE_BYTES;
-                    const uint8_t* w = a + A_BYTES;
-                    wgmma_fence_regs(acc[0]);
-                    wgmma_fence_regs(acc[1]);
-                    wgmma_fence();
-#pragma unroll
-                    for (int kk = 0; kk < TK / 16; ++kk) {
-                        const uint64_t dw = wgmma_desc(w + kk * 32);
-                        wgmma_m64n128k16(acc[0], wgmma_desc(a + kk * 32), dw);
-                        wgmma_m64n128k16(acc[1], wgmma_desc(a + 64 * TK * 2 + kk * 32), dw);
-                    }
-                    wgmma_commit();
-                    wgmma_wait<1>();  // the previous stage's products are done
-                    wgmma_fence_regs(acc[0]);
-                    wgmma_fence_regs(acc[1]);
-                }
-                if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
-                prev = s;
-            }
-            if (V != NO_PRODUCTS) {
-                wgmma_wait<0>();
-                wgmma_fence_regs(acc[0]);
-                wgmma_fence_regs(acc[1]);
-            }
-            if (lane == 0) {
-                if (nk > 0) mbar_arrive(&empty[prev]);
-                mbar_arrive(&turn[1 - wg]);
-            }
+            tile_products<V != NO_PRODUCTS>(r, q, nk, wg, lane, acc);
+            if constexpr (V == STORE_GATES) store_gate_tile(p.gates, H, n_act, r0, u0, lane, acc);
             if constexpr (V != NO_EPILOGUE) {
                 // epilogue: the cell update of each (row, unit) this thread holds
 #pragma unroll
@@ -335,16 +227,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 template <int V>
 int launch(const CUtensorMap* const (&maps)[4], const StepArgs& p, int grid, cudaStream_t stream) {
-    static bool smem_set[64] = {};  // by device: the launch's shared memory above 48 KB
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-    if (!smem_set[dev]) {
-        const cudaError_t e =
-            cudaFuncSetAttribute(lstm_last_step_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        smem_set[dev] = true;
-    }
+    if (const int e = allow_smem<lstm_last_step_kernel<V>, SMEM>()) return e;
     lstm_last_step_kernel<V><<<grid, THREADS, SMEM, stream>>>(*maps[0], *maps[1], *maps[2], *maps[3], p);
     return static_cast<int>(cudaGetLastError());
 }
@@ -356,13 +239,15 @@ int launch(const CUtensorMap* const (&maps)[4], const StepArgs& p, int grid, cud
 // h_prev_slot holds bf16(h_{t-1}); h_next (a slot of it), c, cs_out and last
 // are [B, H].  Pointers are 16-byte aligned device pointers, D % 8 == H % 8
 // == 0; cs_out and last may be null; grid is the number of persistent
-// blocks; variant is 0 (the kernel) or, for measuring, 1 (no epilogue) or 2
-// (no products); the stream is a cudaStream_t.  Returns the cudaError_t of
+// blocks; variant is 0 (the kernel) or, for measuring, 1 (no epilogue), 2
+// (no products) or 3 (the kernel, which also stores the step's f32
+// pre-activation gates of the active rows into gates [B, 4H]; null
+// otherwise); the stream is a cudaStream_t.  Returns the cudaError_t of
 // the launch, or -1 if the driver could not encode the tensor maps.
 extern "C" int oket_lstm_last_step_bf16(const void* emb, const void* h_buf, const void* w_ih, const void* w_hh,
                                         const void* bias, const void* lens, void* c, void* h_next, void* cs_out,
-                                        void* last, int L, int B, int D, int H, int h_slots, int h_prev_slot, int t,
-                                        int grid, int variant, void* stream) {
+                                        void* last, void* gates, int L, int B, int D, int H, int h_slots,
+                                        int h_prev_slot, int t, int grid, int variant, void* stream) {
     StepArgs p;
     p.bias = static_cast<const float*>(bias);
     p.lens = static_cast<const int*>(lens);
@@ -370,6 +255,7 @@ extern "C" int oket_lstm_last_step_bf16(const void* emb, const void* h_buf, cons
     p.h_next = static_cast<uint16_t*>(h_next);
     p.cs_out = static_cast<uint16_t*>(cs_out);
     p.last = static_cast<uint16_t*>(last);
+    p.gates = static_cast<float*>(gates);
     p.B = B;
     p.D = D;
     p.H = H;
@@ -391,5 +277,6 @@ extern "C" int oket_lstm_last_step_bf16(const void* emb, const void* h_buf, cons
     if (variant == FULL) return launch<FULL>(maps, p, grid, s);
     if (variant == NO_EPILOGUE) return launch<NO_EPILOGUE>(maps, p, grid, s);
     if (variant == NO_PRODUCTS) return launch<NO_PRODUCTS>(maps, p, grid, s);
+    if (variant == STORE_GATES && gates) return launch<STORE_GATES>(maps, p, grid, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -102,7 +102,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                               const __grid_constant__ CUtensorMap map_whh_lo, const StepArgs p) {
     extern __shared__ uint8_t smem_raw[];
     const Ring r = make_ring(smem_raw);
-    const int n_act_all = active_prefix(p.lens, p.B, p.t);
+    const int n_act_all = active_prefix<THREADS>(p.lens, p.B, p.t);
     __syncthreads();
     // block-uniform values made warp-uniform for the compiler (a wgmma on
     // what it takes for a divergent path is serialised)
@@ -204,7 +204,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 template <int P, bool EPI, bool FOLD = true>
 int launch(const CUtensorMap* const (&maps)[6], const StepArgs& p, int grid, cudaStream_t stream) {
-    if (const int e = allow_smem<lstm_fwd_step_kernel_tf32<P, EPI, FOLD>>()) return e;
+    if (const int e = allow_smem<lstm_fwd_step_kernel_tf32<P, EPI, FOLD>, SMEM>()) return e;
     lstm_fwd_step_kernel_tf32<P, EPI, FOLD>
         <<<grid, THREADS, SMEM, stream>>>(*maps[0], *maps[1], *maps[2], *maps[3], *maps[4], *maps[5], p);
     return static_cast<int>(cudaGetLastError());

@@ -1,5 +1,6 @@
-// The product launch of one LSTM backward step, shared by the fused backward
-// (lstm_last_bwd.cu) and the recurrence-only backward (lstm_scan.cu):
+// The product launch of one step of the recurrence-only LSTM backward
+// (lstm_scan.cu, kernel 8; the fused backward's is lstm_last_bwd.cu's own,
+// on wgmma):
 //   [dh_carry | demb] = dg . [W_hh | W_ih]     (bf16 operands, f32 accumulation)
 // over K = 4H, for the rows active at step t.  dg is the step's bf16 dgates
 // [B, 4H]; the gate-major weights ([4H, H] and [4H, D]: K rows of contiguous
@@ -12,20 +13,6 @@
 #include "lstm_gates.cuh"
 
 namespace oket_lstm {
-
-// Rows active at step t: lens is sorted descending, so they are the prefix
-// of rows with max(len, 1) > t.
-__device__ __forceinline__ int active_rows(const int* lens, long long B, int t) {
-    long long lo = 0, hi = B;
-    while (lo < hi) {
-        const long long mid = (lo + hi) / 2;
-        if (max(__ldg(lens + mid), 1) > t)
-            lo = mid + 1;
-        else
-            hi = mid;
-    }
-    return (int)lo;
-}
 
 // Four 8x8 bf16 tiles from shared memory, transposed: with rows k and
 // contiguous columns n, each thread gets the (k = 2*tig, 2*tig+1; n = gid)

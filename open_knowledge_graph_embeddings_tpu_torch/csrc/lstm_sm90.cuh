@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks of the port's CUDA kernels, in inline PTX:
 // mbarriers, TMA tile loads (cp.async.bulk.tensor) and their tensor maps,
-// wgmma descriptors, fences, the bf16 product m64n128k16 and the TF32
-// product m64n128k8 (A from registers) with f32 accumulators, the TF32
-// split of an f32 value, named barriers and setmaxnreg.  Used by
-// lstm_last_fwd.cu (bf16) and the 3xTF32 gate loop of lstm_tf32.cuh (the
-// f32 forward and backward).
+// wgmma descriptors, fences, the bf16 product m64n128k16 (B K-major or
+// MN-major) and the TF32 product m64n128k8 (A from registers) with f32
+// accumulators, the TF32 split of an f32 value, named barriers,
+// setmaxnreg and the block-wide search of a step's active rows; on the host
+// the tensor maps and the dynamic shared memory opt-in.  Used by the bf16
+// gate loop of lstm_bf16.cuh (kernel 1 and the bf16 backward) and the
+// 3xTF32 gate loop of lstm_tf32.cuh (the f32 forward and backward).
 //
 // Shared-memory tiles are K-major with the 128-byte swizzle: each tile row
 // is 128 bytes of K (64 bf16 or 32 f32), rows grouped by 8 into 1024-byte
@@ -13,7 +15,9 @@
 // descriptor walk along K is the same for both.  TMA writes that
 // layout (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma reads it (descriptor layout
 // type 1), both from the address bits, so every tile starts on a 1024-byte
-// boundary.  Tensor maps are encoded on the host with the driver's
+// boundary.  A bf16 B operand can also be MN-major (wgmma_desc_mn): each
+// tile row is then 128 bytes of N (64 columns) at one k, in the same
+// atoms.  Tensor maps are encoded on the host with the driver's
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
 // ctypes-loaded library needs no -lcuda.
 
@@ -70,6 +74,28 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     } while (!done);
 }
 
+// -------------------------------------------------------------- active rows
+
+// Rows active at step t (max(len, 1) > t) of a persistent LSTM step kernel: a
+// prefix [0, n) of the lengths, which are sorted descending.  All THREADS
+// threads of the block take part: each round probes THREADS evenly spaced
+// rows of the interval still in doubt at once, so B = 32768 takes two rounds
+// of one load per thread.
+template <int THREADS>
+__device__ int active_prefix(const int* lens, int B, int t) {
+    if (t == 0) return B;
+    int lo = 0, n = B;  // rows < lo are active, the first inactive row is in [lo, lo + n]
+    while (n > 0) {
+        const int stride = (n + THREADS - 1) / THREADS;
+        const int off = threadIdx.x * stride;
+        const int hits = __syncthreads_count(off < n && lens[lo + off] > t);
+        if (hits == 0) break;
+        lo += (hits - 1) * stride + 1;
+        n = min(stride - 1, n - (hits - 1) * stride - 1);
+    }
+    return lo;
+}
+
 // ----------------------------------------------------------------------- TMA
 
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
@@ -113,11 +139,28 @@ __device__ __forceinline__ void wgmma_fence_regs(float (&d)[R]) {
     for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// Descriptor of an MN-major, 128-byte-swizzled B tile at `p` (1024-byte
+// aligned): rows of 128 bytes, one k and 64 columns each, 8 k-rows to a
+// 1024-byte atom.  The stride byte offset steps along K from one 8-row atom
+// to the next (1024 bytes, the atoms of a 64-column block being
+// consecutive); the leading byte offset steps along N from one 64-column
+// block to the next, `lbo` bytes apart.  A k16 step is two atoms, so the
+// walk along K advances the start address by 2048 bytes.
+__device__ __forceinline__ uint64_t wgmma_desc_mn(const void* p, uint32_t lbo) {
+    const uint64_t addr = smem_u32(p);
+    return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+           (1ull << 62);
+}
+
 // d[64 x 128] += A[64 x 16] . B[128 x 16]^T, bf16 operands from shared memory
-// (both K-major), f32 accumulators in the wgmma register layout: register
-// 4 * n8 + e of thread (warp w, lane l) of the warpgroup holds row
-// 16 w + l / 4 + 8 (e / 2), column 8 n8 + 2 (l % 4) + e % 2.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+// (A K-major; B K-major, or with TRANS_B = 1 MN-major, as [16 x 128] with the
+// 128 columns contiguous: wgmma's transposed-B form, which 16-bit types
+// have), f32 accumulators in the wgmma register layout: register 4 * n8 + e
+// of thread (warp w, lane l) of the warpgroup holds row 16 w + l / 4 + 8
+// (e / 2), column 8 n8 + 2 (l % 4) + e % 2.  With scale_d = 0 the product
+// overwrites d instead (d = A . B^T).
+template <int TRANS_B = 0>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -125,7 +168,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
         :
           "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -135,7 +178,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
 }
 
 // d[64 x 128] += A[64 x 8] . B[128 x 8]^T, TF32 operands: A from registers
@@ -201,6 +244,22 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // ---------------------------------------------------------------- host side
+
+// cudaFuncSetAttribute for the `bytes` of dynamic shared memory of
+// `Kernel`, once per device.  Returns the cudaError_t, 0 on success.
+template <auto Kernel, int bytes>
+int allow_smem() {
+    static bool done[64] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+    if (!done[dev]) {
+        const cudaError_t e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        done[dev] = true;
+    }
+    return 0;
+}
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,

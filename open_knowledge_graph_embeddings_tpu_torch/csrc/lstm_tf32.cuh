@@ -51,23 +51,6 @@ constexpr int THREADS = 384;  // warpgroups 0 and 1 consume, warpgroup 2 produce
 // slots are taken and given back unread).
 enum Variant { X3 = 0, X1 = 1, NO_PRODUCTS = 2 };
 
-// Rows active at step t (max(len, 1) > t): a prefix [0, n) of the sorted
-// lengths, searched by every thread of the block at once (the search of
-// lstm_last_fwd.cu): each round probes THREADS evenly spaced rows.
-__device__ int active_prefix(const int* lens, int B, int t) {
-    if (t == 0) return B;
-    int lo = 0, n = B;  // rows < lo are active, the first inactive row is in [lo, lo + n]
-    while (n > 0) {
-        const int stride = (n + THREADS - 1) / THREADS;
-        const int off = threadIdx.x * stride;
-        const int hits = __syncthreads_count(off < n && lens[lo + off] > t);
-        if (hits == 0) break;
-        lo += (hits - 1) * stride + 1;
-        n = min(stride - 1, n - (hits - 1) * stride - 1);
-    }
-    return lo;
-}
-
 // The ring of STAGES slots (A, W_hi, W_lo), a full and an empty mbarrier
 // each; a slot is empty again when the eight consumer warps have read it.
 struct Ring {
@@ -283,22 +266,6 @@ inline SplitWeights split_parts(const void* w_split, int D, int H) {
     const float* base = static_cast<const float*>(w_split);
     const size_t ih = (size_t)4 * H * D, hh = (size_t)4 * H * H, t = (size_t)(H + D) * 4 * H;
     return {base, base + ih, base + 2 * ih, base + 2 * ih + hh, base + 2 * ih + 2 * hh, base + 2 * ih + 2 * hh + t};
-}
-
-// cudaFuncSetAttribute for the `bytes` of dynamic shared memory of
-// `Kernel`, once per device.
-template <auto Kernel, int bytes = SMEM>
-int allow_smem() {
-    static bool done[64] = {};
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-    if (!done[dev]) {
-        const cudaError_t e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        done[dev] = true;
-    }
-    return 0;
 }
 
 }  // namespace oket_tf32

@@ -220,7 +220,7 @@ def _fwd_fn():
     from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
 
     fn = cuda_build.load(_FWD_SOURCE).oket_lstm_last_step_bf16
-    fn.argtypes = [_P] * 10 + [_I] * 9 + [_P]
+    fn.argtypes = [_P] * 11 + [_I] * 9 + [_P]
     fn.restype = _I
     return fn
 
@@ -247,6 +247,14 @@ def backward_product_grid(B: int, H: int, D: int, n_sm: int) -> int:
     and the H + D columns of ``[dh | demb]``; its gate launch takes
     :func:`forward_grid` (the same 128-row x 32-unit tiles as kernel 1)."""
     return max(1, min(-(-B // _ROW_TILE) * -(-(H + D) // _PRODUCT_TILE), n_sm))
+
+
+def backward_product_grid_bf16(B: int, H: int, D: int, n_sm: int) -> int:
+    """The persistent grid of the bf16 backward's product launch: its column
+    tiles of dh (read from W_hh) and of demb (from W_ih) are counted apart,
+    so that no tile straddles the two weights.  Its gate launch takes
+    :func:`forward_grid`, as kernel 1 does."""
+    return max(1, min(-(-B // _ROW_TILE) * (-(-H // _PRODUCT_TILE) - (-D // _PRODUCT_TILE)), n_sm))
 
 
 @functools.lru_cache(maxsize=None)
@@ -276,8 +284,8 @@ def _bwd_fns():
 
     lib = cuda_build.load(_BWD_SOURCE)
     gate, prod, dw = (getattr(lib, f"oket_lstm_bwd_{part}_bf16") for part in ("gate", "product", "dw"))
-    gate.argtypes = [_P] * 9 + [_I] + [_P] * 4 + [_LL, _I, _I, _I, _P]
-    prod.argtypes = [_P] * 6 + [_LL, _I, _I, _I, _P]
+    gate.argtypes = [_P] * 9 + [_I] + [_P] * 5 + [_I] * 7 + [_P]
+    prod.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     dw.argtypes = [_P] * 8 + [_LL, _I, _I, _I, _P]
     for fn in (gate, prod, dw):
         fn.restype = _I
@@ -348,13 +356,23 @@ FORWARD_VARIANTS = {"kernel": 0, "no epilogue": 1, "no products": 2}
 FORWARD_F32_VARIANTS = {**FORWARD_VARIANTS, "1xTF32": 3, "one accumulator": 4}
 
 
-def _launch_steps(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, counter, variant="kernel"):
+# kernel 1's measuring launch (bf16) that also stores each step's f32
+# pre-activation gates, to hold the backward's recompute to them bitwise
+_STORE_GATES = 3
+
+
+def _launch_steps(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, counter, variant="kernel", gates=None):
+    """Kernel 1's launches over the L steps.  With ``gates`` (an [L, B, 4H]
+    f32 tensor, bf16 kernel only) each step also stores its f32
+    pre-activation gates of the active rows there (chip_smoke.py)."""
     L, B, D, H = _check(emb_tm, w_ih, w_hh, bias, lengths)
     _check_kernel_inputs(emb_tm.dtype, D, H, emb_tm=emb_tm, w_ih=w_ih, w_hh=w_hh)
     f32 = emb_tm.dtype == torch.float32
     variants = FORWARD_F32_VARIANTS if f32 else FORWARD_VARIANTS
     if variant not in variants:
         raise ValueError(f"the {emb_tm.dtype} forward has no variant {variant!r}; it has {list(variants)}")
+    if gates is not None:
+        _check_gates_out(gates, L, B, H, emb_tm, variant)
     bias = bias.contiguous()
     if bias.data_ptr() % 8:  # the kernel reads the bias of a unit pair as one float2
         bias = bias.clone()
@@ -394,11 +412,15 @@ def _launch_steps(emb_tm, w_ih, w_hh, bias, lengths, residuals, with_last, count
     rest = [x.data_ptr() for x in (bias, lens, c)]
     cs0 = cs.data_ptr() if residuals else None
     last_ptr = last.data_ptr() if with_last else None
-    code = variants[variant]
+    code = variants[variant] if gates is None else _STORE_GATES
+
+    def gates_arg(t):  # the bf16 entry's gates pointer (the f32 entry has none)
+        return [] if f32 else [None if gates is None else gates[t].data_ptr()]
+
     for t in range(L):
         err = fn(
             emb, h0, *weights, *rest, h0 + t % slots * step, None if cs0 is None else cs0 + t * step, last_ptr,
-            L, B, D, H, slots, (t - 1) % slots, t, grid, code, stream,
+            *gates_arg(t), L, B, D, H, slots, (t - 1) % slots, t, grid, code, stream,
         )
         _raise_on(err, f"{name} step {t}")
         counter.launches += 1
@@ -422,7 +444,21 @@ def _launch_all_backward(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, dhs):
 BACKWARD_F32_VARIANTS = {"kernel": 0, "1xTF32": 1, "one accumulator": 2}
 
 
-def _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step, counter, variant="kernel"):
+def _check_gates_out(gates, L, B, H, emb_tm, variant):
+    if emb_tm.dtype != torch.bfloat16 or variant != "kernel":
+        raise ValueError("only the bf16 kernel stores its pre-activation gates")
+    if gates.shape != (L, B, 4 * H) or gates.dtype != torch.float32 or gates.device != emb_tm.device:
+        raise ValueError(f"gates must be a float32 [L, B, 4H] = {(L, B, 4 * H)} tensor on {emb_tm.device}")
+    if not gates.is_contiguous() or gates.data_ptr() % 16:
+        raise ValueError("gates must be contiguous and 16-byte aligned")
+
+
+def _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step, counter, variant="kernel",
+                      gates=None):
+    """Kernels 2 and 6: in bf16 a gate and a product launch per step, then
+    dW and db (2L + 1 launches).  With ``gates`` (an [L, B, 4H] f32 tensor,
+    bf16 only) each gate launch also stores its recomputed f32
+    pre-activation gates of the active rows there (chip_smoke.py)."""
     L, B, D, H = _check(emb_tm, w_ih, w_hh, bias, lengths)
     dev, dt = emb_tm.device, emb_tm.dtype
     _check_residuals(L, B, H, dt, hs, cs, cot, dev, every_step)
@@ -431,14 +467,18 @@ def _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step
         return _launch_bwd_steps_f32(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step, counter, variant)
     if variant != "kernel":
         raise ValueError(f"the variant {variant!r} is the f32 backward's")
+    if gates is not None:
+        _check_gates_out(gates, L, B, H, emb_tm, variant)
     gate, prod, dw = _bwd_fns()
     bias = bias.contiguous()
+    if bias.data_ptr() % 8:  # the gate kernel reads the bias of a unit pair as one float2
+        bias = bias.clone()
     lens = lengths.to(torch.int32).contiguous()
     dh = torch.zeros(B, H, dtype=torch.float32, device=dev)
     dc = torch.zeros(B, H, dtype=torch.float32, device=dev)
     dg = torch.empty(L, B, 4 * H, dtype=dt, device=dev)
-    # per step and row block of 128 (the gate kernel's): written for the
-    # active blocks, which are the only ones the dW kernel sums into db
+    # per step and row tile of 128 (the gate kernel's): written for the
+    # active tiles, which are the only ones the dW kernel sums into db
     db_part = torch.empty(L, -(-B // 128), 4 * H, dtype=torch.float32, device=dev)
     demb = torch.empty(L, B, D, dtype=dt, device=dev)
     dw_ih = torch.empty(4 * H, D, dtype=dt, device=dev)
@@ -447,23 +487,24 @@ def _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step
     if not (B and H):
         return demb.zero_(), dw_ih.zero_(), dw_hh.zero_(), db.zero_()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    n_sm = _sm_count(dev.index)
+    grid_gate, grid_prod = forward_grid(B, H, n_sm), backward_product_grid_bf16(B, H, D, n_sm)
+    code = 0 if gates is None else 1  # the gate launch's STORE_GATES variant
+    step = B * H * 2  # bytes of one [B, H] slice
+    emb, hs0, cs0, cot0, wi, wh = (x.data_ptr() for x in (emb_tm, hs, cs, cot, w_ih, w_hh))
     for t in reversed(range(L)):
-        prev = max(t - 1, 0)
         err = gate(
-            emb_tm[t].data_ptr(), hs[prev].data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
-            bias.data_ptr(), lens.data_ptr(), cs[t].data_ptr(), cs[prev].data_ptr(),
-            (cot[t] if every_step else cot).data_ptr(), int(every_step),
-            dh.data_ptr(), dc.data_ptr(), dg[t].data_ptr(), db_part[t].data_ptr(),
-            B, D, H, t, stream,
+            emb, hs0, wi, wh, bias.data_ptr(), lens.data_ptr(), cs0 + t * step, cs0 + max(t - 1, 0) * step,
+            cot0 + (t * step if every_step else 0), int(every_step), dh.data_ptr(), dc.data_ptr(),
+            dg[t].data_ptr(), db_part[t].data_ptr(), None if gates is None else gates[t].data_ptr(),
+            L, B, D, H, t, grid_gate, code, stream,
         )
         _raise_on(err, f"lstm_last_bwd gate step {t}")
-        err = prod(
-            dg[t].data_ptr(), w_hh.data_ptr(), w_ih.data_ptr(), lens.data_ptr(),
-            dh.data_ptr(), demb[t].data_ptr(), B, D, H, t, stream,
-        )
+        err = prod(dg.data_ptr(), wh, wi, lens.data_ptr(), dh.data_ptr(), demb[t].data_ptr(), L, B, D, H, t,
+                   grid_prod, stream)
         _raise_on(err, f"lstm_last_bwd product step {t}")
         counter.launches += 2
-    err = dw(dg.data_ptr(), emb_tm.data_ptr(), hs.data_ptr(), lens.data_ptr(), db_part.data_ptr(),
+    err = dw(dg.data_ptr(), emb, hs0, lens.data_ptr(), db_part.data_ptr(),
              dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(), B, D, H, L, stream)
     _raise_on(err, "lstm_last_bwd dW and db")
     counter.launches += 1

@@ -306,3 +306,69 @@ def test_f32_backward_launches_and_bound_parts(smoke, monkeypatch):
     monkeypatch.setattr(smoke, "PEAK_FP32_FLOPS", 132 * 128 * 2 * 1980e6)
     assert smoke.ffma_note(sum(parts.values()), torch.float32) == "; FFMA bound 4.4796 ms"
     assert smoke.ffma_note(sum(parts.values()), torch.bfloat16) == ""
+
+
+class _FakeProfile:
+    """torch.profiler.profile on the CPU: one call's device times (µs, over
+    the five profiled calls) of the bf16 backward's kernels by name, as the
+    card's trace names them."""
+
+    def __init__(self, activities=None):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def key_averages(self):
+        from types import SimpleNamespace
+
+        names = {"void (anonymous namespace)::bf16::lstm_bwd_gate_kernel_bf16<0>(...)": 1500.0,
+                 "(anonymous namespace)::bf16::lstm_bwd_product_kernel_bf16(...)": 1000.0,
+                 "(anonymous namespace)::lstm_bwd_dw_kernel((anonymous namespace)::DwArgs)": 2000.0,
+                 "void at::native::vectorized_elementwise_kernel<...>": 50.0}
+        return [SimpleNamespace(key=k, self_device_time_total=v) for k, v in names.items()]
+
+
+def test_bf16_backward_launch_split_prints_each_part_beside_its_bound(smoke, lstm_case, monkeypatch, capsys):
+    """The bf16 backward's launches by kind (gate, product, dW: names read
+    from the profiler's trace, other kernels left out), device ms per call,
+    each beside the bound of its part at the bf16 peak; the parts of a
+    backward are the forward's work each."""
+    import torch.profiler
+
+    _, _, bwd_args = lstm_case
+    monkeypatch.setattr(torch.profiler, "profile", _FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    by_kind = smoke.print_backward_launch_ms(torch, "lstm_last_bwd", bwd_args, lambda: None)
+    assert by_kind == pytest.approx({"gate": 0.3, "product": 0.2, "dW": 0.4})
+    n_steps = int(bwd_args[4].clamp(min=1).sum())
+    part = smoke.backward_parts(300, 64, 64, n_steps)["gate"] / smoke.PEAK_BF16_FLOPS * 1e3
+    out = capsys.readouterr().out
+    assert out.startswith("lstm_last_bwd launches on the entity pass B=300, device ms per call (torch.profiler): ")
+    assert f"gate 0.3000 (bf16 bound of its part {part:.4f}, {part / 0.3:.1%} of it)" in out
+    assert f"product 0.2000 (bf16 bound of its part {part:.4f}" in out and "; sum 0.9000" in out
+    assert "split" not in out
+    assert set(smoke.BACKWARD_BF16_KINDS) == {"gate", "product", "dW"}
+
+
+def test_gates_bitwise_check_fails_a_one_ulp_difference(smoke, lstm_case, capsys):
+    """The gates phase holds kernel 1's and the backward's stores of the f32
+    pre-activation gates to bitwise equality at the positions each row
+    reaches: a one-ulp difference there fails it, one at a position no row
+    reaches does not count."""
+    fwd_args, _, _ = lstm_case
+    lens = fwd_args[4]
+    gates = torch.from_numpy(np.random.default_rng(3).standard_normal((10, 300, 256)).astype(np.float32))
+    smoke.check_gates_bitwise(torch, "equal", fwd_args, stored=(gates, gates.clone()))
+    assert "equal: 0 of " in capsys.readouterr().out
+    step = int(lens.clamp(min=1)[-1]) - 1  # the last step of the shortest row
+    planted = gates.clone()
+    planted[step, -1, 7] = torch.nextafter(planted[step, -1, 7], torch.tensor(np.inf))
+    with pytest.raises(smoke.SmokeFailure, match="1 unequal"):
+        smoke.check_gates_bitwise(torch, "planted", fwd_args, stored=(gates, planted))
+    unread = gates.clone()
+    unread[step + 1, -1, 7] += 1.0  # past the shortest row's length: never written
+    smoke.check_gates_bitwise(torch, "unread", fwd_args, stored=(gates, unread))

@@ -229,6 +229,104 @@ def test_lstm_autograd_on_card_matches_cpu(cuda):
     assert (gb - cb).abs().max().item() <= DB_RTOL * cb.abs().max().item()
 
 
+# The bf16 backward (kernels 2 and 6: the gate launch on kernel 1's loop, the
+# dh/demb product with wgmma's transposed B) across its tile edges: 128-row
+# tiles, 32-unit gate tiles, 64-wide K stages, 128-column product tiles
+# counted apart for dh and demb (H = 40 and 136: column and unit tails; D =
+# 40: a K tail of the x part and a demb tail), lengths 0..10 with 0s and 1s.
+# demb and dW by the bf16 rule with the backward's share; below
+# SHARE_MIN_ROWS rows the share of unequal elements is a statistic of too
+# few rows (one flipped dgate of a long row moves every earlier step of it:
+# one row of kernel 6 read 12 % on an H100), so only the ulp bound holds.
+BF16_BWD_SHAPES = [(b, d, h) for b in (1, 37, 129, 4099) for d in (40, 512) for h in (40, 136, 512)]
+SHARE_MIN_ROWS = 32
+
+
+def _bf16_inputs(B, D, H, L=10, seed=0):
+    """_f32_inputs in bf16 (the bias stays f32)."""
+    emb, w_ih, w_hh, bias, lens, dhs, dlast = _f32_inputs(B, D, H, L, seed)
+    bf = torch.bfloat16
+    return emb.to(bf), w_ih.to(bf), w_hh.to(bf), bias, lens, dhs.to(bf), dlast.to(bf)
+
+
+@pytest.mark.parametrize("B,D,H", BF16_BWD_SHAPES, ids=[f"B{b}-D{d}-H{h}" for b, d, h in BF16_BWD_SHAPES])
+def test_bf16_backward_modes_across_tile_edges_on_card(cuda, B, D, H):
+    emb, w_ih, w_hh, bias, lens, dhs, dlast = (x.to(cuda) for x in _bf16_inputs(B, D, H, seed=B + D + H))
+    args = (emb, w_ih, w_hh, bias, lens)
+    L = emb.shape[0]
+    act = torch.from_numpy(_active(lens.cpu().numpy(), L)).to(cuda)
+    _, hs, cs = lstm_kernel._forward(*args, residuals=True)
+    before = (lstm_kernel.lstm_last_backward.launches, lstm_kernel.lstm_all_backward.launches)
+    got = {"last": lstm_kernel.lstm_last_backward(*args, hs, cs, dlast),
+           "every": lstm_kernel.lstm_all_backward(*args, hs, cs, dhs)}
+    want = {"last": lstm_kernel.lstm_last_backward_plain(*args, hs, cs, dlast),
+            "every": lstm_kernel.lstm_all_backward_plain(*args, hs, cs, dhs)}
+    torch.cuda.synchronize()
+    assert (lstm_kernel.lstm_last_backward.launches, lstm_kernel.lstm_all_backward.launches) == (
+        before[0] + 2 * L + 1, before[1] + 2 * L + 1)
+    share = MAX_UNEQUAL_SHARE_BWD if B >= SHARE_MIN_ROWS else 1.0
+    for mode in got:
+        (demb, dw_ih, dw_hh, db), w = got[mode], want[mode]
+        assert demb.dtype == dw_ih.dtype == dw_hh.dtype == torch.bfloat16 and db.dtype == torch.float32
+        assert torch.isfinite(demb[act].float()).all()
+        assert_bf16_close(demb[act], w[0][act], share)
+        assert_bf16_close(dw_ih, w[1], share)
+        assert_bf16_close(dw_hh, w[2], share)
+        assert (db - w[3]).abs().max().item() <= DB_RTOL * w[3].abs().max().item(), mode
+
+
+@pytest.mark.parametrize("D,H", [(128, 128), (64, 40)], ids=["two-full-tiles", "one-box-tails"])
+def test_bf16_backward_product_is_a_transposed_b_wgmma_on_card(cuda, D, H):
+    """The bf16 product launch alone, one row tile: [dh | demb] = dg[t] .
+    [W_hh | W_ih] with the gate-major weights read as they are (wgmma's
+    transposed B from two 64-column TMA boxes a stage), against torch.matmul
+    in f32 on the same bf16 values; dh in f32 (bf16 products are exact in
+    f32, so only the sum order differs: the f32 rule), demb rounded to bf16.
+    At H = 40 the second box of each tile is past the columns and not
+    loaded, and K = 160 ends in half a stage."""
+    rng = np.random.default_rng(7)
+    L, B, t = 2, 128, 1
+    bf = torch.bfloat16
+    dg = torch.from_numpy(rng.standard_normal((L, B, 4 * H)).astype(np.float32)).to(bf).to(cuda)
+    w_ih = torch.from_numpy(rng.uniform(-0.1, 0.1, (4 * H, D)).astype(np.float32)).to(bf).to(cuda)
+    w_hh = torch.from_numpy(rng.uniform(-0.1, 0.1, (4 * H, H)).astype(np.float32)).to(bf).to(cuda)
+    lens = torch.full((B,), L, dtype=torch.int32, device=cuda)
+    dh = torch.full((B, H), float("nan"), device=cuda)
+    demb = torch.zeros(B, D, dtype=bf, device=cuda)
+    _, prod, _ = lstm_kernel._bwd_fns()
+    grid = lstm_kernel.backward_product_grid_bf16(B, H, D, lstm_kernel._sm_count(cuda.index or 0))
+    err = prod(dg.data_ptr(), w_hh.data_ptr(), w_ih.data_ptr(), lens.data_ptr(), dh.data_ptr(), demb.data_ptr(),
+               L, B, D, H, t, grid, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert_f32_close(dh, torch.matmul(dg[t].float(), w_hh.float()))
+    assert_bf16_close(demb, torch.matmul(dg[t].float(), w_ih.float()).to(bf))
+
+
+@pytest.mark.parametrize("B,D,H", [(37, 512, 512), (129, 40, 136), (4099, 128, 64)],
+                         ids=["B37-d512", "B129-D40-H136", "B4099"])
+def test_bf16_backward_gates_are_kernel_1s_bitwise_on_card(cuda, B, D, H):
+    """The backward's gate launch recomputes kernel 1's f32 pre-activation
+    gates bit for bit at every position a row reaches (both run the loop of
+    csrc/lstm_bf16.cuh on the same tiles and tensor maps): the measuring
+    stores of the two are equal as integers."""
+    emb, w_ih, w_hh, bias, lens, _, dlast = (x.to(cuda) for x in _bf16_inputs(B, D, H, seed=5))
+    args = (emb, w_ih, w_hh, bias, lens)
+    L = emb.shape[0]
+
+    class Uncounted:
+        launches = 0
+
+    stored = [torch.zeros(L, B, 4 * H, device=cuda) for _ in range(2)]
+    _, hs, cs = lstm_kernel._launch_steps(*args, True, True, Uncounted, gates=stored[0])
+    lstm_kernel._launch_bwd_steps(*args, hs, cs, dlast, False, Uncounted, gates=stored[1])
+    torch.cuda.synchronize()
+    act = torch.from_numpy(_active(lens.cpu().numpy(), L)).to(cuda)
+    fwd, bwd = (x[act] for x in stored)
+    assert torch.isfinite(fwd).all() and fwd.abs().max().item() > 0
+    assert torch.equal(fwd.view(torch.int32), bwd.view(torch.int32))
+
+
 def _adagrad_state(V, d, seed):
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731

@@ -1,6 +1,8 @@
 """Kernel 1's host side on the CPU: the persistent grid the wrapper launches,
 and the shape of the CUDA source (it cannot be compiled here); the same for
-the f32 backward (kernels 2 and 6 at f32, 3xTF32 on the tensor cores)."""
+the bf16 backward (kernels 2 and 6: the gate launch on kernel 1's loop, the
+dh/demb product with wgmma's transposed B) and the f32 backward (3xTF32 on
+the tensor cores)."""
 
 import pathlib
 import re
@@ -29,17 +31,111 @@ def test_forward_grid_is_one_block_per_sm_or_per_tile(B, H, n_sm, grid):
     assert lstm_kernel.forward_grid(B, H, n_sm) == grid
 
 
-def test_forward_source_is_a_hopper_kernel():
-    """The step kernel takes its tiles by TMA into an mbarrier ring and
-    multiplies them with wgmma; the old mma.sync gate product is not on its
-    path (it stays for the backwards)."""
-    src = (CSRC / "lstm_last_fwd.cu").read_text()
+def _body(src, name):
+    """The body of the function or kernel ``name`` defined in ``src`` (from
+    its definition's opening brace to the matching closing one)."""
+    m = re.search(r"\b" + re.escape(name) + r"\([^;{]*\)\s*\{", src)
+    assert m, name
+    depth, i = 0, m.end() - 1
+    for j in range(i, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[j], 0)
+        if depth == 0:
+            return src[i:j + 1]
+    raise AssertionError(f"unbalanced braces in {name}")
+
+
+def _bf16_loop():
+    """The shared bf16 gate loop (lstm_bf16.cuh: one product loop, which
+    kernel 1 and the bf16 backward's gate and product launches run) and the
+    Hopper helpers it is built from (lstm_sm90.cuh)."""
     helpers = (CSRC / "lstm_sm90.cuh").read_text()
     assert "wgmma.mma_async" in helpers and "cp.async.bulk.tensor" in helpers and "mbarrier" in helpers
-    for call in ("wgmma_m64n128k16(", "tma_load_3d(", "mbar_wait(", "setmaxnreg_inc<"):
-        assert call in src, call
+    header = (CSRC / "lstm_bf16.cuh").read_text()
+    # one gate loop (kernel 1 and the backward's gate launch) and one
+    # folded product loop (the backward's dh/demb product)
+    assert len(re.findall(r"__device__ __forceinline__ void tile_products\(", header)) == 1
+    assert len(re.findall(r"__device__ __forceinline__ void tile_products_folded\(", header)) == 1
+    loop = _body(header, "tile_products")
+    for call in ("wgmma_m64n128k16(", "mbar_wait(", "wgmma_desc(", "mbar_arrive(&r.turn[1 - wg])"):
+        assert call in loop, call
+    assert "tma_load_3d(" in _body(header, "produce_gate_tiles")
+    return header
+
+
+def test_forward_source_is_a_hopper_kernel():
+    """The step kernel takes its tiles by TMA into an mbarrier ring and
+    multiplies them with wgmma, through the shared loop of lstm_bf16.cuh; the
+    old mma.sync gate product is not on its path (it stays for kernels 7
+    and 8)."""
+    src = (CSRC / "lstm_last_fwd.cu").read_text()
+    _bf16_loop()
+    kernel = _body(src, "lstm_last_step_kernel")
+    for call in ("tile_products<V != NO_PRODUCTS>(", "produce_gate_tiles(", "seed_bias(", "setmaxnreg_inc<"):
+        assert call in kernel, call
     assert not re.search(r"\b(gate_product|mma_bf16|cp_async16)\(", src)
-    assert "lstm_sm90.cuh" in src and "_fused_fwd_last" in src
+    assert '#include "lstm_bf16.cuh"' in src and "_fused_fwd_last" in src
+
+
+def test_bf16_gate_launch_runs_kernel_1s_loop():
+    """The bf16 backward's gate launch recomputes the gates with kernel 1's
+    own producer, bias seed and product loop (the K-major form), on the same
+    tiles, so its pre-activations are the forward's bit for bit; both
+    kernels have the measuring store of those gates.  No mma.sync gate
+    product is left in the backward; lstm_gates.cuh keeps it for
+    lstm_scan.cu (kernels 7 and 8)."""
+    _bf16_loop()
+    fwd = _body((CSRC / "lstm_last_fwd.cu").read_text(), "lstm_last_step_kernel")
+    src = (CSRC / "lstm_last_bwd.cu").read_text()
+    gate = _body(src, "lstm_bwd_gate_kernel_bf16")
+    assert '#include "lstm_bf16.cuh"' in src
+    for body in (fwd, gate):
+        for call in ("produce_gate_tiles(", "seed_bias(", "store_gate_tile(", "setmaxnreg_inc<232>"):
+            assert call in body, call
+        assert re.search(r"tile_products<[^>]+>\(r, q, nk, wg, lane, acc\)", body)
+    assert "bwd_cell(" in gate and "db_part" in gate
+    assert not re.search(r"\b(gate_product|load_gate_tile|launch_bwd_product|ldmatrix_x4_trans)\(", src)
+    assert "gate_product(" in (CSRC / "lstm_gates.cuh").read_text()
+    assert "gate_product(" in (CSRC / "lstm_scan.cu").read_text()
+    assert 'extern "C" int oket_lstm_bwd_gate_bf16(' in src
+
+
+def test_bf16_product_launch_is_wgmma_with_transposed_b():
+    """The bf16 dh/demb product launch runs the ring of lstm_bf16.cuh with
+    wgmma m64n128k16 in its transposed-B form, the gate-major weights read
+    as they are by TMA (two 64-column boxes a stage, no transposed copy),
+    each K stage folded into an f32 sum; the old ldmatrix.trans product
+    stays in lstm_product.cuh for kernel 8."""
+    header = _bf16_loop()
+    helpers = (CSRC / "lstm_sm90.cuh").read_text()
+    mma = _body(helpers, "wgmma_m64n128k16")
+    assert "m64n128k16.f32.bf16.bf16" in mma and '"n"(TRANS_B)' in mma and "1, 1, 0, %67" in mma
+    folded = _body(header, "tile_products_folded")
+    assert "wgmma_m64n128k16<1>(" in folded and "wgmma_desc_mn(w + kk * 2048, W_BYTES / 2)" in folded
+    assert "sum[i] +=" in folded  # the fold: each stage added to the f32 sum
+    src = (CSRC / "lstm_last_bwd.cu").read_text()
+    prod = _body(src, "lstm_bwd_product_kernel_bf16")
+    assert "tile_products_folded(r, q, nk, wg, lane, acc)" in prod and "make_ring(smem_raw, 8)" in prod
+    assert prod.count("tma_load_3d(") == 3 and "mbar_arrive_expect_tx(" in prod
+    assert not re.search(r"\b(mma_bf16|ldmatrix_x4_trans|cp_async16|transpose)\w*\(", prod)
+    assert 'extern "C" int oket_lstm_bwd_product_bf16(' in src
+    assert "launch_bwd_product(" in (CSRC / "lstm_scan.cu").read_text()
+
+
+@pytest.mark.parametrize(
+    "B,H,D,n_sm,grid",
+    [
+        (5632, 512, 512, 132, 132),  # the training entity pass: 44 row tiles x (4 + 4) column tiles
+        (3072, 512, 512, 132, 132),  # the relation pass: 24 x 8
+        (37, 100, 132, 132, 3),  # one row tile x (1 dh + 2 demb) column tiles: H and D apart
+        (37, 40, 40, 132, 2),  # 1 x (1 + 1), where H + D would fit one tile
+        (1, 128, 256, 132, 3),  # one row: 1 + 2
+        (129, 136, 512, 132, 12),  # 2 x (2 + 4)
+        (4099, 64, 64, 8, 8),  # a smaller card
+        (0, 512, 512, 132, 1),  # nothing to do: still a valid launch shape
+    ],
+)
+def test_bf16_backward_product_grid_counts_dh_and_demb_tiles_apart(B, H, D, n_sm, grid):
+    assert lstm_kernel.backward_product_grid_bf16(B, H, D, n_sm) == grid
 
 
 @pytest.mark.parametrize(
