@@ -47,7 +47,13 @@ Phases (any failure exits non-zero before the final line):
    ``OKET_DISABLE_LSTM_FUSED=1`` set in this process for that run only (the
    input projection, then kernels 7 and 8 over every row and step), checked
    and timed as in 5; then kernels 7 and 8 against their plain versions on
-   its recorded first step and at ragged B, with planted faults, timed;
+   its recorded first step and at ragged B, with planted faults, timed (the
+   kernel alone, and the port's unfused LSTM with the input projection and
+   its products, the work of cuDNN's call beside it), kernel 8's launches by
+   kind (gate, product) each beside its part of the bound; in bf16 kernel 8's
+   recomputed gates held to kernel 7's bitwise (both in their measuring
+   variant that stores the f32 pre-activation gates, on the entity pass and
+   at B=37: 0 elements may differ);
 9. the serving path on the trained checkpoint: ``cli.predict`` answers text
    queries and ``Predictor.predict`` batches of 1024 queries and single
    queries, with the launch counts set to 0 just before and read just after
@@ -1430,6 +1436,30 @@ def check_gates_bitwise(torch, label, fwd_args, stored=None):
     check(n == 0, f"the backward's gate launch does not recompute kernel 1's gates bitwise at {label}: {n} unequal")
 
 
+def check_scan_gates_bitwise(torch, label, x_proj, w_hh, stored=None):
+    """Kernel 7 and kernel 8's gate launch in bf16 on kernel 7's residuals,
+    each in its measuring variant that stores the f32 pre-activation gates
+    of every (row, step): the two must be bitwise equal (they run one
+    function, lstm_scan.cu::scan_gate_tiles, on the same tiles and maps).
+    ``stored`` gives the two stores instead of running the launches (the
+    CPU test plants a difference there)."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    if stored is None:
+        L, B, H4 = x_proj.shape
+        stored = [torch.zeros(L, B, H4, dtype=torch.float32, device=x_proj.device) for _ in range(2)]
+        hs, cs = sk._launch_forward(x_proj, w_hh, Uncounted, gates=stored[0])
+        sk._launch_backward(x_proj, w_hh, hs, cs, torch.zeros_like(hs), Uncounted, gates=stored[1])
+        torch.cuda.synchronize()
+    fwd, bwd = stored
+    check(bool(torch.isfinite(fwd).all()) and fwd.abs().max().item() > 0,
+          f"kernel 7's stored gates at {label} are not finite or all zero")
+    n = int((fwd.view(torch.int32) != bwd.view(torch.int32)).sum().item())
+    print(f"gates bitwise, kernel 7 vs kernel 8's gate launch, {label}: {n} of {fwd.numel()} f32 pre-activation "
+          f"gates unequal")
+    check(n == 0, f"kernel 8's gate launch does not recompute kernel 7's gates bitwise at {label}: {n} unequal")
+
+
 def check_1xtf32_variant(torch, args, every_step, want):
     """The f32 backward's planted 1xTF32 variant (one TF32 product where the
     kernel takes three) against the plain version ``want`` must fail the f32
@@ -1694,6 +1724,16 @@ def check_scan(torch, captured_fwd, captured_bwd, ragged=(1, 37, 4099)):
     return fwd_err, bwd_err
 
 
+def check_scan_gates(torch, entity_pass):
+    """Kernel 8's recomputed gates against kernel 7's, bitwise, in bf16: on
+    the unfused training entity pass ``entity_pass`` (x_proj, w_hh) and at
+    B=37."""
+    x_proj, w_hh = entity_pass
+    check_scan_gates_bitwise(torch, f"unfused training entity pass B={x_proj.shape[1]}", x_proj, w_hh)
+    gen = torch.Generator(device=x_proj.device).manual_seed(SEED + 9)
+    check_scan_gates_bitwise(torch, "B=37", *scan_inputs(torch, gen, x_proj.shape[0], 37, w_hh.shape[1]))
+
+
 def library_lstm_all_ms(torch, D, H, emb, lens=None, grad=None):
     """One cuDNN ``nn.LSTM`` call in ``emb``'s dtype over ``emb`` [L, B, D]:
     unpacked, or packed by ``lens`` (every output returned either way).  With
@@ -1725,10 +1765,77 @@ def library_lstm_all_ms(torch, D, H, emb, lens=None, grad=None):
         return None, f"nn.LSTM {dt} {form} unavailable: {str(e).splitlines()[0]}"
 
 
+# kernel 8's kinds of launch, by a part of their names (both dtypes)
+SCAN_BACKWARD_KINDS = {"gate": "scan_bwd_gate_kernel", "product": "product_kernel"}
+
+
+def scan_backward_parts(L, B, H, es):
+    """(operations, bytes) of kernel 8's two kinds of launch over L steps of
+    B rows with elements of ``es`` bytes: the gate launches recompute the h
+    products from step 1 on and read x_proj, hs, cs, dhs and W_hh and write
+    dx_proj; the product launches (from step 1 on) read dx_proj and W_hh and
+    write the f32 dh carry."""
+    prod = (L - 1) * B * 2 * H * 4 * H
+    w = 4 * H * H * es
+    return {"gate": (prod, L * B * (4 * H + 3 * H + 4 * H) * es + w),
+            "product": (prod, (L - 1) * B * (4 * H * es + H * 4) + w)}
+
+
+def print_scan_backward_launch_ms(torch, label, bargs, fn):
+    """Kernel 8's launches of one call ``fn`` on ``bargs`` by kind (gate,
+    product; device ms per call, torch.profiler), each beside the bound of
+    its part (``scan_backward_parts``, at the dtype's peak rate).  Returns
+    the ms by kind, or None where the trace has no device time."""
+    x_proj = bargs[0]
+    by_kind = launch_ms(torch, fn, SCAN_BACKWARD_KINDS)
+    if by_kind is None:
+        print(f"{label} launches: no device time in the trace (not measured)")
+        return None
+    L, B, H4 = x_proj.shape
+    parts = scan_backward_parts(L, B, H4 // 4, x_proj.element_size())
+
+    def part(k, v):
+        bound, by = bound_ms(*parts[k], peak_flops(x_proj.dtype))
+        return f"{k} {v:.4f} (bound of its part {bound:.4f}, {by}, {bound / v if v else float('nan'):.1%} of it)"
+
+    print(f"{label} launches, device ms per call (torch.profiler): "
+          + ", ".join(part(k, v) for k, v in by_kind.items()) + f"; sum {sum(by_kind.values()):.4f}")
+    return by_kind
+
+
+def same_work_ms(torch, w_hh, emb, grad=None):
+    """The port's unfused LSTM over ``emb`` [L, B, D] (``ops/lstm.py::
+    lstm_forward_tm``): the input projection and kernel 7, or with ``grad``
+    (every output's cotangent) its backward alone over a retained graph,
+    kernel 8 and the dW_hh, dx, dW_ih and db products: the work of cuDNN's
+    unpacked ``nn.LSTM`` call on the same shapes.  ``w_hh`` is the
+    recurrence's; W_ih and the biases are random."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm as port_lstm
+
+    L, B, D = emb.shape
+    H = w_hh.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    k = 1.0 / H ** 0.5
+    params = {"w_ih": torch.empty(4 * H, D, device="cuda").uniform_(-k, k, generator=gen).to(emb.dtype),
+              "w_hh": w_hh.clone(),
+              "b_ih": torch.empty(4 * H, device="cuda").uniform_(-k, k, generator=gen),
+              "b_hh": torch.empty(4 * H, device="cuda").uniform_(-k, k, generator=gen)}
+    if grad is None:
+        with torch.no_grad():
+            return cuda_ms(lambda: port_lstm.lstm_forward_tm(params, emb), iters=10)
+    for v in params.values():
+        v.requires_grad_()
+    x = emb.detach().clone().requires_grad_()
+    out = port_lstm.lstm_forward_tm(params, x)
+    return cuda_ms(lambda: out.backward(grad, retain_graph=True), iters=10)
+
+
 def time_scan(torch, captured_fwd, captured_bwd, fwd_err, bwd_err):
     """Kernels 7 and 8 on the first unfused step's entity pass: kernel,
-    plain version, bound, and cuDNN's unpacked ``nn.LSTM`` (which also does
-    the input projection) forward and backward.  Returns the two rows."""
+    plain version, bound, cuDNN's unpacked ``nn.LSTM`` (which also does the
+    input projection, and in its backward the dx and dW products) forward
+    and backward, and the port's unfused LSTM doing that same work
+    (``same_work_ms``); kernel 8's launches by kind.  Returns the two rows."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
 
     (x_proj, w_hh), _ = captured_fwd[0]
@@ -1747,16 +1854,23 @@ def time_scan(torch, captured_fwd, captured_bwd, fwd_err, bwd_err):
         ms = cuda_ms(fn, iters=10)
         plain_ms = cuda_ms(plain, iters=3)
         library_ms, note = library_lstm_all_ms(torch, H, H, emb, grad=grad)
+        same_ms = same_work_ms(torch, w_hh, emb, grad)
         ops, bytes_ = lstm_bound(row, L, B, H, H, L * B, x_proj.element_size())
         bound, by = bound_ms(ops, bytes_, peak_flops(dtype))
         print(f"{name}{sfx} timing training entity pass L={L} B={B} H={H}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
               f"ms, library {library_ms} ms ({note}), bound {bound:.4f} ms ({by}: {ops:.4e} FLOP, {bytes_:.4e} B)"
               f"{ffma_note(ops, dtype)}")
+        work = "input projection + kernel 7" if row == 7 else "kernel 8 + the dW_hh, dx, dW_ih and db products"
+        ratio = f"{same_ms / library_ms:.3f}" if library_ms else "not measured"
+        print(f"{name}{sfx} same work as the library call (the port's unfused LSTM, {work}): {same_ms:.4f} ms, "
+              f"library {library_ms} ms, port/library {ratio}")
         rows.append({"name": name + sfx, "route": "cuda", "source": f"{PKG}/csrc/lstm_scan.cu",
                      "replaces": "open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:"
                                  + ("47" if row == 7 else "110"),
                      "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": by, "library_ms": library_ms})
+    print_scan_backward_launch_ms(torch, f"lstm_scan_bwd{sfx} training entity pass B={B}", bargs,
+                                  lambda: sk.lstm_scan_backward(*bargs))
     return rows
 
 
@@ -2253,6 +2367,7 @@ def main() -> int:
         del trainer
         rows += time_scan(torch, capture.scan_fwd, capture.scan_bwd,
                           *check_scan(torch, capture.scan_fwd, capture.scan_bwd))
+        check_scan_gates(torch, capture.scan_fwd[0][0])
         del capture
         torch.cuda.empty_cache()
 

@@ -1,9 +1,11 @@
-// The bf16 gate loop of the fused LSTM kernels on Hopper's tensor cores,
-// shared by kernel 1 (lstm_last_fwd.cu: the forward, last-state and
-// every-state) and by the bf16 backward's gate and product launches
-// (lstm_last_bwd.cu, kernels 2 and 6): one ring, producer, bias seed and
-// product loop, so the backward's gate launch recomputes the forward's
-// pre-activations in the same sum order (bitwise the same on the card).
+// The bf16 gate loop of the LSTM kernels on Hopper's tensor cores, shared
+// by kernel 1 (lstm_last_fwd.cu: the forward, last-state and every-state),
+// by the bf16 backward's gate and product launches (lstm_last_bwd.cu,
+// kernels 2 and 6) and by the recurrence over a precomputed input
+// projection (lstm_scan.cu, kernels 7 and 8): one ring, producer, seed and
+// product loop, so a backward's gate launch recomputes its forward's
+// pre-activations in the same sum order (bitwise the same on the card), and
+// one product launch (product_tiles) for the backwards' dh/demb.
 //
 // The shape is kernel 1's: a persistent block of 384 threads; warpgroup 2
 // gives its registers away (setmaxnreg 40; the consumers take 232) and one
@@ -17,24 +19,30 @@
 // the tensor cores busy) and multiply a whole 128-row tile with wgmma
 // m64n128k16 (two 64-row halves, one group of products kept in flight,
 // tile_products); for the backward's product tiles they share each tile, 64
-// rows each, and fold every K stage into an f32 sum (tile_products_folded).
+// rows each, and fold every K stage into an f32 sum (tile_products_folded,
+// product_tiles).
 // The block walks the tiles blockIdx.x, + gridDim.x, ...; tile q of that
 // walk takes ring positions q nk .. q nk + nk - 1.
 //
-// The gate tile (kernel 1, the backward's gate launch): 128 rows x 32
-// hidden units x the four gates, weight rows {g H + u0 + j}, so the 128
+// The gate tile (kernels 1 and 7, the backward's gate launches): 128 rows x
+// 32 hidden units x the four gates, weight rows {g H + u0 + j}, so the 128
 // product columns are four gate slabs of 32 units and the thread that holds
 // column j of slab 0 holds column j of slabs 1-3 too.  The accumulators
-// start from the bias, then take the x stages (K = D) and the h stages
-// (K = H, none at t = 0, h_0 = 0), 64 of K each.  The tensor maps are 3-D:
-// x over [L, B, D] at (t, row0), h over its [slots, B, H] buffer at (slot of
-// t - 1, row0), so rows past B read as zero and never as the next step's
-// rows; each weight as [4][H][K], one box holding the four gate slabs, so
-// units past H read as zero instead of the next gate's rows; K tails read as
-// zero too (lstm_sm90.cuh::bf16_map).
+// start from the bias (seed_bias; kernels 7 and 8 start from zero and add
+// the rows' precomputed input projection after the products, add_rows),
+// then take the x stages (K = D) and the h stages (K = H, none at t = 0,
+// h_0 = 0), 64 of K each.  The tensor maps are 3-D: x over [L, B, D] at
+// (t, row0), h over its [slots, B, H] buffer at (slot of t - 1, row0), so
+// rows past B read as zero and never as the next step's rows; each weight
+// as [4][H][K], one box holding the four gate slabs, so units past H read
+// as zero instead of the next gate's rows; K tails read as zero too
+// (lstm_sm90.cuh::bf16_map).  With D = 0 there are no x stages, and no x
+// or W_ih map: TMA refuses a zero extent, so the callers pass none and the
+// producer touches none.
 
 #pragma once
 
+#include "lstm_gates.cuh"
 #include "lstm_sm90.cuh"
 
 namespace oket_bf16 {
@@ -53,6 +61,23 @@ constexpr int STAGE_BYTES = A_BYTES + W_BYTES;
 // the ring, its barriers, and slack to align the ring to 1024 bytes
 constexpr int SMEM = STAGES * STAGE_BYTES + (2 * STAGES + 2) * 8 + 1024;
 constexpr int THREADS = 384;  // warpgroups 0 and 1 consume, warpgroup 2 produces
+
+// The sigmoid from the hardware exponential and reciprocal (ex2.approx,
+// rcp.approx: a few f32 ulps of error, far below the bf16 rounding of h and
+// cs; the IEEE division of 1 / (1 + e) made kernel 1 slower).  tanh stays
+// the library's: 2 sigmoid(2x) - 1 loses the relative accuracy of small
+// values and raised the share of kernel 1's bf16 outputs unequal to the
+// plain version's by half.
+__device__ __forceinline__ float fast_sigmoid(float x) { return __fdividef(1.f, 1.f + __expf(-x)); }
+
+// Two bf16 values packed low-first, as f32.
+__device__ __forceinline__ float2 bf16x2_to_f32(uint32_t v) {
+    return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xFFFF0000u));
+}
+
+__device__ __forceinline__ uint32_t f32x2_to_bf16x2(float lo, float hi) {
+    return (uint32_t)oket_lstm::f32_to_bf16(lo) | ((uint32_t)oket_lstm::f32_to_bf16(hi) << 16);
+}
 
 // The ring of STAGES slots (A, W), a full and an empty mbarrier each (a slot
 // is empty again when the `readers` warps that read it are done: the four of
@@ -88,13 +113,16 @@ __device__ __forceinline__ Ring make_ring(uint8_t* smem_raw, int readers = 4) {
 // W_ih) and then the h stages (h_{t-1} at (h_slot, row0) of the h map, W_hh)
 // of each tile, the unit tile fastest (so the blocks in flight share their
 // A rows in L2).  The tile's coordinates are worked out once per tile (once
-// per stage, they slowed kernel 1 at the training shapes on an H100).
+// per stage, they slowed kernel 1 at the training shapes on an H100).  With
+// nkx = 0 (D = 0) map_x and map_wih are never read and may be null.
 __device__ __forceinline__ void produce_gate_tiles(const Ring& r, int tiles, int unit_tiles, int nkx, int nk,
                                                    const CUtensorMap* map_x, const CUtensorMap* map_h,
                                                    const CUtensorMap* map_wih, const CUtensorMap* map_whh, int t,
                                                    int h_slot) {
-    tma_prefetch_map(map_x);
-    tma_prefetch_map(map_wih);
+    if (nkx > 0) {
+        tma_prefetch_map(map_x);
+        tma_prefetch_map(map_wih);
+    }
     if (nk > nkx) {
         tma_prefetch_map(map_h);
         tma_prefetch_map(map_whh);
@@ -147,6 +175,36 @@ __device__ __forceinline__ void seed_bias(const float* bias, int H, int u0, int 
         }
         also(n8, u);
     }
+}
+
+// acc += the gate columns this thread holds in 8-unit block n8 of the gate
+// tile (r0's rows, unit u0) of a precomputed input projection xp [B, 4H]
+// (bf16, gate g of unit u at g H + u), in seed_bias's layout:
+// acc[m][4 (g NB + n8) + e] is gate g of row r0 + 64 m + 8 (e/2), unit
+// u0 + 8 n8 + 2 (lane%4) + e%2.  Rows past B and units past H add 0.  H
+// is even and xp 4-byte aligned, so a unit pair is one load.  Kernels 7 and
+// 8 add x_proj after the products, as the plain version and the TPU kernel
+// order the sum: seeded into the accumulators (as kernel 1 seeds its small
+// bias) it left the tensor cores' own accumulation more to round, and on an
+// H100 one row at H = 520 read 3.654 % of hs unequal to the plain version
+// (the bf16 rule allows 2 %).  Added one block at a time, in the epilogue:
+// all 64 values at once spilled registers.
+__device__ __forceinline__ void add_rows(const uint16_t* xp, int B, int H, int r0, int u0, int lane, int n8,
+                                         float (&acc)[2][TN / 2]) {
+    const int u = u0 + n8 * 8 + (lane & 3) * 2;  // and u + 1
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+            const int row = r0 + 64 * m + 8 * hr;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+                const uint32_t* src = reinterpret_cast<const uint32_t*>(xp + (size_t)row * 4 * H + g * H + u);
+                const float2 v = row < B && u < H ? bf16x2_to_f32(__ldg(src)) : make_float2(0.f, 0.f);
+                acc[m][(g * NB + n8) * 4 + 2 * hr] += v.x;
+                acc[m][(g * NB + n8) * 4 + 2 * hr + 1] += v.y;
+            }
+        }
 }
 
 // acc[m] += A[64 m .. 64 m + 63] . W over the nk stages of the block's tile
@@ -237,12 +295,15 @@ __device__ __forceinline__ void tile_products_folded(const Ring& r, int q, int n
 // (row0, u0) that this thread holds, for the rows < n_act, into gates
 // [B, 4H] (gate g of unit u at g H + u), as seeded and summed by
 // tile_products.  Kernel 1 and the backward's gate launch both call it, so
-// the card can show that their gates are bitwise the same.  It reads acc
+// the card can show that their gates are bitwise the same (kernels 7 and 8
+// store one 8-unit block at a time, store_gate_block).  It reads acc
 // after the products in the STORE_GATES builds only; the builds that train
 // share the seed and the products with them, so put no arithmetic on acc
 // between those and this call in one kernel and not in the other.
-__device__ __forceinline__ void store_gate_tile(float* gates, int H, int n_act, int r0, int u0, int lane,
-                                                const float (&acc)[2][TN / 2]) {
+__device__ __forceinline__ void store_gate_block(float* gates, int H, int n_act, int r0, int u0, int lane, int n8,
+                                                 const float (&acc)[2][TN / 2]) {
+    const int u = u0 + n8 * 8 + (lane & 3) * 2;
+    if (u >= H) return;
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -250,15 +311,112 @@ __device__ __forceinline__ void store_gate_tile(float* gates, int H, int n_act, 
             const int row = r0 + 64 * m + 8 * hr;
             if (row >= n_act) continue;
 #pragma unroll
-            for (int n8 = 0; n8 < NB; ++n8) {
-                const int u = u0 + n8 * 8 + (lane & 3) * 2;
-                if (u >= H) continue;
+            for (int g = 0; g < 4; ++g)
+                *reinterpret_cast<float2*>(gates + (size_t)row * 4 * H + g * H + u) =
+                    make_float2(acc[m][(g * NB + n8) * 4 + 2 * hr], acc[m][(g * NB + n8) * 4 + 2 * hr + 1]);
+        }
+}
+
+__device__ __forceinline__ void store_gate_tile(float* gates, int H, int n_act, int r0, int u0, int lane,
+                                                const float (&acc)[2][TN / 2]) {
 #pragma unroll
-                for (int g = 0; g < 4; ++g)
-                    *reinterpret_cast<float2*>(gates + (size_t)row * 4 * H + g * H + u) = make_float2(
-                        acc[m][(g * NB + n8) * 4 + 2 * hr], acc[m][(g * NB + n8) * 4 + 2 * hr + 1]);
+    for (int n8 = 0; n8 < NB; ++n8) store_gate_block(gates, H, n_act, r0, u0, lane, n8, acc);
+}
+
+// What the product launch writes; dg comes by its tensor map.
+struct ProductArgs {
+    float* dh;       // [B, H] out: dg . W_hh (t > 0)
+    uint16_t* demb;  // [B, D] out: bf16(dg . W_ih), step t; none when D == 0
+    int B, D, H, t;
+};
+
+// The backward's product launch of step t: [dh | demb[t]] = dg[t] . [W_hh |
+// W_ih] over K = 4H, on kernel 1's ring, 128 rows x 128 output columns a
+// tile, both consumer warpgroups on each tile (64 rows each), every 64-wide
+// K stage folded into an f32 sum (tile_products_folded, see there why).  A
+// is dg[t] (K-major); B is the gate-major weights as they are,
+// [4H, H] and [4H, D]: K rows of contiguous output columns, MN-major, read
+// by wgmma's transposed-B form from two TMA boxes of 64 k-rows x 64 columns
+// per stage (no transposed copy).  The column tiles of dh (ceil(H / 128),
+// from W_hh) and of demb (ceil(D / 128), from W_ih) are counted apart, so no
+// tile straddles the two weights; columns past H or D read as zero (a box
+// wholly past them is not loaded) and are not written.  Rows past the
+// active prefix [0, n_act_all) (the caller's; read from thread 0) are
+// computed and not written; at t == 0 only the demb tiles run (dh of step 0
+// is never read).  With D = 0 (kernel 8: dh alone) there are no demb tiles
+// and map_wih is never read and may be null.
+__device__ __forceinline__ void product_tiles(uint8_t* smem_raw, const CUtensorMap* map_dg,
+                                              const CUtensorMap* map_whh, const CUtensorMap* map_wih,
+                                              const ProductArgs& p, int n_act_all) {
+    const Ring r = make_ring(smem_raw, 8);
+    __syncthreads();
+    const int n_act = __shfl_sync(0xffffffff, n_act_all, 0);
+    const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+    const int h_tiles = (p.H + TN - 1) / TN;
+    const int n_first = p.t > 0 ? 0 : h_tiles;  // the first column tile that runs
+    const int col_tiles = h_tiles + (p.D + TN - 1) / TN - n_first;
+    const int tiles = (n_act + TM - 1) / TM * col_tiles;
+    if ((int)blockIdx.x >= tiles) return;
+    const int nk = (4 * p.H + TK - 1) / TK;
+
+    if (wg == 2) {
+        setmaxnreg_dec<40>();
+        if (threadIdx.x == 256) {
+            tma_prefetch_map(map_dg);
+            if (p.D > 0) tma_prefetch_map(map_wih);
+            if (p.t > 0) tma_prefetch_map(map_whh);
+            int it = 0;
+            for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+                const int row0 = tile / col_tiles * TM, j = tile % col_tiles + n_first;
+                const bool hpart = j < h_tiles;
+                const int n0 = (hpart ? j : j - h_tiles) * TN, width = hpart ? p.H : p.D;
+                const CUtensorMap* map = hpart ? map_whh : map_wih;
+                const bool second = n0 + TN / 2 < width;  // the second 64-column box holds a column
+                for (int kt = 0; kt < nk; ++kt, ++it) {
+                    const int s = it % STAGES;
+                    mbar_wait(&r.empty[s], ((it / STAGES) & 1) ^ 1);
+                    mbar_arrive_expect_tx(&r.full[s], A_BYTES + (second ? W_BYTES : W_BYTES / 2));
+                    uint8_t* a = r.slots + s * STAGE_BYTES;
+                    uint8_t* w = a + A_BYTES;
+                    tma_load_3d(a, map_dg, &r.full[s], kt * TK, row0, p.t);
+                    tma_load_3d(w, map, &r.full[s], n0, kt * TK, 0);
+                    if (second) tma_load_3d(w + W_BYTES / 2, map, &r.full[s], n0 + TN / 2, kt * TK, 0);
+                }
             }
         }
+    } else {
+        setmaxnreg_inc<232>();
+        const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+        // acc[4 n8 + e] holds row r0 + 8 (e/2), column n0 + 8 n8 + 2
+        // (lane%4) + e%2, for r0 = row0 + 64 wg + 16 warp + lane/4
+        float acc[TN / 2];
+        for (int q = 0;; ++q) {  // q: the tile's place in the block's sequence
+            const int tile = blockIdx.x + q * gridDim.x;
+            if (tile >= tiles) break;
+            const int row0 = tile / col_tiles * TM, j = tile % col_tiles + n_first;
+            const bool hpart = j < h_tiles;
+            const int n0 = (hpart ? j : j - h_tiles) * TN, width = hpart ? p.H : p.D;
+            const int r0 = row0 + 64 * wg + warp * 16 + (lane >> 2);
+#pragma unroll
+            for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+            tile_products_folded(r, q, nk, wg, lane, acc);
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+                const int row = r0 + 8 * hr;
+                if (row >= n_act) continue;
+#pragma unroll
+                for (int n8 = 0; n8 < TN / 8; ++n8) {
+                    const int n = n0 + n8 * 8 + (lane & 3) * 2;  // and n + 1: H and D are even
+                    if (n >= width) continue;
+                    const float v0 = acc[n8 * 4 + 2 * hr], v1 = acc[n8 * 4 + 2 * hr + 1];
+                    if (hpart)
+                        *reinterpret_cast<float2*>(p.dh + (size_t)row * p.H + n) = make_float2(v0, v1);
+                    else
+                        *reinterpret_cast<uint32_t*>(p.demb + (size_t)row * p.D + n) = f32x2_to_bf16x2(v0, v1);
+                }
+            }
+        }
+    }
 }
 
 }  // namespace oket_bf16

@@ -6,14 +6,12 @@
 //     the recurrence forward and the recurrence backward's gate recompute:
 //       acc = h_{t-1} . W_hh^T   (f32 operands, f32 FFMA; 0 at t == 0,
 //                                 where h_0 = 0)
-//     with the tile and accumulator contract of lstm_gates.cuh::gate_product:
 //     a block of NT threads owns BM rows x the four gate columns {j, H+j,
 //     2H+j, 3H+j} of BN hidden units, rows with s_len[r] <= t are
 //     zero-filled, and the thread that holds a cell's accumulators holds all
 //     four of its gates;
 //   * lstm_bwd_product_kernel_f32, the product launch of one step of the
-//     recurrence backward (lstm_product.cuh's contract in f32, without the
-//     demb columns):
+//     recurrence backward, PBN output columns a block:
 //       dh_carry = dg . W_hh   over K = 4H.
 // Tiles are staged through shared memory with cp.async in 16-byte chunks,
 // double buffered, so H is a multiple of 4; each thread keeps a register
@@ -24,7 +22,7 @@
 
 #pragma once
 
-#include "lstm_product.cuh"
+#include "lstm_gates.cuh"
 
 namespace oket_lstm {
 
@@ -33,6 +31,7 @@ constexpr int FLD = FBK + 4;  // smem row stride (80 B: 16-byte aligned; the 8 r
                               // float4 land in 8 distinct 16-byte bank groups)
 constexpr int FRM = BM / 16;  // rows per thread: r = threadIdx.x / 16 + 16 i
 constexpr int FUN = BN / 16;  // units per thread: j = j0 + threadIdx.x % 16 + 16 u
+constexpr int PBN = 128;      // output columns per product block
 
 __device__ __forceinline__ int f32_row(int i) { return threadIdx.x / 16 + 16 * i; }
 __device__ __forceinline__ int f32_unit(int u) { return threadIdx.x % 16 + 16 * u; }

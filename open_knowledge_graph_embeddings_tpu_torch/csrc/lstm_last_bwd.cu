@@ -43,7 +43,8 @@
 //      (bf16 [B, 4H]), updates dc_carry in place (one owner per cell), and
 //      writes the tile's column sums of the f32 dgates to db_part[t][row
 //      tile] (a fixed-order shuffle and shared memory sum: no atomics);
-//   2. bf16::lstm_bwd_product_kernel_bf16, per step: [dh_carry | demb[t]] =
+//   2. bf16::lstm_bwd_product_kernel_bf16 (lstm_bf16.cuh::product_tiles,
+//      which kernel 8 runs too, with D = 0), per step: [dh_carry | demb[t]] =
 //      dg[t] . [W_hh | W_ih] over K = 4H, 128 x 128 output tiles, reading the
 //      gate-major weights as they are ([4H, H] and [4H, D]: K rows of
 //      contiguous output columns) through wgmma's transposed-B form; both
@@ -296,10 +297,6 @@ struct GateArgs16 {
 // kernel 1's, bitwise).
 enum GateVariant { KERNEL = 0, STORE_GATES = 1 };
 
-__device__ __forceinline__ float2 bf16x2_to_f32(uint32_t v) {
-    return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xFFFF0000u));
-}
-
 // Gate launch of step t: the forward's gate product recomputed by kernel
 // 1's loop (lstm_bf16.cuh: the same tiles, tensor maps, bias seed and
 // wgmma sequence, so the same f32 sums bit for bit), then in the thread
@@ -422,102 +419,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 }
 
-struct ProdArgs16 {
-    const int* lens;  // [B], sorted descending
-    float* dh;        // [B, H] out: dg . W_hh (t > 0)
-    uint16_t* demb;   // [B, D] out: bf16(dg . W_ih), step t
-    int B, D, H, t;
-};
-
-// Product launch of step t: [dh | demb[t]] = dg[t] . [W_hh | W_ih] over
-// K = 4H, on kernel 1's ring, 128 rows x 128 output columns a tile, both
-// consumer warpgroups on each tile (64 rows each), every 64-wide K stage
-// folded into an f32 sum (lstm_bf16.cuh::tile_products_folded, see there
-// why).  A is dg[t] (K-major); B is the gate-major weights as they are,
-// [4H, H] and [4H, D]: K rows of contiguous output columns, MN-major, read
-// by wgmma's transposed-B form from two TMA boxes of 64 k-rows x 64 columns
-// per stage (no transposed copy).  The column tiles of dh (ceil(H / 128),
-// from W_hh) and of demb (ceil(D / 128), from W_ih) are counted apart, so no
-// tile straddles the two weights; columns past H or D read as zero (a box
-// wholly past them is not loaded) and are not written.  Rows past the
-// active prefix are computed and not written; at t == 0 only the demb tiles
-// run (dh of step 0 is never read).
+// Product launch of step t (lstm_bf16.cuh::product_tiles) over the rows
+// active at t.
 __global__ void __launch_bounds__(THREADS, 1)
     lstm_bwd_product_kernel_bf16(const __grid_constant__ CUtensorMap map_dg,
                                  const __grid_constant__ CUtensorMap map_whh,
-                                 const __grid_constant__ CUtensorMap map_wih, const ProdArgs16 p) {
+                                 const __grid_constant__ CUtensorMap map_wih, const ProductArgs p,
+                                 const int* lens) {
     extern __shared__ uint8_t smem_raw[];
-    const int n_act_all = active_prefix<THREADS>(p.lens, p.B, p.t);
-    const Ring r = make_ring(smem_raw, 8);
-    __syncthreads();
-    const int n_act = __shfl_sync(0xffffffff, n_act_all, 0);
-    const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
-    const int h_tiles = (p.H + TN - 1) / TN;
-    const int n_first = p.t > 0 ? 0 : h_tiles;  // the first column tile that runs
-    const int col_tiles = h_tiles + (p.D + TN - 1) / TN - n_first;
-    const int tiles = (n_act + TM - 1) / TM * col_tiles;
-    if ((int)blockIdx.x >= tiles) return;
-    const int nk = (4 * p.H + TK - 1) / TK;
-
-    if (wg == 2) {
-        setmaxnreg_dec<40>();
-        if (threadIdx.x == 256) {
-            tma_prefetch_map(&map_dg);
-            tma_prefetch_map(&map_wih);
-            if (p.t > 0) tma_prefetch_map(&map_whh);
-            int it = 0;
-            for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-                const int row0 = tile / col_tiles * TM, j = tile % col_tiles + n_first;
-                const bool hpart = j < h_tiles;
-                const int n0 = (hpart ? j : j - h_tiles) * TN, width = hpart ? p.H : p.D;
-                const CUtensorMap* map = hpart ? &map_whh : &map_wih;
-                const bool second = n0 + TN / 2 < width;  // the second 64-column box holds a column
-                for (int kt = 0; kt < nk; ++kt, ++it) {
-                    const int s = it % STAGES;
-                    mbar_wait(&r.empty[s], ((it / STAGES) & 1) ^ 1);
-                    mbar_arrive_expect_tx(&r.full[s], A_BYTES + (second ? W_BYTES : W_BYTES / 2));
-                    uint8_t* a = r.slots + s * STAGE_BYTES;
-                    uint8_t* w = a + A_BYTES;
-                    tma_load_3d(a, &map_dg, &r.full[s], kt * TK, row0, p.t);
-                    tma_load_3d(w, map, &r.full[s], n0, kt * TK, 0);
-                    if (second) tma_load_3d(w + W_BYTES / 2, map, &r.full[s], n0 + TN / 2, kt * TK, 0);
-                }
-            }
-        }
-    } else {
-        setmaxnreg_inc<232>();
-        const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-        // acc[4 n8 + e] holds row r0 + 8 (e/2), column n0 + 8 n8 + 2
-        // (lane%4) + e%2, for r0 = row0 + 64 wg + 16 warp + lane/4
-        float acc[TN / 2];
-        for (int q = 0;; ++q) {  // q: the tile's place in the block's sequence
-            const int tile = blockIdx.x + q * gridDim.x;
-            if (tile >= tiles) break;
-            const int row0 = tile / col_tiles * TM, j = tile % col_tiles + n_first;
-            const bool hpart = j < h_tiles;
-            const int n0 = (hpart ? j : j - h_tiles) * TN, width = hpart ? p.H : p.D;
-            const int r0 = row0 + 64 * wg + warp * 16 + (lane >> 2);
-#pragma unroll
-            for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
-            tile_products_folded(r, q, nk, wg, lane, acc);
-#pragma unroll
-            for (int hr = 0; hr < 2; ++hr) {
-                const int row = r0 + 8 * hr;
-                if (row >= n_act) continue;
-#pragma unroll
-                for (int n8 = 0; n8 < TN / 8; ++n8) {
-                    const int n = n0 + n8 * 8 + (lane & 3) * 2;  // and n + 1: H and D are even
-                    if (n >= width) continue;
-                    const float v0 = acc[n8 * 4 + 2 * hr], v1 = acc[n8 * 4 + 2 * hr + 1];
-                    if (hpart)
-                        *reinterpret_cast<float2*>(p.dh + (size_t)row * p.H + n) = make_float2(v0, v1);
-                    else
-                        *reinterpret_cast<uint32_t*>(p.demb + (size_t)row * p.D + n) =
-                            (uint32_t)f32_to_bf16(v0) | ((uint32_t)f32_to_bf16(v1) << 16);
-                }
-            }
-        }
-    }
+    product_tiles(smem_raw, &map_dg, &map_whh, &map_wih, p, active_prefix<THREADS>(lens, p.B, p.t));
 }
 
 template <int V>
@@ -1019,8 +929,7 @@ extern "C" int oket_lstm_bwd_product_bf16(const void* dg, const void* w_hh, cons
                                           void* dh, void* demb, int L, int B, int D, int H, int t, int grid,
                                           void* stream) {
     using namespace bf16;
-    ProdArgs16 p;
-    p.lens = static_cast<const int*>(lens);
+    ProductArgs p;
     p.dh = static_cast<float*>(dh);
     p.demb = static_cast<uint16_t*>(demb);
     p.B = B;
@@ -1040,8 +949,8 @@ extern "C" int oket_lstm_bwd_product_bf16(const void* dg, const void* w_hh, cons
     for (const CUtensorMap* m : maps)
         if (!m) return -1;
     if (const int e = allow_smem<lstm_bwd_product_kernel_bf16, SMEM>()) return e;
-    lstm_bwd_product_kernel_bf16<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(*maps[0], *maps[1],
-                                                                                            *maps[2], p);
+    lstm_bwd_product_kernel_bf16<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+        *maps[0], *maps[1], *maps[2], p, static_cast<const int*>(lens));
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -45,7 +45,8 @@
 //   * the ring, its producer, the bias seed and the product loop are in
 //     lstm_bf16.cuh, shared with the bf16 backward's gate launch
 //     (lstm_last_bwd.cu), which so recomputes these pre-activations bit for
-//     bit (the STORE_GATES variant stores them, chip_smoke.py compares);
+//     bit (the STORE_GATES variant stores them, chip_smoke.py compares),
+//     and with the recurrence kernels 7 and 8 (lstm_scan.cu, D = 0);
 //   * the tensor maps are 3-D: x over [L, B, D] read at (t, row0), h over
 //     its [slots, B, H] buffer (hs in training, two slots in turns when
 //     serving) at (slot of t - 1, row0), so rows past B read as zero and
@@ -94,14 +95,6 @@ namespace {
 
 using namespace oket_bf16;
 using oket_lstm::f32_to_bf16;
-
-// The sigmoid from the hardware exponential and reciprocal (ex2.approx,
-// rcp.approx: a few f32 ulps of error, far below the bf16 rounding of h and
-// cs; the IEEE division of 1 / (1 + e) made the kernel slower).  tanh stays
-// the library's: 2 sigmoid(2x) - 1 loses the relative accuracy of small
-// values and raised the share of bf16 outputs unequal to the plain
-// version's by half.
-__device__ __forceinline__ float fast_sigmoid(float x) { return __fdividef(1.f, 1.f + __expf(-x)); }
 
 // What a launch runs: the kernel, or for measuring it, the kernel without
 // its epilogue (no loads of c or stores) or without its products, or the

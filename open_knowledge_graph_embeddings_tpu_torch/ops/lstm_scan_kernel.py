@@ -19,13 +19,18 @@ of each half:
   go here, and ``chip_smoke.py`` holds the kernels against them on the card;
 * the hand-written CUDA kernels of ``csrc/lstm_scan.cu``: one launch per
   forward step; per backward step a gate launch and, from step 1 on, a
-  product launch, in bf16 or f32 (the ``*_f32`` entries: true f32 products on
-  the CUDA cores).  Design notes and bound at the top of the source.  They
-  take H in multiples of :func:`~.lstm_kernel.kernel_multiple`; any other H
-  is zero-padded per gate block on the way in and sliced on the way out
-  (:func:`padded_forward`, :func:`padded_backward`), which is exact: a padded
-  unit has zero pre-activations, so c = h = 0 at every step, and its zero
-  W_hh column adds nothing to the others.
+  product launch.  In bf16 they run kernel 1's ``wgmma`` loop with D = 0
+  (``csrc/lstm_bf16.cuh``; the persistent grids of
+  :func:`~.lstm_kernel.forward_grid` and
+  :func:`~.lstm_kernel.backward_product_grid_bf16`), so the backward's
+  recomputed gates are the forward's bit for bit; in f32 (the ``*_f32``
+  entries) true f32 products on the CUDA cores.  Design notes and bound at
+  the top of the source.  They take H in multiples of
+  :func:`~.lstm_kernel.kernel_multiple`; any other H is zero-padded per gate
+  block on the way in and sliced on the way out (:func:`padded_forward`,
+  :func:`padded_backward`), which is exact: a padded unit has zero
+  pre-activations, so c = h = 0 at every step, and its zero W_hh column
+  adds nothing to the others.
 
 :func:`lstm_scan_forward` and :func:`lstm_scan_backward` are the wrappers: a
 CPU tensor takes the plain version, a CUDA tensor takes the kernel or raises.
@@ -146,9 +151,14 @@ def _fns(dtype):
 
     lib, sfx = cuda_build.load(_SOURCE), lstm_kernel._SUFFIX[dtype]
     fwd, gate, prod = (getattr(lib, f"oket_lstm_scan_{part}_{sfx}") for part in ("step", "bwd_gate", "bwd_product"))
-    fwd.argtypes = [_P] * 6 + [_LL, _I, _I, _P]
-    gate.argtypes = [_P] * 9 + [_LL, _I, _I, _P]
-    prod.argtypes = [_P] * 3 + [_LL, _I, _I, _P]
+    if dtype == torch.bfloat16:  # kernel 1's loop: whole arrays, t, a persistent grid and a variant
+        fwd.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+        gate.argtypes = [_P] * 9 + [_I] * 6 + [_P]
+        prod.argtypes = [_P] * 3 + [_I] * 5 + [_P]
+    else:  # the FFMA kernels: one step's slices
+        fwd.argtypes = [_P] * 6 + [_LL, _I, _I, _P]
+        gate.argtypes = [_P] * 9 + [_LL, _I, _I, _P]
+        prod.argtypes = [_P] * 3 + [_LL, _I, _I, _P]
     for fn in (fwd, gate, prod):
         fn.restype = _I
     return fwd, gate, prod
@@ -197,31 +207,72 @@ def _padded_h(H, dtype):
     return -(-H // m) * m
 
 
-def _launch_forward(x_proj, w_hh):
-    L, B, H = _check(x_proj, w_hh)
+# the bf16 gate launches' measuring variant (kernel 7 and kernel 8's part 1)
+# that also stores each step's f32 pre-activation gates, to hold kernel 8's
+# recompute to kernel 7's bitwise (chip_smoke.py)
+_STORE_GATES = 1
+
+
+def _check_gates_out(gates, L, B, H, x_proj):
+    if gates is None:
+        return
+    if x_proj.dtype != torch.bfloat16:
+        raise ValueError("only the bf16 kernels store their pre-activation gates")
     if _padded_h(H, x_proj.dtype) != H:
-        return padded_forward(_launch_forward, x_proj, w_hh, _padded_h(H, x_proj.dtype))
+        raise ValueError(f"the gates are stored at an H the kernels take unpadded, got H={H}")
+    if gates.shape != (L, B, 4 * H) or gates.dtype != torch.float32 or gates.device != x_proj.device:
+        raise ValueError(f"gates must be a float32 [L, B, 4H] = {(L, B, 4 * H)} tensor on {x_proj.device}")
+    if not gates.is_contiguous() or gates.data_ptr() % 16:
+        raise ValueError("gates must be contiguous and 16-byte aligned")
+
+
+def _launch_forward(x_proj, w_hh, counter=None, gates=None):
+    """Kernel 7's L launches, counted in ``counter`` (``lstm_scan_forward``
+    by default).  With ``gates`` (an [L, B, 4H] f32 tensor, bf16 only) each
+    step also stores its f32 pre-activation gates there."""
+    counter = counter or lstm_scan_forward
+    L, B, H = _check(x_proj, w_hh)
+    _check_gates_out(gates, L, B, H, x_proj)
+    if _padded_h(H, x_proj.dtype) != H:
+        return padded_forward(lambda x, w: _launch_forward(x, w, counter), x_proj, w_hh, _padded_h(H, x_proj.dtype))
     lstm_kernel._check_kernel_inputs(x_proj.dtype, 0, H, x_proj=x_proj, w_hh=w_hh)  # no input part: D = 0
     fwd, _, _ = _fns(x_proj.dtype)
     dev = x_proj.device
     hs = torch.empty(L, B, H, dtype=x_proj.dtype, device=dev)
     cs = torch.empty_like(hs)
     c = torch.empty(B, H, dtype=torch.float32, device=dev)
-    if B and H:
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    if not (B and H):
+        return hs, cs
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if x_proj.dtype == torch.bfloat16:
+        grid = lstm_kernel.forward_grid(B, H, lstm_kernel._sm_count(dev.index))
+        code = 0 if gates is None else _STORE_GATES
+        ptrs = [x.data_ptr() for x in (x_proj, hs, w_hh, c, cs)]
         for t in range(L):
-            err = fwd(x_proj[t].data_ptr(), hs[max(t - 1, 0)].data_ptr(), w_hh.data_ptr(), c.data_ptr(),
-                      hs[t].data_ptr(), cs[t].data_ptr(), B, H, t, stream)
+            err = fwd(*ptrs, None if gates is None else gates[t].data_ptr(), L, B, H, t, grid, code, stream)
             _raise_on(err, f"lstm_scan forward step {t}")
-            lstm_scan_forward.launches += 1
+            counter.launches += 1
+        return hs, cs
+    for t in range(L):
+        err = fwd(x_proj[t].data_ptr(), hs[max(t - 1, 0)].data_ptr(), w_hh.data_ptr(), c.data_ptr(),
+                  hs[t].data_ptr(), cs[t].data_ptr(), B, H, t, stream)
+        _raise_on(err, f"lstm_scan forward step {t}")
+        counter.launches += 1
     return hs, cs
 
 
-def _launch_backward(x_proj, w_hh, hs, cs, dhs):
+def _launch_backward(x_proj, w_hh, hs, cs, dhs, counter=None, gates=None):
+    """Kernel 8's 2L - 1 launches, counted in ``counter``
+    (``lstm_scan_backward`` by default).  With ``gates`` (an [L, B, 4H] f32
+    tensor, bf16 only) each gate launch also stores its recomputed f32
+    pre-activation gates there."""
+    counter = counter or lstm_scan_backward
     L, B, H = _check(x_proj, w_hh)
     _check_residuals(L, B, H, x_proj, hs=hs, cs=cs, dhs=dhs)
+    _check_gates_out(gates, L, B, H, x_proj)
     if _padded_h(H, x_proj.dtype) != H:
-        return padded_backward(_launch_backward, x_proj, w_hh, hs, cs, dhs, _padded_h(H, x_proj.dtype))
+        return padded_backward(lambda *a: _launch_backward(*a, counter), x_proj, w_hh, hs, cs, dhs,
+                               _padded_h(H, x_proj.dtype))
     lstm_kernel._check_kernel_inputs(x_proj.dtype, 0, H, x_proj=x_proj, w_hh=w_hh, hs=hs, cs=cs, dhs=dhs)
     _, gate, prod = _fns(x_proj.dtype)
     dev = x_proj.device
@@ -231,17 +282,32 @@ def _launch_backward(x_proj, w_hh, hs, cs, dhs):
     if not (B and H):
         return dxp.zero_()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if x_proj.dtype == torch.bfloat16:
+        n_sm = lstm_kernel._sm_count(dev.index)
+        grid_gate = lstm_kernel.forward_grid(B, H, n_sm)
+        grid_prod = lstm_kernel.backward_product_grid_bf16(B, H, 0, n_sm)
+        code = 0 if gates is None else _STORE_GATES
+        ptrs = [x.data_ptr() for x in (x_proj, hs, w_hh, cs, dhs, dh, dc, dxp)]
+        for t in reversed(range(L)):
+            err = gate(*ptrs, None if gates is None else gates[t].data_ptr(), L, B, H, t, grid_gate, code, stream)
+            _raise_on(err, f"lstm_scan backward gate step {t}")
+            counter.launches += 1
+            if t > 0:  # the dh carry into step 0 is never read
+                err = prod(dxp.data_ptr(), w_hh.data_ptr(), dh.data_ptr(), L, B, H, t, grid_prod, stream)
+                _raise_on(err, f"lstm_scan backward product step {t}")
+                counter.launches += 1
+        return dxp
     for t in reversed(range(L)):
         prev = max(t - 1, 0)
         err = gate(x_proj[t].data_ptr(), hs[prev].data_ptr(), w_hh.data_ptr(), cs[t].data_ptr(),
                    cs[prev].data_ptr(), dhs[t].data_ptr(), dh.data_ptr(), dc.data_ptr(), dxp[t].data_ptr(),
                    B, H, t, stream)
         _raise_on(err, f"lstm_scan backward gate step {t}")
-        lstm_scan_backward.launches += 1
+        counter.launches += 1
         if t > 0:  # the dh carry into step 0 is never read
             err = prod(dxp[t].data_ptr(), w_hh.data_ptr(), dh.data_ptr(), B, H, t, stream)
             _raise_on(err, f"lstm_scan backward product step {t}")
-            lstm_scan_backward.launches += 1
+            counter.launches += 1
     return dxp
 
 

@@ -372,3 +372,58 @@ def test_gates_bitwise_check_fails_a_one_ulp_difference(smoke, lstm_case, capsys
     unread = gates.clone()
     unread[step + 1, -1, 7] += 1.0  # past the shortest row's length: never written
     smoke.check_gates_bitwise(torch, "unread", fwd_args, stored=(gates, unread))
+
+
+def test_scan_gates_bitwise_check_fails_a_one_ulp_difference(smoke, capsys):
+    """The kernel 7/8 gates phase holds kernel 7's and kernel 8's stores of
+    the f32 pre-activation gates to bitwise equality at every (row, step):
+    a one-ulp difference anywhere fails it, and so does a store of zeros
+    (the launches stored nothing)."""
+    gates = torch.from_numpy(np.random.default_rng(4).standard_normal((10, 37, 256)).astype(np.float32))
+    smoke.check_scan_gates_bitwise(torch, "equal", None, None, stored=(gates, gates.clone()))
+    assert "kernel 7 vs kernel 8's gate launch, equal: 0 of 94720 " in capsys.readouterr().out
+    for t, row in ((0, 0), (9, 36)):
+        planted = gates.clone()
+        planted[t, row, 255] = torch.nextafter(planted[t, row, 255], torch.tensor(np.inf))
+        with pytest.raises(smoke.SmokeFailure, match="1 unequal"):
+            smoke.check_scan_gates_bitwise(torch, "planted", None, None, stored=(gates, planted))
+    zeros = torch.zeros_like(gates)
+    with pytest.raises(smoke.SmokeFailure, match="all zero"):
+        smoke.check_scan_gates_bitwise(torch, "zeros", None, None, stored=(zeros, zeros.clone()))
+
+
+class _FakeScanProfile(_FakeProfile):
+    """The same for kernel 8 in bf16: its gate and product launches."""
+
+    def key_averages(self):
+        from types import SimpleNamespace
+
+        names = {"void (anonymous namespace)::bf16::lstm_scan_bwd_gate_kernel_bf16<0>(...)": 1500.0,
+                 "(anonymous namespace)::bf16::lstm_scan_bwd_product_kernel_bf16(...)": 1000.0,
+                 "void at::native::vectorized_elementwise_kernel<...>": 50.0}
+        return [SimpleNamespace(key=k, self_device_time_total=v) for k, v in names.items()]
+
+
+def test_scan_backward_launch_split_prints_each_part_beside_its_bound(smoke, scan_case, monkeypatch, capsys):
+    """Kernel 8's launches by kind (gate, product: names read from the
+    profiler's trace, other kernels left out), device ms per call, each
+    beside the bound of its part; on the unfused entity pass (L=10, B=5632,
+    H=512, bf16) the gate launches are bound by their bytes (x_proj, hs, cs
+    and dhs in, dx_proj out: 0.1900 ms) and the product launches by their
+    operations (0.0993 ms, as the gate launches' products), at an H100
+    SXM's peaks (132 SMs at 1980 MHz)."""
+    import torch.profiler
+
+    _, bwd = scan_case
+    monkeypatch.setattr(torch.profiler, "profile", _FakeScanProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    by_kind = smoke.print_scan_backward_launch_ms(torch, "lstm_scan_bwd", bwd[1], lambda: None)
+    assert by_kind == pytest.approx({"gate": 0.3, "product": 0.2})
+    out = capsys.readouterr().out
+    assert out.startswith("lstm_scan_bwd launches, device ms per call (torch.profiler): gate 0.3000 (bound of its "
+                          "part ") and "product 0.2000 (bound of its part " in out and "; sum 0.5000" in out
+    assert set(smoke.SCAN_BACKWARD_KINDS) == {"gate", "product"}
+    parts = smoke.scan_backward_parts(10, 5632, 512, 2)
+    gate, product = (smoke.bound_ms(*parts[k]) for k in ("gate", "product"))
+    np.testing.assert_allclose([gate[0], product[0]], [0.1900, 0.0993], atol=6e-5)
+    assert (gate[1], product[1]) == ("bytes", "operations")

@@ -409,6 +409,60 @@ def test_scan_kernels_match_plain_on_card(cuda, B, H):
     assert_bf16_close(dxp, want_dxp, MAX_UNEQUAL_SHARE_BWD)
 
 
+@pytest.mark.parametrize("H", [104, 512, 520], ids=["H104", "H512", "H520"])
+@pytest.mark.parametrize("B", [1, 37, 129, 4099], ids=["B1", "B37", "B129", "B4099"])
+def test_bf16_scan_kernels_match_plain_across_tile_edges_on_card(cuda, B, H):
+    """Kernels 7 and 8 in bf16 (kernel 1's wgmma loop with D = 0) at the
+    edges of their tiles, L = 10: one row (one row tile: 16 unit tiles at
+    H = 512), a partial row tile (37), one row past a tile (129), many row
+    tiles (4099); H = 104 (a partial 32-unit tile, a 40-wide K tail), 512,
+    520 (an 8-unit tile, an 8-wide K tail; and a 128-column product tile of
+    8 columns).  Against the plain versions by the bf16 rule, with exact
+    launch counts: L forward, 2L - 1 backward."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    x_proj, w_hh, dhs = (x.to(cuda) for x in _scan_inputs(B, H, seed=B + H))
+    L = x_proj.shape[0]
+    before = (sk.lstm_scan_forward.launches, sk.lstm_scan_backward.launches)
+    hs, cs = sk.lstm_scan_forward(x_proj, w_hh)
+    dxp = sk.lstm_scan_backward(x_proj, w_hh, hs, cs, dhs)
+    want_hs, want_cs = sk.lstm_scan_forward_plain(x_proj, w_hh)
+    want_dxp = sk.lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs)
+    torch.cuda.synchronize()
+    assert (sk.lstm_scan_forward.launches, sk.lstm_scan_backward.launches) == (before[0] + L, before[1] + 2 * L - 1)
+    assert_bf16_close(hs, want_hs)
+    assert_bf16_close(cs, want_cs)
+    assert_bf16_close(dxp, want_dxp, MAX_UNEQUAL_SHARE_BWD)
+
+
+@pytest.mark.parametrize("B,H", [(37, 512), (129, 104), (4099, 520), (1, 512)],
+                         ids=["B37-H512", "B129-H104", "B4099-H520", "B1-H512"])
+def test_bf16_scan_gates_are_kernel_7s_bitwise_on_card(cuda, B, H):
+    """Kernel 8's gate launch recomputes kernel 7's f32 pre-activation gates
+    bit for bit at every (row, step): both run one function
+    (csrc/lstm_scan.cu::scan_gate_tiles: the x_proj seed and kernel 1's
+    wgmma loop) on the same tiles and tensor maps; the measuring stores of
+    the two are equal as integers."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    x_proj, w_hh, dhs = (x.to(cuda) for x in _scan_inputs(B, H, seed=H))
+    L = x_proj.shape[0]
+
+    class Uncounted:
+        launches = 0
+
+    stored = [torch.zeros(L, B, 4 * H, device=cuda) for _ in range(2)]
+    hs, cs = sk._launch_forward(x_proj, w_hh, Uncounted, gates=stored[0])
+    sk._launch_backward(x_proj, w_hh, hs, cs, dhs, Uncounted, gates=stored[1])
+    torch.cuda.synchronize()
+    fwd, bwd = stored
+    assert Uncounted.launches == 3 * L - 1
+    assert torch.isfinite(fwd).all() and fwd.abs().max().item() > 0
+    assert torch.equal(fwd.view(torch.int32), bwd.view(torch.int32))
+    # at step 0 the gates are x_proj[0] itself (h_0 = 0: no products)
+    assert torch.equal(fwd[0], x_proj[0].float())
+
+
 @pytest.mark.parametrize("B,D", [(333, 128), (1, 512), (37, 512), (4099, 64), (37, 40)],
                          ids=["ragged-333", "one-row", "ragged-37-d512", "ragged-4099", "d40-unit-tail"])
 def test_every_state_kernels_match_plain_on_card(cuda, B, D):

@@ -1,8 +1,9 @@
 """Kernel 1's host side on the CPU: the persistent grid the wrapper launches,
 and the shape of the CUDA source (it cannot be compiled here); the same for
 the bf16 backward (kernels 2 and 6: the gate launch on kernel 1's loop, the
-dh/demb product with wgmma's transposed B) and the f32 backward (3xTF32 on
-the tensor cores)."""
+dh/demb product with wgmma's transposed B), the bf16 recurrence (kernels 7
+and 8 on the same loop with D = 0) and the f32 backward (3xTF32 on the
+tensor cores)."""
 
 import pathlib
 import re
@@ -64,9 +65,8 @@ def _bf16_loop():
 
 def test_forward_source_is_a_hopper_kernel():
     """The step kernel takes its tiles by TMA into an mbarrier ring and
-    multiplies them with wgmma, through the shared loop of lstm_bf16.cuh; the
-    old mma.sync gate product is not on its path (it stays for kernels 7
-    and 8)."""
+    multiplies them with wgmma, through the shared loop of lstm_bf16.cuh; no
+    mma.sync gate product is on its path."""
     src = (CSRC / "lstm_last_fwd.cu").read_text()
     _bf16_loop()
     kernel = _body(src, "lstm_last_step_kernel")
@@ -81,8 +81,8 @@ def test_bf16_gate_launch_runs_kernel_1s_loop():
     own producer, bias seed and product loop (the K-major form), on the same
     tiles, so its pre-activations are the forward's bit for bit; both
     kernels have the measuring store of those gates.  No mma.sync gate
-    product is left in the backward; lstm_gates.cuh keeps it for
-    lstm_scan.cu (kernels 7 and 8)."""
+    product is left in the port (kernels 7 and 8 run the same loop since
+    they were redesigned)."""
     _bf16_loop()
     fwd = _body((CSRC / "lstm_last_fwd.cu").read_text(), "lstm_last_step_kernel")
     src = (CSRC / "lstm_last_bwd.cu").read_text()
@@ -94,8 +94,8 @@ def test_bf16_gate_launch_runs_kernel_1s_loop():
         assert re.search(r"tile_products<[^>]+>\(r, q, nk, wg, lane, acc\)", body)
     assert "bwd_cell(" in gate and "db_part" in gate
     assert not re.search(r"\b(gate_product|load_gate_tile|launch_bwd_product|ldmatrix_x4_trans)\(", src)
-    assert "gate_product(" in (CSRC / "lstm_gates.cuh").read_text()
-    assert "gate_product(" in (CSRC / "lstm_scan.cu").read_text()
+    for name in ("lstm_gates.cuh", "lstm_scan.cu"):
+        assert not re.search(r"\b(gate_product|load_gate_tile)\(", (CSRC / name).read_text()), name
     assert 'extern "C" int oket_lstm_bwd_gate_bf16(' in src
 
 
@@ -103,8 +103,9 @@ def test_bf16_product_launch_is_wgmma_with_transposed_b():
     """The bf16 dh/demb product launch runs the ring of lstm_bf16.cuh with
     wgmma m64n128k16 in its transposed-B form, the gate-major weights read
     as they are by TMA (two 64-column boxes a stage, no transposed copy),
-    each K stage folded into an f32 sum; the old ldmatrix.trans product
-    stays in lstm_product.cuh for kernel 8."""
+    each K stage folded into an f32 sum (lstm_bf16.cuh::product_tiles,
+    which kernel 8's product launch runs too); the old ldmatrix.trans
+    product is gone."""
     header = _bf16_loop()
     helpers = (CSRC / "lstm_sm90.cuh").read_text()
     mma = _body(helpers, "wgmma_m64n128k16")
@@ -113,12 +114,73 @@ def test_bf16_product_launch_is_wgmma_with_transposed_b():
     assert "wgmma_m64n128k16<1>(" in folded and "wgmma_desc_mn(w + kk * 2048, W_BYTES / 2)" in folded
     assert "sum[i] +=" in folded  # the fold: each stage added to the f32 sum
     src = (CSRC / "lstm_last_bwd.cu").read_text()
-    prod = _body(src, "lstm_bwd_product_kernel_bf16")
+    prod = _body(header, "product_tiles")
     assert "tile_products_folded(r, q, nk, wg, lane, acc)" in prod and "make_ring(smem_raw, 8)" in prod
     assert prod.count("tma_load_3d(") == 3 and "mbar_arrive_expect_tx(" in prod
+    assert "if (p.D > 0) tma_prefetch_map(map_wih);" in prod  # no W_ih map at D = 0 (kernel 8)
     assert not re.search(r"\b(mma_bf16|ldmatrix_x4_trans|cp_async16|transpose)\w*\(", prod)
+    assert "product_tiles(smem_raw, &map_dg, &map_whh, &map_wih, p, active_prefix<THREADS>(lens, p.B, p.t))" in _body(
+        src, "lstm_bwd_product_kernel_bf16")
     assert 'extern "C" int oket_lstm_bwd_product_bf16(' in src
-    assert "launch_bwd_product(" in (CSRC / "lstm_scan.cu").read_text()
+    assert not (CSRC / "lstm_product.cuh").exists()
+    assert not re.search(r"\b(launch_bwd_product|ldmatrix_x4_trans)\(", (CSRC / "lstm_scan.cu").read_text())
+
+
+def test_bf16_scan_kernels_run_kernel_1s_loop():
+    """Kernels 7 and 8 in bf16 run kernel 1's loop with D = 0: one function
+    (scan_gate_tiles) gives kernel 7 and kernel 8's gate launch their
+    products from zero, x_proj added after them in f32 and the measuring
+    store of the gates, so the two recompute the same gates bit for bit;
+    kernel 8's product launch is the fused backward's (product_tiles) with
+    no W_ih map.  No x or W_ih map is made or prefetched at D = 0 (TMA
+    refuses a zero extent)."""
+    header = _bf16_loop()
+    produce = _body(header, "produce_gate_tiles")
+    assert "if (nkx > 0) {\n        tma_prefetch_map(map_x);\n        tma_prefetch_map(map_wih);" in produce
+    add = _body(header, "add_rows")
+    assert "__ldg(src)" in add and "row < B && u < H" in add and "+= v.x" in add
+    src = (CSRC / "lstm_scan.cu").read_text()
+    bf16 = src[src.index("namespace bf16 {"):src.index("}  // namespace bf16")]
+    loop = _body(bf16, "scan_gate_tiles")
+    for call in ("acc[m][i] = 0.f", "tile_products<true>(r, q, nk, wg, lane, acc)",
+                 "add_rows(xp, B, H, r0, u0, lane, n8, acc)", "store_gate_block(gates, H, B, r0, u0, lane, n8, acc)",
+                 "setmaxnreg_inc<232>", "epilogue(acc, r0, u0, lane, finish_gates)",
+                 "produce_gate_tiles(r, tiles, unit_tiles, 0, nk, nullptr, map_h, nullptr, map_whh, t, t - 1)"):
+        assert call in loop, call
+    # x_proj enters after the products and before the measuring store
+    order = [loop.index(c) for c in ("tile_products<true>(", "add_rows(", "store_gate_block(", "epilogue(acc")]
+    assert order == sorted(order)
+    for kernel in ("lstm_scan_step_kernel_bf16", "lstm_scan_bwd_gate_kernel_bf16"):
+        body = _body(bf16, kernel)
+        assert "scan_gate_tiles<V>(&map_h, &map_whh, p.xp, p.gates, B, H, t," in body, kernel
+        # each 8-unit block's gates are finished before the epilogue reads them
+        assert body.index("finish_gates(n8);") < body.index("acc[m][n8 * 4 + e]"), kernel
+    assert "bwd_cell(" in _body(bf16, "lstm_scan_bwd_gate_kernel_bf16")
+    assert "product_tiles(smem_raw, &map_dg, &map_whh, nullptr, p, p.B)" in _body(
+        bf16, "lstm_scan_bwd_product_kernel_bf16")
+    assert not re.search(r"\b(mma_bf16|cp_async16|gate_product|db_part)\b", bf16)
+    for entry in ("step", "bwd_gate", "bwd_product"):
+        for dtype in ("bf16", "f32"):
+            assert f'extern "C" int oket_lstm_scan_{entry}_{dtype}(' in src
+
+
+def test_scan_gate_store_is_checked():
+    """The measuring store of kernels 7/8's gates takes an f32 [L, B, 4H]
+    tensor beside bf16 inputs at an H the kernels take unpadded, and nothing
+    else (it is checked before any launch)."""
+    import torch
+
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    x_proj = torch.zeros(10, 3, 4 * 64, dtype=torch.bfloat16)
+    sk._check_gates_out(None, 10, 3, 64, x_proj)
+    sk._check_gates_out(torch.zeros(10, 3, 256), 10, 3, 64, x_proj)
+    for gates, xp, H in ((torch.zeros(10, 3, 256), x_proj.float(), 64),
+                         (torch.zeros(10, 3, 255), x_proj, 64),
+                         (torch.zeros(10, 3, 256, dtype=torch.bfloat16), x_proj, 64),
+                         (torch.zeros(10, 3, 4 * 100), torch.zeros(10, 3, 400, dtype=torch.bfloat16), 100)):
+        with pytest.raises(ValueError):
+            sk._check_gates_out(gates, 10, 3, H, xp)
 
 
 @pytest.mark.parametrize(
