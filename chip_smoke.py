@@ -69,11 +69,14 @@ Phases (any failure exits non-zero before the final line):
    f32 mode (kernels 1, 2, 5-8) against its plain version on the recorded
    passes and ragged B by the f32 rule of ``utils/numerics.py`` with planted
    faults (the TF32 yardstick, a dropped bias or recurrent product, and for
-   the 3xTF32 kernels 1, 2, 5 and 6 their 1xTF32 variants), the backward's
+   the 3xTF32 kernels 1, 2, 5-8 their 1xTF32 variants), the backward's
    launches (split, gate, product, dW) timed each against its part of the
-   3xTF32 bound, the op of kernels 5 and 6, and serving of the f32
-   checkpoint, with exact launch counts (``forward_launches``: a fused f32
-   forward is L + 1 launches, the weight split and L steps); then the unfused
+   3xTF32 bound, and kernels 7 and 8's (split apart from the steps; split,
+   gate, product), kernel 8's recomputed gates held to kernel 7's bitwise as
+   in bf16, kernels 7 and 8 on the trained unfused checkpoint against f64,
+   the op of kernels 5 and 6, and serving of the f32 checkpoint, with exact
+   launch counts (``forward_launches``, ``scan_launches``: an f32 forward is
+   L + 1 launches, the weight split and L steps, kernel 8 at f32 2L); then the unfused
    path at H = 100 in bf16 and f32 (kernels 7 and 8 through the padded
    route);
 11. print the timings, one JSON line with every kernel's numbers (the
@@ -546,10 +549,11 @@ def phase_main_path(torch, timings, ckpt=None, unfused=False, config=FLAGSHIP, t
     want = serving_launches(counters, L, fused_encodes, single_encodes, dtype)
     check(all(launches[k] > 0 for k, v in want.items() if v), f"a serving kernel was never launched: {launches}")
     check(launches == want, f"serving launches {launches}, want {want}")
+    split = ", the weight split" if forward_launches(L, dtype) > L else ""
     print(f"main path{' (' + UNFUSED_SWITCH + '=1)' if unfused else ''}: lstm_last_fwd launches="
           f"{launches['lstm_last_fwd']} = {fused_encodes} fused encodes x {forward_launches(L, dtype)} (L={L} steps"
-          f"{', the weight split' if forward_launches(L, dtype) > L else ''}); lstm_scan_fwd launches="
-          f"{launches['lstm_scan_fwd']} = {single_encodes} unfused encodes x L={L} ({n_chunks} cache chunks, "
+          f"{split}); lstm_scan_fwd launches={launches['lstm_scan_fwd']} = {single_encodes} unfused encodes x "
+          f"{scan_launches(L, dtype)[0]} (L={L} steps{split}; {n_chunks} cache chunks, "
           f"1024-query batches {'un' if unfused else ''}fused, single queries unfused)")
 
     check_against_plain(torch, model, predictor, ent_ids, rel_ids)
@@ -702,8 +706,7 @@ def check_trained_backward(torch, args):
     yard = [agreement(p.double(), e) for p, e in zip(parts(lk.lstm_last_backward_plain(*args, *rest)), exact)]
 
     def holds(out):
-        agree = [agreement(g.double(), e) for g, e in zip(parts(out), exact)]
-        return all(a.ok() or a.rel_err <= 2 * y.rel_err for a, y in zip(agree, yard)), agree
+        return f64_agreement(torch, parts(out), exact, yard)
 
     def text(agree):
         return "; ".join(f"{n} {a.rel_err:.3e} ({a.rel_err / max(y.rel_err, 1e-30):.2f}x plain)"
@@ -773,6 +776,171 @@ def plain_last_backward_f64(torch, emb, w_ih, w_hh, bias, lengths, hs, cs, dlast
         dh = torch.where(active, dg @ f(w_hh), 0.0)
         dc = torch.where(active, dc * g_f, 0.0)
     return demb, dw_ih, dw_hh, db
+
+
+def plain_scan_f64(torch, x_proj, w_hh):
+    """``lstm_scan_forward_plain``'s recurrence in f64: (hs, cs)."""
+    f = lambda x: x.double()  # noqa: E731
+    w_hh_t = f(w_hh).t()
+    h = torch.zeros(x_proj.shape[1], w_hh.shape[1], dtype=torch.float64, device=x_proj.device)
+    c = torch.zeros_like(h)
+    hs, cs = [], []
+    for t in range(x_proj.shape[0]):
+        i, g_f, g, o = (f(x_proj[t]) + h @ w_hh_t).chunk(4, dim=-1)
+        c = torch.sigmoid(g_f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs), torch.stack(cs)
+
+
+def plain_scan_backward_f64(torch, x_proj, w_hh, hs, cs, dhs):
+    """``lstm_scan_backward_plain``'s loop in f64 on the same inputs (the f32
+    residuals and cotangent): dx_proj."""
+    f = lambda x: x.double()  # noqa: E731
+    L, B, H4 = x_proj.shape
+    w = f(w_hh)
+    zeros = torch.zeros(B, H4 // 4, dtype=torch.float64, device=x_proj.device)
+    dh, dc = zeros, zeros
+    dxp = torch.zeros(L, B, H4, dtype=torch.float64, device=x_proj.device)
+    for t in reversed(range(L)):
+        h_prev, c_prev = (f(hs[t - 1]), f(cs[t - 1])) if t > 0 else (zeros, zeros)
+        i, g_f, g, o = (f(x_proj[t]) + h_prev @ w.t()).chunk(4, dim=-1)
+        i, g_f, g, o = torch.sigmoid(i), torch.sigmoid(g_f), torch.tanh(g), torch.sigmoid(o)
+        dh = dh + f(dhs[t])
+        tc = torch.tanh(f(cs[t]))
+        dc = dc + dh * o * (1.0 - tc * tc)
+        dxp[t] = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * g_f * (1.0 - g_f), dc * i * (1.0 - g * g),
+                            dh * tc * o * (1.0 - o)], dim=-1)
+        dh = dxp[t] @ w
+        dc = dc * g_f
+    return dxp
+
+
+def f64_agreement(torch, got, exact, yard):
+    """Each output of ``got`` against its f64 value ``exact``, held by the
+    f32 rule or within twice the error of ``yard`` (the plain version's
+    agreements with ``exact``): (ok, agreements)."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import agreement
+
+    agree = [agreement(g.double(), e) for g, e in zip(got, exact)]
+    return all(a.ok() or a.rel_err <= 2 * y.rel_err for a, y in zip(agree, yard)), agree
+
+
+def record_scan_encode(torch, config, ckpt, n_ids=4096):
+    """What kernel 7 gets from an unfused entity encode of ``n_ids`` entities
+    of the checkpoint ``ckpt`` (the switch set, so the encode goes unfused at
+    any B), and the rows' lengths that the last-state select then reads:
+    copies of (x_proj, w_hh, lengths)."""
+    from open_knowledge_graph_embeddings_tpu_torch.models import embedders
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+    from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import load_checkpoint
+
+    _, meta, model, variables = load_user_path(torch, config)
+    variables, _ = load_checkpoint(ckpt, variables)
+    ids = torch.arange(meta.min_entities_size, meta.min_entities_size + n_ids, device="cuda")
+    got, lens = [], []
+    forward, select = sk._launch_forward, embedders.last_states
+
+    def record(x_proj, w_hh, *a, **kw):
+        got.append(_copies((x_proj, w_hh)))
+        return forward(x_proj, w_hh, *a, **kw)
+
+    def record_lengths(out_tm, lengths):
+        lens.append(lengths.clone())
+        return select(out_tm, lengths)
+
+    sk._launch_forward, embedders.last_states = record, record_lengths
+    try:
+        with unfused_switch(), torch.no_grad():
+            model.embedder.encode_entity(variables, ids)
+    finally:
+        sk._launch_forward, embedders.last_states = forward, select
+    check(len(got) == len(lens) == 1, f"the unfused entity encode ran kernel 7 {len(got)} times, want once")
+    return (*got[0], lens[0])
+
+
+def scan_steps(torch, x_proj, w_hh, hs, cs, dtype):
+    """Each step of the recurrence taken alone, in ``dtype``, from the state
+    (hs[t-1], cs[t-1]) of a recorded run (zero at t = 0): (h_t, c_t) for
+    every t, [L, B, H].  In f64 it is the exact step; in f32 it is the plain
+    version's arithmetic (one f32 product, the f32 gate math)."""
+    L, B, H4 = x_proj.shape
+    f = lambda x: x.to(dtype)  # noqa: E731
+    zero = torch.zeros(1, B, H4 // 4, dtype=dtype, device=x_proj.device)
+    h_prev, c_prev = torch.cat([zero, f(hs[:-1])]), torch.cat([zero, f(cs[:-1])])
+    gates = f(x_proj) + torch.matmul(h_prev.reshape(L * B, -1), f(w_hh).t()).reshape(L, B, H4)
+    i, g_f, g, o = gates.chunk(4, dim=-1)
+    c = torch.sigmoid(g_f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def check_trained_scan(torch, x_proj, w_hh, lengths):
+    """Kernels 7 and 8 f32 on a trained unfused checkpoint's entity encode
+    (``x_proj``, ``w_hh`` and the rows' ``lengths`` as
+    ``record_scan_encode`` recorded them) against f64, beside the plain
+    version (cuBLAS f32 on the card), each by the f32 rule against f64 or
+    within twice the plain version's error (``f64_agreement``):
+    - kernel 7's hs and cs at the positions each row reaches (the last-state
+      select reads no other), each step against the same step in f64 from
+      the kernel's own state (``scan_steps``), and the plain version's step
+      from that state beside it;
+    - kernel 8's dx_proj against the backward in f64 on kernel 7's residuals,
+      with a cotangent at each row's last position made from the seed (as
+      the select sends one).
+    The trained recurrence amplifies the f32 rounding of every step, of the
+    kernel and of cuBLAS alike, so the whole recurrence against f64 is
+    printed, not held: on an H100 80GB HBM3 at 700 W kernel 7 read 0.77-2.61
+    times cuBLAS's error there across runs (each a new training), where its
+    single steps read 0.37-0.48 times cuBLAS's.  The planted 1xTF32 variants
+    must fail it (on the CPU, emulated)."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import agreement
+
+    L, B, H4 = x_proj.shape
+    last = lengths.to(x_proj.device).long().clamp(1, L) - 1
+    reach = torch.arange(L, device=x_proj.device)[:, None] <= last[None, :]  # [L, B]
+    gen = torch.Generator().manual_seed(SEED)
+    dhs = torch.zeros(L, B, H4 // 4, device=x_proj.device)
+    dhs[last, torch.arange(B, device=x_proj.device)] = torch.randn(B, H4 // 4, generator=gen).to(x_proj.device)
+
+    def run(variant="kernel"):
+        if x_proj.is_cuda:
+            hs, cs = sk._launch_forward(x_proj, w_hh, Uncounted, variant=variant)
+            return hs, cs, sk._launch_backward(x_proj, w_hh, hs, cs, dhs, Uncounted, variant=variant)
+        with one_tf32_product(torch) if variant == "1xTF32" else contextlib.nullcontext():
+            hs, cs = sk.lstm_scan_forward_plain(x_proj, w_hh)
+            return hs, cs, sk.lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs)
+
+    def holds(out):
+        hs, cs, dxp = out
+        exact = (*scan_steps(torch, x_proj, w_hh, hs, cs, torch.float64),
+                 plain_scan_backward_f64(torch, x_proj, w_hh, hs, cs, dhs))
+        plain = (*scan_steps(torch, x_proj, w_hh, hs, cs, torch.float32),
+                 sk.lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs))
+        read = [lambda x: x[reach]] * 2 + [lambda x: x]
+        yard = [agreement(f(p).double(), f(e)) for f, p, e in zip(read, plain, exact)]
+        ok, agree = f64_agreement(torch, [f(x) for f, x in zip(read, out)], [f(e) for f, e in zip(read, exact)],
+                                  yard)
+        text = "; ".join(f"{n} {a.rel_err:.3e} ({a.rel_err / max(y.rel_err, 1e-30):.2f}x plain {y.rel_err:.3e})"
+                         for n, a, y in zip(("hs step", "cs step", "dx_proj"), agree, yard))
+        return ok, text
+
+    out = run()
+    ok, text = holds(out)
+    print(f"lstm_scan_fwd_f32 / lstm_scan_bwd_f32 on the trained unfused checkpoint's entity encode ({B} ids, "
+          f"{int(reach.sum())} reached positions), error vs f64 relative to max|want| (limit 3e-5, or twice the "
+          f"plain version's): {text}")
+    check(ok, f"kernels 7/8 f32 are less accurate than f32 products on trained weights: {text}")
+    whole = plain_scan_f64(torch, x_proj, w_hh)[0][reach]
+    k, pl = (agreement(h[reach].double(), whole).rel_err
+             for h in (out[0], sk.lstm_scan_forward_plain(x_proj, w_hh)[0]))
+    print(f"measured the whole trained recurrence vs f64, hs at the reached positions: kernel 7 {k:.3e}, plain "
+          f"{pl:.3e} ({k / max(pl, 1e-30):.2f}x; not held)")
+    v_ok, v_text = holds(run("1xTF32"))
+    print(f"planted fault 1xTF32 variant of lstm_scan_fwd_f32 / lstm_scan_bwd_f32 on trained weights, vs f64: "
+          f"{v_text}; {'passes' if v_ok else 'fails'}")
+    check(not v_ok, "the trained-weights check passes the 1xTF32 variant of kernels 7/8")
 
 
 # ------------------------------------------------------------------ training
@@ -1296,16 +1464,25 @@ def forward_launches(L, dtype):
     return L + (1 if str(dtype).removeprefix("torch.") == "float32" else 0)
 
 
+def scan_launches(L, dtype):
+    """Launches of one forward and one backward call of kernels 7 and 8 over L
+    steps at ``dtype`` ("bfloat16"/"float32", or a torch dtype): one per
+    step forward; a gate launch per step and a product launch from step 1 on
+    backward; at f32 one more each, the weight split."""
+    split = 1 if str(dtype).removeprefix("torch.") == "float32" else 0
+    return L + split, 2 * L - 1 + split
+
+
 def training_launches(names, L, n_steps, n_dense, n_sparse, dtype, unfused=False):
     """The launches a cli.train run of ``n_steps`` steps must count, by
     kernel row: two LSTM passes per step, fused (kernels 1 and 2) or unfused
-    (kernels 7 and 8: every step of every row forward; a gate and, from step
-    1 on, a product launch per step backward); one dense Adagrad per dense
-    leaf and one row update per sparse table."""
+    (kernels 7 and 8, ``scan_launches``); one dense Adagrad per dense leaf
+    and one row update per sparse table."""
     want = {name: 0 for name in names}
     want.update({"adagrad_update": n_dense, "scatter_adagrad": n_sparse})
     if unfused:
-        want.update({"lstm_scan_fwd": 2 * n_steps * L, "lstm_scan_bwd": 2 * n_steps * (2 * L - 1)})
+        fwd, bwd = scan_launches(L, dtype)
+        want.update({"lstm_scan_fwd": 2 * n_steps * fwd, "lstm_scan_bwd": 2 * n_steps * bwd})
     else:  # both passes fused (B % 8 == 0 at the flagship's 512-row buckets)
         want.update({"lstm_last_fwd": 2 * n_steps * forward_launches(L, dtype),
                      "lstm_last_bwd": 2 * n_steps * backward_launches(L, dtype)})
@@ -1314,9 +1491,10 @@ def training_launches(names, L, n_steps, n_dense, n_sparse, dtype, unfused=False
 
 def serving_launches(names, L, fused_encodes, single_encodes, dtype):
     """The launches a serving run must count: kernel 1 per fused encode,
-    kernel 7 (L steps) per unfused one."""
+    kernel 7 per unfused one."""
     want = {name: 0 for name in names}
-    want.update({"lstm_last_fwd": fused_encodes * forward_launches(L, dtype), "lstm_scan_fwd": single_encodes * L})
+    want.update({"lstm_last_fwd": fused_encodes * forward_launches(L, dtype),
+                 "lstm_scan_fwd": single_encodes * scan_launches(L, dtype)[0]})
     return want
 
 
@@ -1437,10 +1615,11 @@ def check_gates_bitwise(torch, label, fwd_args, stored=None):
 
 
 def check_scan_gates_bitwise(torch, label, x_proj, w_hh, stored=None):
-    """Kernel 7 and kernel 8's gate launch in bf16 on kernel 7's residuals,
-    each in its measuring variant that stores the f32 pre-activation gates
-    of every (row, step): the two must be bitwise equal (they run one
-    function, lstm_scan.cu::scan_gate_tiles, on the same tiles and maps).
+    """Kernel 7 and kernel 8's gate launch (bf16 or f32) on kernel 7's
+    residuals, each in its measuring variant that stores the f32
+    pre-activation gates of every (row, step): the two must be bitwise equal
+    (they run one function of their dtype, lstm_scan.cu's
+    ``scan_gate_tiles``, on the same tiles and maps).
     ``stored`` gives the two stores instead of running the launches (the
     CPU test plants a difference there)."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
@@ -1725,13 +1904,62 @@ def check_scan(torch, captured_fwd, captured_bwd, ragged=(1, 37, 4099)):
 
 
 def check_scan_gates(torch, entity_pass):
-    """Kernel 8's recomputed gates against kernel 7's, bitwise, in bf16: on
-    the unfused training entity pass ``entity_pass`` (x_proj, w_hh) and at
-    B=37."""
+    """Kernel 8's recomputed gates against kernel 7's, bitwise, in the dtype
+    of the unfused training entity pass ``entity_pass`` (x_proj, w_hh): on
+    that pass and at B=37."""
     x_proj, w_hh = entity_pass
-    check_scan_gates_bitwise(torch, f"unfused training entity pass B={x_proj.shape[1]}", x_proj, w_hh)
+    dt = "f32 " if x_proj.dtype == torch.float32 else ""
+    check_scan_gates_bitwise(torch, f"{dt}unfused training entity pass B={x_proj.shape[1]}", x_proj, w_hh)
     gen = torch.Generator(device=x_proj.device).manual_seed(SEED + 9)
-    check_scan_gates_bitwise(torch, "B=37", *scan_inputs(torch, gen, x_proj.shape[0], 37, w_hh.shape[1]))
+    check_scan_gates_bitwise(torch, f"{dt}B=37",
+                             *scan_inputs(torch, gen, x_proj.shape[0], 37, w_hh.shape[1], x_proj.dtype))
+
+
+def check_scan_1xtf32_variant(torch, entity_pass, bargs):
+    """Kernels 7 and 8 at f32 in their planted 1xTF32 variant (one TF32
+    product where the kernels take three) on the unfused training entity
+    pass, run as the unfused LSTM runs them: kernel 7's variant on
+    ``entity_pass`` (x_proj, w_hh), then kernel 8's on its residuals with
+    ``bargs``' cotangent (that pass's recorded backward: the selected last
+    states' cotangent).  Against the plain versions, the f32 rule must fail
+    the pair on some output (hs, cs, dx_proj), as it must fail kernel 2's
+    variant.  Kernel 8's variant alone, on ``bargs``' residuals, must read
+    at least ten times the kernel's error there: at the initial weights it
+    reads within the rule (2.68e-05 of max|want| on an H100 80GB HBM3 at
+    700 W; the dh carry is the only product it feeds, and the recurrence is
+    short there), so the rule alone does not see it; the trained-weights
+    check (``check_trained_scan``) holds it too.  On the CPU, where there is
+    no kernel, the variant is the plain version with each product emulated
+    as one TF32 product (``utils/numerics.py::matmul_3xtf32``) and the
+    kernel is the plain version."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    x_proj, w_hh = entity_pass
+    dhs = bargs[4]
+    hs, cs = sk.lstm_scan_forward_plain(x_proj, w_hh)
+    want_pair = sk.lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs)
+    if x_proj.is_cuda:
+        got_f = sk._launch_forward(x_proj, w_hh, Uncounted, variant="1xTF32")
+        got_pair = sk._launch_backward(x_proj, w_hh, *got_f, dhs, Uncounted, variant="1xTF32")
+        got_alone = sk._launch_backward(*bargs, Uncounted, variant="1xTF32")
+        kernel_alone = sk._launch_backward(*bargs, Uncounted)
+    else:
+        with one_tf32_product(torch):
+            got_f = sk.lstm_scan_forward_plain(x_proj, w_hh)
+            got_pair = sk.lstm_scan_backward_plain(x_proj, w_hh, *got_f, dhs)
+            got_alone = sk.lstm_scan_backward_plain(*bargs)
+        kernel_alone = sk.lstm_scan_backward_plain(*bargs)
+    B = x_proj.shape[1]
+    ok_f, text_f, _ = scan_agreement(torch, got_f, (hs, cs))
+    ok_b, text_b, _ = scan_agreement(torch, got_pair, want_pair, backward=True)
+    print(f"planted fault 1xTF32 variant of lstm_scan_fwd_f32 + lstm_scan_bwd_f32 B={B}: {text_f}; {text_b}")
+    check(not (ok_f and ok_b), "the f32 rule passes the 1xTF32 variant of kernels 7 and 8")
+    want_alone = sk.lstm_scan_backward_plain(*bargs)
+    (_, text_v, err_v), (_, text_k, err_k) = (scan_agreement(torch, g, want_alone, backward=True)
+                                              for g in (got_alone, kernel_alone))
+    print(f"planted fault 1xTF32 variant of lstm_scan_bwd_f32 alone B={B}, on the recorded residuals: {text_v}; "
+          f"the kernel {text_k}; variant/kernel error {err_v / max(err_k, 1e-30):.1f} (at least 10)")
+    check(err_v >= 10 * err_k, "kernel 8's 1xTF32 variant is not visibly less accurate than the kernel")
 
 
 def library_lstm_all_ms(torch, D, H, emb, lens=None, grad=None):
@@ -1765,29 +1993,35 @@ def library_lstm_all_ms(torch, D, H, emb, lens=None, grad=None):
         return None, f"nn.LSTM {dt} {form} unavailable: {str(e).splitlines()[0]}"
 
 
-# kernel 8's kinds of launch, by a part of their names (both dtypes)
+# kernel 8's kinds of launch, by a part of their names (both dtypes), and at
+# f32 the weight split before them; kernel 7's at f32: the split and the steps
 SCAN_BACKWARD_KINDS = {"gate": "scan_bwd_gate_kernel", "product": "product_kernel"}
+SCAN_BACKWARD_F32_KINDS = {"split": "split_kernel_tf32", **SCAN_BACKWARD_KINDS}
+SCAN_FORWARD_F32_KINDS = {"split": "split_kernel_tf32", "steps": "scan_step_kernel_tf32"}
 
 
 def scan_backward_parts(L, B, H, es):
-    """(operations, bytes) of kernel 8's two kinds of launch over L steps of
-    B rows with elements of ``es`` bytes: the gate launches recompute the h
+    """(operations, bytes) of kernel 8's kinds of launch over L steps of B
+    rows with elements of ``es`` bytes: the gate launches recompute the h
     products from step 1 on and read x_proj, hs, cs, dhs and W_hh and write
     dx_proj; the product launches (from step 1 on) read dx_proj and W_hh and
-    write the f32 dh carry."""
+    write the f32 dh carry; at f32 (``es`` = 4) the split reads W_hh and
+    writes the hi and lo parts of it and of its transpose."""
     prod = (L - 1) * B * 2 * H * 4 * H
     w = 4 * H * H * es
-    return {"gate": (prod, L * B * (4 * H + 3 * H + 4 * H) * es + w),
-            "product": (prod, (L - 1) * B * (4 * H * es + H * 4) + w)}
+    parts = {"gate": (prod, L * B * (4 * H + 3 * H + 4 * H) * es + w),
+             "product": (prod, (L - 1) * B * (4 * H * es + H * 4) + w)}
+    return {"split": (0, 5 * w), **parts} if es == 4 else parts
 
 
 def print_scan_backward_launch_ms(torch, label, bargs, fn):
-    """Kernel 8's launches of one call ``fn`` on ``bargs`` by kind (gate,
-    product; device ms per call, torch.profiler), each beside the bound of
-    its part (``scan_backward_parts``, at the dtype's peak rate).  Returns
-    the ms by kind, or None where the trace has no device time."""
+    """Kernel 8's launches of one call ``fn`` on ``bargs`` by kind (at f32
+    the split, then gate, product; device ms per call, torch.profiler), each
+    beside the bound of its part (``scan_backward_parts``, at the dtype's
+    peak rate).  Returns the ms by kind, or None where the trace has no
+    device time."""
     x_proj = bargs[0]
-    by_kind = launch_ms(torch, fn, SCAN_BACKWARD_KINDS)
+    by_kind = launch_ms(torch, fn, SCAN_BACKWARD_F32_KINDS if x_proj.dtype == torch.float32 else SCAN_BACKWARD_KINDS)
     if by_kind is None:
         print(f"{label} launches: no device time in the trace (not measured)")
         return None
@@ -1801,6 +2035,25 @@ def print_scan_backward_launch_ms(torch, label, bargs, fn):
     print(f"{label} launches, device ms per call (torch.profiler): "
           + ", ".join(part(k, v) for k, v in by_kind.items()) + f"; sum {sum(by_kind.values()):.4f}")
     return by_kind
+
+
+def print_scan_forward_launch_ms(torch, label, x_proj, w_hh, fn):
+    """Kernel 7 f32's split launch and its L step launches apart (device ms
+    per call of ``fn``, torch.profiler), each beside its bound: the split
+    moves bytes (W_hh read, its hi and lo parts written), the steps do
+    kernel 7's work (``lstm_bound`` row 7)."""
+    kinds = launch_ms(torch, fn, SCAN_FORWARD_F32_KINDS)
+    if kinds is None:
+        print(f"{label} launches: no device time in the trace (not measured)")
+        return
+    L, B, H4 = x_proj.shape
+    split_bytes = 3 * w_hh.numel() * 4
+    split_bound = split_bytes / PEAK_BYTES_PER_S * 1e3
+    step_bound, by = bound_ms(*lstm_bound(7, L, B, H4 // 4, H4 // 4, L * B, 4), PEAK_3XTF32_FLOPS)
+    print(f"{label} launches, device ms per call (torch.profiler): split {kinds['split']:.4f} (bytes bound "
+          f"{split_bound:.4f}, {split_bytes:.4e} B), steps {kinds['steps']:.4f} (bound {step_bound:.4f}, {by}, "
+          f"{step_bound / kinds['steps'] if kinds['steps'] else float('nan'):.1%} of it); sum "
+          f"{sum(kinds.values()):.4f}")
 
 
 def same_work_ms(torch, w_hh, emb, grad=None):
@@ -1835,7 +2088,8 @@ def time_scan(torch, captured_fwd, captured_bwd, fwd_err, bwd_err):
     plain version, bound, cuDNN's unpacked ``nn.LSTM`` (which also does the
     input projection, and in its backward the dx and dW products) forward
     and backward, and the port's unfused LSTM doing that same work
-    (``same_work_ms``); kernel 8's launches by kind.  Returns the two rows."""
+    (``same_work_ms``); kernel 8's launches by kind, and at f32 kernel 7's
+    split apart from its steps.  Returns the two rows."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
 
     (x_proj, w_hh), _ = captured_fwd[0]
@@ -1871,6 +2125,9 @@ def time_scan(torch, captured_fwd, captured_bwd, fwd_err, bwd_err):
                      "bound_by": by, "library_ms": library_ms})
     print_scan_backward_launch_ms(torch, f"lstm_scan_bwd{sfx} training entity pass B={B}", bargs,
                                   lambda: sk.lstm_scan_backward(*bargs))
+    if dtype == torch.float32:
+        print_scan_forward_launch_ms(torch, f"lstm_scan_fwd{sfx} training entity pass B={B}", x_proj, w_hh,
+                                     lambda: sk.lstm_scan_forward(x_proj, w_hh))
     return rows
 
 
@@ -2192,8 +2449,10 @@ def phase_f32(torch, timings, by_path):
     """The f32 model through the same entry points as the bf16 phases, with
     the f32 modes of kernels 1, 2 and 5-8 held to their plain versions by the
     f32 rule (the TF32 yardstick, a dropped bias and a dropped recurrent
-    product must fail it); fills ``by_path`` with the launch counts of its
-    paths and returns the six f32 kernel rows."""
+    product must fail it), kernels 7/8 also held to each other (gates
+    bitwise) and to f64 on the trained unfused checkpoint; fills ``by_path``
+    with the launch counts of its paths and returns the six f32 kernel
+    rows."""
     config = write_f32_config()
     rows = [phase_kernels(torch, torch.float32)]
     trainer, capture, by_path["train_f32"], n_steps = phase_train(torch, timings, config=config, tag="f32_")
@@ -2216,10 +2475,15 @@ def phase_f32(torch, timings, by_path):
         torch, timings, unfused=True, config=config, tag="f32_")
     check(not (capture.fwd or capture.bwd) and len(capture.scan_fwd) == len(capture.scan_bwd) == 2,
           "the unfused f32 run recorded fused launches or missed the recurrence's")
-    check_training(torch, trainer, by_path["train_unfused_f32"], n_steps, unfused=True)
+    ckpt_unfused = check_training(torch, trainer, by_path["train_unfused_f32"], n_steps, unfused=True)
+    with unfused_switch():
+        time_train_steps(torch, trainer, timings, pre="f32_unfused_")
     del trainer
     rows += time_scan(torch, capture.scan_fwd, capture.scan_bwd, *check_scan(torch, capture.scan_fwd, capture.scan_bwd))
+    check_scan_gates(torch, capture.scan_fwd[0][0])
+    check_scan_1xtf32_variant(torch, capture.scan_fwd[0][0], capture.scan_bwd[1])
     del capture
+    check_trained_scan(torch, *record_scan_encode(torch, config, ckpt_unfused))
     torch.cuda.empty_cache()
 
     by_path["serve_f32"] = phase_main_path(torch, timings, ckpt=ckpt, config=config, tag="f32_")
@@ -2255,7 +2519,8 @@ def phase_any_h(torch):
                   "dx_proj": agreement(dxp, sk.lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs))}
         print(f"H={H} {dtype} kernels 7/8 vs plain, B={B}: launches {launches}; "
               + "; ".join(f"{k} {a}" for k, a in checks.items()))
-        check(launches == (L, 2 * L - 1), f"H={H} {dtype}: launches {launches}, want {(L, 2 * L - 1)}")
+        check(launches == scan_launches(L, dtype), f"H={H} {dtype}: launches {launches}, want "
+              f"{scan_launches(L, dtype)}")
         check(all(a.ok(MAX_UNEQUAL_SHARE_BWD if k == "dx_proj" else MAX_UNEQUAL_SHARE) for k, a in checks.items()),
               f"H={H} {dtype}: kernels 7/8 disagree with their plain versions")
 

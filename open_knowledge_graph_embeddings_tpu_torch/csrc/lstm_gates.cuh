@@ -1,11 +1,9 @@
 // The CUDA-core building blocks of the port's LSTM kernels that do not run
-// on kernel 1's wgmma loop: the block and tile constants, cp.async copies
-// and the mma.sync bf16 product of the bf16 backward's dW launch
-// (lstm_last_bwd.cu) and of the f32 recurrence (lstm_f32.cuh, whose blocks
-// take BM rows x the four gate columns of BN hidden units); the backward's
-// cell arithmetic (bwd_cell), which every backward's gate launch runs; the
-// accurate sigmoid, the f32 -> bf16 rounding, and the search for a step's
-// active rows.
+// on a wgmma loop: the block constants, cp.async copies and the mma.sync
+// bf16 product of the backward's dW launches (lstm_last_bwd.cu); the
+// backward's cell arithmetic (bwd_cell), which every backward's gate launch
+// runs; the accurate sigmoid, the f32 -> bf16 rounding, and the search for
+// a step's active rows.
 
 #pragma once
 
@@ -16,7 +14,6 @@
 namespace oket_lstm {
 
 constexpr int BM = 128;  // rows per block
-constexpr int BN = 32;   // hidden units per block (x4 gates = 128 weight rows)
 constexpr int BK = 32;   // K tile
 constexpr int NT = 256;  // 8 warps
 

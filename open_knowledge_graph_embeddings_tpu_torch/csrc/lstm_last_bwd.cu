@@ -87,7 +87,8 @@
 //      math of the bf16 kernel per cell, dg[t] in f32, dc in place, db_part
 //      by a fixed-order sum;
 //   2. lstm_bwd_product_kernel_tf32, per step: [dh | demb[t]] = dg[t] .
-//      [W_hh | W_ih] on the same ring and loop, 128 x 128 output tiles;
+//      [W_hh | W_ih] on the same ring and loop, 128 x 128 output tiles
+//      (lstm_tf32.cuh::product_tiles, which kernel 8 runs too, with D = 0);
 //   3. lstm_bwd_dw_kernel_tf32, once: the dW walk of the bf16 kernel with
 //      mma.sync m16n8k8 TF32 fragments loaded from the k-major shared tiles
 //      (wgmma would need K-major copies of dg, emb and hs: dW reduces over
@@ -601,83 +602,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 }
 
-struct Tf32ProdArgs {
-    const int* lens;  // [B], sorted descending
-    float* dh;        // [B, H] out: dg . W_hh (t > 0)
-    float* demb;      // [B, D] out: dg . W_ih, step t
-    int B, D, H, t;
-};
-
-// Product launch of step t: [dh | demb[t]] = dg[t] . [W_hh | W_ih] over
-// K = 4H in 3xTF32, a tile of 128 rows x 128 output columns; B is the split
-// copy of [W_hh | W_ih]^T ([H + D, 4H], K-major), as TF32 wgmma reads only
-// K-major operands.  Rows past the active prefix are computed and not
-// written; at t == 0 only the tiles holding demb columns run (dh of step 0
-// is never read).  The products are the gate loop's (tile_products, the
-// sum from 0).
+// Product launch of step t (lstm_tf32.cuh::product_tiles) over the rows
+// active at t.
 template <int V, bool FOLD = true>
 __global__ void __launch_bounds__(THREADS, 1)
     lstm_bwd_product_kernel_tf32(const __grid_constant__ CUtensorMap map_dg,
                                  const __grid_constant__ CUtensorMap map_wt_hi,
-                                 const __grid_constant__ CUtensorMap map_wt_lo, const Tf32ProdArgs p) {
+                                 const __grid_constant__ CUtensorMap map_wt_lo, const ProductArgs p,
+                                 const int* lens) {
     extern __shared__ uint8_t smem_raw[];
-    const Ring r = make_ring(smem_raw);
-    const int n_act_all = active_prefix<THREADS>(p.lens, p.B, p.t);
-    __syncthreads();
-    const int n_act = __shfl_sync(0xffffffff, n_act_all, 0);
-    const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
-    const int N = p.H + p.D;
-    const int n_first = p.t > 0 ? 0 : p.H / TN;  // the first column tile that holds a demb column
-    const int col_tiles = (N + TN - 1) / TN - n_first;
-    const int tiles = (n_act + TM - 1) / TM * col_tiles;
-    if ((int)blockIdx.x >= tiles) return;
-    const int nk = (4 * p.H + TK - 1) / TK;
-
-    if (wg == 2) {
-        setmaxnreg_dec<40>();
-        if (threadIdx.x == 256) {
-            tma_prefetch_map(&map_dg);
-            tma_prefetch_map(&map_wt_hi);
-            tma_prefetch_map(&map_wt_lo);
-            produce(r, tiles, nk, [&](int tile, int kt, uint8_t* a, uint8_t* w_hi, uint8_t* w_lo, uint64_t* bar) {
-                const int row0 = tile / col_tiles * TM, n0 = (tile % col_tiles + n_first) * TN;
-                tma_load_3d(a, &map_dg, bar, kt * TK, row0, p.t);
-                tma_load_3d(w_hi, &map_wt_hi, bar, kt * TK, n0, 0);
-                tma_load_3d(w_lo, &map_wt_lo, bar, kt * TK, n0, 0);
-            });
-        }
-    } else {
-        setmaxnreg_inc<232>();
-        const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-        // acc[4 n8 + e] holds row r0 + 8 (e/2), column n0 + 8 n8 + 2
-        // (lane%4) + e%2, for r0 = row0 + 64 wg + 16 warp + lane/4
-        float acc[TN / 2];
-        for (int q = 0;; ++q) {
-            const int tile = blockIdx.x + q * gridDim.x;
-            if (tile >= tiles) break;
-            const int row0 = tile / col_tiles * TM, n0 = (tile % col_tiles + n_first) * TN;
-            const int r0 = row0 + 64 * wg + warp * 16 + (lane >> 2);
-#pragma unroll
-            for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
-            tile_products<V, FOLD>(r, q, nk, wg, warp, lane, acc);
-#pragma unroll
-            for (int hr = 0; hr < 2; ++hr) {
-                const int row = r0 + 8 * hr;
-                if (row >= n_act) continue;
-#pragma unroll
-                for (int n8 = 0; n8 < TN / 8; ++n8) {
-                    const int n = n0 + n8 * 8 + (lane & 3) * 2;  // and n + 1: H and N are even
-                    const float2 v = make_float2(acc[n8 * 4 + 2 * hr], acc[n8 * 4 + 2 * hr + 1]);
-                    if (n >= N) continue;
-                    if (n < p.H) {
-                        if (p.t > 0) *reinterpret_cast<float2*>(p.dh + (size_t)row * p.H + n) = v;
-                    } else {
-                        *reinterpret_cast<float2*>(p.demb + (size_t)row * p.D + (n - p.H)) = v;
-                    }
-                }
-            }
-        }
-    }
+    product_tiles<V, FOLD>(smem_raw, &map_dg, &map_wt_hi, &map_wt_lo, p, active_prefix<THREADS>(lens, p.B, p.t));
 }
 
 // What the f32 entries launch (their `variant`): the kernel; one TF32
@@ -694,9 +628,10 @@ int launch_gate(const CUtensorMap* const (&maps)[6], const Tf32GateArgs& p, int 
 }
 
 template <int V, bool FOLD>
-int launch_product(const CUtensorMap* const (&maps)[3], const Tf32ProdArgs& p, int grid, cudaStream_t s) {
+int launch_product(const CUtensorMap* const (&maps)[3], const ProductArgs& p, const int* lens, int grid,
+                   cudaStream_t s) {
     if (const int e = allow_smem<lstm_bwd_product_kernel_tf32<V, FOLD>, SMEM>()) return e;
-    lstm_bwd_product_kernel_tf32<V, FOLD><<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], p);
+    lstm_bwd_product_kernel_tf32<V, FOLD><<<grid, THREADS, SMEM, s>>>(*maps[0], *maps[1], *maps[2], p, lens);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1039,8 +974,7 @@ extern "C" int oket_lstm_bwd_gate_f32(const void* emb, const void* hs, const voi
 extern "C" int oket_lstm_bwd_product_f32(const void* dg, const void* w_split, const void* lens, void* dh, void* demb,
                                          int L, int B, int D, int H, int t, int grid, int variant, void* stream) {
     using namespace tf32;
-    Tf32ProdArgs p;
-    p.lens = static_cast<const int*>(lens);
+    oket_tf32::ProductArgs p;
     p.dh = static_cast<float*>(dh);
     p.demb = static_cast<float*>(demb);
     p.B = B;
@@ -1059,9 +993,10 @@ extern "C" int oket_lstm_bwd_product_f32(const void* dg, const void* w_split, co
     for (const CUtensorMap* m : maps)
         if (!m) return -1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (variant == KERNEL) return launch_product<X3, true>(maps, p, grid, s);
-    if (variant == ONE_TF32) return launch_product<X1, true>(maps, p, grid, s);
-    if (variant == UNFOLDED) return launch_product<X3, false>(maps, p, grid, s);
+    const int* l = static_cast<const int*>(lens);
+    if (variant == KERNEL) return launch_product<X3, true>(maps, p, l, grid, s);
+    if (variant == ONE_TF32) return launch_product<X1, true>(maps, p, l, grid, s);
+    if (variant == UNFOLDED) return launch_product<X3, false>(maps, p, l, grid, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 

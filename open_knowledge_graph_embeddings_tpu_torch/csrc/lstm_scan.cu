@@ -59,16 +59,44 @@
 // past H and K tails read as zero (TMA) and are not written.  Any B; H a
 // multiple of 8 (TMA strides are multiples of 16 bytes).
 //
-// The f32 mode (the *_f32 entries; the TPU kernels take their inputs' dtype):
-// the same three launches for f32 x_proj, w_hh, hs, cs, dhs and dx_proj, with
-// the rounding points dropped, every product in true f32 FFMA on the CUDA
-// cores (lstm_f32.cuh::gate_product_f32 and lstm_bwd_product_kernel_f32;
-// no TF32), one block per 128 rows x 32 units (step_grid), bound by FP32
-// operations; H a multiple of 4.  Any other H reaches the kernels
-// zero-padded by the wrapper (ops/lstm_scan_kernel.py).
+// The f32 mode (the *_f32 entries; the TPU kernels take their inputs' dtype)
+// computes the same for f32 x_proj, w_hh, hs, cs, dhs and dx_proj with the
+// rounding points dropped, every product f32-accurate in 3xTF32 on the
+// tensor cores (each operand split into hi = tf32(x) and lo = tf32(x - hi),
+// lo.hi' + hi.lo' + hi.hi' summed; lstm_tf32.cuh).  Bound on an H100: the
+// 3xTF32 rate, a sixth of the bf16 rate (178.42 TFLOP/s at read_peaks'
+// maximum SM clock; on the unfused training entity pass, H = 512: 0.5958 ms
+// forward, 1.1916 ms backward, by operations).  Design: the bf16 design
+// above, on the f32 gate loop of
+// lstm_tf32.cuh (the f32 forward's persistent block of 384 threads, a
+// 4-slot TMA ring of A + W_hi + W_lo, one producer thread, warpgroups 0 and
+// 1 sharing each 128-row x 32-unit x 4-gate tile, 64 rows each, wgmma
+// m64n128k8 TF32 with A split in registers, each 32-wide K chunk folded into
+// an f32 sum), with D = 0:
+//   * lstm_split_kernel_tf32, once per call: the hi and lo parts of W_hh,
+//     gate-major (2 x 4 MiB at H = 512), and for kernel 8 also of W_hh^T
+//     [H, 4H] (the product launch's B: TF32 wgmma reads only K-major
+//     operands); W_ih has no rows at D = 0 and is never read;
+//   * tf32::lstm_scan_step_kernel_tf32 (kernel 7), per step: the tile's h
+//     stages (h_{t-1} by a 3-D map over hs at slot t - 1; none at t = 0)
+//     multiplied from zero (tile_products), then x_proj[t] added in f32 one
+//     8-unit block at a time (add_rows: the plain version's order, as in
+//     bf16), then the f32 forward's every-state epilogue: c in
+//     place, hs[t] and cs[t] stored as float pairs;
+//   * tf32::lstm_scan_bwd_gate_kernel_tf32 (kernel 8, part 1): the same
+//     function on the same maps (scan_gate_tiles), so its gates are kernel
+//     7's bit for bit, then bwd_cell per cell: dx_proj[t], dc in place;
+//   * tf32::lstm_scan_bwd_product_kernel_tf32 (kernel 8, part 2, from step
+//     1 on): the f32 backward's product launch (lstm_tf32.cuh::product_tiles)
+//     with D = 0: dh_carry = dx_proj[t] . W_hh over K = 4H, every row.
+// So a forward call is L + 1 launches and a backward call 2L.  No x or W_ih
+// map is made (TMA refuses a zero extent).  The epilogues run on both
+// consumer warpgroups while the tensor cores wait, as in kernel 1 f32.
+// H a multiple of 4.  Any other H reaches the kernels zero-padded by the
+// wrapper (ops/lstm_scan_kernel.py).
 
 #include "lstm_bf16.cuh"
-#include "lstm_f32.cuh"
+#include "lstm_tf32.cuh"
 
 namespace {
 
@@ -299,60 +327,174 @@ int launch(const CUtensorMap* map_a, const CUtensorMap* map_b, const Args& p, in
 
 // ------------------------------------------------------------------ f32 mode
 
-// Every row of [0, B) is active at every step: s_len[r] = t + 1, and 0 past B.
-__device__ __forceinline__ void all_rows(long long B, long long row0, int t, int* s_len) {
-    for (int r = threadIdx.x; r < BM; r += NT) s_len[r] = row0 + r < B ? t + 1 : 0;
-    __syncthreads();
-}
+namespace tf32 {
 
-dim3 step_grid(long long B, int H) { return dim3((unsigned)((B + BM - 1) / BM), (unsigned)((H + BN - 1) / BN)); }
+using namespace oket_tf32;
 
-struct ScanArgsF32 {
-    GateArgsF32 g;    // h_prev = hs[t-1], unread at t == 0
-    const float* xp;  // [B, 4H] x_proj[t]
-    float* c;         // [B, H] cell state, updated in place
-    float* hs_t;      // [B, H] out: h_t
-    float* cs_t;      // [B, H] out: c_t
-};
+// What an f32 launch runs (the C entries' `variant`): the kernel (3xTF32);
+// the kernel that also stores its f32 pre-activation gates (to hold kernel
+// 8's recompute to kernel 7's, bitwise); or one TF32 product (hi.hi' alone,
+// the planted check that the f32 rule sees the correction products).
+enum EntryVariant { KERNEL = 0, STORE_GATES = 1, ONE_TF32 = 2 };
 
-__global__ void __launch_bounds__(NT) lstm_scan_step_kernel_f32(const ScanArgsF32 p) {
-    __shared__ __align__(16) TileAF As[2];
-    __shared__ __align__(16) TileWF Bs[2];
-    __shared__ int s_len[BM];
-
-    const long long row0 = (long long)blockIdx.x * BM;
-    const int j0 = blockIdx.y * BN;
-    const int t = p.g.t, H = p.g.H;
-    all_rows(p.g.B, row0, t, s_len);
-
-    float acc[FRM][4][FUN];
-    gate_product_f32(p.g, row0, j0, s_len, As, Bs, acc);
-
+// sum += the gate columns this thread holds in 8-unit block n8 of the gate
+// tile (r0's rows, unit u0) of a precomputed input projection xp [B, 4H]
+// (f32, gate g of unit u at g H + u), in tile_products' layout: sum[4 (g NB
+// + n8) + e] is gate g of row r0 + 8 (e/2), unit u0 + 8 n8 + 2 (lane%4) +
+// e%2.  Rows past B and units past H add 0.  H is even and xp 8-byte
+// aligned, so a unit pair is one load.  After the products, as the plain
+// version orders the sum; one block at a time, in the epilogue, as the bf16
+// kernels do it (all 64 values at once spilled there).
+__device__ __forceinline__ void add_rows(const float* xp, int B, int H, int r0, int u0, int lane, int n8,
+                                         float (&sum)[TN / 2]) {
+    const int u = u0 + n8 * 8 + (lane & 3) * 2;  // and u + 1
 #pragma unroll
-    for (int i = 0; i < FRM; ++i) {
-        const int r = f32_row(i);
-        if (s_len[r] == 0) continue;
+    for (int hr = 0; hr < 2; ++hr) {
+        const int row = r0 + 8 * hr;
 #pragma unroll
-        for (int u = 0; u < FUN; ++u) {
-            const int j = j0 + f32_unit(u);
-            if (j >= H) continue;
-            const float* xp = p.xp + (size_t)(row0 + r) * 4 * H + j;
-            const float gi = sigmoidf(acc[i][0][u] + xp[0]);
-            const float gf = sigmoidf(acc[i][1][u] + xp[H]);
-            const float gg = tanhf(acc[i][2][u] + xp[2 * H]);
-            const float go = sigmoidf(acc[i][3][u] + xp[3 * H]);
-            const size_t o = (size_t)(row0 + r) * H + j;
-            const float c_prev = t > 0 ? p.c[o] : 0.f;
-            const float c_new = gf * c_prev + gi * gg;
-            p.c[o] = c_new;
-            p.hs_t[o] = go * tanhf(c_new);
-            p.cs_t[o] = c_new;
+        for (int g = 0; g < 4; ++g) {
+            const float2 v = row < B && u < H
+                                 ? __ldg(reinterpret_cast<const float2*>(xp + (size_t)row * 4 * H + g * H + u))
+                                 : make_float2(0.f, 0.f);
+            sum[(g * NB + n8) * 4 + 2 * hr] += v.x;
+            sum[(g * NB + n8) * 4 + 2 * hr + 1] += v.y;
         }
     }
 }
 
-struct ScanBwdArgsF32 {
-    GateArgsF32 g;         // h_prev = hs[t-1], unread at t == 0
+// A measuring store: the f32 pre-activation gates of 8-unit block n8 that
+// this thread holds, rows < B, into gates [B, 4H] (gate g of unit u at
+// g H + u).
+__device__ __forceinline__ void store_gate_block(float* gates, int B, int H, int r0, int u0, int lane, int n8,
+                                                 const float (&sum)[TN / 2]) {
+    const int u = u0 + n8 * 8 + (lane & 3) * 2;
+    if (u >= H) return;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+        const int row = r0 + 8 * hr;
+        if (row >= B) continue;
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+            *reinterpret_cast<float2*>(gates + (size_t)row * 4 * H + g * H + u) =
+                make_float2(sum[(g * NB + n8) * 4 + 2 * hr], sum[(g * NB + n8) * 4 + 2 * hr + 1]);
+    }
+}
+
+// The gate tiles of step t, the f32 gate loop with D = 0 over every row of
+// [0, B): the ring and its producer (the h stages alone, none at t = 0),
+// the products h_{t-1} . W_hh^T from zero (tile_products, P: X3 or X1),
+// then epilogue(sum, r0, u0, lane, finish_gates), which must call
+// finish_gates(n8) before it reads 8-unit block n8 of sum: that adds xp =
+// x_proj[t] in f32 (add_rows) and, with STORE, stores the block's gates
+// into gates [B, 4H].  Kernel 7 and kernel 8's gate launch both run this
+// function on the same maps, so their gates are the same sums in the same
+// order.
+template <int P, bool STORE, typename Epilogue>
+__device__ __forceinline__ void scan_gate_tiles(const CUtensorMap* map_h, const CUtensorMap* map_whh_hi,
+                                                const CUtensorMap* map_whh_lo, const float* xp, float* gates, int B,
+                                                int H, int t, Epilogue epilogue) {
+    extern __shared__ uint8_t smem_raw[];
+    const Ring r = make_ring(smem_raw);
+    __syncthreads();
+    // block-uniform made warp-uniform for the compiler (a wgmma on what it
+    // takes for a divergent path is serialised)
+    const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+    const int unit_tiles = (H + TU - 1) / TU;
+    const int tiles = (B + TM - 1) / TM * unit_tiles;
+    if ((int)blockIdx.x >= tiles) return;
+    const int nk = t > 0 ? (H + TK - 1) / TK : 0;  // h_0 = 0: nothing to multiply at t == 0
+
+    if (wg == 2) {
+        setmaxnreg_dec<40>();
+        if (threadIdx.x == 256 && nk > 0) {
+            tma_prefetch_map(map_h);
+            tma_prefetch_map(map_whh_hi);
+            tma_prefetch_map(map_whh_lo);
+            // h_{t-1} at (t - 1, row0) of hs; each weight part as [4][H][H],
+            // one box holding the four gate slabs of 32 units
+            produce(r, tiles, nk, [&](int tile, int kt, uint8_t* a, uint8_t* w_hi, uint8_t* w_lo, uint64_t* bar) {
+                const int row0 = tile / unit_tiles * TM, u0 = tile % unit_tiles * TU;
+                tma_load_3d(a, map_h, bar, kt * TK, row0, t - 1);
+                tma_load_3d(w_hi, map_whh_hi, bar, kt * TK, u0, 0);
+                tma_load_3d(w_lo, map_whh_lo, bar, kt * TK, u0, 0);
+            });
+        }
+    } else {
+        setmaxnreg_inc<232>();
+        const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+        // sum[4 (g NB + n8) + e] holds gate g of row r0 + 8 (e/2), unit
+        // u0 + 8 n8 + 2 (lane%4) + e%2, for r0 = row0 + 64 wg + 16 warp + lane/4
+        float sum[TN / 2];
+        for (int q = 0;; ++q) {  // q: the tile's place in the block's sequence
+            const int tile = blockIdx.x + q * gridDim.x;
+            if (tile >= tiles) break;
+            const int row0 = tile / unit_tiles * TM, u0 = tile % unit_tiles * TU;
+            const int r0 = row0 + 64 * wg + warp * 16 + (lane >> 2);
+#pragma unroll
+            for (int i = 0; i < TN / 2; ++i) sum[i] = 0.f;
+            tile_products<P, true>(r, q, nk, wg, warp, lane, sum);
+            // the gates of 8-unit block n8: x_proj added in f32 (and stored)
+            auto finish_gates = [&](int n8) {
+                add_rows(xp, B, H, r0, u0, lane, n8, sum);
+                if constexpr (STORE) store_gate_block(gates, B, H, r0, u0, lane, n8, sum);
+            };
+            epilogue(sum, r0, u0, lane, finish_gates);
+        }
+    }
+}
+
+struct StepArgs {
+    const float* xp;  // [B, 4H] x_proj[t]
+    float* c;         // [B, H] cell state, updated in place
+    float* hs_t;      // [B, H] out: h_t
+    float* cs_t;      // [B, H] out: c_t
+    float* gates;     // [B, 4H] the step's pre-activation gates (STORE), or null
+    int B, H, t;
+};
+
+// Kernel 7, step t: the gate tiles, then the cell update of each (row,
+// unit pair) this thread holds, as kernel 5 f32 (lstm_last_fwd_f32.cu)
+// writes it: c_{t-1} loaded in the epilogue (held across the products it
+// spilled the f32 forward), the accurate sigmoidf / tanhf.
+template <int P, bool STORE>
+__global__ void __launch_bounds__(THREADS, 1)
+    lstm_scan_step_kernel_tf32(const __grid_constant__ CUtensorMap map_h,
+                               const __grid_constant__ CUtensorMap map_whh_hi,
+                               const __grid_constant__ CUtensorMap map_whh_lo, const StepArgs p) {
+    const int B = p.B, H = p.H, t = p.t;
+    auto cell_update = [&](const float (&sum)[TN / 2], int r0, int u0, int lane, auto finish_gates) {
+#pragma unroll
+        for (int n8 = 0; n8 < NB; ++n8) {
+            finish_gates(n8);
+            const int u = u0 + n8 * 8 + (lane & 3) * 2;  // and u + 1; H is even
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+                const int row = r0 + 8 * hr;
+                if (row >= B || u >= H) continue;
+                const size_t o = (size_t)row * H + u;
+                const float2 c_prev = t > 0 ? *reinterpret_cast<const float2*>(p.c + o) : make_float2(0.f, 0.f);
+                float c_new[2], h[2];
+#pragma unroll
+                for (int x = 0; x < 2; ++x) {
+                    const int e = 2 * hr + x;
+                    const float gi = sigmoidf(sum[n8 * 4 + e]);
+                    const float gf = sigmoidf(sum[(NB + n8) * 4 + e]);
+                    const float gg = tanhf(sum[(2 * NB + n8) * 4 + e]);
+                    const float go = sigmoidf(sum[(3 * NB + n8) * 4 + e]);
+                    c_new[x] = gf * (x ? c_prev.y : c_prev.x) + gi * gg;
+                    h[x] = go * tanhf(c_new[x]);
+                }
+                const float2 c2 = make_float2(c_new[0], c_new[1]);
+                *reinterpret_cast<float2*>(p.c + o) = c2;
+                *reinterpret_cast<float2*>(p.hs_t + o) = make_float2(h[0], h[1]);
+                *reinterpret_cast<float2*>(p.cs_t + o) = c2;
+            }
+        }
+    };
+    scan_gate_tiles<P, STORE>(&map_h, &map_whh_hi, &map_whh_lo, p.xp, p.gates, B, H, t, cell_update);
+}
+
+struct BwdGateArgs {
     const float* xp;       // [B, 4H] x_proj[t]
     const float* cs_t;     // [B, H] c_t
     const float* cs_prev;  // [B, H] c_{t-1}; unread at t == 0
@@ -360,53 +502,89 @@ struct ScanBwdArgsF32 {
     const float* dh;       // [B, H] dh carry from step t+1 (0 at t = L-1)
     float* dc;             // [B, H] dc carry in, dc * f out
     float* dxp;            // [B, 4H] out: dgates of step t
+    float* gates;          // [B, 4H] the recomputed pre-activation gates (STORE), or null
+    int B, H, t;
 };
 
-__global__ void __launch_bounds__(NT) lstm_scan_bwd_gate_kernel_f32(const ScanBwdArgsF32 p) {
-    __shared__ __align__(16) TileAF As[2];
-    __shared__ __align__(16) TileWF Bs[2];
-    __shared__ int s_len[BM];
-
-    const long long row0 = (long long)blockIdx.x * BM;
-    const int j0 = blockIdx.y * BN;
-    const int t = p.g.t, H = p.g.H;
-    all_rows(p.g.B, row0, t, s_len);
-
-    float acc[FRM][4][FUN];
-    gate_product_f32(p.g, row0, j0, s_len, As, Bs, acc);
-
+// Kernel 8, part 1, step t: kernel 7's gate tiles recomputed, then the cell
+// math (bwd_cell) of each (row, unit pair) this thread holds: dx_proj[t],
+// dc in place (one owner per cell).  No db: the bias is inside x_proj, and
+// its gradient is dx_proj's sum, outside.
+template <int P, bool STORE>
+__global__ void __launch_bounds__(THREADS, 1)
+    lstm_scan_bwd_gate_kernel_tf32(const __grid_constant__ CUtensorMap map_h,
+                                   const __grid_constant__ CUtensorMap map_whh_hi,
+                                   const __grid_constant__ CUtensorMap map_whh_lo, const BwdGateArgs p) {
+    const int B = p.B, H = p.H, t = p.t;
+    auto cell_grads = [&](const float (&sum)[TN / 2], int r0, int u0, int lane, auto finish_gates) {
 #pragma unroll
-    for (int i = 0; i < FRM; ++i) {
-        const int r = f32_row(i);
-        if (s_len[r] == 0) continue;
+        for (int n8 = 0; n8 < NB; ++n8) {
+            finish_gates(n8);
+            const int u = u0 + n8 * 8 + (lane & 3) * 2;  // and u + 1; H is even
 #pragma unroll
-        for (int u = 0; u < FUN; ++u) {
-            const int j = j0 + f32_unit(u);
-            if (j >= H) continue;
-            const size_t row = (size_t)(row0 + r);
-            const float* xp = p.xp + row * 4 * H + j;
-            const float pre[4] = {acc[i][0][u] + xp[0], acc[i][1][u] + xp[H], acc[i][2][u] + xp[2 * H],
-                                  acc[i][3][u] + xp[3 * H]};
-            const size_t o = row * H + j;
-            const float c_prev = t > 0 ? p.cs_prev[o] : 0.f;
-            float d[4];
-            p.dc[o] = bwd_cell(pre, p.cs_t[o], c_prev, p.dh[o] + p.dhs_t[o], p.dc[o], d);
-            float* dxp = p.dxp + row * 4 * H + j;
+            for (int hr = 0; hr < 2; ++hr) {
+                const int row = r0 + 8 * hr;
+                if (row >= B || u >= H) continue;
+                const size_t o = (size_t)row * H + u;
+                const float2 c_t = *reinterpret_cast<const float2*>(p.cs_t + o);
+                const float2 c_prev = t > 0 ? *reinterpret_cast<const float2*>(p.cs_prev + o) : make_float2(0.f, 0.f);
+                const float2 dh_in = *reinterpret_cast<const float2*>(p.dh + o);
+                const float2 cot = *reinterpret_cast<const float2*>(p.dhs_t + o);
+                float2* dc = reinterpret_cast<float2*>(p.dc + o);
+                const float2 dc_in = *dc;
+                float d[2][4], dc_out[2];
 #pragma unroll
-            for (int g = 0; g < 4; ++g) dxp[(size_t)g * H] = d[g];
+                for (int x = 0; x < 2; ++x) {
+                    const int e = 2 * hr + x;
+                    const float pre[4] = {sum[n8 * 4 + e], sum[(NB + n8) * 4 + e], sum[(2 * NB + n8) * 4 + e],
+                                          sum[(3 * NB + n8) * 4 + e]};
+                    dc_out[x] = bwd_cell(pre, x ? c_t.y : c_t.x, x ? c_prev.y : c_prev.x,
+                                         x ? dh_in.y + cot.y : dh_in.x + cot.x, x ? dc_in.y : dc_in.x, d[x]);
+                }
+                *dc = make_float2(dc_out[0], dc_out[1]);
+                float* dxp_row = p.dxp + (size_t)row * 4 * H + u;
+#pragma unroll
+                for (int g = 0; g < 4; ++g)
+                    *reinterpret_cast<float2*>(dxp_row + (size_t)g * H) = make_float2(d[0][g], d[1][g]);
+            }
         }
-    }
+    };
+    scan_gate_tiles<P, STORE>(&map_h, &map_whh_hi, &map_whh_lo, p.xp, p.gates, B, H, t, cell_grads);
 }
 
-GateArgsF32 recurrent_args_f32(const void* h_prev, const void* w_hh, long long B, int H, int t) {
-    GateArgsF32 g;
-    g.h_prev = static_cast<const float*>(h_prev);
-    g.w_hh = static_cast<const float*>(w_hh);
-    g.B = B;
-    g.H = H;
-    g.t = t;
-    return g;
+// Kernel 8, part 2, step t > 0: dh_carry = dx_proj[t] . W_hh, every row.
+template <int P>
+__global__ void __launch_bounds__(THREADS, 1)
+    lstm_scan_bwd_product_kernel_tf32(const __grid_constant__ CUtensorMap map_dg,
+                                      const __grid_constant__ CUtensorMap map_wt_hi,
+                                      const __grid_constant__ CUtensorMap map_wt_lo, const ProductArgs p) {
+    extern __shared__ uint8_t smem_raw[];
+    product_tiles<P>(smem_raw, &map_dg, &map_wt_hi, &map_wt_lo, p, p.B);
 }
+
+// The gate launches' maps: h_{t-1} at (t - 1, row0) of hs [L, B, H] in
+// 128 x 32 boxes (rows past B and K tails read as zero); the hi and lo
+// parts of W_hh as [4][H][H], one box holding the four gate slabs of 32
+// units (units past H read as zero).  Null where cuTensorMapEncodeTiled
+// could not encode one.
+void gate_maps(oket_sm90::CachedMap (&cache)[3], const void* hs, const void* w_split, int L, int B, int H,
+               const CUtensorMap* (&maps)[3]) {
+    const SplitWeights w = split_parts(w_split, 0, H);
+    const uint64_t b = B, h = H;
+    const uint32_t box_a[3] = {TK, TM, 1}, box_w[3] = {TK, TU, 4};
+    maps[0] = oket_sm90::f32_map(cache[0], hs, {h, b, (uint64_t)L}, box_a);
+    maps[1] = oket_sm90::f32_map(cache[1], w.whh_hi, {h, h, 4}, box_w);
+    maps[2] = oket_sm90::f32_map(cache[2], w.whh_lo, {h, h, 4}, box_w);
+}
+
+template <auto Kernel, typename Args>
+int launch(const CUtensorMap* const* maps, const Args& p, int grid, void* stream) {
+    if (const int e = allow_smem<Kernel, SMEM>()) return e;
+    Kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(*maps[0], *maps[1], *maps[2], p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tf32
 
 }  // namespace
 
@@ -497,44 +675,106 @@ extern "C" int oket_lstm_scan_bwd_product_bf16(const void* dxp, const void* w_hh
     return launch<lstm_scan_bwd_product_kernel_bf16>(maps[0], maps[1], p, grid, stream);
 }
 
-// The f32 mode: the same three entries for f32 x_proj, w_hh, hs, cs, dhs and
-// dx_proj (c, dh and dc f32, as in the bf16 entries); H % 4 == 0.
-extern "C" int oket_lstm_scan_step_f32(const void* xp, const void* h_prev, const void* w_hh, void* c, void* hs_t,
-                                       void* cs_t, long long B, int H, int t, void* stream) {
-    ScanArgsF32 p;
-    p.g = recurrent_args_f32(h_prev, w_hh, B, H, t);
-    p.xp = static_cast<const float*>(xp);
+// The f32 entries (3xTF32): x_proj [L, B, 4H], w_hh [4H, H], hs, cs and dhs
+// [L, B, H] and dx_proj [L, B, 4H] in f32; c, dh and dc [B, H] f32.  Every
+// pointer is a 16-byte aligned device pointer, H % 4 == 0; w_split is the
+// split launch's output (2 x 4H x H floats for the forward, 4 x 4H x H for
+// the backward); grid is the number of persistent blocks
+// (ops/lstm_kernel.py::forward_grid, and backward_product_grid for the
+// product); variant is 0 (the kernel), 1 (the kernel, which also stores the
+// step's f32 pre-activation gates into gates [B, 4H]; null otherwise; the
+// product launch runs the kernel) or 2 (1xTF32: hi.hi' alone, the planted
+// check); the stream is a cudaStream_t.  Each returns the cudaError_t of its
+// launch, or -1 if cuTensorMapEncodeTiled could not encode the tensor maps.
+
+// Once per call, before the steps: the hi and lo parts of w_hh [4H, H],
+// gate-major, into w_split, and with transposed != 0 also of w_hh^T [H, 4H]
+// after them (the product launch's B).  No W_ih (D = 0): the split's W_ih
+// parts are empty and it never reads w_ih.
+extern "C" int oket_lstm_scan_split_f32(const void* w_hh, void* w_split, int H, int transposed, void* stream) {
+    return transposed ? oket_tf32::launch_split<true>(nullptr, w_hh, w_split, 0, H, stream)
+                      : oket_tf32::launch_split<false>(nullptr, w_hh, w_split, 0, H, stream);
+}
+
+// Kernel 7, step t over rows [0, B): reads x_proj[t] and hs[t-1], updates c
+// in place, writes hs[t] and cs[t].
+extern "C" int oket_lstm_scan_step_f32(const void* xp, void* hs, const void* w_split, void* c, void* cs, void* gates,
+                                       int L, int B, int H, int t, int grid, int variant, void* stream) {
+    using namespace tf32;
+    const size_t slice = (size_t)B * H;
+    StepArgs p;
+    p.xp = static_cast<const float*>(xp) + 4 * slice * t;
     p.c = static_cast<float*>(c);
-    p.hs_t = static_cast<float*>(hs_t);
-    p.cs_t = static_cast<float*>(cs_t);
-    lstm_scan_step_kernel_f32<<<step_grid(B, H), NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
-    return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int oket_lstm_scan_bwd_gate_f32(const void* xp, const void* h_prev, const void* w_hh, const void* cs_t,
-                                           const void* cs_prev, const void* dhs_t, const void* dh, void* dc,
-                                           void* dxp, long long B, int H, int t, void* stream) {
-    ScanBwdArgsF32 p;
-    p.g = recurrent_args_f32(h_prev, w_hh, B, H, t);
-    p.xp = static_cast<const float*>(xp);
-    p.cs_t = static_cast<const float*>(cs_t);
-    p.cs_prev = static_cast<const float*>(cs_prev);
-    p.dhs_t = static_cast<const float*>(dhs_t);
-    p.dh = static_cast<const float*>(dh);
-    p.dc = static_cast<float*>(dc);
-    p.dxp = static_cast<float*>(dxp);
-    lstm_scan_bwd_gate_kernel_f32<<<step_grid(B, H), NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
-    return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int oket_lstm_scan_bwd_product_f32(const void* dxp, const void* w_hh, void* dh, long long B, int H, int t,
-                                              void* stream) {
-    ProdArgsF32 p;
-    p.dg = static_cast<const float*>(dxp);
-    p.w_hh = static_cast<const float*>(w_hh);
-    p.dh = static_cast<float*>(dh);
+    p.hs_t = static_cast<float*>(hs) + slice * t;
+    p.cs_t = static_cast<float*>(cs) + slice * t;
+    p.gates = static_cast<float*>(gates);
     p.B = B;
     p.H = H;
     p.t = t;
-    return launch_bwd_product_f32(p, stream);
+    static thread_local oket_sm90::CachedMap cache[3];
+    const CUtensorMap* maps[3];
+    gate_maps(cache, hs, w_split, L, B, H, maps);
+    if (!maps[0] || !maps[1] || !maps[2]) return -1;
+    if (variant == KERNEL) return launch<lstm_scan_step_kernel_tf32<X3, false>>(maps, p, grid, stream);
+    if (variant == STORE_GATES && gates) return launch<lstm_scan_step_kernel_tf32<X3, true>>(maps, p, grid, stream);
+    if (variant == ONE_TF32) return launch<lstm_scan_step_kernel_tf32<X1, false>>(maps, p, grid, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Kernel 8, step t, part 1 (gate recompute and cell math): reads x_proj[t],
+// hs[t-1], cs[t], cs[t-1] (not at t == 0), dhs[t] and the dh carry written
+// by part 2 of step t+1; writes dx_proj[t], updates dc in place.
+extern "C" int oket_lstm_scan_bwd_gate_f32(const void* xp, const void* hs, const void* w_split, const void* cs,
+                                           const void* dhs, const void* dh, void* dc, void* dxp, void* gates, int L,
+                                           int B, int H, int t, int grid, int variant, void* stream) {
+    using namespace tf32;
+    const size_t slice = (size_t)B * H;
+    BwdGateArgs p;
+    p.xp = static_cast<const float*>(xp) + 4 * slice * t;
+    p.cs_t = static_cast<const float*>(cs) + slice * t;
+    p.cs_prev = static_cast<const float*>(cs) + slice * (t > 0 ? t - 1 : 0);
+    p.dhs_t = static_cast<const float*>(dhs) + slice * t;
+    p.dh = static_cast<const float*>(dh);
+    p.dc = static_cast<float*>(dc);
+    p.dxp = static_cast<float*>(dxp) + 4 * slice * t;
+    p.gates = static_cast<float*>(gates);
+    p.B = B;
+    p.H = H;
+    p.t = t;
+    static thread_local oket_sm90::CachedMap cache[3];
+    const CUtensorMap* maps[3];
+    gate_maps(cache, hs, w_split, L, B, H, maps);
+    if (!maps[0] || !maps[1] || !maps[2]) return -1;
+    if (variant == KERNEL) return launch<lstm_scan_bwd_gate_kernel_tf32<X3, false>>(maps, p, grid, stream);
+    if (variant == STORE_GATES && gates)
+        return launch<lstm_scan_bwd_gate_kernel_tf32<X3, true>>(maps, p, grid, stream);
+    if (variant == ONE_TF32) return launch<lstm_scan_bwd_gate_kernel_tf32<X1, false>>(maps, p, grid, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Kernel 8, step t > 0, part 2: the dh carry [B, H] = dx_proj[t] . W_hh.
+extern "C" int oket_lstm_scan_bwd_product_f32(const void* dxp, const void* w_split, void* dh, int L, int B, int H,
+                                              int t, int grid, int variant, void* stream) {
+    using namespace tf32;
+    oket_tf32::ProductArgs p;
+    p.dh = static_cast<float*>(dh);
+    p.demb = nullptr;
+    p.B = B;
+    p.D = 0;
+    p.H = H;
+    p.t = t;
+    // dx_proj[t] in 128 x 32 boxes; W_hh^T [H, 4H] in 128 x 32 boxes
+    // (columns past H and K tails read as zero)
+    static thread_local oket_sm90::CachedMap cache[3];
+    const SplitWeights w = split_parts(w_split, 0, H);
+    const uint64_t k = 4 * (uint64_t)H;
+    const uint32_t box[3] = {TK, TM, 1};
+    const CUtensorMap* const maps[3] = {oket_sm90::f32_map(cache[0], dxp, {k, (uint64_t)B, (uint64_t)L}, box),
+                                        oket_sm90::f32_map(cache[1], w.wt_hi, {k, (uint64_t)H, 1}, box),
+                                        oket_sm90::f32_map(cache[2], w.wt_lo, {k, (uint64_t)H, 1}, box)};
+    if (!maps[0] || !maps[1] || !maps[2]) return -1;
+    if (variant == KERNEL || variant == STORE_GATES)
+        return launch<lstm_scan_bwd_product_kernel_tf32<X3>>(maps, p, grid, stream);
+    if (variant == ONE_TF32) return launch<lstm_scan_bwd_product_kernel_tf32<X1>>(maps, p, grid, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
 }

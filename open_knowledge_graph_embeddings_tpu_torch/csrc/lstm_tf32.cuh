@@ -1,8 +1,11 @@
 // The 3xTF32 gate loop of the f32 LSTM kernels on Hopper's tensor cores,
-// shared by the f32 forward (lstm_last_fwd_f32.cu, kernels 1 and 5) and the
-// f32 backward (the tf32:: kernels of lstm_last_bwd.cu, kernels 2 and 6):
-// one ring, split, fragment load and product loop, so the backward's gate
-// launch recomputes the forward's pre-activations in the same sum order.
+// shared by the f32 forward (lstm_last_fwd_f32.cu, kernels 1 and 5), the
+// f32 backward (the tf32:: kernels of lstm_last_bwd.cu, kernels 2 and 6) and
+// the f32 recurrence over a precomputed input projection (the tf32:: kernels
+// of lstm_scan.cu, kernels 7 and 8): one ring, split, fragment load and
+// product loop, so a backward's gate launch recomputes its forward's
+// pre-activations in the same sum order, and one product launch
+// (product_tiles) for the backwards' dh/demb.
 //
 // 3xTF32: each f32 operand x is split into hi = tf32(x) and lo = tf32(x -
 // hi) (lstm_sm90.cuh::tf32_split; 10 + 10 mantissa bits, so x is kept to
@@ -266,6 +269,86 @@ inline SplitWeights split_parts(const void* w_split, int D, int H) {
     const float* base = static_cast<const float*>(w_split);
     const size_t ih = (size_t)4 * H * D, hh = (size_t)4 * H * H, t = (size_t)(H + D) * 4 * H;
     return {base, base + ih, base + 2 * ih, base + 2 * ih + hh, base + 2 * ih + 2 * hh, base + 2 * ih + 2 * hh + t};
+}
+
+// What the product launch writes; dg comes by its tensor map.
+struct ProductArgs {
+    float* dh;    // [B, H] out: dg . W_hh (t > 0)
+    float* demb;  // [B, D] out: dg . W_ih, step t; none when D == 0
+    int B, D, H, t;
+};
+
+// The backward's product launch of step t: [dh | demb[t]] = dg[t] . [W_hh |
+// W_ih] over K = 4H in 3xTF32, a tile of 128 rows x 128 output columns; B
+// is the split copy of [W_hh | W_ih]^T ([H + D, 4H], K-major, map_wt_hi and
+// map_wt_lo), as TF32 wgmma reads only K-major operands.  Rows past the
+// active prefix [0, n_act_all) (the caller's; read from thread 0) are
+// computed and not written; at t == 0 only the tiles holding demb columns
+// run (dh of step 0 is never read).  With D = 0 (kernel 8: dh alone) there
+// are no demb columns.  The products are the gate loop's (tile_products,
+// the sum from 0).
+template <int V, bool FOLD = true>
+__device__ __forceinline__ void product_tiles(uint8_t* smem_raw, const CUtensorMap* map_dg,
+                                              const CUtensorMap* map_wt_hi, const CUtensorMap* map_wt_lo,
+                                              const ProductArgs& p, int n_act_all) {
+    const Ring r = make_ring(smem_raw);
+    __syncthreads();
+    // block-uniform values made warp-uniform for the compiler (a wgmma on
+    // what it takes for a divergent path is serialised)
+    const int n_act = __shfl_sync(0xffffffff, n_act_all, 0);
+    const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+    const int N = p.H + p.D;
+    const int n_first = p.t > 0 ? 0 : p.H / TN;  // the first column tile that holds a demb column
+    const int col_tiles = (N + TN - 1) / TN - n_first;
+    const int tiles = (n_act + TM - 1) / TM * col_tiles;
+    if ((int)blockIdx.x >= tiles) return;
+    const int nk = (4 * p.H + TK - 1) / TK;
+
+    if (wg == 2) {
+        setmaxnreg_dec<40>();
+        if (threadIdx.x == 256) {
+            tma_prefetch_map(map_dg);
+            tma_prefetch_map(map_wt_hi);
+            tma_prefetch_map(map_wt_lo);
+            produce(r, tiles, nk, [&](int tile, int kt, uint8_t* a, uint8_t* w_hi, uint8_t* w_lo, uint64_t* bar) {
+                const int row0 = tile / col_tiles * TM, n0 = (tile % col_tiles + n_first) * TN;
+                tma_load_3d(a, map_dg, bar, kt * TK, row0, p.t);
+                tma_load_3d(w_hi, map_wt_hi, bar, kt * TK, n0, 0);
+                tma_load_3d(w_lo, map_wt_lo, bar, kt * TK, n0, 0);
+            });
+        }
+    } else {
+        setmaxnreg_inc<232>();
+        const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+        // acc[4 n8 + e] holds row r0 + 8 (e/2), column n0 + 8 n8 + 2
+        // (lane%4) + e%2, for r0 = row0 + 64 wg + 16 warp + lane/4
+        float acc[TN / 2];
+        for (int q = 0;; ++q) {
+            const int tile = blockIdx.x + q * gridDim.x;
+            if (tile >= tiles) break;
+            const int row0 = tile / col_tiles * TM, n0 = (tile % col_tiles + n_first) * TN;
+            const int r0 = row0 + 64 * wg + warp * 16 + (lane >> 2);
+#pragma unroll
+            for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+            tile_products<V, FOLD>(r, q, nk, wg, warp, lane, acc);
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+                const int row = r0 + 8 * hr;
+                if (row >= n_act) continue;
+#pragma unroll
+                for (int n8 = 0; n8 < TN / 8; ++n8) {
+                    const int n = n0 + n8 * 8 + (lane & 3) * 2;  // and n + 1: H and N are even
+                    const float2 v = make_float2(acc[n8 * 4 + 2 * hr], acc[n8 * 4 + 2 * hr + 1]);
+                    if (n >= N) continue;
+                    if (n < p.H) {
+                        if (p.t > 0) *reinterpret_cast<float2*>(p.dh + (size_t)row * p.H + n) = v;
+                    } else {
+                        *reinterpret_cast<float2*>(p.demb + (size_t)row * p.D + (n - p.H)) = v;
+                    }
+                }
+            }
+        }
+    }
 }
 
 }  // namespace oket_tf32

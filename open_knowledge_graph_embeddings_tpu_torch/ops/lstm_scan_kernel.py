@@ -22,10 +22,13 @@ of each half:
   product launch.  In bf16 they run kernel 1's ``wgmma`` loop with D = 0
   (``csrc/lstm_bf16.cuh``; the persistent grids of
   :func:`~.lstm_kernel.forward_grid` and
-  :func:`~.lstm_kernel.backward_product_grid_bf16`), so the backward's
-  recomputed gates are the forward's bit for bit; in f32 (the ``*_f32``
-  entries) true f32 products on the CUDA cores.  Design notes and bound at
-  the top of the source.  They take H in multiples of
+  :func:`~.lstm_kernel.backward_product_grid_bf16`), in f32 (the ``*_f32``
+  entries) the f32 kernels' 3xTF32 loop with D = 0 (``csrc/lstm_tf32.cuh``;
+  :func:`~.lstm_kernel.forward_grid` and
+  :func:`~.lstm_kernel.backward_product_grid`) after one launch that splits
+  W_hh into its TF32 hi and lo parts; so the backward's recomputed gates
+  are the forward's bit for bit.  Design notes and bound at the top of the
+  source.  They take H in multiples of
   :func:`~.lstm_kernel.kernel_multiple`; any other H is zero-padded per gate
   block on the way in and sliced on the way out (:func:`padded_forward`,
   :func:`padded_backward`), which is exact: a padded unit has zero
@@ -52,7 +55,6 @@ _SOURCE = "lstm_scan.cu"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_LL = ctypes.c_longlong
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -146,22 +148,30 @@ def lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs):
 @functools.lru_cache(maxsize=None)
 def _fns(dtype):
     """The C entry points (forward step, backward gate, backward product) for
-    ``dtype``, built and loaded on first use."""
+    ``dtype``, built and loaded on first use; all take whole arrays, t, a
+    persistent grid and (but the bf16 product) a variant."""
     from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
 
     lib, sfx = cuda_build.load(_SOURCE), lstm_kernel._SUFFIX[dtype]
     fwd, gate, prod = (getattr(lib, f"oket_lstm_scan_{part}_{sfx}") for part in ("step", "bwd_gate", "bwd_product"))
-    if dtype == torch.bfloat16:  # kernel 1's loop: whole arrays, t, a persistent grid and a variant
-        fwd.argtypes = [_P] * 6 + [_I] * 6 + [_P]
-        gate.argtypes = [_P] * 9 + [_I] * 6 + [_P]
-        prod.argtypes = [_P] * 3 + [_I] * 5 + [_P]
-    else:  # the FFMA kernels: one step's slices
-        fwd.argtypes = [_P] * 6 + [_LL, _I, _I, _P]
-        gate.argtypes = [_P] * 9 + [_LL, _I, _I, _P]
-        prod.argtypes = [_P] * 3 + [_LL, _I, _I, _P]
+    fwd.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+    gate.argtypes = [_P] * 9 + [_I] * 6 + [_P]
+    prod.argtypes = [_P] * 3 + [_I] * (5 if dtype == torch.bfloat16 else 6) + [_P]
     for fn in (fwd, gate, prod):
         fn.restype = _I
     return fwd, gate, prod
+
+
+@functools.lru_cache(maxsize=None)
+def _split_fn():
+    """The f32 entries' weight split (W_hh's TF32 hi and lo parts), built and
+    loaded on first use."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
+
+    fn = cuda_build.load(_SOURCE).oket_lstm_scan_split_f32
+    fn.argtypes = [_P, _P, _I, _I, _P]
+    fn.restype = _I
+    return fn
 
 
 def _pad_units(x, Hp, gates=False):
@@ -207,17 +217,29 @@ def _padded_h(H, dtype):
     return -(-H // m) * m
 
 
-# the bf16 gate launches' measuring variant (kernel 7 and kernel 8's part 1)
+# what a launch of the f32 kernels computes: the kernel (3xTF32), or for
+# chip_smoke.py's checks one TF32 product (1xTF32: hi.hi' alone), which the
+# f32 rule must fail; the bf16 kernels have the kernel alone
+F32_VARIANTS = {"kernel": 0, "1xTF32": 2}
+
+# the gate launches' measuring variant (kernel 7 and kernel 8's part 1)
 # that also stores each step's f32 pre-activation gates, to hold kernel 8's
 # recompute to kernel 7's bitwise (chip_smoke.py)
 _STORE_GATES = 1
 
 
+def _variant_code(dtype, variant, gates):
+    variants = F32_VARIANTS if dtype == torch.float32 else {"kernel": 0}
+    if variant not in variants:
+        raise ValueError(f"the {dtype} recurrence has no variant {variant!r}; it has {list(variants)}")
+    if gates is not None and variant != "kernel":
+        raise ValueError("only the kernel stores its pre-activation gates")
+    return variants[variant] if gates is None else _STORE_GATES
+
+
 def _check_gates_out(gates, L, B, H, x_proj):
     if gates is None:
         return
-    if x_proj.dtype != torch.bfloat16:
-        raise ValueError("only the bf16 kernels store their pre-activation gates")
     if _padded_h(H, x_proj.dtype) != H:
         raise ValueError(f"the gates are stored at an H the kernels take unpadded, got H={H}")
     if gates.shape != (L, B, 4 * H) or gates.dtype != torch.float32 or gates.device != x_proj.device:
@@ -226,15 +248,30 @@ def _check_gates_out(gates, L, B, H, x_proj):
         raise ValueError("gates must be contiguous and 16-byte aligned")
 
 
-def _launch_forward(x_proj, w_hh, counter=None, gates=None):
-    """Kernel 7's L launches, counted in ``counter`` (``lstm_scan_forward``
-    by default).  With ``gates`` (an [L, B, 4H] f32 tensor, bf16 only) each
-    step also stores its f32 pre-activation gates there."""
+def _split(w_hh, transposed, counter, stream):
+    """The f32 kernels' weight split, one launch counted in ``counter``: W_hh's
+    TF32 hi and lo parts gate-major, and with ``transposed`` those of W_hhᵀ
+    after them (the backward's product launch reads them)."""
+    H = w_hh.shape[1]
+    w_split = torch.empty((4 if transposed else 2) * 4 * H * H, dtype=torch.float32, device=w_hh.device)
+    _raise_on(_split_fn()(w_hh.data_ptr(), w_split.data_ptr(), H, int(transposed), stream), "lstm_scan f32 split")
+    counter.launches += 1
+    return w_split
+
+
+def _launch_forward(x_proj, w_hh, counter=None, gates=None, variant="kernel"):
+    """Kernel 7's launches, counted in ``counter`` (``lstm_scan_forward`` by
+    default): L steps, and at f32 the weight split before them (L + 1).
+    With ``gates`` (an [L, B, 4H] f32 tensor) each step also stores its f32
+    pre-activation gates there; ``variant`` is ``"kernel"`` or, at f32,
+    ``"1xTF32"``."""
     counter = counter or lstm_scan_forward
     L, B, H = _check(x_proj, w_hh)
     _check_gates_out(gates, L, B, H, x_proj)
+    code = _variant_code(x_proj.dtype, variant, gates)
     if _padded_h(H, x_proj.dtype) != H:
-        return padded_forward(lambda x, w: _launch_forward(x, w, counter), x_proj, w_hh, _padded_h(H, x_proj.dtype))
+        return padded_forward(lambda x, w: _launch_forward(x, w, counter, variant=variant), x_proj, w_hh,
+                              _padded_h(H, x_proj.dtype))
     lstm_kernel._check_kernel_inputs(x_proj.dtype, 0, H, x_proj=x_proj, w_hh=w_hh)  # no input part: D = 0
     fwd, _, _ = _fns(x_proj.dtype)
     dev = x_proj.device
@@ -244,34 +281,30 @@ def _launch_forward(x_proj, w_hh, counter=None, gates=None):
     if not (B and H):
         return hs, cs
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if x_proj.dtype == torch.bfloat16:
-        grid = lstm_kernel.forward_grid(B, H, lstm_kernel._sm_count(dev.index))
-        code = 0 if gates is None else _STORE_GATES
-        ptrs = [x.data_ptr() for x in (x_proj, hs, w_hh, c, cs)]
-        for t in range(L):
-            err = fwd(*ptrs, None if gates is None else gates[t].data_ptr(), L, B, H, t, grid, code, stream)
-            _raise_on(err, f"lstm_scan forward step {t}")
-            counter.launches += 1
-        return hs, cs
+    grid = lstm_kernel.forward_grid(B, H, lstm_kernel._sm_count(dev.index))
+    w = _split(w_hh, False, counter, stream) if x_proj.dtype == torch.float32 else w_hh
+    ptrs = [x.data_ptr() for x in (x_proj, hs, w, c, cs)]
     for t in range(L):
-        err = fwd(x_proj[t].data_ptr(), hs[max(t - 1, 0)].data_ptr(), w_hh.data_ptr(), c.data_ptr(),
-                  hs[t].data_ptr(), cs[t].data_ptr(), B, H, t, stream)
+        err = fwd(*ptrs, None if gates is None else gates[t].data_ptr(), L, B, H, t, grid, code, stream)
         _raise_on(err, f"lstm_scan forward step {t}")
         counter.launches += 1
     return hs, cs
 
 
-def _launch_backward(x_proj, w_hh, hs, cs, dhs, counter=None, gates=None):
-    """Kernel 8's 2L - 1 launches, counted in ``counter``
-    (``lstm_scan_backward`` by default).  With ``gates`` (an [L, B, 4H] f32
-    tensor, bf16 only) each gate launch also stores its recomputed f32
-    pre-activation gates there."""
+def _launch_backward(x_proj, w_hh, hs, cs, dhs, counter=None, gates=None, variant="kernel"):
+    """Kernel 8's launches, counted in ``counter`` (``lstm_scan_backward``
+    by default): a gate launch per step and a product launch from step 1 on
+    (2L - 1), and at f32 the weight split before them (2L).  With ``gates``
+    (an [L, B, 4H] f32 tensor) each gate launch also stores its recomputed
+    f32 pre-activation gates there; ``variant`` as in
+    :func:`_launch_forward`."""
     counter = counter or lstm_scan_backward
     L, B, H = _check(x_proj, w_hh)
     _check_residuals(L, B, H, x_proj, hs=hs, cs=cs, dhs=dhs)
     _check_gates_out(gates, L, B, H, x_proj)
+    code = _variant_code(x_proj.dtype, variant, gates)
     if _padded_h(H, x_proj.dtype) != H:
-        return padded_backward(lambda *a: _launch_backward(*a, counter), x_proj, w_hh, hs, cs, dhs,
+        return padded_backward(lambda *a: _launch_backward(*a, counter, variant=variant), x_proj, w_hh, hs, cs, dhs,
                                _padded_h(H, x_proj.dtype))
     lstm_kernel._check_kernel_inputs(x_proj.dtype, 0, H, x_proj=x_proj, w_hh=w_hh, hs=hs, cs=cs, dhs=dhs)
     _, gate, prod = _fns(x_proj.dtype)
@@ -282,30 +315,20 @@ def _launch_backward(x_proj, w_hh, hs, cs, dhs, counter=None, gates=None):
     if not (B and H):
         return dxp.zero_()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if x_proj.dtype == torch.bfloat16:
-        n_sm = lstm_kernel._sm_count(dev.index)
-        grid_gate = lstm_kernel.forward_grid(B, H, n_sm)
-        grid_prod = lstm_kernel.backward_product_grid_bf16(B, H, 0, n_sm)
-        code = 0 if gates is None else _STORE_GATES
-        ptrs = [x.data_ptr() for x in (x_proj, hs, w_hh, cs, dhs, dh, dc, dxp)]
-        for t in reversed(range(L)):
-            err = gate(*ptrs, None if gates is None else gates[t].data_ptr(), L, B, H, t, grid_gate, code, stream)
-            _raise_on(err, f"lstm_scan backward gate step {t}")
-            counter.launches += 1
-            if t > 0:  # the dh carry into step 0 is never read
-                err = prod(dxp.data_ptr(), w_hh.data_ptr(), dh.data_ptr(), L, B, H, t, grid_prod, stream)
-                _raise_on(err, f"lstm_scan backward product step {t}")
-                counter.launches += 1
-        return dxp
+    n_sm = lstm_kernel._sm_count(dev.index)
+    grid_gate = lstm_kernel.forward_grid(B, H, n_sm)
+    if x_proj.dtype == torch.float32:
+        w = _split(w_hh, True, counter, stream)
+        grid_prod, prod_variant = lstm_kernel.backward_product_grid(B, H, 0, n_sm), [code]
+    else:
+        w, grid_prod, prod_variant = w_hh, lstm_kernel.backward_product_grid_bf16(B, H, 0, n_sm), []
+    ptrs = [x.data_ptr() for x in (x_proj, hs, w, cs, dhs, dh, dc, dxp)]
     for t in reversed(range(L)):
-        prev = max(t - 1, 0)
-        err = gate(x_proj[t].data_ptr(), hs[prev].data_ptr(), w_hh.data_ptr(), cs[t].data_ptr(),
-                   cs[prev].data_ptr(), dhs[t].data_ptr(), dh.data_ptr(), dc.data_ptr(), dxp[t].data_ptr(),
-                   B, H, t, stream)
+        err = gate(*ptrs, None if gates is None else gates[t].data_ptr(), L, B, H, t, grid_gate, code, stream)
         _raise_on(err, f"lstm_scan backward gate step {t}")
         counter.launches += 1
         if t > 0:  # the dh carry into step 0 is never read
-            err = prod(dxp[t].data_ptr(), w_hh.data_ptr(), dh.data_ptr(), B, H, t, stream)
+            err = prod(dxp.data_ptr(), w.data_ptr(), dh.data_ptr(), L, B, H, t, grid_prod, *prod_variant, stream)
             _raise_on(err, f"lstm_scan backward product step {t}")
             counter.launches += 1
     return dxp
@@ -316,16 +339,18 @@ def _launch_backward(x_proj, w_hh, hs, cs, dhs, counter=None, gates=None):
 
 def lstm_scan_forward(x_proj, w_hh):
     """Kernel 7: same contract as :func:`lstm_scan_forward_plain`, any H.
-    CUDA tensors launch the kernel (one launch per step, counted in
-    ``lstm_scan_forward.launches``); CPU tensors take the plain version."""
+    CUDA tensors launch the kernel (one launch per step, and at f32 the
+    weight split, counted in ``lstm_scan_forward.launches``); CPU tensors
+    take the plain version."""
     return _on_device(x_proj, _launch_forward, lstm_scan_forward_plain)(x_proj, w_hh)
 
 
 def lstm_scan_backward(x_proj, w_hh, hs, cs, dhs):
     """Kernel 8: same contract as :func:`lstm_scan_backward_plain`, any H.
     CUDA tensors launch the kernels (a gate launch per step and a product launch
-    per step from step 1 on, ``2L - 1`` in all, counted in
-    ``lstm_scan_backward.launches``); CPU tensors take the plain version."""
+    per step from step 1 on, ``2L - 1`` in all, and at f32 the weight split,
+    ``2L``; counted in ``lstm_scan_backward.launches``); CPU tensors take the
+    plain version."""
     return _on_device(x_proj, _launch_backward, lstm_scan_backward_plain)(x_proj, w_hh, hs, cs, dhs)
 
 

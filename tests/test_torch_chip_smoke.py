@@ -4,6 +4,7 @@ checks have power.  Without a card the wrappers take the plain versions, so
 still fail its rule (at d=64 here; the script plants them at the training
 shapes on the card)."""
 
+import contextlib
 import importlib.util
 import pathlib
 import subprocess
@@ -224,22 +225,31 @@ def test_kernel_rows_list_the_f32_modes(smoke):
 
 def test_forward_launches_and_the_f32_paths_expected_counts(smoke):
     """Kernels 1 and 5 launch L times a call at bf16 and L + 1 at f32 (the
-    weight split before the steps); the exact counts that train_f32,
-    serve_f32 and op_f32 are held to take it: 50 steps of two fused passes
-    give 1100 forward launches (1000 at bf16), each fused serving encode
-    11, the op 11 and 22."""
+    weight split before the steps), kernels 7 and 8 L and 2L - 1 at bf16,
+    L + 1 and 2L at f32 (the split too); the exact counts that train_f32,
+    train_unfused_f32, serve_f32 and op_f32 are held to take it: 50 steps of
+    two fused passes give 1100 forward launches (1000 at bf16), of two
+    unfused passes 1100 kernel 7 and 2000 kernel 8 launches (1000 and 1900
+    at bf16), each fused serving encode 11, each unfused one 11 (10 at
+    bf16), the op 11 and 22."""
     assert smoke.forward_launches(10, "bfloat16") == smoke.forward_launches(10, torch.bfloat16) == 10
     assert smoke.forward_launches(10, "float32") == smoke.forward_launches(10, torch.float32) == 11
+    assert smoke.scan_launches(10, "bfloat16") == smoke.scan_launches(10, torch.bfloat16) == (10, 19)
+    assert smoke.scan_launches(10, "float32") == smoke.scan_launches(10, torch.float32) == (11, 20)
     names = list(smoke.kernel_counters())
     train = smoke.training_launches(names, 10, 50, 600, 100, "float32")
     assert train == {**dict.fromkeys(names, 0), "lstm_last_fwd": 1100, "lstm_last_bwd": 2200,
                      "adagrad_update": 600, "scatter_adagrad": 100}
     assert smoke.training_launches(names, 10, 50, 600, 100, "bfloat16")["lstm_last_fwd"] == 1000
     unfused = smoke.training_launches(names, 10, 50, 600, 100, "float32", unfused=True)
-    assert unfused["lstm_last_fwd"] == unfused["lstm_last_bwd"] == 0 and unfused["lstm_scan_fwd"] == 1000
+    assert unfused["lstm_last_fwd"] == unfused["lstm_last_bwd"] == 0
+    assert (unfused["lstm_scan_fwd"], unfused["lstm_scan_bwd"]) == (1100, 2000)
+    unfused16 = smoke.training_launches(names, 10, 50, 600, 100, "bfloat16", unfused=True)
+    assert (unfused16["lstm_scan_fwd"], unfused16["lstm_scan_bwd"]) == (1000, 1900)
     serve = smoke.serving_launches(names, 10, 196, 48, "float32")
-    assert serve == {**dict.fromkeys(names, 0), "lstm_last_fwd": 196 * 11, "lstm_scan_fwd": 480}
+    assert serve == {**dict.fromkeys(names, 0), "lstm_last_fwd": 196 * 11, "lstm_scan_fwd": 528}
     assert smoke.serving_launches(names, 10, 196, 48, "bfloat16")["lstm_last_fwd"] == 1960
+    assert smoke.serving_launches(names, 10, 0, 244, "bfloat16")["lstm_scan_fwd"] == 2440
     assert smoke.op_launches(names, 10, torch.float32) == {**dict.fromkeys(names, 0), "lstm_all_fwd": 11,
                                                            "lstm_all_bwd": 22}
     assert smoke.op_launches(names, 10, torch.bfloat16)["lstm_all_fwd"] == 10
@@ -427,3 +437,137 @@ def test_scan_backward_launch_split_prints_each_part_beside_its_bound(smoke, sca
     gate, product = (smoke.bound_ms(*parts[k]) for k in ("gate", "product"))
     np.testing.assert_allclose([gate[0], product[0]], [0.1900, 0.0993], atol=6e-5)
     assert (gate[1], product[1]) == ("bytes", "operations")
+
+
+def _f32_scan_pass(smoke, B=120, H=64, seed=2):
+    gen = torch.Generator().manual_seed(seed)
+    return smoke.scan_inputs(torch, gen, 10, B, H, torch.float32)
+
+
+def test_f32_scan_gates_bitwise_check_fails_a_one_ulp_difference(smoke, capsys):
+    """The f32 kernel 7/8 gates phase holds the two stores bitwise at every
+    (row, step), as in bf16: equal stores pass, a one-ulp difference fails;
+    on the CPU (where the phase has no kernel to launch) the entity pass and
+    B=37 are labelled f32."""
+    gates = torch.from_numpy(np.random.default_rng(5).standard_normal((10, 120, 256)).astype(np.float32))
+    smoke.check_scan_gates_bitwise(torch, "f32 equal", None, None, stored=(gates, gates.clone()))
+    assert "kernel 7 vs kernel 8's gate launch, f32 equal: 0 of 307200 " in capsys.readouterr().out
+    planted = gates.clone()
+    planted[4, 60, 100] = torch.nextafter(planted[4, 60, 100], torch.tensor(-np.inf))
+    with pytest.raises(smoke.SmokeFailure, match="1 unequal"):
+        smoke.check_scan_gates_bitwise(torch, "f32 planted", None, None, stored=(gates, planted))
+    labels = []
+    real = smoke.check_scan_gates_bitwise
+    smoke.check_scan_gates_bitwise = lambda torch, label, x_proj, w_hh: labels.append((label, x_proj.dtype))
+    try:
+        smoke.check_scan_gates(torch, _f32_scan_pass(smoke))
+    finally:
+        smoke.check_scan_gates_bitwise = real
+    assert labels == [("f32 unfused training entity pass B=120", torch.float32), ("f32 B=37", torch.float32)]
+
+
+def test_f32_scan_1xtf32_variant_check_fails_the_variant(smoke, capsys):
+    """Kernels 7 and 8's 1xTF32 check on the CPU: the emulated variant (one
+    TF32 product per product), run as the unfused LSTM runs the pair (the
+    backward on the variant forward's residuals and a last-state cotangent,
+    as the unfused training step sends it), fails the f32 rule, so the check
+    passes; torch.matmul is restored.  Where the variant passes the rule,
+    the check fails."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    x_proj, w_hh = _f32_scan_pass(smoke)
+    hs, cs = sk.lstm_scan_forward_plain(x_proj, w_hh)
+    dhs = torch.zeros_like(hs)
+    dhs[-1] = torch.randn(*hs.shape[1:], generator=torch.Generator().manual_seed(6))
+    matmul = torch.matmul
+    smoke.check_scan_1xtf32_variant(torch, (x_proj, w_hh), (x_proj, w_hh, hs, cs, dhs))
+    assert torch.matmul is matmul
+    real = smoke.one_tf32_product
+    smoke.one_tf32_product = lambda torch: contextlib.nullcontext()  # the "variant" is the plain version
+    try:
+        with pytest.raises(smoke.SmokeFailure, match="passes the 1xTF32 variant of kernels 7 and 8"):
+            smoke.check_scan_1xtf32_variant(torch, (x_proj, w_hh), (x_proj, w_hh, hs, cs, dhs))
+    finally:
+        smoke.one_tf32_product = real
+    assert torch.matmul is matmul
+    out = capsys.readouterr().out
+    assert "planted fault 1xTF32 variant of lstm_scan_fwd_f32 + lstm_scan_bwd_f32 B=120: hs " in out
+    assert "planted fault 1xTF32 variant of lstm_scan_bwd_f32 alone B=120" in out
+
+
+def test_trained_scan_check_holds_kernels_7_and_8_to_f64(smoke, capsys):
+    """The f64 recurrence, its single steps and its backward are the plain
+    versions' arithmetic (within the f32 rule of them); the trained-weights
+    check passes the plain f32 versions (the kernels here), fails the
+    emulated 1xTF32 variant, and its rule (f32 rule against f64, or twice
+    the plain version's error) fails a planted fault."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import f32_agreement
+
+    x_proj, w_hh = _f32_scan_pass(smoke)
+    hs, cs = sk.lstm_scan_forward_plain(x_proj, w_hh)
+    exact_hs, exact_cs = smoke.plain_scan_f64(torch, x_proj, w_hh)
+    dhs = torch.randn(*hs.shape, generator=torch.Generator().manual_seed(3)) * 0.1
+    exact_dxp = smoke.plain_scan_backward_f64(torch, x_proj, w_hh, hs, cs, dhs)
+    assert exact_hs.dtype == exact_dxp.dtype == torch.float64
+    for got, exact in ((hs, exact_hs), (cs, exact_cs), (sk.lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs),
+                                                         exact_dxp)):
+        assert f32_agreement(got, exact).rel_err < 1e-6
+    lens = torch.from_numpy(smoke.synth_lengths(np.random.default_rng(4), 120))
+    smoke.check_trained_scan(torch, x_proj, w_hh, lens)
+    out = capsys.readouterr().out
+    reached = int(lens.clamp(min=1).sum())
+    assert f"on the trained unfused checkpoint's entity encode (120 ids, {reached} reached positions)" in out
+    assert "measured the whole trained recurrence vs f64" in out
+    # one step alone from a run's own state: in f64 the exact step, in f32 the plain version's arithmetic
+    step_hs, step_cs = smoke.scan_steps(torch, x_proj, w_hh, hs, cs, torch.float32)
+    assert torch.allclose(step_hs, hs, rtol=0, atol=1e-6) and torch.allclose(step_cs, cs, rtol=0, atol=1e-6)
+    exact_step = smoke.scan_steps(torch, x_proj, w_hh, hs, cs, torch.float64)
+    assert exact_step[0].dtype == torch.float64 and f32_agreement(hs, exact_step[0]).rel_err < 1e-6
+    assert "planted fault 1xTF32 variant of lstm_scan_fwd_f32 / lstm_scan_bwd_f32 on trained weights" in out
+    assert "; fails" in out
+    exact = (exact_hs, exact_cs)
+    yard = [f32_agreement(x.double(), e) for x, e in zip((hs, cs), exact)]
+    assert smoke.f64_agreement(torch, (hs, cs), exact, yard)[0]
+    planted = (hs, cs * (1 + 1e-4))  # c off by 1e-4 of itself
+    ok, agree = smoke.f64_agreement(torch, planted, exact, yard)
+    assert not ok and agree[0].ok() and not agree[1].ok()
+
+
+class _FakeScanF32Profile(_FakeProfile):
+    """The same for kernels 7 and 8 at f32: the weight split, kernel 7's
+    steps, kernel 8's gate and product launches."""
+
+    def key_averages(self):
+        from types import SimpleNamespace
+
+        names = {"void oket_tf32::lstm_split_kernel_tf32<true>(...)": 100.0,
+                 "void (anonymous namespace)::tf32::lstm_scan_step_kernel_tf32<0, false>(...)": 2000.0,
+                 "void (anonymous namespace)::tf32::lstm_scan_bwd_gate_kernel_tf32<0, false>(...)": 1500.0,
+                 "void (anonymous namespace)::tf32::lstm_scan_bwd_product_kernel_tf32<0>(...)": 1000.0}
+        return [SimpleNamespace(key=k, self_device_time_total=v) for k, v in names.items()]
+
+
+def test_f32_scan_launch_splits_print_each_kind_beside_its_bound(smoke, monkeypatch, capsys):
+    """At f32 kernel 8's launches by kind are the split, gate and product
+    (the split bound by its bytes: W_hh read, four parts written), and
+    kernel 7's split apart from its steps, each beside its bound."""
+    import torch.profiler
+
+    x_proj, w_hh = _f32_scan_pass(smoke)
+    hs, cs = (x.contiguous() for x in (x_proj[..., :64], x_proj[..., 64:128]))
+    monkeypatch.setattr(torch.profiler, "profile", _FakeScanF32Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    by_kind = smoke.print_scan_backward_launch_ms(torch, "lstm_scan_bwd_f32", (x_proj, w_hh, hs, cs, hs),
+                                                  lambda: None)
+    assert by_kind == pytest.approx({"split": 0.02, "gate": 0.3, "product": 0.2})
+    out = capsys.readouterr().out
+    assert out.startswith("lstm_scan_bwd_f32 launches, device ms per call (torch.profiler): split 0.0200 (bound "
+                          "of its part ") and "; sum 0.5200" in out
+    split_ops, split_bytes = smoke.scan_backward_parts(10, 120, 64, 4)["split"]
+    assert split_ops == 0 and split_bytes == 5 * 4 * 64 * 64 * 4
+    assert "split" not in smoke.scan_backward_parts(10, 120, 64, 2)
+    smoke.print_scan_forward_launch_ms(torch, "lstm_scan_fwd_f32", x_proj, w_hh, lambda: None)
+    out = capsys.readouterr().out
+    assert out.startswith("lstm_scan_fwd_f32 launches, device ms per call (torch.profiler): split 0.0200 (bytes "
+                          "bound ") and "steps 0.4000 (bound " in out and "; sum 0.4200" in out

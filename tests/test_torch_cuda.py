@@ -704,8 +704,10 @@ def test_f32_backward_1xtf32_variant_fails_the_f32_rule_on_card(cuda, every_step
 @pytest.mark.parametrize("B,H", [(b, h) for b in (1, 37, 128, 129, 4099) for h in (128, 256)],
                          ids=[f"B{b}-H{h}" for b in (1, 37, 128, 129, 4099) for h in (128, 256)])
 def test_f32_scan_kernels_across_tile_edges_on_card(cuda, B, H):
-    """Kernels 7 and 8 in f32 (the *_f32 entries of csrc/lstm_scan.cu):
-    L forward launches, 2L - 1 backward launches."""
+    """Kernels 7 and 8 in f32 (the 3xTF32 *_f32 entries of
+    csrc/lstm_scan.cu): L + 1 forward launches, 2L backward launches (the
+    weight split, then L steps; the split, L gate and L - 1 product
+    launches)."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
 
     x_proj, w_hh, dhs = (x.float().to(cuda) for x in _scan_inputs(B, H, seed=B + H))
@@ -716,11 +718,74 @@ def test_f32_scan_kernels_across_tile_edges_on_card(cuda, B, H):
     want_hs, want_cs = sk.lstm_scan_forward_plain(x_proj, w_hh)
     want_dxp = sk.lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs)
     torch.cuda.synchronize()
-    assert (sk.lstm_scan_forward.launches, sk.lstm_scan_backward.launches) == (before[0] + L, before[1] + 2 * L - 1)
+    assert (sk.lstm_scan_forward.launches, sk.lstm_scan_backward.launches) == (before[0] + L + 1, before[1] + 2 * L)
     assert hs.dtype == dxp.dtype == torch.float32
     assert_f32_close(hs, want_hs)
     assert_f32_close(cs, want_cs)
     assert_f32_close(dxp, want_dxp)
+
+
+@pytest.mark.parametrize("B,H", [(37, 512), (129, 100), (4099, 256), (1, 512)],
+                         ids=["B37-H512", "B129-H100", "B4099-H256", "B1-H512"])
+def test_f32_scan_gates_are_kernel_7s_bitwise_on_card(cuda, B, H):
+    """At f32 too, kernel 8's gate launch recomputes kernel 7's f32
+    pre-activation gates bit for bit at every (row, step): both run one
+    function (the tf32:: scan_gate_tiles of csrc/lstm_scan.cu: the 3xTF32
+    loop from zero, then x_proj) on the same tiles and tensor maps; each
+    call is 3L + 1 launches with its two weight splits."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    x_proj, w_hh, dhs = (x.float().to(cuda) for x in _scan_inputs(B, H, seed=H + 1))
+    L = x_proj.shape[0]
+
+    class Uncounted:
+        launches = 0
+
+    stored = [torch.zeros(L, B, 4 * H, device=cuda) for _ in range(2)]
+    hs, cs = sk._launch_forward(x_proj, w_hh, Uncounted, gates=stored[0])
+    dxp = sk._launch_backward(x_proj, w_hh, hs, cs, dhs, Uncounted, gates=stored[1])
+    torch.cuda.synchronize()
+    fwd, bwd = stored
+    assert Uncounted.launches == 3 * L + 1
+    assert torch.isfinite(fwd).all() and fwd.abs().max().item() > 0
+    assert torch.equal(fwd.view(torch.int32), bwd.view(torch.int32))
+    # at step 0 the gates are x_proj[0] itself (h_0 = 0: no products)
+    assert torch.equal(fwd[0], x_proj[0])
+    # the storing launches compute the recurrence
+    assert_f32_close(hs, sk.lstm_scan_forward_plain(x_proj, w_hh)[0])
+    assert_f32_close(dxp, sk.lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs))
+
+
+@pytest.mark.parametrize("B", [5632, 4099])
+def test_f32_scan_1xtf32_variant_fails_the_f32_rule_on_card(cuda, B):
+    """The planted 1xTF32 variant of kernels 7 and 8 (hi·hi' alone, one TF32
+    product per product), run as the unfused LSTM runs the pair (kernel 8's
+    variant on kernel 7's variant's residuals, with a cotangent of the last
+    state, as the unfused path's last-state select sends it), fails the f32
+    rule at H = 512 where the kernels (3xTF32) pass it: on hs or cs.  Kernel
+    8's variant alone, on the plain residuals, reads at least ten times the
+    kernel's error on dx_proj (within the rule at these weights)."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+
+    x_proj, w_hh, dhs = (x.float().to(cuda) for x in _scan_inputs(B, 512, seed=B))
+    dhs[:-1] = 0.0
+    hs, cs = sk.lstm_scan_forward_plain(x_proj, w_hh)
+    want_dxp = sk.lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs)
+
+    class Uncounted:
+        launches = 0
+
+    ok, alone = {}, {}
+    for v in ("kernel", "1xTF32"):
+        got_hs, got_cs = sk._launch_forward(x_proj, w_hh, Uncounted, variant=v)
+        pair = sk._launch_backward(x_proj, w_hh, got_hs, got_cs, dhs, Uncounted, variant=v)
+        ok[v] = (f32_agreement(got_hs, hs).ok() and f32_agreement(got_cs, cs).ok(),
+                 f32_agreement(pair, want_dxp).ok())
+        alone[v] = f32_agreement(sk._launch_backward(x_proj, w_hh, hs, cs, dhs, Uncounted, variant=v), want_dxp)
+    torch.cuda.synchronize()
+    assert Uncounted.launches == 2 * (11 + 2 * 20)
+    assert ok["kernel"] == (True, True) and not ok["1xTF32"][0], ok
+    assert alone["kernel"].ok() and alone["1xTF32"].rel_err >= 10 * alone["kernel"].rel_err, alone
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -728,7 +793,8 @@ def test_f32_scan_kernels_across_tile_edges_on_card(cuda, B, H):
 def test_scan_kernels_take_any_h_on_card(cuda, dtype, H):
     """Kernels 7 and 8 at an H the kernels' tiles do not divide: the
     wrappers pad H per gate block and launch the kernels (no plain
-    fallback), against the plain version at the same H."""
+    fallback), against the plain version at the same H; L and 2L - 1
+    launches in bf16, L + 1 and 2L in f32 (the weight split)."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
 
     x_proj, w_hh, dhs = (x.float().to(dtype).to(cuda) for x in _scan_inputs(37, H, seed=H))
@@ -739,7 +805,9 @@ def test_scan_kernels_take_any_h_on_card(cuda, dtype, H):
     want_hs, want_cs = sk.lstm_scan_forward_plain(x_proj, w_hh)
     want_dxp = sk.lstm_scan_backward_plain(x_proj, w_hh, hs, cs, dhs)
     torch.cuda.synchronize()
-    assert (sk.lstm_scan_forward.launches, sk.lstm_scan_backward.launches) == (before[0] + L, before[1] + 2 * L - 1)
+    split = 1 if dtype == torch.float32 else 0
+    assert (sk.lstm_scan_forward.launches, sk.lstm_scan_backward.launches) == (
+        before[0] + L + split, before[1] + 2 * L - 1 + split)
     assert tuple(hs.shape) == (L, 37, H) and tuple(dxp.shape) == (L, 37, 4 * H)
     if dtype == torch.bfloat16:
         assert_bf16_close(hs, want_hs)

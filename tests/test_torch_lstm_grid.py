@@ -2,8 +2,9 @@
 and the shape of the CUDA source (it cannot be compiled here); the same for
 the bf16 backward (kernels 2 and 6: the gate launch on kernel 1's loop, the
 dh/demb product with wgmma's transposed B), the bf16 recurrence (kernels 7
-and 8 on the same loop with D = 0) and the f32 backward (3xTF32 on the
-tensor cores)."""
+and 8 on the same loop with D = 0), the f32 forward and backward (3xTF32 on
+the tensor cores) and the f32 recurrence (kernels 7 and 8 on the f32 loop
+with D = 0)."""
 
 import pathlib
 import re
@@ -166,8 +167,9 @@ def test_bf16_scan_kernels_run_kernel_1s_loop():
 
 def test_scan_gate_store_is_checked():
     """The measuring store of kernels 7/8's gates takes an f32 [L, B, 4H]
-    tensor beside bf16 inputs at an H the kernels take unpadded, and nothing
-    else (it is checked before any launch)."""
+    tensor beside bf16 or f32 inputs at an H the kernels take unpadded, and
+    nothing else (it is checked before any launch); it stores what the
+    kernel computes, so no other variant takes it."""
     import torch
 
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
@@ -175,12 +177,20 @@ def test_scan_gate_store_is_checked():
     x_proj = torch.zeros(10, 3, 4 * 64, dtype=torch.bfloat16)
     sk._check_gates_out(None, 10, 3, 64, x_proj)
     sk._check_gates_out(torch.zeros(10, 3, 256), 10, 3, 64, x_proj)
-    for gates, xp, H in ((torch.zeros(10, 3, 256), x_proj.float(), 64),
-                         (torch.zeros(10, 3, 255), x_proj, 64),
+    sk._check_gates_out(torch.zeros(10, 3, 256), 10, 3, 64, x_proj.float())
+    sk._check_gates_out(torch.zeros(10, 3, 4 * 100), 10, 3, 100, torch.zeros(10, 3, 400))  # 100: a multiple of 4
+    for gates, xp, H in ((torch.zeros(10, 3, 255), x_proj, 64),
                          (torch.zeros(10, 3, 256, dtype=torch.bfloat16), x_proj, 64),
-                         (torch.zeros(10, 3, 4 * 100), torch.zeros(10, 3, 400, dtype=torch.bfloat16), 100)):
+                         (torch.zeros(10, 3, 4 * 100), torch.zeros(10, 3, 400, dtype=torch.bfloat16), 100),
+                         (torch.zeros(10, 3, 4 * 37), torch.zeros(10, 3, 4 * 37), 37)):
         with pytest.raises(ValueError):
             sk._check_gates_out(gates, 10, 3, H, xp)
+    assert sk._variant_code(torch.float32, "kernel", torch.zeros(1)) == sk._STORE_GATES
+    assert sk._variant_code(torch.float32, "1xTF32", None) == sk.F32_VARIANTS["1xTF32"]
+    for dtype, variant, gates in ((torch.float32, "1xTF32", torch.zeros(1)), (torch.bfloat16, "1xTF32", None),
+                                  (torch.float32, "no epilogue", None)):
+        with pytest.raises(ValueError):
+            sk._variant_code(dtype, variant, gates)
 
 
 @pytest.mark.parametrize(
@@ -259,3 +269,54 @@ def test_f32_forward_source_is_3xtf32_on_the_tensor_cores():
     assert not re.search(r"\b(fmaf|fma4|gate_product_f32|load_gate_tile_f32)\(", src)
     for entry in ("oket_lstm_fwd_split_f32", "oket_lstm_last_step_f32"):
         assert f'extern "C" int {entry}(' in src
+
+
+def test_f32_scan_source_is_3xtf32_on_the_tensor_cores():
+    """Kernels 7 and 8 at f32 run the f32 kernels' 3xTF32 loop with D = 0
+    (lstm_tf32.cuh: TMA ring, wgmma m64n128k8 TF32, A split in registers,
+    each K chunk folded into an f32 sum): one function (scan_gate_tiles)
+    gives kernel 7 and kernel 8's gate launch their products from zero,
+    x_proj added after them in f32 and the measuring store of the gates;
+    kernel 8's product launch is the fused f32 backward's (product_tiles),
+    whose active-row count comes from the caller; one weight split a call.
+    The FFMA kernels and lstm_f32.cuh are gone."""
+    header = _tf32_gate_loop()
+    src = (CSRC / "lstm_scan.cu").read_text()
+    assert '#include "lstm_tf32.cuh"' in src and '#include "lstm_f32.cuh"' not in src
+    assert not (CSRC / "lstm_f32.cuh").exists()
+    for name in sorted(p.name for p in CSRC.iterdir()):
+        assert "lstm_f32.cuh" not in (CSRC / name).read_text(), name
+    f32 = src[src.index("namespace tf32 {"):src.index("}  // namespace tf32")]
+    f32 += src[src.index('extern "C" int oket_lstm_scan_split_f32('):]
+    for call in ("tile_products<", "produce(", "tma_load_3d(", "launch_split<", "setmaxnreg_inc<232>"):
+        assert call in f32, call
+    assert not re.search(r"\b(fmaf|fma4|gate_product_f32|launch_bwd_product_f32)\(", f32)
+    loop = _body(f32, "scan_gate_tiles")
+    for call in ("sum[i] = 0.f", "tile_products<P, true>(r, q, nk, wg, warp, lane, sum)",
+                 "add_rows(xp, B, H, r0, u0, lane, n8, sum)", "store_gate_block(gates, B, H, r0, u0, lane, n8, sum)",
+                 "epilogue(sum, r0, u0, lane, finish_gates)", "nk = t > 0 ? (H + TK - 1) / TK : 0",
+                 "tma_load_3d(a, map_h, bar, kt * TK, row0, t - 1)"):
+        assert call in loop, call
+    # x_proj enters after the products and before the measuring store; no x or W_ih map at D = 0
+    order = [loop.index(c) for c in ("tile_products<P, true>(", "add_rows(", "store_gate_block(", "epilogue(sum")]
+    assert order == sorted(order)
+    assert not re.search(r"map_x\b|map_wih|seed_bias|active_prefix", f32)
+    for kernel in ("lstm_scan_step_kernel_tf32", "lstm_scan_bwd_gate_kernel_tf32"):
+        body = _body(f32, kernel)
+        assert "scan_gate_tiles<P, STORE>(&map_h, &map_whh_hi, &map_whh_lo, p.xp, p.gates, B, H, t," in body, kernel
+        assert body.index("finish_gates(n8);") < body.index("sum[n8 * 4 + e]"), kernel
+    assert "bwd_cell(" in _body(f32, "lstm_scan_bwd_gate_kernel_tf32")
+    assert "product_tiles<P>(smem_raw, &map_dg, &map_wt_hi, &map_wt_lo, p, p.B)" in _body(
+        f32, "lstm_scan_bwd_product_kernel_tf32")
+    # the split: W_hh alone (w_ih null, D = 0), gate-major forward, and its transpose for the backward
+    split = _body(src, "oket_lstm_scan_split_f32")
+    assert "launch_split<true>(nullptr, w_hh, w_split, 0, H, stream)" in split
+    assert "launch_split<false>(nullptr, w_hh, w_split, 0, H, stream)" in split
+    # the f32 backward (kernels 2 and 6) runs the same product function, over the rows active at t
+    prod = _body(header, "product_tiles")
+    assert "tile_products<V, FOLD>(r, q, nk, wg, warp, lane, acc)" in prod and "n_act_all" in prod
+    bwd = (CSRC / "lstm_last_bwd.cu").read_text()
+    assert ("product_tiles<V, FOLD>(smem_raw, &map_dg, &map_wt_hi, &map_wt_lo, p, "
+            "active_prefix<THREADS>(lens, p.B, p.t))") in _body(bwd, "lstm_bwd_product_kernel_tf32")
+    for entry in ("split", "step", "bwd_gate", "bwd_product"):
+        assert f'extern "C" int oket_lstm_scan_{entry}_f32(' in src
