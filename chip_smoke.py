@@ -5,8 +5,7 @@ Phases (any failure exits non-zero before the final line):
 
 1. print the card's name and power limit (nvidia-smi);
 2. build every kernel from the checkout: the CUDA sources of ``csrc/`` with
-   one nvcc each, all started together, and the two Triton kernels (compiled
-   by a first launch on a few elements); print the build seconds;
+   one nvcc each, all started together; print the build seconds;
 3. hold the forward LSTM kernel against its plain PyTorch version at the
    serving shapes (B=32768) and at ragged B, with two planted faults; time it
    in turns with cuDNN's packed ``nn.LSTM`` on the same inputs, beside its
@@ -27,22 +26,30 @@ Phases (any failure exits non-zero before the final line):
    and a torch.profiler breakdown of one step by device kernel;
 6. hold each training kernel against its plain version on the recorded
    first-step inputs (the entity and the relation pass of the LSTM forward
-   with its hs/cs residuals and of the LSTM backward; an LSTM weight for the
-   dense Adagrad; both token tables for the row update) and at ragged
+   with its hs/cs residuals and of the LSTM backward; the dense Adagrad's
+   whole group of 12 leaves and the row update's two token tables, each as
+   the optimizer launched it, bit-equal with their new steps) and at ragged
    shapes, with planted faults that must fail (among them misplaced bf16
-   rounding points), print the yardsticks of the backward's share rule, and
+   rounding points, a learning rate taken as a reciprocal and a product, a
+   dropped scalar tail, a padding row written), print the yardsticks of the
+   backward's share rule, and
    time the kernel, the plain version and one PyTorch library call where
    one computes the same function (the forward on both recorded passes as
-   in 3), and the backward's launches by kind (gate, product, dW) each
-   beside its part of the bound; in bf16 hold the backward's recomputed
+   in 3; the Adagrads' device ms from the profiler with L2 flushed before
+   each launch and from a CUDA graph of 50 launches, and their host µs per
+   launch), and the backward's launches by kind (gate, product,
+   dW) each beside its part of the bound; in bf16 hold the backward's recomputed
    gates to kernel 1's bitwise (both in their measuring variant that stores
    the f32 pre-activation gates, on the entity pass and at B=37 with
    lengths uniform in 0..10: 0 elements may differ);
 7. the fused every-state LSTM (kernels 5 and 6, the every-state modes of the
    fused kernels) against its plain versions on the recorded entity pass and
-   at ragged B, with a planted fault each, timed; then the op that reaches
-   them (``ops/lstm.py::lstm_forward_tm_sorted``) forward and backward with
-   the counts set to 0 just before and read just after;
+   at ragged B, with a planted fault each, timed; kernel 6 at B = 1 twice
+   on the same inputs (bit for bit), and its demb's unequal share against
+   the plain version and both errors against an f64 backward over 128
+   cotangents; then the op that reaches them
+   (``ops/lstm.py::lstm_forward_tm_sorted``) forward and backward with the
+   counts set to 0 just before and read just after;
 8. the unfused training path: the same ``cli.train`` run with
    ``OKET_DISABLE_LSTM_FUSED=1`` set in this process for that run only (the
    input projection, then kernels 7 and 8 over every row and step), checked
@@ -79,7 +86,11 @@ Phases (any failure exits non-zero before the final line):
    L + 1 launches, the weight split and L steps, kernel 8 at f32 2L); then the unfused
    path at H = 100 in bf16 and f32 (kernels 7 and 8 through the padded
    route);
-11. print the timings, one JSON line with every kernel's numbers (the
+11. the Adagrads' host cost through the entry points every tree of the port
+   has (``launch_cost``; ``python3 chip_smoke.py --launch-cost DIR`` runs
+   only that, on the port in the checkout at DIR, to hold two trees against
+   each other in one call); print the timings, one JSON line with every
+   kernel's numbers (the
    eight ports and the f32 modes of the six LSTM kernels, launches by path:
    an LSTM row counts the paths of its dtype), and last
    ``{"ok": true, "device": {...}}``.
@@ -114,7 +125,7 @@ F32_CONFIG = ROOT / ".bench_cache" / "synth-olpbench-2m47-demo-f32.yaml"
 UNFUSED_SWITCH = "OKET_DISABLE_LSTM_FUSED"
 SEED = 0
 # every CUDA source of the port's kernels, one nvcc each
-CUDA_SOURCES = ["lstm_last_fwd.cu", "lstm_last_fwd_f32.cu", "lstm_last_bwd.cu", "lstm_scan.cu"]
+CUDA_SOURCES = ["lstm_last_fwd.cu", "lstm_last_fwd_f32.cu", "lstm_last_bwd.cu", "lstm_scan.cu", "adagrad.cu"]
 # the kernels line, in order: the port of each TPU kernel (PERF.md rows 1-8),
 # then the f32 modes of the LSTM kernels (rows 1, 2, 5-8 at f32)
 KERNEL_ROWS = ["lstm_last_fwd", "lstm_last_bwd", "adagrad_update", "scatter_adagrad", "lstm_all_fwd", "lstm_all_bwd",
@@ -573,7 +584,7 @@ def phase_main_path(torch, timings, ckpt=None, unfused=False, config=FLAGSHIP, t
 def device_breakdown(torch, label, fn, top=8):
     """Device time by kernel of one call of ``fn`` under torch.profiler, and
     the device's busy share of the call's wall time (host clock, profiler on,
-    so the host side is slower than unprofiled)."""
+    so the host side is slower than unprofiled); returns {kernel: ms}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -586,11 +597,12 @@ def device_breakdown(torch, label, fn, top=8):
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
         print(f"profile {label}: no device time in the trace (not measured)")
-        return
+        return {}
     print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
           f"({busy_us / wall_us:.1%})")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<5d} {e.key[:100]}")
+    return {e.key: e.self_device_time_total / 1e3 for e in kernels}
 
 
 def check_against_plain(torch, model, predictor, ent_ids, rel_ids):
@@ -746,9 +758,11 @@ def plain_last_f64(torch, emb, w_ih, w_hh, bias, lengths):
     return last
 
 
-def plain_last_backward_f64(torch, emb, w_ih, w_hh, bias, lengths, hs, cs, dlast):
-    """``lstm_last_backward_plain``'s loop in f64 on the same inputs (the f32
-    residuals and cotangent): (demb, dW_ih, dW_hh, db)."""
+def plain_last_backward_f64(torch, emb, w_ih, w_hh, bias, lengths, hs, cs, dlast, every_step=False):
+    """``lstm_last_backward_plain``'s loop in f64 on the same inputs (the
+    residuals and cotangent): (demb, dW_ih, dW_hh, db); with ``every_step``
+    ``dlast`` is the cotangent of every state [L, B, H] and enters at every
+    step a row reaches (``lstm_all_backward_plain``)."""
     f = lambda x: x.double()  # noqa: E731
     L, B, D = emb.shape
     H = w_hh.shape[1]
@@ -763,7 +777,8 @@ def plain_last_backward_f64(torch, emb, w_ih, w_hh, bias, lengths, hs, cs, dlast
         c_prev = f(cs[t - 1]) if t > 0 else zeros
         i, g_f, g, o = (f(emb[t]) @ f(w_ih).t() + f(bias) + h_prev @ f(w_hh).t()).chunk(4, dim=-1)
         i, g_f, g, o = torch.sigmoid(i), torch.sigmoid(g_f), torch.tanh(g), torch.sigmoid(o)
-        dh = dh + torch.where((lens == t + 1)[:, None], f(dlast), 0.0)
+        dh = dh + (torch.where(active, f(dlast[t]), 0.0) if every_step
+                   else torch.where((lens == t + 1)[:, None], f(dlast), 0.0))
         tc = torch.tanh(f(cs[t]))
         dc = dc + dh * o * (1.0 - tc * tc)
         dg = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * g_f * (1.0 - g_f), dc * i * (1.0 - g * g),
@@ -951,11 +966,11 @@ class Capture:
     two LSTM forward launches that write the hs/cs residuals (entity pass,
     then relation pass) with what they returned, the two LSTM backward
     launches (relation pass, then entity pass), the same four of the
-    recurrence-only LSTM on the unfused path, the dense Adagrad of one
-    [2048, 512] LSTM weight and the row updates of the token tables (p and
-    acc cloned before the in-place update).  It wraps the modules' CUDA
-    launchers and calls them through, so the wrappers launch and count as
-    they do without it.  The recorded inputs are copies: at f32 the weights
+    recurrence-only LSTM on the unfused path, the dense Adagrad's group
+    launch (every dense leaf) and the row update's launch (both token
+    tables), p, acc and the steps cloned before the in-place update.  It
+    wraps the modules' CUDA launchers and calls them through, so the
+    wrappers launch and count as they do without it.  The recorded inputs are copies: at f32 the weights
     a kernel gets are the parameters themselves (``.to`` of an f32 tensor
     returns it), which the optimizer then updates in place."""
 
@@ -967,7 +982,7 @@ class Capture:
             scatter_adagrad_kernel,
         )
 
-        self.fwd, self.bwd, self.dense, self.rows = [], [], None, []
+        self.fwd, self.bwd, self.dense, self.rows = [], [], None, None
         self.scan_fwd, self.scan_bwd = [], []
         self._patches = [(lstm_kernel, "_launch_backward", self._bwd),
                          (adagrad_kernel, "_launch", self._dense),
@@ -991,16 +1006,15 @@ class Capture:
             self.bwd.append(_copies(args))
         return self._orig[0](*args)
 
-    def _dense(self, g, p, acc, clr, wd, eps):
-        if self.dense is None and tuple(p.shape) == (2048, 512):
-            self.dense = (g.clone(), p.clone(), acc.clone(), clr.clone(), wd, eps)
-        return self._orig[1](g, p, acc, clr, wd, eps)
+    def _dense(self, gs, ps, accs, steps, clr, hp):
+        if self.dense is None and steps is not None:
+            self.dense = (*(_clones(x) for x in (gs, ps, accs, steps)), dict(hp))
+        return self._orig[1](gs, ps, accs, steps, clr, hp)
 
-    def _rows(self, g_rows, uids, valid, p, acc, clr, wd, eps):
-        if len(self.rows) < 2:
-            self.rows.append((g_rows.clone(), uids.clone(), valid.clone(), p.clone(), acc.clone(), clr.clone(),
-                              wd, eps))
-        return self._orig[2](g_rows, uids, valid, p, acc, clr, wd, eps)
+    def _rows(self, g_rows, uids, valid, ps, accs, steps, clr, hp):
+        if self.rows is None and steps is not None:
+            self.rows = (*(_clones(x) for x in (g_rows, uids, valid, ps, accs, steps)), dict(hp))
+        return self._orig[2](g_rows, uids, valid, ps, accs, steps, clr, hp)
 
     def _fwd(self, emb_tm, w_ih, w_hh, bias, lengths, residuals):
         out = self._orig[3](emb_tm, w_ih, w_hh, bias, lengths, residuals)
@@ -1119,11 +1133,14 @@ def check_training(torch, trainer, launches, n_steps, unfused=False):
     print(f"cli.train: {n_steps} steps (2 passes); row-sparse updates: {dict(sparse)} of {n_steps} steps "
           "(the rest dense)")
     L = trainer.model.meta.max_length[0]
-    n_sparse = sum(sparse.values())
-    n_dense = 12 * n_steps + 2 * n_steps - n_sparse  # 12 LSTM and batchnorm leaves + dense tables
+    # one regime group: a dense launch every step (12 LSTM and batchnorm
+    # leaves, and a table that falls back to dense), a row launch every step
+    # with a row-sparse table
+    n_dense, n_sparse = n_steps, sum(1 for s in log if s["sparse_tables"])
     want = training_launches(launches, L, n_steps, n_dense, n_sparse, trainer.model.embedder.dtype, unfused)
     print(f"training path launches{' (' + UNFUSED_SWITCH + '=1)' if unfused else ''}: {launches} (want {want}: "
-          "two LSTM passes per step; one dense Adagrad per dense leaf, one row update per sparse table)")
+          "two LSTM passes per step; one dense Adagrad launch per step and one row update launch per step with "
+          "a sparse table, for the one regime group)")
     check(all(launches[k] > 0 for k, v in want.items() if v), f"a training kernel was never launched: {launches}")
     check(launches == want, f"training launches {launches}, want {want}")
 
@@ -1155,15 +1172,19 @@ def time_train_steps(torch, trainer, timings, n=8, pre=""):
         batch_ms.append((t1 - t0) * 1e3)
         plan_ms.append((time.perf_counter() - t1) * 1e3)
     dev = [trainer._to_device(b)[1] for b in batches]
-    step_ms, positives = [], 0.0
-    for i, arrays in enumerate(dev[:n]):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.variables, trainer.opt_state, stats = trainer.train_step(
-            trainer.variables, trainer.opt_state, trainer.regimes.hparams(), arrays, trainer.generator)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        positives += float(stats["normalizer_metric"])
+    step_ms, opt_ms, positives = [], [], 0.0
+    with OptimizerClock(trainer.regimes) as opt_clock:
+        for i, arrays in enumerate(dev[:n]):
+            torch.cuda.synchronize()
+            t0, opt0 = time.perf_counter(), dict(opt_clock.ms)
+            trainer.variables, trainer.opt_state, stats = trainer.train_step(
+                trainer.variables, trainer.opt_state, trainer.regimes.hparams(), arrays, trainer.generator)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            opt_ms.append({k: v - opt0[k] for k, v in opt_clock.ms.items()})
+            positives += float(stats["normalizer_metric"])
+    timings[pre + "optimizer_host_ms_per_step"] = summary([sum(m.values()) for m in opt_ms])
+    opt_parts = {k: float(np.median([m[k] for m in opt_ms])) for k in opt_clock.ms}
     timings[pre + "train_step_ms"] = summary(step_ms)
     timings[pre + "train_items_per_s"] = positives / (sum(step_ms) / 1e3)
     timings[pre + "host_plan_ms_per_batch"] = summary(plan_ms)
@@ -1175,8 +1196,48 @@ def time_train_steps(torch, trainer, timings, n=8, pre=""):
           f"{np.median(plan_ms):.3f} ms/batch, batch build {np.median(batch_ms):.3f} ms/batch (one host thread "
           f"each); cli epoch {timings[pre + 'cli_epoch_items_per_s']:.0f} items/s")
     label = f"{pre}train step (4096 x 4096, d=512, {trainer.model.embedder.dtype})"
-    device_breakdown(torch, label, lambda: trainer.train_step(
+    kernels = device_breakdown(torch, label, lambda: trainer.train_step(
         trainer.variables, trainer.opt_state, trainer.regimes.hparams(), dev[n], trainer.generator), top=16)
+    adagrad = {k: ms for k, ms in kernels.items() if "adagrad" in k}
+    timings[pre + "optimizer_device_ms_profiled_step"] = sum(adagrad.values())
+    parts = ", ".join(f"{k} {v:.3f}" for k, v in opt_parts.items())
+    print(f"{pre}optimizer: host {timings[pre + 'optimizer_host_ms_per_step']['median']:.3f} ms a step (median of "
+          f"{n}, wall clock without a synchronize; by part {parts}); device {sum(adagrad.values()):.4f} ms in the "
+          f"profiled step ({', '.join(f'{k} {v:.4f}' for k, v in adagrad.items())})")
+
+
+class OptimizerClock:
+    """Host time of the sparse step's optimizer calls while the block runs,
+    by wall clock, no synchronize, summed in ``ms`` by part:
+    ``regimes.make_apply``, the apply it returns (the dense update), and the
+    row update (``train/sparse.py``'s ``_SPARSE_RULES``)."""
+
+    def __init__(self, regimes):
+        from open_knowledge_graph_embeddings_tpu_torch.train import sparse
+
+        self.regimes, self.rules = regimes, sparse._SPARSE_RULES
+        self.ms = {"make_apply": 0.0, "dense apply": 0.0, "row update": 0.0}
+
+    def _timed(self, part, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.ms[part] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        return run
+
+    def __enter__(self):
+        make_apply = self.regimes.make_apply
+        self.regimes.make_apply = self._timed(
+            "make_apply", lambda *a, **k: self._timed("dense apply", make_apply(*a, **k)))
+        self._rules = dict(self.rules)
+        self.rules.update({k: self._timed("row update", fn) for k, fn in self._rules.items()})
+        return self
+
+    def __exit__(self, *exc):
+        del self.regimes.make_apply
+        self.rules.update(self._rules)
 
 
 def active_mask(torch, args):
@@ -1476,8 +1537,10 @@ def scan_launches(L, dtype):
 def training_launches(names, L, n_steps, n_dense, n_sparse, dtype, unfused=False):
     """The launches a cli.train run of ``n_steps`` steps must count, by
     kernel row: two LSTM passes per step, fused (kernels 1 and 2) or unfused
-    (kernels 7 and 8, ``scan_launches``); one dense Adagrad per dense leaf
-    and one row update per sparse table."""
+    (kernels 7 and 8, ``scan_launches``); ``n_dense`` dense Adagrad and
+    ``n_sparse`` row update launches (each one a step and regime group, the
+    row update only on a step with a row-sparse table of the group:
+    ``train/sparse.py::make_sparse_train_step``)."""
     want = {name: 0 for name in names}
     want.update({"adagrad_update": n_dense, "scatter_adagrad": n_sparse})
     if unfused:
@@ -2098,7 +2161,8 @@ def time_scan(torch, captured_fwd, captured_bwd, fwd_err, bwd_err):
     H = H4 // 4
     dtype = x_proj.dtype
     sfx = "_f32" if dtype == torch.float32 else ""
-    emb = torch.randn(L, B, H, device="cuda").to(dtype) * 0.1
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    emb = torch.randn(L, B, H, generator=gen, device="cuda").to(dtype) * 0.1
     rows = []
     for name, row, fn, plain, grad, err in (
             ("lstm_scan_fwd", 7, lambda: sk.lstm_scan_forward(x_proj, w_hh),
@@ -2224,6 +2288,68 @@ def check_every_state(torch, fwd_args, ragged=(1, 37, 4099)):
     return fwd_err, bwd_err
 
 
+def one_row_inputs(torch, D=512, L=10, seed=1, device="cuda"):
+    """The inputs of ``tests/test_torch_cuda.py``'s one-row case of kernels
+    5 and 6 (its ``_inputs`` at B = 1, seed B): lengths 0..L, bf16
+    embeddings and gate-major weights, f32 bias, on the card."""
+    rng = np.random.default_rng(seed)
+    lens = np.sort(rng.integers(0, L + 1, 1).astype(np.int32))[::-1].copy()
+    k = 1.0 / np.sqrt(D)
+    emb = (rng.standard_normal((L, 1, D)) * 0.5).astype(np.float32)
+    w_ih = rng.uniform(-k, k, (4 * D, D)).astype(np.float32)
+    w_hh = rng.uniform(-k, k, (4 * D, D)).astype(np.float32)
+    bias = rng.uniform(-2 * k, 2 * k, 4 * D).astype(np.float32)
+    bf = lambda x: torch.from_numpy(x).to(device, torch.bfloat16)  # noqa: E731
+    return bf(emb), bf(w_ih), bf(w_hh), torch.from_numpy(bias).to(device), torch.from_numpy(lens).to(device)
+
+
+def check_one_row_backward(torch, draws=128, device="cuda"):
+    """Kernel 6 in bf16 at B = 1, D = H = 512 (the card test's one-row case):
+    twice on the same inputs, bit for bit (demb at the positions the row
+    reaches, dW, db); then over ``draws`` cotangents of every state (draw k
+    from numpy's generator seeded 201 + k: draw 0 is the test's) demb's
+    share of elements unequal to the plain version's, and the error of each
+    against the f64 backward on the same inputs (largest difference over
+    max|f64| at the reached positions).  Prints the distributions."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_UNEQUAL_SHARE_BWD, agreement
+
+    args = one_row_inputs(torch, device=device)
+    act = active_mask(torch, args)
+    L, B = act.shape
+    H = args[2].shape[1]
+    hs, cs = lk.lstm_all_forward(*args)
+    shares, k_err, p_err = [], [], []
+    for k in range(draws):
+        rng = np.random.default_rng(201 + k)
+        dhs = torch.from_numpy((rng.standard_normal((L, B, H)) * 0.5).astype(np.float32)).to(device)
+        bargs = (*args, hs, cs, (dhs * act[..., None]).to(torch.bfloat16))
+        got = lk.lstm_all_backward(*bargs)
+        if k == 0:
+            again = lk.lstm_all_backward(*bargs)
+            sync(torch, again[0])
+            bits = lambda x: x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)  # noqa: E731
+            same = [torch.equal(bits(got[0][act]), bits(again[0][act]))] + [
+                torch.equal(bits(a), bits(b)) for a, b in zip(got[1:], again[1:])]
+            print(f"lstm_all_bwd B=1 D=H={H}: twice on the same inputs, bitwise equal (demb, dW_ih, dW_hh, db): "
+                  f"{same}")
+            check(all(same), "kernel 6 at B = 1 gave two results for the same inputs")
+        want = lk.lstm_all_backward_plain(*bargs)
+        exact = plain_last_backward_f64(torch, *bargs, every_step=True)[0][act]
+        shares.append(agreement(got[0][act], want[0][act]).unequal_share)
+        scale = exact.abs().max().item()
+        k_err.append((got[0][act].double() - exact).abs().max().item() / scale)
+        p_err.append((want[0][act].double() - exact).abs().max().item() / scale)
+    shares, k_err, p_err = np.array(shares), np.array(k_err), np.array(p_err)
+    print(f"lstm_all_bwd B=1 D=H={H}, {draws} cotangent draws ({int(act.sum())} reached positions): demb unequal to "
+          f"the plain version: min {shares.min():.3%}, median {np.median(shares):.3%}, max {shares.max():.3%}, "
+          f"above {MAX_UNEQUAL_SHARE_BWD:.0%} in {np.mean(shares > MAX_UNEQUAL_SHARE_BWD):.1%} of draws (draw 0, the "
+          f"test's: {shares[0]:.3%}); demb error vs f64 (of max|f64|): kernel median {np.median(k_err):.3e} max "
+          f"{k_err.max():.3e}, plain median {np.median(p_err):.3e} max {p_err.max():.3e}, kernel above plain in "
+          f"{np.mean(k_err > p_err):.1%} of draws")
+    return shares, k_err, p_err
+
+
 def time_every_state(torch, fwd_args, fwd_err, bwd_err):
     """Kernels 5 and 6 on the first fused step's entity pass: kernel, plain
     version, bound, and cuDNN's packed ``nn.LSTM`` returning every output
@@ -2297,137 +2423,389 @@ def phase_every_state_op(torch, fwd_args):
 
 
 def _adagrad_state(torch, gen, shape):
-    g = torch.randn(*shape, generator=gen, device="cuda") * 1e-2
-    p = torch.randn(*shape, generator=gen, device="cuda") * 0.1
-    acc = torch.rand(*shape, generator=gen, device="cuda")
+    g = torch.randn(*shape, generator=gen, device=gen.device) * 1e-2
+    p = torch.randn(*shape, generator=gen, device=gen.device) * 0.1
+    acc = torch.rand(*shape, generator=gen, device=gen.device)
     return g, p, acc
 
 
+def unaligned(torch, x):
+    """A contiguous copy of ``x`` 4 bytes past a 16-byte boundary (the
+    Adagrad kernels' scalar path)."""
+    out = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    return out.copy_(x)
+
+
+# Steps (the state's count before the update) at which lr / (1 + (step' - 1)
+# * 0.01) at lr 0.2 rounds differently as a reciprocal and a product: the
+# ragged cases sit on them, so that fault cannot pass.
+RECIPROCAL_STEPS = (10.0, 16.0, 20.0, 23.0, 24.0, 25.0)
+RAGGED_HP = {"lr": 0.2, "lr_decay": 0.01, "weight_decay": 1e-2, "eps": 1e-10}
+
+
+def graph_ms(torch, fn, n=50, reps=3):
+    """Device ms per call of ``fn``: CUDA events around a replay of a CUDA
+    graph of ``n`` calls, so no host gap falls between the launches (median
+    of ``reps`` replays)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / n)
+    return float(np.median(times))
+
+
+def cold_kernel_ms(torch, fn, name, n=20):
+    """Device ms of the kernel whose name holds ``name``, per call of ``fn``,
+    by torch.profiler, with 256 MB written before each call so that the
+    call finds L2 (50 MB) cold, as the training step finds the rows and
+    leaves it updates."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+    check(len(found) == 1 and found[0].count == n, f"the profile has {[(e.key, e.count) for e in found]} for {name}")
+    return found[0].self_device_time_total / n / 1e3
+
+
+def host_us(torch, fn, n=200):
+    """Host µs per call of ``fn`` by wall clock, with no synchronize between
+    the calls: what the launching thread spends while the card runs behind."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _clones(xs):
+    return [x.clone() for x in xs]
+
+
+def sync(torch, x):
+    """Wait for the card when ``x`` lies on it."""
+    if x.is_cuda:
+        torch.cuda.synchronize()
+
+
+def dense_faults(ak):
+    """Planted faults of the dense update's plain twin, each (gs, ps, accs,
+    steps, hp) in place: the learning rate as ``lr / tensor`` (torch's
+    reciprocal and product, two roundings) and the scalar tail of a leaf
+    whose size is not a multiple of 4 left out."""
+
+    def reciprocal_clr(gs, ps, accs, steps, hp):
+        for g, p, acc, step in zip(gs, ps, accs, steps):
+            step = step + 1.0
+            ak.adagrad_update_plain(g, p, acc, hp["lr"] / (1.0 + (step - 1.0) * hp["lr_decay"]),
+                                    hp["weight_decay"], hp["eps"])
+
+    def dropped_tail(gs, ps, accs, steps, hp):
+        for g, p, acc, step in zip(gs, ps, accs, steps):
+            m = p.numel() - p.numel() % 4
+            ak.adagrad_update_plain(g.reshape(-1)[:m], p.view(-1)[:m], acc.view(-1)[:m],
+                                    ak.adagrad_clr(step + 1.0, hp["lr"], hp["lr_decay"]), hp["weight_decay"],
+                                    hp["eps"])
+
+    return {"learning rate as lr / tensor": reciprocal_clr, "scalar tail (n % 4) dropped": dropped_tail}
+
+
+def ragged_dense_group(torch, table_heights, device="cuda"):
+    """Leaves the training group never has: the token tables' heights (a
+    table that falls back to dense joins the group), a ragged height, a size
+    that is not a multiple of 4, an unaligned leaf and a 3 x 5 one, each at
+    its own step, lr_decay 0.01."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    shapes = [(h, 512) for h in table_heights] + [(1234, 512), (7,), (2048,), (3, 5)]
+    gs, ps, accs = zip(*(_adagrad_state(torch, gen, s) for s in shapes))
+    gs, ps, accs = list(gs), list(ps), list(accs)
+    i = len(table_heights) + 2
+    gs[i], ps[i], accs[i] = (unaligned(torch, x) for x in (gs[i], ps[i], accs[i]))
+    steps = [torch.tensor(s, device=device) for s in RECIPROCAL_STEPS[: len(shapes)]]
+    return gs, ps, accs, steps, dict(RAGGED_HP)
+
+
+def check_adagrad_cases(torch, name, cases, kernel, plain, faults):
+    """Each case (label, (*tensors, steps, hp)) through ``kernel`` and
+    ``plain`` on copies of the updated tensors: p, acc and the new steps bit
+    for bit, the given steps unchanged; on the cases marked ragged every
+    planted fault must differ somewhere.  Returns the largest difference."""
+    max_err = 0.0
+    for label, args, ragged in cases:
+        *fixed, ps, accs, steps, hp = args
+        steps0 = _clones(steps)
+        outs = []
+        for fn in (kernel, plain):
+            p, a = _clones(ps), _clones(accs)
+            outs.append((p, a, fn(*fixed, p, a, steps, hp)))
+        sync(torch, ps[0])
+        (pk, ak_, sk), (pp, ap, sp) = outs
+        equal = all(torch.equal(x, y) for x, y in zip(pk + ak_ + sk, pp + ap + sp))
+        err = max((x - y).abs().max().item() if x.numel() else 0.0 for x, y in zip(pk + ak_, pp + ap))
+        print(f"{name} {label}: {len(ps)} in one call, max abs err {err:.3e}, p/acc/steps bit-equal {equal}")
+        check(equal, f"{name} is not bit-equal to its plain twin at {label}")
+        check(all(torch.equal(x, y) for x, y in zip(steps, steps0)), f"{name} wrote its input steps at {label}")
+        max_err = max(max_err, err)
+        if not ragged:
+            continue
+        for fault, fn in faults.items():
+            p, a = _clones(ps), _clones(accs)
+            fn(*fixed, p, a, steps, hp)
+            sync(torch, ps[0])
+            caught = not all(torch.equal(x, y) for x, y in zip(pk + ak_, p + a))
+            print(f"planted fault ({name}, {label}) {fault}: {'fails' if caught else 'passes'} the bitwise check")
+            check(caught, f"the bitwise check passes a planted fault of {name} ({fault})")
+    return max_err
+
+
 def check_adagrad(torch, captured, table_heights):
-    """Kernel 3 bit-equal to its plain version on the first step's LSTM
-    weight, at the token tables' padded heights and at a ragged height;
-    timings; torch.optim.Adagrad as the library yardstick."""
+    """Kernel 3 bit-equal to its plain twin on the first training step's
+    whole group (the 12 dense leaves at their shapes, as the optimizer
+    launched it), on a ragged group with planted faults, and through the
+    one-leaf entry with a given learning rate; timed on the group: device ms
+    (the profiler, L2 flushed; and a CUDA graph of 50 launches), host µs per
+    launch, the plain twin, and torch.optim.Adagrad over the same leaves in
+    one step()."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import adagrad_kernel as ak
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    g, p, acc, clr, wd, eps = captured
-    cases = [("LSTM weight, first step", (g, p, acc, clr, wd, eps))]
-    for h in (*table_heights, 1234):
-        cases.append((f"[{h}, 512]", (*_adagrad_state(torch, gen, (h, 512)), clr, 1e-3, eps)))
-    max_err = 0.0
-    for name, (g_, p_, a_, c_, w_, e_) in cases:
-        p1, a1, p2, a2 = p_.clone(), a_.clone(), p_.clone(), a_.clone()
-        ak.adagrad_update(g_, p1, a1, c_, w_, e_)
-        ak.adagrad_update_plain(g_, p2, a2, c_, w_, e_)
-        torch.cuda.synchronize()
-        err = max((p1 - p2).abs().max().item(), (a1 - a2).abs().max().item())
-        print(f"adagrad_update {name}: max abs err {err:.3e}, bit-equal {torch.equal(p1, p2) and torch.equal(a1, a2)}")
-        check(torch.equal(p1, p2) and torch.equal(a1, a2), f"dense Adagrad kernel is not bit-equal at {name}")
-        max_err = max(max_err, err)
-    p1, a1 = p.clone(), acc.clone()
-    ms = cuda_ms(lambda: ak.adagrad_update(g, p1, a1, clr, wd, eps), iters=50)
-    plain_ms = cuda_ms(lambda: ak.adagrad_update_plain(g, p1, a1, clr, wd, eps), iters=50)
-    library_ms, note = library_adagrad_ms(torch, g, p, acc, clr.item(), wd, eps)
-    bytes_ = 5 * 4 * p.numel()  # read g, p, acc; write p, acc
+    gs, ps, accs, steps, hp = captured
+    check(len(ps) == 12, f"the first step's dense group has {len(ps)} leaves, want 12")
+    cases = [("first training step's group", (gs, ps, accs, steps, hp), False),
+             ("ragged group", ragged_dense_group(torch, table_heights), True)]
+    max_err = check_adagrad_cases(torch, "adagrad_update", cases, ak.adagrad_update_leaves,
+                                  ak.adagrad_update_leaves_plain, dense_faults(ak))
+    clr = ak.adagrad_clr(steps[0] + 1.0, hp["lr"], hp["lr_decay"])
+    one = [(g.clone(), p.clone(), a.clone()) for g, p, a in [(gs[0], ps[0], accs[0])] * 2]
+    ak.adagrad_update(*one[0], clr, hp["weight_decay"], hp["eps"])
+    ak.adagrad_update_plain(*one[1], clr, hp["weight_decay"], hp["eps"])
+    torch.cuda.synchronize()
+    print(f"adagrad_update one-leaf entry (given clr) on {list(ps[0].shape)}: bit-equal "
+          f"{torch.equal(one[0][1], one[1][1]) and torch.equal(one[0][2], one[1][2])}")
+    check(torch.equal(one[0][1], one[1][1]) and torch.equal(one[0][2], one[1][2]),
+          "the one-leaf entry is not bit-equal to its plain version")
+
+    p1, a1 = _clones(ps), _clones(accs)
+    run = lambda: ak.adagrad_update_leaves(gs, p1, a1, steps, hp)  # noqa: E731
+    ms = cold_kernel_ms(torch, run, "adagrad_dense_kernel")
+    warm_ms = graph_ms(torch, run)
+    events_ms = cuda_ms(run, iters=50)
+    launch_us = host_us(torch, run)
+    plain_ms = cuda_ms(lambda: ak.adagrad_update_leaves_plain(gs, p1, a1, steps, hp), iters=20)
+    library_ms, note = library_adagrad_ms(torch, gs, ps, hp)
+    n = sum(p.numel() for p in ps)
+    bytes_ = 5 * 4 * n + 2 * 4 * len(ps)  # read g, p, acc; write p, acc; a step in and out a leaf
     bound = bytes_ / PEAK_BYTES_PER_S * 1e3
-    print(f"adagrad_update timing {list(p.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-          f"{library_ms} ms ({note}), bound {bound:.4f} ms (bytes: {bytes_:.4e} B)")
-    return {"name": "adagrad_update", "route": "triton", "source": f"{PKG}/ops/adagrad_kernel.py",
+    print(f"adagrad_update timing, the group ({len(ps)} leaves, {n} elements): device {ms:.4f} ms a launch (profiler, "
+          f"L2 flushed before each), {warm_ms:.4f} ms (CUDA graph of 50 back to back), {events_ms:.4f} ms a call from "
+          f"Python (events over 50), host {launch_us:.2f} us a launch, "
+          f"plain twin {plain_ms:.4f} ms, library {library_ms} ms ({note}), bound {bound:.4f} ms (bytes: "
+          f"{bytes_:.4e} B)")
+    return {"name": "adagrad_update", "route": "cuda", "source": f"{PKG}/csrc/adagrad.cu",
             "replaces": "open_knowledge_graph_embeddings_tpu/ops/pallas/adagrad_kernel.py:28",
             "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "bytes", "library_ms": library_ms}
+            "bound_by": "bytes", "library_ms": library_ms, "host_us": launch_us}
 
 
-def library_adagrad_ms(torch, g, p, acc, lr, wd, eps):
-    """``torch.optim.Adagrad.step`` on the same tensor, in the fastest form
-    this torch has (fused, else foreach); never used by the port."""
-    for form in ("fused", "foreach"):
-        param = torch.nn.Parameter(p.clone())
-        param.grad = g.clone()
+def library_adagrad_ms(torch, gs, ps, hp):
+    """``torch.optim.Adagrad.step`` over the same leaves (gradients and
+    values; its own sums) in one call, in the multi-tensor form this torch has (foreach,
+    else fused), events over 50 calls; never used by the port."""
+    last = ""
+    for form in ("foreach", "fused"):
+        params = [torch.nn.Parameter(p.clone()) for p in ps]
         try:
-            opt = torch.optim.Adagrad([param], lr=lr, weight_decay=wd, eps=eps, **{form: True})
+            opt = torch.optim.Adagrad(params, lr=hp["lr"], lr_decay=hp["lr_decay"], weight_decay=hp["weight_decay"],
+                                      eps=hp["eps"], **{form: True})
+            for param, g in zip(params, gs):
+                param.grad = g.clone()
             opt.step()
-        except (RuntimeError, TypeError, ValueError) as e:
+        except (RuntimeError, TypeError, ValueError, KeyError) as e:
             last = f"{form}: {str(e).splitlines()[0]}"
             continue
-        return cuda_ms(opt.step, iters=50), f"torch.optim.Adagrad({form}=True).step"
+        return cuda_ms(opt.step, iters=50), f"torch.optim.Adagrad({form}=True).step over the {len(ps)} leaves"
     return None, f"torch.optim.Adagrad unavailable ({last})"
 
 
+def padding_writer(sk):
+    """The planted fault of the row update's plain twin: it also
+    read-modify-writes each table's first padding entry (row 0)."""
+
+    def faulty(g_rows, uids, valid, ps, accs, steps, hp):
+        for g, u, v, p, acc, step in zip(g_rows, uids, valid, ps, accs, steps):
+            clr = sk.adagrad_clr(step + 1.0, hp["lr"], hp["lr_decay"])
+            sk.scatter_adagrad_plain(g, u, v, p, acc, clr, hp["weight_decay"], hp["eps"])
+            pad = (~v).nonzero()[:1, 0]
+            sk.scatter_adagrad_plain(g[pad], u[pad], v[pad] | True, p, acc, clr, hp["weight_decay"], hp["eps"])
+
+    def reciprocal_clr(g_rows, uids, valid, ps, accs, steps, hp):
+        for g, u, v, p, acc, step in zip(g_rows, uids, valid, ps, accs, steps):
+            step = step + 1.0
+            sk.scatter_adagrad_plain(g, u, v, p, acc, hp["lr"] / (1.0 + (step - 1.0) * hp["lr_decay"]),
+                                     hp["weight_decay"], hp["eps"])
+
+    return {"a padding entry (row 0) written": faulty, "learning rate as lr / tensor": reciprocal_clr}
+
+
+def ragged_row_tables(torch, device="cuda"):
+    """Tables the training step never has: a ragged height with padding
+    entries on row 0 and weight decay, a width off the float4 path (100,
+    int32 uids), an unaligned table; each at its own step, lr_decay 0.01."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    tables = []
+    for i, (V, d, U, n, uid_dtype) in enumerate([(1234, 512, 512, 300, torch.int64), (999, 100, 256, 200, torch.int32),
+                                                 (3000, 512, 512, 41, torch.int64)]):
+        g, p, acc = _adagrad_state(torch, gen, (V, d))
+        uids = torch.zeros(U, dtype=uid_dtype, device=device)
+        uids[1:n] = torch.randperm(V - 1, generator=gen, device=device)[: n - 1].sort().values.to(uid_dtype) + 1
+        valid = torch.arange(U, device=device) < n
+        if i == 2:
+            p, acc = unaligned(torch, p), unaligned(torch, acc)
+        tables.append((g[:U].contiguous(), uids, valid, p, acc, torch.tensor(RECIPROCAL_STEPS[i], device=device)))
+    return (*(list(x) for x in zip(*tables)), dict(RAGGED_HP))
+
+
 def check_row_adagrad(torch, captured):
-    """Kernel 4 bit-equal to its plain version on the first step's two token
-    tables and at a ragged height with padding entries on row 0 (weight
-    decay on); a plain version that also writes a padding entry must fail."""
+    """Kernel 4 bit-equal to its plain twin on the first training step's two
+    token tables in one launch (as the sparse step launched it) and on
+    ragged tables with planted faults (a padding entry written, the
+    learning rate as a reciprocal and a product); timed on the two tables:
+    device ms (the profiler, L2 flushed; and a CUDA graph of 50 launches),
+    host µs per launch, the plain twin, and torch.optim.Adagrad with sparse
+    COO gradients of the same rows."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import scatter_adagrad_kernel as sk
 
-    def faulty(g, uids, valid, p, acc, clr, wd, eps):
-        """Also read-modify-writes the first padding entry's row."""
-        sk.scatter_adagrad_plain(g, uids, valid, p, acc, clr, wd, eps)
-        pad = torch.nonzero(~valid)[:1, 0]
-        sk.scatter_adagrad_plain(g[pad], uids[pad], torch.ones_like(valid[pad]), p, acc, clr, wd, eps)
-
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    V, U, n = 1234, 512, 300
-    g, p, acc = _adagrad_state(torch, gen, (V, 512))
-    uids = torch.zeros(U, dtype=torch.long, device="cuda")
-    uids[1:n] = torch.randperm(V - 1, generator=gen, device="cuda")[: n - 1].sort().values + 1
-    valid = torch.arange(U, device="cuda") < n
-    cases = [(f"{t} table, first step", c) for t, c in zip(("entity token", "relation token"), captured)]
-    cases.append((f"ragged [{V}, 512], {U - n} padding entries on row 0, wd 1e-2",
-                  (g[:U], uids, valid, p, acc, captured[0][5], 1e-2, 1e-10)))
-    max_err = 0.0
-    for name, (g_, u_, v_, p_, a_, c_, w_, e_) in cases:
-        outs = []
-        for fn in (sk.scatter_adagrad, sk.scatter_adagrad_plain, faulty):
-            p1, a1 = p_.clone(), a_.clone()
-            fn(g_, u_, v_, p1, a1, c_, w_, e_)
-            outs.append((p1, a1))
-        torch.cuda.synchronize()
-        (pk, ak_), (pp, ap), (pf, af) = outs
-        err = max((pk - pp).abs().max().item(), (ak_ - ap).abs().max().item())
-        fault_err = max((pk - pf).abs().max().item(), (ak_ - af).abs().max().item())
-        print(f"scatter_adagrad {name}: {int(v_.sum())} of {len(u_)} entries valid, max abs err {err:.3e}; "
-              f"planted fault (a padding entry written): max abs err {fault_err:.3e}")
-        check(torch.equal(pk, pp) and torch.equal(ak_, ap), f"row Adagrad kernel is not bit-equal at {name}")
-        check(fault_err > 0 or bool(v_.all()), f"the rule passes a planted fault at {name}")
-        max_err = max(max_err, err)
-    g_, u_, v_, p_, a_, c_, w_, e_ = captured[0]
-    p1, a1 = p_.clone(), a_.clone()
-    ms = cuda_ms(lambda: sk.scatter_adagrad(g_, u_, v_, p1, a1, c_, w_, e_), iters=50)
-    plain_ms = cuda_ms(lambda: sk.scatter_adagrad_plain(g_, u_, v_, p1, a1, c_, w_, e_), iters=50)
-    n_valid, d = int(v_.sum()), g_.shape[1]
-    bytes_ = 5 * 4 * n_valid * d + len(u_) * (u_.element_size() + 1)
+    g_rows, uids, valid, ps, accs, steps, hp = captured
+    check(len(ps) == 2, f"the first step's row update has {len(ps)} tables, want 2")
+    cases = [("both token tables, first training step", captured, False),
+             ("ragged tables", ragged_row_tables(torch), True)]
+    max_err = check_adagrad_cases(torch, "scatter_adagrad", cases, sk.scatter_adagrad_tables,
+                                  sk.scatter_adagrad_tables_plain, padding_writer(sk))
+    p1, a1 = _clones(ps), _clones(accs)
+    run = lambda: sk.scatter_adagrad_tables(g_rows, uids, valid, p1, a1, steps, hp)  # noqa: E731
+    ms = cold_kernel_ms(torch, run, "adagrad_rows_kernel")
+    warm_ms = graph_ms(torch, run)
+    events_ms = cuda_ms(run, iters=50)
+    launch_us = host_us(torch, run)
+    plain_ms = cuda_ms(lambda: sk.scatter_adagrad_tables_plain(g_rows, uids, valid, p1, a1, steps, hp), iters=20)
+    n_valid = [int(v.sum()) for v in valid]
+    bytes_ = sum(5 * 4 * n * g.shape[1] + len(u) * (u.element_size() + 1) + 8
+                 for n, g, u in zip(n_valid, g_rows, uids))
     bound = bytes_ / PEAK_BYTES_PER_S * 1e3
-    library_ms, note = library_row_adagrad_ms(torch, g_, u_, v_, p_, a_, c_, e_)
-    print(f"scatter_adagrad timing entity token table {list(p_.shape)}, {n_valid} rows: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, library {library_ms} ms ({note}), bound {bound:.4f} ms "
-          f"(bytes: {bytes_:.4e} B)")
-    return {"name": "scatter_adagrad", "route": "triton", "source": f"{PKG}/ops/scatter_adagrad_kernel.py",
+    library_ms, note = library_row_adagrad_ms(torch, g_rows, uids, valid, ps, hp)
+    print(f"scatter_adagrad timing, both token tables {[list(p.shape) for p in ps]}, {n_valid} valid rows: device "
+          f"{ms:.4f} ms a launch (profiler, L2 flushed before each), {warm_ms:.4f} ms (CUDA graph of 50 back to back: "
+          f"the rows fit in L2), {events_ms:.4f} ms a call from Python (events over 50), host "
+          f"{launch_us:.2f} us a launch, plain twin {plain_ms:.4f} ms, library {library_ms} ms ({note}), bound "
+          f"{bound:.4f} ms (bytes: {bytes_:.4e} B)")
+    return {"name": "scatter_adagrad", "route": "cuda", "source": f"{PKG}/csrc/adagrad.cu",
             "replaces": "open_knowledge_graph_embeddings_tpu/ops/pallas/scatter_adagrad_kernel.py:52",
             "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "bytes", "library_ms": library_ms}
+            "bound_by": "bytes", "library_ms": library_ms, "host_us": launch_us}
 
 
-def library_row_adagrad_ms(torch, g_rows, uids, valid, p, acc, clr, eps):
-    """``torch.optim.Adagrad.step`` on a sparse COO gradient of the same rows
-    of the same table and accumulator, with ``weight_decay=0``: torch refuses
-    weight decay with sparse gradients, so this is the row update without
-    the kernel's lazy weight decay.  Timed, never used by the port."""
+def library_row_adagrad_ms(torch, g_rows, uids, valid, ps, hp):
+    """``torch.optim.Adagrad.step`` on sparse COO gradients of the same rows
+    of the same tables (one optimizer over both, its own sums), with
+    ``weight_decay=0``: torch refuses weight decay with sparse gradients, so
+    this is the row update without the kernel's lazy weight decay.  Timed,
+    never used by the port."""
     warnings.filterwarnings("ignore", message="Sparse invariant checks")
     try:
-        idx = uids[valid]
-        grad = torch.sparse_coo_tensor(idx[None], g_rows[valid], p.shape).coalesce()
-        param = torch.nn.Parameter(p.clone())
-        opt = torch.optim.Adagrad([param], lr=float(clr), eps=eps, weight_decay=0)
-        opt.state[param]["sum"].copy_(acc)
+        grads = [torch.sparse_coo_tensor(u[v][None], g[v], p.shape).coalesce()
+                 for g, u, v, p in zip(g_rows, uids, valid, ps)]
+        params = [torch.nn.Parameter(p.clone()) for p in ps]
+        opt = torch.optim.Adagrad(params, lr=hp["lr"], lr_decay=hp["lr_decay"], eps=hp["eps"], weight_decay=0)
 
         def step():
-            param.grad = grad
+            for param, grad in zip(params, grads):
+                param.grad = grad
             opt.step()
 
-        return cuda_ms(step, iters=50), "torch.optim.Adagrad.step, sparse COO gradient of the same rows, weight_decay=0"
-    except (RuntimeError, TypeError, ValueError) as e:
-        return None, f"torch.optim.Adagrad with a sparse gradient unavailable: {str(e).splitlines()[0]}"
+        return cuda_ms(step, iters=50), ("torch.optim.Adagrad.step, sparse COO gradients of the same rows of both "
+                                         "tables, weight_decay=0")
+    except (RuntimeError, TypeError, ValueError, KeyError) as e:
+        return None, f"torch.optim.Adagrad with sparse gradients unavailable: {str(e).splitlines()[0]}"
+
+
+# the flagship's dense Adagrad group: per LSTM (entity, relation) W_ih and
+# W_hh [2048, 512] and the bias [2048] twice, and the two batchnorms' scale
+# and offset [512]
+FLAGSHIP_LEAVES = [(2048, 512)] * 4 + [(2048,)] * 4 + [(512,)] * 4
+
+
+def launch_cost(torch, reps=200):
+    """The host's cost of the Adagrads, through entry points the port has
+    had since training was ported, so that a call can hold two trees of it
+    against each other (``--launch-cost DIR``): the one-leaf
+    ``adagrad_update`` on a [2048, 512] leaf and the one-table
+    ``scatter_adagrad`` on the entity token table's plan (host µs a call,
+    no synchronize), and ``OptimizerRegimes.make_apply``'s update of the
+    flagship's 12 dense leaves (host ms a call without a synchronize, wall
+    ms with one).  Returns the numbers."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops.adagrad_kernel import adagrad_update
+    from open_knowledge_graph_embeddings_tpu_torch.ops.scatter_adagrad_kernel import scatter_adagrad
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    clr = torch.tensor(0.2, device="cuda")
+    g, p, acc = _adagrad_state(torch, gen, (2048, 512))
+    out = {"adagrad_update_one_leaf_host_us": host_us(torch, lambda: adagrad_update(g, p, acc, clr, 1e-10, 1e-10),
+                                                      reps)}
+    gt, pt, at = _adagrad_state(torch, gen, (200002, 512))
+    uids = torch.zeros(4096, dtype=torch.long, device="cuda")
+    uids[1:3900] = torch.randperm(200001, generator=gen, device="cuda")[:3899].sort().values + 1
+    valid = torch.arange(4096, device="cuda") < 3900
+    out["scatter_adagrad_one_table_host_us"] = host_us(
+        torch, lambda: scatter_adagrad(gt[:4096], uids, valid, pt, at, clr, 1e-10, 1e-10), reps)
+    regimes = OptimizerRegimes({"optimizer": "Adagrad", "lr": 0.2, "weight_decay": 1e-10})
+    regimes.update(1, 0)
+    params = {f"leaf{i}": torch.randn(*s, generator=gen, device="cuda") * 0.1 for i, s in enumerate(FLAGSHIP_LEAVES)}
+    grads = {k: torch.randn(*v.shape, generator=gen, device="cuda") * 1e-2 for k, v in params.items()}
+    state = regimes.init_state(params)
+    apply, hp = regimes.make_apply(params), regimes.hparams()
+
+    def step():
+        nonlocal state
+        _, state = apply(grads, state, params, hp)
+
+    def synced_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    out["optimizer_12_leaves_host_ms"] = host_us(torch, step, reps // 4) / 1e3
+    out["optimizer_12_leaves_wall_ms"] = float(np.median([synced_ms() for _ in range(20)]))
+    print("launch cost: " + json.dumps(out))
+    return out
 
 
 # ------------------------------------------------------------ the f32 model
@@ -2545,10 +2923,7 @@ def phase_any_h(torch):
 
 
 def build_kernels(torch, timings):
-    """nvcc for every CUDA source (started together), then one launch of each
-    Triton kernel on a few elements, which compiles it."""
-    from open_knowledge_graph_embeddings_tpu_torch.ops.adagrad_kernel import adagrad_update
-    from open_knowledge_graph_embeddings_tpu_torch.ops.scatter_adagrad_kernel import scatter_adagrad
+    """nvcc for every CUDA source, started together."""
     from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
@@ -2557,19 +2932,10 @@ def build_kernels(torch, timings):
     for name, log in cuda_build.BUILD_LOGS.items():
         info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         print(f"nvcc {name}: " + " | ".join(info))
-    t0 = time.perf_counter()
-    x = torch.zeros(4, 8, device="cuda")
-    clr = torch.tensor(0.1, device="cuda")
-    adagrad_update(x.clone(), x.clone(), x.clone(), clr, 0.0, 1e-10)
-    scatter_adagrad(x.clone(), torch.zeros(4, dtype=torch.long, device="cuda"),
-                    torch.ones(4, dtype=torch.bool, device="cuda"), x.clone(), x.clone(), clr, 0.0, 1e-10)
-    torch.cuda.synchronize()
-    timings["build_triton_s"] = time.perf_counter() - t0
-    print(f"build: nvcc {timings['build_cuda_s']:.2f} s ({len(CUDA_SOURCES)} sources in parallel), Triton "
-          f"{timings['build_triton_s']:.2f} s (2 kernels)")
+    print(f"build: nvcc {timings['build_cuda_s']:.2f} s ({len(CUDA_SOURCES)} sources in parallel)")
 
 
-def main() -> int:
+def main(argv) -> int:
     try:
         import torch
     except ImportError:
@@ -2584,6 +2950,15 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv[:1] == ["--launch-cost"]:
+        # the Adagrads' host cost alone, of the port in the checkout at argv[1]
+        # (this one by default): two trees in one call, in turns
+        tree = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
+        check((tree / PKG).is_dir(), f"no {PKG}/ under {tree}")
+        sys.path.insert(0, str(tree))
+        print(f"launch cost of the port at {tree}")
+        launch_cost(torch)
+        return 0
     sys.path.insert(0, str(ROOT))
 
     card = subprocess.run(
@@ -2619,6 +2994,7 @@ def main() -> int:
         fused_entity_pass = capture.fwd[0][0]
         del capture
         rows += time_every_state(torch, fused_entity_pass, *check_every_state(torch, fused_entity_pass))
+        check_one_row_backward(torch)
         by_path["op"] = phase_every_state_op(torch, fused_entity_pass)
         del fused_entity_pass
         torch.cuda.empty_cache()
@@ -2644,6 +3020,7 @@ def main() -> int:
         by_path_f32 = {}
         rows += phase_f32(torch, timings, by_path_f32)
         phase_any_h(torch)
+        timings["launch_cost"] = launch_cost(torch)
         check([row["name"] for row in rows] == KERNEL_ROWS, f"kernel rows {[row['name'] for row in rows]}")
     except (SmokeFailure, RuntimeError, subprocess.SubprocessError, OSError) as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -2664,4 +3041,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

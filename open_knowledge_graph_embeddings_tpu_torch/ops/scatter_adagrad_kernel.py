@@ -19,39 +19,54 @@ rows, so the port takes the compact ``uids`` directly.
 
 Two versions:
 
-* :func:`scatter_adagrad_plain` — ``scatter_adagrad_xla``'s gather, masked
-  math and two scatter-adds of exact zeros for the padding entries;
-* a Triton kernel (``@triton.jit``): one program per plan entry and row of
-  up to 1024 columns, the row index gathered from ``uids``; padding entries
-  are masked out of every load and store.  Bound on an H100 by bytes:
-  5 x 4 B per touched element (read g, p, acc; write p, acc) at 3.35 TB/s.
-  ``sqrt_rn`` / ``div_rn`` and no contraction, so it is bit-equal to the
-  plain version on the card.
+* the plain versions: :func:`scatter_adagrad_plain` (one table, given clr:
+  ``scatter_adagrad_xla``'s gather, masked math and two scatter-adds of
+  exact zeros for the padding entries) and
+  :func:`scatter_adagrad_tables_plain` (the tables of a group, each with
+  the learning rate of its own step, ``ops/adagrad_kernel.py::adagrad_clr``);
+* the CUDA kernel ``csrc/adagrad.cu::adagrad_rows_kernel``: one launch
+  updates up to :data:`MAX_TABLES` tables of one regime group, one warp per
+  plan entry, each table's step and learning rate computed on the card (the
+  design and its bound are in the source).  It is bit-equal to the plain
+  versions.
 
-:func:`scatter_adagrad` is the wrapper: CPU tensors take the plain version,
-CUDA tensors take the kernel or raise; it counts launches in
-``scatter_adagrad.launches``.
+:func:`scatter_adagrad_tables` (the sparse step's entry) and
+:func:`scatter_adagrad` (one table, given clr) are the wrappers: CPU
+tensors take the plain versions, CUDA tensors the kernel or raise; they
+count launches in ``scatter_adagrad.launches``.
 """
 
 from __future__ import annotations
 
+import array
+import ctypes
 import functools
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from open_knowledge_graph_embeddings_tpu_torch.ops.adagrad_kernel import _SOURCE, adagrad_clr, max_blocks
 
-def _check(g_rows, uids, valid, p, acc, clr):
+#: tables one launch takes (csrc/adagrad.cu MAX_TABLES)
+MAX_TABLES = 8
+
+
+def _check(g_rows, uids, valid, p, acc, clr=None):
+    if g_rows.dim() != 2:
+        raise ValueError(f"g_rows must be [U, d], got {tuple(g_rows.shape)}")
     U, d = g_rows.shape
     if p.dim() != 2 or p.shape[1] != d or acc.shape != p.shape:
         raise ValueError(f"p and acc must be [V, {d}], got {tuple(p.shape)} and {tuple(acc.shape)}")
     if tuple(uids.shape) != (U,) or tuple(valid.shape) != (U,) or valid.dtype != torch.bool:
         raise ValueError(f"uids and valid must be [{U}] (valid bool), got {tuple(uids.shape)}, "
                          f"{valid.dtype} {tuple(valid.shape)}")
-    if {g_rows.dtype, p.dtype, acc.dtype} != {torch.float32}:
+    if uids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"uids must be int32 or int64, got {uids.dtype}")
+    if g_rows.dtype != torch.float32 or p.dtype != torch.float32 or acc.dtype != torch.float32:
         raise ValueError("g_rows, p and acc must be float32")
-    if clr.numel() != 1 or clr.dtype != torch.float32:
+    if clr is not None and (clr.numel() != 1 or clr.dtype != torch.float32):
         raise ValueError(f"clr must be a float32 scalar tensor, got {clr.dtype} {tuple(clr.shape)}")
-    devices = {x.device for x in (g_rows, uids, valid, p, acc, clr)}
+    devices = {x.device for x in (g_rows, uids, valid, p, acc)} | ({clr.device} if clr is not None else set())
     if len(devices) != 1:
         raise ValueError(f"all inputs must be on one device, got {devices}")
 
@@ -70,47 +85,94 @@ def scatter_adagrad_plain(g_rows, uids, valid, p, acc, clr, weight_decay: float,
     p.index_add_(0, uids, delta * vm)
 
 
+def scatter_adagrad_tables_plain(g_rows, uids, valid, ps, accs, steps, hp: Dict[str, float]) -> List[torch.Tensor]:
+    """Each table i as :func:`scatter_adagrad_plain` with the learning rate
+    of step ``steps[i] + 1``; returns the new steps."""
+    new_steps = []
+    for g, u, v, p, acc, step in zip(g_rows, uids, valid, ps, accs, steps, strict=True):
+        step = step + 1.0
+        scatter_adagrad_plain(g, u, v, p, acc, adagrad_clr(step, hp["lr"], hp["lr_decay"]), hp["weight_decay"],
+                              hp["eps"])
+        new_steps.append(step)
+    return new_steps
+
+
+# ------------------------------------------------------------ CUDA kernel
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    import triton.language as tl
-    import triton
+def _fn():
+    """The C entry, built and loaded on first use."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
 
-    @triton.jit
-    def scatter_adagrad_kernel(g_ptr, uid_ptr, valid_ptr, p_ptr, acc_ptr, clr_ptr, wd, eps, d,
-                               BLOCK_D: tl.constexpr):
-        u = tl.program_id(0).to(tl.int64)
-        cols = tl.program_id(1) * BLOCK_D + tl.arange(0, BLOCK_D)
-        ok = tl.load(valid_ptr + u) != 0
-        row = tl.load(uid_ptr + u).to(tl.int64)
-        m = (cols < d) & ok
-        clr = tl.load(clr_ptr)
-        g = tl.load(g_ptr + u * d + cols, mask=m, other=0.0)
-        p = tl.load(p_ptr + row * d + cols, mask=m, other=0.0)
-        a = tl.load(acc_ptr + row * d + cols, mask=m, other=0.0)
-        g = g + wd * p
-        a = a + g * g
-        p = p - tl.div_rn(clr * g, tl.sqrt_rn(a) + eps)
-        tl.store(acc_ptr + row * d + cols, a, mask=m)
-        tl.store(p_ptr + row * d + cols, p, mask=m)
-
-    return triton, scatter_adagrad_kernel
+    fn = cuda_build.load(_SOURCE).oket_adagrad_rows
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_float] * 4 + [
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def _launch(g_rows, uids, valid, p, acc, clr, weight_decay, eps):
-    _check(g_rows, uids, valid, p, acc, clr)
-    for name, x in (("g_rows", g_rows), ("uids", uids), ("valid", valid), ("p", p), ("acc", acc)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    U, d = g_rows.shape
-    if U == 0 or d == 0:
-        return
-    triton, kernel = _kernel()
-    block_d = min(1024, triton.next_power_of_2(d))
-    kernel[(U, triton.cdiv(d, block_d))](
-        g_rows, uids, valid.view(torch.uint8), p, acc, clr, float(weight_decay), float(eps), d,
-        BLOCK_D=block_d, num_warps=4, enable_fp_fusion=False,
-    )
+def _launch(g_rows, uids, valid, ps, accs, steps, clr, hp) -> Optional[List[torch.Tensor]]:
+    """One launch over up to MAX_TABLES tables on one card; ``steps`` and
+    ``clr`` as in ``ops/adagrad_kernel.py::_launch``."""
+    n = len(ps)
+    if not 1 <= n <= MAX_TABLES:
+        raise ValueError(f"one launch takes 1 to {MAX_TABLES} tables, got {n}")
+    dev = ps[0].device
+    out = torch.empty(n, dtype=torch.float32, device=dev) if steps is not None else None
+    desc = []
+    for i, (g, u, v, p, acc) in enumerate(zip(g_rows, uids, valid, ps, accs)):
+        _check(g, u, v, p, acc)
+        if p.device != dev:
+            raise ValueError(f"all tables must be on one device, got {dev} and {p.device}")
+        if not all(x.is_contiguous() for x in (g, u, v, p, acc)):
+            raise ValueError(f"table {i}: g_rows, uids, valid, p and acc must be contiguous")
+        if steps is None:
+            s_in = s_out = 0
+        else:
+            s = steps[i]
+            if s.numel() != 1 or s.dtype != torch.float32 or s.device != dev:
+                raise ValueError(f"table {i}: the step must be one float32 element on {dev}, got {s.dtype} "
+                                 f"{tuple(s.shape)} on {s.device}")
+            s_in, s_out = s.data_ptr(), out.data_ptr() + 4 * i
+        U, d = g.shape
+        desc += (g.data_ptr(), u.data_ptr(), v.data_ptr(), p.data_ptr(), acc.data_ptr(), s_in, s_out, U, d,
+                 int(u.dtype == torch.int64))
+    if clr is not None and (clr.numel() != 1 or clr.dtype != torch.float32 or clr.device != dev):
+        raise ValueError(f"clr must be a float32 scalar tensor on {dev}")
+    desc = array.array("q", desc)  # alive until the call returns: the C entry reads it on the host
+    err = _fn()(desc.buffer_info()[0], n, None if clr is None else clr.data_ptr(),
+                hp["lr"], hp["lr_decay"], hp["weight_decay"], hp["eps"], max_blocks(dev.index),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"adagrad_rows launch failed: cudaError {err}")
     scatter_adagrad.launches += 1
+    return None if out is None else list(out.unbind(0))
+
+
+def scatter_adagrad_tables(g_rows: Sequence[torch.Tensor], uids: Sequence[torch.Tensor],
+                           valid: Sequence[torch.Tensor], ps: Sequence[torch.Tensor], accs: Sequence[torch.Tensor],
+                           steps: Sequence[torch.Tensor], hp: Dict[str, float]) -> List[torch.Tensor]:
+    """The row-sparse Adagrad step of a group of tables that share ``hp``
+    (``lr``, ``lr_decay``, ``weight_decay``, ``eps``): table i's plan
+    (``g_rows[i]`` [U, d] f32, ``uids[i]`` [U] int32/int64, ``valid[i]``
+    [U] bool) updates ``ps[i]`` and ``accs[i]`` [V, d] f32 in place with the
+    learning rate of step ``steps[i] + 1`` (``steps[i]`` is not written).
+    Returns the new steps.  On the card: ceil(tables / MAX_TABLES)
+    launches."""
+    if not (len(g_rows) == len(uids) == len(valid) == len(ps) == len(accs) == len(steps)):
+        raise ValueError("one g_rows, uids, valid, p, acc and step per table")
+    if not ps:
+        return []
+    if ps[0].is_cuda:
+        new_steps = []
+        for i in range(0, len(ps), MAX_TABLES):
+            part = slice(i, i + MAX_TABLES)
+            new_steps += _launch(g_rows[part], uids[part], valid[part], ps[part], accs[part], steps[part], None, hp)
+        return new_steps
+    if ps[0].device.type == "cpu":
+        return scatter_adagrad_tables_plain(g_rows, uids, valid, ps, accs, steps, hp)
+    raise ValueError(f"no row-Adagrad kernel for device {ps[0].device}")
 
 
 def scatter_adagrad(g_rows, uids, valid, p, acc, clr, weight_decay: float, eps: float) -> None:
@@ -119,7 +181,8 @@ def scatter_adagrad(g_rows, uids, valid, p, acc, clr, weight_decay: float, eps: 
     entries) of ``p`` and ``acc`` [V, d] f32, updated in place; ``clr`` is
     the effective learning rate as a float32 scalar tensor."""
     if p.is_cuda:
-        _launch(g_rows, uids, valid, p, acc, clr, weight_decay, eps)
+        _launch([g_rows], [uids], [valid], [p], [acc], None, clr,
+                {"lr": 0.0, "lr_decay": 0.0, "weight_decay": weight_decay, "eps": eps})
     elif p.device.type == "cpu":
         scatter_adagrad_plain(g_rows, uids, valid, p, acc, clr, weight_decay, eps)
     else:

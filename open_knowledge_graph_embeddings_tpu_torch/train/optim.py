@@ -6,7 +6,8 @@ during training, with independent regimes selected by a parameter-path
 regex ``match`` (per-parameter-group optimizers) and frozen patterns.
 
 Ported rules: Adagrad (lr_decay, eps, additive weight decay; the dense
-update is :func:`..ops.adagrad_kernel.adagrad_update`, the Triton kernel on
+update of every leaf of a regime group is one
+:func:`..ops.adagrad_kernel.adagrad_update_leaves` call, one CUDA launch on
 the card) and SGD (momentum, nesterov).  Adam, RMSprop, Adadelta and the
 lr schedulers come with ROADMAP Queue 1 item 12.
 
@@ -24,7 +25,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from open_knowledge_graph_embeddings_tpu_torch.ops.adagrad_kernel import adagrad_update
+from open_knowledge_graph_embeddings_tpu_torch.ops.adagrad_kernel import adagrad_update_leaves
 
 logger = logging.getLogger(__name__)
 
@@ -43,15 +44,11 @@ def _adagrad_init(p):
     return {"sum": torch.zeros_like(p), "step": torch.zeros((), dtype=torch.float32, device=p.device)}
 
 
-def adagrad_clr(step: torch.Tensor, hp: HParams) -> torch.Tensor:
-    """``lr / (1 + (step - 1) * lr_decay)`` as a device scalar."""
-    return hp["lr"] / (1.0 + (step - 1.0) * hp["lr_decay"])
-
-
-def _adagrad_update(g, s, p, hp):
-    step = s["step"] + 1.0
-    adagrad_update(g.contiguous(), p, s["sum"], adagrad_clr(step, hp), hp["weight_decay"], hp["eps"])
-    return p, {"sum": s["sum"], "step": step}
+def _adagrad_update_group(gs, states, ps, hp):
+    """The dense Adagrad step of a regime group's leaves; their new states."""
+    steps = adagrad_update_leaves([g.contiguous() for g in gs], ps, [s["sum"] for s in states],
+                                  [s["step"] for s in states], hp)
+    return [{"sum": s["sum"], "step": step} for s, step in zip(states, steps)]
 
 
 def _sgd_init(p):
@@ -67,8 +64,10 @@ def _sgd_update(g, s, p, hp):
     return p, {"momentum": buf, "step": s["step"] + 1.0}
 
 
+# (init, update, defaults); Adagrad's update takes a whole regime group at
+# once: (grads, states, params, hparams) -> states
 _RULES: Dict[str, Tuple[Callable, Callable, Dict[str, float]]] = {
-    "Adagrad": (_adagrad_init, _adagrad_update, dict(lr=0.01, lr_decay=0.0, weight_decay=0.0, eps=1e-10)),
+    "Adagrad": (_adagrad_init, _adagrad_update_group, dict(lr=0.01, lr_decay=0.0, weight_decay=0.0, eps=1e-10)),
     "SGD": (_sgd_init, _sgd_update, dict(lr=0.01, momentum=0.0, weight_decay=0.0, nesterov=0.0)),
 }
 _UNPORTED = ("Adam", "RMSprop", "Adadelta")
@@ -228,13 +227,17 @@ class OptimizerRegimes:
 
     def make_apply(self, params_example: Params, grad_clip: Optional[float] = None):
         """``apply(grads, state, params, hparams) -> (params, state)``, with
-        the updates in place; leaves without a gradient are left alone."""
+        the updates in place; leaves without a gradient are left alone.  The
+        Adagrad leaves with a gradient are updated together, one
+        ``adagrad_update_leaves`` call per regime (one launch on the card for
+        up to ``MAX_LEAVES`` leaves)."""
         flat_labels = dict(leaves(assign_regimes(params_example, self.matches, self.frozen_patterns)))
         names = self.opt_names()
 
         def apply(grads, state, params, hparams: List[HParams]):
             if grad_clip is not None and grad_clip > 0:
                 grads = clip_by_global_norm(grads, grad_clip)
+            groups: Dict[int, List[Tuple[str, Any, Any, Any]]] = {}
 
             def upd(path, p):
                 lbl = flat_labels[path]
@@ -242,11 +245,18 @@ class OptimizerRegimes:
                 g = _get(grads, path)
                 if lbl < 0 or g is None:
                     return p, node
+                if names[lbl] == "Adagrad":
+                    groups.setdefault(lbl, []).append((path, g, node, p))
+                    return p, node  # its new state comes from the group's update below
                 return _rule(names[lbl])[1](g, node, p, hparams[lbl])
 
             out = _map_leaves(upd, params)
+            grouped = {}
+            for lbl, members in groups.items():
+                paths, gs, nodes, ps = zip(*members)
+                grouped.update(zip(paths, _adagrad_update_group(gs, nodes, ps, hparams[lbl])))
             new_params = _map_leaves(lambda _p, t: t[0], out)
-            new_state = _map_leaves(lambda _p, t: t[1], out)
+            new_state = _map_leaves(lambda path, t: grouped.get(path, t[1]), out)
             return new_params, new_state
 
         return apply

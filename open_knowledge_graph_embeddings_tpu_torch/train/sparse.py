@@ -10,8 +10,9 @@ the 'compact' plan layout on one device:
    dedups the query mentions and relations;
 2. the step gathers those rows, differentiates the loss with respect to
    the gathered [U, d] rows instead of the [V, d] table,
-3. and the row-sparse Adagrad (:func:`..ops.scatter_adagrad_kernel.scatter_adagrad`,
-   the Triton kernel on the card) updates only the touched rows.
+3. and the row-sparse Adagrad (:func:`..ops.scatter_adagrad_kernel.scatter_adagrad_tables`,
+   one CUDA launch for every sparse table of a regime group on the card)
+   updates only the touched rows.
 
 Weight decay applies lazily to the touched rows (torch raises on sparse +
 weight_decay; the JAX package documents the same extension).  Sparse tables
@@ -34,10 +35,9 @@ import numpy as np
 from open_knowledge_graph_embeddings_tpu_torch.data.batching import Batch
 from open_knowledge_graph_embeddings_tpu_torch.models.embedders import LSTMEmbedder, TokenEmbedderBase
 from open_knowledge_graph_embeddings_tpu_torch.models.model import KGEModel
-from open_knowledge_graph_embeddings_tpu_torch.ops.scatter_adagrad_kernel import scatter_adagrad
+from open_knowledge_graph_embeddings_tpu_torch.ops.scatter_adagrad_kernel import scatter_adagrad_tables
 from open_knowledge_graph_embeddings_tpu_torch.train.optim import (
     OptimizerRegimes,
-    adagrad_clr,
     assign_regimes,
     clip_by_global_norm,
 )
@@ -223,20 +223,26 @@ class SparsePlanBuilder:
 # ------------------------------------------------------------- row updates
 
 
-def _sparse_adagrad_rows(g_rows, uids, valid, p, s, hp):
-    step = s["step"] + 1.0
-    scatter_adagrad(g_rows.contiguous(), uids, valid, p, s["sum"], adagrad_clr(step, hp),
-                    hp["weight_decay"], hp["eps"])
-    return p, {"sum": s["sum"], "step": step}
+def _sparse_adagrad_rows(g_rows, uids, valid, ps, states, hp):
+    """The row Adagrad step of a regime group's sparse tables; their new
+    states."""
+    steps = scatter_adagrad_tables([g.contiguous() for g in g_rows], uids, valid, ps, [s["sum"] for s in states],
+                                   [s["step"] for s in states], hp)
+    return [{"sum": s["sum"], "step": step} for s, step in zip(states, steps)]
 
 
-def _sparse_sgd_rows(g_rows, uids, valid, p, s, hp):
-    uids = uids.long()
-    g = (g_rows.float() + hp["weight_decay"] * p[uids]) * valid[:, None].float()
-    p.index_add_(0, uids, -hp["lr"] * g)
-    return p, {"momentum": s["momentum"], "step": s["step"] + 1.0}
+def _sparse_sgd_rows(g_rows, uids, valid, ps, states, hp):
+    out = []
+    for g_rows, uids, valid, p, s in zip(g_rows, uids, valid, ps, states):
+        uids = uids.long()
+        g = (g_rows.float() + hp["weight_decay"] * p[uids]) * valid[:, None].float()
+        p.index_add_(0, uids, -hp["lr"] * g)
+        out.append({"momentum": s["momentum"], "step": s["step"] + 1.0})
+    return out
 
 
+# each takes a regime group's tables at once:
+# (g_rows, uids, valid, params, states, hparams) -> states
 _SPARSE_RULES = {"Adagrad": _sparse_adagrad_rows, "SGD": _sparse_sgd_rows}
 
 
@@ -285,7 +291,13 @@ def make_sparse_train_step(model: KGEModel, regimes: OptimizerRegimes, params_ex
     """Sparse analog of :func:`..train.step.make_train_step`:
     ``step(variables, opt_state, hparams, batch, generator) -> (variables,
     opt_state, stats)`` for a batch of :class:`SparsePlanBuilder` arrays on
-    the device.  Parameters and optimizer state are updated in place."""
+    the device.  Parameters and optimizer state are updated in place.
+
+    Adagrad's launches on the card, per step and regime group: one dense
+    launch for the group's dense leaves with a gradient (a table that falls
+    back to dense for the batch joins them; ceil(leaves / 32) beyond 32
+    leaves) and one row launch for the group's row-sparse tables (none when
+    no table of the group carries a plan; ceil(tables / 8) beyond 8)."""
     table_label = _resolve_sparse_tables(model, regimes, params_example, entity_sparse)
     opt_names = regimes.opt_names()
 
@@ -313,10 +325,15 @@ def make_sparse_train_step(model: KGEModel, regimes: OptimizerRegimes, params_ex
         new_params, new_opt = dense_apply(
             g_dense, {k: s for k, s in opt_state.items() if k not in sparse_tables}, dense, hparams)
         new_params, new_opt = dict(new_params), dict(new_opt)
+        groups: Dict[int, list] = {}
         for t in sparse_tables:
-            lbl = table_label[t]
-            new_params[t], new_opt[t] = _SPARSE_RULES[opt_names[lbl]](
-                g_rows[t], uids[t], batch[f"sparse/{t}/valid"], params[t], opt_state[t], hparams[lbl])
+            groups.setdefault(table_label[t], []).append(t)
+        for lbl, ts in groups.items():  # one row update per regime group
+            states = _SPARSE_RULES[opt_names[lbl]](
+                [g_rows[t] for t in ts], [uids[t] for t in ts], [batch[f"sparse/{t}/valid"] for t in ts],
+                [params[t] for t in ts], [opt_state[t] for t in ts], hparams[lbl])
+            for t, s in zip(ts, states):
+                new_params[t], new_opt[t] = params[t], s
         new_variables = {"params": new_params, "state": new_state, "buffers": variables["buffers"]}
         return new_variables, new_opt, {"loss_sum": loss_sum.detach(), "normalizer_metric": norm_metric}
 

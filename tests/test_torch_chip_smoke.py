@@ -231,20 +231,22 @@ def test_forward_launches_and_the_f32_paths_expected_counts(smoke):
     two fused passes give 1100 forward launches (1000 at bf16), of two
     unfused passes 1100 kernel 7 and 2000 kernel 8 launches (1000 and 1900
     at bf16), each fused serving encode 11, each unfused one 11 (10 at
-    bf16), the op 11 and 22."""
+    bf16), the op 11 and 22; the Adagrads one dense and one row launch a
+    step for the flagship's one regime group, 50 each."""
     assert smoke.forward_launches(10, "bfloat16") == smoke.forward_launches(10, torch.bfloat16) == 10
     assert smoke.forward_launches(10, "float32") == smoke.forward_launches(10, torch.float32) == 11
     assert smoke.scan_launches(10, "bfloat16") == smoke.scan_launches(10, torch.bfloat16) == (10, 19)
     assert smoke.scan_launches(10, "float32") == smoke.scan_launches(10, torch.float32) == (11, 20)
     names = list(smoke.kernel_counters())
-    train = smoke.training_launches(names, 10, 50, 600, 100, "float32")
+    # one regime group: one dense Adagrad and one row update launch a step
+    train = smoke.training_launches(names, 10, 50, 50, 50, "float32")
     assert train == {**dict.fromkeys(names, 0), "lstm_last_fwd": 1100, "lstm_last_bwd": 2200,
-                     "adagrad_update": 600, "scatter_adagrad": 100}
-    assert smoke.training_launches(names, 10, 50, 600, 100, "bfloat16")["lstm_last_fwd"] == 1000
-    unfused = smoke.training_launches(names, 10, 50, 600, 100, "float32", unfused=True)
+                     "adagrad_update": 50, "scatter_adagrad": 50}
+    assert smoke.training_launches(names, 10, 50, 50, 50, "bfloat16")["lstm_last_fwd"] == 1000
+    unfused = smoke.training_launches(names, 10, 50, 50, 50, "float32", unfused=True)
     assert unfused["lstm_last_fwd"] == unfused["lstm_last_bwd"] == 0
     assert (unfused["lstm_scan_fwd"], unfused["lstm_scan_bwd"]) == (1100, 2000)
-    unfused16 = smoke.training_launches(names, 10, 50, 600, 100, "bfloat16", unfused=True)
+    unfused16 = smoke.training_launches(names, 10, 50, 50, 50, "bfloat16", unfused=True)
     assert (unfused16["lstm_scan_fwd"], unfused16["lstm_scan_bwd"]) == (1000, 1900)
     serve = smoke.serving_launches(names, 10, 196, 48, "float32")
     assert serve == {**dict.fromkeys(names, 0), "lstm_last_fwd": 196 * 11, "lstm_scan_fwd": 528}
@@ -571,3 +573,70 @@ def test_f32_scan_launch_splits_print_each_kind_beside_its_bound(smoke, monkeypa
     out = capsys.readouterr().out
     assert out.startswith("lstm_scan_fwd_f32 launches, device ms per call (torch.profiler): split 0.0200 (bytes "
                           "bound ") and "steps 0.4000 (bound " in out and "; sum 0.4200" in out
+
+
+# ---------------------------------------------------------------- the Adagrads
+
+
+@pytest.mark.parametrize("kind", ["dense", "rows"])
+def test_adagrad_checks_pass_plain_and_fail_planted_faults(smoke, kind, capsys):
+    """The Adagrads' bitwise check on the ragged cases (here the wrappers take
+    the plain twins): it passes, every planted fault fails it, and a
+    "kernel" that takes the learning rate as a reciprocal and a product
+    fails the run."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import adagrad_kernel as ak
+    from open_knowledge_graph_embeddings_tpu_torch.ops import scatter_adagrad_kernel as sk
+
+    if kind == "dense":
+        name, case = "adagrad_update", smoke.ragged_dense_group(torch, [300, 100], device="cpu")
+        kernel, plain, faults = ak.adagrad_update_leaves, ak.adagrad_update_leaves_plain, smoke.dense_faults(ak)
+    else:
+        name, case = "scatter_adagrad", smoke.ragged_row_tables(torch, device="cpu")
+        kernel, plain, faults = sk.scatter_adagrad_tables, sk.scatter_adagrad_tables_plain, smoke.padding_writer(sk)
+    assert smoke.check_adagrad_cases(torch, name, [("ragged", case, True)], kernel, plain, faults) == 0.0
+    out = capsys.readouterr().out
+    assert out.count("fails the bitwise check") == len(faults) == 2
+    assert "learning rate as lr / tensor" in faults
+
+    def reciprocal_kernel(*args):
+        faults["learning rate as lr / tensor"](*args)
+        return [s + 1.0 for s in args[-2]]
+
+    with pytest.raises(smoke.SmokeFailure, match="not bit-equal"):
+        smoke.check_adagrad_cases(torch, name, [("ragged", case, False)], reciprocal_kernel, plain, faults)
+
+
+def test_one_row_backward_check_reports_shares_and_f64_errors(smoke, capsys):
+    """Kernel 6's one-row check (here on the plain versions, a few draws):
+    the test's inputs, a bitwise repeat, demb's unequal share per draw and
+    both errors against the f64 backward, which bf16 demb sits within a few
+    bf16 ulps of."""
+    shares, k_err, p_err = smoke.check_one_row_backward(torch, draws=3, device="cpu")
+    out = capsys.readouterr().out
+    assert "twice on the same inputs, bitwise equal (demb, dW_ih, dW_hh, db): [True, True, True, True]" in out
+    assert "3 cotangent draws" in out and "draw 0, the test's" in out
+    assert len(shares) == 3 and not shares.any()
+    np.testing.assert_array_equal(k_err, p_err)
+    assert 0 < p_err.max() < 4 * 2 ** -8
+
+
+def test_optimizer_clock_times_each_part_and_restores(smoke):
+    """The training step's optimizer clock: make_apply, the dense apply and
+    the row update each add their host time while the block runs; after it
+    the regimes and the sparse step's rules are as they were."""
+    from open_knowledge_graph_embeddings_tpu_torch.train import sparse
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
+
+    regimes = OptimizerRegimes({"optimizer": "Adagrad", "lr": 0.2})
+    regimes.update(1, 0)
+    params = {"w": torch.ones(8), "t": torch.ones(6, 4)}
+    state = regimes.init_state(params)
+    rules = dict(sparse._SPARSE_RULES)
+    with smoke.OptimizerClock(regimes) as clock:
+        regimes.make_apply({"w": params["w"]})({"w": torch.ones(8)}, {"w": state["w"]}, {"w": params["w"]},
+                                               regimes.hparams())
+        sparse._SPARSE_RULES["Adagrad"]([torch.ones(2, 4)], [torch.tensor([1, 3])], [torch.ones(2, dtype=torch.bool)],
+                                        [params["t"]], [state["t"]], regimes.hparams()[0])
+    assert set(clock.ms) == {"make_apply", "dense apply", "row update"} and all(v > 0 for v in clock.ms.values())
+    assert "make_apply" not in vars(regimes) and sparse._SPARSE_RULES == rules
+    assert float(params["t"][0, 0]) == 1.0 and float(params["t"][1, 0]) < 1.0

@@ -376,6 +376,100 @@ def test_scatter_adagrad_kernel_bit_equal_on_card(cuda, V, U, n_valid):
     assert not torch.equal(p[0], _adagrad_state(V, 512, seed=U)[1][0].to(cuda))  # row 0 was updated
 
 
+def _unaligned(x):
+    """A contiguous copy of ``x`` whose data pointer is 4 bytes past a
+    16-byte boundary (the kernels' scalar path)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+# the flagship's dense Adagrad group: per LSTM (entity, relation) W_ih and
+# W_hh [2048, 512] and the bias [2048] twice, and the two batchnorms'
+# scale and offset [512]
+FLAGSHIP_LEAVES = [(2048, 512)] * 4 + [(2048,)] * 4 + [(512,)] * 4
+
+
+def _dense_group(case, cuda):
+    rng = np.random.default_rng(len(case))
+    f = lambda s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
+    if case == "flagship-group":
+        shapes, hp = FLAGSHIP_LEAVES, dict(lr=0.2, lr_decay=0.0, weight_decay=1e-10, eps=1e-10)
+    elif case == "ragged":
+        shapes, hp = [(1234, 512), (7,), (3, 5), (0,), (2048,), (64, 33)], dict(lr=0.2, lr_decay=0.01,
+                                                                               weight_decay=1e-2, eps=1e-10)
+    else:  # more leaves than one launch takes
+        shapes, hp = [(37,)] * 40, dict(lr=0.3, lr_decay=0.01, weight_decay=0.0, eps=1e-10)
+    gs, ps, accs = [f(s) * 0.1 for s in shapes], [f(s) * 0.1 for s in shapes], [f(s).abs() for s in shapes]
+    if case == "ragged":  # one leaf whose three tensors are not 16-byte aligned
+        gs[4], ps[4], accs[4] = (_unaligned(x) for x in (gs[4], ps[4], accs[4]))
+    steps = [torch.tensor(float(0 if case == "flagship-group" else 7 * i), device=cuda) for i in range(len(shapes))]
+    return gs, ps, accs, steps, hp
+
+
+@pytest.mark.parametrize("case", ["flagship-group", "ragged", "forty-leaves"])
+def test_adagrad_leaves_kernel_bit_equal_on_card(cuda, case):
+    """The dense kernel on a whole regime group against its plain twin: p,
+    acc and the new steps bit for bit; the given steps unchanged; one launch
+    for up to 32 leaves."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import adagrad_kernel as ak
+
+    gs, ps, accs, steps, hp = _dense_group(case, cuda)
+    ps2, accs2 = [p.clone() for p in ps], [a.clone() for a in accs]
+    steps0 = [s.clone() for s in steps]
+    before = ak.adagrad_update.launches
+    new = ak.adagrad_update_leaves(gs, ps, accs, steps, hp)
+    want = ak.adagrad_update_leaves_plain(gs, ps2, accs2, steps, hp)
+    torch.cuda.synchronize()
+    assert ak.adagrad_update.launches == before + -(-len(ps) // ak.MAX_LEAVES)
+    for i in range(len(ps)):
+        assert torch.equal(ps[i], ps2[i]) and torch.equal(accs[i], accs2[i]), i
+        assert torch.equal(new[i], want[i]) and torch.equal(steps[i], steps0[i]), i
+
+
+def _row_tables(case, cuda):
+    rng = np.random.default_rng(len(case))
+    if case == "flagship-tables":  # the token tables at OLPBench's vocabulary, d = 512, U = 4096
+        spec, hp, uid_dtype = [(200002, 512, 4096, 3900), (50002, 512, 4096, 2100)], dict(
+            lr=0.2, lr_decay=0.0, weight_decay=1e-10, eps=1e-10), np.int64
+    else:  # a scalar-path width, an unaligned table, int32 uids, weight decay on padding row 0
+        spec, hp, uid_dtype = [(1234, 100, 512, 300), (999, 512, 256, 256), (3000, 512, 512, 41)], dict(
+            lr=0.2, lr_decay=0.01, weight_decay=1e-2, eps=1e-10), np.int32
+    tables = []
+    for i, (V, d, U, n) in enumerate(spec):
+        g, p, acc = _adagrad_state(V, d, seed=V)
+        uids = np.zeros(U, uid_dtype)
+        uids[:n] = np.sort(np.concatenate([[0], rng.choice(np.arange(1, V), n - 1, replace=False)]))
+        valid = torch.from_numpy(np.arange(U) < n)
+        p, acc = p.to(cuda), acc.to(cuda)
+        if case == "ragged" and i == 1:
+            p, acc = _unaligned(p), _unaligned(acc)
+        tables.append((g[:U].contiguous().to(cuda), torch.from_numpy(uids).to(cuda), valid.to(cuda), p, acc,
+                       torch.tensor(float(0 if case == "flagship-tables" else 5 * i), device=cuda)))
+    return [list(x) for x in zip(*tables)], hp
+
+
+@pytest.mark.parametrize("case", ["flagship-tables", "ragged"])
+def test_scatter_adagrad_tables_kernel_bit_equal_on_card(cuda, case):
+    """The row kernel on every table of a group in one launch against its
+    plain twin: p, acc and the new steps bit for bit, padding entries (row 0)
+    left out, the given steps unchanged."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import scatter_adagrad_kernel as sk
+
+    (g_rows, uids, valid, ps, accs, steps), hp = _row_tables(case, cuda)
+    ps2, accs2 = [p.clone() for p in ps], [a.clone() for a in accs]
+    steps0 = [s.clone() for s in steps]
+    before = sk.scatter_adagrad.launches
+    new = sk.scatter_adagrad_tables(g_rows, uids, valid, ps, accs, steps, hp)
+    want = sk.scatter_adagrad_tables_plain(g_rows, uids, valid, ps2, accs2, steps, hp)
+    torch.cuda.synchronize()
+    assert sk.scatter_adagrad.launches == before + 1
+    for i in range(len(ps)):
+        assert torch.equal(ps[i], ps2[i]) and torch.equal(accs[i], accs2[i]), i
+        assert torch.equal(new[i], want[i]) and torch.equal(steps[i], steps0[i]), i
+
+
 # ------------------------------------------------ the unfused path and kernels 5-8
 
 
@@ -463,6 +557,13 @@ def test_bf16_scan_gates_are_kernel_7s_bitwise_on_card(cuda, B, H):
     assert torch.equal(fwd[0], x_proj[0].float())
 
 
+def _every_state_cotangent(L, B, D, seed):
+    """The cotangent of every state, [L, B, D] f32, from the file's seed
+    convention (``_train_inputs``: ``seed`` plus a fixed offset)."""
+    rng = np.random.default_rng(seed + 200)
+    return torch.from_numpy((rng.standard_normal((L, B, D)) * 0.5).astype(np.float32))
+
+
 @pytest.mark.parametrize("B,D", [(333, 128), (1, 512), (37, 512), (4099, 64), (37, 40)],
                          ids=["ragged-333", "one-row", "ragged-37-d512", "ragged-4099", "d40-unit-tail"])
 def test_every_state_kernels_match_plain_on_card(cuda, B, D):
@@ -471,7 +572,7 @@ def test_every_state_kernels_match_plain_on_card(cuda, B, D):
     emb, w_ih, w_hh, bias, lens, _ = (x.to(cuda) for x in _train_inputs(B, D, seed=B))
     L = emb.shape[0]
     act = torch.from_numpy(_active(lens.cpu().numpy(), L)).to(cuda)
-    dhs = (torch.randn(L, B, D, device=cuda) * 0.5 * act[..., None]).to(torch.bfloat16)
+    dhs = (_every_state_cotangent(L, B, D, seed=B).to(cuda) * act[..., None]).to(torch.bfloat16)
     before = (lstm_kernel.lstm_all_forward.launches, lstm_kernel.lstm_all_backward.launches)
     hs, cs = lstm_kernel.lstm_all_forward(emb, w_ih, w_hh, bias, lens)
     got = lstm_kernel.lstm_all_backward(emb, w_ih, w_hh, bias, lens, hs, cs, dhs)
@@ -488,13 +589,33 @@ def test_every_state_kernels_match_plain_on_card(cuda, B, D):
     assert (got[3] - want[3]).abs().max().item() <= DB_RTOL * want[3].abs().max().item()
 
 
+def test_every_state_backward_is_deterministic_on_card(cuda):
+    """Kernel 6 (bf16, every-step mode) twice on the same B = 1, D = 512
+    inputs: the same bits each time."""
+    B, D = 1, 512
+    emb, w_ih, w_hh, bias, lens, _ = (x.to(cuda) for x in _train_inputs(B, D, seed=B))
+    L = emb.shape[0]
+    act = torch.from_numpy(_active(lens.cpu().numpy(), L)).to(cuda)
+    dhs = (_every_state_cotangent(L, B, D, seed=B).to(cuda) * act[..., None]).to(torch.bfloat16)
+    hs, cs = lstm_kernel.lstm_all_forward(emb, w_ih, w_hh, bias, lens)
+    first = lstm_kernel.lstm_all_backward(emb, w_ih, w_hh, bias, lens, hs, cs, dhs)
+    second = lstm_kernel.lstm_all_backward(emb, w_ih, w_hh, bias, lens, hs, cs, dhs)
+    torch.cuda.synchronize()
+    # demb is defined only at the positions the row reaches
+    first, second = (first[0][act], *first[1:]), (second[0][act], *second[1:])
+    for name, a, b in zip(("demb", "dW_ih", "dW_hh", "db"), first, second):
+        bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(a.view(bits), b.view(bits)), name
+
+
 def test_matmul_f32_on_card(cuda):
     """The unfused path's projection product: bf16 operands, f32 output,
     against the same product of the f32-widened operands."""
     from open_knowledge_graph_embeddings_tpu_torch.ops.lstm_scan_kernel import matmul_f32
 
-    a = torch.randn(1000, 512, device=cuda).to(torch.bfloat16)
-    b = torch.randn(512, 2048, device=cuda).to(torch.bfloat16)
+    rng = np.random.default_rng(1000)
+    a = torch.from_numpy(rng.standard_normal((1000, 512)).astype(np.float32)).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((512, 2048)).astype(np.float32)).to(cuda, torch.bfloat16)
     got = matmul_f32(a, b)
     assert got.dtype == torch.float32
     want = torch.matmul(a.float(), b.float())

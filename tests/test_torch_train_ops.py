@@ -226,6 +226,113 @@ def test_row_adagrad_matches_xla_with_padding_on_row_zero(wd):
     assert not np.array_equal(tp.numpy()[0], p[0]) or wd == 0.0
 
 
+def _jax_adagrad_steps(g, s, p, hp):
+    """JAX train/optim.py::_adagrad_update (its XLA branch off the TPU), op
+    by op as the package defines it."""
+    from open_knowledge_graph_embeddings_tpu.train.optim import _adagrad_update
+
+    return _adagrad_update(g, s, p, {k: jnp.float32(v) for k, v in hp.items()})
+
+
+def test_adagrad_clr_with_lr_decay_is_jaxs_bitwise():
+    """The learning rate with lr_decay, read through OptimizerRegimes'
+    update (g = 1, p = acc = 0, wd = 0, eps 1e-10: p' = -clr exactly), equals
+    JAX's lr / (1 + (step - 1) * lr_decay) for steps 1-3000 bit for bit:
+    one f32 division.  ``lr / tensor`` in torch is a reciprocal and a product
+    and is one ulp off in 830 of these steps."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
+
+    n = 3000
+    hp = dict(lr=0.2, lr_decay=0.01, weight_decay=0.0, eps=1e-10)
+    regimes = OptimizerRegimes({"optimizer": "Adagrad", "lr": hp["lr"], "lr_decay": hp["lr_decay"]})
+    regimes.update(0, 0)
+    params = {f"w{i}": torch.zeros(1) for i in range(n)}
+    state = regimes.init_state(params)
+    for i in range(n):
+        state[f"w{i}"]["step"].fill_(i)
+    params, state = regimes.make_apply(params)({k: torch.ones(1) for k in params}, state, params, regimes.hparams())
+    got = np.array([-float(params[f"w{i}"]) for i in range(n)], np.float32)
+
+    steps0 = jnp.arange(n, dtype=jnp.float32)
+    jp, js = jax.vmap(lambda s: _jax_adagrad_steps(jnp.ones(1), {"sum": jnp.zeros(1), "step": s}, jnp.zeros(1), hp))(
+        steps0)
+    want = -np.asarray(jp)[:, 0]
+    np.testing.assert_array_equal(np.array([float(state[f"w{i}"]["step"]) for i in range(n)]), np.asarray(js["step"]))
+    assert np.count_nonzero(got != want) == 0, f"{np.count_nonzero(got != want)} of {n} learning rates differ"
+
+
+def _adagrad_case(rng, shapes):
+    f = lambda s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    return {f"w{i}": f(s) for i, s in enumerate(shapes)}, {f"w{i}": np.abs(f(s)) for i, s in enumerate(shapes)}
+
+
+def test_dense_adagrad_with_lr_decay_matches_jax_for_twenty_steps():
+    """Twenty steps of the dense rule through OptimizerRegimes.make_apply (one
+    grouped update) and JAX's _adagrad_update per leaf, lr_decay 0.01, leaves
+    at different steps: the steps bitwise, p and sum within the f32 rule's
+    last bit."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
+
+    rng = np.random.default_rng(12)
+    hp = dict(lr=0.2, lr_decay=0.01, weight_decay=1e-3, eps=1e-10)
+    p0, acc0 = _adagrad_case(rng, [(64, 16), (16,), (5,)])
+    regimes = OptimizerRegimes({"optimizer": "Adagrad", **{k: v for k, v in hp.items()}})
+    regimes.update(0, 0)
+    params = {k: _t(v.copy()) for k, v in p0.items()}
+    state = regimes.init_state(params)
+    jparams = {k: jnp.asarray(v) for k, v in p0.items()}
+    jstate = {k: {"sum": jnp.asarray(acc0[k]), "step": jnp.float32(i * 7)} for i, k in enumerate(p0)}
+    for i, k in enumerate(p0):
+        state[k]["sum"].copy_(_t(acc0[k]))
+        state[k]["step"].fill_(i * 7)
+    apply = regimes.make_apply(params)
+    for _ in range(20):
+        grads = {k: rng.standard_normal(v.shape).astype(np.float32) for k, v in p0.items()}
+        params, state = apply({k: _t(g) for k, g in grads.items()}, state, params, regimes.hparams())
+        for k in p0:
+            jparams[k], jstate[k] = _jax_adagrad_steps(jnp.asarray(grads[k]), jstate[k], jparams[k], hp)
+    for k in p0:
+        assert float(state[k]["step"]) == float(jstate[k]["step"])
+        np.testing.assert_allclose(state[k]["sum"].numpy(), np.asarray(jstate[k]["sum"]), rtol=1e-6)
+        np.testing.assert_allclose(params[k].numpy(), np.asarray(jparams[k]), rtol=1e-6, atol=1e-7)
+
+
+def test_row_adagrad_with_lr_decay_matches_xla_for_twenty_steps():
+    """Twenty row updates of two tables in one scatter_adagrad_tables call a
+    step (the sparse step's grouped update) against JAX's row rule (clr as
+    train/sparse.py computes it, then scatter_adagrad_xla), lr_decay 0.01,
+    weight decay on, padding entries on row 0."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops.scatter_adagrad_kernel import scatter_adagrad_tables
+
+    rng = np.random.default_rng(13)
+    hp = dict(lr=0.2, lr_decay=0.01, weight_decay=1e-2, eps=1e-10)
+    jhp = {k: jnp.float32(v) for k, v in hp.items()}
+    heights, d, U = (300, 120), 16, 64
+    tabs = [rng.standard_normal((V, d)).astype(np.float32) for V in heights]
+    accs = [np.abs(rng.standard_normal((V, d))).astype(np.float32) for V in heights]
+    tp, tacc = [_t(x.copy()) for x in tabs], [_t(x.copy()) for x in accs]
+    tsteps = [torch.tensor(3.0), torch.tensor(0.0)]
+    jp, jacc, jsteps = [jnp.asarray(x) for x in tabs], [jnp.asarray(x) for x in accs], [jnp.float32(3), jnp.float32(0)]
+    for _ in range(20):
+        plans = []
+        for V in heights:
+            n = int(rng.integers(U // 2, U))
+            uids = np.zeros(U, np.int32)
+            uids[:n] = np.sort(np.concatenate([[0], rng.choice(np.arange(1, V), n - 1, replace=False)]))
+            plans.append((rng.standard_normal((U, d)).astype(np.float32), uids, np.arange(U) < n))
+        tsteps = scatter_adagrad_tables([_t(g) for g, _, _ in plans], [_t(u) for _, u, _ in plans],
+                                        [_t(v) for _, _, v in plans], tp, tacc, tsteps, hp)
+        for i, (g, uids, valid) in enumerate(plans):
+            jsteps[i] = jsteps[i] + 1.0
+            clr = jhp["lr"] / (1.0 + (jsteps[i] - 1.0) * jhp["lr_decay"])
+            jp[i], jacc[i] = scatter_adagrad_xla(jnp.asarray(g), jnp.asarray(uids), jnp.asarray(valid), jp[i],
+                                                 jacc[i], clr, jhp["weight_decay"], jhp["eps"])
+    for i in range(2):
+        assert float(tsteps[i]) == float(jsteps[i])
+        np.testing.assert_allclose(tacc[i].numpy(), np.asarray(jacc[i]), rtol=1e-6)
+        np.testing.assert_allclose(tp[i].numpy(), np.asarray(jp[i]), rtol=1e-6, atol=1e-7)
+
+
 def test_wrappers_validate_and_count():
     p, acc = torch.zeros(4, 8), torch.ones(4, 8)
     with pytest.raises(ValueError, match="shape"):

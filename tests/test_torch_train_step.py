@@ -342,5 +342,65 @@ def test_sparse_matches_dense_in_port(synth_dir, opt):
                 np.testing.assert_allclose(os_[k], od[k], rtol=1e-4, atol=1e-4 * np.abs(od[k]).max(), err_msg=k)
 
 
+@pytest.mark.parametrize("two_regimes", [False, True], ids=["one-regime", "two-regimes"])
+def test_sparse_step_groups_the_adagrad_updates(synth_dir, monkeypatch, two_regimes):
+    """The port's sparse step, Adagrad with lr_decay 0.01 and weight decay:
+    per step one grouped dense update of every dense leaf of a regime and
+    one grouped row update of both token tables, each leaf and table as the
+    one-leaf (one-table) plain path gives it, bit for bit, over three
+    steps."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import adagrad_kernel as ak
+    from open_knowledge_graph_embeddings_tpu_torch.ops import scatter_adagrad_kernel as sk
+    from open_knowledge_graph_embeddings_tpu_torch.train import optim, sparse
+
+    _, p, _, _, model, pv = _models(synth_dir, "float32")
+    base = {"optimizer": "Adagrad", "lr": 0.2, "lr_decay": 0.01, "weight_decay": 1e-4}
+    opt = [{**base, "lr": 0.1, "match": "token_embedding"}, base] if two_regimes else base
+    reg = OptimizerRegimes(opt)
+    reg.update(1, 0)
+    plan = SparsePlanBuilder(model.embedder, entity_sparse=True, min_rows_ratio=0.0, dedup_bucket=8)
+    step = make_sparse_train_step(model, reg, pv["params"], entity_sparse=True)
+    dense_calls, row_calls = [], []
+
+    def dense(gs, ps, accs, steps, hp):
+        want = [_one_path(ak.adagrad_update_plain, (g,), p_, a, s, hp) for g, p_, a, s in zip(gs, ps, accs, steps)]
+        new = ak.adagrad_update_leaves(gs, ps, accs, steps, hp)
+        dense_calls.append(len(ps))
+        _assert_equal_updates(want, ps, accs, new)
+        return new
+
+    def rows(g_rows, uids, valid, ps, accs, steps, hp):
+        want = [_one_path(sk.scatter_adagrad_plain, (g, u, v), p_, a, s, hp)
+                for g, u, v, p_, a, s in zip(g_rows, uids, valid, ps, accs, steps)]
+        new = sk.scatter_adagrad_tables(g_rows, uids, valid, ps, accs, steps, hp)
+        row_calls.append(len(ps))
+        _assert_equal_updates(want, ps, accs, new)
+        return new
+
+    monkeypatch.setattr(optim, "adagrad_update_leaves", dense)
+    monkeypatch.setattr(sparse, "scatter_adagrad_tables", rows)
+    o = reg.init_state(pv["params"])
+    n_dense = len(list(optim.leaves(pv["params"]))) - 2
+    for b in list(BatchBuilder(p, seed=4).batches(shuffle=True))[:3]:
+        pv, o, _ = step(pv, o, reg.hparams(), arrays_to_device(plan(b), "cpu"))
+    assert dense_calls == [n_dense] * 3 and row_calls == [2] * 3
+    assert float(o["entity_token_embedding"]["step"]) == float(o["entity_lstm"]["w_ih"]["step"]) == 3.0
+
+
+def _one_path(update, plan, p, acc, step, hp):
+    """A leaf's (table's) one-leaf plain update on copies: (p, acc, step)."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops.adagrad_kernel import adagrad_clr
+
+    step = step + 1.0
+    p, acc = p.clone(), acc.clone()
+    update(*plan, p, acc, adagrad_clr(step, hp["lr"], hp["lr_decay"]), hp["weight_decay"], hp["eps"])
+    return p, acc, step
+
+
+def _assert_equal_updates(want, ps, accs, steps):
+    for (wp, wa, ws), p, a, s in zip(want, ps, accs, steps, strict=True):
+        assert torch.equal(p, wp) and torch.equal(a, wa) and torch.equal(s, ws)
+
+
 def _clone(tree):
     return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
