@@ -16,12 +16,16 @@ Phases (any failure exits non-zero before the final line):
    candidates): generate the 2.47M-mention synthetic set with
    ``tools/make_synth_olpbench.py`` (80000 triples, so one epoch has >= 20
    steps of 4096, counted on the CPU first), then ``cli.train --epochs 2``
-   (two passes, by the reference's epoch rule) with every kernel's launch
-   count set to 0 just before and read just after.  The inputs of the first step to each training kernel are
-   recorded on the way;
-5. check the training run: every kernel launched (and how often), the loss
-   finite and falling, which tables went row-sparse on how many steps, and
-   the checkpoint (optimizer state included) loading back; then time steps
+   (two passes, by the reference's epoch rule) at the config's own eval
+   cadence (a batch-shared validation eval after each pass, 32768
+   candidates, model selection on MRR) with every kernel's launch count set
+   to 0 just before and read just after.  The inputs of the first step to
+   each training kernel are recorded on the way;
+5. check the training run: every kernel launched (and how often: the
+   evals' kernel 1 passes included), the loss finite and falling, which
+   tables went row-sparse on how many steps, the validation rows of
+   results.csv and ``model_best-mrr`` loading back, and the last checkpoint
+   (optimizer state included) loading back; then time steps
    after warm-up (median and max ms/step, items/s), the host plan per batch,
    and a torch.profiler breakdown of one step by device kernel;
 6. hold each training kernel against its plain version on the recorded
@@ -50,6 +54,19 @@ Phases (any failure exits non-zero before the final line):
    cotangents; then the op that reaches them
    (``ops/lstm.py::lstm_forward_tm_sorted``) forward and backward with the
    counts set to 0 just before and read just after;
+7b. evaluation of the trained checkpoint through ``cli.train --resume CKPT
+   --evaluate True``: the batch-shared validation split, and with
+   ``--evaluate_on_validation False`` the full-vocabulary test split
+   (2.47M candidates, the chunked branch), each with the counts set to 0
+   just before and read just after and held exactly (``eval_launches``);
+   the metrics finite and ordered, every gold counted, the scores-file
+   row; the ranks of one validation batch (from its [B, N] scores) and of
+   two test batches (from the port's own gold-row chunk products) recounted
+   on the host with numpy (0 may differ; the filter dropped and ties
+   counted as ``>`` must each change a rank), the test ranks against f64
+   products of the same rows within the f32 error bound; timed (the
+   validation pass, the cache encode and the ranking, one device batch of
+   256 rows beside its bound) and one batch profiled;
 8. the unfused training path: the same ``cli.train`` run with
    ``OKET_DISABLE_LSTM_FUSED=1`` set in this process for that run only (the
    input projection, then kernels 7 and 8 over every row and step), checked
@@ -81,8 +98,8 @@ Phases (any failure exits non-zero before the final line):
    3xTF32 bound, and kernels 7 and 8's (split apart from the steps; split,
    gate, product), kernel 8's recomputed gates held to kernel 7's bitwise as
    in bf16, kernels 7 and 8 on the trained unfused checkpoint against f64,
-   the op of kernels 5 and 6, and serving of the f32 checkpoint, with exact
-   launch counts (``forward_launches``, ``scan_launches``: an f32 forward is
+   the op of kernels 5 and 6, the test eval of the f32 checkpoint as in 7b,
+   and serving of the f32 checkpoint, with exact launch counts (``forward_launches``, ``scan_launches``: an f32 forward is
    L + 1 launches, the weight split and L steps, kernel 8 at f32 2L); then the unfused
    path at H = 100 in bf16 and f32 (kernels 7 and 8 through the padded
    route);
@@ -102,6 +119,7 @@ and the package's ``_build/``.
 from __future__ import annotations
 
 import contextlib
+import csv
 import io
 import json
 import shutil
@@ -138,10 +156,12 @@ DATA_ARGS = ["--mentions", "2470000", "--relations", "50000", "--triples", "8000
 MIN_TRAIN_STEPS = 20
 
 
-def train_args(config, out_dir):
-    """cli.train's arguments: two passes over the smoke set, no eval."""
-    return [str(config), "--dataset_dir", str(DATA_DIR), "--eval_epoch_freq", "0", "--epochs", "2",
-            "--experiment_dir", str(out_dir)]
+def train_args(config, out_dir, evaluate=False):
+    """cli.train's arguments: two passes over the smoke set; with
+    ``evaluate`` the config's own eval cadence (the flagship's: a
+    validation eval after each pass, model selection on MRR), else none."""
+    return [str(config), "--dataset_dir", str(DATA_DIR), *([] if evaluate else ["--eval_epoch_freq", "0"]),
+            "--epochs", "2", "--experiment_dir", str(out_dir)]
 
 # H100 SXM HBM3 bandwidth (published)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1082,11 +1102,12 @@ def unfused_switch(on=True):
             os.environ.pop(UNFUSED_SWITCH, None)
 
 
-def phase_train(torch, timings, unfused=False, config=FLAGSHIP, tag=""):
+def phase_train(torch, timings, unfused=False, config=FLAGSHIP, tag="", evaluate=False):
     """``cli.train`` on ``config`` (the flagship by default), two passes;
-    with ``unfused`` the switch is set in this process for this run only.
-    Each run writes to its own experiment directory; ``tag`` prefixes the
-    timings' keys and names the directory."""
+    with ``unfused`` the switch is set in this process for this run only;
+    with ``evaluate`` at the config's eval cadence.  Each run writes to its
+    own experiment directory; ``tag`` prefixes the timings' keys and names
+    the directory."""
     from open_knowledge_graph_embeddings_tpu_torch.cli import train as cli_train
 
     pre = tag + ("unfused_" if unfused else "")
@@ -1098,7 +1119,7 @@ def phase_train(torch, timings, unfused=False, config=FLAGSHIP, tag=""):
     check(n_steps >= MIN_TRAIN_STEPS, f"one epoch has {n_steps} steps, want >= {MIN_TRAIN_STEPS}")
     out_dir = ROOT / ".bench_cache" / ("smoke_train" + ("_" + pre.rstrip("_") if pre else ""))
     shutil.rmtree(out_dir, ignore_errors=True)
-    args = train_args(config, out_dir) + ["--device", "cuda"]
+    args = train_args(config, out_dir, evaluate) + ["--device", "cuda"]
 
     with unfused_switch(unfused):
         # ---- the training path: counts set to 0 just before, read just after
@@ -1137,14 +1158,16 @@ def check_training(torch, trainer, launches, n_steps, unfused=False):
     # leaves, and a table that falls back to dense), a row launch every step
     # with a row-sparse table
     n_dense, n_sparse = n_steps, sum(1 for s in log if s["sparse_tables"])
-    want = training_launches(launches, L, n_steps, n_dense, n_sparse, trainer.model.embedder.dtype, unfused)
+    val_batches = check_selection(torch, trainer) if trainer.args.get("eval_epoch_freq") else 0
+    want = training_launches(launches, L, n_steps, n_dense, n_sparse, trainer.model.embedder.dtype, unfused,
+                             val_batches)
     print(f"training path launches{' (' + UNFUSED_SWITCH + '=1)' if unfused else ''}: {launches} (want {want}: "
           "two LSTM passes per step; one dense Adagrad launch per step and one row update launch per step with "
-          "a sparse table, for the one regime group)")
+          f"a sparse table, for the one regime group; {val_batches} validation batches of two kernel 1 passes)")
     check(all(launches[k] > 0 for k, v in want.items() if v), f"a training kernel was never launched: {launches}")
     check(launches == want, f"training launches {launches}, want {want}")
 
-    ckpt = Path(trainer.save_path) / "checkpoint0"
+    ckpt = Path(trainer.last_checkpoint)
     variables, meta = load_checkpoint(str(ckpt), trainer.model.init(torch.Generator(device="cuda").manual_seed(1)))
     opt = load_opt_state(str(ckpt), trainer.regimes.init_state(variables["params"]))
     flat = lambda tree: dict(leaves(tree))  # noqa: E731
@@ -1534,21 +1557,23 @@ def scan_launches(L, dtype):
     return L + split, 2 * L - 1 + split
 
 
-def training_launches(names, L, n_steps, n_dense, n_sparse, dtype, unfused=False):
+def training_launches(names, L, n_steps, n_dense, n_sparse, dtype, unfused=False, val_batches=0):
     """The launches a cli.train run of ``n_steps`` steps must count, by
     kernel row: two LSTM passes per step, fused (kernels 1 and 2) or unfused
     (kernels 7 and 8, ``scan_launches``); ``n_dense`` dense Adagrad and
     ``n_sparse`` row update launches (each one a step and regime group, the
     row update only on a step with a row-sparse table of the group:
-    ``train/sparse.py::make_sparse_train_step``)."""
-    want = {name: 0 for name in names}
+    ``train/sparse.py::make_sparse_train_step``); and the evals' kernel 1
+    launches over ``val_batches`` batch-shared validation batches
+    (``eval_launches``)."""
+    want = eval_launches(names, L, dtype, val_batches=val_batches)
     want.update({"adagrad_update": n_dense, "scatter_adagrad": n_sparse})
     if unfused:
         fwd, bwd = scan_launches(L, dtype)
         want.update({"lstm_scan_fwd": 2 * n_steps * fwd, "lstm_scan_bwd": 2 * n_steps * bwd})
     else:  # both passes fused (B % 8 == 0 at the flagship's 512-row buckets)
-        want.update({"lstm_last_fwd": 2 * n_steps * forward_launches(L, dtype),
-                     "lstm_last_bwd": 2 * n_steps * backward_launches(L, dtype)})
+        want["lstm_last_fwd"] += 2 * n_steps * forward_launches(L, dtype)
+        want["lstm_last_bwd"] = 2 * n_steps * backward_launches(L, dtype)
     return want
 
 
@@ -2808,6 +2833,376 @@ def launch_cost(torch, reps=200):
     return out
 
 
+# ------------------------------------------------------------------ eval
+
+# the chunk the full-vocabulary eval scores (train/evaluate.py eval_stats_chunked)
+EVAL_CHUNK = 131072
+# the unit roundoff of f32: an f32 product of d terms lies within
+# d * u / (1 - d * u) * sum |q_i c_i| of the exact one
+F32_UNIT_ROUNDOFF = 2.0 ** -24
+
+
+class EvalCapture:
+    """Records what the eval step hands the ranking while the block runs:
+    for every full-vocabulary batch (``eval_stats_chunked``) the query
+    vectors, the eval arrays and the ranks, with the candidate cache; for
+    every batch-shared one (``ranks_from_scores``) the ranks, and for the
+    first its [B, N] scores and arrays.  It wraps the functions in the eval
+    step's module and calls them through."""
+
+    def __init__(self):
+        from open_knowledge_graph_embeddings_tpu_torch.train import step
+
+        self.step = step
+        self.chunked, self.dense, self.cache = [], [], None
+        self._orig = (step.eval_stats_chunked, step.ranks_from_scores)
+
+    def __enter__(self):
+        self.step.eval_stats_chunked, self.step.ranks_from_scores = self._chunked, self._dense
+        return self
+
+    def __exit__(self, *exc):
+        self.step.eval_stats_chunked, self.step.ranks_from_scores = self._orig
+
+    def _chunked(self, q, cand_emb, pos_rows, pos_cols, row_valid, col_valid, n_real_cols, *rest, **kw):
+        out = self._orig[0](q, cand_emb, pos_rows, pos_cols, row_valid, col_valid, n_real_cols, *rest, **kw)
+        self.cache = cand_emb
+        self.chunked.append({"q": q.clone(), "golds": _copies(rest[:4]), "col_valid": col_valid,
+                             "ranks": out[1].clone(), "gold_valid": out[2].clone()})
+        return out
+
+    def _dense(self, scores, filter_rows, filter_cols, gold_rows, gold_mention_cols, col_valid):
+        ranks, gold_valid = self._orig[1](scores, filter_rows, filter_cols, gold_rows, gold_mention_cols, col_valid)
+        rec = {"ranks": ranks.clone(), "gold_valid": gold_valid.clone()}
+        if not self.dense:
+            rec.update(scores=scores.clone(), golds=_copies((filter_rows, filter_cols, gold_rows, gold_mention_cols)),
+                       col_valid=col_valid)
+        self.dense.append(rec)
+        return ranks, gold_valid
+
+
+def eval_launches(names, L, dtype, val_batches=0, cache_chunks=0, test_batches=0):
+    """The launches an eval must count: kernel 1 only (no gradient), per
+    batch-shared batch a pass over the candidates and the query entities
+    together and one over the relations; per cache chunk one; per
+    full-vocabulary batch one over the query entities and one over the
+    relations."""
+    want = {name: 0 for name in names}
+    want["lstm_last_fwd"] = (2 * val_batches + cache_chunks + 2 * test_batches) * forward_launches(L, dtype)
+    return want
+
+
+def host_golds(golds, col_valid):
+    """An eval batch's golds on the host: (valid gold indices, their rows,
+    their mention columns, each one's filter columns, the column mask or
+    None)."""
+    fr, fc, gr, gm = (x.cpu().numpy() for x in golds)
+    gi = np.flatnonzero((gr >= 0) & (gm >= 0).any(axis=1))
+    f_ok = (fr >= 0) & (fc >= 0)
+    filt = [fc[f_ok & (fr == gr[g])] for g in gi]
+    return gi, gr[gi], gm[gi], filt, None if col_valid is None else col_valid.cpu().numpy()
+
+
+def host_ranks(rows, mention_cols, filter_cols, col_valid=None):
+    """The filtered ranks recounted on the host, one gold at a time, with
+    numpy: ``rows`` [G, N] f32 holds each gold's query row scored against
+    every candidate; true = the largest score of its mention columns (-1
+    padded); the filtered row sets the gold row's known-true columns to
+    -1e8 and leaves the padding columns out; rank = #(> true) + #(== true)
+    // 2.  Returns the ranks and those of two planted faults the check must
+    catch: the filter dropped, and ties counted as ``>``."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.evaluate import FILTER_VALUE
+
+    out = {k: np.empty(len(rows), np.int64) for k in ("ranks", "no filter", "ties as >")}
+    for g, row in enumerate(rows):
+        m = mention_cols[g][mention_cols[g] >= 0]
+        true = row[m].max()
+        filtered = row.copy()
+        filtered[filter_cols[g]] = np.float32(FILTER_VALUE)
+        raw = row
+        if col_valid is not None:
+            filtered, raw = filtered[col_valid], row[col_valid]
+        gt, eq = int((filtered > true).sum()), int((filtered == true).sum())
+        out["ranks"][g] = gt + eq // 2
+        out["ties as >"][g] = gt + eq
+        out["no filter"][g] = int((raw > true).sum()) + int((raw == true).sum()) // 2
+    return out
+
+
+def chunk_product_rows(torch, q_g, cache, chunk=EVAL_CHUNK):
+    """[G, N] f32 on the host: the gold rows scored by the port's own chunk
+    products, of the shape eval_stats_chunked runs (the same G rows against
+    C candidates, the last chunk overlapping the one before it)."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops.scoring import score_against_candidates
+
+    N = cache.shape[0]
+    C = min(chunk, N)
+    out = np.empty((q_g.shape[0], N), np.float32)
+    for c0 in range(0, N, C):
+        s0 = min(c0, N - C)
+        out[:, c0 : s0 + C] = score_against_candidates(q_g, cache[s0 : s0 + C])[:, c0 - s0 :].cpu().numpy()
+    return out
+
+
+def check_ranking(label, cases):
+    """Each case (rows [G, N], mention columns, filter columns, column mask,
+    the port's ranks of those golds): the host recount must find 0 ranks
+    that differ, and each planted fault must change at least one rank over
+    the cases.  Returns the number of golds held."""
+    n, faults = 0, Counter()
+    for rows, gm, filt, col_valid, ranks in cases:
+        got = host_ranks(rows, gm, filt, col_valid)
+        bad = int((got["ranks"] != ranks).sum())
+        check(bad == 0, f"{label}: the host recount differs from the port in {bad} of {len(ranks)} ranks")
+        for fault in ("no filter", "ties as >"):
+            faults[fault] += int((got[fault] != ranks).sum())
+        n += len(ranks)
+    print(f"{label}: host recount (numpy) of {n} filtered ranks from the port's own products: 0 differ; planted "
+          + ", ".join(f"{k}: {v} ranks differ" for k, v in faults.items()))
+    for fault in ("no filter", "ties as >"):
+        check(faults[fault] > 0, f"{label}: the planted fault '{fault}' changes no rank: the check has no power")
+    return n
+
+
+def f64_ranks(torch, q_g, cache, mention_cols, filt, col_valid, block=32):
+    """The golds' filtered ranks with f64 products of the card's own f32
+    query rows and cache rows, and per gold the number of unfiltered
+    candidates whose f64 score lies within the f32 products' error bound of
+    true (d u / (1 - d u) times sum |q_i c_i|, for the candidate and for
+    true's mention): only those can rank differently in f32.  Returns
+    (ranks, near)."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.evaluate import FILTER_VALUE
+
+    d, dev = q_g.shape[1], q_g.device
+    gamma = d * F32_UNIT_ROUNDOFF / (1 - d * F32_UNIT_ROUNDOFF)
+    cache64 = cache.double()
+    ok = None if col_valid is None else torch.from_numpy(col_valid).to(dev)
+    ranks, near = np.empty(len(q_g), np.int64), np.empty(len(q_g), np.int64)
+    for b0 in range(0, len(q_g), block):
+        q64 = q_g[b0 : b0 + block].double()
+        s = q64 @ cache64.t()
+        err = gamma * (q64.abs() @ cache64.abs().t())
+        for j in range(s.shape[0]):
+            g = b0 + j
+            m = torch.from_numpy(mention_cols[g][mention_cols[g] >= 0]).to(dev)
+            # an f32 true is its mentions' largest f32 score: within the
+            # largest of their bounds of the f64 true
+            t, t_err = s[j, m].max(), err[j, m].max()
+            f = torch.from_numpy(filt[g]).long().to(dev)
+            keep = torch.ones(s.shape[1], dtype=torch.bool, device=dev)
+            keep[f] = False
+            row = s[j].clone()
+            row[f] = FILTER_VALUE
+            if ok is not None:
+                row, keep, e = row[ok], keep[ok], err[j][ok]
+            else:
+                e = err[j]
+            ranks[g] = int((row > t).sum()) + int((row == t).sum()) // 2
+            near[g] = int((keep & ((s[j] if ok is None else s[j][ok]) - t).abs().le(e + t_err)).sum())
+    del cache64
+    return ranks, near
+
+
+def metrics_of(ranks):
+    r = np.asarray(ranks, np.float64)
+    return {"mrr": float(np.mean(1.0 / (r + 1.0))), "mr": float(r.mean()),
+            **{f"h{k}": float(np.mean(r < k)) for k in (1, 3, 10, 50)}}
+
+
+def check_against_f64(torch, label, capture):
+    """The full-vocabulary ranks of every recorded batch against f64
+    products of the same q and cache rows: per gold the difference must lie
+    within the number of candidates in the f32 error bound of true
+    (``f64_ranks``); prints how many ranks differ and MRR/hits both ways."""
+    got, want, near = [], [], []
+    for rec in capture.chunked:
+        gi, g_rows, gm, filt, col_valid = host_golds(rec["golds"], rec["col_valid"])
+        q_g = rec["q"][torch.from_numpy(g_rows).long().to(rec["q"].device)]
+        r64, n64 = f64_ranks(torch, q_g, capture.cache, gm, filt, col_valid)
+        got.append(rec["ranks"].cpu().numpy()[gi])
+        want.append(r64)
+        near.append(n64)
+    got, want, near = (np.concatenate(x) for x in (got, want, near))
+    diff = np.abs(got - want)
+    m32, m64 = metrics_of(got), metrics_of(want)
+    print(f"{label} vs f64 (the card's q and cache rows, f64 products): {int((diff > 0).sum())} of {len(got)} ranks "
+          f"differ, largest difference {int(diff.max())}; tolerance per gold: the candidates within the f32 error "
+          f"bound of true (d u / (1 - d u) sum |q_i c_i|, u = 2^-24), {int(near.sum())} over all golds, at most "
+          f"{int(near.max())} for one; MRR {m32['mrr']:.6f} vs f64 {m64['mrr']:.6f}, "
+          + ", ".join(f"{k} {m32[k]:.4f} vs {m64[k]:.4f}" for k in ("h1", "h3", "h10", "h50")))
+    over = int((diff > near).sum())
+    check(over == 0, f"{label}: {over} ranks differ from f64 by more than the f32 error bound allows")
+    return m32, m64
+
+
+def eval_batch_bound(N, d, es, B, Gv):
+    """The least time of one full-vocabulary eval batch on this card: the
+    cache (``es`` bytes an element) streamed once per product pass (the
+    loss pass of the B rows, and the two passes of the Gv gold rows), and
+    their f32 FLOP at the FFMA peak (TF32 is off)."""
+    return bound_ms(2 * d * N * (B + 2 * Gv), 3 * N * d * es, PEAK_FP32_FLOPS)
+
+
+def eval_row(path, split):
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    check(len(rows) == 1, f"{split}: evaluate_scores_file has {len(rows)} rows, want 1")
+    return rows[0]
+
+
+def check_eval_metrics(label, row, capture_recs, n_golds):
+    """The user's outputs of one eval: the scores-file row's metrics finite
+    and ordered, MRR in (0, 1], the golds counted, and the row's MRR the
+    mean over the ranks the step returned."""
+    m = {k: float(row[k]) for k in ("loss", "mrr", "mr", "h1", "h3", "h10", "h50")}
+    check(all(np.isfinite(v) for v in m.values()), f"{label}: non-finite metrics {m}")
+    check(0 < m["mrr"] <= 1, f"{label}: MRR {m['mrr']}")
+    check(m["h1"] <= m["h3"] <= m["h10"] <= m["h50"] <= 1, f"{label}: hits not ordered {m}")
+    count = sum(int(r["gold_valid"].sum()) for r in capture_recs)
+    check(count == n_golds, f"{label}: {count} golds ranked, the split has {n_golds}")
+    ranks = np.concatenate([r["ranks"].cpu().numpy()[r["gold_valid"].cpu().numpy()] for r in capture_recs])
+    mrr = metrics_of(ranks)["mrr"]
+    check(abs(mrr - m["mrr"]) <= 1e-6 * m["mrr"], f"{label}: the row's MRR {m['mrr']} is not its ranks' {mrr}")
+    print(f"{label}: count {count} (every gold of the split), " + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
+    return m
+
+
+def run_evaluate(torch, config, ckpt, out_dir, on_validation):
+    """``cli.train --resume CKPT --evaluate True`` with the launch counts
+    set to 0 just before and read just after -> (trainer, capture,
+    launches, scores-file row, wall s)."""
+    from open_knowledge_graph_embeddings_tpu_torch.cli import train as cli_train
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    scores = out_dir / "scores.csv"
+    args = [str(config), "--dataset_dir", str(DATA_DIR), "--resume", ckpt, "--evaluate", "True",
+            "--evaluate_on_validation", str(on_validation), "--experiment_dir", str(out_dir),
+            "--evaluate_scores_file", str(scores), "--device", "cuda"]
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with EvalCapture() as capture:
+        trainer = cli_train.cli_main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    return trainer, capture, launches, eval_row(scores, "validation" if on_validation else "test"), wall
+
+
+def phase_eval(torch, timings, ckpt, config=FLAGSHIP, tag="", validation=True):
+    """``cli.train --evaluate`` on ``ckpt``: the batch-shared validation
+    split (with ``validation``) and the full-vocabulary test split through
+    the chunked branch, each with exact kernel 1 launch counts and its
+    outputs checked; the ranking held on the card exactly (host recounts
+    of recorded batches from the port's own products, with planted faults)
+    and the test ranks against f64; timed (the validation pass, the cache
+    encode and the ranking, one device batch beside its bound, a profile
+    of it).  Returns the launches of the runs together."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.step import arrays_to_device, eval_batch_to_arrays
+
+    pre = tag
+    total = Counter()
+    if validation:
+        trainer, cap, launches, row, wall = run_evaluate(torch, config, ckpt, ROOT / ".bench_cache" /
+                                                         f"smoke_eval_{pre}valid", True)
+        L, dtype = trainer.model.meta.max_length[0], trainer.model.embedder.dtype
+        n_batches = len(trainer.val_builder)
+        want = eval_launches(launches, L, dtype, val_batches=n_batches)
+        print(f"{pre}validation (batch-shared, {trainer.validation_dataset.min_size_batch_labels} candidates): "
+              f"launches {launches} (want {want}: {n_batches} batches x (the candidate and query pass + the "
+              f"relation pass) x {forward_launches(L, dtype)})")
+        check(launches == want and want["lstm_last_fwd"] > 0, f"{pre}validation launches {launches}, want {want}")
+        check_eval_metrics(f"{pre}validation", row, cap.dense,
+                           int(trainer.validation_dataset.records.group_offsets[-1]))
+        rec = cap.dense[0]
+        gi, g_rows, gm, filt, col_valid = host_golds(rec["golds"], rec["col_valid"])
+        rows = rec["scores"][torch.from_numpy(g_rows).long().cuda()].cpu().numpy()
+        check_ranking(f"{pre}validation batch 0 ([B, N] = {list(rec['scores'].shape)})",
+                      [(rows, gm, filt, col_valid, rec["ranks"].cpu().numpy()[gi])])
+        timings[pre + "eval_validation_s"] = trainer.last_eval["batches_s"]
+        timings[pre + "eval_validation_cli_s"] = wall
+        print(f"{pre}validation pass: {trainer.last_eval['batches_s']:.3f} s for {n_batches} batches "
+              f"(cli.train --evaluate {wall:.3f} s)")
+        total.update(launches)
+        del trainer, cap
+
+    trainer, cap, launches, row, wall = run_evaluate(torch, config, ckpt, ROOT / ".bench_cache" /
+                                                     f"smoke_eval_{pre}test", False)
+    meta = trainer.model.meta
+    L, dtype = meta.max_length[0], trainer.model.embedder.dtype
+    n_chunks, n_batches = -(-meta.entities_size // 32768), len(trainer.val_builder)
+    want = eval_launches(launches, L, dtype, cache_chunks=n_chunks, test_batches=n_batches)
+    print(f"{pre}test (full vocabulary, {cap.cache.shape[0]} candidates, batches of {trainer.val_builder.batch_size}"
+          f"): launches {launches} (want {want}: {n_chunks} cache chunks + {n_batches} batches x 2 passes, x "
+          f"{forward_launches(L, dtype)})")
+    check(launches == want and want["lstm_last_fwd"] > 0, f"{pre}test launches {launches}, want {want}")
+    check(len(cap.chunked) == n_batches and not cap.dense, f"{pre}test: the batches did not take the chunked branch")
+    m32 = check_eval_metrics(f"{pre}test", row, cap.chunked, int(trainer.validation_dataset.records.group_offsets[-1]))
+    cases = []
+    for rec in cap.chunked[:2]:
+        gi, g_rows, gm, filt, col_valid = host_golds(rec["golds"], rec["col_valid"])
+        rows = chunk_product_rows(torch, rec["q"][torch.from_numpy(g_rows).long().cuda()], cap.cache)
+        cases.append((rows, gm, filt, col_valid, rec["ranks"].cpu().numpy()[gi]))
+    check_ranking(f"{pre}test batches 0-1", cases)
+    del cases, rows
+    check_against_f64(torch, f"{pre}test ranks", cap)
+    timings[pre + "eval_test_cache_s"] = trainer.last_eval["cache_s"]
+    timings[pre + "eval_test_ranking_s"] = trainer.last_eval["batches_s"]
+    timings[pre + "eval_test_cli_s"] = wall
+
+    # one device batch of eval_block_rows prefixes, timed and profiled
+    batch = trainer._eval_batches_cache[0]
+    arrays = arrays_to_device(eval_batch_to_arrays(batch), trainer.device)
+    step = trainer.eval_step
+    ms = cuda_ms(lambda: step(trainer.variables, arrays, cap.cache), iters=3, warmup=1)
+    N, d = cap.cache.shape
+    Gv = int(cap.chunked[0]["gold_valid"].sum())
+    bound, by = eval_batch_bound(N, d, cap.cache.element_size(), batch.batch_size, Gv)
+    timings[pre + "eval_batch_ms"] = ms
+    timings[pre + "eval_batch_bound_ms"] = bound
+    print(f"{pre}test eval: cache encode {trainer.last_eval['cache_s']:.3f} s, ranking {trainer.last_eval['batches_s']:.3f}"
+          f" s ({n_batches} batches; cli.train --evaluate {wall:.3f} s); one device batch of {batch.batch_size} rows "
+          f"({Gv} golds): {ms:.3f} ms, bound {bound:.3f} ms ({by}: the {cap.cache.dtype} cache streamed in 3 product "
+          f"passes at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, {2 * d * N * (batch.batch_size + 2 * Gv):.4e} f32 FLOP at "
+          f"the FFMA peak {PEAK_FP32_FLOPS / 1e12:.2f} TFLOP/s; {bound / ms:.1%} of it)")
+    device_breakdown(torch, f"{pre}full-vocabulary eval batch ({batch.batch_size} rows, {N} candidates)",
+                     lambda: step(trainer.variables, arrays, cap.cache))
+    total.update(launches)
+    del trainer, cap, arrays
+    torch.cuda.empty_cache()
+    return dict(total), m32
+
+
+def check_selection(torch, trainer):
+    """The model selection of a training run with eval: a validation row
+    per pass in results.csv, finite and ordered, and ``model_best-mrr``
+    (the first eval with the highest MRR) loading back.  Returns the
+    number of validation batches the run evaluated."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import load_checkpoint
+
+    rows = [r for r in trainer.results.to_dicts() if "validation_mrr" in r]
+    n_passes = sum(1 for r in trainer.results.to_dicts() if "training_loss" in r)
+    check(len(rows) == n_passes > 0, f"{len(rows)} validation rows for {n_passes} passes")
+    with open(Path(trainer.save_path) / "results.csv") as f:
+        header = next(csv.reader(f))
+    check({f"validation_{k}" for k in ("loss", "mrr", "mr", "h1", "h3", "h10", "h50")} <= set(header),
+          f"results.csv lacks validation columns: {header}")
+    for r in rows:
+        check(0 < r["validation_mrr"] <= 1 and np.isfinite(r["validation_loss"])
+              and r["validation_h1"] <= r["validation_h3"] <= r["validation_h10"] <= r["validation_h50"],
+              f"validation row {r}")
+    best = max(rows, key=lambda r: r["validation_mrr"])
+    _, meta = load_checkpoint(str(Path(trainer.save_path) / "model_best-mrr"),
+                              trainer.model.init(torch.Generator(device=trainer.device).manual_seed(1)))
+    check(meta["training_steps"] == best["training_steps"],
+          f"model_best-mrr is from step {meta['training_steps']}, the best eval from {best['training_steps']}")
+    print("model selection: " + "; ".join(f"step {r['training_steps']} validation MRR {r['validation_mrr']:.6f} "
+                                         f"h10 {r['validation_h10']:.4f}" for r in rows)
+          + f"; model_best-mrr (step {meta['training_steps']}) loads")
+    return len(rows) * len(trainer.val_builder)
+
+
 # ------------------------------------------------------------ the f32 model
 
 
@@ -2828,9 +3223,10 @@ def phase_f32(torch, timings, by_path):
     the f32 modes of kernels 1, 2 and 5-8 held to their plain versions by the
     f32 rule (the TF32 yardstick, a dropped bias and a dropped recurrent
     product must fail it), kernels 7/8 also held to each other (gates
-    bitwise) and to f64 on the trained unfused checkpoint; fills ``by_path``
-    with the launch counts of its paths and returns the six f32 kernel
-    rows."""
+    bitwise) and to f64 on the trained unfused checkpoint, and the
+    full-vocabulary test eval of the fused checkpoint (``phase_eval``);
+    fills ``by_path`` with the launch counts of its paths and returns the
+    six f32 kernel rows."""
     config = write_f32_config()
     rows = [phase_kernels(torch, torch.float32)]
     trainer, capture, by_path["train_f32"], n_steps = phase_train(torch, timings, config=config, tag="f32_")
@@ -2838,6 +3234,7 @@ def phase_f32(torch, timings, by_path):
     ckpt = check_training(torch, trainer, by_path["train_f32"], n_steps)
     time_train_steps(torch, trainer, timings, pre="f32_")
     del trainer
+    by_path["eval_f32"], _ = phase_eval(torch, timings, ckpt, config=config, tag="f32_", validation=False)
     row_bwd, fwd_err = check_lstm_backward(torch, capture.bwd)
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], fwd_err, check_lstm_residuals(torch, capture.fwd))
     time_forward_passes(torch, capture.fwd)
@@ -2978,7 +3375,7 @@ def main(argv) -> int:
         build_kernels(torch, timings)
         row_fwd = phase_kernels(torch)
         by_path = {}
-        trainer, capture, by_path["train"], n_steps = phase_train(torch, timings)
+        trainer, capture, by_path["train"], n_steps = phase_train(torch, timings, evaluate=True)
         ckpt = check_training(torch, trainer, by_path["train"], n_steps)
         time_train_steps(torch, trainer, timings)
         table_heights = [trainer.variables["params"][t].shape[0]
@@ -2998,6 +3395,7 @@ def main(argv) -> int:
         by_path["op"] = phase_every_state_op(torch, fused_entity_pass)
         del fused_entity_pass
         torch.cuda.empty_cache()
+        by_path["eval"], _ = phase_eval(torch, timings, ckpt)
 
         trainer, capture, by_path["train_unfused"], n_steps = phase_train(torch, timings, unfused=True)
         check(not (capture.fwd or capture.bwd) and len(capture.scan_fwd) == len(capture.scan_bwd) == 2,

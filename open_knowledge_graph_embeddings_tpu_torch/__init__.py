@@ -8,9 +8,12 @@ Pallas kernel of the JAX package becomes a kernel written by hand for Hopper
 (``csrc/``), next to a plain PyTorch version of the same function that CPU
 tensors take.
 
-Ported so far: top-k serving of the LSTM token models (``cli.predict``,
-``inference.Predictor``) with the fused last-state LSTM forward as a CUDA
-kernel (``ops/lstm_kernel.py``).
+Ported so far, for the LSTM token models in bf16 and f32: top-k serving
+(``cli.predict``, ``inference.Predictor``), training with BCE and Adagrad or
+SGD (``cli.train``, the row-sparse step of ``train/sparse.py``), fused and
+unfused, and filtered-ranking evaluation with model selection and early
+stopping (``cli.train --evaluate``, ``train/evaluate.py``); every Pallas
+kernel of the JAX package has its CUDA counterpart (``ops/``, ``csrc/``).
 """
 
 __version__ = "0.1.0"

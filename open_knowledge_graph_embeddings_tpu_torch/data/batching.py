@@ -1,17 +1,19 @@
-"""1-vs-N training batches as bucketed index arrays.
+"""1-vs-N training and eval batches as bucketed index arrays.
 
-Counterpart of ``open_knowledge_graph_embeddings_tpu/data/batching.py`` for
-training batches (eval batches come with eval, ROADMAP Queue 1 item 8).  The
+Counterpart of ``open_knowledge_graph_embeddings_tpu/data/batching.py``.  The
 host emits only index arrays with bucketed shapes; the loss reads the
 positives as (row, col) pairs and never builds a dense [B, N] label matrix.
 Semantics kept from the reference collate:
 
 * rows are ordered po-slot first, then sp-slot;
-* batch-shared candidates are the first-seen-order unique answer ids,
-  topped up with uniform random negative entity ids (drawn without
-  replacement, excluding the seen set) to ``min_size_batch_labels``;
+* batch-shared candidates are the first-seen-order unique answer ids (of
+  this split in training; in eval, of every split, through each row's
+  filter set), topped up with uniform random negative entity ids (drawn
+  without replacement, excluding the seen set) to ``min_size_batch_labels``;
 * ``normalizer_loss`` = real rows x real columns;
-* (row, col) positive pairs are unique (the indexed BCE relies on it).
+* (row, col) positive pairs are unique (the indexed BCE relies on it), and
+  so are an eval batch's (row, col) filter pairs (the sparse filter
+  corrections of the ranking rely on it).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -36,7 +38,7 @@ PAD_COL = -1  # padding value for candidate-space column indices
 
 @dataclass
 class Batch:
-    """One 1-vs-N training batch as bucketed numpy arrays.
+    """One 1-vs-N batch as bucketed numpy arrays.
 
     Candidate-space columns index either the full entity vocabulary minus
     specials (``candidate_ids is None``; col j <-> entity id j + cand_offset)
@@ -54,10 +56,58 @@ class Batch:
     pos_rows: np.ndarray  # [P] int32 (-1 pad)
     pos_cols: np.ndarray  # [P] int32 (-1 pad)
     normalizer_loss: float
+    # eval only: the known-true cells, and one gold row per (prefix, gold
+    # entity) with its mention-alternative columns
+    filter_rows: Optional[np.ndarray] = None  # [F] int32 (-1 pad)
+    filter_cols: Optional[np.ndarray] = None  # [F] int32 (-1 pad)
+    gold_rows: Optional[np.ndarray] = None  # [G] int32 (-1 pad)
+    gold_mention_cols: Optional[np.ndarray] = None  # [G, A] int32 (-1 pad)
 
     @property
     def batch_size(self) -> int:
         return len(self.ent_ids)
+
+
+def pad_batches_to_common_shape(batches: List[Batch]) -> List[Batch]:
+    """The batches with every bucketed array grown to the list-wide largest
+    size (the trainer keeps the full-vocabulary eval batches padded so)."""
+    if not batches:
+        return batches
+
+    def grow(arr, n, fill):
+        if arr is None or len(arr) >= n:
+            return arr
+        out = np.full((n,) + arr.shape[1:], fill, dtype=arr.dtype)
+        out[: len(arr)] = arr
+        return out
+
+    def largest(sizes, default):
+        sizes = [n for n in sizes if n is not None]
+        return max(sizes) if sizes else default
+
+    P = largest((len(b.pos_rows) for b in batches), 0)
+    F = largest((None if b.filter_rows is None else len(b.filter_rows) for b in batches), 0)
+    G = largest((None if b.gold_rows is None else len(b.gold_rows) for b in batches), 0)
+    A = largest((None if b.gold_mention_cols is None else b.gold_mention_cols.shape[1] for b in batches), 0)
+    N = largest((None if b.candidate_ids is None else len(b.candidate_ids) for b in batches), None)
+    out = []
+    for b in batches:
+        gm = b.gold_mention_cols
+        if gm is not None and (gm.shape[0] < G or gm.shape[1] < A):
+            gm = np.full((G, A), PAD_COL, dtype=gm.dtype)
+            gm[: b.gold_mention_cols.shape[0], : b.gold_mention_cols.shape[1]] = b.gold_mention_cols
+        cand, cv = b.candidate_ids, b.col_valid
+        if cand is not None and N is not None:
+            cand, cv = grow(cand, N, 0), grow(cv, N, False)
+        out.append(Batch(
+            ent_ids=b.ent_ids, rel_ids=b.rel_ids, is_sp=b.is_sp, row_valid=b.row_valid, num_rows=b.num_rows,
+            candidate_ids=cand, col_valid=cv, num_cols=b.num_cols, cand_offset=b.cand_offset,
+            pos_rows=grow(b.pos_rows, P, PAD_COL), pos_cols=grow(b.pos_cols, P, PAD_COL),
+            normalizer_loss=b.normalizer_loss,
+            filter_rows=grow(b.filter_rows, F, PAD_COL), filter_cols=grow(b.filter_cols, F, PAD_COL),
+            gold_rows=grow(b.gold_rows, G, PAD_COL), gold_mention_cols=gm,
+        ))
+    return out
 
 
 @dataclass
@@ -71,7 +121,9 @@ class _Scratch:
 
 
 class BatchBuilder:
-    """Builds training batches from a :class:`OneToNMentionRelationDataset`."""
+    """Builds batches from a :class:`OneToNMentionRelationDataset`; an eval
+    split's batches keep their last partial batch and carry the eval
+    fields."""
 
     def __init__(
         self,
@@ -245,23 +297,31 @@ class BatchBuilder:
         row_dup = None if rec.row_has_dup is None else rec.row_has_dup[item_ids]
         rows = (ent_ids, rel_ids, is_sp, row_valid, n_rows)
         if self.ds.use_batch_shared_entities:
-            return self._build_batch_shared(ment_flat, lens, row_dup, rows, scratch)
-        return self._build_full_vocab(ment_flat, lens, row_dup, rows)
+            return self._build_batch_shared(item_ids, ment_flat, lens, row_dup, rows, scratch)
+        return self._build_full_vocab(item_ids, ment_flat, lens, row_dup, rows)
 
-    def _build_full_vocab(self, ment_flat, lens, row_dup, rows) -> Batch:
+    def _build_full_vocab(self, item_ids, ment_flat, lens, row_dup, rows) -> Batch:
         ent_ids, rel_ids, is_sp, row_valid, n_rows = rows
         off = self.cand_offset
         pos_rows, pos_cols = self._pack_positives(ment_flat, lens, lambda m: m - off, row_dup)
-        return Batch(
+        batch = Batch(
             ent_ids=ent_ids, rel_ids=rel_ids, is_sp=is_sp, row_valid=row_valid, num_rows=n_rows,
             candidate_ids=None, col_valid=None, num_cols=self.full_num_cols, cand_offset=off,
             pos_rows=pos_rows, pos_cols=pos_cols,
             normalizer_loss=float(n_rows) * float(self.full_num_cols),
         )
+        if not self.ds.is_training_data:
+            self._attach_eval(batch, item_ids, lambda m: m.astype(np.int32) - off)
+        return batch
 
-    def _build_batch_shared(self, ment_flat, lens, row_dup, rows, scratch) -> Batch:
+    def _build_batch_shared(self, item_ids, ment_flat, lens, row_dup, rows, scratch) -> Batch:
         ent_ids, rel_ids, is_sp, row_valid, n_rows = rows
-        shared = self._first_seen_unique(ment_flat, scratch.first_pos)
+        if self.ds.is_training_data:
+            pool = ment_flat
+        else:  # eval: the answers of every split, so that every known-true cell can be filtered
+            parts = [self.rec.row_filter(i) for i in item_ids]
+            pool = np.concatenate(parts) if parts else np.zeros(0, np.int32)
+        shared = self._first_seen_unique(pool, scratch.first_pos)
         min_size = self.ds.min_size_batch_labels
         if min_size is None or min_size < 0:
             min_size = 0
@@ -284,13 +344,16 @@ class BatchBuilder:
         lut = scratch.col_of_ent  # entity id -> column, reset below
         lut[cand_real] = np.arange(N_real, dtype=np.int32)
         pos_rows, pos_cols = self._pack_positives(ment_flat, lens, lambda m: lut[m], row_dup)
-        lut[cand_real] = PAD_COL
-        return Batch(
+        batch = Batch(
             ent_ids=ent_ids, rel_ids=rel_ids, is_sp=is_sp, row_valid=row_valid, num_rows=n_rows,
             candidate_ids=candidate_ids, col_valid=col_valid, num_cols=N_real,
             cand_offset=self.cand_offset, pos_rows=pos_rows, pos_cols=pos_cols,
             normalizer_loss=float(n_rows) * float(N_real),
         )
+        if not self.ds.is_training_data:
+            self._attach_eval(batch, item_ids, lambda m: lut[m])
+        lut[cand_real] = PAD_COL
+        return batch
 
     # ------------------------------------------------------------- helpers
 
@@ -332,3 +395,41 @@ class BatchBuilder:
             pos_rows[:total] = rows
             pos_cols[:total] = cols
         return pos_rows, pos_cols
+
+    def _attach_eval(self, batch: Batch, item_ids, translate) -> None:
+        """The eval fields: each row's filter cells (unique (row, col) pairs,
+        asserted: a duplicate would double-correct the ranking), and one gold
+        row per (prefix, gold entity) with its mention alternatives' columns."""
+        rec = self.rec
+        if rec.filter_offsets is None:
+            raise ValueError("eval batches need a filter index: call dataset.attach_filter_index(...) first")
+        filt_parts = [rec.row_filter(i) for i in item_ids]
+        flens = np.array([len(f) for f in filt_parts], dtype=np.int64)
+        ftotal = int(flens.sum())
+        F = next_bucket(ftotal, minimum=self.pos_bucket_min)
+        filter_rows = np.full(F, PAD_COL, dtype=np.int32)
+        filter_cols = np.full(F, PAD_COL, dtype=np.int32)
+        if ftotal:
+            filter_rows[:ftotal] = np.repeat(np.arange(len(item_ids), dtype=np.int32), flens)
+            filter_cols[:ftotal] = translate(np.concatenate(filt_parts).astype(np.int64)).astype(np.int32)
+            valid = filter_cols[:ftotal] >= 0
+            packed = (filter_rows[:ftotal][valid].astype(np.int64) << 32
+                      | (filter_cols[:ftotal][valid].astype(np.int64) & 0xFFFFFFFF))
+            assert len(np.unique(packed)) == len(packed), (
+                "duplicate (row, col) filter pairs would double-correct the sparse filtered ranking")
+
+        g_rows: List[int] = []
+        g_ments: List[np.ndarray] = []
+        for bi, i in enumerate(item_ids):
+            for g in range(rec.group_offsets[i], rec.group_offsets[i + 1]):
+                g_rows.append(bi)
+                g_ments.append(rec.mentions[rec.mention_offsets[g] : rec.mention_offsets[g + 1]])
+        A = next_bucket(max((len(m) for m in g_ments), default=1), minimum=1)
+        G = next_bucket(len(g_rows), minimum=self.pos_bucket_min)
+        gold_rows = np.full(G, PAD_COL, dtype=np.int32)
+        gold_mention_cols = np.full((G, A), PAD_COL, dtype=np.int32)
+        for gi, (r, m) in enumerate(zip(g_rows, g_ments)):
+            gold_rows[gi] = r
+            gold_mention_cols[gi, : len(m)] = translate(m.astype(np.int64)).astype(np.int32)
+        batch.filter_rows, batch.filter_cols = filter_rows, filter_cols
+        batch.gold_rows, batch.gold_mention_cols = gold_rows, gold_mention_cols

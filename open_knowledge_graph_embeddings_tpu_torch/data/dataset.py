@@ -4,15 +4,14 @@ Counterpart of ``open_knowledge_graph_embeddings_tpu/data/dataset.py``:
 
 * the metadata half: the id maps and the dense [num_items, max_len]
   token-id matrices the token encoders read;
-* the training half: the 5-column triple reader (its Python branch; the
+* the split half: the 5-column triple reader (its Python branch; the
   JAX package's native parser is pinned to it by its own tests), the 1-vs-N
-  prefix records of both directions, and
-  :class:`OneToNMentionRelationDataset` for a training split.
+  prefix records of both directions, :class:`OneToNMentionRelationDataset`
+  for a training or an eval split, and an eval split's all-splits filter
+  index (:meth:`OneToNMentionRelationDataset.attach_filter_index`).
 
-Both caches are the same npz under the same key in
-``<dataset>/.oket_cache/``, so either package can read what the other
-wrote.  The filter index of the eval splits comes with eval (ROADMAP Queue 1
-item 8).
+Every cache is the same npz under the same key in ``<dataset>/.oket_cache/``,
+so either package can read what the other wrote.
 """
 
 from __future__ import annotations
@@ -250,7 +249,9 @@ class PrefixRecords:
     group g covers mention ids ``mentions[mention_offsets[g]:mention_offsets[g+1]]``
     (one group per triple line: the mention alternatives of one gold
     entity).  ``row_has_dup[i]``: the example holds one mention twice
-    across its groups (None: unknown, treated as maybe)."""
+    across its groups (None: unknown, treated as maybe).  An eval split's
+    ``filter_offsets``/``filter_values`` hold each row's known-true mention
+    ids over all splits, for filtered ranking."""
 
     p1: np.ndarray  # [P] int32
     p2: np.ndarray  # [P] int32
@@ -258,6 +259,8 @@ class PrefixRecords:
     group_offsets: np.ndarray  # [P+1] int64
     mention_offsets: np.ndarray  # [G+1] int64
     mentions: np.ndarray  # [M] int32
+    filter_offsets: Optional[np.ndarray] = None  # [P+1] int64
+    filter_values: Optional[np.ndarray] = None  # [F] int32
     row_has_dup: Optional[np.ndarray] = None  # [P] bool
 
     def __len__(self) -> int:
@@ -266,6 +269,17 @@ class PrefixRecords:
     @property
     def num_positives(self) -> int:
         return int(self.mention_offsets[-1])
+
+    def row_groups(self, i: int) -> List[List[int]]:
+        gs, ge = self.group_offsets[i], self.group_offsets[i + 1]
+        return [self.mentions[self.mention_offsets[g] : self.mention_offsets[g + 1]].tolist() for g in range(gs, ge)]
+
+    def row_mentions(self, i: int) -> np.ndarray:
+        gs, ge = self.group_offsets[i], self.group_offsets[i + 1]
+        return self.mentions[self.mention_offsets[gs] : self.mention_offsets[ge]]
+
+    def row_filter(self, i: int) -> np.ndarray:
+        return self.filter_values[self.filter_offsets[i] : self.filter_offsets[i + 1]]
 
 
 def _group_direction(
@@ -367,11 +381,11 @@ def _split_large_prefixes(rec: PrefixRecords, max_groups: int) -> PrefixRecords:
 
 
 class OneToNMentionRelationDataset:
-    """1-vs-N prefix dataset over mention-annotated triples, for a training
-    split; the batches are built by :class:`..data.batching.BatchBuilder`.
-    The config keys of the JAX class are accepted; an eval split
-    (``is_training_data=False``) needs the filter index, which comes with
-    eval."""
+    """1-vs-N prefix dataset over mention-annotated triples; the batches are
+    built by :class:`..data.batching.BatchBuilder`.  The config keys of the
+    JAX class are accepted.  An eval split (``is_training_data=False``)
+    keeps every prefix whole (no ``max_size_prefix_label`` split) and needs
+    :meth:`attach_filter_index` before its batches are built."""
 
     def __init__(
         self,
@@ -390,10 +404,6 @@ class OneToNMentionRelationDataset:
         replace_relations_by_tokens: bool = False,
         copy_data_to_dev_shm: bool = False,
     ):
-        if not is_training_data:
-            raise NotImplementedError(
-                "eval splits (filter index, eval batches) come with eval: ROADMAP Queue 1 item 8"
-            )
         if copy_data_to_dev_shm:
             raise NotImplementedError("copy_data_to_dev_shm is not ported: ROADMAP Queue 1 item 1")
         self.dataset_dir = dataset_dir
@@ -410,7 +420,8 @@ class OneToNMentionRelationDataset:
         self.records = self._build_records()
 
     def _records_cache_path(self) -> str:
-        key = f"records-v{_CACHE_VERSION}-{self.input_file_name}-{self.max_size_prefix_label}"
+        split = self.max_size_prefix_label if self.is_training_data else "eval"
+        key = f"records-v{_CACHE_VERSION}-{self.input_file_name}-{split}"
         return os.path.join(self.cache_dir, key + ".npz")
 
     def _build_records(self) -> PrefixRecords:
@@ -428,7 +439,9 @@ class OneToNMentionRelationDataset:
         )
         sp = _group_direction(triples, o_off, o_val, (0, 1), SLOT_SP)
         po = _group_direction(triples, s_off, s_val, (1, 2), SLOT_PO)
-        rec = _split_large_prefixes(_concat_directions(sp, po), self.max_size_prefix_label)
+        rec = _concat_directions(sp, po)
+        if self.is_training_data:
+            rec = _split_large_prefixes(rec, self.max_size_prefix_label)
         rec.row_has_dup = _compute_dup_flags(rec)
         _atomic_savez(
             path,
@@ -440,6 +453,38 @@ class OneToNMentionRelationDataset:
 
     def __len__(self) -> int:
         return len(self.records)
+
+    def attach_filter_index(self, train_file: str, valid_file: str, test_file: str) -> None:
+        """Attach each row's known-true mention ids over all three splits
+        (a split that is absent or unnamed is skipped) for filtered ranking.  Each
+        row's set is built as a Python set, so its pairs are unique, in the
+        JAX package's order; the cache is the JAX package's npz."""
+        key = f"filter-v{_CACHE_VERSION}-{self.input_file_name}-{train_file}-{valid_file}-{test_file}"
+        path = os.path.join(self.cache_dir, key + ".npz")
+        rec = self.records
+        if os.path.exists(path):
+            with np.load(path) as z:
+                rec.filter_offsets, rec.filter_values = z["filter_offsets"], z["filter_values"]
+            return
+        union: Dict[Tuple[int, int, int], set] = {}
+        for fname in (train_file, valid_file, test_file):
+            fpath = os.path.join(self.dataset_dir, fname)
+            if not fname or not os.path.isfile(fpath):
+                continue
+            triples, s_off, s_val, o_off, o_val = read_triple_file(fpath)
+            for i in range(len(triples)):
+                s, r, o = (int(x) for x in triples[i])
+                union.setdefault((s, r, SLOT_SP), set()).update(o_val[o_off[i] : o_off[i + 1]].tolist())
+                union.setdefault((r, o, SLOT_PO), set()).update(s_val[s_off[i] : s_off[i + 1]].tolist())
+        offsets = np.zeros(len(rec) + 1, dtype=np.int64)
+        chunks = []
+        for i in range(len(rec)):
+            ents = union.get((int(rec.p1[i]), int(rec.p2[i]), int(rec.slot[i])), set())
+            chunks.append(np.fromiter(ents, dtype=np.int32, count=len(ents)))
+            offsets[i + 1] = offsets[i] + len(ents)
+        values = np.concatenate(chunks) if chunks else np.zeros(0, dtype=np.int32)
+        rec.filter_offsets, rec.filter_values = offsets, values
+        _atomic_savez(path, filter_offsets=offsets, filter_values=values)
 
     def __repr__(self) -> str:
         return (

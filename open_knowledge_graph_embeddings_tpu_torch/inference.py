@@ -19,14 +19,12 @@ from open_knowledge_graph_embeddings_tpu_torch.data.dataset import DatasetMeta, 
 from open_knowledge_graph_embeddings_tpu_torch.models.model import KGEModel
 from open_knowledge_graph_embeddings_tpu_torch.ops.scoring import score_against_candidates
 from open_knowledge_graph_embeddings_tpu_torch.train.evaluate import (
+    CHUNKED_ABOVE,
     filtered_topk_chunked,
     stable_topk,
 )
 
 logger = logging.getLogger(__name__)
-
-#: above this many candidates the scores are taken chunk by chunk
-CHUNKED_ABOVE = 100_000
 
 
 class Predictor:

@@ -75,15 +75,30 @@ class KGEModel:
             cand_ids = torch.arange(self.meta.min_entities_size, self.meta.entities_size, device=device)
         return self.embedder.encode_entity(variables, cand_ids, is_sp=None, train=train, generator=generator)
 
+    def prefix_scores(self, variables: Variables, ent_ids, rel_ids, is_sp, cand_ids=None, cand_emb=None, *,
+                      train: bool = False, generator: Optional[torch.Generator] = None, ent_inv=None,
+                      rel_inv=None):
+        """[B, N] f32 scores -> ``(scores, state, reg)``; the candidates are
+        encoded unless ``cand_emb`` is given."""
+        q, cand_emb, state, reg = self.prefix_queries_and_candidates(
+            variables, ent_ids, rel_ids, is_sp, cand_ids, cand_emb, train=train, generator=generator,
+            ent_inv=ent_inv, rel_inv=rel_inv)
+        return scoring.score_against_candidates(q, cand_emb), state, reg
+
     def prefix_queries_and_candidates(self, variables: Variables, ent_ids, rel_ids, is_sp,
-                                      cand_ids=None, *, train: bool = False,
+                                      cand_ids=None, cand_emb=None, *, train: bool = False,
                                       generator: Optional[torch.Generator] = None,
                                       ent_inv=None, rel_inv=None):
         """The train step's encode stage -> ``(q [B, d], cand_emb [N, d],
         state, reg)``, without the score product (the loss fuses it).  With
         batch-shared candidates, the candidates and the query entities go
         through ONE LSTM pass (``encode_entity_pair``, candidates first);
-        batchnorm still sees each group alone."""
+        batchnorm still sees each group alone.  A given ``cand_emb`` (the
+        eval cache) is used as it is."""
+        if cand_emb is not None:
+            q, state, reg = self.queries(variables, ent_ids, rel_ids, is_sp, train=train, generator=generator,
+                                         ent_inv=ent_inv, rel_inv=rel_inv)
+            return q, cand_emb, state, reg
         if cand_ids is not None:
             cand_emb, e, state, reg_c = self.embedder.encode_entity_pair(
                 variables, cand_ids, ent_ids, train=train, generator=generator, inv_b=ent_inv)

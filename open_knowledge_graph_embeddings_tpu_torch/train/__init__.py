@@ -1,1 +1,1 @@
-"""Checkpoints and top-k selection (the training loop is not ported yet)."""
+"""Training and evaluation: the steps, the optimizers, the trainer, metrics and checkpoints."""

@@ -84,6 +84,28 @@ def save_checkpoint(
     return path
 
 
+def copy_checkpoint(directory: str, path: str, name: str, epoch, is_best: bool = False, tags=None,
+                    save_all: bool = False) -> None:
+    """The copies a save makes beside ``path`` (the checkpoint ``name`` just
+    written), as the JAX package's ``CheckpointManager._post_write`` does:
+    with ``is_best`` ``model_best-{tag}`` for each of ``tags`` (default
+    ``["best"]``), the previous one moved to ``model_best-{tag}-{name}``;
+    with ``save_all`` ``checkpoint_epoch_{epoch}``."""
+    for tag in (tags or ["best"]) if is_best else []:
+        best = os.path.join(directory, f"model_best-{tag}")
+        if os.path.exists(best):
+            prev = os.path.join(directory, f"model_best-{tag}-{name}")
+            if os.path.exists(prev):
+                shutil.rmtree(prev)
+            shutil.move(best, prev)
+        shutil.copytree(path, best)
+    if save_all:
+        epoch_path = os.path.join(directory, f"checkpoint_epoch_{epoch}")
+        if os.path.exists(epoch_path):
+            shutil.rmtree(epoch_path)
+        shutil.copytree(path, epoch_path)
+
+
 def _merge(target: Dict[str, Any], loaded: Dict[str, Any], prefix: str) -> Dict[str, Any]:
     """``target`` with each leaf present in ``loaded`` replaced (moved to the
     target leaf's device); shape mismatches are skipped with a warning."""

@@ -1,9 +1,10 @@
 """1-vs-N BCE over the batch-shared (or full) candidate space, without a
 dense label matrix.
 
-Counterpart of ``open_knowledge_graph_embeddings_tpu/train/loss.py`` for the
-train step's BCE (KL and the explicit dense-label path come with ROADMAP
-Queue 1 item 4).  With unique (row, col) positive pairs (the batch builder
+Counterpart of ``open_knowledge_graph_embeddings_tpu/train/loss.py`` for
+BCE: the train step's fused score + loss and the eval step's loss over a
+score matrix (KL and the explicit dense-label path come with ROADMAP Queue 1
+item 4).  With unique (row, col) positive pairs (the batch builder
 guarantees them), the label of a cell is ``multi_hot * a + b`` with
 ``a = 1 - smoothing`` and ``b = (1 - smoothing) / N`` (``a = 1, b = 0``
 without smoothing), so
@@ -100,3 +101,14 @@ def bce_over_scores(q, cand, pos_rows, pos_cols, row_valid, col_valid, n_real_co
     (row, col) pairs, ``n_real_cols`` an f32 scalar tensor; differentiable
     in ``q`` and ``cand``."""
     return _BceOverScores.apply(q, cand, pos_rows, pos_cols, row_valid, col_valid, n_real_cols, smoothing)
+
+
+def one_vs_n_loss(loss_type: str, scores, pos_rows, pos_cols, row_valid, col_valid, n_real_cols,
+                  label_smoothing: float = 0.0):
+    """``(loss_sum, normalizer_metric = number of positive cells)`` over a
+    [B, N] score matrix (the eval step's loss)."""
+    if loss_type != "bce":
+        raise NotImplementedError(f"loss {loss_type!r} is not ported yet: ROADMAP Queue 1 item 4")
+    mask = cell_mask(row_valid, col_valid, scores.shape[1])
+    loss = bce_with_logits_sum_indexed(scores, pos_rows, pos_cols, mask, n_real_cols, label_smoothing)
+    return loss, (pos_rows >= 0).sum().float()

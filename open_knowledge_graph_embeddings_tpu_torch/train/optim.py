@@ -216,6 +216,13 @@ class OptimizerRegimes:
             out.append(hp)
         return out
 
+    def lr_scheduler_step(self, metric_value: float, greater_is_better: bool = True,
+                          epoch: Optional[int] = None) -> None:
+        """Step the lr schedulers at a validation with the selection metric.
+        The port has no scheduler yet (a config that names one raises in
+        ``__init__``), so this changes nothing."""
+        del metric_value, greater_is_better, epoch
+
     # -- state and updates
 
     def init_state(self, params: Params) -> Dict[str, Any]:

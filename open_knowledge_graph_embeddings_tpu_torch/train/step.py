@@ -1,24 +1,33 @@
-"""The train step: encode, fused score + BCE, backward, optimizer update.
+"""The train step (encode, fused score + BCE, backward, optimizer update)
+and the eval step (encode, loss, filtered ranks).
 
 Counterpart of ``open_knowledge_graph_embeddings_tpu/train/step.py``:
-:func:`prefix_loss`, :func:`train_batch_to_arrays` and the dense step
+:func:`prefix_loss`, :func:`train_batch_to_arrays`, the dense step
 :func:`make_train_step`, which differentiates with respect to every
 parameter and is the reference the sparse step (train/sparse.py) is held
-against.  PyTorch runs eagerly, so a step is a plain function; the
-parameters and optimizer state are updated in place.  The eval step comes
-with ROADMAP Queue 1 item 8, gradient accumulation with item 12.
+against, and :func:`make_eval_step`.  PyTorch runs eagerly, so a step is a
+plain function; the parameters and optimizer state are updated in place.
+Gradient accumulation comes with ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from open_knowledge_graph_embeddings_tpu_torch.data.batching import Batch
 from open_knowledge_graph_embeddings_tpu_torch.models.model import KGEModel
-from open_knowledge_graph_embeddings_tpu_torch.train.loss import bce_over_scores
+from open_knowledge_graph_embeddings_tpu_torch.train.evaluate import (
+    CHUNKED_ABOVE,
+    eval_stats_chunked,
+    filtered_topk,
+    filtered_topk_chunked,
+    metric_sums_from_ranks,
+    ranks_from_scores,
+)
+from open_knowledge_graph_embeddings_tpu_torch.train.loss import bce_over_scores, one_vs_n_loss
 from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
 
 
@@ -57,6 +66,14 @@ def train_batch_to_arrays(batch: Batch) -> Dict[str, Any]:
     if batch.candidate_ids is not None:
         d["candidate_ids"] = batch.candidate_ids
         d["col_valid"] = batch.col_valid
+    return d
+
+
+def eval_batch_to_arrays(batch: Batch) -> Dict[str, Any]:
+    """An eval :class:`Batch` -> the eval step's array dict (numpy)."""
+    d = train_batch_to_arrays(batch)
+    d.update(filter_rows=batch.filter_rows, filter_cols=batch.filter_cols, gold_rows=batch.gold_rows,
+             gold_mention_cols=batch.gold_mention_cols)
     return d
 
 
@@ -101,3 +118,56 @@ def leaf_tree(tree):
 
 def grad_tree(tree):
     return {k: grad_tree(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.grad
+
+
+def make_eval_step(model: KGEModel, loss_type: str = "bce", label_smoothing: float = 0.0, topk: int = 0):
+    """``eval_step(variables, batch, cand_emb=None)`` -> the stats of
+    :data:`EVAL_STAT_KEYS` packed in one f32 device vector (the rank metrics
+    summed over the batch's golds), and with ``topk > 0`` also the filtered
+    top-k ``(scores, columns)`` per prefix.
+
+    ``cand_emb`` is the precomputed [N, d] candidate cache of a
+    full-vocabulary eval.  Above ``CHUNKED_ABOVE`` candidates the step scores
+    chunk by chunk (:func:`..train.evaluate.eval_stats_chunked`, no [B, N]
+    score matrix); otherwise it takes the [B, N] scores (candidates encoded
+    from the batch's ids when there is no cache, the batch-shared
+    validation) with :func:`..train.loss.one_vs_n_loss` and
+    :func:`..train.evaluate.ranks_from_scores`."""
+
+    def pack(stats, loss_sum, norm_metric):
+        stats.update(loss_sum=loss_sum, normalizer_metric=norm_metric)
+        return torch.stack([stats[k].float() for k in EVAL_STAT_KEYS])
+
+    @torch.no_grad()
+    def eval_step(variables, batch, cand_emb=None):
+        cand_ids, col_valid = batch.get("candidate_ids"), batch.get("col_valid")
+        golds = (batch["filter_rows"], batch["filter_cols"], batch["gold_rows"], batch["gold_mention_cols"])
+        if cand_emb is not None and cand_ids is None and cand_emb.shape[0] > CHUNKED_ABOVE:
+            q, _, _ = model.queries(variables, batch["ent_ids"], batch["rel_ids"], batch["is_sp"])
+            loss_sum, ranks, gold_valid = eval_stats_chunked(
+                q, cand_emb, batch["pos_rows"], batch["pos_cols"], batch["row_valid"], col_valid,
+                batch["n_real_cols"], *golds, label_smoothing, loss_type=loss_type)
+            packed = pack(metric_sums_from_ranks(ranks, gold_valid), loss_sum,
+                          (batch["pos_rows"] >= 0).sum().float())
+            if topk > 0:
+                return (packed, *filtered_topk_chunked(q, cand_emb, golds[0], golds[1], col_valid, topk))
+            return packed
+        scores, _, _ = model.prefix_scores(variables, batch["ent_ids"], batch["rel_ids"], batch["is_sp"],
+                                           cand_ids=cand_ids, cand_emb=cand_emb)
+        loss_sum, norm_metric = one_vs_n_loss(loss_type, scores, batch["pos_rows"], batch["pos_cols"],
+                                              batch["row_valid"], col_valid, batch["n_real_cols"], label_smoothing)
+        ranks, gold_valid = ranks_from_scores(scores, *golds, col_valid)
+        packed = pack(metric_sums_from_ranks(ranks, gold_valid), loss_sum, norm_metric)
+        if topk > 0:
+            return (packed, *filtered_topk(scores, golds[0], golds[1], col_valid, topk))
+        return packed
+
+    return eval_step
+
+
+EVAL_STAT_KEYS = ("count", "mrr", "mr", "h50", "h10", "h3", "h1", "loss_sum", "normalizer_metric")
+
+
+def unpack_eval_stats(packed: Sequence[float]) -> Dict[str, float]:
+    vals = packed.cpu().numpy() if isinstance(packed, torch.Tensor) else np.asarray(packed)
+    return {k: float(v) for k, v in zip(EVAL_STAT_KEYS, vals)}

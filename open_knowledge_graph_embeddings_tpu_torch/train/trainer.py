@@ -1,22 +1,31 @@
 """Host-side training engine on one device: the epoch loop, optimizer phase
-switching, throughput logging and checkpoints.
+switching, the eval cadence, model selection, early stopping, throughput
+logging and checkpoints.
 
 Counterpart of ``open_knowledge_graph_embeddings_tpu/train/trainer.py`` for
 a single device.  Semantics carried over:
 
 * ``epoch`` derived from training steps: ``floor(steps / (len + 1)) + 1``
-  (so ``epochs: 2`` trains one epoch);
+  (so ``epochs: 2`` runs two passes, the second stopping the loop);
 * the host builds batches (and the sparse plans) on ``workers`` prefetch
   threads while the device runs the previous step;
+* eval every ``eval_freq`` steps and/or every ``eval_epoch_freq`` epochs
+  on the validation split (batch-shared, or full vocabulary against the
+  candidate cache in device batches of ``eval_block_rows`` prefixes);
+* model selection on ``model_select_metric`` (``model_best-{metric}``
+  copies) with patience early stopping and its three extra triggers (the
+  metric above the max threshold, below the min threshold, its moving
+  average relative change below ``patience_metric_change``);
 * items/sec = positives per second;
 * checkpoints ``checkpoint{0..k-1}`` with the optimizer state and the
-  optimizer's host state, always one at the end of a run.
+  optimizer's host state, ``checkpoint_epoch_{n}`` at ``save_epoch_freq``,
+  always one at the end of a run.
 
 ``train_scan_steps`` (K steps per device program on the TPU) runs its K
 steps one after another here: the same math (``tests/test_scan_steps.py``);
-capturing them in a CUDA graph is ROADMAP Queue 1 item 10.  Evaluation,
-early stopping and model selection come with Queue 1 item 8; gradient
-accumulation with item 12; meshes with item 14.
+capturing them in a CUDA graph is ROADMAP Queue 1 item 10.  Gradient
+accumulation comes with item 12; meshes, several processes and host-sharded
+eval with item 14.
 """
 
 from __future__ import annotations
@@ -27,16 +36,19 @@ import os
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
-from open_knowledge_graph_embeddings_tpu_torch.data.batching import BatchBuilder
+from open_knowledge_graph_embeddings_tpu_torch.data.batching import Batch, BatchBuilder, pad_batches_to_common_shape
 from open_knowledge_graph_embeddings_tpu_torch.data.dataset import OneToNMentionRelationDataset
 from open_knowledge_graph_embeddings_tpu_torch.models.model import KGEModel
 from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import (
+    copy_checkpoint,
     load_checkpoint,
     load_opt_state,
     save_checkpoint,
 )
+from open_knowledge_graph_embeddings_tpu_torch.train.metrics import MetricResult
 from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
 from open_knowledge_graph_embeddings_tpu_torch.train.sparse import (
     SparsePlanBuilder,
@@ -45,16 +57,19 @@ from open_knowledge_graph_embeddings_tpu_torch.train.sparse import (
 )
 from open_knowledge_graph_embeddings_tpu_torch.train.step import (
     arrays_to_device,
+    eval_batch_to_arrays,
+    make_eval_step,
     make_train_step,
     train_batch_to_arrays,
+    unpack_eval_stats,
 )
 from open_knowledge_graph_embeddings_tpu_torch.utils.logging_utils import ResultsLog
 
 logger = logging.getLogger(__name__)
 
 
-def _eval_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with eval: ROADMAP Queue 1 item 8")
+def running_mean(new, old=None, momentum=0.9):
+    return new if old is None else momentum * old + (1 - momentum) * new
 
 
 class Trainer:
@@ -63,18 +78,18 @@ class Trainer:
         args: Dict[str, Any],
         model: KGEModel,
         train_dataset: OneToNMentionRelationDataset,
+        validation_dataset: Optional[OneToNMentionRelationDataset] = None,
         save_path: str = ".",
         device="cuda",
         keep_checkpoints: int = 5,
         variables=None,
-        has_validation: bool = False,
     ):
-        """``has_validation``: the config names a validation set, so the
-        eval cadence (``eval_epoch_freq``, ``eval_freq``) asks for eval,
-        which raises until eval is ported."""
+        """``validation_dataset``: the split :meth:`evaluate` ranks (with its
+        filter index attached), or None: no eval."""
         self.args = args
         self.model = model
         self.train_dataset = train_dataset
+        self.validation_dataset = validation_dataset
         self.device = torch.device(device)
         seed = int(args.get("seed") or 0)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -89,7 +104,9 @@ class Trainer:
             raise NotImplementedError("gradient accumulation is not ported yet: ROADMAP Queue 1 item 12")
         if int(args.get("model_parallel") or 1) > 1:
             raise NotImplementedError("model parallelism is not ported yet: ROADMAP Queue 1 item 14")
-        self.has_validation = has_validation
+        if int(args.get("num_processes") or 1) > 1:
+            raise NotImplementedError(
+                "several processes (and host-sharded eval) are not ported yet: ROADMAP Queue 1 item 14")
 
         frozen = args.get("resume_freeze") or []
         self.regimes = OptimizerRegimes(
@@ -118,12 +135,38 @@ class Trainer:
             logger.info("train_scan_steps=%s: the steps of a window run one after another",
                         args["train_scan_steps"])
 
+        # full-vocab eval scores eval_block_rows prefixes per device batch
+        # (the metric sums do not depend on it); batch-shared eval keeps the
+        # protocol batch, since its candidates depend on the batch
+        eval_bs = None
+        eval_block = int(args.get("eval_block_rows") or 0)
+        if (validation_dataset is not None and eval_block > validation_dataset.batch_size
+                and not validation_dataset.use_batch_shared_entities):
+            eval_bs = eval_block
+            logger.info("full-vocab eval device batch: %d rows (protocol batch %d)", eval_block,
+                        validation_dataset.batch_size)
+        self.val_builder = (BatchBuilder(validation_dataset, batch_size=eval_bs)
+                            if validation_dataset is not None else None)
+        self._eval_batches_cache = None
+
         self.save_path = save_path
         self.keep_checkpoints = keep_checkpoints
         self._ckpt_counter = 0
+        self.last_checkpoint: Optional[str] = None
         self.results = ResultsLog(os.path.join(save_path, "results.csv"))
         self.training_steps = 0
         self.len_train_batches = max(len(self.train_builder), 1)
+        if "mr" in (args.get("model_select_metric") or []):
+            logger.warning("model_select_metric includes 'mr', which is greater-is-better as in the reference "
+                           "(utils/metrics.py:58): model selection will prefer the HIGHEST mean rank. Use 'mrr'.")
+        self.terminate = False
+        self.terminate_epochs = args.get("patience_epochs", 50)
+        self.best_validation_results = MetricResult()
+        self.last_validation_metric = None
+        self.moving_average_metric_change = None
+        #: the last evaluate(): host seconds of the candidate cache encode and
+        #: of the batches, and the number of batches
+        self.last_eval: Optional[Dict[str, float]] = None
         #: per step: host ms waiting for the next planned batch, the loss per
         #: real cell (a device scalar) and the tables that took the row-sparse
         #: update
@@ -138,6 +181,8 @@ class Trainer:
                 entity_sparse=self._sparse_plan.entity_sparse, **kw)
         else:
             self.train_step = make_train_step(self.model, self.regimes, self.variables["params"], **kw)
+        self.eval_step = make_eval_step(self.model, self.loss_type, self.label_smoothing)
+        self._eval_step_topk = None  # built when log_predictions is set
 
     @property
     def epoch(self) -> int:
@@ -148,9 +193,10 @@ class Trainer:
         arrays = self._sparse_plan(batch) if self.sparse else train_batch_to_arrays(batch)
         return batch, arrays_to_device(arrays, self.device)
 
-    def train_epoch(self):
+    def train_epoch(self, val_hook=None):
         """One pass over the training data -> ``{"loss": mean loss per
-        real cell, "items_per_s": positives per second}``."""
+        real cell, "items_per_s": positives per second}``; calls
+        ``val_hook(last_step_of_epoch=False)`` every ``eval_freq`` steps."""
         n_batches = len(self.train_builder)
         if n_batches == 0:
             raise ValueError("training builder produced 0 batches: check train_data_config "
@@ -158,7 +204,7 @@ class Trainer:
         self.len_train_batches = n_batches
         print_freq = self.args.get("print_freq") or 100
         save_freq = self.args.get("save_freq") or -1
-        eval_freq = (self.args.get("eval_freq") or 0) if self.has_validation else 0
+        eval_freq = self.args.get("eval_freq") or 0
         workers = int(self.args.get("workers", 8))
         # stats stay on the device until a print boundary: no sync per step
         pending: List = []
@@ -211,25 +257,196 @@ class Trainer:
                 )
             if save_freq > 0 and step_i > 0 and step_i % save_freq == 0:
                 self.save()
-            if eval_freq > 0 and step_i > 0 and step_i % eval_freq == 0:
-                raise _eval_not_ported(f"eval_freq (step {step_i})")
+            if val_hook is not None and eval_freq > 0 and step_i > 0 and step_i % eval_freq == 0:
+                drain()
+                val_hook(last_step_of_epoch=False)
         drain()
         return {"loss": loss_sum_total / max(norm_total, 1e-30), "items_per_s": items / items_t}
 
+    # ------------------------------------------------------------------- eval
+
+    def _candidate_cache(self) -> Optional[torch.Tensor]:
+        """The [N, d] candidate cache of a full-vocabulary eval (every entity
+        from ``min_entities_size`` on, encoded in chunks); None for
+        batch-shared eval, which encodes its candidates per batch."""
+        ds = self.validation_dataset
+        if ds is None or ds.use_batch_shared_entities:
+            return None
+        return self.model.encode_all_entities(self.variables)[self.model.meta.min_entities_size :]
+
+    def _eval_batches(self, builder: BatchBuilder):
+        """Full-vocabulary eval batches are deterministic: built once, padded
+        to one shape and reused by every eval; batch-shared eval draws new
+        negatives every pass."""
+        if builder is not self.val_builder or builder.ds.use_batch_shared_entities:
+            return builder.batches(shuffle=False, prefetch=2)
+        if self._eval_batches_cache is None:
+            self._eval_batches_cache = pad_batches_to_common_shape(list(builder.batches(shuffle=False)))
+        return self._eval_batches_cache
+
+    #: the host-side sums: the packed device stats but the metric normalizer,
+    #: then the loss normalizer
+    _EVAL_SUM_KEYS = ("count", "mrr", "mr", "h50", "h10", "h3", "h1", "loss_sum")
+
+    def evaluate(self, builder: Optional[BatchBuilder] = None) -> MetricResult:
+        """Filtered ranking over the validation split (or ``builder``'s) ->
+        the mean loss per cell and the rank metrics over every gold."""
+        builder = builder or self.val_builder
+        if builder is None:
+            raise ValueError("no validation dataset")
+        t0 = time.perf_counter()
+        cand_emb = self._candidate_cache()
+        if cand_emb is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # host clock of the cache encode alone
+        t1 = time.perf_counter()
+        log_preds = bool(self.args.get("log_predictions"))
+        if log_preds and self._eval_step_topk is None:
+            self._eval_step_topk = make_eval_step(self.model, self.loss_type, self.label_smoothing,
+                                                  topk=int(self.args.get("log_predictions_topk") or 10))
+        step_fn = self._eval_step_topk if log_preds else self.eval_step
+        pred_file = None
+        if log_preds:
+            pred_file = open(os.path.join(self.save_path, f"predictions_step{self.training_steps}.tsv"), "w")
+            pred_file.write("direction\tent_id\trel_id\ttop_entity_ids\ttop_scores\n")
+        sums = np.zeros(len(self._EVAL_SUM_KEYS) + 1, dtype=np.float64)
+        n_batches = 0
+        pending = []  # (device stats, normalizer_loss, prediction payload or None)
+
+        def drain():
+            for packed, normalizer_loss, preds in pending:
+                stats = unpack_eval_stats(packed)
+                for j, k in enumerate(self._EVAL_SUM_KEYS):
+                    sums[j] += stats[k]
+                sums[-1] += normalizer_loss
+                if preds is not None:
+                    self._write_predictions(pred_file, *preds)
+            pending.clear()
+
+        for batch in self._eval_batches(builder):
+            arrays = arrays_to_device(eval_batch_to_arrays(batch), self.device)
+            n_batches += 1
+            out = step_fn(self.variables, arrays, cand_emb)
+            packed, preds = (out[0], (batch, out[1], out[2])) if log_preds else (out, None)
+            pending.append((packed, batch.normalizer_loss, preds))
+            if len(pending) >= 512:  # a bounded number of live device results
+                drain()
+        drain()
+        if pred_file is not None:
+            pred_file.close()
+            logger.info("wrote predictions to %s", pred_file.name)
+        totals = dict(zip(self._EVAL_SUM_KEYS, sums))
+        result = MetricResult()
+        cnt = totals["count"]
+        if cnt > 0:
+            for m in ("mrr", "mr", "h1", "h3", "h10", "h50"):
+                result[m].update(totals[m] / cnt, cnt)
+        if sums[-1] > 0:
+            result["loss"].update(totals["loss_sum"] / sums[-1], sums[-1])
+        t2 = time.perf_counter()
+        self.last_eval = {"cache_s": t1 - t0, "batches_s": t2 - t1, "batches": n_batches}
+        logger.info("EVALUATING - EPOCH [%3d]  time: %7.3f  batches: %d  METRICS  %s",
+                    self.epoch, t2 - t0, n_batches, result.averages)
+        return result
+
+    def _write_predictions(self, f, batch: Batch, top_scores, top_cols) -> None:
+        """One TSV row per real prefix: the filtered top-k entity ids and
+        their scores."""
+        top_scores = top_scores.cpu().numpy()
+        top_cols = top_cols.cpu().numpy()
+        if batch.candidate_ids is not None:
+            ent_of_col = np.asarray(batch.candidate_ids)
+            top_ents = ent_of_col[np.clip(top_cols, 0, len(ent_of_col) - 1)]
+        else:
+            top_ents = top_cols + batch.cand_offset
+        for i in range(batch.num_rows):
+            direction = "sp" if batch.is_sp[i] else "po"
+            ids = " ".join(str(e) for e in top_ents[i])
+            scs = " ".join(f"{s:.4f}" for s in top_scores[i])
+            f.write(f"{direction}\t{batch.ent_ids[i]}\t{batch.rel_ids[i]}\t{ids}\t{scs}\n")
+
+    # ------------------------------------------------------- model selection
+
+    def _check_early_stopping(self, validation_results: MetricResult, results_row: Dict):
+        """Model selection and patience after one eval -> ``(improved,
+        the improved selection metrics)``; sets ``terminate``."""
+        args = self.args
+        one_improved = False
+        metric_improved = {}
+        best_tags: List[str] = []
+        for name, meter in validation_results.items():
+            metric_improved[name] = False
+            if meter.avg_better_than(self.best_validation_results[name]):
+                if name in args["model_select_metric"]:
+                    best_tags.append(name)
+                    one_improved = True
+                self.best_validation_results[name] = meter
+                metric_improved[name] = True
+            results_row[f"validation_{name}"] = meter.avg
+
+        select = args["model_select_metric"][0]
+        if self.last_validation_metric is None:
+            self.last_validation_metric = validation_results[select]
+        elif validation_results[select].avg > 0:
+            self.moving_average_metric_change = running_mean(
+                math.fabs((self.last_validation_metric.avg - validation_results[select].avg)
+                          / validation_results[select].avg),
+                self.moving_average_metric_change,
+            )
+
+        exceeds_max = bool(args.get("patience_metric_max_treshold")) and validation_results[
+            select].avg_better_than_float(args["patience_metric_max_treshold"])
+        below_min = bool(args.get("patience_metric_min_treshold")) and not validation_results[
+            select].avg_better_than_float(args["patience_metric_min_treshold"])
+        minimal_change = (bool(args.get("patience_metric_change")) and self.moving_average_metric_change is not None
+                          and self.moving_average_metric_change < args["patience_metric_change"])
+        if exceeds_max or below_min or minimal_change or not metric_improved[select]:
+            reasons = [r for r, f in [("metric_exceeds_critical_treshold", exceeds_max),
+                                      ("metric_not_achieving_critical_treshold", below_min),
+                                      ("metric_has_minimal_change", minimal_change),
+                                      ("metric has not improved", not metric_improved[select])] if f]
+            logger.info("Loosing patience with %s in epoch %d because %s", select, self.epoch, " and ".join(reasons))
+            if self.epoch >= self.terminate_epochs:
+                self.terminate = True
+        else:
+            self.terminate_epochs = self.epoch + args["patience_epochs"]
+        self.regimes.lr_scheduler_step(validation_results[select].avg,
+                                       greater_is_better=validation_results[select].greater_is_better,
+                                       epoch=self.epoch)
+        return one_improved, best_tags
+
+    # -------------------------------------------------------------- run loop
+
     def run(self):
-        """Train until the epochs are exhausted; leave a checkpoint."""
+        """Train until the epochs are exhausted or early stopping fires;
+        leave a checkpoint."""
         epochs = self.args.get("epochs", 100)
-        if self.has_validation and (self.args.get("eval_epoch_freq") or 0) > 0:
-            raise _eval_not_ported("eval_epoch_freq > 0 with a validation set")
-        while self.epoch < epochs:
-            result = self.last_epoch = self.train_epoch()
+        eval_epoch_freq = self.args.get("eval_epoch_freq") or 0
+        save_epoch_freq = self.args.get("save_epoch_freq") or 0
+
+        def val_hook(last_step_of_epoch: bool):
+            if self.val_builder is None:
+                return
+            validation_results = self.evaluate()
+            row = {"epoch": self.epoch, "training_steps": self.training_steps}
+            improved, tags = self._check_early_stopping(validation_results, row)
+            if last_step_of_epoch and save_epoch_freq and self.epoch % save_epoch_freq == 0:
+                self.save(save_all=True, is_best=improved, tags=tags if improved else None)
+            self.results.add(**row)
+            self.results.save()
+
+        while self.epoch < epochs and not self.terminate:
+            result = self.last_epoch = self.train_epoch(val_hook=val_hook)
             self.results.add(epoch=self.epoch, training_steps=self.training_steps,
                              training_loss=result["loss"])
+            if self.val_builder is not None and eval_epoch_freq and self.epoch % eval_epoch_freq == 0:
+                val_hook(last_step_of_epoch=True)
             self.results.save()
         if self.training_steps > 0:
             self.save()
 
-    def save(self) -> str:
+    def save(self, is_best: bool = False, tags=None, save_all: bool = False) -> str:
+        """Write the next ``checkpoint{i}`` (and its best-model and
+        per-epoch copies); returns its path."""
         meta = {
             "epoch": self.epoch,
             "training_steps": self.training_steps,
@@ -239,12 +456,15 @@ class Trainer:
         }
         name = f"checkpoint{self._ckpt_counter}"
         self._ckpt_counter = (self._ckpt_counter + 1) % self.keep_checkpoints
-        return save_checkpoint(self.save_path, name, self.variables, meta, self.opt_state)
+        path = save_checkpoint(self.save_path, name, self.variables, meta, self.opt_state)
+        copy_checkpoint(self.save_path, path, name, meta["epoch"], is_best=is_best, tags=tags, save_all=save_all)
+        self.last_checkpoint = path
+        return path
 
-    def load(self, path: str, reset_optimizer: bool = False):
+    def load(self, path: str, reset_optimizer: bool = False, dont_load_optimizer: bool = False):
         """Resume from a checkpoint of either package: variables, optimizer
-        state and host state (unless ``reset_optimizer``), step count and
-        results."""
+        state (unless ``reset_optimizer`` or ``dont_load_optimizer``) and
+        host state (unless ``reset_optimizer``), step count and results."""
         self.variables, meta = load_checkpoint(path, self.variables)
         host = meta.get("optimizer_host_state")
         if host:
@@ -253,11 +473,12 @@ class Trainer:
             if self.regimes.opt_names() != old_names:
                 self.opt_state = self.regimes.init_state(self.variables["params"])
                 self._rebuild_steps()
-        if not reset_optimizer:
+        if not (reset_optimizer or dont_load_optimizer):
             self.opt_state = load_opt_state(path, self.opt_state)
         self.training_steps = int(meta.get("training_steps", 0))
         if meta.get("results"):
             self.results.rows = list(meta["results"])
+            self.results.save()
         return meta
 
 

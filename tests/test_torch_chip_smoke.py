@@ -640,3 +640,85 @@ def test_optimizer_clock_times_each_part_and_restores(smoke):
     assert set(clock.ms) == {"make_apply", "dense apply", "row update"} and all(v > 0 for v in clock.ms.values())
     assert "make_apply" not in vars(regimes) and sparse._SPARSE_RULES == rules
     assert float(params["t"][0, 0]) == 1.0 and float(params["t"][1, 0]) < 1.0
+
+
+@pytest.mark.parametrize("dtype,per_encode", [("bfloat16", 10), ("float32", 11)])
+def test_eval_launch_formulas(smoke, dtype, per_encode):
+    """At L = 10 an encode is 10 kernel 1 launches in bf16 and 11 at f32:
+    the flagship's validation of 16 batches is 2 passes a batch (the 32768
+    candidates with the 128 queries, then the relations), its test eval 76
+    cache chunks of 32768 rows and 2 passes for each of 8 batches of 256,
+    and a training run of 50 steps with two validation evals of 16 batches
+    adds their passes to its own."""
+    names = list(smoke.kernel_counters())
+    assert smoke.eval_launches(names, 10, dtype, val_batches=16) == {
+        **dict.fromkeys(names, 0), "lstm_last_fwd": 32 * per_encode}
+    assert smoke.eval_launches(names, 10, dtype, cache_chunks=76, test_batches=8)["lstm_last_fwd"] == 92 * per_encode
+    train = smoke.training_launches(names, 10, 50, 50, 50, dtype, val_batches=32)
+    assert train["lstm_last_fwd"] == (100 + 64) * per_encode
+    assert train["lstm_last_bwd"] == 100 * smoke.backward_launches(10, dtype)
+    unfused = smoke.training_launches(names, 10, 50, 50, 50, dtype, unfused=True, val_batches=32)
+    assert unfused["lstm_last_fwd"] == 64 * per_encode and unfused["lstm_last_bwd"] == 0
+
+
+def _ranking_case():
+    """Three golds over 8 columns (column 7 padding): gold 0 (true 0.5 at
+    column 0, filter {0, 1}) has one larger and two tied candidates left,
+    gold 1 (true 0.7, the larger of its mentions 1 and 3) none, gold 2 (all
+    scores equal, filter {5}) six ties."""
+    rows = np.array([[0.5, 0.9, 0.5, 0.2, 0.9, -1.0, 0.5, 0.1],
+                     [0.3, 0.3, 0.1, 0.7, 0.3, 0.2, 0.0, 0.9],
+                     [0.4] * 8], np.float32)
+    mentions = np.array([[0, -1], [1, 3], [5, -1]])
+    filt = [np.array([0, 1]), np.array([1, 3]), np.array([5])]
+    col_valid = np.arange(8) < 7
+    return rows, mentions, filt, col_valid
+
+
+def test_host_recount_and_its_planted_faults(smoke, capsys):
+    rows, mentions, filt, col_valid = _ranking_case()
+    got = smoke.host_ranks(rows, mentions, filt, col_valid)
+    assert got["ranks"].tolist() == [2, 0, 3]
+    assert got["no filter"].tolist() == [3, 0, 3]
+    assert got["ties as >"].tolist() == [3, 0, 6]
+    ranks = np.array([2, 0, 3])
+    assert smoke.check_ranking("case", [(rows, mentions, filt, col_valid, ranks)]) == 3
+    assert "0 differ" in capsys.readouterr().out
+    for wrong in ([3, 0, 3], [3, 0, 6], [2, 1, 3]):  # the planted faults, one rank off
+        with pytest.raises(smoke.SmokeFailure, match="differs from the port"):
+            smoke.check_ranking("case", [(rows, mentions, filt, col_valid, np.array(wrong))])
+    # a batch on which neither fault shows cannot hold the ranking
+    with pytest.raises(smoke.SmokeFailure, match="no power"):
+        smoke.check_ranking("case", [(rows[1:2], mentions[1:2], filt[1:2], col_valid, np.array([0]))])
+
+
+def test_f64_check_holds_ranks_within_the_f32_bound(smoke, capsys):
+    """check_against_f64 on a recorded chunked batch (CPU tensors): the
+    port's ranks pass; a rank moved past the candidates near true fails."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.evaluate import eval_stats_chunked
+
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.standard_normal((6, 32)).astype(np.float32))
+    cache = rng.standard_normal((500, 32)).astype(np.float32)
+    cache[[9, 400]] = cache[4]  # exact ties with gold 0's and gold 1's mention
+    cache = torch.from_numpy(cache)
+    golds = (torch.tensor([0, 0, 3, 5], dtype=torch.int32), torch.tensor([4, 7, 4, 100], dtype=torch.int32),
+             torch.tensor([0, 3, 5, -1], dtype=torch.int32), torch.tensor([[4, 7], [4, -1], [100, -1], [-1, -1]],
+                                                                          dtype=torch.int32))
+    pos = (torch.tensor([0], dtype=torch.int32), torch.tensor([4], dtype=torch.int32), torch.ones(6, dtype=torch.bool))
+    _, ranks, valid = eval_stats_chunked(q, cache, *pos, None, torch.tensor(500.0), *golds, chunk=128)
+
+    class Cap:
+        cache = None
+        chunked = []
+
+    cap = Cap()
+    cap.cache = cache
+    cap.chunked = [{"q": q, "golds": golds, "col_valid": None, "ranks": ranks, "gold_valid": valid}]
+    m32, m64 = smoke.check_against_f64(torch, "case", cap)
+    assert m32 == m64 and "0 of 3 ranks differ" in capsys.readouterr().out
+    bad = ranks.clone()
+    bad[2] += 40
+    cap.chunked[0]["ranks"] = bad
+    with pytest.raises(smoke.SmokeFailure, match="f32 error bound"):
+        smoke.check_against_f64(torch, "case", cap)

@@ -987,3 +987,56 @@ def test_f32_autograd_on_card_matches_cpu(cuda):
     assert_f32_close(gx[act], cx[act])
     for got, want in ((gwi, cwi), (gwh, cwh), (gb, cb)):
         assert_f32_close(got, want)
+
+
+def _eval_case(seed, B, N, d, exact):
+    """An eval batch on the CPU: q [B, d] and candidates [N, d] (multiples
+    of 1/8, so every f32 score is exact in any order, or standard normal),
+    candidate 3 duplicated at 7, 11 and N - 1 (exact ties, the last in
+    another chunk), 1-2 golds a row with 1-2 mention columns, a gold on
+    column 3, 5 % filter cells, every gold's mentions filtered."""
+    rng = np.random.default_rng(seed)
+    draw = (lambda s: rng.integers(-16, 17, s).astype(np.float32) / 8) if exact else (
+        lambda s: rng.standard_normal(s).astype(np.float32))
+    q, cand = draw((B, d)), draw((N, d))
+    cand[[7, 11, N - 1]] = cand[3]
+    fmask = rng.random((B, N)) < 0.05
+    g_rows, g_ments = [0], [np.array([3])]
+    for b in range(B):
+        for _ in range(int(rng.integers(1, 3))):
+            g_rows.append(b)
+            g_ments.append(rng.choice(N, int(rng.integers(1, 3)), replace=False))
+    for r, m in zip(g_rows, g_ments):
+        fmask[r, m] = True
+    fr, fc = np.nonzero(fmask)
+    gm = np.full((len(g_rows), 2), -1, np.int32)
+    for i, m in enumerate(g_ments):
+        gm[i, : len(m)] = m
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    golds = (t(fr.astype(np.int32)), t(fc.astype(np.int32)), t(np.array(g_rows, np.int32)), t(gm))
+    pos = (t(np.zeros(1, np.int32)), t(np.array([3], np.int32)), t(np.ones(B, bool)))
+    return t(q), t(cand), pos, golds
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["engineered-ties", "inexact-ties"])
+@pytest.mark.parametrize("chunk", [512, 700])
+def test_chunked_eval_ranks_equal_dense_on_card(cuda, exact, chunk):
+    """eval_stats_chunked on the card (the [Gv, C] gold-row products of
+    chunks that do and do not divide N) against the dense formulation (one
+    [B, N] product, ranks_from_scores): equal ranks.  Exact inputs at
+    d = 512 show that the two formulations count the same cells; inexact
+    ones (d = 64, N = 2048: ~1e-6 between two products of one score, far
+    below the gaps between distinct candidates) that exact ties, duplicated
+    rows as identical mentions make them, stay ties in each."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops.scoring import score_against_candidates
+    from open_knowledge_graph_embeddings_tpu_torch.train.evaluate import eval_stats_chunked, ranks_from_scores
+
+    d = 512 if exact else 64
+    q, cand, pos, golds = _eval_case(11, 48, 2048, d, exact)
+    q, cand = q.to(cuda), cand.to(cuda)
+    pos, golds = [x.to(cuda) for x in pos], [x.to(cuda) for x in golds]
+    n_real = torch.tensor(2048.0, device=cuda)
+    dense, valid = ranks_from_scores(score_against_candidates(q, cand), *golds, None)
+    _, ranks, valid_c = eval_stats_chunked(q, cand, *pos, None, n_real, *golds, chunk=chunk)
+    assert torch.equal(valid_c, valid) and bool(valid.all())
+    assert torch.equal(ranks, dense)

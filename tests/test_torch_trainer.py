@@ -59,18 +59,22 @@ def test_cli_train_on_cpu_trains_and_learns(port_run):
     assert (ckpt / "arrays.npz").exists() and (ckpt / "meta.json").exists()
 
 
-def test_cli_train_defaults_to_cuda_and_refuses_eval(toy_dataset_dir, tmp_path):
+def test_cli_train_defaults_to_cuda_and_runs_eval(toy_dataset_dir, tmp_path):
+    """``--device`` defaults to cuda and raises without a card; on the CPU
+    ``--evaluate`` ranks the validation split and the eval cadence
+    (``eval_epoch_freq``) evaluates after every pass."""
     path = tmp_path / "c.yaml"
     path.write_text(yaml.safe_dump(_config(toy_dataset_dir, tmp_path / "exp")))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             port_train.cli_main([str(path)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        port_train.cli_main([str(path), "--device", "cpu", "--evaluate", "true"])
-    path.write_text(yaml.safe_dump(_config(toy_dataset_dir, tmp_path / "exp", eval_epoch_freq=1,
+    trainer = port_train.cli_main([str(path), "--device", "cpu", "--evaluate", "true"])
+    assert trainer.training_steps == 0 and trainer.last_eval["batches"] >= 1
+    path.write_text(yaml.safe_dump(_config(toy_dataset_dir, tmp_path / "exp2", eval_epoch_freq=1,
                                            val_data_config={"input_file": "valid.txt"})))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        port_train.cli_main([str(path), "--device", "cpu"])
+    trainer = port_train.cli_main([str(path), "--device", "cpu"])
+    rows = [r for r in trainer.results.to_dicts() if "validation_mrr" in r]
+    assert len(rows) == 2 and all(0 < r["validation_mrr"] <= 1 for r in rows)
 
 
 def _jax_templates(toy_dataset_dir):
