@@ -103,7 +103,29 @@ Phases (any failure exits non-zero before the final line):
    L + 1 launches, the weight split and L steps, kernel 8 at f32 2L); then the unfused
    path at H = 100 in bf16 and f32 (kernels 7 and 8 through the padded
    route);
-11. the Adagrads' host cost through the entry points every tree of the port
+11. the model families (lookup ComplEx, DistMult and Tucker3, unigram and
+   bigram pooling, LSTM-Tucker3, the two data-bias diagnostics) through the
+   same entry points: an FB15k-237-shaped set from
+   ``tools/make_synth_olpbench.py`` (14,541 mentions, 237 relations,
+   272,115 triples; valid and test cut to 1000 triples each); lookup
+   ComplEx at ``configs/fb15k237/fb15k237-complex-kge.yaml``'s widths
+   (d = 200, full-vocabulary 1-vs-all over every entity, batch 512) with
+   ``cli.train`` for two passes and a validation eval after each (a copy of
+   the config under ``.bench_cache/`` with ``dataset_dir``,
+   ``eval_epoch_freq`` 1 and ``save_epoch_freq`` 1), kernel 3 once a step
+   and no other kernel, the loss falling, ``model_best-mrr`` and the
+   checkpoint with its optimizer state loading back, timed (steps, a
+   profile, kernel 3 at these leaves beside its bound), the test eval
+   through ``--evaluate`` with one batch's ranks recounted on the host,
+   and served (``cli.predict``, ``Predictor`` top-k against a plain CPU
+   Predictor); the other seven names two passes over the split's first
+   24,000 triples (the data-bias models over the 2.47M-mention set) with
+   one validation eval each at their configs' widths, every launch count
+   exact (``family_launches``); lookup ComplEx with row-sparse tables on
+   the 2.47M-mention set, 4096 x 4096 batch-shared, kernel 4 launched on
+   the tables the plans sparsified and its first launch bit-equal to its
+   plain version;
+12. the Adagrads' host cost through the entry points every tree of the port
    has (``launch_cost``; ``python3 chip_smoke.py --launch-cost DIR`` runs
    only that, on the port in the checkout at DIR, to hold two trees against
    each other in one call); print the timings, one JSON line with every
@@ -425,17 +447,18 @@ def time_forward_passes(torch, captured):
         time_forward(torch, f"training {name} B={args[0].shape[1]}", args, residuals=True)
 
 
-def ensure_dataset():
-    """Generate the smoke dataset unless one made with the same arguments
-    is there (a cached set of another triple count is made anew)."""
-    marker = DATA_DIR / ".smoke_args"
-    if (DATA_DIR / "test.txt").exists() and marker.exists() and marker.read_text() == " ".join(DATA_ARGS):
+def ensure_dataset(data_dir=DATA_DIR, data_args=DATA_ARGS):
+    """Generate a smoke dataset (the flagship's by default) unless one made
+    with the same arguments is there (a cached set of other arguments is
+    made anew)."""
+    marker = data_dir / ".smoke_args"
+    if (data_dir / "test.txt").exists() and marker.exists() and marker.read_text() == " ".join(data_args):
         return 0.0
-    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    shutil.rmtree(data_dir, ignore_errors=True)
     t0 = time.perf_counter()
-    subprocess.run([sys.executable, str(ROOT / "tools" / "make_synth_olpbench.py"), str(DATA_DIR), *DATA_ARGS],
+    subprocess.run([sys.executable, str(ROOT / "tools" / "make_synth_olpbench.py"), str(data_dir), *data_args],
                    check=True, timeout=900)
-    marker.write_text(" ".join(DATA_ARGS))
+    marker.write_text(" ".join(data_args))
     return time.perf_counter() - t0
 
 
@@ -2496,24 +2519,70 @@ def graph_ms(torch, fn, n=50, reps=3):
     return float(np.median(times))
 
 
-def cold_kernel_ms(torch, fn, name, n=20):
-    """Device ms of the kernel whose name holds ``name``, per call of ``fn``,
-    by torch.profiler, with 256 MB written before each call so that the
-    call finds L2 (50 MB) cold, as the training step finds the rows and
-    leaves it updates."""
-    from torch.profiler import ProfilerActivity, profile
+# The kernels ``cold_kernel_ms`` times: the profiler's kernel name -> the
+# wrapper (module of the port's ``ops``, function) that launches it.
+COLD_KERNELS = {"adagrad_dense_kernel": ("adagrad_kernel", "adagrad_update_leaves"),
+                "adagrad_rows_kernel": ("scatter_adagrad_kernel", "scatter_adagrad_tables")}
 
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    fn()
+
+def cold_kernel_ms(torch, name, args, n=20):
+    """Device ms a launch of the kernel ``name`` (a key of ``COLD_KERNELS``)
+    on its wrapper's ``args``, by torch.profiler, with 256 MB written before
+    each launch so that it finds L2 (50 MB) cold, as the training step finds
+    the rows and leaves it updates.  Taken in a new process that shares
+    ``args`` through CUDA IPC (the wrapper updates them in place): minutes
+    into a busy process, every profiler session of that process loses its
+    first GPU records, more the longer the process has run, while a new
+    process started at the same moment keeps them all (PERF.md §6).  The
+    trace must hold exactly ``n`` launches."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            flush.zero_()
-            fn()
+    proc = ctx.Process(target=_cold_kernel_child, args=(name, args, n, send))
+    proc.start()
+    try:
+        send.close()
+        check(recv.poll(600), f"the profile of {name} gave no result in 600 s")
+        try:
+            ok, out = recv.recv()
+        except EOFError:
+            ok, out = False, "its process ended without a result"
+    finally:
+        proc.join(60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    check(ok, f"the profile of {name}: {out}")
+    return out
+
+
+def _cold_kernel_child(name, args, n, send):
+    """``cold_kernel_ms``'s process: sends (True, ms) or (False, why)."""
+    try:
+        import importlib
+
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        module, entry = COLD_KERNELS[name]
+        wrapper = getattr(importlib.import_module(f"{PKG}.ops.{module}"), entry)
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+        wrapper(*args)
         torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
-    check(len(found) == 1 and found[0].count == n, f"the profile has {[(e.key, e.count) for e in found]} for {name}")
-    return found[0].self_device_time_total / n / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                wrapper(*args)
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+        check(len(found) == 1 and found[0].count == n, f"the profile has {[(e.key, e.count) for e in found]} for {name}")
+        send.send((True, found[0].self_device_time_total / n / 1e3))
+    except BaseException as e:  # noqa: BLE001 - reported to the parent, which fails
+        send.send((False, f"{type(e).__name__}: {e}"))
+    finally:
+        send.close()
 
 
 def host_us(torch, fn, n=200):
@@ -2638,7 +2707,7 @@ def check_adagrad(torch, captured, table_heights):
 
     p1, a1 = _clones(ps), _clones(accs)
     run = lambda: ak.adagrad_update_leaves(gs, p1, a1, steps, hp)  # noqa: E731
-    ms = cold_kernel_ms(torch, run, "adagrad_dense_kernel")
+    ms = cold_kernel_ms(torch, "adagrad_dense_kernel", (gs, p1, a1, steps, hp))
     warm_ms = graph_ms(torch, run)
     events_ms = cuda_ms(run, iters=50)
     launch_us = host_us(torch, run)
@@ -2734,7 +2803,7 @@ def check_row_adagrad(torch, captured):
                                   sk.scatter_adagrad_tables_plain, padding_writer(sk))
     p1, a1 = _clones(ps), _clones(accs)
     run = lambda: sk.scatter_adagrad_tables(g_rows, uids, valid, p1, a1, steps, hp)  # noqa: E731
-    ms = cold_kernel_ms(torch, run, "adagrad_rows_kernel")
+    ms = cold_kernel_ms(torch, "adagrad_rows_kernel", (g_rows, uids, valid, p1, a1, steps, hp))
     warm_ms = graph_ms(torch, run)
     events_ms = cuda_ms(run, iters=50)
     launch_us = host_us(torch, run)
@@ -2910,10 +2979,12 @@ def host_ranks(rows, mention_cols, filter_cols, col_valid=None):
     padded); the filtered row sets the gold row's known-true columns to
     -1e8 and leaves the padding columns out; rank = #(> true) + #(== true)
     // 2.  Returns the ranks and those of two planted faults the check must
-    catch: the filter dropped, and ties counted as ``>``."""
+    catch: the filter dropped, and ties counted as ``>``; and per gold the
+    unfiltered candidates its true score ties (its own columns are
+    filtered)."""
     from open_knowledge_graph_embeddings_tpu_torch.train.evaluate import FILTER_VALUE
 
-    out = {k: np.empty(len(rows), np.int64) for k in ("ranks", "no filter", "ties as >")}
+    out = {k: np.empty(len(rows), np.int64) for k in ("ranks", "no filter", "ties as >", "tied")}
     for g, row in enumerate(rows):
         m = mention_cols[g][mention_cols[g] >= 0]
         true = row[m].max()
@@ -2925,6 +2996,7 @@ def host_ranks(rows, mention_cols, filter_cols, col_valid=None):
         gt, eq = int((filtered > true).sum()), int((filtered == true).sum())
         out["ranks"][g] = gt + eq // 2
         out["ties as >"][g] = gt + eq
+        out["tied"][g] = eq
         out["no filter"][g] = int((raw > true).sum()) + int((raw == true).sum()) // 2
     return out
 
@@ -2944,12 +3016,14 @@ def chunk_product_rows(torch, q_g, cache, chunk=EVAL_CHUNK):
     return out
 
 
-def check_ranking(label, cases):
+def check_ranking(label, cases, ties_expected=True):
     """Each case (rows [G, N], mention columns, filter columns, column mask,
     the port's ranks of those golds): the host recount must find 0 ranks
     that differ, and each planted fault must change at least one rank over
-    the cases.  Returns the number of golds held."""
-    n, faults = 0, Counter()
+    the cases.  With ``ties_expected`` False (random lookup embeddings,
+    whose scores make no exact ties) the ties fault is only reported.
+    Returns the number of golds held."""
+    n, ties, faults = 0, 0, Counter()
     for rows, gm, filt, col_valid, ranks in cases:
         got = host_ranks(rows, gm, filt, col_valid)
         bad = int((got["ranks"] != ranks).sum())
@@ -2957,9 +3031,10 @@ def check_ranking(label, cases):
         for fault in ("no filter", "ties as >"):
             faults[fault] += int((got[fault] != ranks).sum())
         n += len(ranks)
-    print(f"{label}: host recount (numpy) of {n} filtered ranks from the port's own products: 0 differ; planted "
-          + ", ".join(f"{k}: {v} ranks differ" for k, v in faults.items()))
-    for fault in ("no filter", "ties as >"):
+        ties += int((got["tied"] > 0).sum())
+    print(f"{label}: host recount (numpy) of {n} filtered ranks from the port's own products: 0 differ; {ties} "
+          "golds tie another candidate; planted " + ", ".join(f"{k}: {v} ranks differ" for k, v in faults.items()))
+    for fault in ("no filter", "ties as >") if ties_expected else ("no filter",):
         check(faults[fault] > 0, f"{label}: the planted fault '{fault}' changes no rank: the check has no power")
     return n
 
@@ -3067,7 +3142,7 @@ def check_eval_metrics(label, row, capture_recs, n_golds):
     return m
 
 
-def run_evaluate(torch, config, ckpt, out_dir, on_validation):
+def run_evaluate(torch, config, ckpt, out_dir, on_validation, data_dir=DATA_DIR):
     """``cli.train --resume CKPT --evaluate True`` with the launch counts
     set to 0 just before and read just after -> (trainer, capture,
     launches, scores-file row, wall s)."""
@@ -3075,7 +3150,7 @@ def run_evaluate(torch, config, ckpt, out_dir, on_validation):
 
     shutil.rmtree(out_dir, ignore_errors=True)
     scores = out_dir / "scores.csv"
-    args = [str(config), "--dataset_dir", str(DATA_DIR), "--resume", ckpt, "--evaluate", "True",
+    args = [str(config), "--dataset_dir", str(data_dir), "--resume", ckpt, "--evaluate", "True",
             "--evaluate_on_validation", str(on_validation), "--experiment_dir", str(out_dir),
             "--evaluate_scores_file", str(scores), "--device", "cuda"]
     counters = kernel_counters()
@@ -3319,6 +3394,466 @@ def phase_any_h(torch):
               f"H={H} {dtype}: the unfused op on the card disagrees with the CPU")
 
 
+# ------------------------------------------------------- the model families
+
+FB_CONFIGS = ROOT / "configs" / "fb15k237"
+RELATION_BIAS = ROOT / "configs" / "olpbench" / "wikiopenlink-thorough-relation-bias.yaml"
+FB_DATA_DIR = ROOT / ".bench_cache" / "synth_fb15k237_smoke"
+# FB15k-237's entity, relation and train-triple counts (its files are not in
+# the repository); the valid and test splits cut from 17,535 and 20,466
+# triples to 1000 each
+FB_DATA_ARGS = ["--mentions", "14541", "--relations", "237", "--triples", "272115", "--ent-tokens", "20000",
+                "--rel-tokens", "2000", "--eval-size", "1000", "--seed", str(SEED)]
+# the names that take a few steps each train on the first triples of the
+# FB15k-shaped split: 3 steps of 4096 or 26 of 512 a pass
+FB_HEAD_TRIPLES = 24000
+
+
+def write_config(name, source, changes, model=None, model_config=None, data=None):
+    """A copy of ``source`` under ``.bench_cache/`` (``configs/`` is not
+    edited) with the top-level keys ``changes``, the model ``model``, the
+    model_config keys ``model_config`` and the data config keys ``data``
+    ({config key: {key: value}}) changed."""
+    import yaml
+
+    cfg = yaml.safe_load(Path(source).read_text())
+    cfg.update(changes)
+    if model:
+        cfg["model"] = model
+    cfg["model_config"] = {**cfg["model_config"], **(model_config or {})}
+    for key, kv in (data or {}).items():
+        cfg[key] = {**cfg[key], **kv}
+    path = ROOT / ".bench_cache" / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return path
+
+
+def fb_head_file():
+    """``train_head.txt`` beside the FB15k-shaped split: its first
+    ``FB_HEAD_TRIPLES`` triples."""
+    with open(FB_DATA_DIR / "train.txt") as f:
+        head = [line for _, line in zip(range(FB_HEAD_TRIPLES), f)]
+    (FB_DATA_DIR / "train_head.txt").write_text("".join(head))
+    return "train_head.txt"
+
+
+def family_runs():
+    """(tag, config) of every run of the model families: lookup ComplEx on
+    the whole FB15k-shaped split with a validation eval after each of two
+    passes (the slice's main path); the other seven names a few steps and
+    one validation eval each at their configs' widths (bigram and
+    LSTM-Tucker3 ship no config: the unigram config with ``normalize:
+    batchnorm`` and ``gates: true``, the FB15k-237 LSTM config); and lookup
+    ComplEx with row-sparse tables (``sparse: true``, d = 200) on the
+    2.47M-mention set with the flagship's batch-shared candidates."""
+    fb, head = {"dataset_dir": str(FB_DATA_DIR)}, {"train_data_config": {"input_file": fb_head_file()}}
+    # one validation eval, after the second pass; no per-epoch checkpoints
+    one_eval = {**fb, "eval_epoch_freq": 2, "save_epoch_freq": 0}
+    olp_files = {"train_data_config": {"input_file": "train.txt"}, "val_data_config": {"input_file": "valid.txt"},
+                 "test_data_config": {"input_file": "test.txt"}}
+    olp = {"dataset_dir": str(DATA_DIR), "eval_epoch_freq": 2, "save_epoch_freq": 0}
+    kge = FB_CONFIGS / "fb15k237-complex-kge.yaml"
+    unigram = FB_CONFIGS / "fb15k237-complex-unigrampool.yaml"
+    return [
+        ("fb_lookup_complex", write_config("fb15k237-complex-kge", kge, {**fb, "eval_epoch_freq": 1,
+                                                                        "save_epoch_freq": 1})),
+        ("fb_lookup_distmult", write_config("fb15k237-distmult-kge", FB_CONFIGS / "fb15k237-distmult-kge.yaml",
+                                            one_eval, data=head)),
+        ("fb_lookup_tucker3", write_config("fb15k237-tucker3-kge", FB_CONFIGS / "fb15k237-tucker3-kge.yaml",
+                                           one_eval, data=head)),
+        ("fb_unigram", write_config("fb15k237-complex-unigrampool", unigram, one_eval, data=head)),
+        ("fb_bigram", write_config("fb15k237-complex-bigrampool", unigram, one_eval, "BigramPoolingComplexRelationModel",
+                                   {"normalize": "batchnorm", "gates": True}, data=head)),
+        ("fb_lstm_tucker3", write_config("fb15k237-tucker3-lstm", FB_CONFIGS / "fb15k237-complex-lstm.yaml", one_eval,
+                                         "LSTMTucker3RelationModel", data=head)),
+        ("olp_entity_bias", write_config("synth-entity-bias", RELATION_BIAS, olp, "DataBiasOnlyEntityModel",
+                                         data=olp_files)),
+        ("olp_relation_bias", write_config("synth-relation-bias", RELATION_BIAS, olp, data=olp_files)),
+        ("olp_lookup_sparse", write_config(
+            "synth-lookup-complex-sparse", FLAGSHIP, {"dataset_dir": str(DATA_DIR), "eval_epoch_freq": 0,
+                                                      "save_epoch_freq": 0},
+            "LookupComplexRelationModel", {"entity_slot_size": 200, "input_dropout": 0.4, "init_std": 0.1,
+                                           "sparse": True, "normalize": "", "dropout": 0.0, "dtype": "float32"})),
+    ]
+
+
+def lstm_pass_launches(B, L, dtype, backward):
+    """Kernel launches of one LSTM pass over B rows: fused (kernels 1 and 2)
+    where the JAX package's rule takes it at this B (B % 8 == 0 at the
+    families' widths, D = H = 512), else unfused (kernels 7 and 8)."""
+    if B % 8 == 0:
+        return {"lstm_last_fwd": forward_launches(L, dtype), "lstm_last_bwd": backward_launches(L, dtype) * backward}
+    fwd, bwd = scan_launches(L, dtype)
+    return {"lstm_scan_fwd": fwd, "lstm_scan_bwd": bwd * backward}
+
+
+def family_launches(names, trainer, val_batches, cache_chunks, test_batches):
+    """The launches a family's cli.train run must count: per step one dense
+    Adagrad launch when a dense leaf is left and one row launch when a table
+    took the row-sparse update (one regime group); for the LSTM families
+    per step the entity side (with batch-shared candidates one pass over
+    candidates and query entities; over the full vocabulary a candidate
+    pass over every entity and a query pass), and the relation pass, each
+    with its backward when the scorer reads it (the entity-bias model reads
+    no relation, the relation-bias model no query entity); the evals'
+    kernel 1 passes (``eval_launches``)."""
+    from open_knowledge_graph_embeddings_tpu_torch.models.embedders import LSTMEmbedder
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import leaves
+
+    model = trainer.model
+    n_leaves = sum(1 for _ in leaves(trainer.variables["params"]))
+    log = trainer.step_log
+    want = Counter({name: 0 for name in names})
+    want["adagrad_update"] = sum(1 for s in log if n_leaves > len(s["sparse_tables"]))
+    want["scatter_adagrad"] = sum(1 for s in log if s["sparse_tables"])
+    if isinstance(model.embedder, LSTMEmbedder):
+        L, dtype, meta = model.meta.max_length[0], model.embedder.dtype, model.meta
+        check(L == model.meta.max_length[1], "entity and relation lengths differ")
+        ds = trainer.train_dataset
+        B = ds.batch_size
+        if ds.use_batch_shared_entities:
+            passes = [(B + ds.min_size_batch_labels, True)]
+        else:
+            passes = [(meta.entities_size - meta.min_entities_size, True), (B, model.scorer != "bias_relation")]
+        passes.append((B, model.scorer != "bias_entity"))
+        for rows, backward in passes:
+            want.update({k: v * len(log) for k, v in lstm_pass_launches(rows, L, dtype, backward).items()})
+        want.update(eval_launches(names, L, dtype, val_batches, cache_chunks, test_batches))
+    return dict(want)
+
+
+def run_family(torch, tag, config, extra=()):
+    """``cli.train`` on ``config`` (two passes), with every kernel's launch
+    count set to 0 just before and read just after -> (trainer, capture,
+    launches, wall s)."""
+    from open_knowledge_graph_embeddings_tpu_torch.cli import train as cli_train
+
+    out_dir = ROOT / ".bench_cache" / f"smoke_{tag}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    args = [str(config), "--epochs", "2", "--experiment_dir", str(out_dir), *extra, "--device", "cuda"]
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with Capture() as capture:
+        trainer = cli_train.cli_main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return trainer, capture, {name: fn.launches for name, fn in counters.items()}, wall
+
+
+def check_family_run(torch, tag, trainer, launches, wall, falling=False):
+    """A family's training run: two passes of steps, every loss finite (and
+    falling over the run with ``falling``), its validation evals' rows
+    finite and ordered, the launches exactly ``family_launches``'."""
+    log = trainer.step_log
+    per_pass = len(trainer.train_builder)
+    check(len(log) == 2 * per_pass > 0, f"{tag}: {len(log)} steps, want 2 passes of {per_pass}")
+    losses = np.array([float(s["loss"]) for s in log])
+    check(np.isfinite(losses).all(), f"{tag}: non-finite training loss {losses}")
+    k = max(1, min(3, len(losses) // 2))
+    first, last = losses[:k].mean(), losses[-k:].mean()
+    rows = [r for r in trainer.results.to_dicts() if "validation_mrr" in r]
+    for r in rows:
+        check(0 < r["validation_mrr"] <= 1 and np.isfinite(r["validation_loss"])
+              and r["validation_h1"] <= r["validation_h3"] <= r["validation_h10"] <= r["validation_h50"],
+              f"{tag}: validation row {r}")
+    val_batches = cache_chunks = test_batches = 0
+    if rows and trainer.validation_dataset.use_batch_shared_entities:
+        val_batches = len(rows) * len(trainer.val_builder)
+    elif rows:  # full vocabulary: the cache chunks, then the batches
+        cache_chunks = len(rows) * -(-trainer.model.meta.entities_size // 32768)
+        test_batches = len(rows) * len(trainer.val_builder)
+    want = family_launches(launches, trainer, val_batches, cache_chunks, test_batches)
+    m = trainer.model
+    print(f"{tag}: {type(m).__name__} {m.scorer} x {type(m.embedder).__name__} d={m.embedder.entity_dim} "
+          f"relation_dim={m.embedder.relation_dim} {m.embedder.dtype}, {len(log)} steps of "
+          f"{trainer.train_dataset.batch_size} in {wall:.2f} s (cli.train), loss first {k} {first:.5f} -> last {k} "
+          f"{last:.5f}; " + "; ".join(f"validation MRR {r['validation_mrr']:.6f} h10 {r['validation_h10']:.4f}"
+                                      for r in rows))
+    print(f"{tag}: launches {launches} (want {want})")
+    check(launches == want, f"{tag}: launches {launches}, want {want}")
+    check(len(rows) >= 1 or not trainer.args.get("eval_epoch_freq"), f"{tag}: no validation eval")
+    if falling:
+        check(last < first, f"{tag}: the loss did not fall: first {k} steps {first:.5f}, last {k} {last:.5f}")
+    return want
+
+
+def time_family_steps(torch, trainer, timings, pre, n=8):
+    """Dense steps after warm-up with a synchronize around each: median and
+    max ms a step, items/s, and a profile of one step (device busy
+    share)."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.step import arrays_to_device, train_batch_to_arrays
+
+    builder = trainer.train_builder
+    order = np.random.default_rng(SEED + 1).permutation(len(builder.rec))
+    bs = builder.batch_size
+    dev = [arrays_to_device(train_batch_to_arrays(builder.build(order[i * bs : (i + 1) * bs])), trainer.device)
+           for i in range(n + 2)]
+    step = lambda arrays: trainer.train_step(  # noqa: E731
+        trainer.variables, trainer.opt_state, trainer.regimes.hparams(), arrays, trainer.generator)
+    trainer.variables, trainer.opt_state, _ = step(dev[n + 1])  # warm-up
+    step_ms, positives = [], 0.0
+    for arrays in dev[:n]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.variables, trainer.opt_state, stats = step(arrays)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        positives += float(stats["normalizer_metric"])
+    timings[pre + "train_step_ms"] = summary(step_ms)
+    timings[pre + "train_items_per_s"] = positives / (sum(step_ms) / 1e3)
+    timings[pre + "cli_epoch_items_per_s"] = trainer.last_epoch["items_per_s"]
+    m = trainer.model
+    print(f"{pre}train step (synchronized, after warm-up): median {np.median(step_ms):.3f} ms, max {max(step_ms):.3f}"
+          f" ms, {timings[pre + 'train_items_per_s']:.0f} items/s; cli epoch {trainer.last_epoch['items_per_s']:.0f} "
+          "items/s")
+    device_breakdown(torch, f"{pre}train step ({bs} prefixes x {m.meta.entities_size - m.meta.min_entities_size} "
+                            f"candidates, d={m.embedder.entity_dim}, {m.embedder.dtype})",
+                     lambda: step(dev[n]), top=12)
+
+
+def time_adagrad_leaves(torch, captured, timings, pre):
+    """Kernel 3 on a run's first recorded group (as the optimizer launched
+    it, held bit-equal by ``check_family_kernels``): device ms a launch (the
+    profiler, L2 flushed before each: ``cold_kernel_ms``) and from a CUDA
+    graph of 50, each under its own key, beside its bytes bound."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import adagrad_kernel as ak
+
+    gs, ps, accs, steps, hp = captured
+    p1, a1 = _clones(ps), _clones(accs)
+    run = lambda: ak.adagrad_update_leaves(gs, p1, a1, steps, hp)  # noqa: E731
+    ms = cold_kernel_ms(torch, "adagrad_dense_kernel", (gs, p1, a1, steps, hp))
+    warm_ms = graph_ms(torch, run)
+    plain_ms = cuda_ms(lambda: ak.adagrad_update_leaves_plain(gs, p1, a1, steps, hp), iters=20)
+    n = sum(p.numel() for p in ps)
+    bytes_ = 5 * 4 * n + 2 * 4 * len(ps)  # read g, p, acc; write p, acc; a step in and out a leaf
+    bound = bytes_ / PEAK_BYTES_PER_S * 1e3
+    timings[pre + "adagrad_ms"], timings[pre + "adagrad_graph_ms"] = ms, warm_ms
+    timings[pre + "adagrad_bound_ms"] = bound
+    print(f"{pre}adagrad_update at {[list(p.shape) for p in ps]} ({n} elements): device {ms:.4f} ms a launch "
+          f"(profiler, L2 flushed before each), {warm_ms:.4f} ms (CUDA graph of 50), plain twin {plain_ms:.4f} ms, "
+          f"bound {bound:.4f} ms (bytes: {bytes_:.4e} B at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; {bound / ms:.1%} of it)")
+
+
+def check_dense_ranking(torch, label, cap):
+    """The [B, N] ranking of a full-vocabulary eval without a cache (a
+    lookup model): the first batch's ranks recounted on the host from its
+    recorded scores."""
+    rec = cap.dense[0]
+    gi, g_rows, gm, filt, col_valid = host_golds(rec["golds"], rec["col_valid"])
+    rows = rec["scores"][torch.from_numpy(g_rows).long().to(rec["scores"].device)].cpu().numpy()
+    return check_ranking(f"{label} batch 0 ([B, N] = {list(rec['scores'].shape)})",
+                         [(rows, gm, filt, col_valid, rec["ranks"].cpu().numpy()[gi])], ties_expected=False)
+
+
+def serve_lookup(torch, timings, config, ckpt, pre, nq=1024, n_timed=10):
+    """The serving path of a lookup checkpoint: ``cli.predict`` text queries
+    and ``Predictor`` top-k of 1024-query batches and single queries, with
+    the launch counts set to 0 just before and read just after (a lookup
+    model launches none of the port's kernels); the top-k against a plain
+    CPU Predictor on the same weights (ids equal, scores by the f32 rule).
+    Returns the launches."""
+    from open_knowledge_graph_embeddings_tpu_torch.cli import predict as cli_predict
+    from open_knowledge_graph_embeddings_tpu_torch.config.options import load_config
+    from open_knowledge_graph_embeddings_tpu_torch.data.dataset import load_meta
+    from open_knowledge_graph_embeddings_tpu_torch.inference import Predictor
+    from open_knowledge_graph_embeddings_tpu_torch.models.model import build_model
+    from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import load_checkpoint
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_REL_ERR_F32
+
+    args = load_config(str(config))
+    data_dir = Path(args["dataset_dir"])
+    ents = first_names(data_dir / "entity_id_map.txt", 2, skip=10)
+    rels = first_names(data_dir / "relation_id_map.txt", 2, skip=5)
+    queries = [f"{ents[0]}|{rels[0]}|?", f"{ents[1]}|{rels[1]}|?", f"?|{rels[0]}|{ents[1]}",
+               f"?|{rels[1]}|{ents[0]}"]
+    meta = load_meta(str(data_dir), tuple(args["experiment_settings"]["max_lengths_tuple"]))
+    rng = np.random.default_rng(SEED)
+    ent_ids = rng.integers(meta.min_entities_size, meta.entities_size, nq)
+    rel_ids = rng.integers(meta.min_relations_size, meta.relations_size, nq)
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out, err, stdin = io.StringIO(), io.StringIO(), sys.stdin
+    sys.stdin = io.StringIO("\n".join(queries) + "\n")
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli_predict.main([str(config), "--resume", ckpt, "-k", "10", "--device", "cuda"])
+    finally:
+        sys.stdin = stdin
+    torch.cuda.synchronize()
+    timings[pre + "cli_predict_s"] = time.perf_counter() - t0
+    model = build_model(args["model"], meta, **args["model_config"])
+    variables, _ = load_checkpoint(ckpt, model.init(torch.Generator(device="cuda").manual_seed(SEED)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predictor = Predictor(model, variables)
+    torch.cuda.synchronize()
+    timings[pre + "cache_encode_s"] = time.perf_counter() - t0
+    results, batch_ms, single_ms = {}, [], []
+    for direction in ("subj", "obj"):
+        kw = {direction: ent_ids, "rel": rel_ids, "k": 10}
+        results[direction] = predictor.predict(**kw)
+        batch_ms += [wall_ms(lambda: predictor.predict(**kw)) for _ in range(n_timed)]
+        single_ms += [wall_ms(lambda: predictor.predict(**{direction: ent_ids[i : i + 1]}, rel=rel_ids[i : i + 1],
+                                                        k=10)) for i in range(n_timed)]
+    timings[f"{pre}predict_{nq}_ms"], timings[pre + "predict_1_ms"] = summary(batch_ms), summary(single_ms)
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    cli_lines = [ln.split(None, 2) for ln in out.getvalue().splitlines() if ln.strip()]
+    check("!!" not in err.getvalue() and len(cli_lines) == 10 * len(queries),
+          f"{pre}cli.predict printed {len(cli_lines)} lines: {err.getvalue()[-300:]}")
+    to_cpu = lambda t: {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()  # noqa: E731
+    plain = Predictor(model, to_cpu(variables))
+    worst = 0.0
+    for direction, (scores, ids) in results.items():
+        check(np.isfinite(scores).all() and (np.diff(scores, axis=1) <= 0).all(), f"{pre}{direction} scores")
+        want_s, want_i = plain.predict(**{direction: ent_ids[:64]}, rel=rel_ids[:64], k=10)
+        check((ids[:64] == want_i).all(), f"{pre}{direction}: top-k ids differ from the plain CPU Predictor")
+        worst = max(worst, np.abs(scores[:64] - want_s).max() / np.abs(want_s).max())
+    check(worst <= MAX_REL_ERR_F32, f"{pre}top-k scores vs the plain CPU Predictor: {worst:.3e}")
+    check(all(v == 0 for v in launches.values()), f"{pre}serving launched a kernel: {launches}")
+    print(f"{pre}serving: cli.predict {timings[pre + 'cli_predict_s']:.3f} s ({cli_lines[0]} ...); cache "
+          f"{tuple(predictor.cand_emb.shape)} in {timings[pre + 'cache_encode_s'] * 1e3:.3f} ms; {nq} queries "
+          f"median {np.median(batch_ms):.3f} ms, 1 query {np.median(single_ms):.3f} ms; top-10 of 128 queries vs "
+          f"the plain CPU Predictor: ids equal, scores max rel err {worst:.3e} (tol {MAX_REL_ERR_F32:.0e}); launches "
+          f"{launches} (want 0 of each)")
+    device_breakdown(torch, f"{pre}predict ({nq} subj queries, k=10)",
+                     lambda: predictor.predict(subj=ent_ids, rel=rel_ids, k=10))
+    return launches
+
+
+def check_sparse_lookup(tag, trainer, capture):
+    """The row-sparse lookup run: which tables took the row update on how
+    many steps (the entity table must), and the first row launch's tables
+    (held bit-equal by ``check_family_kernels``)."""
+    by_table = Counter(t for s in trainer.step_log for t in s["sparse_tables"])
+    check(by_table["entity_embedding"] > 0, f"{tag}: the entity table never took the row update: {by_table}")
+    shapes = [list(p.shape) for p in capture.rows[3]]
+    print(f"{tag}: row-sparse updates by table {dict(by_table)} of {len(trainer.step_log)} steps; first row launch "
+          f"over tables {shapes}, {[int(v.sum()) for v in capture.rows[2]]} valid rows")
+
+
+#: the kernel rows a family run's recorded launches are held under, by the
+#: ``Capture`` record that holds them
+FAMILY_RECORDS = {"fwd": "lstm_last_fwd", "bwd": "lstm_last_bwd", "scan_fwd": "lstm_scan_fwd",
+                  "scan_bwd": "lstm_scan_bwd", "dense": "adagrad_update", "rows": "scatter_adagrad"}
+
+
+def check_family_kernels(torch, tag, capture, launches):
+    """Every kernel launch that a family's run recorded (``Capture``) against
+    its plain twin on the same inputs, with the flagship's rules: kernel 1's
+    training outputs (``residual_agreement``), kernel 2 re-run on its
+    recorded inputs (``backward_agreement``), kernels 7 and 8
+    (``scan_agreement``), each by the rule of its dtype (bf16 with its
+    unequal share, f32 the f32 rule); kernels 3 and 4 bit for bit
+    (``check_adagrad_cases``).  A kernel the run launched must have a record.
+    Returns {kernel row: largest error}."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import adagrad_kernel as ak
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_scan_kernel as sk
+    from open_knowledge_graph_embeddings_tpu_torch.ops import scatter_adagrad_kernel as sak
+
+    for record, name in FAMILY_RECORDS.items():
+        check(not launches[name] or getattr(capture, record), f"{tag}: {name} launched, but no launch was recorded")
+    errs = Counter()
+
+    def hold(name, label, dtype, ok, text, err):
+        row = name + ("_f32" if dtype == torch.float32 else "")
+        print(f"{tag} {row} {label}: {text}")
+        check(ok, f"{tag}: {row} disagrees with its plain version on the {label}")
+        errs[row] = max(errs[row], err)
+
+    for i, (args, got) in enumerate(capture.fwd):
+        B = args[0].shape[1]
+        hold("lstm_last_fwd", f"training pass {i} B={B}", args[0].dtype,
+             *residual_agreement(torch, args, got, lk.lstm_encode_last_plain(*args, residuals=True)))
+    for i, args in enumerate(capture.bwd):
+        got, want = lk.lstm_last_backward(*args), lk.lstm_last_backward_plain(*args)
+        hold("lstm_last_bwd", f"training backward {i} B={args[0].shape[1]}", args[0].dtype,
+             *backward_agreement(torch, args, got, want))
+    for i, (args, got) in enumerate(capture.scan_fwd):
+        hold("lstm_scan_fwd", f"pass {i} B={args[0].shape[1]}", args[0].dtype,
+             *scan_agreement(torch, got, sk.lstm_scan_forward_plain(*args)))
+    for i, args in enumerate(capture.scan_bwd):
+        hold("lstm_scan_bwd", f"training backward {i} B={args[0].shape[1]}", args[0].dtype,
+             *scan_agreement(torch, sk.lstm_scan_backward(*args), sk.lstm_scan_backward_plain(*args),
+                             backward=True))
+    if capture.dense is not None:
+        errs["adagrad_update"] = check_adagrad_cases(
+            torch, "adagrad_update", [(f"{tag} first step's group {[list(p.shape) for p in capture.dense[1]]}",
+                                       capture.dense, False)],
+            ak.adagrad_update_leaves, ak.adagrad_update_leaves_plain, {})
+    if capture.rows is not None:
+        errs["scatter_adagrad"] = check_adagrad_cases(
+            torch, "scatter_adagrad", [(f"{tag} first step's tables {[list(p.shape) for p in capture.rows[3]]}",
+                                        capture.rows, False)],
+            sak.scatter_adagrad_tables, sak.scatter_adagrad_tables_plain, {})
+    return dict(errs)
+
+
+def phase_families(torch, timings, by_path, by_path_f32):
+    """The eight model families of this slice through ``cli.train``,
+    ``--evaluate`` and serving: lookup ComplEx at FB15k-237's widths and
+    sizes trained, evaluated, served and timed; the other seven names a few
+    steps and one validation eval each; the row-sparse lookup path.  Each
+    run's launches go to ``by_path`` (bf16) or ``by_path_f32`` under its
+    tag.  Returns the largest error of each kernel row that the runs'
+    recorded launches were held under (``check_family_kernels``)."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import load_checkpoint, load_opt_state
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import leaves
+
+    timings["fb_dataset_gen_s"] = ensure_dataset(FB_DATA_DIR, FB_DATA_ARGS)
+    errs = {}
+    for tag, config in family_runs():
+        trainer, capture, launches, wall = run_family(torch, tag, config)
+        main_path = tag == "fb_lookup_complex"
+        check_family_run(torch, tag, trainer, launches, wall, falling=main_path)
+        (by_path if trainer.model.embedder.dtype == "bfloat16" else by_path_f32)[tag] = launches
+        timings[tag + "_cli_train_s"] = wall
+        for row, err in check_family_kernels(torch, tag, capture, launches).items():
+            errs[row] = max(errs.get(row, 0.0), err)
+        if tag == "olp_lookup_sparse":
+            check_sparse_lookup(tag, trainer, capture)
+        if main_path:
+            check(launches["adagrad_update"] == len(trainer.step_log), f"{tag}: kernel 3 not once a step")
+            check_selection(torch, trainer)
+            ckpt = Path(trainer.last_checkpoint)
+            variables, meta = load_checkpoint(str(ckpt), trainer.model.init(torch.Generator(device="cuda")
+                                                                            .manual_seed(1)))
+            opt = load_opt_state(str(ckpt), trainer.regimes.init_state(variables["params"]))
+            for got, want in ((variables["params"], trainer.variables["params"]),
+                              (variables["state"], trainer.variables["state"]), (opt, trainer.opt_state)):
+                g, w = dict(leaves(got)), dict(leaves(want))
+                check(set(g) == set(w) and all(torch.equal(g[k], w[k]) for k in w), f"{tag}: checkpoint does not "
+                                                                                      "load back")
+            print(f"{tag}: checkpoint {ckpt.name}: params and {len(dict(leaves(opt)))} optimizer leaves load back "
+                  "equal")
+            time_family_steps(torch, trainer, timings, tag + "_")
+            time_adagrad_leaves(torch, capture.dense, timings, tag + "_")
+            trainer = capture = None
+            test_trainer, cap, test_launches, row, test_wall = run_evaluate(
+                torch, config, str(ckpt), ROOT / ".bench_cache" / f"smoke_eval_{tag}", False, FB_DATA_DIR)
+            check(all(v == 0 for v in test_launches.values()) and cap.dense and not cap.chunked,
+                  f"{tag} test: launches {test_launches}, the dense [B, N] ranking not taken")
+            check_eval_metrics(f"{tag} test", row, cap.dense,
+                               int(test_trainer.validation_dataset.records.group_offsets[-1]))
+            check_dense_ranking(torch, f"{tag} test", cap)
+            timings[tag + "_eval_test_s"] = test_trainer.last_eval["batches_s"]
+            print(f"{tag} test eval: {test_trainer.last_eval['batches']} batches of "
+                  f"{test_trainer.val_builder.batch_size} against every entity in "
+                  f"{test_trainer.last_eval['batches_s']:.3f} s (cli.train --evaluate {test_wall:.3f} s)")
+            by_path_f32[tag + "_eval"] = test_launches
+            del test_trainer, cap
+            by_path_f32[tag + "_serve"] = serve_lookup(torch, timings, config, str(ckpt), tag + "_serve_")
+        del trainer, capture
+        torch.cuda.empty_cache()
+    return errs
+
+
 def build_kernels(torch, timings):
     """nvcc for every CUDA source, started together."""
     from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
@@ -3418,6 +3953,9 @@ def main(argv) -> int:
         by_path_f32 = {}
         rows += phase_f32(torch, timings, by_path_f32)
         phase_any_h(torch)
+        family_errs = phase_families(torch, timings, by_path, by_path_f32)
+        for row in rows:
+            row["max_abs_err"] = max(row["max_abs_err"], family_errs.get(row["name"], 0.0))
         timings["launch_cost"] = launch_cost(torch)
         check([row["name"] for row in rows] == KERNEL_ROWS, f"kernel rows {[row['name'] for row in rows]}")
     except (SmokeFailure, RuntimeError, subprocess.SubprocessError, OSError) as e:

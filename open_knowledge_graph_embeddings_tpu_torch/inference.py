@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from open_knowledge_graph_embeddings_tpu_torch.data.dataset import DatasetMeta, _read_id_map
+from open_knowledge_graph_embeddings_tpu_torch.models.embedders import params_device
 from open_knowledge_graph_embeddings_tpu_torch.models.model import KGEModel
 from open_knowledge_graph_embeddings_tpu_torch.ops.scoring import score_against_candidates
 from open_knowledge_graph_embeddings_tpu_torch.train.evaluate import (
@@ -33,9 +34,9 @@ class Predictor:
         self.model = model
         self.variables = variables
         self.meta: DatasetMeta = model.meta
-        self.device = variables["buffers"]["entity_token_ids"].device
+        self.device = params_device(variables)
         self.offset = self.meta.min_entities_size
-        self.cand_emb = model.encode_all_entities(variables)[self.offset :]
+        self.cand_emb = model.candidate_cache(variables)
 
         self.entity_names: Dict[int, str] = {}
         self.relation_names: Dict[int, str] = {}

@@ -4,10 +4,12 @@ Counterpart of ``open_knowledge_graph_embeddings_tpu/train/sparse.py`` with
 the 'compact' plan layout on one device:
 
 1. the host (:class:`SparsePlanBuilder`) finds, per batch, the unique rows
-   of each table the batch touches (the union of token ids for token
-   tables, PAD included), remaps the batch's token matrices into that
-   compact row space, plans the gather-sum token-table backward, and
-   dedups the query mentions and relations;
+   of each table the batch touches: the entity and relation ids themselves
+   for lookup tables (the batch's ids are remapped into that compact row
+   space), the union of token ids for token tables, PAD included (the
+   batch's token matrices are remapped); for the LSTM it plans the
+   gather-sum token-table backward, and for the LSTM and unigram families
+   it dedups the query mentions and relations;
 2. the step gathers those rows, differentiates the loss with respect to
    the gathered [U, d] rows instead of the [V, d] table,
 3. and the row-sparse Adagrad (:func:`..ops.scatter_adagrad_kernel.scatter_adagrad_tables`,
@@ -33,7 +35,12 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from open_knowledge_graph_embeddings_tpu_torch.data.batching import Batch
-from open_knowledge_graph_embeddings_tpu_torch.models.embedders import LSTMEmbedder, TokenEmbedderBase
+from open_knowledge_graph_embeddings_tpu_torch.models.embedders import (
+    BigramPoolingEmbedder,
+    LookupEmbedder,
+    LSTMEmbedder,
+    TokenEmbedderBase,
+)
 from open_knowledge_graph_embeddings_tpu_torch.models.model import KGEModel
 from open_knowledge_graph_embeddings_tpu_torch.ops.scatter_adagrad_kernel import scatter_adagrad_tables
 from open_knowledge_graph_embeddings_tpu_torch.train.optim import (
@@ -105,10 +112,13 @@ def sparse_table_names(embedder, entity_sparse: bool) -> Tuple[str, ...]:
     """Tables eligible for row-sparse updates.  Entity-side tables are sparse
     only under batch-shared candidates (full-vocabulary training touches
     every entity row anyway)."""
-    if isinstance(embedder, TokenEmbedderBase):
-        return ("entity_token_embedding", "relation_token_embedding") if entity_sparse else (
-            "relation_token_embedding",)
-    return ()
+    if isinstance(embedder, LookupEmbedder):
+        names = ("entity_embedding", "relation_embedding")
+    elif isinstance(embedder, TokenEmbedderBase):
+        names = ("entity_token_embedding", "relation_token_embedding")
+    else:
+        return ()
+    return names if entity_sparse else names[1:]
 
 
 class SparsePlanBuilder:
@@ -116,10 +126,12 @@ class SparsePlanBuilder:
 
     The dict is ``train_batch_to_arrays(batch)`` plus, per sparse table T,
     ``sparse/T/uids`` ([U] int32, bucket-padded with row 0) and
-    ``sparse/T/valid`` ([U] bool); the token matrices of the batch, remapped
-    into the compact row space, replace the token-id buffers under
-    ``sparse/buffers/*``; the gather-sum plans ride under ``sparse/plan/*``
-    and the query dedup inverses under ``dedup/*``."""
+    ``sparse/T/valid`` ([U] bool).  For a lookup embedder the batch's
+    entity, candidate and relation ids are remapped into the compact row
+    space; for a token embedder the token matrices of the batch, remapped,
+    replace the token-id buffers under ``sparse/buffers/*``, the gather-sum
+    plans (LSTM) ride under ``sparse/plan/*`` and the query dedup inverses
+    (LSTM, unigram) under ``dedup/*``."""
 
     def __init__(self, embedder, entity_sparse: bool, uid_bucket_min: int = 256,
                  min_rows_ratio: float = 12.0, grad_plan: bool = True,
@@ -133,14 +145,15 @@ class SparsePlanBuilder:
         self.uid_bucket_min = uid_bucket_min
         self.min_rows_ratio = min_rows_ratio
         self.tables = sparse_table_names(embedder, entity_sparse)
-        if not isinstance(embedder, TokenEmbedderBase):
-            raise NotImplementedError(
-                f"sparse plans for {type(embedder).__name__} are not ported: ROADMAP Queue 1 item 11"
-            )
         if entity_sparse and not self.tables:
             raise ValueError(f"no sparse tables for embedder {type(embedder).__name__}")
+        self.is_token = isinstance(embedder, TokenEmbedderBase)
+        # the gather-sum plan indexes the LSTM's sorted time-major layout
         self.grad_plan = bool(grad_plan) and isinstance(embedder, LSTMEmbedder)
-        self.dedup_queries = bool(dedup_queries)
+        # the bigram's batchnorm sees the positions of the encode batch, so
+        # deduped queries would change its statistics
+        self.dedup_queries = bool(dedup_queries) and self.is_token and not isinstance(
+            embedder, BigramPoolingEmbedder)
         self.dedup_bucket = int(dedup_bucket)
 
     def _pack_rows(self, d: Dict[str, Any], table: str, uids: np.ndarray, height: int):
@@ -160,8 +173,25 @@ class SparsePlanBuilder:
 
     def __call__(self, batch: Batch) -> Dict[str, Any]:
         d = train_batch_to_arrays(batch)
-        self._plan_token(d, batch)
+        if self.is_token:
+            self._plan_token(d, batch)
+        else:
+            self._plan_lookup(d, batch)
         return d
+
+    def _plan_lookup(self, d: Dict[str, Any], batch: Batch) -> None:
+        meta = self.embedder.meta
+        if self.entity_sparse:
+            if batch.candidate_ids is None:
+                raise ValueError("entity-table sparsity needs batch-shared candidates")
+            used = np.concatenate([batch.ent_ids, batch.candidate_ids])
+            remap = self._pack_rows(d, "entity_embedding", np.unique(used), meta.entities_size)
+            if remap is not None:
+                d["ent_ids"] = remap(batch.ent_ids)
+                d["candidate_ids"] = remap(batch.candidate_ids)
+        remap = self._pack_rows(d, "relation_embedding", np.unique(batch.rel_ids), meta.relations_size)
+        if remap is not None:
+            d["rel_ids"] = remap(batch.rel_ids)
 
     def _emit_grad_plan(self, d: Dict[str, Any], kind: str, table: str) -> None:
         if not self.grad_plan:
@@ -315,7 +345,7 @@ def make_sparse_train_step(model: KGEModel, regimes: OptimizerRegimes, params_ex
                                                              generator)
         ((loss_sum + reg) / batch["normalizer_loss"]).backward()
         g_dense = grad_tree(dense_leaves)
-        g_rows = {t: rows[t].grad for t in sparse_tables}
+        g_rows = grad_tree(rows)
         if grad_clip is not None and grad_clip > 0:
             clipped = clip_by_global_norm({**g_dense, **g_rows}, grad_clip)
             g_dense = {k: clipped[k] for k in g_dense}

@@ -117,7 +117,13 @@ def leaf_tree(tree):
 
 
 def grad_tree(tree):
-    return {k: grad_tree(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.grad
+    """The gradients of :func:`leaf_tree`'s leaves; a leaf the loss does not
+    reach (the relation encoder of the entity-bias model, the unused
+    batchnorm of the bigram's token encode) gets zeros, as JAX's gradient
+    gives it, and takes its optimizer update (weight decay) like the rest."""
+    if isinstance(tree, dict):
+        return {k: grad_tree(v) for k, v in tree.items()}
+    return tree.grad if tree.grad is not None else torch.zeros_like(tree)
 
 
 def make_eval_step(model: KGEModel, loss_type: str = "bce", label_smoothing: float = 0.0, topk: int = 0):

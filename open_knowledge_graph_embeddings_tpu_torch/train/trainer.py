@@ -41,6 +41,7 @@ import torch
 
 from open_knowledge_graph_embeddings_tpu_torch.data.batching import Batch, BatchBuilder, pad_batches_to_common_shape
 from open_knowledge_graph_embeddings_tpu_torch.data.dataset import OneToNMentionRelationDataset
+from open_knowledge_graph_embeddings_tpu_torch.models.embedders import TokenEmbedderBase
 from open_knowledge_graph_embeddings_tpu_torch.models.model import KGEModel
 from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import (
     copy_checkpoint,
@@ -120,6 +121,7 @@ class Trainer:
         self.sparse = bool(getattr(model.embedder, "sparse", False)) and bool(
             sparse_table_names(model.embedder, entity_sparse))
         self._sparse_plan = None
+        self._sparse_tables = sparse_table_names(model.embedder, entity_sparse) if self.sparse else ()
         if self.sparse:
             self._sparse_plan = SparsePlanBuilder(
                 model.embedder, entity_sparse,
@@ -241,8 +243,7 @@ class Trainer:
             self.step_log.append({
                 "wait_ms": wait_ms,
                 "loss": stats["loss_sum"] / batch.normalizer_loss,  # stays on the device
-                "sparse_tables": tuple(t for t in ("entity_token_embedding", "relation_token_embedding")
-                                       if f"sparse/{t}/uids" in arrays),
+                "sparse_tables": tuple(t for t in self._sparse_tables if f"sparse/{t}/uids" in arrays),
             })
             pending.append((stats, batch.normalizer_loss))
             now = time.time()
@@ -265,14 +266,25 @@ class Trainer:
 
     # ------------------------------------------------------------------- eval
 
+    #: lookup models above this many entities evaluate against a cache (the
+    #: encoded table slice), which takes the chunked ranking above
+    #: ``CHUNKED_ABOVE`` candidates
+    LOOKUP_CACHE_ABOVE = 200_000
+
     def _candidate_cache(self) -> Optional[torch.Tensor]:
-        """The [N, d] candidate cache of a full-vocabulary eval (every entity
-        from ``min_entities_size`` on, encoded in chunks); None for
-        batch-shared eval, which encodes its candidates per batch."""
+        """The [N, d] candidate cache of a full-vocabulary eval
+        (``KGEModel.candidate_cache``) for token models and for lookup models
+        above ``LOOKUP_CACHE_ABOVE`` entities.  None for batch-shared eval,
+        which encodes its candidates per batch, and for smaller lookup
+        models, whose eval step encodes the slice itself and ranks the dense
+        [B, N] scores."""
         ds = self.validation_dataset
         if ds is None or ds.use_batch_shared_entities:
             return None
-        return self.model.encode_all_entities(self.variables)[self.model.meta.min_entities_size :]
+        if (not isinstance(self.model.embedder, TokenEmbedderBase)
+                and self.model.meta.entities_size <= self.LOOKUP_CACHE_ABOVE):
+            return None
+        return self.model.candidate_cache(self.variables)
 
     def _eval_batches(self, builder: BatchBuilder):
         """Full-vocabulary eval batches are deterministic: built once, padded

@@ -606,6 +606,32 @@ def test_adagrad_checks_pass_plain_and_fail_planted_faults(smoke, kind, capsys):
         smoke.check_adagrad_cases(torch, name, [("ragged", case, False)], reciprocal_kernel, plain, faults)
 
 
+def test_family_kernel_check_holds_every_recorded_launch(smoke, lstm_case, scan_case, capsys):
+    """``check_family_kernels`` on a record of every training kernel (here
+    the wrappers take the plain versions): each is held and reported under
+    its kernel row; a planted fault in a recorded forward fails the run, and
+    so does a kernel that launched with no record."""
+    from types import SimpleNamespace
+
+    fwd_args, got, bwd_args = lstm_case
+    capture = SimpleNamespace(fwd=[(fwd_args, got)], bwd=[bwd_args], scan_fwd=scan_case[0], scan_bwd=scan_case[1],
+                              dense=smoke.ragged_dense_group(torch, [300, 100], device="cpu"),
+                              rows=smoke.ragged_row_tables(torch, device="cpu"))
+    launches = {name: 1 for name in smoke.FAMILY_RECORDS.values()}
+    errs = smoke.check_family_kernels(torch, "case", capture, launches)
+    assert errs == {name: 0.0 for name in smoke.FAMILY_RECORDS.values()}
+    out = capsys.readouterr().out
+    assert out.count("case lstm_scan_fwd pass") == 2 and out.count("bit-equal True") == 2
+
+    last, hs, cs = got
+    late = SimpleNamespace(**{**vars(capture), "fwd": [(fwd_args, (last, torch.cat([hs[:1], hs[:-1]]), cs))]})
+    with pytest.raises(smoke.SmokeFailure, match="lstm_last_fwd disagrees"):
+        smoke.check_family_kernels(torch, "case", late, launches)
+    missing = SimpleNamespace(**{**vars(capture), "scan_bwd": []})
+    with pytest.raises(smoke.SmokeFailure, match="lstm_scan_bwd launched, but no launch was recorded"):
+        smoke.check_family_kernels(torch, "case", missing, launches)
+
+
 def test_one_row_backward_check_reports_shares_and_f64_errors(smoke, capsys):
     """Kernel 6's one-row check (here on the plain versions, a few draws):
     the test's inputs, a bitwise repeat, demb's unequal share per draw and
@@ -690,6 +716,13 @@ def test_host_recount_and_its_planted_faults(smoke, capsys):
     # a batch on which neither fault shows cannot hold the ranking
     with pytest.raises(smoke.SmokeFailure, match="no power"):
         smoke.check_ranking("case", [(rows[1:2], mentions[1:2], filt[1:2], col_valid, np.array([0]))])
+    # a batch without ties: the ties fault is required unless the caller
+    # says no ties are expected (random lookup embeddings)
+    untied = (np.array([[0.5, 0.9, 0.2, 0.1, 0.0, 0.3, -0.1, 0.0]], np.float32), mentions[:1], filt[:1], col_valid,
+              np.array([0]))
+    with pytest.raises(smoke.SmokeFailure, match="'ties as >' changes no rank"):
+        smoke.check_ranking("case", [untied])
+    assert smoke.check_ranking("case", [untied], ties_expected=False) == 1
 
 
 def test_f64_check_holds_ranks_within_the_f32_bound(smoke, capsys):

@@ -1040,3 +1040,99 @@ def test_chunked_eval_ranks_equal_dense_on_card(cuda, exact, chunk):
     _, ranks, valid_c = eval_stats_chunked(q, cand, *pos, None, n_real, *golds, chunk=chunk)
     assert torch.equal(valid_c, valid) and bool(valid.all())
     assert torch.equal(ranks, dense)
+
+
+# ------------------------------------------------------------- model families
+
+FAMILY_CONFIGS = {
+    "LookupComplexRelationModel": dict(batch_norm=True),
+    "LookupDistmultRelationModel": dict(normalize="norm"),
+    "LookupTucker3RelationModel": dict(entity_slot_size=32, relation_slot_size=64),
+    "UnigramPoolingComplexRelationModel": dict(normalize="batchnorm"),
+    "BigramPoolingComplexRelationModel": dict(normalize="batchnorm", gates=True),
+    "LSTMComplexRelationModel": dict(normalize="batchnorm"),
+    "LSTMDistmultRelationModel": dict(normalize="batchnorm"),
+    "LSTMTucker3RelationModel": dict(normalize="batchnorm"),
+    "DataBiasOnlyEntityModel": dict(normalize="batchnorm"),
+    "DataBiasOnlyRelationModel": dict(normalize="batchnorm"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_CONFIGS))
+def test_family_steps_on_card_match_cpu(cuda, tmp_path, name):
+    """Each registry name, f32 at d = 128 (the LSTM's fused kernels): three
+    dense SGD steps (lr 0.1, no Adagrad sign flips of f32 noise) on the card
+    against the same steps on the CPU from the same weights, full-vocabulary
+    batches of 64: the losses (rtol 1e-4); the first step's update of every
+    parameter (-lr g) to 1e-4 of the leaf's largest (a gradient through the
+    LSTM sums every row and step) plus 1e-6 of the model's largest update
+    (a Tucker3 relation's first batchnorm bias has a zero gradient in exact
+    arithmetic: f32 noise) plus one f32 ulp of the new parameter (p - lr g
+    rounds to the parameter's ulp: a 2^-30 flip at |p| ~ 0.01 is 1.9e-4 of
+    a 4.9e-6 update); the running variances by the f32 rule and the running
+    means to 1e-5 of their batchnorm's largest standard deviation (a mean
+    of batchnormed inputs is zero up to f32 noise); then the eval-mode
+    queries of the trained weights by the f32 rule."""
+    from open_knowledge_graph_embeddings_tpu_torch.data.batching import BatchBuilder
+    from open_knowledge_graph_embeddings_tpu_torch.data.dataset import OneToNMentionRelationDataset
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes, leaves
+    from open_knowledge_graph_embeddings_tpu_torch.train.step import (
+        arrays_to_device,
+        make_train_step,
+        train_batch_to_arrays,
+    )
+
+    subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "make_synth_olpbench.py"), str(tmp_path),
+         "--mentions", "600", "--relations", "40", "--triples", "300",
+         "--eval-size", "20", "--ent-tokens", "150", "--rel-tokens", "30", "--seed", "7"],
+        check=True, capture_output=True, timeout=120,
+    )
+    ds = OneToNMentionRelationDataset(dataset_dir=str(tmp_path), input_file="train.txt", is_training_data=True,
+                                      batch_size=64, use_batch_shared_entities=False)
+    model = build_model(name, ds.meta, **{"entity_slot_size": 128, "init_std": 0.1, **FAMILY_CONFIGS[name]})
+    init = model.init(torch.Generator().manual_seed(0))
+    to = lambda tree, dev: {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}  # noqa: E731
+    batches = list(BatchBuilder(ds, seed=1).batches(shuffle=True))[:3]
+    assert len(batches) == 3
+    runs = []
+    init_flat = dict(leaves({"p": init["params"], "s": init["state"]}))
+    for dev in (cuda, torch.device("cpu")):
+        v = to(init, dev)
+        v = {**v, "params": {k: _clone(x) for k, x in v["params"].items()}}
+        reg = OptimizerRegimes({"optimizer": "SGD", "lr": 0.1})
+        reg.update(1, 0)
+        step = make_train_step(model, reg, v["params"])
+        opt = reg.init_state(v["params"])
+        losses, first = [], None
+        for b in batches:
+            v, opt, stats = step(v, opt, reg.hparams(), arrays_to_device(train_batch_to_arrays(b), dev))
+            losses.append(float(stats["loss_sum"]))
+            if first is None:
+                first = {k: x.detach().cpu().clone() for k, x in leaves({"p": v["params"], "s": v["state"]})}
+        runs.append((losses, first, v))
+    card, cpu = runs
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+    update = {k: cpu[1][k] - init_flat[k] for k in cpu[1] if k.startswith("p/")}
+    top = max(float(u.abs().max()) for u in update.values())
+    for k, want in update.items():
+        got, m = card[1][k] - init_flat[k], float(want.abs().max())
+        ulp = torch.from_numpy(np.spacing(cpu[1][k].abs().numpy()))
+        excess = (got - want).abs() - (1e-4 * m + 1e-6 * top + ulp)
+        assert float(excess.max()) <= 0, (k, float((got - want).abs().max()), float(excess.max()))
+    for k, want in cpu[1].items():
+        if k.endswith("/mean"):
+            std = float(cpu[1][k.removesuffix("mean") + "var"].max()) ** 0.5
+            assert float((card[1][k] - want).abs().max()) <= 1e-5 * std, k
+        elif k.startswith("s/"):
+            assert f32_agreement(card[1][k], want).ok(), (k, f32_agreement(card[1][k], want))
+    rng = np.random.default_rng(2)
+    ids = [torch.from_numpy(rng.integers(2, n, 64)) for n in (ds.meta.entities_size, ds.meta.relations_size)]
+    is_sp = torch.from_numpy(rng.integers(0, 2, 64).astype(bool))
+    q_card = model.queries(card[2], ids[0].to(cuda), ids[1].to(cuda), is_sp.to(cuda))[0]
+    q_cpu = model.queries(cpu[2], *ids, is_sp)[0]
+    assert_f32_close(q_card.cpu(), q_cpu)
+
+
+def _clone(x):
+    return {k: _clone(v) for k, v in x.items()} if isinstance(x, dict) else x.clone()

@@ -183,16 +183,36 @@ def _flatten(tree, prefix=""):
     return out
 
 
-def test_unported_models_raise(synth_dir):
-    meta = load_meta(synth_dir, (10, 10), cache_dir=synth_dir + "/port_cache")
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_every_registry_name_builds(synth_dir, name):
+    """Every name of the JAX registry builds in the port (none raises
+    NotImplementedError), with JAX's entity and relation widths; the
+    Tucker3 names project the relation to d^2."""
     from open_knowledge_graph_embeddings_tpu.models.model import MODELS as JAX_MODELS
 
     assert set(MODELS) == set(JAX_MODELS)
-    for name in MODELS:
-        if name.startswith("LSTMComplex") or name.startswith("LSTMDistmult"):
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(name, meta, entity_slot_size=16)
-    # the relation projection (Tucker3) of the token embedders is not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("LSTMComplexRelationModel", meta, entity_slot_size=16, project_relation=True)
+    cfg = dict(entity_slot_size=16, relation_slot_size=16, normalize="batchnorm")
+    model = build_model(name, load_meta(synth_dir, (10, 10), cache_dir=synth_dir + "/port_cache"), **cfg)
+    jmodel = JAX_MODELS[name](jax_load_meta(synth_dir, (10, 10), cache_dir=synth_dir + "/jax_cache"), **cfg)
+    assert model.scorer == jmodel.scorer
+    assert type(model.embedder).__name__ == type(jmodel.embedder).__name__
+    assert (model.embedder.entity_dim, model.embedder.relation_dim) == (
+        jmodel.embedder.entity_dim, jmodel.embedder.relation_dim)
+    assert model.embedder.relation_dim == (256 if "Tucker3" in name else 16)
+
+
+def test_bigram_refuses_the_relation_projection_as_jax_does(synth_dir):
+    """The bigram family never applies its relation projection in the
+    reference: both packages refuse ``project_relation``."""
+    from open_knowledge_graph_embeddings_tpu.models.embedders import BigramPoolingEmbedder as JaxBigram
+    from open_knowledge_graph_embeddings_tpu_torch.models.embedders import BigramPoolingEmbedder
+
+    jmeta = jax_load_meta(synth_dir, (10, 10), cache_dir=synth_dir + "/jax_cache")
+    meta = load_meta(synth_dir, (10, 10), cache_dir=synth_dir + "/port_cache")
+    with pytest.raises(AssertionError, match="project_relation"):
+        JaxBigram(meta=jmeta, entity_slot_size=16, project_relation=True)
+    with pytest.raises(ValueError, match="project_relation"):
+        BigramPoolingEmbedder(meta=meta, entity_slot_size=16, project_relation=True)
+    # the registry passes the key through to the embedder
+    with pytest.raises(ValueError, match="project_relation"):
+        build_model("BigramPoolingComplexRelationModel", meta, entity_slot_size=16, project_relation=True)
