@@ -125,7 +125,26 @@ Phases (any failure exits non-zero before the final line):
    the 2.47M-mention set, 4096 x 4096 batch-shared, kernel 4 launched on
    the tables the plans sparsified and its first launch bit-equal to its
    plain version;
-12. the Adagrads' host cost through the entry points every tree of the port
+12. gradient accumulation, the KL loss, the other optimizers and the lr
+   schedulers, and ``resume_filter`` (``phase_objectives``), each through
+   ``cli.train`` with exact launch counts: the flagship with
+   ``batch_size_for_backward`` 16384 (windows of 4 micro-batches, two
+   passes; each window's row-sparse tables counted on the CPU first with
+   the port's ``plan_window``), the first window's kernel 3 and 4 launches
+   bit-equal to their plain versions and its summed row gradients against
+   its four micro-batches' recomputed alone (the f32 rule; one left out
+   must fail), the batches carried at the end, ``model_best-mrr``; then
+   ``--resume`` from it with ``resume_filter: [lstm]`` and one more pass
+   (the LSTM leaves the checkpoint's, the rest the seeded init, at the
+   first step); the flagship with ``loss: kl`` (two passes, then
+   ``--evaluate`` on both splits: the full-vocabulary test batch 0's loss
+   against a dense f32 ``log_softmax`` over every candidate, relative
+   1e-4, its ranks recounted on the host), timed beside BCE; and lookup
+   ComplEx at FB15k-237's widths under Adam with StepLR, RMSprop (relation
+   tables) and Adagrad under ReduceLROnPlateau, and Adagrad switching to
+   Adadelta at step 20 under CosineAnnealingLR (every step's lr the
+   scheduler's closed form, the lr kernel 3 is handed, JAX's state keys);
+13. the Adagrads' host cost through the entry points every tree of the port
    has (``launch_cost``; ``python3 chip_smoke.py --launch-cost DIR`` runs
    only that, on the port in the checkout at DIR, to hold two trees against
    each other in one call); print the timings, one JSON line with every
@@ -556,7 +575,7 @@ def phase_main_path(torch, timings, ckpt=None, unfused=False, config=FLAGSHIP, t
     timings[pre + "cli_predict_s"] = time.perf_counter() - t0
 
     _, _, model, variables = load_user_path(torch, config)
-    variables, _ = load_checkpoint(ckpt, variables)
+    variables, _, _ = load_checkpoint(ckpt, variables, {})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     predictor = Predictor(model, variables)  # ids only: the cache encode alone is timed
@@ -895,7 +914,7 @@ def record_scan_encode(torch, config, ckpt, n_ids=4096):
     from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import load_checkpoint
 
     _, meta, model, variables = load_user_path(torch, config)
-    variables, _ = load_checkpoint(ckpt, variables)
+    variables, _, _ = load_checkpoint(ckpt, variables, {})
     ids = torch.arange(meta.min_entities_size, meta.min_entities_size + n_ids, device="cuda")
     got, lens = [], []
     forward, select = sk._launch_forward, embedders.last_states
@@ -1160,7 +1179,7 @@ def phase_train(torch, timings, unfused=False, config=FLAGSHIP, tag="", evaluate
 
 
 def check_training(torch, trainer, launches, n_steps, unfused=False):
-    from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import load_checkpoint, load_opt_state
+    from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import load_checkpoint
     from open_knowledge_graph_embeddings_tpu_torch.train.optim import leaves
 
     log = trainer.step_log
@@ -1191,8 +1210,8 @@ def check_training(torch, trainer, launches, n_steps, unfused=False):
     check(launches == want, f"training launches {launches}, want {want}")
 
     ckpt = Path(trainer.last_checkpoint)
-    variables, meta = load_checkpoint(str(ckpt), trainer.model.init(torch.Generator(device="cuda").manual_seed(1)))
-    opt = load_opt_state(str(ckpt), trainer.regimes.init_state(variables["params"]))
+    init = trainer.model.init(torch.Generator(device="cuda").manual_seed(1))
+    variables, opt, meta = load_checkpoint(str(ckpt), init, trainer.regimes.init_state(init["params"]))
     flat = lambda tree: dict(leaves(tree))  # noqa: E731
     for got, want_tree in ((variables["params"], trainer.variables["params"]),
                            (variables["state"], trainer.variables["state"]), (opt, trainer.opt_state)):
@@ -2914,7 +2933,8 @@ F32_UNIT_ROUNDOFF = 2.0 ** -24
 class EvalCapture:
     """Records what the eval step hands the ranking while the block runs:
     for every full-vocabulary batch (``eval_stats_chunked``) the query
-    vectors, the eval arrays and the ranks, with the candidate cache; for
+    vectors, the eval arrays, the ranks and the loss, with the candidate
+    cache; for
     every batch-shared one (``ranks_from_scores``) the ranks, and for the
     first its [B, N] scores and arrays.  It wraps the functions in the eval
     step's module and calls them through."""
@@ -2937,7 +2957,8 @@ class EvalCapture:
         out = self._orig[0](q, cand_emb, pos_rows, pos_cols, row_valid, col_valid, n_real_cols, *rest, **kw)
         self.cache = cand_emb
         self.chunked.append({"q": q.clone(), "golds": _copies(rest[:4]), "col_valid": col_valid,
-                             "ranks": out[1].clone(), "gold_valid": out[2].clone()})
+                             "ranks": out[1].clone(), "gold_valid": out[2].clone(), "loss": out[0].clone(),
+                             "pos": _copies((pos_rows, pos_cols, row_valid))})
         return out
 
     def _dense(self, scores, filter_rows, filter_cols, gold_rows, gold_mention_cols, col_valid):
@@ -3268,8 +3289,8 @@ def check_selection(torch, trainer):
               and r["validation_h1"] <= r["validation_h3"] <= r["validation_h10"] <= r["validation_h50"],
               f"validation row {r}")
     best = max(rows, key=lambda r: r["validation_mrr"])
-    _, meta = load_checkpoint(str(Path(trainer.save_path) / "model_best-mrr"),
-                              trainer.model.init(torch.Generator(device=trainer.device).manual_seed(1)))
+    _, _, meta = load_checkpoint(str(Path(trainer.save_path) / "model_best-mrr"),
+                                 trainer.model.init(torch.Generator(device=trainer.device).manual_seed(1)), {})
     check(meta["training_steps"] == best["training_steps"],
           f"model_best-mrr is from step {meta['training_steps']}, the best eval from {best['training_steps']}")
     print("model selection: " + "; ".join(f"step {r['training_steps']} validation MRR {r['validation_mrr']:.6f} "
@@ -3687,7 +3708,7 @@ def serve_lookup(torch, timings, config, ckpt, pre, nq=1024, n_timed=10):
     torch.cuda.synchronize()
     timings[pre + "cli_predict_s"] = time.perf_counter() - t0
     model = build_model(args["model"], meta, **args["model_config"])
-    variables, _ = load_checkpoint(ckpt, model.init(torch.Generator(device="cuda").manual_seed(SEED)))
+    variables, _, _ = load_checkpoint(ckpt, model.init(torch.Generator(device="cuda").manual_seed(SEED)), {})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     predictor = Predictor(model, variables)
@@ -3803,7 +3824,7 @@ def phase_families(torch, timings, by_path, by_path_f32):
     run's launches go to ``by_path`` (bf16) or ``by_path_f32`` under its
     tag.  Returns the largest error of each kernel row that the runs'
     recorded launches were held under (``check_family_kernels``)."""
-    from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import load_checkpoint, load_opt_state
+    from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import load_checkpoint
     from open_knowledge_graph_embeddings_tpu_torch.train.optim import leaves
 
     timings["fb_dataset_gen_s"] = ensure_dataset(FB_DATA_DIR, FB_DATA_ARGS)
@@ -3822,9 +3843,8 @@ def phase_families(torch, timings, by_path, by_path_f32):
             check(launches["adagrad_update"] == len(trainer.step_log), f"{tag}: kernel 3 not once a step")
             check_selection(torch, trainer)
             ckpt = Path(trainer.last_checkpoint)
-            variables, meta = load_checkpoint(str(ckpt), trainer.model.init(torch.Generator(device="cuda")
-                                                                            .manual_seed(1)))
-            opt = load_opt_state(str(ckpt), trainer.regimes.init_state(variables["params"]))
+            init = trainer.model.init(torch.Generator(device="cuda").manual_seed(1))
+            variables, opt, meta = load_checkpoint(str(ckpt), init, trainer.regimes.init_state(init["params"]))
             for got, want in ((variables["params"], trainer.variables["params"]),
                               (variables["state"], trainer.variables["state"]), (opt, trainer.opt_state)):
                 g, w = dict(leaves(got)), dict(leaves(want))
@@ -3851,6 +3871,802 @@ def phase_families(torch, timings, by_path, by_path_f32):
             by_path_f32[tag + "_serve"] = serve_lookup(torch, timings, config, str(ckpt), tag + "_serve_")
         del trainer, capture
         torch.cuda.empty_cache()
+    return errs
+
+
+# ------------------------------------------------- objectives and optimizers
+
+#: the flagship trained with gradient accumulation over 4 micro-batches
+ACCUM_STEPS = 4
+
+
+def flagship_copy(name, **changes):
+    """A copy of the flagship config under ``.bench_cache/`` on the smoke
+    set, with the top-level keys ``changes`` (``experiment_settings`` keys
+    merged into the flagship's)."""
+    import yaml
+
+    es = {**yaml.safe_load(FLAGSHIP.read_text())["experiment_settings"], **changes.pop("experiment_settings", {})}
+    return write_config(name, FLAGSHIP, {"dataset_dir": str(DATA_DIR), "experiment_settings": es, **changes})
+
+
+def window_tables(plan, batches, accum):
+    """The accumulation windows of a stream of host batches, as the trainer
+    forms them (``accum`` batches a window, the rest carried): per window
+    the tables the port's own ``plan_window`` left row-sparse, and the
+    number of batches still waiting at the end."""
+    windows, buf = [], []
+    for b in batches:
+        buf.append(b)
+        if len(buf) == accum:
+            d = plan.plan_window(buf)[0]
+            windows.append(tuple(t for t in plan.tables if f"sparse/{t}/uids" in d))
+            buf = []
+    return windows, len(buf)
+
+
+def count_windows(config, passes, accum=ACCUM_STEPS):
+    """``window_tables`` of ``passes`` passes of the run ``config``
+    describes, on the CPU before the card runs it: the trainer's batch
+    stream (its builder seed, workers and prefetch) and its plan builder."""
+    from open_knowledge_graph_embeddings_tpu_torch.cli.train import setup_dataset
+    from open_knowledge_graph_embeddings_tpu_torch.config.options import load_config
+    from open_knowledge_graph_embeddings_tpu_torch.data.batching import BatchBuilder
+    from open_knowledge_graph_embeddings_tpu_torch.models.model import build_model
+    from open_knowledge_graph_embeddings_tpu_torch.train.sparse import SparsePlanBuilder
+
+    args = load_config(str(config), [])
+    ds = setup_dataset(args)
+    model = build_model(args["model"], ds.meta, **args["model_config"])
+    plan = SparsePlanBuilder(model.embedder, bool(ds.use_batch_shared_entities),
+                             min_rows_ratio=float(args.get("sparse_min_ratio", 12.0)),
+                             grad_plan=bool(args.get("sparse_grad_plan", True)))
+    builder = BatchBuilder(ds, seed=int(args.get("seed") or 0))
+    workers = int(args.get("workers", 8))
+
+    def stream():
+        for _ in range(passes):
+            yield from builder.batches(shuffle=True, prefetch=max(2, workers), workers=workers)
+
+    windows, carried = window_tables(plan, stream(), accum)
+    return windows, carried, len(builder), ds.batch_size, ds.min_size_batch_labels
+
+
+def lr_scale(cfg, epoch, base_lr):
+    """torch's closed form of an epoch-indexed scheduler's lr scale (the
+    kinds the optim runs take): StepLR, CosineAnnealingLR."""
+    import math
+
+    kind = cfg["lr_scheduler"]
+    if kind == "StepLR":
+        return cfg.get("gamma", 0.1) ** (epoch // cfg.get("step_size", 1))
+    if kind == "CosineAnnealingLR":
+        eta_min = cfg.get("eta_min", 0.0)
+        return (eta_min + (base_lr - eta_min) * (1 + math.cos(math.pi * epoch / cfg.get("T_max", 50))) / 2) / base_lr
+    raise ValueError(kind)
+
+
+def phase_lr(phases, phase):
+    """A regime's lr at ``phase``: later phases override earlier ones."""
+    merged = {}
+    for p in phases[: phase + 1]:
+        merged.update(p)
+    return float(merged["lr"])
+
+
+def plateau_scales(metrics, factor, patience):
+    """ReduceLROnPlateau's scale after each eval of ``metrics`` (greater is
+    better), replayed: a fall by ``factor`` after more than ``patience``
+    evals without a new best."""
+    best, bad, scale, out = None, 0, 1.0, []
+    for m in metrics:
+        if best is None or m > best:
+            best, bad = m, 0
+        else:
+            bad += 1
+            if bad > patience:
+                scale, bad = scale * factor, 0
+        out.append(scale)
+    return out
+
+
+class HparamLog:
+    """Per call of ``OptimizerRegimes.hparams`` while the block runs (the
+    trainer calls it once a step, or once an apply): each regime's optimizer
+    name, phase and hyperparameters; and the ``lr`` every dense Adagrad
+    launch is given."""
+
+    def __init__(self):
+        from open_knowledge_graph_embeddings_tpu_torch.ops import adagrad_kernel
+        from open_knowledge_graph_embeddings_tpu_torch.train import optim
+
+        self.mods = (optim.OptimizerRegimes, adagrad_kernel)
+        self.calls, self.launch_lrs = [], []
+
+    def __enter__(self):
+        cls, ak = self.mods
+        self._orig = (cls.hparams, ak._launch)
+        orig_hp, orig_launch = self._orig
+
+        def hparams(regimes):
+            out = orig_hp(regimes)
+            self.calls.append((regimes.opt_names(), list(regimes.current_phase), [dict(h) for h in out]))
+            return out
+
+        def launch(gs, ps, accs, steps, clr, hp):
+            self.launch_lrs.append(hp["lr"])
+            return orig_launch(gs, ps, accs, steps, clr, hp)
+
+        cls.hparams, ak._launch = hparams, launch
+        return self
+
+    def __exit__(self, *exc):
+        cls, ak = self.mods
+        cls.hparams, ak._launch = self._orig
+
+
+class WindowCapture:
+    """The first accumulation window of a run: the parameters at its start
+    (copies) and, per micro-batch, the device arrays and the dropout
+    generator's state before ``grad_step`` draws from it.  It wraps the
+    trainer module's ``make_sparse_accum_steps`` and calls it through."""
+
+    def __init__(self, accum):
+        from open_knowledge_graph_embeddings_tpu_torch.train import trainer
+
+        self.mod, self.accum = trainer, accum
+        self.params, self.micro, self.recording = None, [], True
+
+    def __enter__(self):
+        self._orig = orig = self.mod.make_sparse_accum_steps
+
+        def make(*a, **kw):
+            zero, grad_step, apply_step = orig(*a, **kw)
+
+            def recording(variables, acc, arrays, generator=None):
+                if self.recording and len(self.micro) < self.accum:
+                    if self.params is None:
+                        self.params = {k: v.clone() for k, v in variables["params"].items() if not isinstance(v, dict)}
+                        self.params.update({k: {n: t.clone() for n, t in v.items()}
+                                            for k, v in variables["params"].items() if isinstance(v, dict)})
+                    self.micro.append((arrays, generator.get_state()))
+                return grad_step(variables, acc, arrays, generator)
+
+            return zero, recording, apply_step
+
+        self.mod.make_sparse_accum_steps = make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_sparse_accum_steps = self._orig
+
+    def release(self):
+        """Drop the copies; the steps built in the block record no more."""
+        self.params, self.micro, self.recording = None, [], False
+
+
+@contextlib.contextmanager
+def plain_lstm():
+    """Kernels 1 and 2 off while the block runs: the fused LSTM's wrappers
+    take their plain versions on CUDA tensors, as they do on CPU ones, and
+    count no launch."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+
+    orig = lk._launch_forward, lk._launch_backward
+
+    def forward(emb_tm, w_ih, w_hh, bias, lengths, residuals):
+        return lk.lstm_encode_last_plain(emb_tm, w_ih, w_hh, bias, lengths, residuals=residuals)
+
+    lk._launch_forward, lk._launch_backward = forward, lk.lstm_last_backward_plain
+    try:
+        yield
+    finally:
+        lk._launch_forward, lk._launch_backward = orig
+
+
+def micro_batch_grads(torch, trainer, wcap, i):
+    """Micro-batch ``i`` of the recorded window alone, from the window's
+    starting weights and its recorded dropout stream, through the per-batch
+    gradient of the sparse step (``train/sparse.py``'s ``_sparse_grads``)
+    -> {token table: its row gradient, or its dense one where the window
+    left the table dense}."""
+    from open_knowledge_graph_embeddings_tpu_torch.train import sparse
+
+    tables = list(trainer._sparse_tables)
+    variables = {"params": wcap.params, "state": trainer.variables["state"], "buffers": trainer.variables["buffers"]}
+    arrays, state = wcap.micro[i]
+    gen = torch.Generator(device=trainer.device)
+    gen.set_state(state)
+    sparse_tables = tuple(t for t in tables if f"sparse/{t}/uids" in arrays)
+    g_dense, g_rows, _, _, _ = sparse._sparse_grads(trainer.model, variables, arrays, sparse_tables,
+                                                    trainer.loss_type, trainer.label_smoothing, gen)
+    return {**g_rows, **{t: g_dense[t] for t in tables if t in g_dense}}
+
+
+def window_sums(torch, trainer, wcap):
+    """The window's micro-batches recomputed alone (``micro_batch_grads``)
+    and summed in f64 -> (the sums, the sums without the last micro-batch:
+    the planted fault)."""
+    sums, partial = {}, {}
+    for i in range(len(wcap.micro)):
+        for t, g in micro_batch_grads(torch, trainer, wcap, i).items():
+            sums[t] = sums.get(t, 0) + g.double()
+            if i < len(wcap.micro) - 1:
+                partial[t] = partial.get(t, 0) + g.double()
+    return sums, partial
+
+
+def check_window_gradients(torch, trainer, wcap, rows_capture, dense_capture):
+    """The first window's summed row gradients, as kernel 4 was handed them
+    (and a token table the window left dense, as kernel 3 was), against the
+    sum of its micro-batches' gradients recomputed alone
+    (``window_sums``), twice:
+
+    * with kernels 1 and 2 off (``plain_lstm``), the plain path: the
+      kernels and their plain versions round to bf16 at other points, so
+      this sum is held by the bf16 rule of ``utils/numerics.py`` at
+      max|want| (``MAX_ULPS``); its unequal share does not apply to f32
+      sums and is printed only;
+    * with the kernels on, which isolates the accumulator's adds: the f32
+      rule.
+
+    A sum that leaves one micro-batch out must fail both.  Returns the
+    largest relative error of the f32 rule."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_ULPS, bf16_agreement, f32_agreement
+
+    tables = list(trainer._sparse_tables)
+    by_shape = {tuple(trainer.variables["params"][t].shape): t for t in tables}
+    got = {by_shape[tuple(p.shape)]: g for g, p in zip(rows_capture[0], rows_capture[3])}
+    row_tables = set(got)
+    got.update({by_shape[tuple(p.shape)]: g for g, p in zip(dense_capture[0], dense_capture[1])
+                if tuple(p.shape) in by_shape})
+    with plain_lstm():
+        plain_sums, plain_partial = window_sums(torch, trainer, wcap)
+    sums, partial = window_sums(torch, trainer, wcap)
+    check(set(got) == set(sums) == set(plain_sums) == set(tables),
+          f"window gradients of {set(got)}, recomputed {set(sums)} and {set(plain_sums)}")
+    worst = 0.0
+    for t in tables:
+        kind = "row-sparse" if t in row_tables else "dense fallback"
+        b = bf16_agreement(got[t], plain_sums[t].float())
+        bfault = bf16_agreement(plain_partial[t].float(), plain_sums[t].float())
+        print(f"accum first window {t} ({kind}, {list(got[t].shape)}): summed gradient vs the micro-batches "
+              f"recomputed alone on the plain path (kernels 1 and 2 off), f64 sum: {b.ulps:.3f} bf16 ulps at "
+              f"max|want| (tol {MAX_ULPS}), max abs err {b.max_abs_err:.3e}, unequal {b.unequal_share:.3%} "
+              f"(not held); planted fault (one micro-batch left out): {bfault.ulps:.1f} ulps")
+        check(b.ulps <= MAX_ULPS, f"accum: the window's summed gradient of {t} disagrees with the plain path's")
+        check(bfault.ulps > MAX_ULPS, f"accum: the bf16 rule passes a window sum without one micro-batch ({t})")
+        a = f32_agreement(got[t], sums[t].float())
+        fault = f32_agreement(partial[t].float(), sums[t].float())
+        print(f"accum first window {t}: summed gradient vs the micro-batches recomputed alone with the kernels on, "
+              f"f64 sum: {a}; planted fault (one micro-batch left out): {fault}")
+        check(a.ok(), f"accum: the window's summed gradient of {t} disagrees with its micro-batches'")
+        check(not fault.ok(), f"accum: the f32 rule passes a window sum without one micro-batch ({t})")
+        worst = max(worst, a.rel_err)
+    return worst
+
+
+def repeat_probe(torch, trainer, wcap, bwd_args):
+    """Where the recomputed window sum varies from run to run: kernel 2 on
+    the window's first recorded backward twice (demb where each row
+    reaches, dW and db), and micro-batch 0's
+    gradients twice, bit for bit; then micro-batch 0 twice more under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, which
+    names each op on the path that has no deterministic CUDA
+    implementation.  Kernel 2 promises none of its own (no float atomics):
+    held.  The rest is printed."""
+    import warnings
+
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+
+    act = active_mask(torch, bwd_args)  # demb holds unread garbage past each row's length
+    k2 = [lk.lstm_last_backward(*bwd_args) for _ in range(2)]
+    same_k2 = dict(zip(("demb", "dW_ih", "dW_hh", "db"),
+                       [torch.equal(k2[0][0][act], k2[1][0][act])] + [torch.equal(x, y) for x, y in zip(k2[0][1:],
+                                                                                                      k2[1][1:])]))
+    print(f"accum: kernel 2 twice on the window's first backward (B={bwd_args[0].shape[1]}): bit-equal {same_k2}")
+    check(all(same_k2.values()), "accum: kernel 2 changes from run to run")
+    del k2
+    runs = [micro_batch_grads(torch, trainer, wcap, 0) for _ in range(2)]
+    same = {t: torch.equal(runs[0][t], runs[1][t]) for t in runs[0]}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            det = [micro_batch_grads(torch, trainer, wcap, 0) for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same_det = {t: torch.equal(det[0][t], det[1][t]) for t in det[0]}
+    ops = sorted({str(w.message).split(" does not have a deterministic")[0].strip()[:160] for w in caught})
+    print(f"accum: micro-batch 0's gradients twice, bit-equal by table {same}; under deterministic algorithms "
+          f"{same_det}; ops torch names as nondeterministic on this path: {ops}")
+
+
+def time_accum(torch, trainer, timings, n_windows=2):
+    """The accumulation path after warm-up: ms per micro-batch (``grad_step``)
+    and per apply (``apply_step``), synchronized around each, over
+    ``n_windows`` windows of fresh host batches; and, apart, the host's
+    ``plan_window`` of each window, which ``cli.train`` runs on its training
+    thread between windows (not on the prefetch threads)."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.step import arrays_to_device
+
+    builder, plan, k = trainer.train_builder, trainer._sparse_plan, trainer.accum_steps
+    order = np.random.default_rng(SEED + 2).permutation(len(builder.rec))
+    bs = builder.batch_size
+    windows, plan_ms = [], []
+    for w in range(n_windows + 1):
+        batches = [builder.build(order[(w * k + i) * bs: (w * k + i + 1) * bs]) for i in range(k)]
+        t0 = time.perf_counter()
+        planned = plan.plan_window(batches)
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+        windows.append([arrays_to_device(d, trainer.device) for d in planned])
+    micro_ms, apply_ms = [], []
+    for w, arrays in enumerate(windows):
+        acc = trainer.zero_grads(arrays[0])
+        for a in arrays:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.variables, acc, _ = trainer.grad_step(trainer.variables, acc, a, trainer.generator)
+            torch.cuda.synchronize()
+            if w:
+                micro_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        trainer.variables, trainer.opt_state = trainer.apply_step(trainer.variables, trainer.opt_state, acc,
+                                                                  arrays[-1], trainer.regimes.hparams())
+        torch.cuda.synchronize()
+        if w:
+            apply_ms.append((time.perf_counter() - t0) * 1e3)
+    timings["accum_micro_batch_ms"], timings["accum_apply_ms"] = summary(micro_ms), summary(apply_ms)
+    timings["accum_plan_window_ms"] = summary(plan_ms)
+    serial = np.median(micro_ms) + (np.median(apply_ms) + np.median(plan_ms)) / k
+    print(f"accum timing (synchronized, after a warm-up window): micro-batch median {np.median(micro_ms):.3f} ms, "
+          f"max {max(micro_ms):.3f} ms ({len(micro_ms)}); apply median {np.median(apply_ms):.3f} ms, max "
+          f"{max(apply_ms):.3f} ms ({len(apply_ms)}); host plan_window of {k} batches median "
+          f"{np.median(plan_ms):.3f} ms, max {max(plan_ms):.3f} ms ({len(plan_ms)}, not in the micro-batch time); "
+          f"a micro-batch with its share of the apply and the serial plan {serial:.3f} ms")
+
+
+def run_cli(torch, args):
+    """``cli.train`` with ``args``, with every kernel's launch count set to
+    0 just before and read just after, every training kernel's first
+    launches recorded (``Capture``) -> (trainer, launches, wall s, the
+    capture)."""
+    from open_knowledge_graph_embeddings_tpu_torch.cli import train as cli_train
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with Capture() as capture:
+        trainer = cli_train.cli_main([*args, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return trainer, {name: fn.launches for name, fn in counters.items()}, wall, capture
+
+
+def fold_errs(errs, new):
+    """``errs`` with each kernel row's largest error of ``new`` folded in."""
+    for row, err in new.items():
+        errs[row] = max(errs.get(row, 0.0), err)
+    return errs
+
+
+def check_losses(tag, trainer):
+    """Every step's loss finite, the last steps' mean below the first's."""
+    losses = np.array([float(s["loss"]) for s in trainer.step_log])
+    check(len(losses) > 0 and np.isfinite(losses).all(), f"{tag}: non-finite training loss {losses}")
+    k = max(1, min(3, len(losses) // 4))
+    first, last = losses[:k].mean(), losses[-k:].mean()
+    check(last < first, f"{tag}: the loss did not fall: first {k} steps {first:.5f}, last {k} {last:.5f}")
+    return first, last
+
+
+def phase_accum(torch, timings, by_path):
+    """The flagship with ``batch_size_for_backward`` 16384 (4 micro-batches
+    of 4096 a window), two passes: windows counted on the CPU first, then
+    the run with exact launch counts, its recorded launches against their
+    plain versions (``check_family_kernels``: kernels 1 and 2 on the first
+    micro-batch, the first window's apply bit for bit; the planted faults of
+    the main path's checks on ragged groups), its summed row gradients
+    against its micro-batches' (``check_window_gradients``), the carried
+    batches, the loss falling, ``model_best-mrr``
+    loading back; timed (micro-batch, apply, kernels 3 and 4 cold at the
+    window's shapes).  Returns (the last checkpoint, the largest kernel
+    error by row)."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import adagrad_kernel as ak
+    from open_knowledge_graph_embeddings_tpu_torch.ops import scatter_adagrad_kernel as sak
+    from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import load_checkpoint_meta
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import leaves
+
+    out_dir = ROOT / ".bench_cache" / "smoke_accum"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    config = flagship_copy("synth-olpbench-2m47-accum", batch_size_for_backward=ACCUM_STEPS * 4096,
+                           experiment_dir=str(out_dir))
+    t0 = time.perf_counter()
+    windows, carried, per_pass, B, N = count_windows(config, passes=2)
+    timings["accum_host_count_s"] = time.perf_counter() - t0
+    by_table = Counter(t for w in windows for t in w)
+    print(f"accum (counted on the CPU with plan_window, {timings['accum_host_count_s']:.2f} s): 2 passes of "
+          f"{per_pass} batches of {B} x {N} -> {len(windows)} windows of {ACCUM_STEPS}, {carried} batches carried; "
+          f"row-sparse by table {dict(by_table)} of {len(windows)} windows")
+    check(len(windows) == (2 * per_pass) // ACCUM_STEPS and carried == (2 * per_pass) % ACCUM_STEPS,
+          f"accum: {len(windows)} windows and {carried} carried from {2 * per_pass} batches")
+    with WindowCapture(ACCUM_STEPS) as wcap:
+        trainer, launches, wall, capture = run_cli(torch, [str(config), "--epochs", "2"])
+    timings["accum_cli_train_s"] = wall
+    L, dtype = trainer.model.meta.max_length[0], trainer.model.embedder.dtype
+    log = trainer.step_log
+    check(trainer.accum_steps == ACCUM_STEPS, f"accum: accum_steps {trainer.accum_steps}")
+    check(len(log) == trainer.training_steps == len(windows) * ACCUM_STEPS,
+          f"accum: {len(log)} micro-batches trained, want {len(windows) * ACCUM_STEPS}")
+    check([s["sparse_tables"] for s in log] == [w for w in windows for _ in range(ACCUM_STEPS)],
+          "accum: the run's row-sparse tables differ from the host count")
+    check([s["applied"] for s in log] == [i % ACCUM_STEPS == ACCUM_STEPS - 1 for i in range(len(log))],
+          "accum: an apply off its window's last micro-batch")
+    check(trainer._accum_i == 0 and len(trainer._window_buf) == carried,
+          f"accum: at the end {trainer._accum_i} micro-batches accumulated and {len(trainer._window_buf)} batches "
+          f"waiting, want 0 and {carried} (the row-sparse path trains whole windows; the rest waits for the next "
+          "pass, as in the JAX package)")
+    val_batches = check_selection(torch, trainer)
+    # a micro-batch launches what a step does (the window plan does not
+    # dedup queries, so the entity pass runs over B + N rows: 8192, fused);
+    # per window one dense launch and one row launch if a table is row-sparse
+    want = training_launches(launches, L, len(log), len(windows), sum(1 for w in windows if w), dtype,
+                             val_batches=val_batches)
+    print(f"accum: launches {launches} (want {want}: {len(log)} micro-batches x 2 fused passes (entity pass over "
+          f"{B} + {N} rows), {len(windows)} applies, {want['scatter_adagrad']} with a row-sparse table, "
+          f"{val_batches} validation batches)")
+    check(launches == want, f"accum: launches {launches}, want {want}")
+    first, last = check_losses("accum", trainer)
+    # the serial plan_window shows in the wait before a window's first micro-batch
+    waits = np.array([s["wait_ms"] for s in log]).reshape(-1, ACCUM_STEPS)
+    print(f"accum: cli.train {wall:.2f} s, loss first {first:.5f} -> last {last:.5f}; wait for the arrays: median "
+          f"{np.median(waits[1:, 0]):.3f} ms before a window's first micro-batch (its plan_window), "
+          f"{np.median(waits[1:, 1:]):.3f} ms before the others (windows after the first)")
+    timings["accum_wait_first_ms"], timings["accum_wait_rest_ms"] = (summary(waits[1:, 0].tolist()),
+                                                                     summary(waits[1:, 1:].ravel().tolist()))
+    by_path["accum"] = launches
+
+    # the first window's apply: kernel 3 over the dense leaves (with any
+    # table the window left dense), kernel 4 over the row-sparse tables
+    params = trainer.variables["params"]
+    n_dense = len(list(leaves(params))) - len(windows[0])
+    check(capture.dense is not None and len(capture.dense[1]) == n_dense,
+          f"accum: the first apply's dense group has {len(capture.dense[1]) if capture.dense else 0} leaves, "
+          f"want {n_dense}")
+    check(capture.dense[4]["lr"] == 0.2 and (capture.rows is None) == (not windows[0]),
+          "accum: the first apply's launches")
+    # every recorded launch against its plain version: kernel 1's passes of
+    # the first micro-batch (the entity pass over B + N rows), kernel 2 on
+    # its backward, and the first window's apply (kernels 3 and 4) bit for bit
+    errs = check_family_kernels(torch, "accum", capture, launches)
+    if capture.rows is not None:
+        print(f"accum first window's union rows: {[int(v.sum()) for v in capture.rows[2]]} of "
+              f"{[list(p.shape) for p in capture.rows[3]]}")
+    # the planted faults of the main path's checks, on the groups they catch
+    fold_errs(errs, {"adagrad_update": check_adagrad_cases(
+        torch, "adagrad_update", [("ragged group", ragged_dense_group(torch, [params[t].shape[0] for t in
+                                                                              trainer._sparse_tables]), True)],
+        ak.adagrad_update_leaves, ak.adagrad_update_leaves_plain, dense_faults(ak)),
+        "scatter_adagrad": check_adagrad_cases(
+            torch, "scatter_adagrad", [("ragged tables", ragged_row_tables(torch), True)],
+            sak.scatter_adagrad_tables, sak.scatter_adagrad_tables_plain, padding_writer(sak))})
+    if capture.rows is not None:
+        timings["accum_grad_rel_err"] = check_window_gradients(torch, trainer, wcap, capture.rows, capture.dense)
+        repeat_probe(torch, trainer, wcap, capture.bwd[0])
+    wcap.release()
+
+    gs, ps, accs, steps, hp = capture.dense
+    p1, a1 = _clones(ps), _clones(accs)
+    timings["accum_adagrad_cold_ms"] = ms = cold_kernel_ms(torch, "adagrad_dense_kernel", (gs, p1, a1, steps, hp))
+    n = sum(p.numel() for p in ps)
+    bound = (5 * 4 * n + 2 * 4 * len(ps)) / PEAK_BYTES_PER_S * 1e3
+    print(f"accum adagrad_update at the window's leaves {[list(p.shape) for p in ps]} ({n} elements): device {ms:.4f} "
+          f"ms a launch (profiler, L2 flushed before each), bound {bound:.4f} ms ({bound / ms:.1%} of it)")
+    if capture.rows is not None:
+        g_rows, uids, valid, ps, accs, steps, hp = capture.rows
+        p1, a1 = _clones(ps), _clones(accs)
+        ms = cold_kernel_ms(torch, "adagrad_rows_kernel", (g_rows, uids, valid, p1, a1, steps, hp))
+        timings["accum_scatter_adagrad_cold_ms"] = ms
+        n_valid = [int(v.sum()) for v in valid]
+        bytes_ = sum(5 * 4 * k * g.shape[1] + len(u) * (u.element_size() + 1) + 8
+                     for k, g, u in zip(n_valid, g_rows, uids))
+        bound = bytes_ / PEAK_BYTES_PER_S * 1e3
+        print(f"accum scatter_adagrad at the window's union rows {n_valid} of {[list(p.shape) for p in ps]}: device "
+              f"{ms:.4f} ms a launch (profiler, L2 flushed before each), bound {bound:.4f} ms ({bound / ms:.1%} of it)")
+    del capture
+    time_accum(torch, trainer, timings)
+    ckpt = trainer.last_checkpoint
+    check(load_checkpoint_meta(ckpt)["training_steps"] == len(log), f"accum: the last checkpoint {ckpt}")
+    del trainer
+    torch.cuda.empty_cache()
+    return ckpt, errs
+
+
+def check_kl_eval_loss(torch, rec, cache):
+    """A full-vocabulary test batch's KL loss (the chunked online
+    logsumexp) against a plain dense f32 ``log_softmax`` over every
+    candidate column of its [B, N] scores: relative 1e-4.  Returns the
+    relative difference."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops.scoring import score_against_candidates
+
+    pos_rows, pos_cols, row_valid = rec["pos"]
+    scores = score_against_candidates(rec["q"], cache)  # [B, N] f32
+    if rec["col_valid"] is not None:
+        scores.masked_fill_(~rec["col_valid"][None, :], float("-inf"))
+    logp = torch.log_softmax(scores, dim=1)
+    ok = (pos_rows >= 0) & row_valid[pos_rows.clamp(min=0).long()]
+    want = -logp[pos_rows.clamp(min=0).long(), pos_cols.clamp(min=0).long()][ok].double().sum().item()
+    got = rec["loss"].item()
+    rel = abs(got - want) / abs(want)
+    print(f"kl test batch 0: loss {got:.6f} (chunked online logsumexp) vs {want:.6f} (dense f32 log_softmax over "
+          f"{list(scores.shape)}), relative {rel:.3e} (tol 1e-4)")
+    check(rel <= 1e-4, f"kl: the chunked test loss is {rel:.3e} off the dense log_softmax")
+    del scores, logp
+    return rel
+
+
+def phase_kl(torch, timings, by_path):
+    """The flagship with ``loss: kl``, two passes (kernels 1-4 as on the BCE
+    path, the same counts), then ``--evaluate`` on the validation and the
+    full-vocabulary test split (the chunked online logsumexp): exact
+    launches, the training run's recorded launches against their plain
+    versions (``check_family_kernels``: kernel 2 takes the KL loss's
+    dlast), the test batch 0 loss against a dense f32 log_softmax, its
+    ranks recounted on the host; the KL step timed beside the BCE step and
+    the KL test batch beside the BCE one, in turns.  Returns the largest
+    error by kernel row."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.sparse import make_sparse_train_step
+    from open_knowledge_graph_embeddings_tpu_torch.train.step import arrays_to_device, eval_batch_to_arrays, make_eval_step
+
+    out_dir = ROOT / ".bench_cache" / "smoke_kl"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    config = flagship_copy("synth-olpbench-2m47-kl", experiment_settings={"loss": "kl"}, eval_epoch_freq=0,
+                           save_epoch_freq=0, experiment_dir=str(out_dir))
+    trainer, launches, wall, capture = run_cli(torch, [str(config), "--epochs", "2"])
+    log = trainer.step_log
+    L, dtype = trainer.model.meta.max_length[0], trainer.model.embedder.dtype
+    check(trainer.loss_type == "kl" and len(log) == 2 * len(trainer.train_builder), f"kl: {len(log)} steps")
+    want = training_launches(launches, L, len(log), len(log), sum(1 for s in log if s["sparse_tables"]), dtype)
+    print(f"kl: launches {launches} (want {want}: as the BCE path)")
+    check(launches == want, f"kl: launches {launches}, want {want}")
+    first, last = check_losses("kl", trainer)
+    print(f"kl: cli.train {wall:.2f} s, {len(log)} steps, loss first {first:.5f} -> last {last:.5f}")
+    timings["kl_cli_train_s"] = wall
+    by_path["kl"] = launches
+    errs = check_family_kernels(torch, "kl", capture, launches)  # kernel 2 on the KL loss's dlast
+    del capture
+
+    # the KL step beside the BCE step: same weights, same planned batches, in turns
+    builder = trainer.train_builder
+    order = np.random.default_rng(SEED + 3).permutation(len(builder.rec))
+    bs = builder.batch_size
+    dev = [trainer._to_device(builder.build(order[i * bs: (i + 1) * bs]))[1] for i in range(9)]
+    steps = {lt: make_sparse_train_step(trainer.model, trainer.regimes, trainer.variables["params"], True, loss_type=lt)
+             for lt in ("kl", "bce")}
+    ms = {lt: [] for lt in steps}
+    for i, arrays in enumerate(dev):
+        for lt, step in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.variables, trainer.opt_state, _ = step(trainer.variables, trainer.opt_state,
+                                                           trainer.regimes.hparams(), arrays, trainer.generator)
+            torch.cuda.synchronize()
+            if i:
+                ms[lt].append((time.perf_counter() - t0) * 1e3)
+    timings["kl_step_ms"], timings["bce_step_ms_beside_kl"] = summary(ms["kl"]), summary(ms["bce"])
+    print(f"kl step (synchronized, in turns with BCE on the same batches): median {np.median(ms['kl']):.3f} ms, max "
+          f"{max(ms['kl']):.3f}; BCE median {np.median(ms['bce']):.3f} ms, max {max(ms['bce']):.3f}")
+    ckpt = trainer.last_checkpoint
+    del trainer, dev, steps
+
+    total = Counter()
+    for on_validation in (True, False):
+        split = "validation" if on_validation else "test"
+        etrainer, cap, elaunches, row, ewall = run_evaluate(torch, config, ckpt,
+                                                            ROOT / ".bench_cache" / f"smoke_eval_kl_{split}",
+                                                            on_validation)
+        check(etrainer.loss_type == "kl", f"kl {split}: loss {etrainer.loss_type}")
+        meta = etrainer.model.meta
+        if on_validation:
+            want = eval_launches(elaunches, L, dtype, val_batches=len(etrainer.val_builder))
+            recs = cap.dense
+        else:
+            want = eval_launches(elaunches, L, dtype, cache_chunks=-(-meta.entities_size // 32768),
+                                 test_batches=len(etrainer.val_builder))
+            recs = cap.chunked
+            check(len(cap.chunked) == len(etrainer.val_builder) and not cap.dense, "kl test: not chunked")
+        print(f"kl {split}: launches {elaunches} (want {want}), cli.train --evaluate {ewall:.2f} s")
+        check(elaunches == want, f"kl {split}: launches {elaunches}, want {want}")
+        check_eval_metrics(f"kl {split}", row, recs, int(etrainer.validation_dataset.records.group_offsets[-1]))
+        total.update(elaunches)
+        if not on_validation:
+            rec = cap.chunked[0]
+            timings["kl_test_loss_rel_err"] = check_kl_eval_loss(torch, rec, cap.cache)
+            gi, g_rows, gm, filt, col_valid = host_golds(rec["golds"], rec["col_valid"])
+            rows = chunk_product_rows(torch, rec["q"][torch.from_numpy(g_rows).long().cuda()], cap.cache)
+            check_ranking("kl test batch 0", [(rows, gm, filt, col_valid, rec["ranks"].cpu().numpy()[gi])])
+            del rows
+            batch = etrainer._eval_batches_cache[0]
+            arrays = arrays_to_device(eval_batch_to_arrays(batch), etrainer.device)
+            fns = {lt: make_eval_step(etrainer.model, lt) for lt in ("kl", "bce")}
+            bms = {lt: [] for lt in fns}
+            for _ in range(3):
+                for lt, fn in fns.items():
+                    bms[lt].append(cuda_ms(lambda: fn(etrainer.variables, arrays, cap.cache), iters=1, warmup=1))
+            timings["kl_eval_batch_ms"], timings["bce_eval_batch_ms_beside_kl"] = summary(bms["kl"]), summary(bms["bce"])
+            print(f"kl full-vocabulary test batch ({batch.batch_size} rows x {cap.cache.shape[0]} candidates, CUDA "
+                  f"events, in turns): KL median {np.median(bms['kl']):.3f} ms, BCE median {np.median(bms['bce']):.3f} ms")
+            del arrays, fns
+        del etrainer, cap
+        torch.cuda.empty_cache()
+    by_path["kl_eval"] = dict(total)
+    return errs
+
+
+def optim_runs():
+    """(tag, config changes, what the run checks) of the optimizer runs:
+    lookup ComplEx at FB15k-237's widths, two passes over the first 24,000
+    triples with a validation eval after each (and in (b) every 10 steps)."""
+    plateau = {"lr_scheduler": "ReduceLROnPlateau", "factor": 0.5, "patience": 0}
+    return [
+        ("optim_a", {"optimization_config": {"optimizer": "Adam", "lr": 0.003},
+                     "lr_scheduler_config": {"lr_scheduler": "StepLR", "step_size": 1, "gamma": 0.5}}),
+        ("optim_b", {"optimization_config": [{"optimizer": "RMSprop", "lr": 0.001, "momentum": 0.9, "match": "relation"},
+                                             {"optimizer": "Adagrad", "lr": 0.3}],
+                     "lr_scheduler_config": [plateau, plateau], "eval_freq": 10}),
+        ("optim_c", {"optimization_config": [[{"optimizer": "Adagrad", "lr": 0.3},
+                                              {"step": 20, "optimizer": "Adadelta", "lr": 1.0}]],
+                     "lr_scheduler_config": {"lr_scheduler": "CosineAnnealingLR", "T_max": 4, "eta_min": 0.1}}),
+    ]
+
+
+def phase_optim(torch, timings, by_path_f32):
+    """The optimizer runs (``optim_runs``) through ``cli.train``: exact
+    launches (kernel 3 once a step while an Adagrad group exists, never
+    after the switch in (c)), the state keys JAX's, every step's lr the
+    scheduler's closed form (the plateau replayed from the run's validation
+    MRRs), the scaled lr the one kernel 3 was handed, its first launch
+    bit-equal to its plain version (``check_family_kernels``: the RMSprop
+    split's Adagrad group in (b), the group before the switch in (c)), the
+    loss falling.  Returns the largest error by kernel row."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import leaves
+
+    kge = FB_CONFIGS / "fb15k237-complex-kge.yaml"
+    head = {"train_data_config": {"input_file": fb_head_file()}}
+    errs = {}
+    for tag, changes in optim_runs():
+        out_dir = ROOT / ".bench_cache" / f"smoke_{tag}"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        config = write_config(f"fb15k237-complex-kge-{tag}", kge, {
+            "dataset_dir": str(FB_DATA_DIR), "eval_epoch_freq": 1, "save_epoch_freq": 0, "eval_freq": 0,
+            "experiment_dir": str(out_dir), **changes}, data=head)
+        with HparamLog() as hlog:
+            trainer, launches, wall, capture = run_cli(torch, [str(config), "--epochs", "2"])
+        log, reg = trainer.step_log, trainer.regimes
+        n = len(log)
+        check(n == 2 * len(trainer.train_builder) == len(hlog.calls), f"{tag}: {n} steps, {len(hlog.calls)} hparams")
+        rows = [r for r in trainer.results.to_dicts() if "validation_mrr" in r]
+        check(rows, f"{tag}: no validation eval")
+        # (training step, epoch, MRR) of each eval; it runs after its step
+        evals = [(int(r["training_steps"]), int(r["epoch"]), r["validation_mrr"]) for r in rows]
+        adagrad_lrs = []
+        for step, (names, phases, hps) in enumerate(hlog.calls, start=1):
+            done = [e for e in evals if e[0] < step]
+            for ri, hp in enumerate(hps):
+                cfg = reg.lr_scheduler_config[ri] if ri < len(reg.lr_scheduler_config) else None
+                base = phase_lr(reg.regimes[ri], phases[ri])
+                if not cfg or not done:
+                    scale = 1.0
+                elif cfg["lr_scheduler"] == "ReduceLROnPlateau":
+                    scale = plateau_scales([e[2] for e in done], cfg["factor"], cfg["patience"])[-1]
+                else:  # the scale the last eval set, from the lr of the phase at that eval
+                    scale = lr_scale(cfg, done[-1][1], phase_lr(reg.regimes[ri], hlog.calls[done[-1][0] - 1][1][ri]))
+                check(hp["lr"] == base * scale, f"{tag}: step {step} regime {ri} lr {hp['lr']}, want {base} x {scale}")
+                if names[ri] == "Adagrad":
+                    adagrad_lrs.append(hp["lr"])
+        want = {name: 0 for name in launches}
+        want["adagrad_update"] = len(adagrad_lrs)  # one regime group: one launch a step
+        print(f"{tag}: {reg.opt_names()} {n} steps, lr scales {reg.lr_scale}, launches {launches} (want {want}), "
+              f"cli.train {wall:.2f} s; validation MRR after steps " + ", ".join(f"{e[0]}: {e[2]:.4f}" for e in evals))
+        check(launches == want, f"{tag}: launches {launches}, want {want}")
+        check(hlog.launch_lrs == adagrad_lrs, f"{tag}: kernel 3 was handed lrs {hlog.launch_lrs}, the steps' "
+                                              f"{adagrad_lrs}")
+        state_keys = {tuple(sorted(s)) for s in trainer.opt_state.values()}  # a lookup model's leaves are flat
+        want_keys = {"Adam": ("m", "step", "v"), "RMSprop": ("momentum", "sq", "step"), "Adagrad": ("step", "sum"),
+                     "Adadelta": ("acc_delta", "sq", "step")}
+        check(state_keys == {want_keys[nm] for nm in reg.opt_names()}, f"{tag}: state keys {state_keys}")
+        first, last = check_losses(tag, trainer)
+        print(f"{tag}: state keys {sorted(state_keys)}, loss first {first:.5f} -> last {last:.5f}, "
+              f"{len(list(leaves(trainer.variables['params'])))} leaves")
+        timings[tag + "_cli_train_s"] = wall
+        by_path_f32[tag] = launches
+        fold_errs(errs, check_family_kernels(torch, tag, capture, launches))
+        del trainer, capture
+        torch.cuda.empty_cache()
+    return errs
+
+
+class RunStart:
+    """Copies of the parameters when ``Trainer.run`` starts (after a
+    resume's load, before the first step)."""
+
+    def __init__(self):
+        from open_knowledge_graph_embeddings_tpu_torch.train import trainer
+
+        self.cls, self.params = trainer.Trainer, None
+
+    def __enter__(self):
+        self._orig = orig = self.cls.run
+
+        def run(trainer):
+            from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import flatten_arrays
+
+            self.params = flatten_arrays(trainer.variables["params"], "params")
+            return orig(trainer)
+
+        self.cls.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self._orig
+
+
+def phase_resume(torch, timings, by_path, ckpt):
+    """``cli.train --resume`` from the accumulation run's checkpoint with
+    ``resume_filter: [lstm]`` and one more pass: before the first step the
+    LSTM leaves equal the checkpoint's and every other leaf the seeded
+    init; exact launches (the pass's windows counted on the CPU); the
+    recorded launches against their plain versions
+    (``check_family_kernels``).  Returns the largest error by kernel row."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import flatten_arrays, load_checkpoint_meta
+
+    out_dir = ROOT / ".bench_cache" / "smoke_resume"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    config = flagship_copy("synth-olpbench-2m47-resume", batch_size_for_backward=ACCUM_STEPS * 4096,
+                           resume_filter=["lstm"], experiment_dir=str(out_dir))
+    windows, _, _, _, _ = count_windows(config, passes=1)
+    start_steps = load_checkpoint_meta(ckpt)["training_steps"]
+    with RunStart() as start:
+        trainer, launches, wall, capture = run_cli(torch, [str(config), "--resume", ckpt, "--epochs", "3"])
+    check(trainer.args.get("resume_filter") == ["lstm"], f"resume: resume_filter {trainer.args.get('resume_filter')}")
+    init = flatten_arrays(trainer.model.init(torch.Generator(device="cuda").manual_seed(SEED))["params"], "params")
+    with np.load(Path(ckpt) / "arrays.npz") as z:
+        loaded = []
+        for k, v in start.params.items():
+            from_ckpt = "lstm" in k.split("/", 1)[1]
+            check(np.array_equal(v, z[k]) == from_ckpt and np.array_equal(v, init[k]) != from_ckpt,
+                  f"resume: {k} at the first step is not the {'checkpoint' if from_ckpt else 'seeded init'}")
+            loaded += [k] if from_ckpt else []
+    L, dtype = trainer.model.meta.max_length[0], trainer.model.embedder.dtype
+    val_batches = len([r for r in trainer.results.to_dicts() if "validation_mrr" in r
+                       and r["training_steps"] > start_steps]) * len(trainer.val_builder)
+    want = training_launches(launches, L, len(windows) * ACCUM_STEPS, len(windows), sum(1 for w in windows if w),
+                             dtype, val_batches=val_batches)
+    print(f"resume: {len(loaded)} LSTM leaves from the checkpoint, {len(start.params) - len(loaded)} others the seeded "
+          f"init at the first step; {len(trainer.step_log)} micro-batches; launches {launches} (want {want}); "
+          f"cli.train {wall:.2f} s")
+    check(launches == want, f"resume: launches {launches}, want {want}")
+    check_losses("resume", trainer)
+    by_path["resume"] = launches
+    errs = check_family_kernels(torch, "resume", capture, launches)
+    del trainer, capture
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_objectives(torch, timings, by_path, by_path_f32):
+    """Gradient accumulation (``accum``), the KL loss (``kl``, ``kl_eval``),
+    the optimizers and schedulers (``optim_a/b/c``) and ``resume_filter``
+    (``resume``) through ``cli.train``, each run's launches exact.  Returns
+    the largest error of each kernel row its checks held."""
+    t0 = time.perf_counter()
+    ckpt, errs = phase_accum(torch, timings, by_path)
+    fold_errs(errs, phase_resume(torch, timings, by_path, ckpt))
+    fold_errs(errs, phase_kl(torch, timings, by_path))
+    fold_errs(errs, phase_optim(torch, timings, by_path_f32))
+    timings["objectives_s"] = time.perf_counter() - t0
+    print(f"objectives phase: {timings['objectives_s']:.1f} s")
     return errs
 
 
@@ -3954,8 +4770,10 @@ def main(argv) -> int:
         rows += phase_f32(torch, timings, by_path_f32)
         phase_any_h(torch)
         family_errs = phase_families(torch, timings, by_path, by_path_f32)
+        objective_errs = phase_objectives(torch, timings, by_path, by_path_f32)
         for row in rows:
-            row["max_abs_err"] = max(row["max_abs_err"], family_errs.get(row["name"], 0.0))
+            row["max_abs_err"] = max(row["max_abs_err"], family_errs.get(row["name"], 0.0),
+                                     objective_errs.get(row["name"], 0.0))
         timings["launch_cost"] = launch_cost(torch)
         check([row["name"] for row in rows] == KERNEL_ROWS, f"kernel rows {[row['name'] for row in rows]}")
     except (SmokeFailure, RuntimeError, subprocess.SubprocessError, OSError) as e:

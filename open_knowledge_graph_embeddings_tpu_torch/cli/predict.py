@@ -50,7 +50,7 @@ def main(argv=None):
     )
     model = build_model(args["model"], meta, **(args.get("model_config") or {}))
     variables = model.init(torch.Generator(device=device).manual_seed(int(args.get("seed") or 0)))
-    variables, _ = load_checkpoint(known.resume, variables)
+    variables, _, _ = load_checkpoint(known.resume, variables, {}, load_optimizer=False)
     predictor = Predictor(model, variables, dataset_dir=args["dataset_dir"])
 
     def answer(line: str):

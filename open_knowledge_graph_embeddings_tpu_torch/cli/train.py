@@ -91,9 +91,6 @@ def setup_dataset(args: Dict[str, Any], config_key: str = "train_data_config"
 
 def main(args: Dict[str, Any], device="cuda") -> Trainer:
     device = resolve_device(device)
-    for key in ("resume_filter", "weight_map"):
-        if args.get(key):
-            raise NotImplementedError(f"{key} is not ported yet: ROADMAP Queue 1 item 9")
     time_stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     if args.get("resume"):
         ckpt_meta = load_checkpoint_meta(args["resume"])
@@ -123,6 +120,7 @@ def main(args: Dict[str, Any], device="cuda") -> Trainer:
     logger.info("number of parameters: %d", n_params)
     if args.get("resume"):
         trainer.load(args["resume"], reset_optimizer=bool(args.get("reset_optimizer", False)),
+                     resume_filter=args.get("resume_filter"), freeze_param=args.get("resume_freeze"),
                      dont_load_optimizer=bool(args.get("evaluate")))
     if args.get("train", True):
         trainer.run()

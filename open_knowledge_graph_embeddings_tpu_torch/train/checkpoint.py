@@ -16,7 +16,7 @@ import json
 import logging
 import os
 import shutil
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,24 +106,6 @@ def copy_checkpoint(directory: str, path: str, name: str, epoch, is_best: bool =
         shutil.copytree(path, epoch_path)
 
 
-def _merge(target: Dict[str, Any], loaded: Dict[str, Any], prefix: str) -> Dict[str, Any]:
-    """``target`` with each leaf present in ``loaded`` replaced (moved to the
-    target leaf's device); shape mismatches are skipped with a warning."""
-    out = {}
-    for key, leaf in target.items():
-        path = f"{prefix}/{key}"
-        if isinstance(leaf, dict):
-            out[key] = _merge(leaf, loaded.get(key, {}), path)
-        elif key in loaded and tuple(loaded[key].shape) != tuple(leaf.shape):
-            logger.warning("skipping %s: shape %s != %s", path, tuple(loaded[key].shape), tuple(leaf.shape))
-            out[key] = leaf
-        elif key in loaded:
-            out[key] = loaded[key].to(device=leaf.device, dtype=leaf.dtype)
-        else:
-            out[key] = leaf
-    return out
-
-
 def _arrays_path(path: str) -> str:
     if not os.path.exists(os.path.join(path, "arrays.npz")):
         raise NotImplementedError(
@@ -138,23 +120,72 @@ def load_checkpoint_meta(path: str) -> Dict[str, Any]:
         return json.load(f)
 
 
-def load_checkpoint(path: str, variables: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+def _shapes(tree: Dict[str, Any], prefix: str) -> Dict[str, Tuple[int, ...]]:
+    out: Dict[str, Tuple[int, ...]] = {}
+    for key, leaf in tree.items():
+        path = f"{prefix}/{key}"
+        out.update(_shapes(leaf, path) if isinstance(leaf, dict) else {path: tuple(leaf.shape)})
+    return out
+
+
+def _restore(tree: Dict[str, Any], prefix: str, by_target: Dict[str, str], z) -> Dict[str, Any]:
+    """``tree`` with each leaf whose path is in ``by_target`` replaced by
+    that checkpoint entry, on the leaf's device and in its dtype."""
+    out = {}
+    for key, leaf in tree.items():
+        path = f"{prefix}/{key}"
+        if isinstance(leaf, dict):
+            out[key] = _restore(leaf, path, by_target, z)
+        elif path in by_target:
+            out[key] = torch.from_numpy(np.array(z[by_target[path]])).to(device=leaf.device, dtype=leaf.dtype)
+        else:
+            out[key] = leaf
+    return out
+
+
+def load_checkpoint(path: str, variables: Dict[str, Any], opt_state: Dict[str, Any],
+                    resume_filter: Optional[List[str]] = None, weight_map: Optional[Dict[str, str]] = None,
+                    load_optimizer: bool = True) -> Tuple[Dict[str, Any], Dict[str, Any], Dict[str, Any]]:
     """Restore a single-file checkpoint (written by either package) into
-    ``variables`` -> ``(variables, meta)``."""
+    ``variables`` and ``opt_state`` -> ``(variables, opt_state, meta)``,
+    as the JAX package's ``load_checkpoint`` does: ``weight_map`` renames
+    checkpoint keys first (``{"params/a": "params/b"}``), then
+    ``resume_filter`` keeps of the ``params/`` keys only those whose path
+    (after ``params/``) contains one of its strings, then entries whose
+    shape differs from the target's are skipped with a warning, and where
+    a renamed and an unrenamed key land on one target the renamed one wins.
+    Leaves the checkpoint lacks keep their value; ``load_optimizer=False``
+    leaves ``opt_state`` as it is."""
     with np.load(_arrays_path(path)) as z:
-        loaded = variables_from_jax_arrays({k: z[k] for k in z.files if not k.startswith("opt/")})
-    new_vars = dict(variables)
-    new_vars["params"] = _merge(variables["params"], loaded["params"], "params")
-    new_vars["state"] = _merge(variables.get("state", {}), loaded["state"], "state")
+        keymap = {k: k for k in z.files}  # checkpoint key -> target key
+        for old, new in (weight_map or {}).items():
+            if old in keymap:
+                keymap[old] = new
+        if resume_filter is not None:
+            for ck, tk in list(keymap.items()):
+                bare = tk.split("/", 1)[1] if "/" in tk else tk
+                if tk.startswith("params/") and not any(f in bare for f in resume_filter):
+                    del keymap[ck]
+        example = {**_shapes(variables.get("params", {}), "params"), **_shapes(variables.get("state", {}), "state"),
+                   **_shapes(opt_state, "opt")}
+        for ck, tk in list(keymap.items()):
+            if tk in example and example[tk] != tuple(z[ck].shape):
+                logger.warning("skipping %s: shape %s != %s", tk, tuple(z[ck].shape), example[tk])
+                del keymap[ck]
+        renamed = set(weight_map or ())
+        by_target: Dict[str, str] = {}
+        for ck, tk in keymap.items():
+            if tk in by_target and by_target[tk] in renamed and ck not in renamed:
+                continue
+            if tk in by_target and ck != by_target[tk]:
+                logger.warning("weight_map target collision on %s: using %s", tk,
+                               ck if ck in renamed else by_target[tk])
+            if tk not in by_target or ck in renamed:
+                by_target[tk] = ck
+        new_vars = dict(variables)
+        new_vars["params"] = _restore(variables["params"], "params", by_target, z)
+        new_vars["state"] = _restore(variables.get("state", {}), "state", by_target, z)
+        new_opt = _restore(opt_state, "opt", by_target, z) if load_optimizer else opt_state
     meta = load_checkpoint_meta(path)
     logger.info("loaded checkpoint %s (training_steps=%s)", path, meta.get("training_steps"))
-    return new_vars, meta
-
-
-def load_opt_state(path: str, opt_state: Dict[str, Any]) -> Dict[str, Any]:
-    """Restore the ``opt/...`` arrays of a checkpoint (written by either
-    package) into ``opt_state``, leaf by leaf; leaves the checkpoint lacks
-    keep their value."""
-    with np.load(_arrays_path(path)) as z:
-        loaded = unflatten_arrays({k: z[k] for k in z.files if k.startswith("opt/")}, "opt")
-    return _merge(opt_state, loaded, "opt")
+    return new_vars, new_opt, meta

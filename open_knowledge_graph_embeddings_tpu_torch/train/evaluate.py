@@ -170,9 +170,12 @@ def eval_stats_chunked(
     chunk: int = 131072,
     loss_type: str = "bce",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """BCE loss and filtered ranks without the [B, N] score matrix, in two
-    passes over chunks of C candidates -> ``(loss_sum, ranks [G] int32,
-    gold_valid [G])``.  Pass A sums the loss terms and takes each gold's
+    """The loss (BCE, or KL by an online logsumexp) and filtered ranks
+    without the [B, N] score matrix, in two passes over chunks of C
+    candidates -> ``(loss_sum, ranks [G] int32, gold_valid [G])``.  Pass A
+    sums the loss terms (KL: per row a running max and sum-exp over the
+    real cells, and the positives' scores; the loss is the sum over
+    positives of ``logsumexp(row) - s_pos``) and takes each gold's
     ``true`` and the values of the filter cells in its row; pass B counts
     ``>`` and ``==`` against the final ``true``.
 
@@ -190,8 +193,8 @@ def eval_stats_chunked(
     the one before it, so every chunk has the same shape.  The [B, C]
     product feeds only the loss.  The ranks are the same function as JAX's.
     """
-    if loss_type != "bce":
-        raise NotImplementedError(f"loss {loss_type!r} is not ported yet: ROADMAP Queue 1 item 4")
+    if loss_type not in ("bce", "kl"):
+        raise ValueError(f"loss {loss_type!r} not supported; choose 'bce' or 'kl' (reference parity)")
     B = q.shape[0]
     N = cand_emb.shape[0]
     C = min(chunk, N)
@@ -223,16 +226,27 @@ def eval_stats_chunked(
         return c0, s0, okc
 
     loss = torch.zeros((), dtype=torch.float32, device=dev)
+    m_run = torch.full((B,), float("-inf"), device=dev)  # KL: running row max
+    se_run = torch.zeros(B, device=dev)  # KL: running sum of exp(s - m_run)
     true = torch.full((Gv,), float("-inf"), device=dev)
     fs = torch.zeros(pg.shape[0], device=dev)
     for i in range(n_chunks):
         c0, s0, okc = chunk_cols(i)
         blk = cand_emb[s0 : s0 + C]
         s = score_against_candidates(q, blk)  # [B, C]: the loss only
-        per_cell = torch.clamp(s, min=0.0) + torch.log1p(torch.exp(-s.abs())) - s * b
-        loss = loss + torch.where(row_valid[:, None] & okc[None, :], per_cell, 0.0).sum()
+        ok_cell = row_valid[:, None] & okc[None, :]
         in_p = p_valid & (pc >= c0) & (pc < c0 + C)
-        loss = loss - a * torch.where(in_p, s[pr, (pc - s0).clamp(0, C - 1)], 0.0).sum()
+        s_pos = torch.where(in_p, s[pr, (pc - s0).clamp(0, C - 1)], 0.0).sum()
+        if loss_type == "kl":
+            m_new = torch.maximum(m_run, torch.where(ok_cell, s, float("-inf")).amax(dim=1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            scale = torch.exp(torch.where(torch.isfinite(m_run), m_run - m_safe, float("-inf")))
+            se_run = se_run * scale + torch.where(ok_cell, torch.exp(s - m_safe[:, None]), 0.0).sum(dim=1)
+            m_run = m_new
+            loss = loss + s_pos  # the positives' scores, subtracted below
+        else:
+            per_cell = torch.clamp(s, min=0.0) + torch.log1p(torch.exp(-s.abs())) - s * b
+            loss = loss + torch.where(ok_cell, per_cell, 0.0).sum() - a * s_pos
         if Gv:
             sg = score_against_candidates(q_g, blk)  # [Gv, C]
             in_m = gm_valid & (gm >= c0) & (gm < c0 + C)
@@ -240,6 +254,10 @@ def eval_stats_chunked(
             true = torch.maximum(true, torch.where(in_m, vm, float("-inf")).amax(dim=1))
             in_f = (p_col >= c0) & (p_col < c0 + C)
             fs = torch.where(in_f, sg[pg, (p_col - s0).clamp(0, C - 1)], fs)
+
+    if loss_type == "kl":
+        lse = torch.where(torch.isfinite(m_run), m_run + torch.log(torch.clamp(se_run, min=1e-38)), 0.0)
+        loss = torch.where(p_valid, lse[pr], 0.0).sum() - loss
 
     false_pos = torch.zeros(Gv, dtype=torch.int64, device=dev)
     equals = torch.zeros(Gv, dtype=torch.int64, device=dev)

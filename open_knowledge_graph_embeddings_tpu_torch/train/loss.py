@@ -1,15 +1,17 @@
-"""1-vs-N BCE over the batch-shared (or full) candidate space, without a
-dense label matrix.
+"""1-vs-N losses over the batch-shared (or full) candidate space.
 
-Counterpart of ``open_knowledge_graph_embeddings_tpu/train/loss.py`` for
-BCE: the train step's fused score + loss and the eval step's loss over a
-score matrix (KL and the explicit dense-label path come with ROADMAP Queue 1
-item 4).  With unique (row, col) positive pairs (the batch builder
-guarantees them), the label of a cell is ``multi_hot * a + b`` with
-``a = 1 - smoothing`` and ``b = (1 - smoothing) / N`` (``a = 1, b = 0``
-without smoothing), so
+Counterpart of ``open_knowledge_graph_embeddings_tpu/train/loss.py``: the
+train step's fused BCE score + loss, and the eval step's loss over a score
+matrix, BCE without a dense label matrix and KL over dense 0/1 labels
+scattered from the positive pairs.  With unique (row, col) positive pairs
+(the batch builder guarantees them), the BCE label of a cell is
+``multi_hot * a + b`` with ``a = 1 - smoothing`` and ``b = (1 - smoothing)
+/ N`` (``a = 1, b = 0`` without smoothing), so
 
     loss = sum_mask[ max(s, 0) + log1p(e^-|s|) - b*s ] - a * sum_pos s.
+
+KL takes no label smoothing, as in the JAX package (its ``one_vs_n_loss``
+passes the unsmoothed dense labels to ``kl_div_sum``).
 """
 
 from __future__ import annotations
@@ -21,12 +23,42 @@ import torch
 from open_knowledge_graph_embeddings_tpu_torch.ops.scoring import score_against_candidates
 
 
+def dense_labels(pos_rows: torch.Tensor, pos_cols: torch.Tensor, num_rows: int, num_cols: int) -> torch.Tensor:
+    """A [B, N] f32 multi-hot label matrix scattered from -1-padded (row,
+    col) pairs: duplicates collapse to 1, and padding pairs point at cell
+    (0, 0) with 0, which a real label there outweighs."""
+    valid = pos_rows >= 0
+    flat = torch.where(valid, pos_rows.long() * num_cols + pos_cols.long(), 0)
+    labels = torch.zeros(num_rows * num_cols, dtype=torch.float32, device=pos_rows.device)
+    return labels.scatter_reduce_(0, flat, valid.float(), reduce="amax").view(num_rows, num_cols)
+
+
 def cell_mask(row_valid: torch.Tensor, col_valid: Optional[torch.Tensor], num_cols: int) -> torch.Tensor:
     """[B, N] mask of real (non-padding) label cells."""
     rm = row_valid[:, None]
     if col_valid is None:
         return rm.expand(row_valid.shape[0], num_cols)
     return rm & col_valid[None, :]
+
+
+def apply_label_smoothing(labels: torch.Tensor, n_real_cols, smoothing: float) -> torch.Tensor:
+    """``(labels + 1/N) * (1 - smoothing)`` on every cell (the reference's
+    arithmetic); kept for parity with the JAX package, which calls it on no
+    path either."""
+    if smoothing <= 0:
+        return labels
+    return (labels + 1.0 / n_real_cols) * (1.0 - smoothing)
+
+
+def kl_div_sum(scores: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """torch ``KLDivLoss(reduction='sum')(log_softmax(scores), labels)``:
+    ``sum labels * (log labels - log_softmax(scores))`` with 0·log 0 = 0,
+    the softmax over the real cells only (padding masked to ``finfo.min``)."""
+    masked = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+    logp = torch.log_softmax(masked, dim=-1)
+    safe = torch.where(labels > 0, labels, 1.0)
+    per_cell = labels * (torch.log(safe) - logp)
+    return torch.where(mask & (labels > 0), per_cell, 0.0).sum()
 
 
 def _smoothing_ab(smoothing: float, n_real_cols):
@@ -106,9 +138,14 @@ def bce_over_scores(q, cand, pos_rows, pos_cols, row_valid, col_valid, n_real_co
 def one_vs_n_loss(loss_type: str, scores, pos_rows, pos_cols, row_valid, col_valid, n_real_cols,
                   label_smoothing: float = 0.0):
     """``(loss_sum, normalizer_metric = number of positive cells)`` over a
-    [B, N] score matrix (the eval step's loss)."""
-    if loss_type != "bce":
-        raise NotImplementedError(f"loss {loss_type!r} is not ported yet: ROADMAP Queue 1 item 4")
-    mask = cell_mask(row_valid, col_valid, scores.shape[1])
-    loss = bce_with_logits_sum_indexed(scores, pos_rows, pos_cols, mask, n_real_cols, label_smoothing)
+    [B, N] score matrix: the eval step's loss, and the train step's for KL.
+    BCE takes the indexed form; KL the dense labels, unsmoothed."""
+    B, N = scores.shape
+    mask = cell_mask(row_valid, col_valid, N)
+    if loss_type == "bce":
+        loss = bce_with_logits_sum_indexed(scores, pos_rows, pos_cols, mask, n_real_cols, label_smoothing)
+    elif loss_type == "kl":
+        loss = kl_div_sum(scores, dense_labels(pos_rows, pos_cols, B, N), mask)
+    else:
+        raise ValueError(f"loss {loss_type!r} not supported; choose 'bce' or 'kl' (reference parity)")
     return loss, (pos_rows >= 0).sum().float()

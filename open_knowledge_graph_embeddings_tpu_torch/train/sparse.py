@@ -22,10 +22,14 @@ take Adagrad or SGD(momentum=0), the set torch supports for sparse grads.
 A table is sparsified for a batch only when its height exceeds
 ``min_rows_ratio`` x its touched rows; otherwise it takes the dense update.
 
+Gradient accumulation composes with the row-sparse path
+(:func:`make_sparse_accum_steps`): the window's micro-batches share one
+union row space (:meth:`SparsePlanBuilder.plan_window`), their [U, d] row
+gradients add up in f32, and the row update runs once on the sum.
+
 Not carried over: the TPU-tile layouts 'block' and 'hybrid' (8-row HBM
 tiles), the mesh plans, and the native (C++) plan helpers, whose numpy
-branches the JAX package pins to them (ROADMAP Queue 1 items 1, 6, 14);
-gradient accumulation windows (Queue 1 item 12).
+branches the JAX package pins to them (ROADMAP Queue 1 items 1, 6, 14).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from open_knowledge_graph_embeddings_tpu_torch.data.batching import Batch
 from open_knowledge_graph_embeddings_tpu_torch.models.embedders import (
@@ -49,8 +54,10 @@ from open_knowledge_graph_embeddings_tpu_torch.train.optim import (
     clip_by_global_norm,
 )
 from open_knowledge_graph_embeddings_tpu_torch.train.step import (
+    add_tree,
     grad_tree,
     leaf_tree,
+    map_tree,
     prefix_loss,
     train_batch_to_arrays,
 )
@@ -178,6 +185,72 @@ class SparsePlanBuilder:
         else:
             self._plan_lookup(d, batch)
         return d
+
+    # ------------------------------------------------ accumulation windows
+
+    def plan_window(self, batches) -> list:
+        """Plan a gradient-accumulation window: one union row space over
+        all its micro-batches.  Every returned array dict carries the same
+        ``sparse/T/uids`` and ``valid`` (so one [U, d] accumulator serves
+        the whole window), and each micro-batch's ids are remapped into it.
+        Queries are not deduped here, as in the JAX package's window plan:
+        the entity pass runs over B + |candidates| rows."""
+        ds = [train_batch_to_arrays(b) for b in batches]
+        if self.is_token:
+            self._window_token(ds, batches)
+        else:
+            self._window_lookup(ds, batches)
+        return ds
+
+    def _window_lookup(self, ds, batches) -> None:
+        meta = self.embedder.meta
+        if self.entity_sparse:
+            if any(b.candidate_ids is None for b in batches):
+                raise ValueError("entity-table sparsity needs batch-shared candidates")
+            used = np.concatenate([x for b in batches for x in (b.ent_ids, b.candidate_ids)])
+            plan: Dict[str, Any] = {}
+            remap = self._pack_rows(plan, "entity_embedding", np.unique(used), meta.entities_size)
+            for d, b in zip(ds, batches):
+                d.update(plan)
+                if remap is not None:
+                    d["ent_ids"] = remap(b.ent_ids)
+                    d["candidate_ids"] = remap(b.candidate_ids)
+        plan = {}
+        remap = self._pack_rows(plan, "relation_embedding", np.unique(np.concatenate([b.rel_ids for b in batches])),
+                                meta.relations_size)
+        for d, b in zip(ds, batches):
+            d.update(plan)
+            if remap is not None:
+                d["rel_ids"] = remap(b.rel_ids)
+
+    def _window_token(self, ds, batches) -> None:
+        meta = self.embedder.meta
+        if self.entity_sparse:
+            if any(b.candidate_ids is None for b in batches):
+                raise ValueError("entity-token-table sparsity needs batch-shared candidates")
+            toks_list = [meta.entity_token_ids[np.concatenate([b.ent_ids, b.candidate_ids])] for b in batches]
+            ut = np.union1d(np.int32(0), np.concatenate([t.ravel() for t in toks_list]))
+            plan: Dict[str, Any] = {}
+            remap = self._pack_rows(plan, "entity_token_embedding", ut, meta.entity_tokens_size)
+            for d, b, toks in zip(ds, batches, toks_list):
+                d.update(plan)
+                if remap is not None:
+                    B = len(b.ent_ids)
+                    d["ent_ids"] = np.arange(B, dtype=np.int32)
+                    d["candidate_ids"] = np.arange(B, B + len(b.candidate_ids), dtype=np.int32)
+                    d["sparse/buffers/entity_token_ids"] = remap(toks)
+                    self._emit_grad_plan(d, "entity", "entity_token_embedding")
+        rtoks_list = [meta.relation_token_ids[b.rel_ids] for b in batches]
+        plan = {}
+        remap = self._pack_rows(plan, "relation_token_embedding",
+                                np.union1d(np.int32(0), np.concatenate([t.ravel() for t in rtoks_list])),
+                                meta.relation_tokens_size)
+        for d, b, rtoks in zip(ds, batches, rtoks_list):
+            d.update(plan)
+            if remap is not None:
+                d["rel_ids"] = np.arange(len(b.rel_ids), dtype=np.int32)
+                d["sparse/buffers/relation_token_ids"] = remap(rtoks)
+                self._emit_grad_plan(d, "relation", "relation_token_embedding")
 
     def _plan_lookup(self, d: Dict[str, Any], batch: Batch) -> None:
         meta = self.embedder.meta
@@ -315,6 +388,47 @@ def _resolve_sparse_tables(model, regimes, params_example, entity_sparse) -> Dic
     return table_label
 
 
+def _sparse_grads(model, variables, batch, sparse_tables, loss_type, label_smoothing, generator):
+    """The backward of a sparse batch -> ``(g_dense, g_rows, loss_sum,
+    norm_metric, new_state)``: gradients of the dense leaves and of the
+    gathered [U, d] rows of ``sparse_tables``."""
+    params = variables["params"]
+    dense_leaves = leaf_tree({k: v for k, v in params.items() if k not in sparse_tables})
+    rows = {t: leaf_tree(params[t][batch[f"sparse/{t}/uids"]]) for t in sparse_tables}
+    v = {"params": {**dense_leaves, **rows}, "state": variables["state"], "buffers": batch_buffers(variables, batch)}
+    loss_sum, norm_metric, new_state, reg = prefix_loss(model, v, batch, loss_type, label_smoothing, generator)
+    ((loss_sum + reg) / batch["normalizer_loss"]).backward()
+    return grad_tree(dense_leaves), grad_tree(rows), loss_sum.detach(), norm_metric, new_state
+
+
+def _sparse_apply(regimes, table_label, opt_names, params, opt_state, g_dense, g_rows, batch, sparse_tables,
+                  hparams, grad_clip):
+    """The update of a sparse batch (or window) from its gradients -> ``(new
+    params, new opt_state)``: the global-norm clip over both, the dense
+    leaves through ``make_apply`` (kernel 3 for Adagrad), then one row
+    update per regime group (kernel 4 for Adagrad)."""
+    if grad_clip is not None and grad_clip > 0:
+        clipped = clip_by_global_norm({**g_dense, **g_rows}, grad_clip)
+        g_dense = {k: clipped[k] for k in g_dense}
+        g_rows = {t: clipped[t] for t in g_rows}
+    dense = {k: v for k, v in params.items() if k not in sparse_tables}
+    dense_apply = regimes.make_apply(dense, grad_clip=None)
+    new_params, new_opt = dense_apply(
+        g_dense, {k: s for k, s in opt_state.items() if k not in sparse_tables}, dense, hparams)
+    new_params, new_opt = dict(new_params), dict(new_opt)
+    groups: Dict[int, list] = {}
+    for t in sparse_tables:
+        groups.setdefault(table_label[t], []).append(t)
+    for lbl, ts in groups.items():  # one row update per regime group
+        states = _SPARSE_RULES[opt_names[lbl]](
+            [g_rows[t] for t in ts], [batch[f"sparse/{t}/uids"] for t in ts],
+            [batch[f"sparse/{t}/valid"] for t in ts], [params[t] for t in ts], [opt_state[t] for t in ts],
+            hparams[lbl])
+        for t, s in zip(ts, states):
+            new_params[t], new_opt[t] = params[t], s
+    return new_params, new_opt
+
+
 def make_sparse_train_step(model: KGEModel, regimes: OptimizerRegimes, params_example,
                            entity_sparse: bool, loss_type: str = "bce", label_smoothing: float = 0.0,
                            grad_clip: Optional[float] = None):
@@ -332,39 +446,60 @@ def make_sparse_train_step(model: KGEModel, regimes: OptimizerRegimes, params_ex
     opt_names = regimes.opt_names()
 
     def step(variables, opt_state, hparams, batch, generator=None):
-        params = variables["params"]
         # which tables carry a plan is decided per batch (small tables fall back to dense)
         sparse_tables = tuple(t for t in table_label if f"sparse/{t}/uids" in batch)
-        dense = {k: v for k, v in params.items() if k not in sparse_tables}
-        dense_leaves = leaf_tree(dense)
-        uids = {t: batch[f"sparse/{t}/uids"] for t in sparse_tables}
-        rows = {t: leaf_tree(params[t][uids[t]]) for t in sparse_tables}
-        v = {"params": {**dense_leaves, **rows}, "state": variables["state"],
-             "buffers": batch_buffers(variables, batch)}
-        loss_sum, norm_metric, new_state, reg = prefix_loss(model, v, batch, loss_type, label_smoothing,
-                                                             generator)
-        ((loss_sum + reg) / batch["normalizer_loss"]).backward()
-        g_dense = grad_tree(dense_leaves)
-        g_rows = grad_tree(rows)
-        if grad_clip is not None and grad_clip > 0:
-            clipped = clip_by_global_norm({**g_dense, **g_rows}, grad_clip)
-            g_dense = {k: clipped[k] for k in g_dense}
-            g_rows = {t: clipped[t] for t in g_rows}
-
-        dense_apply = regimes.make_apply(dense, grad_clip=None)
-        new_params, new_opt = dense_apply(
-            g_dense, {k: s for k, s in opt_state.items() if k not in sparse_tables}, dense, hparams)
-        new_params, new_opt = dict(new_params), dict(new_opt)
-        groups: Dict[int, list] = {}
-        for t in sparse_tables:
-            groups.setdefault(table_label[t], []).append(t)
-        for lbl, ts in groups.items():  # one row update per regime group
-            states = _SPARSE_RULES[opt_names[lbl]](
-                [g_rows[t] for t in ts], [uids[t] for t in ts], [batch[f"sparse/{t}/valid"] for t in ts],
-                [params[t] for t in ts], [opt_state[t] for t in ts], hparams[lbl])
-            for t, s in zip(ts, states):
-                new_params[t], new_opt[t] = params[t], s
+        g_dense, g_rows, loss_sum, norm_metric, new_state = _sparse_grads(
+            model, variables, batch, sparse_tables, loss_type, label_smoothing, generator)
+        new_params, new_opt = _sparse_apply(regimes, table_label, opt_names, variables["params"], opt_state,
+                                            g_dense, g_rows, batch, sparse_tables, hparams, grad_clip)
         new_variables = {"params": new_params, "state": new_state, "buffers": variables["buffers"]}
-        return new_variables, new_opt, {"loss_sum": loss_sum.detach(), "normalizer_metric": norm_metric}
+        return new_variables, new_opt, {"loss_sum": loss_sum, "normalizer_metric": norm_metric}
 
     return step
+
+
+def make_sparse_accum_steps(model: KGEModel, regimes: OptimizerRegimes, params_example, entity_sparse: bool,
+                            loss_type: str = "bce", label_smoothing: float = 0.0,
+                            grad_clip: Optional[float] = None):
+    """Gradient accumulation composed with row-sparse updates, on the
+    window plans of :meth:`SparsePlanBuilder.plan_window` -> ``(zero_acc,
+    grad_step, apply_step)``:
+
+    * ``zero_acc(arrays)``: a fresh accumulator ``{"rows", "dense"}`` shaped
+      by a micro-batch of the window (its union plan): [U, d] f32 per
+      sparse table, zeros like the params for the rest;
+    * ``grad_step(variables, acc, arrays, generator) -> (variables, acc,
+      stats)`` adds a micro-batch's row gradients (in f32) and dense ones;
+    * ``apply_step(variables, opt_state, acc, arrays, hparams) ->
+      (variables, opt_state)``: clip the summed window gradient, then the
+      dense update (kernel 3) and the row update on the union rows (kernel
+      4); ``arrays`` is any micro-batch of the window."""
+    table_label = _resolve_sparse_tables(model, regimes, params_example, entity_sparse)
+    opt_names = regimes.opt_names()
+
+    def window_tables(arrays):
+        return tuple(t for t in table_label if f"sparse/{t}/uids" in arrays)
+
+    def zero_acc(arrays):
+        sparse_tables = window_tables(arrays)
+        rows = {t: torch.zeros(arrays[f"sparse/{t}/uids"].shape[0], params_example[t].shape[1], dtype=torch.float32,
+                               device=params_example[t].device) for t in sparse_tables}
+        dense = {k: map_tree(torch.zeros_like, v) for k, v in params_example.items() if k not in sparse_tables}
+        return {"rows": rows, "dense": dense}
+
+    def grad_step(variables, acc, batch, generator=None):
+        g_dense, g_rows, loss_sum, norm_metric, new_state = _sparse_grads(
+            model, variables, batch, window_tables(batch), loss_type, label_smoothing, generator)
+        for t, g in g_rows.items():
+            acc["rows"][t].add_(g.float())
+        add_tree(acc["dense"], g_dense)
+        new_variables = {**variables, "state": new_state}
+        return new_variables, acc, {"loss_sum": loss_sum, "normalizer_metric": norm_metric}
+
+    def apply_step(variables, opt_state, acc, batch, hparams):
+        new_params, new_opt = _sparse_apply(regimes, table_label, opt_names, variables["params"], opt_state,
+                                            acc["dense"], acc["rows"], batch, window_tables(batch), hparams,
+                                            grad_clip)
+        return {**variables, "params": new_params}, new_opt
+
+    return zero_acc, grad_step, apply_step

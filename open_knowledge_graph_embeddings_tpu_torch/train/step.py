@@ -1,13 +1,14 @@
-"""The train step (encode, fused score + BCE, backward, optimizer update)
-and the eval step (encode, loss, filtered ranks).
+"""The train step (encode, fused score + BCE or scores + KL, backward,
+optimizer update), its gradient-accumulation form and the eval step
+(encode, loss, filtered ranks).
 
 Counterpart of ``open_knowledge_graph_embeddings_tpu/train/step.py``:
 :func:`prefix_loss`, :func:`train_batch_to_arrays`, the dense step
 :func:`make_train_step`, which differentiates with respect to every
 parameter and is the reference the sparse step (train/sparse.py) is held
-against, and :func:`make_eval_step`.  PyTorch runs eagerly, so a step is a
-plain function; the parameters and optimizer state are updated in place.
-Gradient accumulation comes with ROADMAP Queue 1 item 12.
+against, :func:`make_accum_steps` and :func:`make_eval_step`.  PyTorch runs
+eagerly, so a step is a plain function; the parameters and optimizer state
+are updated in place.
 """
 
 from __future__ import annotations
@@ -35,20 +36,25 @@ def prefix_loss(model: KGEModel, variables, batch, loss_type: str, label_smoothi
                 generator: Optional[torch.Generator]):
     """``(loss_sum, normalizer_metric, new_state, reg)`` of a train batch (a
     dict of device tensors).  BCE goes through the fused score + loss
-    ``bce_over_scores``; with query dedup, ``dedup/ent_inv`` and
+    ``bce_over_scores``; KL through the explicit [B, N] scores and dense
+    labels (``one_vs_n_loss``).  With query dedup, ``dedup/ent_inv`` and
     ``dedup/rel_inv`` gather the unique encodes back to per-row."""
-    if loss_type != "bce":
-        raise NotImplementedError(f"loss {loss_type!r} is not ported yet: ROADMAP Queue 1 item 4")
-    q, cand_emb, new_state, reg = model.prefix_queries_and_candidates(
-        variables, batch["ent_ids"], batch["rel_ids"], batch["is_sp"], batch.get("candidate_ids"),
-        train=True, generator=generator, ent_inv=batch.get("dedup/ent_inv"),
-        rel_inv=batch.get("dedup/rel_inv"),
-    )
-    loss_sum = bce_over_scores(
-        q, cand_emb, batch["pos_rows"], batch["pos_cols"], batch["row_valid"], batch.get("col_valid"),
-        batch["n_real_cols"], label_smoothing,
-    )
-    return loss_sum, (batch["pos_rows"] >= 0).sum().float(), new_state, reg
+    kw = dict(train=True, generator=generator, ent_inv=batch.get("dedup/ent_inv"),
+              rel_inv=batch.get("dedup/rel_inv"))
+    if loss_type == "bce":
+        q, cand_emb, new_state, reg = model.prefix_queries_and_candidates(
+            variables, batch["ent_ids"], batch["rel_ids"], batch["is_sp"], batch.get("candidate_ids"), **kw)
+        loss_sum = bce_over_scores(
+            q, cand_emb, batch["pos_rows"], batch["pos_cols"], batch["row_valid"], batch.get("col_valid"),
+            batch["n_real_cols"], label_smoothing,
+        )
+        return loss_sum, (batch["pos_rows"] >= 0).sum().float(), new_state, reg
+    scores, new_state, reg = model.prefix_scores(
+        variables, batch["ent_ids"], batch["rel_ids"], batch["is_sp"], cand_ids=batch.get("candidate_ids"), **kw)
+    loss_sum, norm_metric = one_vs_n_loss(loss_type, scores, batch["pos_rows"], batch["pos_cols"],
+                                          batch["row_valid"], batch.get("col_valid"), batch["n_real_cols"],
+                                          label_smoothing)
+    return loss_sum, norm_metric, new_state, reg
 
 
 def train_batch_to_arrays(batch: Batch) -> Dict[str, Any]:
@@ -108,6 +114,51 @@ def make_train_step(model: KGEModel, regimes: OptimizerRegimes, params_example, 
         return new_variables, new_opt, {"loss_sum": loss_sum.detach(), "normalizer_metric": norm_metric}
 
     return step
+
+
+def make_accum_steps(model: KGEModel, regimes: OptimizerRegimes, params_example, loss_type: str = "bce",
+                     label_smoothing: float = 0.0, grad_clip: Optional[float] = None):
+    """Gradient accumulation (the reference's ``batch_size_for_backward``):
+    ``(zero_grads, grad_step, apply_step)``.  ``zero_grads()`` is a fresh
+    accumulator shaped like the params; ``grad_step(variables, acc, batch,
+    generator) -> (variables, acc, stats)`` adds a micro-batch's
+    normalizer-scaled gradients to it (the params are not updated, the
+    batchnorm state is); ``apply_step(variables, opt_state, acc, hparams)
+    -> (variables, opt_state)`` is one optimizer update from the sum, with
+    the regime's clip."""
+    apply_updates = regimes.make_apply(params_example, grad_clip)
+
+    def zero_grads():
+        return map_tree(torch.zeros_like, params_example)
+
+    def grad_step(variables, acc, batch, generator=None):
+        leaves = leaf_tree(variables["params"])
+        v = {"params": leaves, "state": variables["state"], "buffers": variables["buffers"]}
+        loss_sum, norm_metric, new_state, reg = prefix_loss(model, v, batch, loss_type, label_smoothing,
+                                                             generator)
+        ((loss_sum + reg) / batch["normalizer_loss"]).backward()
+        add_tree(acc, grad_tree(leaves))
+        new_variables = {**variables, "state": new_state}
+        return new_variables, acc, {"loss_sum": loss_sum.detach(), "normalizer_metric": norm_metric}
+
+    def apply_step(variables, opt_state, acc, hparams):
+        new_params, new_opt = apply_updates(acc, opt_state, variables["params"], hparams)
+        return {**variables, "params": new_params}, new_opt
+
+    return zero_grads, grad_step, apply_step
+
+
+def map_tree(fn, tree):
+    return {k: map_tree(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def add_tree(acc, grads):
+    """``acc += grads`` leaf by leaf, in place."""
+    for k, g in grads.items():
+        if isinstance(g, dict):
+            add_tree(acc[k], g)
+        else:
+            acc[k].add_(g)
 
 
 def leaf_tree(tree):

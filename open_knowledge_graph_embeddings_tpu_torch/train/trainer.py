@@ -21,11 +21,18 @@ a single device.  Semantics carried over:
   optimizer's host state, ``checkpoint_epoch_{n}`` at ``save_epoch_freq``,
   always one at the end of a run.
 
+Gradient accumulation (``batch_size_for_backward`` = k x ``batch_size``):
+each micro-batch adds its gradients to an accumulator and every k-th runs
+one optimizer update from the sum; on the row-sparse path k batches form a
+window planned over one union row space.  The accumulator (and on the
+sparse path the batches of an unfinished window) carries across epoch
+boundaries, and ``training_steps`` counts micro-batches, as in the JAX
+package.
+
 ``train_scan_steps`` (K steps per device program on the TPU) runs its K
 steps one after another here: the same math (``tests/test_scan_steps.py``);
-capturing them in a CUDA graph is ROADMAP Queue 1 item 10.  Gradient
-accumulation comes with item 12; meshes, several processes and host-sharded
-eval with item 14.
+capturing them in a CUDA graph is ROADMAP Queue 1 item 10.  Meshes, several
+processes and host-sharded eval are item 14.
 """
 
 from __future__ import annotations
@@ -46,19 +53,21 @@ from open_knowledge_graph_embeddings_tpu_torch.models.model import KGEModel
 from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import (
     copy_checkpoint,
     load_checkpoint,
-    load_opt_state,
+    load_checkpoint_meta,
     save_checkpoint,
 )
 from open_knowledge_graph_embeddings_tpu_torch.train.metrics import MetricResult
 from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
 from open_knowledge_graph_embeddings_tpu_torch.train.sparse import (
     SparsePlanBuilder,
+    make_sparse_accum_steps,
     make_sparse_train_step,
     sparse_table_names,
 )
 from open_knowledge_graph_embeddings_tpu_torch.train.step import (
     arrays_to_device,
     eval_batch_to_arrays,
+    make_accum_steps,
     make_eval_step,
     make_train_step,
     train_batch_to_arrays,
@@ -99,10 +108,6 @@ class Trainer:
         self.loss_type = args.get("experiment_settings", {}).get("loss", "bce")
         self.label_smoothing = float(args.get("bce_label_smoothing") or 0.0)
         self.grad_clip = float(args["grad_clip"]) if args.get("grad_clip") else None
-        bsz = train_dataset.batch_size
-        bsfb = args.get("batch_size_for_backward") or train_dataset.batch_size_for_backward
-        if int(round((bsfb or bsz) / bsz)) > 1:
-            raise NotImplementedError("gradient accumulation is not ported yet: ROADMAP Queue 1 item 12")
         if int(args.get("model_parallel") or 1) > 1:
             raise NotImplementedError("model parallelism is not ported yet: ROADMAP Queue 1 item 14")
         if int(args.get("num_processes") or 1) > 1:
@@ -133,9 +138,23 @@ class Trainer:
         self.opt_state = self.regimes.init_state(self.variables["params"])
         self._rebuild_steps()
         self.train_builder = BatchBuilder(train_dataset, seed=seed)
+
+        bsz = train_dataset.batch_size
+        bsfb = args.get("batch_size_for_backward") or train_dataset.batch_size_for_backward
+        self.accum_steps = max(1, int(round((bsfb or bsz) / bsz)))
+        # the accumulation state carries across epoch boundaries
+        self._acc_grads = None
+        self._accum_i = 0
+        self._window_buf: List[Batch] = []  # sparse path: the batches of an unfinished window
+        if self.accum_steps > 1:
+            logger.info("gradient accumulation over %d micro-batches%s", self.accum_steps,
+                        " (row-sparse union-row windows)" if self.sparse else "")
         if int(args.get("train_scan_steps") or 1) > 1:
-            logger.info("train_scan_steps=%s: the steps of a window run one after another",
-                        args["train_scan_steps"])
+            if self.accum_steps > 1:
+                logger.info("train_scan_steps=%s disabled (gradient accumulation)", args["train_scan_steps"])
+            else:
+                logger.info("train_scan_steps=%s: the steps of a window run one after another",
+                            args["train_scan_steps"])
 
         # full-vocab eval scores eval_block_rows prefixes per device batch
         # (the metric sums do not depend on it); batch-shared eval keeps the
@@ -169,20 +188,25 @@ class Trainer:
         #: the last evaluate(): host seconds of the candidate cache encode and
         #: of the batches, and the number of batches
         self.last_eval: Optional[Dict[str, float]] = None
-        #: per step: host ms waiting for the next planned batch, the loss per
-        #: real cell (a device scalar) and the tables that took the row-sparse
-        #: update
+        #: per step (micro-batch): host ms waiting for the next planned batch,
+        #: the loss per real cell (a device scalar), the tables that took the
+        #: row-sparse update, and whether an optimizer update ran after it
+        #: (every step without accumulation)
         self.step_log: List[Dict[str, Any]] = []
         self.last_epoch: Optional[Dict[str, float]] = None
 
     def _rebuild_steps(self):
         kw = dict(loss_type=self.loss_type, label_smoothing=self.label_smoothing, grad_clip=self.grad_clip)
+        params = self.variables["params"]
         if self.sparse:
-            self.train_step = make_sparse_train_step(
-                self.model, self.regimes, self.variables["params"],
-                entity_sparse=self._sparse_plan.entity_sparse, **kw)
+            entity_sparse = self._sparse_plan.entity_sparse
+            self.train_step = make_sparse_train_step(self.model, self.regimes, params, entity_sparse, **kw)
+            self.zero_grads, self.grad_step, self.apply_step = make_sparse_accum_steps(
+                self.model, self.regimes, params, entity_sparse, **kw)
         else:
-            self.train_step = make_train_step(self.model, self.regimes, self.variables["params"], **kw)
+            self.train_step = make_train_step(self.model, self.regimes, params, **kw)
+            self.zero_grads, self.grad_step, self.apply_step = make_accum_steps(self.model, self.regimes, params,
+                                                                                **kw)
         self.eval_step = make_eval_step(self.model, self.loss_type, self.label_smoothing)
         self._eval_step_topk = None  # built when log_predictions is set
 
@@ -222,8 +246,7 @@ class Trainer:
                 items += float(stats["normalizer_metric"])
             pending.clear()
 
-        it = self.train_builder.batches(shuffle=True, prefetch=max(2, workers), transform=self._to_device,
-                                        workers=workers)
+        it = self._iter_train_arrays(workers)
         step_i = -1
         while True:
             t_wait = time.perf_counter()
@@ -238,12 +261,17 @@ class Trainer:
                 # optimizer type changed: fresh state and a rebuilt step
                 self.opt_state = self.regimes.init_state(self.variables["params"])
                 self._rebuild_steps()
-            self.variables, self.opt_state, stats = self.train_step(
-                self.variables, self.opt_state, self.regimes.hparams(), arrays, self.generator)
+            applied = True
+            if self.accum_steps <= 1:
+                self.variables, self.opt_state, stats = self.train_step(
+                    self.variables, self.opt_state, self.regimes.hparams(), arrays, self.generator)
+            else:
+                stats, applied = self._accumulate(arrays)
             self.step_log.append({
                 "wait_ms": wait_ms,
                 "loss": stats["loss_sum"] / batch.normalizer_loss,  # stays on the device
                 "sparse_tables": tuple(t for t in self._sparse_tables if f"sparse/{t}/uids" in arrays),
+                "applied": applied,
             })
             pending.append((stats, batch.normalizer_loss))
             now = time.time()
@@ -263,6 +291,46 @@ class Trainer:
                 val_hook(last_step_of_epoch=False)
         drain()
         return {"loss": loss_sum_total / max(norm_total, 1e-30), "items_per_s": items / items_t}
+
+    def _accumulate(self, arrays):
+        """One micro-batch into the accumulator, and the optimizer update
+        when it completes the window -> ``(stats, applied)``."""
+        if self._acc_grads is None:
+            # the sparse accumulator is shaped by the window's union plan
+            self._acc_grads = self.zero_grads(arrays) if self.sparse else self.zero_grads()
+        self.variables, self._acc_grads, stats = self.grad_step(self.variables, self._acc_grads, arrays,
+                                                                self.generator)
+        self._accum_i += 1
+        if self._accum_i < self.accum_steps:
+            return stats, False
+        if self.sparse:  # any micro-batch of the window carries its union plan
+            self.variables, self.opt_state = self.apply_step(self.variables, self.opt_state, self._acc_grads,
+                                                             arrays, self.regimes.hparams())
+        else:
+            self.variables, self.opt_state = self.apply_step(self.variables, self.opt_state, self._acc_grads,
+                                                             self.regimes.hparams())
+        self._acc_grads = None
+        self._accum_i = 0
+        return stats, True
+
+    def _iter_train_arrays(self, workers: int):
+        """``(batch, device arrays)`` of one training pass.  The batches are
+        built, planned and copied on the prefetch threads; with row-sparse
+        accumulation ``accum_steps`` batches form a window planned over one
+        union row space on this thread (``SparsePlanBuilder.plan_window``),
+        and the batches of an unfinished window at the end of a pass wait
+        in ``_window_buf`` for the next pass."""
+        prefetch = max(2, workers)
+        if not (self.sparse and self.accum_steps > 1):
+            yield from self.train_builder.batches(shuffle=True, prefetch=prefetch, transform=self._to_device,
+                                                  workers=workers)
+            return
+        for batch in self.train_builder.batches(shuffle=True, prefetch=prefetch, workers=workers):
+            self._window_buf.append(batch)
+            if len(self._window_buf) == self.accum_steps:
+                window, self._window_buf = self._window_buf, []
+                for b, d in zip(window, self._sparse_plan.plan_window(window)):
+                    yield b, arrays_to_device(d, self.device)
 
     # ------------------------------------------------------------------- eval
 
@@ -473,25 +541,62 @@ class Trainer:
         self.last_checkpoint = path
         return path
 
-    def load(self, path: str, reset_optimizer: bool = False, dont_load_optimizer: bool = False):
-        """Resume from a checkpoint of either package: variables, optimizer
-        state (unless ``reset_optimizer`` or ``dont_load_optimizer``) and
-        host state (unless ``reset_optimizer``), step count and results."""
-        self.variables, meta = load_checkpoint(path, self.variables)
-        host = meta.get("optimizer_host_state")
+    def load(self, path: str, reset_optimizer: bool = False, resume_filter=None, freeze_param=None,
+             weight_map=None, dont_load_optimizer: bool = False):
+        """Resume from a checkpoint of either package, as the JAX package's
+        ``Trainer.load``: the optimizer's host state first (unless
+        ``reset_optimizer``; a restored phase may take another optimizer
+        type, and so another state), then the variables through
+        ``resume_filter`` and ``weight_map`` (``load_checkpoint``), the
+        optimizer state (unless ``reset_optimizer`` or
+        ``dont_load_optimizer``), the step count and results; then
+        ``freeze_param`` patterns join the frozen ones: newly frozen leaves
+        get the empty state, the others keep what was loaded."""
+        host = load_checkpoint_meta(path).get("optimizer_host_state")
         if host:
             old_names = self.regimes.opt_names()
             self.regimes.load_host_state(host, reset=reset_optimizer)
             if self.regimes.opt_names() != old_names:
                 self.opt_state = self.regimes.init_state(self.variables["params"])
                 self._rebuild_steps()
-        if not (reset_optimizer or dont_load_optimizer):
-            self.opt_state = load_opt_state(path, self.opt_state)
+        self.variables, self.opt_state, meta = load_checkpoint(
+            path, self.variables, self.opt_state, resume_filter=resume_filter, weight_map=weight_map,
+            load_optimizer=not (reset_optimizer or dont_load_optimizer))
         self.training_steps = int(meta.get("training_steps", 0))
         if meta.get("results"):
             self.results.rows = list(meta["results"])
             self.results.save()
+        if freeze_param:
+            patterns = [freeze_param] if isinstance(freeze_param, str) else list(freeze_param)
+            new = [p for p in patterns if p not in self.regimes.frozen_patterns]
+            if new:
+                self.regimes.frozen_patterns.extend(new)
+                fresh = self.regimes.init_state(self.variables["params"])
+                loaded = dict(_state_nodes(self.opt_state))
+                self.opt_state = _map_state_nodes(
+                    lambda path, f: loaded[path] if f and set(f) == set(loaded.get(path) or ()) else f, fresh)
+                self._rebuild_steps()
+                logger.info("froze parameters matching %s", patterns)
         return meta
+
+
+def _is_state_node(x) -> bool:
+    """A leaf's optimizer state: ``{}`` or a dict of tensors."""
+    return isinstance(x, dict) and not any(isinstance(v, dict) for v in x.values())
+
+
+def _state_nodes(tree, prefix=""):
+    """(path, state node) of every leaf of an optimizer state tree."""
+    for key, node in tree.items():
+        if _is_state_node(node):
+            yield prefix + key, node
+        else:
+            yield from _state_nodes(node, prefix + key + "/")
+
+
+def _map_state_nodes(fn, tree, prefix=""):
+    return {key: fn(prefix + key, node) if _is_state_node(node) else _map_state_nodes(fn, node, prefix + key + "/")
+            for key, node in tree.items()}
 
 
 def _jsonable(obj):

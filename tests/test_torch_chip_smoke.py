@@ -755,3 +755,170 @@ def test_f64_check_holds_ranks_within_the_f32_bound(smoke, capsys):
     cap.chunked[0]["ranks"] = bad
     with pytest.raises(smoke.SmokeFailure, match="f32 error bound"):
         smoke.check_against_f64(torch, "case", cap)
+
+
+# ------------------------------------------------- objectives and optimizers
+
+
+ACCUM_CONFIG = dict(model="LSTMComplexRelationModel", batch_size=2, batch_size_for_backward=4, epochs=2,
+                    model_config={"entity_slot_size": 8, "init_std": 0.1, "sparse": True, "dropout": 0.1},
+                    optimization_config={"optimizer": "Adagrad", "lr": 0.3}, eval_epoch_freq=0, print_freq=1,
+                    sparse_min_ratio=0.0, workers=2, seed=1,
+                    train_data_config={"input_file": "train.txt", "batch_size": 2, "use_batch_shared_entities": True,
+                                       "min_size_batch_labels": 6})
+
+
+def _accum_config(tmp_path, toy_dataset_dir, **over):
+    import yaml
+
+    path = tmp_path / "accum.yaml"
+    path.write_text(yaml.safe_dump({**ACCUM_CONFIG, "dataset_dir": toy_dataset_dir,
+                                    "experiment_dir": str(tmp_path / "exp"), **over}))
+    return path
+
+
+@pytest.mark.parametrize("ratio", [0.0, 12.0], ids=["row-sparse", "dense-fallback"])
+def test_window_count_matches_a_cli_run(smoke, toy_dataset_dir, tmp_path, ratio):
+    """``count_windows`` (the host count made before the card run) against
+    the port's ``cli.train`` with accumulation on the toy set: the same
+    windows with the same row-sparse tables, an update after each window's
+    last micro-batch, and the same carried batches."""
+    from open_knowledge_graph_embeddings_tpu_torch.cli import train as port_train
+
+    config = _accum_config(tmp_path, toy_dataset_dir, sparse_min_ratio=ratio)
+    windows, carried, per_pass, B, N = smoke.count_windows(config, passes=2, accum=2)
+    assert (per_pass, B, N) == (5, 2, 6) and len(windows) == 5 and carried == 0
+    assert all(w == (("entity_token_embedding", "relation_token_embedding") if ratio == 0 else ()) for w in windows)
+    trainer = port_train.cli_main([str(config), "--device", "cpu"])
+    assert [s["sparse_tables"] for s in trainer.step_log] == [w for w in windows for _ in range(2)]
+    assert sum(s["applied"] for s in trainer.step_log) == len(windows)
+    assert len(trainer._window_buf) == carried and trainer._accum_i == 0
+
+
+
+def test_window_tables_carry_the_rest(smoke, toy_dataset_dir):
+    """Seven batches in windows of three: two windows, one carried."""
+    from open_knowledge_graph_embeddings_tpu_torch.data.batching import BatchBuilder
+    from open_knowledge_graph_embeddings_tpu_torch.data.dataset import OneToNMentionRelationDataset
+    from open_knowledge_graph_embeddings_tpu_torch.models.model import build_model
+    from open_knowledge_graph_embeddings_tpu_torch.train.sparse import SparsePlanBuilder
+
+    ds = OneToNMentionRelationDataset(dataset_dir=toy_dataset_dir, input_file="train.txt", is_training_data=True,
+                                      batch_size=2, use_batch_shared_entities=True, min_size_batch_labels=6,
+                                      cache_dir=toy_dataset_dir + "/smoke_windows")
+    model = build_model("LookupComplexRelationModel", ds.meta, entity_slot_size=8, sparse=True)
+    plan = SparsePlanBuilder(model.embedder, True, min_rows_ratio=0.0)
+    builder = BatchBuilder(ds, seed=0)
+    batches = list(builder.batches(shuffle=True)) + list(builder.batches(shuffle=True))[:2]
+    windows, carried = smoke.window_tables(plan, batches, 3)
+    assert len(windows) == 2 and carried == 1
+    assert windows == [("entity_embedding", "relation_embedding")] * 2
+
+
+def test_scheduler_closed_forms_match_the_port(smoke):
+    """The script's own closed forms (StepLR, CosineAnnealingLR) and its
+    replay of ReduceLROnPlateau equal the port's scheduler, epoch by epoch
+    and eval by eval, and its phase lr the port's merged one."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
+
+    for cfg in ({"lr_scheduler": "StepLR", "step_size": 1, "gamma": 0.5},
+                {"lr_scheduler": "StepLR", "step_size": 3, "gamma": 0.3},
+                {"lr_scheduler": "CosineAnnealingLR", "T_max": 4, "eta_min": 0.1},
+                {"lr_scheduler": "CosineAnnealingLR", "T_max": 9}):
+        reg = OptimizerRegimes([[{"optimizer": "Adagrad", "lr": 0.3}, {"step": 5, "optimizer": "Adadelta",
+                                                                        "lr": 1.0}]], cfg)
+        for epoch in range(12):
+            reg.update(1, 1 + 3 * epoch)
+            reg.lr_scheduler_step(0.0, epoch=epoch)
+            base = smoke.phase_lr(reg.regimes[0], reg.current_phase[0])
+            assert reg.lr_scale[0] == smoke.lr_scale(cfg, epoch, base), (cfg, epoch)
+            assert reg.hparams()[0]["lr"] == base * reg.lr_scale[0]
+    metrics = [0.1, 0.2, 0.2, 0.15, 0.3, 0.29, 0.28, 0.31, 0.31]
+    for patience in (0, 1, 2):
+        reg = OptimizerRegimes({"optimizer": "Adagrad", "lr": 0.3},
+                               {"lr_scheduler": "ReduceLROnPlateau", "factor": 0.5, "patience": patience})
+        reg.update(1, 0)
+        got = []
+        for m in metrics:
+            reg.lr_scheduler_step(m, epoch=1)
+            got.append(reg.lr_scale[0])
+        assert got == smoke.plateau_scales(metrics, 0.5, patience)
+    assert smoke.plateau_scales(metrics, 0.5, 0) != [1.0] * len(metrics)
+
+
+def test_hparam_log_records_each_call_and_restores(smoke):
+    from open_knowledge_graph_embeddings_tpu_torch.ops import adagrad_kernel
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
+
+    orig = (OptimizerRegimes.hparams, adagrad_kernel._launch)
+    reg = OptimizerRegimes([{"optimizer": "RMSprop", "lr": 0.1, "match": "r"}, {"optimizer": "Adagrad", "lr": 0.2}])
+    reg.update(1, 0)
+    with smoke.HparamLog() as log:
+        reg.hparams()
+        reg.lr_scale = [0.5, 1.0]
+        reg.hparams()
+    assert (OptimizerRegimes.hparams, adagrad_kernel._launch) == orig
+    assert [c[0] for c in log.calls] == [["RMSprop", "Adagrad"]] * 2 and log.calls[1][1] == [0, 0]
+    assert [c[2][0]["lr"] for c in log.calls] == [0.1, 0.05] and log.launch_lrs == []
+
+
+def test_window_gradient_check_holds_the_sum_and_fails_a_missing_micro_batch(smoke, toy_dataset_dir, tmp_path,
+                                                                             monkeypatch, lstm_case, capsys):
+    """``check_window_gradients`` on a CPU run with accumulation (dropout
+    on: the recorded generator states must replay the masks): the first
+    window's summed row gradients, as the row update was handed them, pass
+    the bf16 rule against its micro-batches recomputed alone on the plain
+    path and the f32 rule against them recomputed with the kernels, and the
+    sum without one micro-batch fails both; ``repeat_probe`` replays
+    micro-batch 0 and a recorded backward twice each."""
+    from open_knowledge_graph_embeddings_tpu_torch.cli import train as port_train
+    from open_knowledge_graph_embeddings_tpu_torch.train import optim, sparse
+
+    recorded = {}
+    orig_rows, orig_dense = sparse.scatter_adagrad_tables, optim.adagrad_update_leaves
+
+    def rows(g_rows, uids, valid, ps, accs, steps, hp):
+        recorded.setdefault("rows", ([g.clone() for g in g_rows], uids, valid, [p.clone() for p in ps]))
+        return orig_rows(g_rows, uids, valid, ps, accs, steps, hp)
+
+    def dense(gs, ps, accs, steps, hp):
+        recorded.setdefault("dense", ([g.clone() for g in gs], [p.clone() for p in ps]))
+        return orig_dense(gs, ps, accs, steps, hp)
+
+    monkeypatch.setattr(sparse, "scatter_adagrad_tables", rows)
+    monkeypatch.setattr(optim, "adagrad_update_leaves", dense)
+    config = _accum_config(tmp_path, toy_dataset_dir)
+    with smoke.WindowCapture(2) as wcap:
+        trainer = port_train.cli_main([str(config), "--device", "cpu"])
+    assert len(wcap.micro) == 2
+    err = smoke.check_window_gradients(torch, trainer, wcap, recorded["rows"], recorded["dense"])
+    assert err <= 1e-6
+    out = capsys.readouterr().out
+    assert out.count("planted fault (one micro-batch left out)") == 4
+    assert out.count("on the plain path (kernels 1 and 2 off)") == 2
+    smoke.repeat_probe(torch, trainer, wcap, lstm_case[2])
+    out = capsys.readouterr().out
+    assert "(B=300): bit-equal {'demb': True, 'dW_ih': True, 'dW_hh': True, 'db': True}" in out
+    assert "micro-batch 0's gradients twice, bit-equal by table {" in out
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_plain_lstm_swaps_the_launchers_and_restores_them(smoke, lstm_case):
+    """Inside ``plain_lstm`` kernels 1 and 2's launchers are the plain
+    versions (equal results on the same inputs, no launch counted), and the
+    launchers are restored after; ``fold_errs`` keeps each row's largest."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+
+    fwd_args, (last, hs, cs), bwd_args = lstm_case
+    orig = lk._launch_forward, lk._launch_backward
+    n = lk.lstm_encode_last_fused.launches, lk.lstm_last_backward.launches
+    with smoke.plain_lstm():
+        assert (lk._launch_forward, lk._launch_backward) != orig
+        got = lk._launch_forward(*fwd_args, True)
+        assert all(torch.equal(x, y) for x, y in zip(got, (last, hs, cs)))
+        assert torch.equal(lk._launch_forward(*fwd_args, False), last)
+        for x, y in zip(lk._launch_backward(*bwd_args), lk.lstm_last_backward_plain(*bwd_args)):
+            assert torch.equal(x, y)
+    assert (lk._launch_forward, lk._launch_backward) == orig
+    assert (lk.lstm_encode_last_fused.launches, lk.lstm_last_backward.launches) == n
+    assert smoke.fold_errs({"a": 1.0, "b": 0.5}, {"b": 2.0, "c": 0.1}) == {"a": 1.0, "b": 2.0, "c": 0.1}

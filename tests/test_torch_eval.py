@@ -378,8 +378,8 @@ def test_cli_train_with_validation_selects_the_best_model(toy_dataset_dir, tmp_p
         assert 0 < r["validation_mrr"] <= 1 and np.isfinite(r["validation_loss"])
         assert r["validation_h1"] <= r["validation_h3"] <= r["validation_h10"] <= r["validation_h50"]
     best_row = max(rows, key=lambda r: r["validation_mrr"])  # the first of equals: only a gain is "best"
-    _, meta = load_checkpoint(str(tmp_path / "exp" / "model_best-mrr"),
-                              trainer.model.init(torch.Generator().manual_seed(2)))
+    _, _, meta = load_checkpoint(str(tmp_path / "exp" / "model_best-mrr"),
+                                 trainer.model.init(torch.Generator().manual_seed(2)), {})
     assert meta["training_steps"] == best_row["training_steps"]
     assert (tmp_path / "exp" / "checkpoint_epoch_1").is_dir()
     with open(tmp_path / "exp" / "results.csv") as f:

@@ -58,7 +58,7 @@ def served(tmp_path_factory):
 def _port_predictor(data, ck):
     meta = load_meta(data, (10, 10))
     model = build_model(MODEL, meta, **CFG)
-    variables, meta_json = checkpoint.load_checkpoint(ck, model.init(torch.Generator().manual_seed(0)))
+    variables, _, meta_json = checkpoint.load_checkpoint(ck, model.init(torch.Generator().manual_seed(0)), {})
     assert meta_json["training_steps"] == 1
     return inference.Predictor(model, variables, dataset_dir=data)
 
