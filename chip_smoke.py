@@ -144,6 +144,25 @@ Phases (any failure exits non-zero before the final line):
    tables) and Adagrad under ReduceLROnPlateau, and Adagrad switching to
    Adadelta at step 20 under CosineAnnealingLR (every step's lr the
    scheduler's closed form, the lr kernel 3 is handed, JAX's state keys);
+12b. benchmark creation (``phase_create_data``): an OPIEC-shaped corpus
+   written with numpy and the port's avro writer (250,000 records in 8
+   files: 50,000 linked entities with 1-3 surface forms drawn Zipf-like,
+   5,000 relation phrases), ``cli.create_data -c`` in a subprocess under
+   ``configs/preprocessing/acl2020.yaml``'s settings (each job's seconds,
+   each split's lines; no thorough-train pair meets a test pair, every
+   ``mapped_to_ids`` file there, a second run skips every job); then on
+   its ``train_data_thorough.txt`` the flagship's widths through
+   ``cli.train`` (two passes, ``sparse_min_ratio: 2``, ``profile_steps: 2``: the trace under the
+   experiment's ``profile/`` names kernel 1's and kernel 2's CUDA
+   functions), ``--evaluate`` on its test split and ``cli.predict`` of 4
+   text queries, every launch count exact (path ``create_data``) and the
+   training run's kernels held to their plain versions;
+12c. the per-shard checkpoint read (``phase_shard_ckpt``): the bf16
+   flagship checkpoint of 4 cut into two rank slabs in the JAX package's
+   per-shard layout (``split_checkpoint``); ``--evaluate`` on the test
+   split from the slabs and from the original exactly equal, ``cli.predict``
+   the same answers, ``Trainer.load`` every leaf bit-equal (path
+   ``shard_ckpt``: the slabs' runs);
 13. the Adagrads' host cost through the entry points every tree of the port
    has (``launch_cost``; ``python3 chip_smoke.py --launch-cost DIR`` runs
    only that, on the port in the checkout at DIR, to hold two trees against
@@ -527,7 +546,6 @@ def phase_main_path(torch, timings, ckpt=None, unfused=False, config=FLAGSHIP, t
     the 1024-query batches take the fused one and the single queries (B = 1)
     the unfused one, by the JAX package's rule.  ``tag`` prefixes the
     timings' keys."""
-    from open_knowledge_graph_embeddings_tpu_torch.cli import predict as cli_predict
     from open_knowledge_graph_embeddings_tpu_torch.inference import Predictor
     from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import (
         load_checkpoint,
@@ -545,10 +563,7 @@ def phase_main_path(torch, timings, ckpt=None, unfused=False, config=FLAGSHIP, t
     print(f"model {args['model']} d={model.embedder.entity_dim} dtype={model.embedder.dtype} "
           f"entities={meta.entities_size} relations={meta.relations_size}")
 
-    ents = first_names(DATA_DIR / "entity_id_map.txt", 2, skip=10)
-    rels = first_names(DATA_DIR / "relation_id_map.txt", 2, skip=5)
-    queries = [f"{ents[0]}|{rels[0]}|?", f"{ents[1]}|{rels[1]}|?",
-               f"?|{rels[0]}|{ents[1]}", f"?|{rels[1]}|{ents[0]}"]
+    queries = text_queries(DATA_DIR)
     chunk = 32768
     n_chunks = -(-meta.entities_size // chunk)
     rng = np.random.default_rng(SEED)
@@ -561,18 +576,7 @@ def phase_main_path(torch, timings, ckpt=None, unfused=False, config=FLAGSHIP, t
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
-    out, err = io.StringIO(), io.StringIO()
-    stdin = sys.stdin
-    sys.stdin = io.StringIO("\n".join(queries) + "\n")
-    t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            cli_predict.main([str(config), "--resume", ckpt, "--dataset_dir", str(DATA_DIR),
-                              "-k", "10", "--device", "cuda"])
-    finally:
-        sys.stdin = stdin
-    torch.cuda.synchronize()
-    timings[pre + "cli_predict_s"] = time.perf_counter() - t0
+    cli_lines, timings[pre + "cli_predict_s"] = cli_predict_lines(torch, config, ckpt, DATA_DIR, queries)
 
     _, _, model, variables = load_user_path(torch, config)
     variables, _, _ = load_checkpoint(ckpt, variables, {})
@@ -594,14 +598,8 @@ def phase_main_path(torch, timings, ckpt=None, unfused=False, config=FLAGSHIP, t
     launches = {name: fn.launches for name, fn in counters.items()}
     # ---- end of the main path
 
-    # checks
-    cli_lines = [ln.split(None, 2) for ln in out.getvalue().splitlines() if ln.strip()]
-    check("!!" not in err.getvalue(), f"cli.predict rejected a query: {err.getvalue()[-500:]}")
-    check(len(cli_lines) == 10 * len(queries), f"cli.predict printed {len(cli_lines)} lines")
-    for qi in range(len(queries)):
-        s = np.array([float(x[1]) for x in cli_lines[qi * 10 : (qi + 1) * 10]])
-        check(np.isfinite(s).all() and (np.diff(s) <= 0).all(), f"cli scores not sorted: {s}")
-    print("cli.predict:", out.getvalue().splitlines()[0].strip(), "...")
+    # checks (cli.predict's lines: cli_predict_lines)
+    print("cli.predict:", " ".join(cli_lines[0]), "...")
     E = meta.entities_size
     for direction, (scores, ids) in results.items():
         check(scores.shape == (nq, 10) and ids.shape == (nq, 10), f"{direction} shapes")
@@ -3675,7 +3673,6 @@ def serve_lookup(torch, timings, config, ckpt, pre, nq=1024, n_timed=10):
     model launches none of the port's kernels); the top-k against a plain
     CPU Predictor on the same weights (ids equal, scores by the f32 rule).
     Returns the launches."""
-    from open_knowledge_graph_embeddings_tpu_torch.cli import predict as cli_predict
     from open_knowledge_graph_embeddings_tpu_torch.config.options import load_config
     from open_knowledge_graph_embeddings_tpu_torch.data.dataset import load_meta
     from open_knowledge_graph_embeddings_tpu_torch.inference import Predictor
@@ -3685,10 +3682,7 @@ def serve_lookup(torch, timings, config, ckpt, pre, nq=1024, n_timed=10):
 
     args = load_config(str(config))
     data_dir = Path(args["dataset_dir"])
-    ents = first_names(data_dir / "entity_id_map.txt", 2, skip=10)
-    rels = first_names(data_dir / "relation_id_map.txt", 2, skip=5)
-    queries = [f"{ents[0]}|{rels[0]}|?", f"{ents[1]}|{rels[1]}|?", f"?|{rels[0]}|{ents[1]}",
-               f"?|{rels[1]}|{ents[0]}"]
+    queries = text_queries(data_dir)
     meta = load_meta(str(data_dir), tuple(args["experiment_settings"]["max_lengths_tuple"]))
     rng = np.random.default_rng(SEED)
     ent_ids = rng.integers(meta.min_entities_size, meta.entities_size, nq)
@@ -3697,16 +3691,7 @@ def serve_lookup(torch, timings, config, ckpt, pre, nq=1024, n_timed=10):
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
-    out, err, stdin = io.StringIO(), io.StringIO(), sys.stdin
-    sys.stdin = io.StringIO("\n".join(queries) + "\n")
-    t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            cli_predict.main([str(config), "--resume", ckpt, "-k", "10", "--device", "cuda"])
-    finally:
-        sys.stdin = stdin
-    torch.cuda.synchronize()
-    timings[pre + "cli_predict_s"] = time.perf_counter() - t0
+    cli_lines, timings[pre + "cli_predict_s"] = cli_predict_lines(torch, config, ckpt, data_dir, queries)
     model = build_model(args["model"], meta, **args["model_config"])
     variables, _, _ = load_checkpoint(ckpt, model.init(torch.Generator(device="cuda").manual_seed(SEED)), {})
     torch.cuda.synchronize()
@@ -3724,9 +3709,6 @@ def serve_lookup(torch, timings, config, ckpt, pre, nq=1024, n_timed=10):
     timings[f"{pre}predict_{nq}_ms"], timings[pre + "predict_1_ms"] = summary(batch_ms), summary(single_ms)
     launches = {name: fn.launches for name, fn in counters.items()}
 
-    cli_lines = [ln.split(None, 2) for ln in out.getvalue().splitlines() if ln.strip()]
-    check("!!" not in err.getvalue() and len(cli_lines) == 10 * len(queries),
-          f"{pre}cli.predict printed {len(cli_lines)} lines: {err.getvalue()[-300:]}")
     to_cpu = lambda t: {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()  # noqa: E731
     plain = Predictor(model, to_cpu(variables))
     worst = 0.0
@@ -4670,6 +4652,475 @@ def phase_objectives(torch, timings, by_path, by_path_f32):
     return errs
 
 
+# ----------------------------------------------------- benchmark creation
+
+CREATE_DATA_DIR = ROOT / ".bench_cache" / "smoke_create_data"
+# the full-scale OLPBench creation settings (eval_data_size 10000, min_count
+# 3, vocabularies 200000 / 50000, seed 0), of which only work_dir and
+# corpus_files are set here
+PIPELINE_SETTINGS = ROOT / "configs" / "preprocessing" / "acl2020.yaml"
+# The OPIEC-shaped corpus: 500,000 records halved once, the only cut
+# (cli.create_data took 250.6 s on an 8-core CPU at 500,000, over the 180 s
+# allowed, and 110.9 s at 250,000), in 8 avro files read by 8 workers
+CORPUS_RECORDS = 250_000
+# The corpus's entity token table (~68,000 rows) is ~4.2x a batch's 16,384
+# bucketed touched rows, under the default ratio of 12 (its 200,000-token
+# cap is OLPBench's), so at 12 no step would update rows (kernel 4); at 2
+# every step updates that table's rows and the relation token table
+# (~9,500 rows) stays dense (kernel 3)
+CREATE_DATA_SPARSE_RATIO = 2.0
+CORPUS_FILES = 8
+CORPUS_ENTITIES, CORPUS_UNLINKED, CORPUS_RELATIONS = 50_000, 30_000, 5_000
+# OPIEC-Clean's record shape, the fields the corpus extractor reads
+# (reference: preprocessing/process_avro.py:16-195)
+CORPUS_TOKEN = {"type": "record", "name": "TokenLinked", "fields": [
+    {"name": "word", "type": "string"}, {"name": "pos", "type": ["null", "string"]},
+    {"name": "index", "type": "long"},
+    {"name": "w_link", "type": {"type": "record", "name": "WikiLink",
+                                "fields": [{"name": "wiki_link", "type": ["null", "string"]}]}}]}
+CORPUS_SCHEMA = {"type": "record", "name": "TripleLinked", "namespace": "de.uni_mannheim.opiec", "fields": [
+    {"name": "triple_id", "type": "string"}, {"name": "article_id", "type": "string"},
+    {"name": "confidence_score", "type": "double"},
+    {"name": "polarity", "type": {"type": "enum", "name": "Polarity", "symbols": ["POSITIVE", "NEGATIVE"]}},
+    {"name": "subject", "type": {"type": "array", "items": CORPUS_TOKEN}},
+    {"name": "relation", "type": {"type": "array", "items": "TokenLinked"}},
+    {"name": "object", "type": {"type": "array", "items": "TokenLinked"}},
+    {"name": "dropped_words_subject", "type": {"type": "array", "items": "TokenLinked"}},
+    {"name": "dropped_words_relation", "type": {"type": "array", "items": "TokenLinked"}},
+    {"name": "dropped_words_object", "type": {"type": "array", "items": "TokenLinked"}},
+    {"name": "quantities", "type": {"type": "map", "values": "string"}},
+    {"name": "sentence_linked", "type": ["null", {"type": "record", "name": "Sentence", "fields": [
+        {"name": "tokens", "type": {"type": "array", "items": "TokenLinked"}}]}]}]}
+
+
+def zipf_p(n, s):
+    """Probabilities of ranks 1..n proportional to rank^-s."""
+    p = 1.0 / np.arange(1, n + 1) ** s
+    return p / p.sum()
+
+
+def corpus_world(seed):
+    """The corpus's vocabulary, from ``seed``: ``CORPUS_ENTITIES`` linked
+    entities, each with 1-3 surface forms (a name of 1-3 tokens drawn from
+    200,000 name tokens; its last token alone or with one more; a title
+    token before it), ``CORPUS_UNLINKED`` unlinked noun phrases (a common
+    word, Zipf over 20,000, and a name token) and ``CORPUS_RELATIONS``
+    relation phrases of 1-5 tokens (Zipf 0.5 over 20,000 tokens)."""
+    rng = np.random.default_rng(seed)
+    names = rng.integers(0, 200_000, (CORPUS_ENTITIES, 3))
+    n_forms = rng.choice([1, 2, 3], CORPUS_ENTITIES, p=[0.5, 0.3, 0.2])
+    name_len = rng.choice([1, 2, 3], CORPUS_ENTITIES, p=[0.3, 0.5, 0.2])
+    titles = rng.integers(0, 50, CORPUS_ENTITIES)
+    entities = []
+    for e in range(CORPUS_ENTITIES):
+        name = [f"n{t}" for t in names[e, :name_len[e]]]
+        short = name[-1:] if len(name) > 1 else name + [f"n{names[e, 2]}"]
+        entities.append([name, short, [f"c{titles[e]}", *name]][:n_forms[e]])
+    common = rng.choice(20_000, CORPUS_UNLINKED, p=zipf_p(20_000, 1.0))
+    unlinked = [[f"c{c}", f"n{t}"] for c, t in zip(common, rng.integers(0, 200_000, CORPUS_UNLINKED))]
+    lens = rng.choice([1, 2, 3, 4, 5], CORPUS_RELATIONS, p=[0.1, 0.2, 0.35, 0.25, 0.1])
+    toks = rng.choice(20_000, int(lens.sum()), p=zipf_p(20_000, 0.5))
+    relations = [[f"r{t}" for t in p] for p in np.split(toks, np.cumsum(lens)[:-1])]
+    return entities, unlinked, relations
+
+
+def _corpus_part(job):
+    """One avro file of the corpus (a worker of ``write_opiec_corpus``):
+    ``n`` records drawn from ``seed``.  Each slot is linked with
+    probability 0.75 to an entity drawn Zipf-like (0.6) and shows one of
+    its forms (the first the most often), else an unlinked phrase (Zipf
+    0.6); the relation is drawn Zipf-like (0.6); the confidence is uniform
+    in [0.2, 1) and 3 % of records are NEGATIVE (both dropped by the
+    extractor's filters)."""
+    from open_knowledge_graph_embeddings_tpu_torch.preprocessing import avro
+
+    path, seed, n, (entities, unlinked, relations) = job
+    rng = np.random.default_rng(seed)
+    linked = rng.random((2, n)) < 0.75
+    ents = rng.choice(len(entities), (2, n), p=zipf_p(len(entities), 0.6))
+    unl = rng.choice(len(unlinked), (2, n), p=zipf_p(len(unlinked), 0.6))
+    form = rng.random((2, n))
+    rels = rng.choice(len(relations), n, p=zipf_p(len(relations), 0.6))
+    confidence = rng.uniform(0.2, 1.0, n)
+    negative = rng.random(n) < 0.03
+
+    def tokens(words, start, pos, link=None):
+        return [{"word": w, "pos": pos(i), "index": start + i, "w_link": {"wiki_link": link}}
+                for i, w in enumerate(words)]
+
+    def argument(k, i, start):
+        if linked[k, i]:
+            forms = entities[ents[k, i]]
+            words = forms[min(int(form[k, i] ** 2 * len(forms)), len(forms) - 1)]
+            return tokens(words, start, lambda j: "NNP", f"Entity_{ents[k, i]}")
+        return tokens(unlinked[unl[k, i]], start, lambda j: "NN")
+
+    records = []
+    for i in range(n):
+        s = argument(0, i, 0)
+        r = tokens(relations[rels[i]], len(s), lambda j: "VBZ" if j == 0 else "IN")
+        o = argument(1, i, len(s) + len(r))
+        records.append({"triple_id": f"{seed}-{i}", "article_id": f"{seed}-{i // 20}",
+                        "confidence_score": float(confidence[i]), "polarity": "NEGATIVE" if negative[i] else "POSITIVE",
+                        "subject": s, "relation": r, "object": o, "dropped_words_subject": [],
+                        "dropped_words_relation": [], "dropped_words_object": [], "quantities": {},
+                        "sentence_linked": None})
+    with open(path, "wb") as f:
+        avro.writer(f, CORPUS_SCHEMA, records, sync_marker=bytes(range(16)))
+    return path
+
+
+def write_opiec_corpus(out_dir, n_records=CORPUS_RECORDS, seed=SEED, n_files=CORPUS_FILES, workers=CORPUS_FILES):
+    """An OPIEC-shaped corpus of ``n_records`` records in ``n_files`` avro
+    files under ``out_dir``, written by the port's avro writer; the same
+    bytes for the same arguments.  Returns the files' paths."""
+    import multiprocessing
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    world = corpus_world(seed)
+    sizes = [n_records // n_files + (i < n_records % n_files) for i in range(n_files)]
+    jobs = [(str(out_dir / f"opiec_part{i}.avro"), seed * 1000 + i + 1, n, world) for i, n in enumerate(sizes)]
+    if workers <= 1:
+        return [_corpus_part(job) for job in jobs]
+    with multiprocessing.get_context("spawn").Pool(min(workers, n_files)) as pool:
+        return pool.map(_corpus_part, jobs)
+
+
+def pipeline_config(work_dir, corpus_files, workers=CORPUS_FILES):
+    """``PIPELINE_SETTINGS`` with ``work_dir``, ``corpus_files`` and the
+    extraction's ``workers`` set, written beside ``work_dir``."""
+    import yaml
+
+    cfg = yaml.safe_load(PIPELINE_SETTINGS.read_text())
+    cfg.update(work_dir=str(work_dir), corpus_files=[str(p) for p in corpus_files], workers=workers)
+    path = Path(work_dir).parent / "pipeline.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return path
+
+
+def run_create_data(config):
+    """``python -m ...cli.create_data -c CONFIG`` in a subprocess -> (wall
+    s, {job: its logged seconds}, {job: logged it ran or it skipped})."""
+    import os
+    import re
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", f"{PKG}.cli.create_data", "-c", str(config)], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"cli.create_data exited {res.returncode}: {res.stderr[-3000:]}")
+    secs = {m[0]: float(m[1]) for m in re.findall(r"(\w+): done in ([\d.]+)s", res.stderr)}
+    state = {m[0]: m[1] for m in re.findall(r"(\w+): (running|all outputs exist, skipping)", res.stderr)}
+    return wall, secs, state
+
+
+def test_pairs_in_thorough(work_dir):
+    """(the test split's subject/object mention pairs in either order, with
+    every mention alternative, and how many of them a thorough-train triple
+    has)."""
+    work_dir = Path(work_dir)
+    pairs = set()
+    with open(work_dir / "test_data.txt", encoding="utf-8") as f:
+        for line in f:
+            _, _, _, s_alts, o_alts = line.rstrip("\n").split("\t")
+            for sa in s_alts.split("|||"):
+                for oa in o_alts.split("|||"):
+                    pairs |= {(sa, oa), (oa, sa)}
+    with open(work_dir / "train_data_thorough.txt", encoding="utf-8") as f:
+        met = sum(1 for line in f if tuple(line.split("\t")[0:3:2]) in pairs)
+    return len(pairs), met
+
+
+def line_counts(directory, names):
+    out = {}
+    for name in names:
+        with open(Path(directory) / name, "rb") as f:
+            out[name] = sum(1 for _ in f)
+    return out
+
+
+def trace_kernel_names(path):
+    """The names of the device kernels in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+# kernel 1's and kernel 2's CUDA functions in bf16, as a trace names them
+TRACE_KERNELS = {"lstm_last_fwd": "lstm_last_step_kernel", "lstm_last_bwd": "lstm_bwd_gate_kernel_bf16"}
+
+
+def cli_predict_lines(torch, config, ckpt, data_dir, queries):
+    """``cli.predict`` with ``queries`` on its standard input -> (its
+    printed lines split in rank, score, name; wall s)."""
+    from open_knowledge_graph_embeddings_tpu_torch.cli import predict as cli_predict
+
+    out, err = io.StringIO(), io.StringIO()
+    stdin = sys.stdin
+    sys.stdin = io.StringIO("\n".join(queries) + "\n")
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli_predict.main([str(config), "--resume", str(ckpt), "--dataset_dir", str(data_dir), "-k", "10",
+                              "--device", "cuda"])
+    finally:
+        sys.stdin = stdin
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check("!!" not in err.getvalue(), f"cli.predict rejected a query: {err.getvalue()[-500:]}")
+    lines = [ln.split(None, 2) for ln in out.getvalue().splitlines() if ln.strip()]
+    check(len(lines) == 10 * len(queries), f"cli.predict printed {len(lines)} lines for {len(queries)} queries")
+    for qi in range(len(queries)):
+        s = np.array([float(x[1]) for x in lines[qi * 10: (qi + 1) * 10]])
+        check(np.isfinite(s).all() and (np.diff(s) <= 0).all(), f"cli.predict scores not sorted: {s}")
+    return lines, wall
+
+
+def text_queries(data_dir):
+    """4 queries of surface forms from the id maps: two of each direction."""
+    ents = first_names(Path(data_dir) / "entity_id_map.txt", 2, skip=10)
+    rels = first_names(Path(data_dir) / "relation_id_map.txt", 2, skip=5)
+    return [f"{ents[0]}|{rels[0]}|?", f"{ents[1]}|{rels[1]}|?", f"?|{rels[0]}|{ents[1]}", f"?|{rels[1]}|{ents[0]}"]
+
+
+def predict_with_counts(torch, config, ckpt, data_dir, tag):
+    """``cli.predict`` of 4 text queries with the launch counts set to 0
+    just before and read just after and held exactly: the candidate cache
+    in fused chunks of 32768 (kernel 1), each query's two encodes at B = 1
+    unfused (kernel 7) -> (lines, launches)."""
+    from open_knowledge_graph_embeddings_tpu_torch.config.options import load_config
+    from open_knowledge_graph_embeddings_tpu_torch.data.dataset import load_meta
+
+    queries = text_queries(data_dir)
+    args = load_config(str(config), ["--dataset_dir", str(data_dir)])
+    meta = load_meta(str(data_dir), tuple(args["experiment_settings"]["max_lengths_tuple"]))
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    lines, wall = cli_predict_lines(torch, config, ckpt, data_dir, queries)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    L = meta.max_length[0]
+    n_chunks = -(-meta.entities_size // 32768)
+    want = serving_launches(counters, L, n_chunks, 2 * len(queries), args["model_config"].get("dtype", "float32"))
+    print(f"{tag} cli.predict: {len(queries)} text queries in {wall:.2f} s; launches {launches} (want {want}: "
+          f"{n_chunks} cache chunks fused, 2 unfused encodes at B = 1 a query); first answer: "
+          f"{' '.join(lines[0])}")
+    check(launches == want, f"{tag} cli.predict launches {launches}, want {want}")
+    return lines, launches
+
+
+def phase_create_data(torch, timings, by_path):
+    """The OLPBench creation pipeline of the port, then its output trained,
+    evaluated and served on the card: an OPIEC-shaped corpus
+    (``write_opiec_corpus``), ``cli.create_data -c`` under acl2020's
+    settings in a subprocess (each job's seconds, each split's lines; no
+    thorough-train pair meets a test pair, every mapped_to_ids file there,
+    a second run skips every job); then on
+    ``mapped_to_ids/train_data_thorough.txt`` the flagship's widths
+    through ``cli.train`` (two passes, ``sparse_min_ratio``
+    ``CREATE_DATA_SPARSE_RATIO``, ``profile_steps: 2``: the trace
+    under the experiment's ``profile/`` must name kernel 1's and kernel 2's
+    CUDA functions), ``--evaluate`` on the test split and ``cli.predict``
+    of 4 text queries, each with exact launches, the training run's
+    recorded launches against their plain versions
+    (``check_family_kernels``).  Returns the largest error by kernel row."""
+    from open_knowledge_graph_embeddings_tpu_torch.preprocessing.jobs import ALL_JOBS, CreateTrainingData, MapToIds
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CREATE_DATA_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    files = write_opiec_corpus(CREATE_DATA_DIR / "corpus", CORPUS_RECORDS)
+    timings["corpus_gen_s"] = time.perf_counter() - t0
+    size = sum(Path(p).stat().st_size for p in files)
+    print(f"create_data: an OPIEC-shaped corpus of {CORPUS_RECORDS} records in {len(files)} avro files "
+          f"({size / 2 ** 20:.1f} MiB; {CORPUS_ENTITIES} entities, {CORPUS_RELATIONS} relation phrases) in "
+          f"{timings['corpus_gen_s']:.1f} s")
+    work = CREATE_DATA_DIR / "work"
+    config = pipeline_config(work, files)
+    wall, secs, state = run_create_data(config)
+    jobs = [job.__name__ for job in ALL_JOBS]
+    check(set(secs) == set(jobs) and all(state[j] == "running" for j in jobs), f"create_data ran {state}")
+    timings["create_data_s"] = wall
+    timings["create_data_jobs_s"] = secs
+    print(f"create_data: cli.create_data -c {config.name} {wall:.1f} s; jobs (s): "
+          + ", ".join(f"{j} {secs[j]:.1f}" for j in jobs))
+    mapped = work / "mapped_to_ids"
+    opts = {"work_dir": str(work)}
+    splits = [Path(p).name for p in CreateTrainingData(opts=opts).provides]
+    provided = [Path(p) for p in MapToIds(opts=opts).provides]
+    texts, ids = line_counts(work, splits), line_counts(mapped, [p.name for p in provided if p.name in splits])
+    print("create_data: lines of each split (text / mapped_to_ids): "
+          + ", ".join(f"{n} {texts[n]}/{ids.get(n, '-')}" for n in splits))
+    check(all(texts[n] > 0 for n in splits), f"an empty split: {texts}")
+    n_pairs, met = test_pairs_in_thorough(work)
+    print(f"create_data: {n_pairs} test mention pairs, {met} of them in train_data_thorough.txt")
+    check(n_pairs > 0 and met == 0, f"{met} thorough-train triples meet a test pair")
+    maps = [mapped / f"{k}_{m}.txt" for k in ("entity", "relation") for m in ("id_map", "token_id_map",
+                                                                          "id_tokens_ids_map")]
+    missing = [str(p) for p in [*provided, *maps] if not p.exists()]
+    check(not missing, f"mapped_to_ids files missing: {missing}")
+    wall2, secs2, state2 = run_create_data(config)
+    check(not secs2 and set(state2) == set(jobs) and all(v != "running" for v in state2.values()),
+          f"the second run did not skip every job: {state2}")
+    print(f"create_data: a second run skipped all {len(jobs)} jobs ({wall2:.1f} s)")
+
+    out_dir = CREATE_DATA_DIR / "train"
+    train_cfg = write_config("synth-olpbench-create-data", FLAGSHIP, {
+        "dataset_dir": str(mapped), "eval_epoch_freq": 0, "save_epoch_freq": 0, "profile_steps": 2,
+        "sparse_min_ratio": CREATE_DATA_SPARSE_RATIO, "experiment_dir": str(out_dir)}, data={"train_data_config": {"input_file": "train_data_thorough.txt"},
+                                               "val_data_config": {"input_file": "validation_data_linked.txt"},
+                                               "test_data_config": {"input_file": "test_data.txt"}})
+    trainer, launches, wall, capture = run_cli(torch, [str(train_cfg), "--epochs", "2"])
+    log = trainer.step_log
+    L, dtype = trainer.model.meta.max_length[0], trainer.model.embedder.dtype
+    check(len(log) == 2 * len(trainer.train_builder), f"create_data: {len(log)} steps")
+    want = training_launches(launches, L, len(log), len(log), sum(1 for s in log if s["sparse_tables"]), dtype)
+    print(f"create_data cli.train: {len(trainer.train_dataset)} prefixes, {len(log)} steps (two passes) in "
+          f"{wall:.1f} s; launches {launches} (want {want})")
+    check(launches == want, f"create_data training launches {launches}, want {want}")
+    check(all(launches[k] for k in ("lstm_last_fwd", "lstm_last_bwd", "adagrad_update", "scatter_adagrad")),
+          f"create_data: a training kernel was never launched: {launches}")
+    first, last = check_losses("create_data", trainer)
+    print(f"create_data: loss first {first:.5f} -> last {last:.5f}")
+    timings["create_data_cli_train_s"] = wall
+    total = Counter(launches)
+    errs = check_family_kernels(torch, "create_data", capture, launches)
+    del capture
+    trace = out_dir / "profile" / "trace.json"
+    check(trainer.profile_trace == str(trace) and trace.exists(), f"no profiler trace at {trace}")
+    names = trace_kernel_names(trace)
+    found = {row: sorted({n for n in names if fn in n})[:1] for row, fn in TRACE_KERNELS.items()}
+    print(f"create_data: profile_steps 2 wrote {trace} ({trace.stat().st_size / 2 ** 20:.1f} MiB, "
+          f"{len(names)} kernel names; kernel 1 {found['lstm_last_fwd']}, kernel 2 {found['lstm_last_bwd']})")
+    check(all(found.values()), f"the trace names no {[TRACE_KERNELS[r] for r, f in found.items() if not f]}")
+    ckpt = trainer.last_checkpoint
+    del trainer
+
+    etrainer, cap, elaunches, row, ewall = run_evaluate(torch, train_cfg, ckpt, CREATE_DATA_DIR / "eval_test", False,
+                                                        data_dir=mapped)
+    meta = etrainer.model.meta
+    want = eval_launches(elaunches, L, dtype, cache_chunks=-(-meta.entities_size // 32768),
+                         test_batches=len(etrainer.val_builder))
+    print(f"create_data test eval ({meta.entities_size} candidates): launches {elaunches} (want {want}), "
+          f"cli.train --evaluate {ewall:.2f} s")
+    check(elaunches == want and want["lstm_last_fwd"] > 0, f"create_data test launches {elaunches}, want {want}")
+    check_eval_metrics("create_data test", row, cap.chunked or cap.dense,
+                       int(etrainer.validation_dataset.records.group_offsets[-1]))
+    timings["create_data_eval_test_s"] = ewall
+    total.update(elaunches)
+    del etrainer, cap
+    _, plaunches = predict_with_counts(torch, train_cfg, ckpt, mapped, "create_data")
+    total.update(plaunches)
+    by_path["create_data"] = dict(total)
+    timings["create_data_phase_s"] = time.perf_counter() - t_phase
+    print(f"create_data phase: {timings['create_data_phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def split_checkpoint(src, dst, ranks=2):
+    """The single-file checkpoint ``src`` as ``ranks`` rank slabs in the
+    per-shard layout of the JAX package (``train/checkpoint.py:14-24``,
+    ``write_shard_slab`` :191-195): every leaf with at least ``ranks`` rows
+    cut along axis 0 into one chunk per rank, entries numbered per rank (so
+    every slab holds ``key::0``), the others whole in rank 0's slab;
+    ``arrays.p{rank}.npz`` and ``index.p{rank}.json`` per rank, then
+    ``meta.json`` last."""
+    src, dst = Path(src), Path(dst)
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir(parents=True)
+    slabs = [({}, {}) for _ in range(ranks)]
+    with np.load(src / "arrays.npz") as z:
+        for key in z.files:
+            arr = z[key]
+            if arr.ndim and arr.shape[0] >= ranks:
+                cuts = [arr.shape[0] * r // ranks for r in range(ranks + 1)]
+                parts = [(r, cuts[r], cuts[r + 1]) for r in range(ranks)]
+            else:
+                parts = [(0, 0, arr.shape[0] if arr.ndim else None)]
+            for rank, a, b in parts:
+                chunks, index = slabs[rank]
+                entry = f"{key}::0"
+                chunks[entry] = arr[a:b] if arr.ndim else arr
+                stop = [b, *arr.shape[1:]] if arr.ndim else []
+                index[key] = {"shape": list(arr.shape), "dtype": str(arr.dtype),
+                              "chunks": [{"entry": entry, "start": [a] + [0] * (arr.ndim - 1) if arr.ndim else [],
+                                          "stop": stop}]}
+    for rank, (chunks, index) in enumerate(slabs):
+        np.savez(dst / f"arrays.p{rank}.npz", **chunks)
+        with open(dst / f"index.p{rank}.json", "w") as f:
+            json.dump(index, f)
+    shutil.copy(src / "meta.json", dst / "meta.json")
+    return str(dst)
+
+
+def phase_shard_ckpt(torch, timings, by_path, ckpt):
+    """The bf16 flagship checkpoint ``ckpt`` cut into two rank slabs
+    (``split_checkpoint``) against itself: ``cli.train --evaluate`` on the
+    full-vocabulary test split exactly equal (MRR, MR, hits and loss),
+    ``cli.predict`` the same lines, and ``Trainer.load`` (``cli.train
+    --resume`` with ``train: false``) every parameter, batch-norm and
+    Adagrad leaf bit-equal; every run's launches exact."""
+    from open_knowledge_graph_embeddings_tpu_torch.cli import train as cli_train
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import leaves
+
+    t_phase = time.perf_counter()
+    shard_dir = split_checkpoint(ckpt, ROOT / ".bench_cache" / "smoke_shard_ckpt")
+    with open(Path(shard_dir) / "index.p1.json") as f:
+        split_keys = len(json.load(f))
+    check(not (Path(shard_dir) / "arrays.npz").exists(), "the slab directory holds arrays.npz")
+    print(f"shard_ckpt: {Path(ckpt).name} cut into 2 rank slabs ({split_keys} leaves split along axis 0)")
+    total = Counter()
+    rows, lines, loaded = {}, {}, {}
+    for name, path in (("original", ckpt), ("slabs", shard_dir)):
+        trainer, cap, launches, row, wall = run_evaluate(torch, FLAGSHIP, path,
+                                                         ROOT / ".bench_cache" / f"smoke_shard_eval_{name}", False)
+        meta = trainer.model.meta
+        L, dtype = meta.max_length[0], trainer.model.embedder.dtype
+        want = eval_launches(launches, L, dtype, cache_chunks=-(-meta.entities_size // 32768),
+                             test_batches=len(trainer.val_builder))
+        check(launches == want, f"shard_ckpt {name} eval launches {launches}, want {want}")
+        rows[name] = check_eval_metrics(f"shard_ckpt {name} test", row, cap.chunked or cap.dense,
+                                        int(trainer.validation_dataset.records.group_offsets[-1]))
+        timings[f"shard_ckpt_eval_{name}_s"] = wall
+        del trainer, cap
+        lines[name], plaunches = predict_with_counts(torch, FLAGSHIP, path, DATA_DIR, f"shard_ckpt {name}")
+        if name == "slabs":
+            total.update(launches)
+            total.update(plaunches)
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer = cli_train.cli_main([str(FLAGSHIP), "--dataset_dir", str(DATA_DIR), "--resume", str(path),
+                                      "--train", "False", "--experiment_dir",
+                                      str(ROOT / ".bench_cache" / f"smoke_shard_load_{name}"), "--device", "cuda"])
+        timings[f"shard_ckpt_load_{name}_s"] = time.perf_counter() - t0
+        check(all(fn.launches == 0 for fn in counters.values()), "Trainer.load launched a kernel")
+        loaded[name] = {**{f"params/{k}": v for k, v in leaves(trainer.variables["params"])},
+                        **{f"state/{k}": v for k, v in leaves(trainer.variables["state"])},
+                        **{f"opt/{k}": v for k, v in leaves(trainer.opt_state)}, "steps": trainer.training_steps}
+        del trainer
+    check(rows["slabs"] == rows["original"], f"shard_ckpt: the slabs evaluate to {rows['slabs']}, the original to "
+          f"{rows['original']}")
+    print(f"shard_ckpt: --evaluate on the slabs equals the original exactly: {rows['slabs']}")
+    check(lines["slabs"] == lines["original"], "shard_ckpt: cli.predict answers differ between slabs and original")
+    print(f"shard_ckpt: cli.predict printed the same {len(lines['slabs'])} lines (ids, scores) from both")
+    a, b = loaded["original"], loaded["slabs"]
+    check(set(a) == set(b) and a["steps"] == b["steps"], "shard_ckpt: Trainer.load restored other leaves or steps")
+    unequal = [k for k in a if k != "steps" and not torch.equal(a[k], b[k])]
+    check(not unequal, f"shard_ckpt: Trainer.load leaves not bit-equal: {unequal}")
+    n_opt = sum(1 for k in a if k.startswith("opt/"))
+    print(f"shard_ckpt: Trainer.load from the slabs: {len(a) - 1} leaves ({n_opt} Adagrad) bit-equal to the "
+          f"arrays.npz load, training_steps {a['steps']}")
+    del loaded, a, b
+    by_path["shard_ckpt"] = dict(total)
+    timings["shard_ckpt_phase_s"] = time.perf_counter() - t_phase
+    print(f"shard_ckpt phase: {timings['shard_ckpt_phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+
 def build_kernels(torch, timings):
     """nvcc for every CUDA source, started together."""
     from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
@@ -4771,9 +5222,11 @@ def main(argv) -> int:
         phase_any_h(torch)
         family_errs = phase_families(torch, timings, by_path, by_path_f32)
         objective_errs = phase_objectives(torch, timings, by_path, by_path_f32)
+        create_errs = phase_create_data(torch, timings, by_path)
+        phase_shard_ckpt(torch, timings, by_path, ckpt)
         for row in rows:
             row["max_abs_err"] = max(row["max_abs_err"], family_errs.get(row["name"], 0.0),
-                                     objective_errs.get(row["name"], 0.0))
+                                     objective_errs.get(row["name"], 0.0), create_errs.get(row["name"], 0.0))
         timings["launch_cost"] = launch_cost(torch)
         check([row["name"] for row in rows] == KERNEL_ROWS, f"kernel rows {[row['name'] for row in rows]}")
     except (SmokeFailure, RuntimeError, subprocess.SubprocessError, OSError) as e:

@@ -14,6 +14,9 @@ SGD (``cli.train``, the row-sparse step of ``train/sparse.py``), fused and
 unfused, and filtered-ranking evaluation with model selection and early
 stopping (``cli.train --evaluate``, ``train/evaluate.py``); every Pallas
 kernel of the JAX package has its CUDA counterpart (``ops/``, ``csrc/``).
+Benchmark creation (``cli.create_data``, ``preprocessing/``) is host code
+and writes the JAX package's files byte for byte; checkpoints load from
+either package, the per-shard format of multi-process runs included.
 """
 
 __version__ = "0.1.0"

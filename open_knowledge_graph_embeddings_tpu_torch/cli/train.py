@@ -77,7 +77,8 @@ def setup_dataset(args: Dict[str, Any], config_key: str = "train_data_config"
         return None
     cls_name = args.get(_CLASS_KEYS[config_key]) or args.get("dataset_class")
     if cls_name != "OneToNMentionRelationDataset":
-        raise NotImplementedError(f"dataset class {cls_name!r} is not ported: ROADMAP Queue 1 item 1")
+        raise ValueError(f"unknown dataset class {cls_name!r}: the dataset registry holds one class, "
+                         "OneToNMentionRelationDataset")
     cfg = dict(args[config_key])
     es = args.get("experiment_settings", {})
     cfg.setdefault("batch_size", args.get("batch_size", 512))

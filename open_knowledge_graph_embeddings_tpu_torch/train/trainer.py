@@ -19,7 +19,10 @@ a single device.  Semantics carried over:
 * items/sec = positives per second;
 * checkpoints ``checkpoint{0..k-1}`` with the optimizer state and the
   optimizer's host state, ``checkpoint_epoch_{n}`` at ``save_epoch_freq``,
-  always one at the end of a run.
+  always one at the end of a run;
+* with ``profile_steps`` > 0, a torch.profiler trace (host and device
+  activity) of that many steps from training step 1 on, written as a
+  Chrome trace to ``<save_path>/profile/trace.json``.
 
 Gradient accumulation (``batch_size_for_backward`` = k x ``batch_size``):
 each micro-batch adds its gradients to an accumulator and every k-th runs
@@ -194,6 +197,11 @@ class Trainer:
         #: (every step without accumulation)
         self.step_log: List[Dict[str, Any]] = []
         self.last_epoch: Optional[Dict[str, float]] = None
+        self.profile_steps = int(args.get("profile_steps") or 0)
+        self._profiler = None
+        self._profiling_until = 0
+        #: the trace file ``profile_steps`` wrote, once written
+        self.profile_trace: Optional[str] = None
 
     def _rebuild_steps(self):
         kw = dict(loss_type=self.loss_type, label_smoothing=self.label_smoothing, grad_clip=self.grad_clip)
@@ -256,6 +264,8 @@ class Trainer:
                 break
             wait_ms = (time.perf_counter() - t_wait) * 1e3
             step_i += 1
+            if self.profile_steps:
+                self._profile_before_step()
             self.training_steps += 1
             if self.regimes.update(self.epoch, self.training_steps):
                 # optimizer type changed: fresh state and a rebuilt step
@@ -291,6 +301,33 @@ class Trainer:
                 val_hook(last_step_of_epoch=False)
         drain()
         return {"loss": loss_sum_total / max(norm_total, 1e-30), "items_per_s": items / items_t}
+
+    def _profile_before_step(self) -> None:
+        """Start the trace before the step after training step 1 and write it
+        ``profile_steps`` steps later, as the JAX package's trainer does."""
+        if self._profiler is None and self.training_steps == 1:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=activities)
+            self._profiler.start()
+            self._profiling_until = self.training_steps + self.profile_steps
+        elif self._profiler is not None and self._profiling_until <= self.training_steps:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        out_dir = os.path.join(self.save_path, "profile")
+        os.makedirs(out_dir, exist_ok=True)
+        self.profile_trace = os.path.join(out_dir, "trace.json")
+        self._profiler.export_chrome_trace(self.profile_trace)
+        logger.info("wrote profiler trace to %s", self.profile_trace)
+        self._profiler = None
+        self.profile_steps = 0
 
     def _accumulate(self, arrays):
         """One micro-batch into the accumulator, and the optimizer update
@@ -521,6 +558,8 @@ class Trainer:
             if self.val_builder is not None and eval_epoch_freq and self.epoch % eval_epoch_freq == 0:
                 val_hook(last_step_of_epoch=True)
             self.results.save()
+        if self._profiler is not None:  # the run ended inside the traced steps
+            self._stop_profile()
         if self.training_steps > 0:
             self.save()
 

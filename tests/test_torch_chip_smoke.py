@@ -5,6 +5,7 @@ still fail its rule (at d=64 here; the script plants them at the training
 shapes on the card)."""
 
 import contextlib
+import json
 import importlib.util
 import pathlib
 import subprocess
@@ -922,3 +923,75 @@ def test_plain_lstm_swaps_the_launchers_and_restores_them(smoke, lstm_case):
     assert (lk._launch_forward, lk._launch_backward) == orig
     assert (lk.lstm_encode_last_fused.launches, lk.lstm_last_backward.launches) == n
     assert smoke.fold_errs({"a": 1.0, "b": 0.5}, {"b": 2.0, "c": 0.1}) == {"a": 1.0, "b": 2.0, "c": 0.1}
+
+
+def test_corpus_generator_is_deterministic(smoke, tmp_path, monkeypatch):
+    """``write_opiec_corpus`` writes the same bytes for the same seed, in one
+    process or in a pool of spawned workers, other bytes for another seed;
+    both packages' avro readers read its records, and the extractor keeps
+    the confident POSITIVE ones (about 0.97 x 0.875 of them)."""
+    import sys as _sys
+
+    from open_knowledge_graph_embeddings_tpu.preprocessing import avro as jax_avro
+    from open_knowledge_graph_embeddings_tpu_torch.preprocessing import avro
+    from open_knowledge_graph_embeddings_tpu_torch.preprocessing.corpus import iter_opiec_triples
+
+    monkeypatch.setitem(_sys.modules, "chip_smoke", smoke)  # the spawned workers import it by name
+    runs = {name: smoke.write_opiec_corpus(tmp_path / name, n_records=3001, seed=seed, n_files=2, workers=workers)
+            for name, seed, workers in (("a", 0, 1), ("b", 0, 2), ("c", 1, 1))}
+    read = {name: [open(p, "rb").read() for p in paths] for name, paths in runs.items()}
+    assert read["a"] == read["b"] and read["a"] != read["c"]
+    with open(runs["a"][0], "rb") as f:
+        records = list(avro.reader(f))
+    with open(runs["a"][0], "rb") as f:
+        assert records == list(jax_avro.reader(f))
+    assert len(records) == 1501 and all(1 <= len(r["subject"]) <= 10 for r in records)
+    kept = list(iter_opiec_triples(runs["a"]))
+    assert 0.8 * 3001 < len(kept) < 0.9 * 3001
+    linked = sum(t["subject_link"] is not None for t in kept) / len(kept)
+    assert 0.7 < linked < 0.8
+
+
+def test_pipeline_config_and_thorough_check(smoke, tmp_path):
+    """``pipeline_config`` keeps acl2020's settings; ``test_pairs_in_thorough``
+    counts a thorough-train triple that meets a test mention pair."""
+    import yaml
+
+    cfg = yaml.safe_load(smoke.pipeline_config(tmp_path / "work", ["a.avro"]).read_text())
+    assert (cfg["eval_data_size"], cfg["min_count"], cfg["mention_vocab_size"], cfg["relation_vocab_size"]) == (
+        10000, 3, 200000, 50000)
+    assert cfg["corpus_files"] == ["a.avro"] and cfg["work_dir"] == str(tmp_path / "work")
+    (tmp_path / "test_data.txt").write_text("a\tr\tb\ta|||x a\tb\n")
+    (tmp_path / "train_data_thorough.txt").write_text("c\tr\td\tc\td\n")
+    assert smoke.test_pairs_in_thorough(tmp_path) == (4, 0)
+    (tmp_path / "train_data_thorough.txt").write_text("c\tr\td\tc\td\nb\tq\tx a\tb\tx a\n")
+    assert smoke.test_pairs_in_thorough(tmp_path) == (4, 1)
+
+
+def test_split_checkpoint_reads_back_in_both_packages(smoke, tmp_path):
+    """``split_checkpoint``'s two rank slabs: JAX's ``_ShardReader`` and the
+    port's reader give every leaf of the original back, the entry names
+    recur across the slabs, scalars and short leaves whole in rank 0."""
+    from open_knowledge_graph_embeddings_tpu.train.checkpoint import _ShardReader
+    from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import open_checkpoint_reader, save_checkpoint
+
+    rng = np.random.default_rng(3)
+    tree = {"table": torch.from_numpy(rng.standard_normal((7, 4)).astype(np.float32)),
+            "lstm": {"w": torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32)),
+                     "b": torch.from_numpy(rng.standard_normal(16).astype(np.float32))},
+            "one": torch.ones(1)}
+    opt = {"table": {"sum": torch.from_numpy(rng.random((7, 4)).astype(np.float32)), "step": torch.tensor(5.0)}}
+    src = save_checkpoint(str(tmp_path), "ck", {"params": tree, "state": {}}, {"training_steps": 5}, opt)
+    dst = smoke.split_checkpoint(src, tmp_path / "slabs")
+    with np.load(f"{src}/arrays.npz") as z:
+        want = {k: z[k] for k in z.files}
+    with np.load(f"{dst}/arrays.p0.npz") as a, np.load(f"{dst}/arrays.p1.npz") as b:
+        assert set(b.files) < set(a.files) and "params/table::0" in b.files
+        assert "opt/table/step::0" not in b.files and "params/one::0" not in b.files
+    jax_reader, port_reader = _ShardReader(dst), open_checkpoint_reader(dst)
+    assert sorted(jax_reader.keys()) == sorted(port_reader.keys()) == sorted(want)
+    for k, w in want.items():
+        np.testing.assert_array_equal(np.asarray(jax_reader.read_full(k)), w, err_msg=k)
+        np.testing.assert_array_equal(port_reader.read_full(k), w, err_msg=k)
+    port_reader.close()
+    assert json.loads((tmp_path / "slabs" / "meta.json").read_text()) == {"training_steps": 5}

@@ -20,6 +20,8 @@ def test_port_imports_with_jax_blocked():
         "import open_knowledge_graph_embeddings_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "assert p.__name__ + '.ops.lstm_scan_kernel' in names, names\n"
+        "for m in ('preprocessing.jobs', 'preprocessing.avro', 'preprocessing.corpus', 'cli.create_data'):\n"
+        "    assert p.__name__ + '.' + m in names, names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'open_knowledge_graph_embeddings_tpu'\n"

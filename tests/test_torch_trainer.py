@@ -1,6 +1,8 @@
 """The torch port's trainer and train CLI on the CPU, and checkpoints with
 optimizer state crossing between the packages both ways."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -130,3 +132,26 @@ def test_jax_checkpoint_resumes_in_port(toy_dataset_dir, tmp_path):
     assert trainer.training_steps == 6
     assert float(trainer.opt_state["entity_lstm"]["w_ih"]["step"]) == 6.0
     assert np.isfinite(trainer.results.to_dicts()[-1]["training_loss"])
+
+
+def test_profile_steps_writes_a_trace(toy_dataset_dir, tmp_path):
+    """``profile_steps: 2`` writes a torch.profiler Chrome trace under
+    ``<experiment_dir>/profile``, as the JAX trainer writes its trace there:
+    the trace starts before the step after training step 1 and holds two
+    steps' operator events."""
+    import json
+
+    args = jax_load_config()
+    args.update(_config(toy_dataset_dir, tmp_path / "jax_exp", profile_steps=2, epochs=3))
+    jax_main(args)
+    assert any(files for _, _, files in os.walk(tmp_path / "jax_exp" / "profile"))
+
+    path = tmp_path / "p.yaml"
+    path.write_text(yaml.safe_dump(_config(toy_dataset_dir, tmp_path / "exp", profile_steps=2, epochs=3)))
+    trainer = port_train.cli_main([str(path), "--device", "cpu"])
+    assert trainer.training_steps == 6
+    assert trainer.profile_trace == str(tmp_path / "exp" / "profile" / "trace.json")
+    with open(trainer.profile_trace) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert "aten::mm" in names or "aten::addmm" in names, sorted(n for n in names if n)[:20]
