@@ -163,6 +163,27 @@ Phases (any failure exits non-zero before the final line):
    split from the slabs and from the original exactly equal, ``cli.predict``
    the same answers, ``Trainer.load`` every leaf bit-equal (path
    ``shard_ckpt``: the slabs' runs);
+12d. the native host helpers (``phase_native``): the C++ library
+   (``native/oket_native.cpp``) builds with g++ and loads on the card's host
+   (fail if not); on flagship batches of the 2.47M set ``SparsePlanBuilder``
+   gives the same arrays with the native branch and with
+   ``OKET_DISABLE_NATIVE`` (unique-and-remap, gather-sum plans, dedup),
+   timed both ways; the native reader equals the python reader on the
+   train file, timed both ways; beside the flagship run's host wait per
+   step (``Trainer.step_log``);
+12e. data parallelism over ranks (``phase_data_parallel``; each rank a
+   process of this script, ``--dp-rank``): ``cli.train`` of the flagship at
+   full width with 2 ranks sharing the card through ``gloo`` (two passes
+   over the train file's first 20,000 triples, a host-sharded validation
+   eval after each, the end-of-run per-shard save), the ranks' params and
+   optimizer state bit-equal after every step, the loss finite and falling,
+   each rank's launches exact (``dp_launches``: three LSTM blocks a step)
+   and its recorded kernels held to their plain versions
+   (``check_family_kernels``); the slabs through ``--evaluate`` (test) and
+   ``cli.predict`` in one process equal to a single-file save of the same
+   params; lookup ComplEx on the FB15k-shaped set with 2 ranks against a
+   world of one on ``nccl``, every parameter within the f32 rule; per rank
+   ms per step, collective ms per step (synchronized) and peak memory;
 13. the Adagrads' host cost through the entry points every tree of the port
    has (``launch_cost``; ``python3 chip_smoke.py --launch-cost DIR`` runs
    only that, on the port in the checkout at DIR, to hold two trees against
@@ -4162,6 +4183,45 @@ def repeat_probe(torch, trainer, wcap, bwd_args):
     ops = sorted({str(w.message).split(" does not have a deterministic")[0].strip()[:160] for w in caught})
     print(f"accum: micro-batch 0's gradients twice, bit-equal by table {same}; under deterministic algorithms "
           f"{same_det}; ops torch names as nondeterministic on this path: {ops}")
+    # one site at a time: only that site's index_add_ made deterministic
+    for sites in (("token scatters",), ("bce positives",), ("token scatters", "bce positives")):
+        with deterministic_sites(torch, sites):
+            runs = [micro_batch_grads(torch, trainer, wcap, 0) for _ in range(2)]
+        print(f"accum: micro-batch 0's gradients twice with only {' and '.join(sites)} deterministic: bit-equal by "
+              f"table {({t: torch.equal(runs[0][t], runs[1][t]) for t in runs[0]})}")
+
+
+#: the float index_add_ sites of a training step's backward, by the file and
+#: function that call them: the token-table scatters (models/embedders.py's
+#: _TokenGatherScatter and _TokenGatherPlan) and the BCE positives' dq and
+#: dcand (train/loss.py's _BceOverScores)
+ATOMIC_SITES = {"token scatters": ("embedders.py", "backward"), "bce positives": ("loss.py", "backward")}
+
+
+@contextlib.contextmanager
+def deterministic_sites(torch, sites):
+    """``Tensor.index_add_`` called from the ``sites`` of ``ATOMIC_SITES``
+    runs as a deterministic ``index_put_(accumulate=True)`` (sorted, no
+    float atomics) while the block runs; every other caller as before."""
+    orig = torch.Tensor.index_add_
+    where = [ATOMIC_SITES[s] for s in sites]
+
+    def index_add_(self, dim, index, source, **kw):
+        code = sys._getframe(1).f_code
+        if dim == 0 and not kw and any(code.co_filename.endswith(f) and code.co_name == fn for f, fn in where):
+            prev = torch.are_deterministic_algorithms_enabled()
+            torch.use_deterministic_algorithms(True)
+            try:
+                return self.index_put_((index,), source, accumulate=True)
+            finally:
+                torch.use_deterministic_algorithms(prev)
+        return orig(self, dim, index, source, **kw)
+
+    torch.Tensor.index_add_ = index_add_
+    try:
+        yield
+    finally:
+        torch.Tensor.index_add_ = orig
 
 
 def time_accum(torch, trainer, timings, n_windows=2):
@@ -5121,6 +5181,438 @@ def phase_shard_ckpt(torch, timings, by_path, ckpt):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- the native host helpers
+
+NATIVE_PLAN_BATCHES = 4
+
+
+def median_ms(fn, n):
+    """Median host ms of ``n`` calls of ``fn``."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+@contextlib.contextmanager
+def native_off():
+    """``OKET_DISABLE_NATIVE=1`` in this process while the block runs (the
+    host helpers read it at every call)."""
+    import os
+
+    os.environ["OKET_DISABLE_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("OKET_DISABLE_NATIVE", None)
+
+
+def phase_native(torch, timings, host_wait_ms):
+    """The C++ host helpers (``native/``) on the card's host: the library
+    builds and loads (fail if not); on flagship batches of the 2.47M set the
+    plans (unique-and-remap, gather-sum, dedup) equal the numpy branch's
+    array for array, timed both ways on one thread; the reader equals the
+    python reader on the train file, timed both ways; beside the flagship
+    training run's host wait per step (``Trainer.step_log``, the native
+    branch)."""
+    from open_knowledge_graph_embeddings_tpu_torch.cli.train import setup_dataset
+    from open_knowledge_graph_embeddings_tpu_torch.config.options import load_config
+    from open_knowledge_graph_embeddings_tpu_torch.data.batching import BatchBuilder
+    from open_knowledge_graph_embeddings_tpu_torch.data.dataset import read_triple_file
+    from open_knowledge_graph_embeddings_tpu_torch.models.model import build_model
+    from open_knowledge_graph_embeddings_tpu_torch.native import loader, native_available
+    from open_knowledge_graph_embeddings_tpu_torch.train.sparse import SparsePlanBuilder
+
+    t0 = time.perf_counter()
+    check(native_available(), f"native: {loader.library_path()} did not build or load on the card's host")
+    timings["native_build_s"] = time.perf_counter() - t0
+    print(f"native: {loader.library_path().name} loaded ({timings['native_build_s']:.2f} s, g++ "
+          f"{' '.join(loader.CXX_FLAGS)})")
+    args = load_config(str(FLAGSHIP), ["--dataset_dir", str(DATA_DIR)])
+    ds = setup_dataset(args)
+    model = build_model(args["model"], ds.meta, **args["model_config"])
+    plan = SparsePlanBuilder(model.embedder, True, min_rows_ratio=float(args.get("sparse_min_ratio", 12.0)))
+    builder = BatchBuilder(ds, seed=SEED)
+    order = np.random.default_rng(SEED + 2).permutation(len(builder.rec))
+    batches = [builder.build(order[i * builder.batch_size : (i + 1) * builder.batch_size])
+               for i in range(NATIVE_PLAN_BATCHES)]
+    check(plan.plan_path == "native", "native: the plan builder takes the numpy branch")
+    ms_native = [median_ms(lambda b=b: plan(b), 3) for b in batches]
+    got = [plan(b) for b in batches]
+    with native_off():
+        check(plan.plan_path == "numpy", "native: OKET_DISABLE_NATIVE did not select the numpy branch")
+        ms_numpy = [median_ms(lambda b=b: plan(b), 3) for b in batches]
+        want = [plan(b) for b in batches]
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(set(g) == set(w), f"native: batch {i} plan keys differ: {sorted(set(g) ^ set(w))}")
+        bad = [k for k in w if not np.array_equal(g[k], w[k])]
+        check(not bad, f"native: batch {i}: native and numpy plans differ in {bad}")
+    plans = sorted(k for k in got[0] if k.startswith("sparse/plan/"))
+    timings["native_plan_ms_per_batch"] = float(np.median(ms_native))
+    timings["numpy_plan_ms_per_batch"] = float(np.median(ms_numpy))
+    print(f"native: {NATIVE_PLAN_BATCHES} flagship batches (4096 x 4096): plans equal array for array to the numpy "
+          f"branch ({len(got[0])} arrays, {plans}); SparsePlanBuilder median {timings['native_plan_ms_per_batch']:.3f} "
+          f"ms/batch native, {timings['numpy_plan_ms_per_batch']:.3f} numpy (one thread, median of 3 per batch)")
+    path = str(DATA_DIR / "train.txt")
+    t0 = time.perf_counter()
+    g = read_triple_file(path)
+    timings["native_read_s"] = time.perf_counter() - t0
+    with native_off():
+        t0 = time.perf_counter()
+        w = read_triple_file(path)
+        timings["python_read_s"] = time.perf_counter() - t0
+    check(all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(g, w)),
+          "native: the native reader differs from the python reader")
+    timings["train_host_wait_ms_per_step"] = host_wait_ms
+    print(f"native: read_triple_file on train.txt ({len(g[0])} triples): native {timings['native_read_s']:.3f} s, "
+          f"python {timings['python_read_s']:.3f} s, equal; the flagship cli.train's host wait per step (step_log, "
+          f"native plans on {int(args.get('workers', 8))} prefetch threads): median "
+          f"{host_wait_ms['median']:.3f} ms, max {host_wait_ms['max']:.3f}")
+
+
+# ------------------------------------------------ data parallelism (ranks)
+
+DP_HEAD_TRIPLES = 20000
+DP_TIMEOUT_S = 600
+#: the script each rank of ``run_ranks`` runs (``--dp-rank``): this one
+RANK_SCRIPT = Path(__file__).resolve()
+
+
+def dp_head_file():
+    """``train_dp_head.txt`` beside the flagship smoke split: its first
+    ``DP_HEAD_TRIPLES`` triples (a few steps a pass)."""
+    with open(DATA_DIR / "train.txt") as f:
+        head = [line for _, line in zip(range(DP_HEAD_TRIPLES), f)]
+    (DATA_DIR / "train_dp_head.txt").write_text("".join(head))
+    return "train_dp_head.txt"
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_ranks(tag, config, world, extra=()):
+    """``cli.train`` on ``config`` with ``world`` ranks, each a process of
+    this script (``--dp-rank``) on the card, its output in a file (a full
+    pipe would block a rank inside a collective) -> each rank's result."""
+    out = ROOT / ".bench_cache" / f"smoke_dp_{tag}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    port, procs = free_port(), []
+    t0 = time.perf_counter()
+    for r in range(world):
+        log = open(out / f"rank{r}.log", "w")
+        cmd = [sys.executable, str(RANK_SCRIPT), "--dp-rank", str(r), str(world), str(port),
+               str(out / f"rank{r}.json"), str(config), "--experiment_dir", str(out / "exp"), *extra]
+        procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True), log))
+    try:  # a rank that fails ends the run: its peers would wait in a collective
+        while any(p.poll() is None for p, _ in procs) and time.perf_counter() - t0 < DP_TIMEOUT_S:
+            if any(p.poll() not in (None, 0) for p, _ in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(procs):
+        text = Path(log.name).read_text()
+        for line in text.splitlines():
+            if line.startswith(f"dp rank {r}"):
+                print(line)
+        check(p.returncode == 0, f"dp {tag}: rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    results = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+    for r in results:
+        check(r["launches"] == r["want"], f"dp {tag} rank {r['rank']}: launches {r['launches']}, want {r['want']}")
+    print(f"dp {tag}: {results[0]['backend']} all_gather on CUDA tensors: {results[0]['all_gather_on_cuda']}")
+    print(f"dp {tag}: {world} rank(s), {wall:.1f} s from spawn to exit")
+    return results, wall
+
+
+def leaf_fingerprints(torch, trees):
+    """One int64 per leaf: the sum of its bits read as integers (equal bits,
+    equal sums), on the device."""
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import tensors_of
+
+    views = {4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    return torch.stack([t.detach().reshape(-1).view(views[t.element_size()]).to(torch.int64).sum()
+                        for t in tensors_of(trees)])
+
+
+def dp_launches(names, trainer, val_batches):
+    """The launches a rank of a data-parallel ``cli.train`` run must count:
+    per step the candidate, query-entity and relation LSTM blocks of the
+    mesh branch (kernels 1 and 2 fused at every block of the flagship,
+    B % 8 == 0), or nothing for lookup models; one dense Adagrad launch a
+    step and one row update a step with a row-sparse table; the evals'
+    kernel 1 launches over this rank's slice (``eval_launches``)."""
+    from open_knowledge_graph_embeddings_tpu_torch.models.embedders import LSTMEmbedder
+
+    log = trainer.step_log
+    want = {name: 0 for name in names}
+    if isinstance(trainer.model.embedder, LSTMEmbedder):
+        L, dtype = trainer.model.meta.max_length[0], trainer.model.embedder.dtype
+        want = eval_launches(names, L, dtype, val_batches=val_batches)
+        want["lstm_last_fwd"] += 3 * len(log) * forward_launches(L, dtype)
+        want["lstm_last_bwd"] = 3 * len(log) * backward_launches(L, dtype)
+    want["adagrad_update"] = len(log)
+    want["scatter_adagrad"] = sum(1 for s in log if s["sparse_tables"])
+    return want
+
+
+def dp_rank_main(torch, argv):
+    """One rank of ``run_ranks``: join the world through the ``OKET_*``
+    variables, run ``cli.train`` on the card with the counts set to 0 just
+    before and read just after, each step timed and fingerprinted, the
+    collectives timed (synchronized); hold the rank's recorded kernel
+    launches to their plain versions; write the result as JSON."""
+    import os
+
+    rank, world, port, result = int(argv[0]), int(argv[1]), int(argv[2]), Path(argv[3])
+    cli_args = argv[4:]
+    os.environ.update(OKET_COORDINATOR=f"localhost:{port}", OKET_NUM_PROCESSES=str(world),
+                      OKET_PROCESS_ID=str(rank))
+    from open_knowledge_graph_embeddings_tpu_torch.cli import train as cli_train
+    from open_knowledge_graph_embeddings_tpu_torch.parallel import distributed as dist
+    from open_knowledge_graph_embeddings_tpu_torch.train.trainer import Trainer
+
+    rec = {"step_ms": [], "fingerprints": [], "collective_s": []}
+    rebuild = Trainer._rebuild_steps
+
+    def rebuilt(self):
+        rebuild(self)
+        step = self.train_step
+
+        def timed(variables, opt_state, hparams, arrays, generator=None):
+            torch.cuda.synchronize()
+            c0, t0 = rec["collective_total_s"], time.perf_counter()
+            out = step(variables, opt_state, hparams, arrays, generator)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["collective_s"].append(rec["collective_total_s"] - c0)
+            rec["fingerprints"].append(leaf_fingerprints(torch, [out[0]["params"], out[0]["state"], out[1]]))
+            return out
+
+        self.train_step = timed
+
+    Trainer._rebuild_steps = rebuilt
+    all_reduce = dist._all_reduce
+
+    def timed_all_reduce(t):  # every collective of the port, synchronized and timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(t)
+        torch.cuda.synchronize()
+        rec["collective_total_s"] += time.perf_counter() - t0
+        return out
+
+    rec["collective_total_s"] = 0.0
+    dist._all_reduce = timed_all_reduce
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Capture() as capture:
+        trainer = cli_train.cli_main(["--device", "cuda", *cli_args])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = [r for r in trainer.results.to_dicts() if "validation_mrr" in r]
+    want = dp_launches(launches, trainer, len(rows) * len(trainer.val_builder))
+    tag = f"dp rank {rank}"
+    errs = check_family_kernels(torch, tag, capture, launches) if any(launches.values()) else {}
+    losses = [float(s["loss"]) for s in trainer.step_log]
+    # which collectives this torch's backend takes on CUDA tensors (the port
+    # routes every one through all_reduce and broadcast)
+    import torch.distributed as tdist
+
+    probe = torch.ones(1, device=trainer.device)
+    try:
+        tdist.all_gather([torch.empty_like(probe) for _ in range(world)], probe)
+        all_gather = "accepted"
+    except (RuntimeError, ValueError) as e:
+        all_gather = f"refused: {str(e).splitlines()[0][:120]}"
+    out = {"rank": rank, "all_gather_on_cuda": all_gather, "world": world, "backend": dist.backend(), "device": str(trainer.device),
+           "steps": len(trainer.step_log), "launches": launches, "want": want, "errs": errs, "losses": losses,
+           "step_ms": rec["step_ms"], "collective_ms": [s * 1e3 for s in rec["collective_s"]],
+           "fingerprints": [f.cpu().tolist() for f in rec["fingerprints"]], "peak_gib": peak_gib, "wall_s": wall,
+           "wait_ms": [s["wait_ms"] for s in trainer.step_log], "rows": rows, "eval_batches": len(trainer.val_builder),
+           "host_shard": list(trainer.val_builder.host_shard or ()), "checkpoint": trainer.last_checkpoint,
+           "last_eval": trainer.last_eval, "plan_path": trainer._sparse_plan.plan_path if trainer.sparse else None,
+           "save_path": trainer.save_path}
+    result.write_text(json.dumps(out))
+    if capture.dense is not None:  # the first step's gradients, summed over the ranks, as kernel 3 took them
+        np.savez(result.with_suffix(".grads.npz"), *[g.float().cpu().numpy() for g in capture.dense[0]])
+    print(f"{tag}: {out['backend']} on {out['device']}, {out['steps']} steps, median {np.median(rec['step_ms']):.3f} "
+          f"ms/step (collectives synchronized and timed: median {np.median(out['collective_ms']):.3f} ms/step), "
+          f"peak {peak_gib:.2f} GiB, launches {launches} (want {want})")
+    dist.barrier()
+    dist.destroy()
+    return 0
+
+
+def check_replicas(tag, results):
+    """The ranks' params, batchnorm state and optimizer state bit-equal after
+    every step (their fingerprints), the same losses."""
+    steps = {r["steps"] for r in results}
+    check(len(steps) == 1, f"dp {tag}: ranks ran {steps} steps")
+    for r in results[1:]:
+        diff = [i for i, (a, b) in enumerate(zip(results[0]["fingerprints"], r["fingerprints"])) if a != b]
+        check(not diff, f"dp {tag}: rank {r['rank']}'s replica differs from rank 0's after steps {diff[:5]}")
+        check(r["losses"] == results[0]["losses"], f"dp {tag}: rank {r['rank']} logged other losses")
+    print(f"dp {tag}: params, batchnorm state and optimizer state bit-equal on every rank after each of the "
+          f"{results[0]['steps']} steps ({len(results[0]['fingerprints'][0])} leaves fingerprinted)")
+
+
+def merge_checkpoint(src, dst):
+    """The per-shard checkpoint ``src`` as one ``arrays.npz`` (the same params
+    saved the single-file way)."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import open_checkpoint_reader
+
+    src, dst = Path(src), Path(dst)
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir(parents=True)
+    reader = open_checkpoint_reader(str(src))
+    np.savez(dst / "arrays.npz", **{k: reader.read_full(k) for k in reader.keys()})
+    reader.close()
+    shutil.copy(src / "meta.json", dst / "meta.json")
+    return str(dst)
+
+
+def phase_data_parallel(torch, timings, by_path):
+    """Data parallelism over ranks (``parallel/``): the flagship at full width
+    with 2 ranks sharing the card through ``gloo`` (``cli.train``, two
+    passes over the first ``DP_HEAD_TRIPLES`` triples, a host-sharded
+    validation eval after each, the end-of-run per-shard save): replicas
+    bit-equal after every step, the loss finite and falling, each rank's
+    launches exact and its recorded kernels held to their plain versions;
+    the slabs evaluated (``--evaluate``, test) and served (``cli.predict``)
+    in one process equal to a single-file save of the same params; lookup
+    ComplEx on the FB15k-shaped set with 2 ranks against a world of one on
+    ``nccl`` (the f32 rule of ``utils/numerics.py`` on every parameter).
+    Returns the largest kernel error by row."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import open_checkpoint_reader
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_REL_ERR_F32
+
+    t_phase = time.perf_counter()
+    errs = {}
+    config = write_config("synth-olpbench-2m47-dp", FLAGSHIP, {"dataset_dir": str(DATA_DIR), "save_epoch_freq": 0},
+                          data={"train_data_config": {"input_file": dp_head_file()}})
+    results, wall = run_ranks("flagship", config, 2, ["--epochs", "2"])
+    timings["dp_flagship_s"] = wall
+    check_replicas("flagship", results)
+    for r in results:
+        check(r["backend"] == "gloo" and r["host_shard"] == [r["rank"], 2] and r["plan_path"] == "native",
+              f"dp flagship rank {r['rank']}: backend {r['backend']}, host shard {r['host_shard']}, plans "
+              f"{r['plan_path']}")
+        by_path[f"dp_r{r['rank']}"] = r["launches"]
+        fold_errs(errs, r["errs"])
+        timings[f"dp_r{r['rank']}_step_ms"] = summary(r["step_ms"][1:])
+        timings[f"dp_r{r['rank']}_collective_ms"] = summary(r["collective_ms"][1:])
+        timings[f"dp_r{r['rank']}_peak_gib"] = r["peak_gib"]
+        print(f"dp flagship rank {r['rank']}: {r['steps']} steps, step median {np.median(r['step_ms'][1:]):.3f} ms "
+              f"(max {max(r['step_ms'][1:]):.3f}), collectives median {np.median(r['collective_ms'][1:]):.3f} "
+              f"ms/step, peak {r['peak_gib']:.2f} GiB, {r['eval_batches']} validation batches a pass (of "
+              f"{sum(x['eval_batches'] for x in results)})")
+    losses = np.array(results[0]["losses"])
+    check(np.isfinite(losses).all() and losses[-2:].mean() < losses[:2].mean(),
+          f"dp flagship: the loss is not finite and falling: {losses}")
+    rows = results[0]["rows"]
+    check(len(rows) == 2 and all(0 < x["validation_mrr"] <= 1 for x in rows), f"dp flagship: validation rows {rows}")
+    print(f"dp flagship: loss per step {np.array2string(losses, precision=5)}; validation MRR "
+          f"{[round(x['validation_mrr'], 6) for x in rows]}")
+    # the slabs against a single-file save of the same params, in one process
+    slabs = results[0]["checkpoint"]
+    names = sorted(p.name for p in Path(slabs).iterdir())
+    check(names == ["arrays.p0.npz", "arrays.p1.npz", "index.p0.json", "index.p1.json", "meta.json"],
+          f"dp flagship: the end-of-run checkpoint holds {names}")
+    single = merge_checkpoint(slabs, ROOT / ".bench_cache" / "smoke_dp_single")
+    reader = open_checkpoint_reader(slabs)
+    n_leaves = len(reader.keys())
+    reader.close()
+    evals, lines = {}, {}
+    for name, path in (("slabs", slabs), ("single", single)):
+        trainer, cap, launches, row, _ = run_evaluate(torch, config, path, ROOT / ".bench_cache" / f"smoke_dp_eval_{name}",
+                                                      False)
+        meta = trainer.model.meta
+        want = eval_launches(launches, meta.max_length[0], trainer.model.embedder.dtype,
+                             cache_chunks=-(-meta.entities_size // 32768), test_batches=len(trainer.val_builder))
+        check(launches == want, f"dp {name} eval launches {launches}, want {want}")
+        evals[name] = {k: row[k] for k in ("loss", "mrr", "mr", "h1", "h3", "h10", "h50")}
+        del trainer, cap
+        lines[name], plaunches = predict_with_counts(torch, config, path, DATA_DIR, f"dp {name}")
+        if name == "slabs":
+            by_path["dp_slabs"] = {k: launches[k] + plaunches[k] for k in launches}
+    check(evals["slabs"] == evals["single"], f"dp: the slabs evaluate to {evals['slabs']}, the single file to "
+          f"{evals['single']}")
+    check(lines["slabs"] == lines["single"], "dp: cli.predict answers differ between the slabs and the single file")
+    print(f"dp: the end-of-run slabs ({n_leaves} leaves, all in rank 0's slab) evaluate on test exactly as the "
+          f"single-file save ({evals['slabs']}) and serve the same "
+          f"{len(lines['slabs'])} cli.predict lines")
+    # lookup ComplEx, FB15k-shaped: 2 ranks (gloo) against a world of one (nccl)
+    timings.setdefault("fb_dataset_gen_s", ensure_dataset(FB_DATA_DIR, FB_DATA_ARGS))
+    fb = write_config("fb15k237-complex-kge-dp", FB_CONFIGS / "fb15k237-complex-kge.yaml",
+                      {"dataset_dir": str(FB_DATA_DIR), "eval_epoch_freq": 2, "save_epoch_freq": 0},
+                      data={"train_data_config": {"input_file": fb_head_file()}})
+    one, _ = run_ranks("fb_one", fb, 1, ["--epochs", "2"])
+    two, wall = run_ranks("fb_two", fb, 2, ["--epochs", "2"])
+    timings["dp_fb_two_s"] = wall
+    check(one[0]["backend"] == "nccl" and one[0]["steps"] > 0, f"dp fb: the world of one ran {one[0]['backend']}, "
+          f"{one[0]['steps']} steps")
+    check_replicas("fb_two", two)
+    by_path["dp_fb_one"] = one[0]["launches"]
+    for r in two:
+        by_path[f"dp_fb_r{r['rank']}"] = r["launches"]
+        timings[f"dp_fb_r{r['rank']}_step_ms"] = summary(r["step_ms"][1:])
+        timings[f"dp_fb_r{r['rank']}_collective_ms"] = summary(r["collective_ms"][1:])
+    timings["dp_fb_one_step_ms"] = summary(one[0]["step_ms"][1:])
+    # the first step's summed gradient of every leaf (kernel 3's input) and
+    # loss by the f32 rule: what the ranks compute is the one process's step
+    # up to the order of its sums.  Later parameters are printed, not held:
+    # Adagrad's step lr g / (sqrt(sum) + 1e-10) turns that order's noise
+    # into lr-sized moves where a gradient is near 1e-10 (weight decay 1e-10
+    # alone, on the rows input dropout masked), and training carries them.
+    with np.load(f"{ROOT}/.bench_cache/smoke_dp_fb_one/rank0.grads.npz") as za, \
+            np.load(f"{ROOT}/.bench_cache/smoke_dp_fb_two/rank0.grads.npz") as zb:
+        grads = [(za[k].astype(np.float64), zb[k].astype(np.float64)) for k in za.files]
+    check(len(grads) > 0, "dp fb: no first-step gradients recorded")
+    worst = max(float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)) for w, g in grads)
+    loss_rel = abs(two[0]["losses"][0] - one[0]["losses"][0]) / abs(one[0]["losses"][0])
+    check(worst <= MAX_REL_ERR_F32 and loss_rel <= MAX_REL_ERR_F32,
+          f"dp fb: 2 ranks against 1 on the first step: gradients {worst:.3g}, loss {loss_rel:.3g} of max|want| > "
+          f"{MAX_REL_ERR_F32}")
+    a, b = open_checkpoint_reader(one[0]["checkpoint"]), open_checkpoint_reader(two[0]["checkpoint"])
+    final = {k: float(np.abs(b.read_full(k).astype(np.float64) - a.read_full(k)).max() / np.abs(a.read_full(k)).max())
+             for k in a.keys() if k.startswith("params/")}
+    a.close()
+    b.close()
+    ra, rb = one[0]["rows"], two[0]["rows"]
+    check(len(ra) == len(rb) == 1, f"dp fb: validation rows {ra} {rb}")
+    losses = np.abs(np.array(two[0]["losses"]) - np.array(one[0]["losses"])) / np.abs(np.array(one[0]["losses"]))
+    timings["dp_fb_first_grad_rel"], timings["dp_fb_final_param_rel"] = worst, final
+    print(f"dp fb (lookup ComplEx d=200, {two[0]['steps']} steps of 512): 2 ranks (gloo, one card) against a world "
+          f"of one (nccl): the first step's gradients of {len(grads)} leaves within the f32 rule (largest "
+          f"difference / max|want| {worst:.3g}, loss {loss_rel:.3g}; <= {MAX_REL_ERR_F32}); after every step the "
+          f"loss within {losses.max():.3g}, the final parameters within {final} of max|want|; validation MRR "
+          f"{ra[0]['validation_mrr']:.6f} vs {rb[0]['validation_mrr']:.6f}; step median "
+          f"{np.median(one[0]['step_ms'][1:]):.3f} ms (one) vs {np.median(two[0]['step_ms'][1:]):.3f} (two)")
+    timings["dp_phase_s"] = time.perf_counter() - t_phase
+    print(f"data parallel phase: {timings['dp_phase_s']:.1f} s")
+    return errs
+
+
 def build_kernels(torch, timings):
     """nvcc for every CUDA source, started together."""
     from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
@@ -5159,6 +5651,13 @@ def main(argv) -> int:
         launch_cost(torch)
         return 0
     sys.path.insert(0, str(ROOT))
+    if argv[:1] == ["--dp-rank"]:
+        # one rank of phase_data_parallel's runs (run_ranks starts them)
+        try:
+            return dp_rank_main(torch, argv[1:])
+        except (SmokeFailure, RuntimeError, subprocess.SubprocessError, OSError) as e:
+            print(f"dp rank FAILED: {type(e).__name__}: {e}", file=sys.stderr)
+            return 1
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5180,6 +5679,7 @@ def main(argv) -> int:
         trainer, capture, by_path["train"], n_steps = phase_train(torch, timings, evaluate=True)
         ckpt = check_training(torch, trainer, by_path["train"], n_steps)
         time_train_steps(torch, trainer, timings)
+        host_wait_ms = timings["cli_epoch_host_wait_ms"]
         table_heights = [trainer.variables["params"][t].shape[0]
                          for t in ("entity_token_embedding", "relation_token_embedding")]
         del trainer
@@ -5224,9 +5724,12 @@ def main(argv) -> int:
         objective_errs = phase_objectives(torch, timings, by_path, by_path_f32)
         create_errs = phase_create_data(torch, timings, by_path)
         phase_shard_ckpt(torch, timings, by_path, ckpt)
+        phase_native(torch, timings, host_wait_ms)
+        dp_errs = phase_data_parallel(torch, timings, by_path)
         for row in rows:
             row["max_abs_err"] = max(row["max_abs_err"], family_errs.get(row["name"], 0.0),
-                                     objective_errs.get(row["name"], 0.0), create_errs.get(row["name"], 0.0))
+                                     objective_errs.get(row["name"], 0.0), create_errs.get(row["name"], 0.0),
+                                     dp_errs.get(row["name"], 0.0))
         timings["launch_cost"] = launch_cost(torch)
         check([row["name"] for row in rows] == KERNEL_ROWS, f"kernel rows {[row['name'] for row in rows]}")
     except (SmokeFailure, RuntimeError, subprocess.SubprocessError, OSError) as e:

@@ -16,6 +16,14 @@ False`` the test split), with a score row appended to
 ``evaluate_scores_file``.  ``--device`` defaults to ``cuda`` and raises
 without a card; ``--device cpu`` runs the plain PyTorch versions of the
 kernels.
+
+Several processes: start one per rank with the config keys
+``coordinator_address`` (``host:port``), ``num_processes`` and
+``process_id`` (or ``OKET_COORDINATOR`` / ``OKET_NUM_PROCESSES`` /
+``OKET_PROCESS_ID``, or ``torchrun`` with ``OKET_AUTO_DISTRIBUTED=1``).
+The ranks share one experiment directory: each writes its own log
+(``log_*.p{rank}.txt``), rank 0 writes ``results.csv``, and together they
+write per-shard checkpoints (``parallel/distributed.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import Any, Dict, Optional
 from open_knowledge_graph_embeddings_tpu_torch.config.options import load_config
 from open_knowledge_graph_embeddings_tpu_torch.data.dataset import OneToNMentionRelationDataset
 from open_knowledge_graph_embeddings_tpu_torch.models.model import build_model
+from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import maybe_initialize_distributed, rank_device
 from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import load_checkpoint_meta
 from open_knowledge_graph_embeddings_tpu_torch.train.optim import leaves
 from open_knowledge_graph_embeddings_tpu_torch.train.trainer import Trainer
@@ -92,13 +101,18 @@ def setup_dataset(args: Dict[str, Any], config_key: str = "train_data_config"
 
 def main(args: Dict[str, Any], device="cuda") -> Trainer:
     device = resolve_device(device)
+    # several processes: join the world before any device work; each rank
+    # runs on its own card (or the CPU)
+    rank, world = maybe_initialize_distributed(args, device)
+    device = rank_device(device)
     time_stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     if args.get("resume"):
         ckpt_meta = load_checkpoint_meta(args["resume"])
         if args.get("resume_load_args", True) and "config" in ckpt_meta:
             args = merge_resume_config(args, ckpt_meta["config"])
     save_path = setup_dirs(args, time_stamp)
-    setup_logging(os.path.join(save_path, f"log_{time_stamp}.txt"))
+    # the ranks share the directory: each its own log, rank 0 the plain name
+    setup_logging(os.path.join(save_path, f"log_{time_stamp}{f'.p{rank}' if world > 1 else ''}.txt"))
     logger.info("saving to %s (device %s)", save_path, device)
     seed = int(args.get("seed") or 0)
     if seed > 0:

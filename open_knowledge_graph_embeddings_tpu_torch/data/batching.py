@@ -132,12 +132,18 @@ class BatchBuilder:
         drop_last: Optional[bool] = None,
         pos_bucket_min: int = 1024,
         seed: int = 0,
+        host_shard: Optional[Tuple[int, int]] = None,
     ):
+        """``host_shard=(rank, ranks)`` gives each rank the strided slice
+        ``rank::ranks`` of every (identically seeded) epoch order: the
+        host-sharded eval of several processes.  The slices cover every
+        record, no tail dropped, as eval needs."""
         self.ds = dataset
         self.rec: PrefixRecords = dataset.records
         self.meta = dataset.meta
         self.batch_size = batch_size or dataset.batch_size
         self.drop_last = dataset.is_training_data if drop_last is None else drop_last
+        self.host_shard = host_shard
         self.pos_bucket_min = pos_bucket_min
         self.seed = seed
         self.rng = np.random.default_rng(seed)
@@ -155,6 +161,9 @@ class BatchBuilder:
 
     def __len__(self) -> int:
         n, b = len(self.rec), self.batch_size
+        if self.host_shard is not None:
+            rank, ranks = self.host_shard
+            n = len(range(rank, n, ranks))
         return n // b if self.drop_last else -(-n // b)
 
     def batches(
@@ -168,6 +177,9 @@ class BatchBuilder:
         order = np.arange(len(self.rec))
         if shuffle:
             self.rng.shuffle(order)
+        if self.host_shard is not None:
+            rank, ranks = self.host_shard
+            order = order[rank::ranks]
         b = self.batch_size
         limit = (len(order) // b) * b if self.drop_last else len(order)
         starts = range(0, limit, b)

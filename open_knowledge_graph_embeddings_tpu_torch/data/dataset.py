@@ -4,8 +4,8 @@ Counterpart of ``open_knowledge_graph_embeddings_tpu/data/dataset.py``:
 
 * the metadata half: the id maps and the dense [num_items, max_len]
   token-id matrices the token encoders read;
-* the split half: the 5-column triple reader (its Python branch; the
-  JAX package's native parser is pinned to it by its own tests), the 1-vs-N
+* the split half: the 5-column triple reader (``native/`` C++ where it is
+  built, its Python reference otherwise), the 1-vs-N
   prefix records of both directions, :class:`OneToNMentionRelationDataset`
   for a training or an eval split, and an eval split's all-splits filter
   index (:meth:`OneToNMentionRelationDataset.attach_filter_index`).
@@ -29,6 +29,8 @@ SLOT_PO = 0  # prefix = (rel, obj), predict subject
 SLOT_SP = 2  # prefix = (subj, rel), predict object
 
 _CACHE_VERSION = 4
+#: tmpfs directory ``copy_data_to_dev_shm`` stages input files to
+SHM_DIR = "/dev/shm"
 
 
 @dataclass
@@ -209,7 +211,14 @@ def read_triple_file(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.
 
     Returns (triples [T, 3] int32, subj_offsets [T+1], subj_mentions,
     obj_offsets [T+1], obj_mentions): the mention columns in CSR form.
-    Empty or missing mention columns fall back to columns 1 / 3."""
+    Empty or missing mention columns fall back to columns 1 / 3.  The C++
+    reader (``native/oket_native.cpp``) parses the file where it is built;
+    the python loop below is its reference."""
+    from open_knowledge_graph_embeddings_tpu_torch.native import read_triple_file_native
+
+    native = read_triple_file_native(path)
+    if native is not None:
+        return native
     triples: List[Tuple[int, int, int]] = []
     subj_offs = [0]
     obj_offs = [0]
@@ -404,8 +413,7 @@ class OneToNMentionRelationDataset:
         replace_relations_by_tokens: bool = False,
         copy_data_to_dev_shm: bool = False,
     ):
-        if copy_data_to_dev_shm:
-            raise NotImplementedError("copy_data_to_dev_shm is not ported: ROADMAP Queue 1 item 1")
+        self.copy_data_to_dev_shm = copy_data_to_dev_shm
         self.dataset_dir = dataset_dir
         self.input_file_name = input_file
         self.is_training_data = is_training_data
@@ -434,9 +442,7 @@ class OneToNMentionRelationDataset:
                     mentions=z["mentions"],
                     row_has_dup=z["row_has_dup"] if "row_has_dup" in z.files else None,
                 )
-        triples, s_off, s_val, o_off, o_val = read_triple_file(
-            os.path.join(self.dataset_dir, self.input_file_name)
-        )
+        triples, s_off, s_val, o_off, o_val = read_triple_file(self._staged_input_path())
         sp = _group_direction(triples, o_off, o_val, (0, 1), SLOT_SP)
         po = _group_direction(triples, s_off, s_val, (1, 2), SLOT_PO)
         rec = _concat_directions(sp, po)
@@ -450,6 +456,24 @@ class OneToNMentionRelationDataset:
             mentions=rec.mentions, row_has_dup=rec.row_has_dup,
         )
         return rec
+
+    def _staged_input_path(self) -> str:
+        """The path the triple reader parses.  With ``copy_data_to_dev_shm``
+        the input file is first copied to tmpfs (``SHM_DIR``), so a first
+        parse from a slow network filesystem streams from memory; a cached
+        run (the records npz) never gets here."""
+        src = os.path.join(self.dataset_dir, self.input_file_name)
+        if not self.copy_data_to_dev_shm or not os.path.isdir(SHM_DIR):
+            return src
+        import shutil
+
+        tag = hashlib.sha1(os.path.abspath(src).encode()).hexdigest()[:12]
+        dst = os.path.join(SHM_DIR, f"oket-{tag}-{self.input_file_name}")
+        if not os.path.exists(dst) or os.path.getsize(dst) != os.path.getsize(src):
+            tmp = dst + f".tmp{os.getpid()}"
+            shutil.copyfile(src, tmp)
+            os.replace(tmp, dst)  # ranks that stage at once race harmlessly
+        return dst
 
     def __len__(self) -> int:
         return len(self.records)

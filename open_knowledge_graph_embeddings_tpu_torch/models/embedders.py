@@ -211,8 +211,21 @@ def token_gather_tm(
     return _pad_stop_gradient(emb, toks_tm) if stop_pad_grad else emb
 
 
+class _RowShardContext:
+    """The encode-region context that the model sets around each encode of a
+    data-parallel training step (models/model.py ``set_mesh``): a mesh and
+    axis whose ranks each encode a block of the rows, and the gather-sum
+    plan key that region reads (the candidate and the query plans differ).
+    Only a sequence core (the LSTM) splits its rows; everything else runs
+    whole on every rank."""
+
+    def set_row_shard_ctx(self, mesh, axis, plan_key: Optional[str] = None) -> None:
+        self._row_shard_ctx = None if mesh is None else (mesh, axis)
+        self._plan_key_override = plan_key
+
+
 @dataclass
-class LookupEmbedder:
+class LookupEmbedder(_RowShardContext):
     """Per-id embedding tables.  ``project_relation`` projects the relation
     embedding to ``entity_slot_size ** 2`` (the Tucker3 core);
     ``project_entity`` adds subject and object linear maps, chosen per row
@@ -337,7 +350,7 @@ class LookupEmbedder:
 
 
 @dataclass
-class TokenEmbedderBase:
+class TokenEmbedderBase(_RowShardContext):
     """Shared machinery of token-composition embedders."""
 
     meta: DatasetMeta = None
@@ -599,12 +612,31 @@ class LSTMEmbedder(TokenEmbedderBase):
         return x[unsort] if use_sorted else x
 
     def _lstm_states(self, variables, ids, kind, table_name, lstm_name, train=False) -> torch.Tensor:
+        """Raw [B, H] states of the rows ``ids``.  With a row-shard context
+        (:meth:`set_row_shard_ctx`) over ``A`` ranks and ``B % A == 0``, each
+        rank sorts, gathers and runs the LSTM on its own block of B / A rows
+        (with its own slice of a stacked [A, S, K] gather-sum plan) and the
+        blocks are gathered (``parallel.distributed.gather_rows``: the
+        backward sums the ranks' cotangents, then each keeps its block), as
+        the JAX package's ``shard_map`` region does; otherwise every rank
+        encodes every row."""
         # the gather-sum plan rides in the buffers of a sparse train batch
-        plan = variables["buffers"].get(f"{kind}_token_grad_plan") if train else None
-        return self._lstm_states_core(
-            variables["params"][table_name], variables["params"][lstm_name],
-            self._tokens(variables, ids, kind), plan,
-        )
+        ctx = getattr(self, "_row_shard_ctx", None)
+        key = getattr(self, "_plan_key_override", None) or f"{kind}_token_grad_plan"
+        plan = variables["buffers"].get(key) if train else None
+        table, lstm = variables["params"][table_name], variables["params"][lstm_name]
+        toks = self._tokens(variables, ids, kind)
+        if ctx is not None:
+            mesh, axis = ctx
+            A, i = mesh.shape[axis], mesh.index(axis)
+            B = toks.shape[0]
+            if A > 1 and B % A == 0 and (plan is None or plan["pos"].dim() == 3):
+                from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import gather_rows
+
+                blk = B // A
+                plan_i = None if plan is None else {k: v[i] for k, v in plan.items()}
+                return gather_rows(self._lstm_states_core(table, lstm, toks[i * blk : (i + 1) * blk], plan_i), i, A)
+        return self._lstm_states_core(table, lstm, toks, plan)
 
     def _finish(self, variables, x, bn_name, proj, dropout, train, generator):
         """Activation -> batchnorm (f32) -> [relation projection] -> dropout

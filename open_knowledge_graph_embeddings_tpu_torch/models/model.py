@@ -1,13 +1,16 @@
 """Scorer x embedder composition and the model registry (all 10 names of
 the JAX package).
 
-Counterpart of ``open_knowledge_graph_embeddings_tpu/models/model.py``
-on one device: per-row query vectors for a mixed sp/po batch, the candidate
-encode (a table slice for lookup models), the train step's encode stage
-(candidates and query entities in one pass where the embedder has a pair
-encode), triple scores and the chunked full-vocabulary candidate cache.
-The mesh branch of the encode stage comes with multi-device training
-(ROADMAP Queue 1 item 14).
+Counterpart of ``open_knowledge_graph_embeddings_tpu/models/model.py``:
+per-row query vectors for a mixed sp/po batch, the candidate encode (a
+table slice for lookup models), the train step's encode stage (candidates
+and query entities in one pass where the embedder has a pair encode),
+triple scores and the chunked full-vocabulary candidate cache.  On a
+data-parallel mesh of ranks (:meth:`KGEModel.set_mesh`) a training step's
+encode stage takes the JAX package's mesh branch: candidates, then queries,
+each its own region, whose LSTM rows split over the ranks and are gathered
+(models/embedders.py).  The model axis (row-sharded tables, the candidate
+axis over ``model``) waits for ROADMAP Queue 1 item 16.
 
 Randomness (dropout in train mode) is drawn from one ``torch.Generator`` in
 the JAX package's encode order: candidates, query entities, relations.
@@ -72,6 +75,18 @@ class KGEModel:
     def init(self, generator: torch.Generator) -> Variables:
         return self.embedder.init(generator)
 
+    def set_mesh(self, mesh) -> None:
+        """The mesh of ranks a training step runs on (``parallel/mesh.py``),
+        or None for one process.  With a mesh, a training batch's encode
+        stage splits into a candidate and a query region (no pair fusion);
+        the step scores only this rank's block of the rows
+        (``train/step.py::prefix_loss``)."""
+        self._mesh = mesh
+
+    @property
+    def mesh(self):
+        return getattr(self, "_mesh", None)
+
     def _relation_for_query(self, r: torch.Tensor) -> torch.Tensor:
         if self.scorer == "rescal":
             d = self.embedder.entity_dim
@@ -133,6 +148,8 @@ class KGEModel:
             q, state, reg = self.queries(variables, ent_ids, rel_ids, is_sp, train=train, generator=generator,
                                          ent_inv=ent_inv, rel_inv=rel_inv)
             return q, cand_emb, state, reg
+        if self.mesh is not None and train and cand_ids is not None:
+            return self._mesh_encodes(variables, ent_ids, rel_ids, is_sp, cand_ids, generator, ent_inv, rel_inv)
         if cand_ids is not None and hasattr(self.embedder, "encode_entity_pair"):
             cand_emb, e, state, reg_c = self.embedder.encode_entity_pair(
                 variables, cand_ids, ent_ids, train=train, generator=generator, inv_b=ent_inv)
@@ -144,6 +161,29 @@ class KGEModel:
         q, state, reg_q = self.queries(
             {**variables, "state": state}, ent_ids, rel_ids, is_sp, train=train,
             generator=generator, ent_inv=ent_inv, rel_inv=rel_inv)
+        return q, cand_emb, state, reg_c + reg_q
+
+    def _mesh_encodes(self, variables, ent_ids, rel_ids, is_sp, cand_ids, generator, ent_inv, rel_inv):
+        """The mesh branch of the encode stage (the JAX package's
+        ``prefix_queries_and_candidates`` with a mesh): the candidates in a
+        region over ``data`` reading the ``cand`` plan, then the queries
+        (entities, relations) in a region over ``data``; the random stream
+        and the batchnorm state follow that order.  Every rank ends with the
+        whole q [B, d] and cand_emb [N, d]."""
+        from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import DATA_AXIS
+
+        set_ctx = self.embedder.set_row_shard_ctx
+        set_ctx(self.mesh, DATA_AXIS, plan_key="cand_token_grad_plan")
+        try:
+            cand_emb, state, reg_c = self.encode_candidates(variables, cand_ids, train=True, generator=generator)
+        finally:
+            set_ctx(None, None)
+        set_ctx(self.mesh, DATA_AXIS)
+        try:
+            q, state, reg_q = self.queries({**variables, "state": state}, ent_ids, rel_ids, is_sp, train=True,
+                                           generator=generator, ent_inv=ent_inv, rel_inv=rel_inv)
+        finally:
+            set_ctx(None, None)
         return q, cand_emb, state, reg_c + reg_q
 
     def triple_score(self, variables: Variables, s_ids, r_ids, o_ids, *, train: bool = False,

@@ -1,5 +1,5 @@
-"""Checkpoints of both packages: the single-file format, read and written,
-and the per-shard format of multi-process runs, read.
+"""Checkpoints of both packages: the single-file format and the per-shard
+format of multi-process runs, each read and written.
 
 Single file: one directory per checkpoint; ``arrays.npz`` holds params,
 batch-norm state and optimizer state flattened to slash-joined keys
@@ -9,14 +9,17 @@ batch-norm state and optimizer state flattened to slash-joined keys
 Buffers (token-id matrices) are not saved: they are rebuilt from the
 dataset.
 
-Per shard (written by the JAX package's multi-process runs,
+Per shard (the JAX package's multi-process format,
 ``open_knowledge_graph_embeddings_tpu/train/checkpoint.py``): each rank
 writes ``arrays.p{rank}.npz`` with the chunks of the shards it owns and
 ``index.p{rank}.json`` mapping each flat key to its shape, dtype and chunks
 (``{"entry", "start", "stop"}``), and rank 0 writes ``meta.json`` last.
 :class:`_ShardReader` merges every rank's index and reads each leaf whole
-on one device.  Writing that format belongs to the port's multi-device
-work (ROADMAP Queue 1 item 14).
+on one device.  :func:`save_checkpoint_sharded` writes it for the port's
+several processes: on a data-parallel mesh every leaf is whole on every
+rank, and JAX's replica-0 rule gives each to rank 0, so rank 0's slab
+holds every leaf and the other ranks' indexes are empty.  A model axis
+(ROADMAP Queue 1 item 16) would give each rank its row blocks.
 """
 
 from __future__ import annotations
@@ -71,16 +74,20 @@ def variables_from_jax_arrays(arrays: Dict[str, np.ndarray]) -> Dict[str, Dict[s
     return {"params": unflatten_arrays(arrays, "params"), "state": unflatten_arrays(arrays, "state")}
 
 
+def checkpoint_arrays(variables: Dict[str, Any], opt_state: Optional[Dict[str, Any]]) -> Dict[str, np.ndarray]:
+    """Everything a checkpoint stores, flattened: params, state, and the
+    optimizer state under ``opt/``."""
+    return {**flatten_arrays(variables.get("params", {}), "params"),
+            **flatten_arrays(variables.get("state", {}), "state"), **flatten_arrays(opt_state or {}, "opt")}
+
+
 def save_checkpoint(
     directory: str, name: str, variables: Dict[str, Any], meta: Dict[str, Any],
     opt_state: Optional[Dict[str, Any]] = None,
 ) -> str:
     """Write ``variables``' params and state, and ``opt_state`` under
     ``opt/``, as ``<directory>/<name>``."""
-    arrays: Dict[str, np.ndarray] = {}
-    arrays.update(flatten_arrays(variables.get("params", {}), "params"))
-    arrays.update(flatten_arrays(variables.get("state", {}), "state"))
-    arrays.update(flatten_arrays(opt_state or {}, "opt"))
+    arrays = checkpoint_arrays(variables, opt_state)
     path = os.path.join(directory, name)
     tmp = path + ".tmp"
     os.makedirs(tmp, exist_ok=True)
@@ -91,6 +98,70 @@ def save_checkpoint(
         shutil.rmtree(path)
     os.replace(tmp, path)
     logger.info("saved checkpoint %s", path)
+    return path
+
+
+def local_checkpoint_chunks(arrays: Dict[str, np.ndarray], rank: int) -> Tuple[Dict[str, np.ndarray],
+                                                                               Dict[str, Dict[str, Any]]]:
+    """This rank's slab -> ``(chunks, index)``: by the replica-0 rule each
+    leaf whole on every rank is written once, by rank 0, as one chunk
+    ``key::0`` spanning it; ``index`` maps each key to ``{"shape", "dtype",
+    "chunks": [{"entry", "start", "stop"}]}``, the JAX package's layout."""
+    if rank != 0:
+        return {}, {}
+    chunks: Dict[str, np.ndarray] = {}
+    index: Dict[str, Dict[str, Any]] = {}
+    for key, arr in arrays.items():
+        entry = f"{key}::0"
+        chunks[entry] = arr
+        index[key] = {"shape": list(arr.shape), "dtype": str(arr.dtype),
+                      "chunks": [{"entry": entry, "start": [0] * arr.ndim, "stop": list(arr.shape)}]}
+    return chunks, index
+
+
+def save_checkpoint_sharded(directory: str, name: str, variables: Dict[str, Any], meta: Dict[str, Any],
+                            opt_state: Dict[str, Any], rank: int, n_ranks: int, barrier, on_written=None,
+                            timeout_s: float = 1800.0) -> str:
+    """The collective per-shard save: every rank calls it in step on one
+    shared ``directory``.  Rank 0 makes the temporary directory; after a
+    barrier each rank writes its slab (``arrays.p{rank}.npz``,
+    ``index.p{rank}.json``) and a ``done.p{rank}`` sentinel; rank 0 waits for
+    every sentinel, removes them, writes ``meta.json`` last, moves the
+    directory into place and calls ``on_written(path)`` (the best-model and
+    per-epoch copies); a last barrier returns every rank after that.
+    Returns the checkpoint's path."""
+    import time
+
+    path = os.path.join(directory, name)
+    tmp = path + ".tmp"
+    chunks, index = local_checkpoint_chunks(checkpoint_arrays(variables, opt_state), rank)
+    if rank == 0:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    barrier()
+    np.savez(os.path.join(tmp, f"arrays.p{rank}.npz"), **chunks)
+    with open(os.path.join(tmp, f"index.p{rank}.json"), "w") as f:
+        json.dump(index, f)
+    open(os.path.join(tmp, f"done.p{rank}"), "w").close()
+    if rank == 0:
+        want = [os.path.join(tmp, f"done.p{r}") for r in range(n_ranks)]
+        deadline = time.time() + timeout_s
+        while not all(os.path.exists(w) for w in want):
+            if time.time() > deadline:
+                raise RuntimeError(f"per-shard save {path}: slab sentinels missing after {timeout_s} s")
+            time.sleep(0.02)
+        for w in want:
+            os.remove(w)
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f, default=str)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+        logger.info("saved per-shard checkpoint %s (%d ranks)", path, n_ranks)
+        if on_written is not None:
+            on_written(path)
+    barrier()
     return path
 
 

@@ -27,13 +27,22 @@ Gradient accumulation composes with the row-sparse path
 union row space (:meth:`SparsePlanBuilder.plan_window`), their [U, d] row
 gradients add up in f32, and the row update runs once on the sum.
 
+The token plans' unique-and-remap and gather-sum grouping run in C++
+(``native/``: counting passes with the GIL released, per prefetch thread)
+where the library is built, and in numpy otherwise; both give the same
+arrays.  On a data-parallel mesh of ranks the plans are per rank: each
+rank's LSTM block gets its own gather-sum plan, the queries dedup per rank
+block, and the union of rows stays the batch's, so the ranks' [U, d] row
+gradients add up (``train/step.py::reduce_over_ranks``) before the one row
+update every rank makes.
+
 Not carried over: the TPU-tile layouts 'block' and 'hybrid' (8-row HBM
-tiles), the mesh plans, and the native (C++) plan helpers, whose numpy
-branches the JAX package pins to them (ROADMAP Queue 1 items 1, 6, 14).
+tiles), and the plans of the model axis (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -47,6 +56,8 @@ from open_knowledge_graph_embeddings_tpu_torch.models.embedders import (
     TokenEmbedderBase,
 )
 from open_knowledge_graph_embeddings_tpu_torch.models.model import KGEModel
+from open_knowledge_graph_embeddings_tpu_torch.native import grad_plan_native, native_available, unique_remap_native
+from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import DATA_AXIS
 from open_knowledge_graph_embeddings_tpu_torch.ops.scatter_adagrad_kernel import scatter_adagrad_tables
 from open_knowledge_graph_embeddings_tpu_torch.train.optim import (
     OptimizerRegimes,
@@ -59,6 +70,7 @@ from open_knowledge_graph_embeddings_tpu_torch.train.step import (
     leaf_tree,
     map_tree,
     prefix_loss,
+    reduce_over_ranks,
     train_batch_to_arrays,
 )
 from open_knowledge_graph_embeddings_tpu_torch.utils.misc import next_bucket
@@ -83,13 +95,27 @@ def build_token_grad_plan(toks: np.ndarray, layout_height: int, K: int = 8,
     ``toks`` [R, L] are the remapped token ids as the row encoder sees them;
     positions are flat time-major indices into the length-sorted layout
     (p = t * R + sorted_row).  Non-pad positions are grouped by token id into
-    slots of ``K``; padding slots point ``uid`` at ``layout_height`` (out of
-    range, dropped)."""
+    slots of ``K`` (ids ascending, each id's positions ascending); padding
+    slots point ``uid`` at ``layout_height`` (out of range, dropped).
+
+    The C++ kernel (``native/oket_native.cpp`` ``oket_grad_plan``: counting
+    passes, the GIL released) builds it where the library is built; the
+    numpy branch below gives the same arrays."""
     R, L = toks.shape
+    res = grad_plan_native(toks, layout_height, K, layout_height)
+    if res is not None:
+        pos, valid, uid, s_real = res
+        S = next_bucket(max(s_real, 1), minimum=bucket_min)
+        if S <= pos.shape[0]:
+            return {"pos": pos[:S], "valid": valid[:S], "uid": uid[:S]}
+        out = {"pos": np.zeros((S, K), np.int32), "valid": np.zeros((S, K), bool),
+               "uid": np.full(S, layout_height, np.int32)}
+        out["pos"][: len(pos)], out["valid"][: len(pos)], out["uid"][: len(pos)] = pos, valid, uid
+        return out
     order = host_length_sort_perm(toks)
     ids_flat = toks[order].T.reshape(-1)  # time-major [L*R]
     keep = np.flatnonzero(ids_flat != 0)
-    o = np.argsort(ids_flat[keep])  # any order within an id run: slot sums are order-free
+    o = np.argsort(ids_flat[keep], kind="stable")  # each id's positions ascending, as the C++ kernel
     ids_s = ids_flat[keep][o]
     pos_s = keep[o].astype(np.int32)
     n = len(ids_s)
@@ -142,11 +168,19 @@ class SparsePlanBuilder:
 
     def __init__(self, embedder, entity_sparse: bool, uid_bucket_min: int = 256,
                  min_rows_ratio: float = 12.0, grad_plan: bool = True,
-                 dedup_queries: bool = True, dedup_bucket: int = 512):
+                 dedup_queries: bool = True, dedup_bucket: int = 512, mesh=None):
         """``min_rows_ratio``: a table is sparsified for a batch only when
         its height exceeds ``ratio x touched rows`` (the JAX package's
         default, 12, is its measured crossover on the TPU; the port keeps
-        the same default so both take the same path)."""
+        the same default so both take the same path).
+
+        ``mesh``: the mesh of ranks (``parallel/mesh.py``) or None.  With a
+        mesh the model encodes candidates and queries in separate regions
+        whose rows split over ``data`` (models/model.py), so the gather-sum
+        plans are built per rank over each region's row blocks and stacked
+        [A, S, K] (the candidates' under ``sparse/plan/cand_token``), and
+        the queries dedup per rank block to a common bucket S with the
+        inverse indices global (``rank * S + local``)."""
         self.embedder = embedder
         self.entity_sparse = entity_sparse
         self.uid_bucket_min = uid_bucket_min
@@ -162,6 +196,24 @@ class SparsePlanBuilder:
         self.dedup_queries = bool(dedup_queries) and self.is_token and not isinstance(
             embedder, BigramPoolingEmbedder)
         self.dedup_bucket = int(dedup_bucket)
+        self.mesh = mesh
+        self._tl = threading.local()  # per prefetch thread: the native remap's scratch
+
+    @property
+    def plan_path(self) -> str:
+        """Which branch builds the token plans: ``native`` (the C++ kernels)
+        or ``numpy``."""
+        return "native" if native_available() else "numpy"
+
+    def _unique_remap(self, toks: np.ndarray, vocab: int):
+        """``(uids, remapped or None)``: the sorted unique token ids with PAD
+        (0) among them, from the C++ kernel with the matrix remapped, or from
+        numpy's ``union1d`` (the caller remaps)."""
+        buf = getattr(self._tl, "buf", None)
+        if buf is None or buf.size < vocab:
+            buf = self._tl.buf = np.empty(vocab, np.int32)
+        res = unique_remap_native(toks, vocab, buf)
+        return res if res is not None else (np.union1d(np.int32(0), toks), None)
 
     def _pack_rows(self, d: Dict[str, Any], table: str, uids: np.ndarray, height: int):
         """Emit the plan of one table and return the id -> compact-row
@@ -270,26 +322,72 @@ class SparsePlanBuilder:
         if not self.grad_plan:
             return
         toks = d[f"sparse/buffers/{kind}_token_ids"]
+        height = len(d[f"sparse/{table}/uids"])
+        if self.mesh is not None:
+            # the mesh branch encodes the candidate rows and the query rows
+            # in separate regions, each split over `data`
+            A = self.mesh.shape[DATA_AXIS]
+            if kind == "entity":
+                B = len(d["ent_ids"])
+                self._emit_sharded_plan(d, "cand", toks[B:], A, height)
+                self._emit_sharded_plan(d, "entity", toks[:B], A, height)
+            else:
+                self._emit_sharded_plan(d, kind, toks, A, height)
+            return
         if kind == "entity":
             # candidates and query entities share ONE LSTM pass, candidates
             # first (model.prefix_queries_and_candidates), so the plan's
             # rows follow that concatenation, not the buffer order
             B = len(d["ent_ids"])
             toks = np.concatenate([toks[B:], toks[:B]])
-        for k, v in build_token_grad_plan(toks, len(d[f"sparse/{table}/uids"])).items():
+        for k, v in build_token_grad_plan(toks, height).items():
             d[f"sparse/plan/{kind}_token/{k}"] = v
+
+    def _emit_sharded_plan(self, d: Dict[str, Any], key: str, toks: np.ndarray, A: int, height: int) -> None:
+        """Per-rank plans of a region's rows: rank i's over its block [i R / A,
+        (i + 1) R / A), stacked [A, S, K] with a common S (padding slots point
+        ``uid`` out of range).  A row count that does not divide takes one
+        global [S, K] plan, and the region then runs whole on every rank."""
+        R = len(toks)
+        if A <= 1 or R % A:
+            for k, v in build_token_grad_plan(toks, height).items():
+                d[f"sparse/plan/{key}_token/{k}"] = v
+            return
+        blk = R // A
+        plans = [build_token_grad_plan(toks[i * blk : (i + 1) * blk], height) for i in range(A)]
+        S = max(p["pos"].shape[0] for p in plans)
+        K = plans[0]["pos"].shape[1]
+        pos = np.zeros((A, S, K), np.int32)
+        valid = np.zeros((A, S, K), bool)
+        uid = np.full((A, S), height, np.int32)
+        for i, p in enumerate(plans):
+            n = p["pos"].shape[0]
+            pos[i, :n], valid[i, :n], uid[i, :n] = p["pos"], p["valid"], p["uid"]
+        d[f"sparse/plan/{key}_token/pos"] = pos
+        d[f"sparse/plan/{key}_token/valid"] = valid
+        d[f"sparse/plan/{key}_token/uid"] = uid
 
     def _dedup_ids(self, ids: np.ndarray):
         """(encode_ids, inv or None): the unique ids padded to a multiple of
         ``dedup_bucket`` with the first unique id (those rows are encoded but
-        never gathered), or the ids unchanged when dedup would not shrink."""
+        never gathered), or the ids unchanged when dedup would not shrink.
+
+        On a mesh each rank's block of rows dedups alone to a common bucket
+        S; the encode ids are the blocks' [A * S] and the inverse indices
+        global (``rank * S + local``), so each rank's encode region holds
+        its own block's unique rows."""
         if not self.dedup_queries:
             return ids, None
-        uniq, inv = np.unique(ids, return_inverse=True)
-        S = max(self.dedup_bucket, -(-len(uniq) // self.dedup_bucket) * self.dedup_bucket)
-        if S >= len(ids):
+        A = self.mesh.shape[DATA_AXIS] if self.mesh is not None else 1
+        if len(ids) % A:
             return ids, None
-        enc = np.concatenate([uniq, np.full(S - len(uniq), uniq[0], uniq.dtype)])
+        blk = len(ids) // A
+        parts = [np.unique(ids[i * blk : (i + 1) * blk], return_inverse=True) for i in range(A)]
+        S = max(self.dedup_bucket, -(-max(len(u) for u, _ in parts) // self.dedup_bucket) * self.dedup_bucket)
+        if A * S >= len(ids):
+            return ids, None
+        enc = np.concatenate([np.concatenate([u, np.full(S - len(u), u[0], u.dtype)]) for u, _ in parts])
+        inv = np.concatenate([i * S + iv for i, (_, iv) in enumerate(parts)])
         return enc.astype(np.int32), inv.astype(np.int32)
 
     def _plan_token(self, d: Dict[str, Any], batch: Batch) -> None:
@@ -300,7 +398,7 @@ class SparsePlanBuilder:
             ents_enc, ent_inv = self._dedup_ids(batch.ent_ids)
             toks = meta.entity_token_ids[np.concatenate([ents_enc, batch.candidate_ids])]
             # PAD (token 0) maps to compact row 0 even when no pad token occurs
-            ut = np.union1d(np.int32(0), toks)
+            ut, remapped = self._unique_remap(toks, meta.entity_tokens_size)
             remap = self._pack_rows(d, "entity_token_embedding", ut, meta.entity_tokens_size)
             if remap is not None:
                 B = len(ents_enc)
@@ -308,18 +406,17 @@ class SparsePlanBuilder:
                 d["candidate_ids"] = np.arange(B, B + len(batch.candidate_ids), dtype=np.int32)
                 if ent_inv is not None:
                     d["dedup/ent_inv"] = ent_inv
-                d["sparse/buffers/entity_token_ids"] = remap(toks)
+                d["sparse/buffers/entity_token_ids"] = remapped if remapped is not None else remap(toks)
                 self._emit_grad_plan(d, "entity", "entity_token_embedding")
         rels_enc, rel_inv = self._dedup_ids(batch.rel_ids)
         rtoks = meta.relation_token_ids[rels_enc]
-        remap = self._pack_rows(
-            d, "relation_token_embedding", np.union1d(np.int32(0), rtoks), meta.relation_tokens_size
-        )
+        rut, rremapped = self._unique_remap(rtoks, meta.relation_tokens_size)
+        remap = self._pack_rows(d, "relation_token_embedding", rut, meta.relation_tokens_size)
         if remap is not None:
             d["rel_ids"] = np.arange(len(rels_enc), dtype=np.int32)
             if rel_inv is not None:
                 d["dedup/rel_inv"] = rel_inv
-            d["sparse/buffers/relation_token_ids"] = remap(rtoks)
+            d["sparse/buffers/relation_token_ids"] = rremapped if rremapped is not None else remap(rtoks)
             self._emit_grad_plan(d, "relation", "relation_token_embedding")
 
 
@@ -357,7 +454,7 @@ def batch_buffers(variables, batch) -> Dict[str, Any]:
     for bk in ("entity_token_ids", "relation_token_ids"):
         if f"sparse/buffers/{bk}" in batch:
             buffers[bk] = batch[f"sparse/buffers/{bk}"]
-    for kind in ("entity", "relation"):
+    for kind in ("entity", "relation", "cand"):
         if f"sparse/plan/{kind}_token/pos" in batch:
             buffers[f"{kind}_token_grad_plan"] = {
                 k: batch[f"sparse/plan/{kind}_token/{k}"] for k in ("pos", "valid", "uid")
@@ -398,7 +495,11 @@ def _sparse_grads(model, variables, batch, sparse_tables, loss_type, label_smoot
     v = {"params": {**dense_leaves, **rows}, "state": variables["state"], "buffers": batch_buffers(variables, batch)}
     loss_sum, norm_metric, new_state, reg = prefix_loss(model, v, batch, loss_type, label_smoothing, generator)
     ((loss_sum + reg) / batch["normalizer_loss"]).backward()
-    return grad_tree(dense_leaves), grad_tree(rows), loss_sum.detach(), norm_metric, new_state
+    g_dense, g_rows = grad_tree(dense_leaves), grad_tree(rows)
+    # on a mesh: every rank's union of rows is the batch's, so its [U, d]
+    # row gradients add up position by position
+    loss_sum, norm_metric = reduce_over_ranks(model, [g_dense, g_rows], loss_sum, norm_metric)
+    return g_dense, g_rows, loss_sum.detach(), norm_metric, new_state
 
 
 def _sparse_apply(regimes, table_label, opt_names, params, opt_state, g_dense, g_rows, batch, sparse_tables,

@@ -20,6 +20,7 @@ import torch
 
 from open_knowledge_graph_embeddings_tpu_torch.data.batching import Batch
 from open_knowledge_graph_embeddings_tpu_torch.models.model import KGEModel
+from open_knowledge_graph_embeddings_tpu_torch.ops import scoring
 from open_knowledge_graph_embeddings_tpu_torch.train.evaluate import (
     CHUNKED_ABOVE,
     eval_stats_chunked,
@@ -38,23 +39,49 @@ def prefix_loss(model: KGEModel, variables, batch, loss_type: str, label_smoothi
     dict of device tensors).  BCE goes through the fused score + loss
     ``bce_over_scores``; KL through the explicit [B, N] scores and dense
     labels (``one_vs_n_loss``).  With query dedup, ``dedup/ent_inv`` and
-    ``dedup/rel_inv`` gather the unique encodes back to per-row."""
-    kw = dict(train=True, generator=generator, ent_inv=batch.get("dedup/ent_inv"),
-              rel_inv=batch.get("dedup/rel_inv"))
+    ``dedup/rel_inv`` gather the unique encodes back to per-row.
+
+    On a mesh of ranks (``model.mesh``) every rank encodes the whole batch
+    (its LSTM rows split and gathered, models/model.py) and scores only its
+    block of the rows: the loss sum and the count of positives are this
+    rank's part, the regularizer counts on the first rank alone, so that
+    the sums over the ranks (:func:`reduce_over_ranks`) are the batch's."""
+    q, cand_emb, new_state, reg = model.prefix_queries_and_candidates(
+        variables, batch["ent_ids"], batch["rel_ids"], batch["is_sp"], batch.get("candidate_ids"), train=True,
+        generator=generator, ent_inv=batch.get("dedup/ent_inv"), rel_inv=batch.get("dedup/rel_inv"))
+    pos_rows, pos_cols, row_valid = batch["pos_rows"], batch["pos_cols"], batch["row_valid"]
+    if model.mesh is not None:
+        from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import DATA_AXIS
+        from open_knowledge_graph_embeddings_tpu_torch.parallel.sharding import block
+
+        lo, hi = block(q.shape[0], model.mesh)
+        keep = (pos_rows >= lo) & (pos_rows < hi)
+        q, row_valid = q[lo:hi], row_valid[lo:hi]
+        pos_rows, pos_cols = torch.where(keep, pos_rows - lo, -1), torch.where(keep, pos_cols, -1)
+        if model.mesh.index(DATA_AXIS) != 0:
+            reg = torch.zeros_like(reg)
     if loss_type == "bce":
-        q, cand_emb, new_state, reg = model.prefix_queries_and_candidates(
-            variables, batch["ent_ids"], batch["rel_ids"], batch["is_sp"], batch.get("candidate_ids"), **kw)
-        loss_sum = bce_over_scores(
-            q, cand_emb, batch["pos_rows"], batch["pos_cols"], batch["row_valid"], batch.get("col_valid"),
-            batch["n_real_cols"], label_smoothing,
-        )
-        return loss_sum, (batch["pos_rows"] >= 0).sum().float(), new_state, reg
-    scores, new_state, reg = model.prefix_scores(
-        variables, batch["ent_ids"], batch["rel_ids"], batch["is_sp"], cand_ids=batch.get("candidate_ids"), **kw)
-    loss_sum, norm_metric = one_vs_n_loss(loss_type, scores, batch["pos_rows"], batch["pos_cols"],
-                                          batch["row_valid"], batch.get("col_valid"), batch["n_real_cols"],
+        loss_sum = bce_over_scores(q, cand_emb, pos_rows, pos_cols, row_valid, batch.get("col_valid"),
+                                   batch["n_real_cols"], label_smoothing)
+        return loss_sum, (pos_rows >= 0).sum().float(), new_state, reg
+    loss_sum, norm_metric = one_vs_n_loss(loss_type, scoring.score_against_candidates(q, cand_emb), pos_rows,
+                                          pos_cols, row_valid, batch.get("col_valid"), batch["n_real_cols"],
                                           label_smoothing)
     return loss_sum, norm_metric, new_state, reg
+
+
+def reduce_over_ranks(model: KGEModel, grads, loss_sum, norm_metric):
+    """On a mesh: sum every gradient (a list of trees, in place) and the
+    loss sum and count of positives over the ranks in one ``all_reduce``,
+    so every rank applies the same update -> ``(loss_sum, norm_metric)``.
+    Without a mesh: the two as they are."""
+    if model.mesh is None:
+        return loss_sum, norm_metric
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import all_reduce_tensors, tensors_of
+
+    stats = torch.stack([loss_sum.detach().float(), norm_metric.float()])
+    all_reduce_tensors(tensors_of(grads) + [stats])
+    return stats[0], stats[1]
 
 
 def train_batch_to_arrays(batch: Batch) -> Dict[str, Any]:
@@ -109,7 +136,9 @@ def make_train_step(model: KGEModel, regimes: OptimizerRegimes, params_example, 
         loss_sum, norm_metric, new_state, reg = prefix_loss(model, v, batch, loss_type, label_smoothing,
                                                              generator)
         ((loss_sum + reg) / batch["normalizer_loss"]).backward()
-        new_params, new_opt = apply_updates(grad_tree(leaves), opt_state, params, hparams)
+        grads = grad_tree(leaves)
+        loss_sum, norm_metric = reduce_over_ranks(model, [grads], loss_sum, norm_metric)
+        new_params, new_opt = apply_updates(grads, opt_state, params, hparams)
         new_variables = {"params": new_params, "state": new_state, "buffers": variables["buffers"]}
         return new_variables, new_opt, {"loss_sum": loss_sum.detach(), "normalizer_metric": norm_metric}
 
@@ -137,7 +166,9 @@ def make_accum_steps(model: KGEModel, regimes: OptimizerRegimes, params_example,
         loss_sum, norm_metric, new_state, reg = prefix_loss(model, v, batch, loss_type, label_smoothing,
                                                              generator)
         ((loss_sum + reg) / batch["normalizer_loss"]).backward()
-        add_tree(acc, grad_tree(leaves))
+        grads = grad_tree(leaves)
+        loss_sum, norm_metric = reduce_over_ranks(model, [grads], loss_sum, norm_metric)
+        add_tree(acc, grads)
         new_variables = {**variables, "state": new_state}
         return new_variables, acc, {"loss_sum": loss_sum.detach(), "normalizer_metric": norm_metric}
 

@@ -1,9 +1,9 @@
-"""Host-side training engine on one device: the epoch loop, optimizer phase
-switching, the eval cadence, model selection, early stopping, throughput
-logging and checkpoints.
+"""Host-side training engine: the epoch loop, optimizer phase switching,
+the eval cadence, model selection, early stopping, throughput logging and
+checkpoints, on one device or on several processes.
 
-Counterpart of ``open_knowledge_graph_embeddings_tpu/train/trainer.py`` for
-a single device.  Semantics carried over:
+Counterpart of ``open_knowledge_graph_embeddings_tpu/train/trainer.py``.
+Semantics carried over:
 
 * ``epoch`` derived from training steps: ``floor(steps / (len + 1)) + 1``
   (so ``epochs: 2`` runs two passes, the second stopping the loop);
@@ -34,8 +34,19 @@ package.
 
 ``train_scan_steps`` (K steps per device program on the TPU) runs its K
 steps one after another here: the same math (``tests/test_scan_steps.py``);
-capturing them in a CUDA graph is ROADMAP Queue 1 item 10.  Meshes, several
-processes and host-sharded eval are item 14.
+capturing them in a CUDA graph is ROADMAP Queue 1 item 10.
+
+Several processes (``parallel/``, a world set up by ``cli.train``): the
+ranks form a data-parallel mesh; every rank builds each global batch and
+its plans identically and scores its block of the rows, and the gradients
+are summed over the ranks, so the replicas stay equal
+(``train/step.py``).  Each rank evaluates a strided slice of the eval set
+(``BatchBuilder(host_shard=...)``) and the metric sums are added over the
+ranks; rank 0 writes ``results.csv``, decides early stopping for every
+rank, and every rank writes its slab of a per-shard checkpoint
+(``train/checkpoint.py::save_checkpoint_sharded``).  ``train_scan_steps``
+is off on a mesh, as in the JAX package.  ``model_parallel > 1`` (the model
+axis) is ROADMAP Queue 1 item 16.
 """
 
 from __future__ import annotations
@@ -53,11 +64,14 @@ from open_knowledge_graph_embeddings_tpu_torch.data.batching import Batch, Batch
 from open_knowledge_graph_embeddings_tpu_torch.data.dataset import OneToNMentionRelationDataset
 from open_knowledge_graph_embeddings_tpu_torch.models.embedders import TokenEmbedderBase
 from open_knowledge_graph_embeddings_tpu_torch.models.model import KGEModel
+from open_knowledge_graph_embeddings_tpu_torch.parallel import distributed as dist
+from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import default_mesh
 from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import (
     copy_checkpoint,
     load_checkpoint,
     load_checkpoint_meta,
     save_checkpoint,
+    save_checkpoint_sharded,
 )
 from open_knowledge_graph_embeddings_tpu_torch.train.metrics import MetricResult
 from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
@@ -112,10 +126,15 @@ class Trainer:
         self.label_smoothing = float(args.get("bce_label_smoothing") or 0.0)
         self.grad_clip = float(args["grad_clip"]) if args.get("grad_clip") else None
         if int(args.get("model_parallel") or 1) > 1:
-            raise NotImplementedError("model parallelism is not ported yet: ROADMAP Queue 1 item 14")
-        if int(args.get("num_processes") or 1) > 1:
             raise NotImplementedError(
-                "several processes (and host-sharded eval) are not ported yet: ROADMAP Queue 1 item 14")
+                "model parallelism (model_parallel > 1: row-sharded entity tables, the candidate axis over the "
+                "model axis) is not ported yet: ROADMAP Queue 1 item 16")
+        # several processes: the ranks of the world form a data-parallel mesh
+        self.rank, self.world = dist.process_index(), dist.process_count()
+        self.mesh = default_mesh() if dist.is_initialized() else None
+        model.set_mesh(self.mesh)
+        if self.mesh is not None:
+            logger.info("data-parallel mesh: rank %d of %d (backend %s)", self.rank, self.world, dist.backend())
 
         frozen = args.get("resume_freeze") or []
         self.regimes = OptimizerRegimes(
@@ -135,9 +154,10 @@ class Trainer:
                 model.embedder, entity_sparse,
                 min_rows_ratio=float(args.get("sparse_min_ratio", 12.0)),
                 grad_plan=bool(args.get("sparse_grad_plan", True)),
+                mesh=self.mesh,
             )
-            logger.info("row-sparse updates for tables %s (entity_sparse=%s)",
-                        self._sparse_plan.tables, entity_sparse)
+            logger.info("row-sparse updates for tables %s (entity_sparse=%s); token plans on the %s branch",
+                        self._sparse_plan.tables, entity_sparse, self._sparse_plan.plan_path)
         self.opt_state = self.regimes.init_state(self.variables["params"])
         self._rebuild_steps()
         self.train_builder = BatchBuilder(train_dataset, seed=seed)
@@ -153,8 +173,9 @@ class Trainer:
             logger.info("gradient accumulation over %d micro-batches%s", self.accum_steps,
                         " (row-sparse union-row windows)" if self.sparse else "")
         if int(args.get("train_scan_steps") or 1) > 1:
-            if self.accum_steps > 1:
-                logger.info("train_scan_steps=%s disabled (gradient accumulation)", args["train_scan_steps"])
+            if self.accum_steps > 1 or self.mesh is not None:
+                logger.info("train_scan_steps=%s disabled (%s)", args["train_scan_steps"],
+                            "gradient accumulation" if self.accum_steps > 1 else "device mesh")
             else:
                 logger.info("train_scan_steps=%s: the steps of a window run one after another",
                             args["train_scan_steps"])
@@ -169,7 +190,13 @@ class Trainer:
             eval_bs = eval_block
             logger.info("full-vocab eval device batch: %d rows (protocol batch %d)", eval_block,
                         validation_dataset.batch_size)
-        self.val_builder = (BatchBuilder(validation_dataset, batch_size=eval_bs)
+        # host-sharded eval: every rank holds whole parameters, so it ranks a
+        # strided slice of the eval set alone; the metric sums are added
+        val_shard = None
+        if self.world > 1 and dist.local_eval_mesh(self.mesh) is not None:
+            val_shard = (self.rank, self.world)
+            logger.info("host-sharded eval: shard %s", val_shard)
+        self.val_builder = (BatchBuilder(validation_dataset, batch_size=eval_bs, host_shard=val_shard)
                             if validation_dataset is not None else None)
         self._eval_batches_cache = None
 
@@ -423,7 +450,8 @@ class Trainer:
         step_fn = self._eval_step_topk if log_preds else self.eval_step
         pred_file = None
         if log_preds:
-            pred_file = open(os.path.join(self.save_path, f"predictions_step{self.training_steps}.tsv"), "w")
+            suffix = f".p{self.rank}" if self.world > 1 else ""
+            pred_file = open(os.path.join(self.save_path, f"predictions_step{self.training_steps}{suffix}.tsv"), "w")
             pred_file.write("direction\tent_id\trel_id\ttop_entity_ids\ttop_scores\n")
         sums = np.zeros(len(self._EVAL_SUM_KEYS) + 1, dtype=np.float64)
         n_batches = 0
@@ -451,6 +479,7 @@ class Trainer:
         if pred_file is not None:
             pred_file.close()
             logger.info("wrote predictions to %s", pred_file.name)
+        sums = dist.all_processes_sum(sums)  # host-sharded eval: every rank's slice
         totals = dict(zip(self._EVAL_SUM_KEYS, sums))
         result = MetricResult()
         cnt = totals["count"]
@@ -461,7 +490,7 @@ class Trainer:
             result["loss"].update(totals["loss_sum"] / sums[-1], sums[-1])
         t2 = time.perf_counter()
         self.last_eval = {"cache_s": t1 - t0, "batches_s": t2 - t1, "batches": n_batches}
-        logger.info("EVALUATING - EPOCH [%3d]  time: %7.3f  batches: %d  METRICS  %s",
+        logger.info("EVALUATING - EPOCH [%3d]  time: %7.3f  local batches: %d  METRICS  %s",
                     self.epoch, t2 - t0, n_batches, result.averages)
         return result
 
@@ -546,10 +575,13 @@ class Trainer:
             validation_results = self.evaluate()
             row = {"epoch": self.epoch, "training_steps": self.training_steps}
             improved, tags = self._check_early_stopping(validation_results, row)
+            # every rank computed the same sums; rank 0's decision binds all,
+            # so none waits alone in a collective
+            self.terminate = dist.broadcast_flag(self.terminate)
             if last_step_of_epoch and save_epoch_freq and self.epoch % save_epoch_freq == 0:
                 self.save(save_all=True, is_best=improved, tags=tags if improved else None)
             self.results.add(**row)
-            self.results.save()
+            self.save_results()
 
         while self.epoch < epochs and not self.terminate:
             result = self.last_epoch = self.train_epoch(val_hook=val_hook)
@@ -557,15 +589,21 @@ class Trainer:
                              training_loss=result["loss"])
             if self.val_builder is not None and eval_epoch_freq and self.epoch % eval_epoch_freq == 0:
                 val_hook(last_step_of_epoch=True)
-            self.results.save()
+            self.save_results()
         if self._profiler is not None:  # the run ended inside the traced steps
             self._stop_profile()
         if self.training_steps > 0:
             self.save()
 
+    def save_results(self) -> None:
+        """Write results.csv: rank 0's, since the ranks share a directory."""
+        if self.rank == 0:
+            self.results.save()
+
     def save(self, is_best: bool = False, tags=None, save_all: bool = False) -> str:
         """Write the next ``checkpoint{i}`` (and its best-model and
-        per-epoch copies); returns its path."""
+        per-epoch copies); returns its path.  Several ranks write one
+        per-shard checkpoint together, rank 0 makes the copies."""
         meta = {
             "epoch": self.epoch,
             "training_steps": self.training_steps,
@@ -575,8 +613,16 @@ class Trainer:
         }
         name = f"checkpoint{self._ckpt_counter}"
         self._ckpt_counter = (self._ckpt_counter + 1) % self.keep_checkpoints
-        path = save_checkpoint(self.save_path, name, self.variables, meta, self.opt_state)
-        copy_checkpoint(self.save_path, path, name, meta["epoch"], is_best=is_best, tags=tags, save_all=save_all)
+        def copies(path):
+            copy_checkpoint(self.save_path, path, name, meta["epoch"], is_best=is_best, tags=tags,
+                            save_all=save_all)
+
+        if self.world > 1:
+            path = save_checkpoint_sharded(self.save_path, name, self.variables, meta, self.opt_state, self.rank,
+                                           self.world, dist.barrier, on_written=copies)
+        else:
+            path = save_checkpoint(self.save_path, name, self.variables, meta, self.opt_state)
+            copies(path)
         self.last_checkpoint = path
         return path
 
@@ -604,7 +650,7 @@ class Trainer:
         self.training_steps = int(meta.get("training_steps", 0))
         if meta.get("results"):
             self.results.rows = list(meta["results"])
-            self.results.save()
+            self.save_results()
         if freeze_param:
             patterns = [freeze_param] if isinstance(freeze_param, str) else list(freeze_param)
             new = [p for p in patterns if p not in self.regimes.frozen_patterns]

@@ -995,3 +995,78 @@ def test_split_checkpoint_reads_back_in_both_packages(smoke, tmp_path):
         np.testing.assert_array_equal(port_reader.read_full(k), w, err_msg=k)
     port_reader.close()
     assert json.loads((tmp_path / "slabs" / "meta.json").read_text()) == {"training_steps": 5}
+
+
+def test_merge_checkpoint_inverts_split(smoke, tmp_path):
+    """``merge_checkpoint`` (the data-parallel phase's single-file twin of a
+    per-shard save) gives back every leaf of the slabs it reads."""
+    from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import save_checkpoint
+
+    rng = np.random.default_rng(4)
+    tree = {"table": torch.from_numpy(rng.standard_normal((9, 3)).astype(np.float32)), "b": torch.ones(2)}
+    src = save_checkpoint(str(tmp_path), "ck", {"params": tree, "state": {}}, {"training_steps": 2},
+                          {"table": {"sum": torch.zeros(9, 3), "step": torch.tensor(2.0)}})
+    merged = smoke.merge_checkpoint(smoke.split_checkpoint(src, tmp_path / "slabs"), tmp_path / "merged")
+    with np.load(f"{src}/arrays.npz") as want, np.load(f"{merged}/arrays.npz") as got:
+        assert sorted(got.files) == sorted(want.files)
+        for k in want.files:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert json.loads((tmp_path / "merged" / "meta.json").read_text()) == {"training_steps": 2}
+
+
+def test_leaf_fingerprints_see_one_flipped_bit(smoke):
+    """The replicas' per-step fingerprint: equal trees give equal
+    fingerprints, one flipped low bit of one leaf changes that leaf's."""
+    rng = np.random.default_rng(5)
+    a = {"w": torch.from_numpy(rng.standard_normal((4, 5)).astype(np.float32)),
+         "s": {"x": torch.arange(3, dtype=torch.bfloat16)}}
+    b = {"w": a["w"].clone(), "s": {"x": a["s"]["x"].clone()}}
+    assert torch.equal(smoke.leaf_fingerprints(torch, [a]), smoke.leaf_fingerprints(torch, [b]))
+    b["w"].view(torch.int32)[2, 3] ^= 1
+    fa, fb = smoke.leaf_fingerprints(torch, [a]), smoke.leaf_fingerprints(torch, [b])
+    assert fa[0] != fb[0] and fa[1] == fb[1]
+
+
+def test_deterministic_sites_route_only_their_callers(smoke):
+    """The repeat probe's switch: ``index_add_`` from the token-table
+    scatters or the BCE positives' backward becomes a deterministic
+    ``index_put_(accumulate=True)``, site by site, with the same sums; the
+    original method is back afterwards."""
+    from open_knowledge_graph_embeddings_tpu_torch.models import embedders as emb
+    from open_knowledge_graph_embeddings_tpu_torch.train import loss as loss_mod
+
+    calls = []
+    orig_put, orig_add = torch.Tensor.index_put_, torch.Tensor.index_add_
+
+    def put(self, *a, **k):
+        calls.append(1)
+        return orig_put(self, *a, **k)
+
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(20, 4, generator=gen, requires_grad=True)
+    toks = torch.randint(0, 20, (3, 5), generator=gen)
+    q = torch.randn(5, 4, generator=gen, requires_grad=True)
+    c = torch.randn(6, 4, generator=gen, requires_grad=True)
+
+    def grads():
+        for t in (table, q, c):
+            t.grad = None
+        emb.token_gather_tm(table, toks, torch.float32).sum().backward()
+        loss_mod.bce_over_scores(q, c, torch.tensor([0, 1, 1, -1]), torch.tensor([2, 3, 0, -1]),
+                                 torch.ones(5, dtype=torch.bool), None, torch.tensor(6.0)).backward()
+        return [t.grad.clone() for t in (table, q, c)]
+
+    want = grads()
+    torch.Tensor.index_put_ = put
+    try:
+        for sites, n in (((), 0), (("token scatters",), 1), (("bce positives",), 2),
+                         (("token scatters", "bce positives"), 3)):
+            calls.clear()
+            with smoke.deterministic_sites(torch, sites):
+                got = grads()
+            assert len(calls) == n, sites
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+    finally:
+        torch.Tensor.index_put_ = orig_put
+    assert torch.Tensor.index_add_ is orig_add

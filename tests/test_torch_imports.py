@@ -20,7 +20,8 @@ def test_port_imports_with_jax_blocked():
         "import open_knowledge_graph_embeddings_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "assert p.__name__ + '.ops.lstm_scan_kernel' in names, names\n"
-        "for m in ('preprocessing.jobs', 'preprocessing.avro', 'preprocessing.corpus', 'cli.create_data'):\n"
+        "for m in ('preprocessing.jobs', 'preprocessing.avro', 'preprocessing.corpus', 'cli.create_data',\n"
+        "          'native.loader', 'parallel.distributed', 'parallel.mesh', 'parallel.sharding'):\n"
         "    assert p.__name__ + '.' + m in names, names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
@@ -47,6 +48,8 @@ def _imported_modules(path: pathlib.Path):
 def test_no_jax_import_in_port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    for sub in ("native", "parallel"):  # the host helpers and the processes' packages are checked too
+        assert any(f.parent.name == sub for f in files), sub
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
