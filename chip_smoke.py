@@ -5299,10 +5299,11 @@ def free_port():
     return port
 
 
-def run_ranks(tag, config, world, extra=()):
-    """``cli.train`` on ``config`` with ``world`` ranks, each a process of
-    this script (``--dp-rank``) on the card, its output in a file (a full
-    pipe would block a rank inside a collective) -> each rank's result."""
+def run_ranks(tag, config, world, extra=(), mode="--dp-rank"):
+    """``cli.train`` on ``config`` with ``world`` ranks (or with ``mode``
+    ``--mp-shard-map`` one step of ``shard_map_score``'s), each a process of
+    this script on the card, its output in a file (a full pipe would block a
+    rank inside a collective) -> each rank's result."""
     out = ROOT / ".bench_cache" / f"smoke_dp_{tag}"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
@@ -5310,8 +5311,9 @@ def run_ranks(tag, config, world, extra=()):
     t0 = time.perf_counter()
     for r in range(world):
         log = open(out / f"rank{r}.log", "w")
-        cmd = [sys.executable, str(RANK_SCRIPT), "--dp-rank", str(r), str(world), str(port),
-               str(out / f"rank{r}.json"), str(config), "--experiment_dir", str(out / "exp"), *extra]
+        cli = ["--experiment_dir", str(out / "exp")] if mode == "--dp-rank" else []
+        cmd = [sys.executable, str(RANK_SCRIPT), mode, str(r), str(world), str(port),
+               str(out / f"rank{r}.json"), str(config), *cli, *extra]
         procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True), log))
     try:  # a rank that fails ends the run: its peers would wait in a collective
         while any(p.poll() is None for p, _ in procs) and time.perf_counter() - t0 < DP_TIMEOUT_S:
@@ -5334,7 +5336,8 @@ def run_ranks(tag, config, world, extra=()):
     results = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
     for r in results:
         check(r["launches"] == r["want"], f"dp {tag} rank {r['rank']}: launches {r['launches']}, want {r['want']}")
-    print(f"dp {tag}: {results[0]['backend']} all_gather on CUDA tensors: {results[0]['all_gather_on_cuda']}")
+    if "all_gather_on_cuda" in results[0]:
+        print(f"dp {tag}: {results[0]['backend']} all_gather on CUDA tensors: {results[0]['all_gather_on_cuda']}")
     print(f"dp {tag}: {world} rank(s), {wall:.1f} s from spawn to exit")
     return results, wall
 
@@ -5370,12 +5373,50 @@ def dp_launches(names, trainer, val_batches):
     return want
 
 
+def mp_launches(names, trainer, val_batches, evaluate=False):
+    """The launches a rank of a model-axis ``cli.train`` run must count: per
+    step the candidate block and the query-entity and relation passes
+    (kernels 1 and 2, fused), one dense Adagrad launch a step and one row
+    update a step with a row-sparse table; per batch-shared validation batch
+    three kernel 1 passes (the candidate block, then the queries: no pair
+    encode on a mesh).  With ``evaluate`` (a ``--evaluate`` run on the test
+    split) the cache chunks of this rank's slab and two passes a batch."""
+    from open_knowledge_graph_embeddings_tpu_torch.models.embedders import LSTMEmbedder
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.sharding import slab_bounds
+
+    log = trainer.step_log
+    want = {name: 0 for name in names}
+    if isinstance(trainer.model.embedder, LSTMEmbedder):
+        meta = trainer.model.meta
+        L, dtype = meta.max_length[0], trainer.model.embedder.dtype
+        chunks = test = 0
+        if evaluate:
+            lo, hi = slab_bounds(meta.entities_size, trainer.mesh.model, trainer.mesh.index("model"))
+            chunks, test = -(-(hi - lo) // 32768), len(trainer.val_builder)
+        want = eval_launches(names, L, dtype, cache_chunks=chunks, test_batches=test)
+        want["lstm_last_fwd"] += 3 * (len(log) + val_batches) * forward_launches(L, dtype)
+        want["lstm_last_bwd"] = 3 * len(log) * backward_launches(L, dtype)
+    want["adagrad_update"] = len(log)
+    want["scatter_adagrad"] = sum(1 for s in log if s["sparse_tables"])
+    return want
+
+
+def replicated_trees(trainer, variables, opt_state):
+    """The trees of a rank's replicated leaves: every leaf but the slabs of a
+    model axis (and their optimizer state)."""
+    slabs = variables.get("slabs") or {}
+    return [{k: v for k, v in variables["params"].items() if k not in slabs}, variables["state"],
+            {k: v for k, v in opt_state.items() if k not in slabs}]
+
+
 def dp_rank_main(torch, argv):
     """One rank of ``run_ranks``: join the world through the ``OKET_*``
     variables, run ``cli.train`` on the card with the counts set to 0 just
-    before and read just after, each step timed and fingerprinted, the
-    collectives timed (synchronized); hold the rank's recorded kernel
-    launches to their plain versions; write the result as JSON."""
+    before and read just after, each step timed and its replicated leaves
+    fingerprinted, the collectives timed (synchronized); hold the rank's
+    recorded kernel launches to their plain versions; write the result as
+    JSON, the first step's gradients (``.grads.npz``, ``.rows.npz``) and
+    the ranks of every full-vocabulary batch (``.ranks.npz``)."""
     import os
 
     rank, world, port, result = int(argv[0]), int(argv[1]), int(argv[2]), Path(argv[3])
@@ -5400,7 +5441,7 @@ def dp_rank_main(torch, argv):
             torch.cuda.synchronize()
             rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
             rec["collective_s"].append(rec["collective_total_s"] - c0)
-            rec["fingerprints"].append(leaf_fingerprints(torch, [out[0]["params"], out[0]["state"], out[1]]))
+            rec["fingerprints"].append(leaf_fingerprints(torch, replicated_trees(self, out[0], out[1])))
             return out
 
         self.train_step = timed
@@ -5408,10 +5449,10 @@ def dp_rank_main(torch, argv):
     Trainer._rebuild_steps = rebuilt
     all_reduce = dist._all_reduce
 
-    def timed_all_reduce(t):  # every collective of the port, synchronized and timed
+    def timed_all_reduce(t, *args, **kw):  # every collective of the port, synchronized and timed
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = all_reduce(t)
+        out = all_reduce(t, *args, **kw)
         torch.cuda.synchronize()
         rec["collective_total_s"] += time.perf_counter() - t0
         return out
@@ -5423,16 +5464,28 @@ def dp_rank_main(torch, argv):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with Capture() as capture:
+    with Capture() as capture, EvalCapture() as ecap:
         trainer = cli_train.cli_main(["--device", "cuda", *cli_args])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     rows = [r for r in trainer.results.to_dicts() if "validation_mrr" in r]
-    want = dp_launches(launches, trainer, len(rows) * len(trainer.val_builder))
+    evaluate = "--evaluate" in cli_args
+    # an eval run's results rows are the resumed checkpoint's: it ran no validation
+    val_batches = 0 if evaluate else len(rows) * len(trainer.val_builder)
+    if trainer.mesh is not None and trainer.mesh.model > 1:
+        want = mp_launches(launches, trainer, val_batches, evaluate)
+    elif evaluate:
+        meta = trainer.model.meta
+        want = eval_launches(launches, meta.max_length[0], trainer.model.embedder.dtype,
+                             cache_chunks=-(-meta.entities_size // 32768), test_batches=len(trainer.val_builder))
+    else:
+        want = dp_launches(launches, trainer, val_batches)
     tag = f"dp rank {rank}"
-    errs = check_family_kernels(torch, tag, capture, launches) if any(launches.values()) else {}
+    # an eval run records no kernel (Capture takes the training launches);
+    # its ranks are held to a world of one's instead
+    errs = check_family_kernels(torch, tag, capture, launches) if any(launches.values()) and not evaluate else {}
     losses = [float(s["loss"]) for s in trainer.step_log]
     # which collectives this torch's backend takes on CUDA tensors (the port
     # routes every one through all_reduce and broadcast)
@@ -5451,10 +5504,18 @@ def dp_rank_main(torch, argv):
            "wait_ms": [s["wait_ms"] for s in trainer.step_log], "rows": rows, "eval_batches": len(trainer.val_builder),
            "host_shard": list(trainer.val_builder.host_shard or ()), "checkpoint": trainer.last_checkpoint,
            "last_eval": trainer.last_eval, "plan_path": trainer._sparse_plan.plan_path if trainer.sparse else None,
-           "save_path": trainer.save_path}
+           "save_path": trainer.save_path, "mesh": None if trainer.mesh is None else [trainer.mesh.data,
+                                                                                     trainer.mesh.model],
+           "slabs": {k: list(v) for k, v in (trainer.variables.get("slabs") or {}).items()},
+           "entities": trainer.model.meta.entities_size,
+           "eval_ranked": [int(r["gold_valid"].sum()) for r in ecap.chunked]}
     result.write_text(json.dumps(out))
     if capture.dense is not None:  # the first step's gradients, summed over the ranks, as kernel 3 took them
         np.savez(result.with_suffix(".grads.npz"), *[g.float().cpu().numpy() for g in capture.dense[0]])
+    if capture.rows is not None:  # and the row gradients of the row update (kernel 4)
+        np.savez(result.with_suffix(".rows.npz"), *[g.float().cpu().numpy() for g in capture.rows[0]])
+    if ecap.chunked:  # every full-vocabulary batch's ranks of its valid golds, in batch order
+        np.savez(result.with_suffix(".ranks.npz"), *[r["ranks"][r["gold_valid"]].cpu().numpy() for r in ecap.chunked])
     print(f"{tag}: {out['backend']} on {out['device']}, {out['steps']} steps, median {np.median(rec['step_ms']):.3f} "
           f"ms/step (collectives synchronized and timed: median {np.median(out['collective_ms']):.3f} ms/step), "
           f"peak {peak_gib:.2f} GiB, launches {launches} (want {want})")
@@ -5463,9 +5524,71 @@ def dp_rank_main(torch, argv):
     return 0
 
 
+def sms_rank_main(torch, argv):
+    """One rank of ``run_ranks(..., mode="--mp-shard-map")``: join the world
+    (more than one rank) and take one step of ``shard_map_score``'s lookup
+    step on the config's model and first training batch, random weights
+    from ``SEED``, on a 1 x world mesh, with the counts set to 0 just before
+    and read just after; write the loss, the launches and the gradients that
+    kernel 3 took (``.grads.npz``)."""
+    import os
+
+    rank, world, port, result, config = int(argv[0]), int(argv[1]), int(argv[2]), Path(argv[3]), argv[4]
+    os.environ.update(OKET_COORDINATOR=f"localhost:{port}", OKET_NUM_PROCESSES=str(world),
+                      OKET_PROCESS_ID=str(rank))
+    from open_knowledge_graph_embeddings_tpu_torch.cli.train import setup_dataset
+    from open_knowledge_graph_embeddings_tpu_torch.config.options import load_config
+    from open_knowledge_graph_embeddings_tpu_torch.data.batching import BatchBuilder
+    from open_knowledge_graph_embeddings_tpu_torch.models.model import build_model
+    from open_knowledge_graph_embeddings_tpu_torch.parallel import distributed as dist
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import make_mesh
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.shard_map_score import make_sharded_lookup_train_step
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
+    from open_knowledge_graph_embeddings_tpu_torch.train.step import train_batch_to_arrays
+
+    if world > 1:
+        dist.maybe_initialize_distributed(None, "cuda")
+    device = dist.rank_device("cuda")
+    args = load_config(config, [])
+    ds = setup_dataset(args)
+    model = build_model(args["model"], ds.meta, **dict(args.get("model_config") or {}))
+    variables = model.init(torch.Generator(device=device).manual_seed(SEED))
+    batch = train_batch_to_arrays(next(iter(BatchBuilder(ds, seed=SEED).batches(shuffle=True))))
+    regimes = OptimizerRegimes(args["optimization_config"])
+    regimes.update(1, 0)
+    mesh = make_mesh(data=1, model=world, rank=rank)
+    step, prepare, prepare_batch = make_sharded_lookup_train_step(model, mesh)
+    params, opt = prepare(variables)
+    local = prepare_batch(batch)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Capture() as capture:
+        params, opt, loss = step(params, opt, regimes.hparams()[0], local)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: int(name == "adagrad_update") for name in launches}
+    errs = check_family_kernels(torch, f"mp shard_map rank {rank}", capture, launches)
+    np.savez(result.with_suffix(".grads.npz"), *[g.float().cpu().numpy() for g in capture.dense[0]])
+    out = {"rank": rank, "world": world, "backend": dist.backend(), "loss": float(loss), "launches": launches,
+           "want": want, "errs": errs, "step_ms": step_ms, "rows": int(params["entity_embedding"].shape[0]),
+           "batch_rows": int(len(batch["ent_ids"]))}
+    result.write_text(json.dumps(out))
+    print(f"dp rank {rank}: shard_map_score step, world {world} ({out['backend']}), {out['rows']} table rows a rank, "
+          f"{step_ms:.3f} ms (cold), loss {out['loss']:.6f}, launches {launches}")
+    if world > 1:
+        dist.barrier()
+        dist.destroy()
+    return 0
+
+
 def check_replicas(tag, results):
-    """The ranks' params, batchnorm state and optimizer state bit-equal after
-    every step (their fingerprints), the same losses."""
+    """The ranks' replicated params, batchnorm state and optimizer state
+    bit-equal after every step (their fingerprints; a model axis's slabs
+    are not replicas), the same losses."""
     steps = {r["steps"] for r in results}
     check(len(steps) == 1, f"dp {tag}: ranks ran {steps} steps")
     for r in results[1:]:
@@ -5613,6 +5736,227 @@ def phase_data_parallel(torch, timings, by_path):
     return errs
 
 
+#: the flagship's first-step gradients on the model axis against a world of
+#: one, bf16: every leaf's ||got - want|| / ||want|| (stated before the first
+#: card run).  The candidate blocks reorder f32 sums (the score products'
+#: dq, the batchnorm statistics), which moves bf16 roundings of the LSTM
+#: backward by an ulp; an elementwise rule fails on the cancelling sums of
+#: the LSTM biases (a CPU rehearsal at d = 32: 4.4 % of max|want| in bf16,
+#: 8.2e-5 in f32), while a wrong reduction moves a whole leaf by tens of %.
+#: The largest elementwise difference / max|want| is printed beside it.
+MP_GRAD_REL = 2.0 ** -4
+MP_LOSS_REL = 1e-5
+
+
+def first_step_grads(out_dir, suffix, rank=0):
+    """A rank's first-step gradients (``.grads.npz`` or ``.rows.npz``) from a
+    ``run_ranks`` directory, in leaf order."""
+    with np.load(out_dir / f"rank{rank}{suffix}") as z:
+        return [z[k].astype(np.float64) for k in z.files]
+
+
+def grads_against(tag, got_by_rank, want, model, rel, l2=False):
+    """Each rank's first-step gradients against a world of one's: a leaf the
+    ranks hold whole compares as it is, a slab with its rows of the whole
+    leaf (``slab_bounds``).  Holds every leaf's largest difference /
+    max|want| (or with ``l2`` its ||got - want|| / ||want||) to ``rel`` ->
+    (the largest of the held measure, the largest elementwise one)."""
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.sharding import slab_bounds
+
+    worst = worst_max = 0.0
+    for r, got in enumerate(got_by_rank):
+        check(len(got) == len(want), f"{tag} rank {r}: {len(got)} gradient leaves, want {len(want)}")
+        for g, w in zip(got, want):
+            if g.shape != w.shape:
+                lo, hi = slab_bounds(w.shape[0], model, r % model)
+                w = w[lo:hi]
+            check(g.shape == w.shape, f"{tag} rank {r}: a gradient of shape {g.shape}, want {w.shape}")
+            if not g.size:
+                continue
+            elem = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+            worst_max = max(worst_max, elem)
+            worst = max(worst, float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30)) if l2 else elem)
+    check(worst <= rel, f"{tag}: the first step's gradients {worst:.3g} ({'relative norm' if l2 else 'of max|want|'}) "
+          f"from a world of one's > {rel}")
+    return worst, worst_max
+
+
+def phase_model_parallel(torch, timings, by_path, by_path_f32):
+    """The model axis (``model_parallel: 2``: row-sharded entity tables and
+    their Adagrad state, the candidates split over the model group,
+    ``parallel/shard_map_score.py``).  The flagship at full width on 2 ranks
+    sharing the card through ``gloo`` (``cli.train``, two passes over the
+    first ``DP_HEAD_TRIPLES`` triples, a batch-shared validation after
+    each, the end-of-run per-shard save): the first step's loss and
+    gradients against a world of one (``MP_GRAD_REL``; the same in f32, the
+    config's dtype line removed, by the f32 rule), the loss falling,
+    each rank's launches exact and its recorded kernels held to their plain
+    versions, the slabs the halves of the entity token table; the test eval
+    on the sharded cache against a world of one's ranks (0 may differ), and
+    the slabs evaluated and served in one process as a single-file save of
+    the same params.  Lookup ComplEx at FB15k-237's widths (14,541 entities,
+    odd) through the trainer and through ``shard_map_score``'s step, 2 ranks
+    against a world of one on ``nccl``, held at the first step's gradients
+    by the f32 rule.  Returns the largest kernel error by row."""
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.sharding import slab_bounds
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_REL_ERR_F32
+
+    t_phase = time.perf_counter()
+    errs = {}
+    cache = ROOT / ".bench_cache"
+    config = write_config("synth-olpbench-2m47-dp", FLAGSHIP, {"dataset_dir": str(DATA_DIR), "save_epoch_freq": 0},
+                          data={"train_data_config": {"input_file": dp_head_file()}})
+    one, _ = run_ranks("mp_one", config, 1, ["--epochs", "2", "--eval_epoch_freq", "0"])
+    two, wall = run_ranks("mp", config, 2, ["--epochs", "2", "--model_parallel", "2"])
+    timings["mp_flagship_s"] = wall
+    check_replicas("mp", two)
+    height = None
+    for r in two:
+        height = r["slabs"]["entity_token_embedding"][2]
+        check(r["backend"] == "gloo" and r["mesh"] == [1, 2] and r["host_shard"] == []
+              and r["slabs"]["entity_token_embedding"] == [*slab_bounds(height, 2, r["rank"]), height],
+              f"mp rank {r['rank']}: backend {r['backend']}, mesh {r['mesh']}, host shard {r['host_shard']}, "
+              f"slabs {r['slabs']}")
+        by_path[f"mp_r{r['rank']}"] = r["launches"]
+        fold_errs(errs, r["errs"])
+        timings[f"mp_r{r['rank']}_step_ms"] = summary(r["step_ms"][1:])
+        timings[f"mp_r{r['rank']}_collective_ms"] = summary(r["collective_ms"][1:])
+        timings[f"mp_r{r['rank']}_peak_gib"] = r["peak_gib"]
+        print(f"mp flagship rank {r['rank']}: slab rows {r['slabs']['entity_token_embedding'][:2]} of {height} "
+              f"(entity token table), {r['steps']} steps, step median {np.median(r['step_ms'][1:]):.3f} ms (max "
+              f"{max(r['step_ms'][1:]):.3f}), collectives median {np.median(r['collective_ms'][1:]):.3f} ms/step, "
+              f"peak {r['peak_gib']:.2f} GiB")
+    losses = np.array(two[0]["losses"])
+    check(np.isfinite(losses).all() and losses[-2:].mean() < losses[:2].mean(),
+          f"mp flagship: the loss is not finite and falling: {losses}")
+    rows = two[0]["rows"]
+    check(len(rows) == 2 and all(0 < x["validation_mrr"] <= 1 for x in rows), f"mp flagship: validation rows {rows}")
+    loss_rel = abs(two[0]["losses"][0] - one[0]["losses"][0]) / abs(one[0]["losses"][0])
+    check(loss_rel <= MP_LOSS_REL, f"mp flagship: the first loss {loss_rel:.3g} from a world of one's")
+    grads = {}
+    for suffix in (".grads.npz", ".rows.npz"):  # kernel 3's leaves, kernel 4's rows
+        exist = [(cache / d / f"rank0{suffix}").exists() for d in ("smoke_dp_mp", "smoke_dp_mp_one")]
+        check(exist[0] == exist[1], f"mp flagship: first-step {suffix} recorded by {exist} (mp, world of one)")
+        grads[suffix] = grads_against(f"mp flagship {suffix}", [first_step_grads(cache / "smoke_dp_mp", suffix)],
+                                      first_step_grads(cache / "smoke_dp_mp_one", suffix), 2, MP_GRAD_REL,
+                                      l2=True) if exist[0] else (0.0, 0.0)
+    timings["mp_first_grad_rel_l2"] = max(g[0] for g in grads.values())
+    timings["mp_first_grad_rel_max"] = max(g[1] for g in grads.values())
+    # the same first step in f32: the math, by the f32 rule
+    import yaml
+
+    cfg = yaml.safe_load(Path(config).read_text())
+    cfg["model_config"].pop("dtype")
+    f32 = Path(config).with_name("synth-olpbench-2m47-mp-f32.yaml")
+    f32.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    f32_args = ["--epochs", "2", "--eval_epoch_freq", "0"]
+    f32_one, _ = run_ranks("mp_one_f32", f32, 1, f32_args)
+    f32_two, _ = run_ranks("mp_f32", f32, 2, [*f32_args, "--model_parallel", "2"])
+    f32_worst = 0.0
+    for suffix in (".grads.npz", ".rows.npz"):
+        f32_worst = max(f32_worst, grads_against(f"mp flagship f32 {suffix}",
+                                                 [first_step_grads(cache / "smoke_dp_mp_f32", suffix, r)
+                                                  for r in range(2)],
+                                                 first_step_grads(cache / "smoke_dp_mp_one_f32", suffix), 2,
+                                                 MAX_REL_ERR_F32)[0])
+    f32_loss = abs(f32_two[0]["losses"][0] - f32_one[0]["losses"][0]) / abs(f32_one[0]["losses"][0])
+    check(f32_loss <= MAX_REL_ERR_F32, f"mp flagship f32: the first loss {f32_loss:.3g} from a world of one's")
+    for r in f32_two:
+        by_path_f32[f"mp_f32_r{r['rank']}"] = r["launches"]
+        fold_errs(errs, r["errs"])
+    timings["mp_f32_first_grad_rel"] = f32_worst
+    print(f"mp flagship f32: the first step against a world of one: loss {f32_loss:.3g}, gradients {f32_worst:.3g} "
+          f"of max|want| (<= {MAX_REL_ERR_F32})")
+    print(f"mp flagship: loss per step {np.array2string(losses, precision=5)}; validation MRR "
+          f"{[round(x['validation_mrr'], 6) for x in rows]}; the first step against a world of one: loss "
+          f"{loss_rel:.3g}; gradients ||got - want|| / ||want|| dense leaves {grads['.grads.npz'][0]:.3g}, rows "
+          f"{grads['.rows.npz'][0]:.3g} (<= {MP_GRAD_REL:.4g}); largest difference / max|want| "
+          f"{grads['.grads.npz'][1]:.3g} and {grads['.rows.npz'][1]:.3g}")
+    # the test eval on the sharded cache, 2 ranks, against a world of one
+    slabs = two[0]["checkpoint"]
+    names = sorted(p.name for p in Path(slabs).iterdir())
+    check(names == ["arrays.p0.npz", "arrays.p1.npz", "index.p0.json", "index.p1.json", "meta.json"],
+          f"mp flagship: the end-of-run checkpoint holds {names}")
+    ev = ["--resume", slabs, "--evaluate", "True", "--evaluate_on_validation", "False"]
+    ev_two, ev_wall = run_ranks("mp_eval", config, 2, [*ev, "--model_parallel", "2"])
+    timings["mp_eval_s"] = ev_wall
+    trainer, cap, launches, row_slabs, _ = run_evaluate(torch, config, slabs, cache / "smoke_mp_eval_one", False)
+    # a cache above CHUNKED_ABOVE rows is ranked chunk by chunk, a smaller one from [B, N] scores
+    want_ranks = [r["ranks"][r["gold_valid"]].cpu().numpy() for r in cap.chunked or cap.dense]
+    del trainer, cap
+    for r in ev_two:
+        by_path[f"mp_eval_r{r['rank']}"] = r["launches"]
+        fold_errs(errs, r["errs"])
+        with np.load(cache / "smoke_dp_mp_eval" / f"rank{r['rank']}.ranks.npz") as z:
+            got = [z[k] for k in z.files]
+        check(len(got) == len(want_ranks), f"mp eval rank {r['rank']}: {len(got)} batches, want {len(want_ranks)}")
+        differ = sum(int((g != w).sum()) for g, w in zip(got, want_ranks))
+        n = sum(len(w) for w in want_ranks)
+        check(differ == 0, f"mp eval rank {r['rank']}: {differ} of {n} test ranks differ from a world of one's")
+        lo, hi = slab_bounds(r["entities"], 2, r["rank"])
+        print(f"mp eval rank {r['rank']}: the sharded cache ({hi - lo} rows: entities {lo}:{hi}), "
+              f"{len(got)} test batches, {n} golds ranked, 0 differ from a world of one's; launches {r['launches']}")
+    # the slabs against a single-file save of the same params, in one process
+    single = merge_checkpoint(slabs, cache / "smoke_mp_single")
+    _, _, _, row_single, _ = run_evaluate(torch, config, single, cache / "smoke_mp_eval_single", False)
+    keys = ("loss", "mrr", "mr", "h1", "h3", "h10", "h50")
+    check({k: row_slabs[k] for k in keys} == {k: row_single[k] for k in keys},
+          f"mp: the slabs evaluate to {row_slabs}, the single file to {row_single}")
+    lines_slabs, _ = predict_with_counts(torch, config, slabs, DATA_DIR, "mp slabs")
+    lines_single, _ = predict_with_counts(torch, config, single, DATA_DIR, "mp single")
+    check(lines_slabs == lines_single, "mp: cli.predict answers differ between the slabs and the single file")
+    print(f"mp: the model-axis slabs evaluate on test exactly as the single-file save "
+          f"({ {k: row_slabs[k] for k in keys} }) and serve the same {len(lines_slabs)} cli.predict lines")
+    # lookup ComplEx, FB15k-shaped: the trainer and shard_map_score's step,
+    # 2 ranks (gloo) against a world of one (nccl)
+    timings.setdefault("fb_dataset_gen_s", ensure_dataset(FB_DATA_DIR, FB_DATA_ARGS))
+    fb = write_config("fb15k237-complex-kge-dp", FB_CONFIGS / "fb15k237-complex-kge.yaml",
+                      {"dataset_dir": str(FB_DATA_DIR), "eval_epoch_freq": 2, "save_epoch_freq": 0},
+                      data={"train_data_config": {"input_file": fb_head_file()}})
+    fb_one = cache / "smoke_dp_fb_one"
+    if not (fb_one / "rank0.grads.npz").exists():  # phase_data_parallel's world of one, or a new one
+        run_ranks("fb_one", fb, 1, ["--epochs", "2"])
+    fb_one_res = json.loads((fb_one / "rank0.json").read_text())
+    fb_two, wall = run_ranks("mp_fb", fb, 2, ["--epochs", "2", "--model_parallel", "2"])
+    timings["mp_fb_s"] = wall
+    check_replicas("mp_fb", fb_two)
+    worst_fb, _ = grads_against("mp fb", [first_step_grads(cache / "smoke_dp_mp_fb", ".grads.npz", r) for r in range(2)],
+                                first_step_grads(fb_one, ".grads.npz"), 2, MAX_REL_ERR_F32)
+    fb_loss_rel = abs(fb_two[0]["losses"][0] - fb_one_res["losses"][0]) / abs(fb_one_res["losses"][0])
+    check(fb_loss_rel <= MAX_REL_ERR_F32, f"mp fb: the first loss {fb_loss_rel:.3g} from a world of one's")
+    for r in fb_two:
+        by_path[f"mp_fb_r{r['rank']}"] = r["launches"]
+        fold_errs(errs, r["errs"])
+        timings[f"mp_fb_r{r['rank']}_step_ms"] = summary(r["step_ms"][1:])
+        timings[f"mp_fb_r{r['rank']}_collective_ms"] = summary(r["collective_ms"][1:])
+    print(f"mp fb (lookup ComplEx d=200, entity slabs {fb_two[0]['slabs']['entity_embedding']} and "
+          f"{fb_two[1]['slabs']['entity_embedding']}, {fb_two[0]['steps']} steps of 512): the first step's gradients "
+          f"within {worst_fb:.3g} of max|want| of a world of one's, loss {fb_loss_rel:.3g} (<= {MAX_REL_ERR_F32}); "
+          f"validation MRR {fb_two[0]['rows'][0]['validation_mrr']:.6f} vs {fb_one_res['rows'][0]['validation_mrr']:.6f}"
+          f"; step median {np.median(fb_two[0]['step_ms'][1:]):.3f} ms")
+    sms_one, _ = run_ranks("mp_sms_one", fb, 1, mode="--mp-shard-map")
+    sms_two, _ = run_ranks("mp_sms", fb, 2, mode="--mp-shard-map")
+    want = first_step_grads(cache / "smoke_dp_mp_sms_one", ".grads.npz")
+    # the entity table padded to a multiple of the model ranks: the padding
+    # rows' gradient is zero (their columns are masked)
+    want[0] = np.concatenate([want[0], np.zeros((sms_two[0]["rows"] * 2 - len(want[0]), want[0].shape[1]))])
+    worst_sms, _ = grads_against("mp shard_map", [first_step_grads(cache / "smoke_dp_mp_sms", ".grads.npz", r) for r in range(2)],
+                                 want, 2, MAX_REL_ERR_F32)
+    sms_loss_rel = abs(sms_two[0]["loss"] - sms_one[0]["loss"]) / abs(sms_one[0]["loss"])
+    check(sms_loss_rel <= MAX_REL_ERR_F32 and sms_two[0]["loss"] == sms_two[1]["loss"],
+          f"mp shard_map: losses {[r['loss'] for r in sms_two]} against {sms_one[0]['loss']}")
+    for r in sms_two:
+        by_path[f"mp_sms_r{r['rank']}"] = r["launches"]
+        fold_errs(errs, r["errs"])
+    print(f"mp shard_map_score (FB15k-237 widths, {sms_two[0]['rows']} padded table rows a rank, a batch of "
+          f"{sms_two[0]['batch_rows']}): 2 ranks against a world of one, the first step's gradients "
+          f"{worst_sms:.3g} of max|want|, loss {sms_loss_rel:.3g} (<= {MAX_REL_ERR_F32})")
+    timings["mp_fb_first_grad_rel"], timings["mp_sms_first_grad_rel"] = worst_fb, worst_sms
+    timings["mp_phase_s"] = time.perf_counter() - t_phase
+    print(f"model parallel phase: {timings['mp_phase_s']:.1f} s")
+    return errs
+
+
 def build_kernels(torch, timings):
     """nvcc for every CUDA source, started together."""
     from open_knowledge_graph_embeddings_tpu_torch.utils import cuda_build
@@ -5651,10 +5995,11 @@ def main(argv) -> int:
         launch_cost(torch)
         return 0
     sys.path.insert(0, str(ROOT))
-    if argv[:1] == ["--dp-rank"]:
-        # one rank of phase_data_parallel's runs (run_ranks starts them)
+    if argv[:1] in (["--dp-rank"], ["--mp-shard-map"]):
+        # one rank of phase_data_parallel's or phase_model_parallel's runs
+        # (run_ranks starts them)
         try:
-            return dp_rank_main(torch, argv[1:])
+            return (dp_rank_main if argv[0] == "--dp-rank" else sms_rank_main)(torch, argv[1:])
         except (SmokeFailure, RuntimeError, subprocess.SubprocessError, OSError) as e:
             print(f"dp rank FAILED: {type(e).__name__}: {e}", file=sys.stderr)
             return 1
@@ -5726,10 +6071,11 @@ def main(argv) -> int:
         phase_shard_ckpt(torch, timings, by_path, ckpt)
         phase_native(torch, timings, host_wait_ms)
         dp_errs = phase_data_parallel(torch, timings, by_path)
+        mp_errs = phase_model_parallel(torch, timings, by_path, by_path_f32)
         for row in rows:
             row["max_abs_err"] = max(row["max_abs_err"], family_errs.get(row["name"], 0.0),
                                      objective_errs.get(row["name"], 0.0), create_errs.get(row["name"], 0.0),
-                                     dp_errs.get(row["name"], 0.0))
+                                     dp_errs.get(row["name"], 0.0), mp_errs.get(row["name"], 0.0))
         timings["launch_cost"] = launch_cost(torch)
         check([row["name"] for row in rows] == KERNEL_ROWS, f"kernel rows {[row['name'] for row in rows]}")
     except (SmokeFailure, RuntimeError, subprocess.SubprocessError, OSError) as e:

@@ -50,10 +50,12 @@ from open_knowledge_graph_embeddings_tpu_torch.utils.misc import set_global_seed
 logger = logging.getLogger(__name__)
 
 # run-control keys a resumed run keeps from its own command line
+# the layout of the processes (``model_parallel``) is the run's: a
+# checkpoint of any layout loads into any other
 _RUN_KEYS = {
     "resume", "resume_filter", "resume_freeze", "resume_load_args", "reset_optimizer",
     "train", "evaluate", "evaluate_on_validation", "evaluate_scores_file",
-    "devices", "no_cuda", "results_dir", "experiment_dir", "epochs",
+    "devices", "no_cuda", "results_dir", "experiment_dir", "epochs", "model_parallel",
 }
 
 

@@ -129,16 +129,28 @@ def _table_rows(n: int, sparse: bool) -> int:
     return -(-n // 8) * 8 if sparse else n
 
 
-def _dropout(x, rate: float, train: bool, generator: Optional[torch.Generator]):
+def _dropout(x, rate: float, train: bool, generator: Optional[torch.Generator], block=None):
     """Inverted dropout with the mask drawn from ``generator``; a list of
-    tensors of one shape takes one mask (JAX draws each from the same key)."""
+    tensors of one shape takes one mask (JAX draws each from the same key).
+    With a candidate ``block`` (``x`` holds its rows), the mask of all the
+    block's ``n`` rows is drawn and the block's rows kept, so every rank
+    draws the stream of one process."""
     if not train or rate <= 0.0:
         return x
     keep = 1.0 - rate
     xs = x if isinstance(x, list) else [x]
-    mask = torch.rand(xs[0].shape, generator=generator, device=xs[0].device) < keep
+    shape = xs[0].shape if block is None else (block.n, *xs[0].shape[1:])
+    mask = torch.rand(shape, generator=generator, device=xs[0].device) < keep
+    if block is not None:
+        mask = mask[block.lo : block.hi]
     out = [torch.where(mask, v / keep, torch.zeros((), dtype=v.dtype, device=v.device)) for v in xs]
     return out if isinstance(x, list) else out[0]
+
+
+def _bn_group(block, per_row: int = 1) -> Dict[str, Any]:
+    """The batchnorm keywords of a candidate block: statistics over the
+    ``n * per_row`` rows of every rank's block of its group."""
+    return {} if block is None else {"group": block.group, "n_total": block.n * per_row}
 
 
 def _pad_stop_gradient(emb: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
@@ -212,16 +224,59 @@ def token_gather_tm(
 
 
 class _RowShardContext:
-    """The encode-region context that the model sets around each encode of a
-    data-parallel training step (models/model.py ``set_mesh``): a mesh and
-    axis whose ranks each encode a block of the rows, and the gather-sum
-    plan key that region reads (the candidate and the query plans differ).
-    Only a sequence core (the LSTM) splits its rows; everything else runs
-    whole on every rank."""
+    """The mesh of ranks (models/model.py ``set_mesh``) and the encode-region
+    context that the model sets around each encode of a step on a mesh: a
+    mesh and axis whose ranks each encode a block of the rows, the
+    gather-sum plan key that region reads (the candidate and the query
+    plans differ), and, for the candidate region of a model axis, the
+    ``block`` of the candidate rows this rank keeps (a
+    ``parallel.sharding.RowBlock``).
 
-    def set_row_shard_ctx(self, mesh, axis, plan_key: Optional[str] = None) -> None:
+    Over ``data`` only a sequence core (the LSTM) splits its rows and the
+    blocks are gathered; everything else runs whole on every rank.  In a
+    candidate block the encode returns the block's rows only: the core runs
+    on the block, batchnorm takes its statistics over the block's group and
+    dropout keeps the block's rows of the whole mask.
+
+    Rows of a row-sharded table (one named in ``variables["slabs"]``) are
+    read through the boundary gather (``parallel.distributed``) over the
+    model group: a lookup table's ids directly, a token table's as the
+    unique tokens of the encode's rows, remapped (:meth:`_compact`)."""
+
+    def set_mesh(self, mesh) -> None:
+        self._mesh = mesh
+
+    def set_row_shard_ctx(self, mesh, axis, plan_key: Optional[str] = None, block=None) -> None:
         self._row_shard_ctx = None if mesh is None else (mesh, axis)
         self._plan_key_override = plan_key
+        self._block = block
+
+    def _model_group(self):
+        from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import MODEL_AXIS
+
+        mesh = getattr(self, "_mesh", None)
+        return None if mesh is None else mesh.group(MODEL_AXIS)
+
+    def _rows(self, variables, name: str, ids: torch.Tensor) -> torch.Tensor:
+        """``table[ids]`` of the parameter ``name``, by the boundary gather
+        when this rank holds a slab of it."""
+        table = variables["params"][name]
+        slab = (variables.get("slabs") or {}).get(name)
+        if slab is None:
+            return table[ids]
+        from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import boundary_gather
+
+        return boundary_gather(table, ids, slab[0], self._model_group())
+
+    def _compact(self, variables, name: str, toks: torch.Tensor):
+        """``(table, toks)`` to gather token rows from: the parameter and the
+        ids themselves, or for a slab the unique tokens' rows (PAD first, as
+        compact row 0) and the ids remapped into them."""
+        table = variables["params"][name]
+        if (variables.get("slabs") or {}).get(name) is None:
+            return table, toks
+        uniq, inv = torch.unique(torch.cat([toks.new_zeros(1), toks.reshape(-1)]), return_inverse=True)
+        return self._rows(variables, name, uniq), inv[1:].view_as(toks)
 
 
 @dataclass
@@ -289,15 +344,18 @@ class LookupEmbedder(_RowShardContext):
             params["bn_r"], state["bn_r"] = init_batchnorm(self._relation_emb_size, device=device)
         return {"params": params, "state": state, "buffers": {}}
 
-    def _encode(self, variables, x, bn_name, proj_names, proj_act, input_dropout, dropout, train, generator):
+    def _encode(self, variables, x, bn_name, proj_names, proj_act, input_dropout, dropout, train, generator,
+                block=None):
         """input dropout -> batchnorm (f32) -> each projection (f32 product,
         one rounding) and its activation -> l2 norm -> dropout -> the
-        cubic-abs regularizer (train mode).  Several projections give a list."""
+        cubic-abs regularizer (train mode).  Several projections give a list.
+        ``x`` may be a candidate ``block``'s rows (:class:`_RowShardContext`)."""
         params, state = variables["params"], variables["state"]
         new_state = dict(state)
-        x = _dropout(x, input_dropout, train, generator)
+        x = _dropout(x, input_dropout, train, generator, block)
         if self.batch_norm and bn_name is not None:
-            y32, new_state[bn_name] = apply_batchnorm(params[bn_name], state[bn_name], x.float(), train)
+            y32, new_state[bn_name] = apply_batchnorm(params[bn_name], state[bn_name], x.float(), train,
+                                                      **_bn_group(block))
             x = y32.to(x.dtype)
         if proj_names:
             act = _activation(proj_act)
@@ -308,7 +366,7 @@ class LookupEmbedder(_RowShardContext):
             x = projected[0] if len(projected) == 1 else projected
         if self.normalize == "norm":
             x = [_l2_normalize(v) for v in x] if isinstance(x, list) else _l2_normalize(x)
-        x = _dropout(x, dropout, train, generator)
+        x = _dropout(x, dropout, train, generator, block)
         reg = torch.zeros((), device=params_device(variables))
         if train and self.l2_reg > 0:
             for v in x if isinstance(x, list) else [x]:
@@ -316,9 +374,14 @@ class LookupEmbedder(_RowShardContext):
         return x, new_state, reg
 
     def encode_entity(self, variables, ids, *, is_sp=None, train=False, generator=None):
-        """Entity rows ``ids`` [R] -> ``(emb [R, d], state, reg)``."""
-        x = variables["params"]["entity_embedding"][ids].to(self._cdtype)
-        return self._encode_entity_repr(variables, x, is_sp, train, generator)
+        """Entity rows ``ids`` [R] -> ``(emb [R, d], state, reg)``; in a
+        candidate block, the block's rows of them."""
+        x = self._rows(variables, "entity_embedding", ids).to(self._cdtype)
+        block = getattr(self, "_block", None)
+        if block is not None:
+            x = x[block.lo : block.hi]
+            is_sp = None if is_sp is None else is_sp[block.lo : block.hi]
+        return self._encode_entity_repr(variables, x, is_sp, train, generator, block)
 
     def encode_entity_rows(self, variables, rows, *, is_sp=None, train=False, generator=None):
         """Encode raw table rows [R, d] through the entity pipeline."""
@@ -327,17 +390,28 @@ class LookupEmbedder(_RowShardContext):
     def encode_entity_range(self, variables, start: int, stop: int, *, train=False, generator=None):
         """The entities ``start:stop`` as a slice of the table: the values
         of ``encode_entity(arange(start, stop))``, but the backward pads the
-        cotangent with zeros instead of scatter-adding (stop - start) rows."""
+        cotangent with zeros instead of scatter-adding (stop - start) rows.
+        In a candidate block, the block's entities, read from this rank's
+        slab (the model takes the block inside it)."""
+        block = getattr(self, "_block", None)
+        if block is not None:
+            start, stop = start + block.lo, start + block.hi
+        slab = (variables.get("slabs") or {}).get("entity_embedding")
+        if slab is not None:
+            if block is None or start < slab[0] or stop > slab[1]:
+                raise ValueError(f"entities {start}:{stop} are not all in this rank's slab {slab[:2]}")
+            start, stop = start - slab[0], stop - slab[0]
         x = variables["params"]["entity_embedding"][start:stop].to(self._cdtype)
-        return self._encode_entity_repr(variables, x, None, train, generator)
+        return self._encode_entity_repr(variables, x, None, train, generator, block)
 
-    def _encode_entity_repr(self, variables, x, is_sp, train, generator):
+    def _encode_entity_repr(self, variables, x, is_sp, train, generator, block=None):
         bn = "bn_e" if self.batch_norm else None
         if not self.project_entity:
-            return self._encode(variables, x, bn, [], None, self.input_dropout, self.dropout, train, generator)
+            return self._encode(variables, x, bn, [], None, self.input_dropout, self.dropout, train, generator,
+                                block)
         (subj, obj), new_state, reg = self._encode(
             variables, x, bn, ["subj_projection", "obj_projection"], self.project_entity_activation,
-            self.input_dropout, self.dropout, train, generator)
+            self.input_dropout, self.dropout, train, generator, block)
         return (obj if is_sp is None else torch.where(is_sp[:, None], subj, obj)), new_state, reg
 
     def encode_relation(self, variables, ids, *, train=False, generator=None):
@@ -436,10 +510,13 @@ class UnigramPoolingEmbedder(TokenEmbedderBase):
         params, state, buffers = self._init_base(generator)
         return {"params": params, "state": state, "buffers": buffers}
 
-    def _pool_states(self, variables, ids, kind):
-        """Token gather, pool and activation: the per-row stage."""
-        toks = self._tokens(variables, ids, kind)  # [B, L]
-        emb = _pad_stop_gradient(variables["params"][f"{kind}_token_embedding"][toks].to(self._cdtype), toks)
+    def _pool_states(self, variables, ids, kind, block=None):
+        """Token gather, pool and activation: the per-row stage (of a
+        candidate block's rows only)."""
+        table, toks = self._compact(variables, f"{kind}_token_embedding", self._tokens(variables, ids, kind))  # [B, L]
+        if block is not None:
+            toks = toks[block.lo : block.hi]
+        emb = _pad_stop_gradient(table[toks].to(self._cdtype), toks)
         if self.pool == "max":
             x = emb.max(1).values
         elif self.pool == "mean":
@@ -449,26 +526,28 @@ class UnigramPoolingEmbedder(TokenEmbedderBase):
         act = _activation(self.activation)
         return act(x) if act else x
 
-    def _finish(self, variables, x, kind, proj, dropout, train, generator):
+    def _finish(self, variables, x, kind, proj, dropout, train, generator, block=None):
         new_state = dict(variables["state"])
         if self.normalize == "norm":
             x = _l2_normalize(x)
         elif self.normalize == "batchnorm":
             y32, new_state[f"{kind}_bn"] = apply_batchnorm(
-                variables["params"][f"{kind}_bn"], variables["state"][f"{kind}_bn"], x.float(), train)
+                variables["params"][f"{kind}_bn"], variables["state"][f"{kind}_bn"], x.float(), train,
+                **_bn_group(block))
             x = y32.to(self._cdtype)
         if proj:
             x, new_state["relation_projection_bn"] = self._apply_relation_projection(variables, x, train)
-        x = _dropout(x, dropout, train, generator)
+        x = _dropout(x, dropout, train, generator, block)
         return x, new_state, x.new_zeros((), dtype=torch.float32)
 
     def _compose(self, variables, ids, kind, proj, dropout, train, generator, inv=None):
         # query dedup: pooling runs over unique rows; ``inv`` gathers back to
         # per-row BEFORE batchnorm and dropout
-        x = self._pool_states(variables, ids, kind)
+        block = getattr(self, "_block", None)
+        x = self._pool_states(variables, ids, kind, block)
         if inv is not None:
             x = x[inv]
-        return self._finish(variables, x, kind, proj, dropout, train, generator)
+        return self._finish(variables, x, kind, proj, dropout, train, generator, block)
 
     def encode_entity_pair(self, variables, ids_a, ids_b, *, train=False, generator=None, inv_b=None):
         """One token gather and pool over both id batches (rows of ``ids_a``
@@ -529,10 +608,13 @@ class BigramPoolingEmbedder(TokenEmbedderBase):
         return {"params": params, "state": state, "buffers": buffers}
 
     def _compose(self, variables, ids, kind, dropout, train, generator):
-        toks = self._tokens(variables, ids, kind)  # [B, L]
+        table, toks = self._compact(variables, f"{kind}_token_embedding", self._tokens(variables, ids, kind))  # [B, L]
+        block = getattr(self, "_block", None)
+        if block is not None:
+            toks = toks[block.lo : block.hi]
         # the batchnorm over conv positions couples pad outputs into the
         # loss: block their gradient at the gather
-        emb = _pad_stop_gradient(variables["params"][f"{kind}_token_embedding"][toks].to(self._cdtype), toks)
+        emb = _pad_stop_gradient(table[toks].to(self._cdtype), toks)
         w = variables["params"][f"{kind}_conv"].to(self._cdtype)  # [out_ch, d, 2]
         y = (_product_f32(emb[:, :-1], w[:, :, 0].t()) + _product_f32(emb[:, 1:], w[:, :, 1].t())).to(
             self._cdtype)  # [B, L-1, out_ch]
@@ -544,7 +626,7 @@ class BigramPoolingEmbedder(TokenEmbedderBase):
             B, Lm1, C = y.shape
             y2, new_state[f"{kind}_conv_bn"] = apply_batchnorm(
                 variables["params"][f"{kind}_conv_bn"], variables["state"][f"{kind}_conv_bn"],
-                y.reshape(B * Lm1, C).float(), train, momentum=None)
+                y.reshape(B * Lm1, C).float(), train, momentum=None, **_bn_group(block, Lm1))
             y = y2.to(self._cdtype).reshape(B, Lm1, C)
         if self.gates:
             g = _sigmoid(y[..., -1:])
@@ -557,7 +639,7 @@ class BigramPoolingEmbedder(TokenEmbedderBase):
             x = x / (mask.sum(1) + 1e-12)
         if self.normalize == "norm":
             x = _l2_normalize(x)
-        x = _dropout(x, dropout, train, generator)
+        x = _dropout(x, dropout, train, generator, block)
         return x, new_state, x.new_zeros((), dtype=torch.float32)
 
     def encode_entity(self, variables, ids, *, is_sp=None, train=False, generator=None):
@@ -611,58 +693,69 @@ class LSTMEmbedder(TokenEmbedderBase):
             x = last_states(lstm_forward_tm(lstm, emb_tm), lengths)
         return x[unsort] if use_sorted else x
 
-    def _lstm_states(self, variables, ids, kind, table_name, lstm_name, train=False) -> torch.Tensor:
+    def _lstm_states(self, variables, ids, kind, table_name, lstm_name, train=False, block=None) -> torch.Tensor:
         """Raw [B, H] states of the rows ``ids``.  With a row-shard context
         (:meth:`set_row_shard_ctx`) over ``A`` ranks and ``B % A == 0``, each
         rank sorts, gathers and runs the LSTM on its own block of B / A rows
         (with its own slice of a stacked [A, S, K] gather-sum plan) and the
-        blocks are gathered (``parallel.distributed.gather_rows``: the
-        backward sums the ranks' cotangents, then each keeps its block), as
-        the JAX package's ``shard_map`` region does; otherwise every rank
-        encodes every row."""
+        blocks are gathered over the axis's group
+        (``parallel.distributed.gather_rows``: the backward sums the ranks'
+        cotangents, then each keeps its block), as the JAX package's
+        ``shard_map`` region does; otherwise every rank encodes every row.
+        In a candidate ``block`` only the block's states are returned: the
+        core runs on the block (all rows, then sliced, where a 2-D plan
+        indexes every row)."""
         # the gather-sum plan rides in the buffers of a sparse train batch
         ctx = getattr(self, "_row_shard_ctx", None)
         key = getattr(self, "_plan_key_override", None) or f"{kind}_token_grad_plan"
         plan = variables["buffers"].get(key) if train else None
-        table, lstm = variables["params"][table_name], variables["params"][lstm_name]
-        toks = self._tokens(variables, ids, kind)
+        lstm = variables["params"][lstm_name]
+        table, toks = self._compact(variables, table_name, self._tokens(variables, ids, kind))
+        B = toks.shape[0]
+        if block is not None:
+            if plan is None or (plan["pos"].dim() == 3 and B % block.parts == 0):
+                plan_i = None if plan is None else {k: v[block.index] for k, v in plan.items()}
+                return self._lstm_states_core(table, lstm, toks[block.lo : block.hi], plan_i)
+            return self._lstm_states_core(table, lstm, toks, plan)[block.lo : block.hi]
         if ctx is not None:
             mesh, axis = ctx
             A, i = mesh.shape[axis], mesh.index(axis)
-            B = toks.shape[0]
             if A > 1 and B % A == 0 and (plan is None or plan["pos"].dim() == 3):
                 from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import gather_rows
 
                 blk = B // A
                 plan_i = None if plan is None else {k: v[i] for k, v in plan.items()}
-                return gather_rows(self._lstm_states_core(table, lstm, toks[i * blk : (i + 1) * blk], plan_i), i, A)
+                return gather_rows(self._lstm_states_core(table, lstm, toks[i * blk : (i + 1) * blk], plan_i), i, A,
+                                   mesh.group(axis))
         return self._lstm_states_core(table, lstm, toks, plan)
 
-    def _finish(self, variables, x, bn_name, proj, dropout, train, generator):
+    def _finish(self, variables, x, bn_name, proj, dropout, train, generator, block=None):
         """Activation -> batchnorm (f32) -> [relation projection] -> dropout
-        on raw LSTM states; batch statistics see exactly the rows in ``x``."""
+        on raw LSTM states; batch statistics see exactly the rows in ``x``
+        (in a candidate ``block``, the rows of every rank's block)."""
         act = _activation(self.encoder_activation)
         if act:
             x = act(x)
         new_state = dict(variables["state"])
         if self.normalize == "batchnorm":
             y32, new_state[bn_name] = apply_batchnorm(
-                variables["params"][bn_name], variables["state"][bn_name], x.float(), train
+                variables["params"][bn_name], variables["state"][bn_name], x.float(), train, **_bn_group(block)
             )
             x = y32.to(self._cdtype)
         if proj:
             x, new_state["relation_projection_bn"] = self._apply_relation_projection(
                 variables, x.to(self._cdtype), train)
-        x = _dropout(x, dropout, train, generator)
+        x = _dropout(x, dropout, train, generator, block)
         return x.to(self._cdtype), new_state, x.new_zeros((), dtype=torch.float32)
 
     def _compose(self, variables, ids, kind, proj, dropout, train, generator, inv=None):
         # query dedup: the recurrence runs over unique rows; ``inv`` gathers
         # back to per-row BEFORE batchnorm and dropout
-        x = self._lstm_states(variables, ids, kind, f"{kind}_token_embedding", f"{kind}_lstm", train)
+        block = getattr(self, "_block", None)
+        x = self._lstm_states(variables, ids, kind, f"{kind}_token_embedding", f"{kind}_lstm", train, block)
         if inv is not None:
             x = x[inv]
-        return self._finish(variables, x, f"{kind}_bn", proj, dropout, train, generator)
+        return self._finish(variables, x, f"{kind}_bn", proj, dropout, train, generator, block)
 
     def encode_entity_pair(self, variables, ids_a, ids_b, *, train=False, generator=None, inv_b=None):
         """Encode two entity id batches through ONE token-gather + LSTM pass

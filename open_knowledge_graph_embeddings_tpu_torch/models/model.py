@@ -5,12 +5,15 @@ Counterpart of ``open_knowledge_graph_embeddings_tpu/models/model.py``:
 per-row query vectors for a mixed sp/po batch, the candidate encode (a
 table slice for lookup models), the train step's encode stage (candidates
 and query entities in one pass where the embedder has a pair encode),
-triple scores and the chunked full-vocabulary candidate cache.  On a
-data-parallel mesh of ranks (:meth:`KGEModel.set_mesh`) a training step's
-encode stage takes the JAX package's mesh branch: candidates, then queries,
-each its own region, whose LSTM rows split over the ranks and are gathered
-(models/embedders.py).  The model axis (row-sharded tables, the candidate
-axis over ``model``) waits for ROADMAP Queue 1 item 16.
+triple scores and the chunked full-vocabulary candidate cache.  On a mesh
+of ranks (:meth:`KGEModel.set_mesh`) a training step's encode stage takes
+the JAX package's mesh branch: candidates, then queries, each its own
+region (models/embedders.py).  The queries' LSTM rows split over ``data``
+and are gathered.  The candidates' region rides ``data`` the same way on
+a pure data-parallel mesh; on a model axis (``model > 1``) each rank
+encodes and keeps only its block of the candidates (:meth:`cand_block`),
+and the entity tables are row-sharded, read through the boundary gather
+(``variables["slabs"]``, ``parallel/sharding.py``).
 
 Randomness (dropout in train mode) is drawn from one ``torch.Generator`` in
 the JAX package's encode order: candidates, query entities, relations.
@@ -31,9 +34,12 @@ from open_knowledge_graph_embeddings_tpu_torch.models.embedders import (
     TokenEmbedderBase,
     UnigramPoolingEmbedder,
     Variables,
+    _table_rows,
     params_device,
 )
 from open_knowledge_graph_embeddings_tpu_torch.ops import scoring
+from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+from open_knowledge_graph_embeddings_tpu_torch.parallel.sharding import RowBlock, slab_bounds
 
 QUERY_FNS: Dict[str, Callable] = {
     "complex": scoring.complex_query,
@@ -79,13 +85,39 @@ class KGEModel:
         """The mesh of ranks a training step runs on (``parallel/mesh.py``),
         or None for one process.  With a mesh, a training batch's encode
         stage splits into a candidate and a query region (no pair fusion);
-        the step scores only this rank's block of the rows
+        the step scores only this rank's block of the rows, and on a model
+        axis only its block of the candidates
         (``train/step.py::prefix_loss``)."""
         self._mesh = mesh
+        self.embedder.set_mesh(mesh)
 
     @property
     def mesh(self):
         return getattr(self, "_mesh", None)
+
+    @property
+    def model_axis(self) -> bool:
+        """Whether the candidates and the entity tables split over a model
+        axis of several ranks."""
+        return self.mesh is not None and self.mesh.model > 1
+
+    def cand_block(self, n_cand: Optional[int]) -> Optional[RowBlock]:
+        """This rank's block of the candidate columns on a model axis, None
+        without one.  Batch-shared candidates (``n_cand`` of them) split by
+        ``slab_bounds``; the full vocabulary (``n_cand`` None) by the entity
+        rows of this rank's slab (a lookup table's height, padded for a
+        row-sparse table, or the E entities of the candidate cache),
+        shifted to columns: entity ``meta.min_entities_size`` is column 0."""
+        if not self.model_axis:
+            return None
+        M, m = self.mesh.model, self.mesh.index(MODEL_AXIS)
+        group = self.mesh.group(MODEL_AXIS)
+        if n_cand is not None:
+            return RowBlock(*slab_bounds(n_cand, M, m), n_cand, M, m, group)
+        off, E = self.meta.min_entities_size, self.meta.entities_size
+        height = _table_rows(E, self.embedder.sparse) if isinstance(self.embedder, LookupEmbedder) else E
+        lo, hi = (min(max(b, off), E) - off for b in slab_bounds(height, M, m))
+        return RowBlock(lo, hi, E - off, M, m, group)
 
     def _relation_for_query(self, r: torch.Tensor) -> torch.Tensor:
         if self.scorer == "rescal":
@@ -148,8 +180,17 @@ class KGEModel:
             q, state, reg = self.queries(variables, ent_ids, rel_ids, is_sp, train=train, generator=generator,
                                          ent_inv=ent_inv, rel_inv=rel_inv)
             return q, cand_emb, state, reg
-        if self.mesh is not None and train and cand_ids is not None:
-            return self._mesh_encodes(variables, ent_ids, rel_ids, is_sp, cand_ids, generator, ent_inv, rel_inv)
+        if self.model_axis or (self.mesh is not None and train and cand_ids is not None):
+            return self._mesh_encodes(variables, ent_ids, rel_ids, is_sp, cand_ids, train, generator, ent_inv,
+                                      rel_inv)
+        q, cand_emb, state, reg = self._encodes(variables, ent_ids, rel_ids, is_sp, cand_ids, train, generator,
+                                                ent_inv, rel_inv)
+        if self.mesh is not None and train and self.mesh.rank != 0:
+            reg = torch.zeros_like(reg)  # every rank encoded the whole batch: the regularizer counts once
+        return q, cand_emb, state, reg
+
+    def _encodes(self, variables, ent_ids, rel_ids, is_sp, cand_ids, train, generator, ent_inv, rel_inv):
+        """The encode stage of one process (no mesh branch)."""
         if cand_ids is not None and hasattr(self.embedder, "encode_entity_pair"):
             cand_emb, e, state, reg_c = self.embedder.encode_entity_pair(
                 variables, cand_ids, ent_ids, train=train, generator=generator, inv_b=ent_inv)
@@ -163,28 +204,45 @@ class KGEModel:
             generator=generator, ent_inv=ent_inv, rel_inv=rel_inv)
         return q, cand_emb, state, reg_c + reg_q
 
-    def _mesh_encodes(self, variables, ent_ids, rel_ids, is_sp, cand_ids, generator, ent_inv, rel_inv):
+    def _mesh_encodes(self, variables, ent_ids, rel_ids, is_sp, cand_ids, train, generator, ent_inv, rel_inv):
         """The mesh branch of the encode stage (the JAX package's
         ``prefix_queries_and_candidates`` with a mesh): the candidates in a
-        region over ``data`` reading the ``cand`` plan, then the queries
-        (entities, relations) in a region over ``data``; the random stream
-        and the batchnorm state follow that order.  Every rank ends with the
-        whole q [B, d] and cand_emb [N, d]."""
-        from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import DATA_AXIS
-
+        region reading the ``cand`` plan, then the queries (entities,
+        relations), in training in a region over ``data``; the random
+        stream and the batchnorm state follow that order.  The candidate
+        region rides ``data`` on a pure data-parallel mesh (every rank ends
+        with the whole cand_emb [N, d]) and is this rank's block on a model
+        axis (:meth:`cand_block`: cand_emb holds the block's rows); every
+        rank ends with the whole q [B, d]; on a model axis its cotangent is
+        summed over the model group and the query encode differentiated on
+        the group's first rank alone.  The regularizer counts once over the
+        world: the queries' on rank 0, the candidates' on rank 0 or, on a
+        model axis, on the ranks of data index 0 (each its block)."""
         set_ctx = self.embedder.set_row_shard_ctx
-        set_ctx(self.mesh, DATA_AXIS, plan_key="cand_token_grad_plan")
+        block = self.cand_block(None if cand_ids is None else cand_ids.shape[0])
+        set_ctx(self.mesh, DATA_AXIS if block is None else MODEL_AXIS, plan_key="cand_token_grad_plan", block=block)
         try:
-            cand_emb, state, reg_c = self.encode_candidates(variables, cand_ids, train=True, generator=generator)
+            cand_emb, state, reg_c = self.encode_candidates(variables, cand_ids, train=train, generator=generator)
         finally:
             set_ctx(None, None)
-        set_ctx(self.mesh, DATA_AXIS)
+        if train:
+            set_ctx(self.mesh, DATA_AXIS)
         try:
-            q, state, reg_q = self.queries({**variables, "state": state}, ent_ids, rel_ids, is_sp, train=True,
+            q, state, reg_q = self.queries({**variables, "state": state}, ent_ids, rel_ids, is_sp, train=train,
                                            generator=generator, ent_inv=ent_inv, rel_inv=rel_inv)
         finally:
             set_ctx(None, None)
-        return q, cand_emb, state, reg_c + reg_q
+        if block is not None and train:
+            # every rank of a model group encodes the same queries and scores
+            # them against its block: their cotangents are summed over the
+            # group and the query encode differentiated once, on its first rank
+            from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import replicated_cotangent
+
+            q = replicated_cotangent(q, block.group, block.index == 0)
+        first = self.mesh.rank == 0
+        if not (first or (block is not None and self.mesh.index(DATA_AXIS) == 0)):
+            reg_c = torch.zeros_like(reg_c)
+        return q, cand_emb, state, reg_c + (reg_q if first else torch.zeros_like(reg_q))
 
     def triple_score(self, variables: Variables, s_ids, r_ids, o_ids, *, train: bool = False,
                      generator: Optional[torch.Generator] = None):
@@ -208,26 +266,54 @@ class KGEModel:
         """The [N, d] eval-mode candidates of a full-vocabulary ranking,
         every entity from ``meta.min_entities_size`` on: token embedders
         encode every mention in chunks (``encode_all_entities``), lookup
-        models read the table slice (``encode_candidates(None)``)."""
+        models read the table slice (``encode_candidates(None)``).  On a
+        model axis, this rank's block of them (:meth:`cand_block`): the
+        entity rows of its slab."""
+        off = self.meta.min_entities_size
+        block = self.cand_block(None)
         if isinstance(self.embedder, TokenEmbedderBase):
-            return self.encode_all_entities(variables)[self.meta.min_entities_size :]
-        return self.encode_candidates(variables, None)[0]
+            if block is None:
+                return self.encode_all_entities(variables)[off:]
+            lo, hi = slab_bounds(self.meta.entities_size, block.parts, block.index)
+            return self.encode_all_entities(self._whole_token_tables(variables), rows=(lo, hi))[max(off - lo, 0):]
+        if block is None:
+            return self.encode_candidates(variables, None)[0]
+        self.embedder.set_row_shard_ctx(self.mesh, MODEL_AXIS, block=block)
+        try:
+            return self.encode_candidates(variables, None)[0]
+        finally:
+            self.embedder.set_row_shard_ctx(None, None)
+
+    def _whole_token_tables(self, variables: Variables) -> Variables:
+        """``variables`` with each row-sharded token table gathered whole
+        from the model group's slabs (the cache encode reads every rank's
+        tokens for its own entities)."""
+        from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import unshard_rows
+
+        slabs = dict(variables.get("slabs") or {})
+        params = dict(variables["params"])
+        for name in [n for n in slabs if n.endswith("token_embedding")]:
+            lo, _, n = slabs.pop(name)
+            params[name] = unshard_rows(params[name], lo, n, self.mesh.group(MODEL_AXIS))
+        return {**variables, "params": params, "slabs": slabs}
 
     @torch.no_grad()
-    def encode_all_entities(self, variables: Variables, chunk_size: int = 32768) -> torch.Tensor:
-        """Candidate embeddings for every entity id [E, d], in the embedder's
+    def encode_all_entities(self, variables: Variables, chunk_size: int = 32768,
+                            rows: Optional[tuple] = None) -> torch.Tensor:
+        """Candidate embeddings for every entity id [E, d] (or for the
+        entities ``rows`` = ``(lo, hi)``: [hi - lo, d]), in the embedder's
         compute dtype, encoded in chunks of ``chunk_size`` rows to bound the
         per-chunk activations.  As in the JAX package (``models/model.py``
         :379-408), the last chunk is padded to ``chunk_size`` with ids clipped
-        to E - 1 and the padding rows are dropped, so every chunk has the
-        same B and takes the same LSTM path."""
-        E = self.meta.entities_size
+        to the last row and the padding rows are dropped, so every chunk has
+        the same B and takes the same LSTM path."""
+        lo, hi = rows or (0, self.meta.entities_size)
         device = params_device(variables)
-        cache = torch.empty(E, self.embedder.entity_dim, dtype=self.embedder._cdtype, device=device)
-        for start in range(0, E, chunk_size):
-            ids = torch.arange(start, start + chunk_size, device=device).clamp(max=E - 1)
-            n = min(chunk_size, E - start)
-            cache[start : start + n] = self.embedder.encode_entity(variables, ids)[0][:n]
+        cache = torch.empty(hi - lo, self.embedder.entity_dim, dtype=self.embedder._cdtype, device=device)
+        for start in range(lo, hi, chunk_size):
+            ids = torch.arange(start, start + chunk_size, device=device).clamp(max=hi - 1)
+            n = min(chunk_size, hi - start)
+            cache[start - lo : start - lo + n] = self.embedder.encode_entity(variables, ids)[0][:n]
         return cache
 
 

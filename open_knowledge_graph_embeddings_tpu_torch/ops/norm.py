@@ -45,14 +45,27 @@ def apply_batchnorm(
     train: bool = False,
     momentum: Optional[float] = 0.1,
     eps: float = 1e-5,
+    group=None,
+    n_total: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Normalize ``x`` [B, F] -> ``(y, new_state)``.  The new running
     statistics are computed from detached batch statistics: they are state,
-    not part of the gradient."""
-    if train:
+    not part of the gradient.  With ``n_total`` the batch is split over the
+    ranks of ``group`` (``x`` is this rank's part of its ``n_total`` rows):
+    the mean and the biased variance are sums over the group
+    (differentiable all-reduces), so every rank normalizes by the whole
+    batch's statistics."""
+    if train and n_total is not None:
+        from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import all_reduce_sum
+
+        mean = all_reduce_sum(x.sum(0), group) / n_total
+        var = all_reduce_sum(((x - mean) ** 2).sum(0), group) / n_total
+        n = n_total
+    elif train:
         mean = x.mean(0)
         var = x.var(0, unbiased=False)  # biased: used for the normalization
         n = x.shape[0]
+    if train:
         with torch.no_grad():
             unbiased = var * (n / max(n - 1, 1))
             cnt = state["count"]

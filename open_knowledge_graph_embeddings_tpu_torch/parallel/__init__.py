@@ -1,6 +1,7 @@
-"""Data parallelism across processes on ``torch.distributed``: the world and
-its collectives (``distributed``), the [data, model] mesh of ranks
-(``mesh``), and which batch arrays split over which axis (``sharding``)."""
+"""Data and model parallelism across processes on ``torch.distributed``: the
+world, its groups and its collectives (``distributed``), the [data, model]
+mesh of ranks (``mesh``), which leaves and batch arrays split over which axis
+(``sharding``), and the explicit-collective lookup step (``shard_map_score``)."""
 
 from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import (  # noqa: F401
     all_processes_sum,
@@ -18,5 +19,9 @@ from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import (  # noqa: F
 )
 from open_knowledge_graph_embeddings_tpu_torch.parallel.sharding import (  # noqa: F401
     block,
+    opt_state_shardings,
+    shard_variables,
+    slab_bounds,
     train_batch_shardings,
+    variables_shardings,
 )

@@ -14,12 +14,13 @@ Per shard (the JAX package's multi-process format,
 writes ``arrays.p{rank}.npz`` with the chunks of the shards it owns and
 ``index.p{rank}.json`` mapping each flat key to its shape, dtype and chunks
 (``{"entry", "start", "stop"}``), and rank 0 writes ``meta.json`` last.
-:class:`_ShardReader` merges every rank's index and reads each leaf whole
-on one device.  :func:`save_checkpoint_sharded` writes it for the port's
-several processes: on a data-parallel mesh every leaf is whole on every
-rank, and JAX's replica-0 rule gives each to rank 0, so rank 0's slab
-holds every leaf and the other ranks' indexes are empty.  A model axis
-(ROADMAP Queue 1 item 16) would give each rank its row blocks.
+:class:`_ShardReader` merges every rank's index and reads a leaf whole, or
+a region of its rows.  :func:`save_checkpoint_sharded` writes it for the
+port's several processes by JAX's replica-0 rule: a leaf whole on every
+rank is written by rank 0; on a model axis each row-sharded table and its
+accumulators (``parallel/sharding.py::slab_regions``) are written as row
+chunks by the ranks of data index 0, each its slab's rows.  Loading into a
+model axis reads each slab's rows from either format (``regions``).
 """
 
 from __future__ import annotations
@@ -101,27 +102,39 @@ def save_checkpoint(
     return path
 
 
-def local_checkpoint_chunks(arrays: Dict[str, np.ndarray], rank: int) -> Tuple[Dict[str, np.ndarray],
-                                                                               Dict[str, Dict[str, Any]]]:
-    """This rank's slab -> ``(chunks, index)``: by the replica-0 rule each
+def local_checkpoint_chunks(arrays: Dict[str, np.ndarray], rank: int,
+                            regions: Optional[Dict[str, Tuple[int, int, int]]] = None, writes_slabs: bool = False
+                            ) -> Tuple[Dict[str, np.ndarray], Dict[str, Dict[str, Any]]]:
+    """This rank's slab -> ``(chunks, index)`` by the replica-0 rule: each
     leaf whole on every rank is written once, by rank 0, as one chunk
-    ``key::0`` spanning it; ``index`` maps each key to ``{"shape", "dtype",
-    "chunks": [{"entry", "start", "stop"}]}``, the JAX package's layout."""
-    if rank != 0:
-        return {}, {}
+    ``key::0`` spanning it; a key of ``regions`` (this rank holds rows
+    ``[lo, hi)`` of its ``n``) is written by the ranks that ``writes_slabs``
+    (data index 0) as the chunk of those rows.  ``index`` maps each key to
+    ``{"shape", "dtype", "chunks": [{"entry", "start", "stop"}]}``, the JAX
+    package's layout."""
+    regions = regions or {}
     chunks: Dict[str, np.ndarray] = {}
     index: Dict[str, Dict[str, Any]] = {}
     for key, arr in arrays.items():
+        if key in regions:
+            if not writes_slabs:
+                continue
+            lo, hi, n = regions[key]
+            shape, start, stop = [n, *arr.shape[1:]], [lo] + [0] * (arr.ndim - 1), [hi, *arr.shape[1:]]
+        elif rank == 0:
+            shape, start, stop = list(arr.shape), [0] * arr.ndim, list(arr.shape)
+        else:
+            continue
         entry = f"{key}::0"
         chunks[entry] = arr
-        index[key] = {"shape": list(arr.shape), "dtype": str(arr.dtype),
-                      "chunks": [{"entry": entry, "start": [0] * arr.ndim, "stop": list(arr.shape)}]}
+        index[key] = {"shape": shape, "dtype": str(arr.dtype),
+                      "chunks": [{"entry": entry, "start": start, "stop": stop}]}
     return chunks, index
 
 
 def save_checkpoint_sharded(directory: str, name: str, variables: Dict[str, Any], meta: Dict[str, Any],
                             opt_state: Dict[str, Any], rank: int, n_ranks: int, barrier, on_written=None,
-                            timeout_s: float = 1800.0) -> str:
+                            timeout_s: float = 1800.0, writes_slabs: bool = False) -> str:
     """The collective per-shard save: every rank calls it in step on one
     shared ``directory``.  Rank 0 makes the temporary directory; after a
     barrier each rank writes its slab (``arrays.p{rank}.npz``,
@@ -129,12 +142,16 @@ def save_checkpoint_sharded(directory: str, name: str, variables: Dict[str, Any]
     every sentinel, removes them, writes ``meta.json`` last, moves the
     directory into place and calls ``on_written(path)`` (the best-model and
     per-epoch copies); a last barrier returns every rank after that.
-    Returns the checkpoint's path."""
+    Returns the checkpoint's path.  On a model axis the slabs of
+    ``variables["slabs"]`` are written by the ranks that ``writes_slabs``."""
     import time
+
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.sharding import slab_regions
 
     path = os.path.join(directory, name)
     tmp = path + ".tmp"
-    chunks, index = local_checkpoint_chunks(checkpoint_arrays(variables, opt_state), rank)
+    chunks, index = local_checkpoint_chunks(checkpoint_arrays(variables, opt_state), rank,
+                                            slab_regions(variables, opt_state), writes_slabs)
     if rank == 0:
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
@@ -202,6 +219,10 @@ class _FullReader:
     def read_full(self, key: str) -> np.ndarray:
         return self._z[key]
 
+    def read_region(self, key: str, lo: int, hi: int) -> np.ndarray:
+        """Rows ``[lo, hi)`` of the leaf."""
+        return self._z[key][lo:hi]
+
     def close(self) -> None:
         self._z.close()
 
@@ -257,6 +278,26 @@ class _ShardReader:
             raise ValueError(f"checkpoint chunks of {key} cover {filled} of {out.size} elements")
         return out
 
+    def read_region(self, key: str, lo: int, hi: int) -> np.ndarray:
+        """Rows ``[lo, hi)`` of the leaf, from the chunks that overlap them
+        (every element must be covered)."""
+        info = self.index[key]
+        rest = tuple(info["shape"][1:])
+        out, filled = None, 0
+        for c in info["chunks"]:
+            a, b = max(lo, c["start"][0]), min(hi, c["stop"][0])
+            if a >= b:
+                continue
+            src = self._load_entry(c["slab"], c["entry"])
+            if out is None:
+                out = np.empty((hi - lo, *rest), dtype=src.dtype)
+            part = src[a - c["start"][0] : b - c["start"][0]]
+            out[(slice(a - lo, b - lo), *(slice(s, e) for s, e in zip(c["start"][1:], c["stop"][1:])))] = part
+            filled += part.size
+        if out is None or filled != out.size:
+            raise ValueError(f"checkpoint chunks of {key} cover {filled} of rows {lo}:{hi}")
+        return out
+
     def close(self) -> None:
         for z in self._open.values():
             z.close()
@@ -285,17 +326,19 @@ def _shapes(tree: Dict[str, Any], prefix: str) -> Dict[str, Tuple[int, ...]]:
     return out
 
 
-def _restore(tree: Dict[str, Any], prefix: str, by_target: Dict[str, str], reader) -> Dict[str, Any]:
+def _restore(tree: Dict[str, Any], prefix: str, by_target: Dict[str, str], reader, regions) -> Dict[str, Any]:
     """``tree`` with each leaf whose path is in ``by_target`` replaced by
-    that checkpoint entry, on the leaf's device and in its dtype."""
+    that checkpoint entry (its rows of ``regions`` for a slab), on the
+    leaf's device and in its dtype."""
     out = {}
     for key, leaf in tree.items():
         path = f"{prefix}/{key}"
         if isinstance(leaf, dict):
-            out[key] = _restore(leaf, path, by_target, reader)
+            out[key] = _restore(leaf, path, by_target, reader, regions)
         elif path in by_target:
-            out[key] = torch.from_numpy(np.array(reader.read_full(by_target[path]))).to(device=leaf.device,
-                                                                                       dtype=leaf.dtype)
+            ck = by_target[path]
+            arr = reader.read_region(ck, *regions[path][:2]) if path in regions else reader.read_full(ck)
+            out[key] = torch.from_numpy(np.array(arr)).to(device=leaf.device, dtype=leaf.dtype)
         else:
             out[key] = leaf
     return out
@@ -313,7 +356,12 @@ def load_checkpoint(path: str, variables: Dict[str, Any], opt_state: Dict[str, A
     shape differs from the target's are skipped with a warning (read from
     the index, no data read), and where a renamed and an unrenamed key land
     on one target the renamed one wins.  Leaves the checkpoint lacks keep
-    their value; ``load_optimizer=False`` leaves ``opt_state`` as it is."""
+    their value; ``load_optimizer=False`` leaves ``opt_state`` as it is.
+    The slabs of a model axis (``variables["slabs"]`` and their optimizer
+    state) take their rows of the whole leaf, from either format."""
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.sharding import slab_regions
+
+    regions = slab_regions(variables, opt_state)
     reader = open_checkpoint_reader(path)
     try:
         keymap = {k: k for k in reader.keys()}  # checkpoint key -> target key
@@ -327,6 +375,8 @@ def load_checkpoint(path: str, variables: Dict[str, Any], opt_state: Dict[str, A
                     del keymap[ck]
         example = {**_shapes(variables.get("params", {}), "params"), **_shapes(variables.get("state", {}), "state"),
                    **_shapes(opt_state, "opt")}
+        for k, (_, _, n) in regions.items():  # a slab holds some rows of the whole leaf
+            example[k] = (n, *example[k][1:])
         for ck, tk in list(keymap.items()):
             if tk in example and example[tk] != reader.shape(ck):
                 logger.warning("skipping %s: shape %s != %s", tk, reader.shape(ck), example[tk])
@@ -342,9 +392,9 @@ def load_checkpoint(path: str, variables: Dict[str, Any], opt_state: Dict[str, A
             if tk not in by_target or ck in renamed:
                 by_target[tk] = ck
         new_vars = dict(variables)
-        new_vars["params"] = _restore(variables["params"], "params", by_target, reader)
-        new_vars["state"] = _restore(variables.get("state", {}), "state", by_target, reader)
-        new_opt = _restore(opt_state, "opt", by_target, reader) if load_optimizer else opt_state
+        new_vars["params"] = _restore(variables["params"], "params", by_target, reader, regions)
+        new_vars["state"] = _restore(variables.get("state", {}), "state", by_target, reader, regions)
+        new_opt = _restore(opt_state, "opt", by_target, reader, regions) if load_optimizer else opt_state
     finally:
         reader.close()
     meta = load_checkpoint_meta(path)

@@ -169,6 +169,7 @@ def eval_stats_chunked(
     label_smoothing: float = 0.0,
     chunk: int = 131072,
     loss_type: str = "bce",
+    block=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The loss (BCE, or KL by an online logsumexp) and filtered ranks
     without the [B, N] score matrix, in two passes over chunks of C
@@ -192,9 +193,24 @@ def eval_stats_chunked(
     passes run that product on the same chunk, and the last chunk overlaps
     the one before it, so every chunk has the same shape.  The [B, C]
     product feeds only the loss.  The ranks are the same function as JAX's.
+
+    On a model axis (``block``, a ``parallel.sharding.RowBlock``)
+    ``cand_emb`` is this rank's block of the N candidates (columns
+    ``[block.lo, block.hi)``; the other arguments keep global columns).
+    Every rank of the block's group chunks at the width of the largest
+    block (a shorter block is padded, its padding columns invalid), so
+    every rank runs the same product shape.  Each gold's mention rows are
+    gathered from their owners (the boundary gather, exact) and ``true``
+    taken from a [Gv, C] product of them, the same on every rank; each rank
+    counts its block's columns and applies the filter corrections of the
+    pairs in its block, and the counts and the loss are summed over the
+    group (KL: the row max and the sum of exponentials first).
     """
     if loss_type not in ("bce", "kl"):
         raise ValueError(f"loss {loss_type!r} not supported; choose 'bce' or 'kl' (reference parity)")
+    if block is not None:
+        return _eval_stats_block(q, cand_emb, pos_rows, pos_cols, row_valid, col_valid, n_real_cols, filter_rows,
+                                 filter_cols, gold_rows, gold_mention_cols, label_smoothing, chunk, loss_type, block)
     B = q.shape[0]
     N = cand_emb.shape[0]
     C = min(chunk, N)
@@ -279,6 +295,123 @@ def eval_stats_chunked(
     ranks = torch.zeros(gold_rows.shape[0], dtype=torch.int32, device=dev)
     ranks[gi] = (false_pos + equals // 2).to(torch.int32)
     return loss, ranks, gold_valid
+
+
+def _eval_stats_block(q, cand, pos_rows, pos_cols, row_valid, col_valid, n_real_cols, filter_rows, filter_cols,
+                      gold_rows, gold_mention_cols, label_smoothing, chunk, loss_type, block):
+    """:func:`eval_stats_chunked` over this rank's block of the candidates
+    (see its docstring)."""
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import _all_reduce, boundary_gather
+
+    group, lo, nb = block.group, block.lo, block.hi - block.lo
+    B, dev = q.shape[0], q.device
+    C = min(chunk, block.width)
+    if nb < C:  # the same product shape as the ranks with the widest block
+        cand = torch.cat([cand, cand.new_zeros((C - nb, cand.shape[1]))])
+    N = cand.shape[0]
+    n_chunks = -(-N // C)
+    local_valid = torch.zeros(N, dtype=torch.bool, device=dev)
+    local_valid[:nb] = True if col_valid is None else col_valid[lo : lo + nb]
+    a, b = (1.0 - label_smoothing, (1.0 - label_smoothing) / n_real_cols) if label_smoothing > 0 else (1.0, 0.0)
+    p_valid = (pos_rows >= 0) & (pos_cols >= lo) & (pos_cols < lo + nb)
+    pr = torch.where(p_valid, pos_rows, 0).long()
+    pc = torch.where(p_valid, pos_cols - lo, 0).long()
+
+    m_valid, gold_valid, g_rows = _golds(gold_rows, gold_mention_cols)
+    gi = torch.nonzero(gold_valid).squeeze(1)
+    q_g = q[g_rows[gi]]  # [Gv, d]
+    Gv = gi.shape[0]
+    # true: every mention row of the valid golds gathered from its owner,
+    # then scored in [Gv, C] products of packed chunks of those rows
+    g_of, a_of = m_valid[gi].nonzero(as_tuple=True)
+    m_cols = gold_mention_cols[gi][g_of, a_of].long()
+    true = torch.full((Gv,), float("-inf"), device=dev)
+    if Gv:
+        rows = boundary_gather(cand[:nb], m_cols, lo, group)
+        for j in range(0, rows.shape[0], C):
+            part = rows[j : j + C]
+            pack = torch.cat([part, part.new_zeros((C - part.shape[0], part.shape[1]))])
+            sg = score_against_candidates(q_g, pack)  # [Gv, C]
+            k = torch.arange(part.shape[0], device=dev)
+            true = true.scatter_reduce(0, g_of[j : j + C], sg[g_of[j : j + C], k], reduce="amax")
+    # the filter pairs in a valid gold's row and in this rank's block
+    f_ok, fr, fc = _filters(filter_rows, filter_cols, col_valid)
+    f_ok = f_ok & (fc >= lo) & (fc < lo + nb)
+    pg, pf = ((fr[None, :] == g_rows[gi][:, None]) & f_ok[None, :]).nonzero(as_tuple=True)
+    p_col = fc[pf] - lo
+    col_arange = torch.arange(C, device=dev)
+
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    m_run = torch.full((B,), float("-inf"), device=dev)
+    se_run = torch.zeros(B, device=dev)
+    fs = torch.zeros(pg.shape[0], device=dev)
+    false_pos = torch.zeros(Gv, dtype=torch.int64, device=dev)
+    equals = torch.zeros(Gv, dtype=torch.int64, device=dev)
+    t = true[:, None]
+    for i in range(n_chunks):
+        c0 = i * C
+        s0 = min(c0, N - C)  # the last chunk overlaps the one before it
+        okc = ((s0 + col_arange) >= c0) & local_valid[s0 : s0 + C]
+        blk = cand[s0 : s0 + C]
+        s = score_against_candidates(q, blk)  # [B, C]: the loss only
+        ok_cell = row_valid[:, None] & okc[None, :]
+        in_p = p_valid & (pc >= c0) & (pc < c0 + C)
+        s_pos = torch.where(in_p, s[pr, (pc - s0).clamp(0, C - 1)], 0.0).sum()
+        if loss_type == "kl":
+            m_new = torch.maximum(m_run, torch.where(ok_cell, s, float("-inf")).amax(dim=1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            scale = torch.exp(torch.where(torch.isfinite(m_run), m_run - m_safe, float("-inf")))
+            se_run = se_run * scale + torch.where(ok_cell, torch.exp(s - m_safe[:, None]), 0.0).sum(dim=1)
+            m_run = m_new
+            loss = loss + s_pos
+        else:
+            per_cell = torch.clamp(s, min=0.0) + torch.log1p(torch.exp(-s.abs())) - s * b
+            loss = loss + torch.where(ok_cell, per_cell, 0.0).sum() - a * s_pos
+        if Gv:
+            sg = score_against_candidates(q_g, blk)  # [Gv, C]: every value a gold is compared with
+            in_f = (p_col >= c0) & (p_col < c0 + C)
+            fs = torch.where(in_f, sg[pg, (p_col - s0).clamp(0, C - 1)], fs)
+            false_pos += _count((sg > t) & okc[None, :])
+            equals += _count((sg == t) & okc[None, :])
+    if loss_type == "kl":
+        m_all = _all_reduce(m_run.clone(), group, op="max")
+        m_safe = torch.where(torch.isfinite(m_all), m_all, 0.0)
+        part = torch.where(torch.isfinite(m_run), se_run * torch.exp(m_run - m_safe), 0.0)
+        se = _all_reduce(part, group)
+        lse = torch.where(torch.isfinite(m_all), m_all + torch.log(torch.clamp(se, min=1e-38)), 0.0)
+        loss = torch.where(p_valid, lse[pr], 0.0).sum() - loss
+    tp = true[pg]
+
+    def per_gold(cond):
+        return torch.zeros(Gv, dtype=torch.int64, device=dev).index_add_(0, pg, cond.long())
+
+    false_pos = false_pos - per_gold(fs > tp) + per_gold(FILTER_VALUE > tp)
+    equals = equals - per_gold(fs == tp) + per_gold(FILTER_VALUE == tp)
+    counts = _all_reduce(torch.stack([false_pos, equals]).double(), group).long()  # exact below 2^53
+    loss = _all_reduce(loss.reshape(1), group)[0]
+    ranks = torch.zeros(gold_rows.shape[0], dtype=torch.int32, device=dev)
+    ranks[gi] = (counts[0] + counts[1] // 2).to(torch.int32)
+    return loss, ranks, gold_valid
+
+
+def filtered_topk_block(q, cand, filter_rows, filter_cols, col_valid, k, block, chunk: int = 131072):
+    """:func:`filtered_topk_chunked` on a model axis: each rank's top-k of its
+    block (global columns), gathered over the block's group and merged;
+    ties keep the lowest column (the ranks' blocks are in column order)."""
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import gather_rows
+
+    lo, nb = block.lo, block.hi - block.lo
+    if nb < k:  # every rank gives k columns: pad with invalid ones
+        cand = torch.cat([cand, cand.new_zeros((k - nb, cand.shape[1]))])
+    local_valid = torch.zeros(cand.shape[0], dtype=torch.bool, device=q.device)
+    local_valid[:nb] = True if col_valid is None else col_valid[lo : lo + nb]
+    f_in = (filter_cols >= lo) & (filter_cols < lo + nb) & (filter_rows >= 0)
+    ts, tc = filtered_topk_chunked(q, cand, torch.where(f_in, filter_rows, -1), torch.where(f_in, filter_cols - lo, -1),
+                                   local_valid, k, chunk)
+    all_s = gather_rows(ts.t().contiguous(), block.index, block.parts, block.group).t()  # [B, parts * k]
+    all_c = gather_rows((tc + lo).t().float().contiguous(), block.index, block.parts, block.group).t()
+    top_s, pos = stable_topk(all_s.contiguous(), min(k, block.n))
+    return top_s, torch.gather(all_c, 1, pos).to(torch.int32)
 
 
 def filtered_topk(

@@ -50,12 +50,22 @@ def apply_label_smoothing(labels: torch.Tensor, n_real_cols, smoothing: float) -
     return (labels + 1.0 / n_real_cols) * (1.0 - smoothing)
 
 
-def kl_div_sum(scores: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def kl_div_sum(scores: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
     """torch ``KLDivLoss(reduction='sum')(log_softmax(scores), labels)``:
     ``sum labels * (log labels - log_softmax(scores))`` with 0·log 0 = 0,
-    the softmax over the real cells only (padding masked to ``finfo.min``)."""
+    the softmax over the real cells only (padding masked to ``finfo.min``).
+    With ``group``, ``scores`` is this rank's block of the columns and the
+    softmax runs over every rank's block: the row max (a shift, no
+    gradient) and the sum of exponentials are reduced over the group."""
     masked = torch.where(mask, scores, torch.finfo(scores.dtype).min)
-    logp = torch.log_softmax(masked, dim=-1)
+    if group is None:
+        logp = torch.log_softmax(masked, dim=-1)
+    else:
+        from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import _all_reduce, all_reduce_sum
+
+        m = _all_reduce(masked.detach().amax(dim=-1, keepdim=True).contiguous(), group, op="max")
+        se = all_reduce_sum(torch.exp(masked - m).sum(dim=-1, keepdim=True), group)
+        logp = masked - m - torch.log(se)
     safe = torch.where(labels > 0, labels, 1.0)
     per_cell = labels * (torch.log(safe) - logp)
     return torch.where(mask & (labels > 0), per_cell, 0.0).sum()
@@ -136,16 +146,18 @@ def bce_over_scores(q, cand, pos_rows, pos_cols, row_valid, col_valid, n_real_co
 
 
 def one_vs_n_loss(loss_type: str, scores, pos_rows, pos_cols, row_valid, col_valid, n_real_cols,
-                  label_smoothing: float = 0.0):
+                  label_smoothing: float = 0.0, group=None):
     """``(loss_sum, normalizer_metric = number of positive cells)`` over a
     [B, N] score matrix: the eval step's loss, and the train step's for KL.
-    BCE takes the indexed form; KL the dense labels, unsmoothed."""
+    BCE takes the indexed form; KL the dense labels, unsmoothed.  With
+    ``group`` the columns are this rank's block of a model axis
+    (:func:`kl_div_sum`); the sums are this rank's part."""
     B, N = scores.shape
     mask = cell_mask(row_valid, col_valid, N)
     if loss_type == "bce":
         loss = bce_with_logits_sum_indexed(scores, pos_rows, pos_cols, mask, n_real_cols, label_smoothing)
     elif loss_type == "kl":
-        loss = kl_div_sum(scores, dense_labels(pos_rows, pos_cols, B, N), mask)
+        loss = kl_div_sum(scores, dense_labels(pos_rows, pos_cols, B, N), mask, group)
     else:
         raise ValueError(f"loss {loss_type!r} not supported; choose 'bce' or 'kl' (reference parity)")
     return loss, (pos_rows >= 0).sum().float()

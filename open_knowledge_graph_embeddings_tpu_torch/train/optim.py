@@ -447,18 +447,20 @@ class OptimizerRegimes:
         return _map_leaves(lambda path, p: {} if flat_labels[path] < 0 else _rule(names[flat_labels[path]])[0](p),
                            params)
 
-    def make_apply(self, params_example: Params, grad_clip: Optional[float] = None):
+    def make_apply(self, params_example: Params, grad_clip: Optional[float] = None, sharded=(), group=None):
         """``apply(grads, state, params, hparams) -> (params, state)``, with
         the updates in place; leaves without a gradient are left alone.  The
         Adagrad leaves with a gradient are updated together, one
         ``adagrad_update_leaves`` call per regime (one launch on the card for
-        up to ``MAX_LEAVES`` leaves)."""
+        up to ``MAX_LEAVES`` leaves; a row-sharded table's slab is a leaf
+        like any other).  ``sharded`` / ``group``: the clip's global norm
+        (:func:`clip_by_global_norm`)."""
         flat_labels = dict(leaves(assign_regimes(params_example, self.matches, self.frozen_patterns)))
         names = self.opt_names()
 
         def apply(grads, state, params, hparams: List[HParams]):
             if grad_clip is not None and grad_clip > 0:
-                grads = clip_by_global_norm(grads, grad_clip)
+                grads = clip_by_global_norm(grads, grad_clip, sharded, group)
             groups: Dict[int, List[Tuple[str, Any, Any, Any]]] = {}
 
             def upd(path, p):
@@ -510,9 +512,19 @@ def _get(tree: Dict[str, Any], path: str):
     return node
 
 
-def clip_by_global_norm(grads: Dict[str, Any], max_norm: float) -> Dict[str, Any]:
+def clip_by_global_norm(grads: Dict[str, Any], max_norm: float, sharded=(), group=None) -> Dict[str, Any]:
     """Scale every gradient by ``min(1, max_norm / (‖g‖ + 1e-6))``, the norm
-    taken over all leaves together."""
-    gnorm = torch.sqrt(sum((g.float() ** 2).sum() for _, g in leaves(grads)))
+    taken over all leaves together.  The top-level keys in ``sharded`` are
+    this rank's slabs of row-sharded leaves: their squares are summed over
+    the slabs of ``group`` (each counted once), the others' are whole on
+    every rank."""
+    sq = [(g.float() ** 2).sum() for path, g in leaves(grads) if path.split("/", 1)[0] not in sharded]
+    total = sum(sq) if sq else torch.zeros(())
+    slab_sq = [(g.float() ** 2).sum() for path, g in leaves(grads) if path.split("/", 1)[0] in sharded]
+    if slab_sq:
+        from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import _all_reduce
+
+        total = total + _all_reduce(torch.stack(slab_sq).sum().reshape(1), group)[0]
+    gnorm = torch.sqrt(total)
     scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
     return _map_leaves(lambda _p, g: g * scale, grads)

@@ -30,14 +30,18 @@ gradients add up in f32, and the row update runs once on the sum.
 The token plans' unique-and-remap and gather-sum grouping run in C++
 (``native/``: counting passes with the GIL released, per prefetch thread)
 where the library is built, and in numpy otherwise; both give the same
-arrays.  On a data-parallel mesh of ranks the plans are per rank: each
-rank's LSTM block gets its own gather-sum plan, the queries dedup per rank
-block, and the union of rows stays the batch's, so the ranks' [U, d] row
-gradients add up (``train/step.py::reduce_over_ranks``) before the one row
-update every rank makes.
+arrays.  On a mesh of ranks the plans are per rank: each rank's LSTM
+block gets its own gather-sum plan (the candidates' over ``model`` on a
+model axis, else over ``data``), the queries dedup per data block, and the
+union of rows stays the batch's, so the ranks' [U, d] row gradients add up
+over the world (``train/step.py::reduce_over_ranks``).  On a model axis a
+row-sharded table's [U, d] rows are read from the slabs by the boundary
+gather, and each rank's row update (kernel 4) takes only the uids its slab
+owns, remapped to slab rows; the others are dropped as padding entries
+are.
 
 Not carried over: the TPU-tile layouts 'block' and 'hybrid' (8-row HBM
-tiles), and the plans of the model axis (ROADMAP Queue 1 item 16).
+tiles).
 """
 
 from __future__ import annotations
@@ -57,7 +61,8 @@ from open_knowledge_graph_embeddings_tpu_torch.models.embedders import (
 )
 from open_knowledge_graph_embeddings_tpu_torch.models.model import KGEModel
 from open_knowledge_graph_embeddings_tpu_torch.native import grad_plan_native, native_available, unique_remap_native
-from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import DATA_AXIS
+from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import boundary_gather
+from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 from open_knowledge_graph_embeddings_tpu_torch.ops.scatter_adagrad_kernel import scatter_adagrad_tables
 from open_knowledge_graph_embeddings_tpu_torch.train.optim import (
     OptimizerRegimes,
@@ -71,6 +76,7 @@ from open_knowledge_graph_embeddings_tpu_torch.train.step import (
     map_tree,
     prefix_loss,
     reduce_over_ranks,
+    sharded_norm,
     train_batch_to_arrays,
 )
 from open_knowledge_graph_embeddings_tpu_torch.utils.misc import next_bucket
@@ -325,11 +331,13 @@ class SparsePlanBuilder:
         height = len(d[f"sparse/{table}/uids"])
         if self.mesh is not None:
             # the mesh branch encodes the candidate rows and the query rows
-            # in separate regions, each split over `data`
+            # in separate regions: the candidates' over `model` on a model
+            # axis, else over `data`; the queries' over `data`
             A = self.mesh.shape[DATA_AXIS]
             if kind == "entity":
                 B = len(d["ent_ids"])
-                self._emit_sharded_plan(d, "cand", toks[B:], A, height)
+                cand_n = self.mesh.shape[MODEL_AXIS] if self.mesh.shape[MODEL_AXIS] > 1 else A
+                self._emit_sharded_plan(d, "cand", toks[B:], cand_n, height)
                 self._emit_sharded_plan(d, "entity", toks[:B], A, height)
             else:
                 self._emit_sharded_plan(d, kind, toks, A, height)
@@ -485,31 +493,57 @@ def _resolve_sparse_tables(model, regimes, params_example, entity_sparse) -> Dic
     return table_label
 
 
+def _union_rows(model, variables, batch, t):
+    """The [U, d] rows of table ``t`` a batch's plan names: gathered from the
+    slabs (no gradient; the rows become the step's leaf) or indexed."""
+    uids = batch[f"sparse/{t}/uids"]
+    slab = (variables.get("slabs") or {}).get(t)
+    if slab is None:
+        return variables["params"][t][uids]
+    with torch.no_grad():
+        return boundary_gather(variables["params"][t], uids, slab[0], model.mesh.group(MODEL_AXIS))
+
+
 def _sparse_grads(model, variables, batch, sparse_tables, loss_type, label_smoothing, generator):
     """The backward of a sparse batch -> ``(g_dense, g_rows, loss_sum,
     norm_metric, new_state)``: gradients of the dense leaves and of the
     gathered [U, d] rows of ``sparse_tables``."""
     params = variables["params"]
+    slabs = {k: b for k, b in (variables.get("slabs") or {}).items() if k not in sparse_tables}
     dense_leaves = leaf_tree({k: v for k, v in params.items() if k not in sparse_tables})
-    rows = {t: leaf_tree(params[t][batch[f"sparse/{t}/uids"]]) for t in sparse_tables}
-    v = {"params": {**dense_leaves, **rows}, "state": variables["state"], "buffers": batch_buffers(variables, batch)}
+    rows = {t: leaf_tree(_union_rows(model, variables, batch, t)) for t in sparse_tables}
+    v = {**variables, "params": {**dense_leaves, **rows}, "slabs": slabs, "buffers": batch_buffers(variables, batch)}
     loss_sum, norm_metric, new_state, reg = prefix_loss(model, v, batch, loss_type, label_smoothing, generator)
     ((loss_sum + reg) / batch["normalizer_loss"]).backward()
     g_dense, g_rows = grad_tree(dense_leaves), grad_tree(rows)
     # on a mesh: every rank's union of rows is the batch's, so its [U, d]
-    # row gradients add up position by position
-    loss_sum, norm_metric = reduce_over_ranks(model, [g_dense, g_rows], loss_sum, norm_metric)
+    # row gradients add up position by position over the world
+    loss_sum, norm_metric = reduce_over_ranks(model, [g_dense, g_rows], loss_sum, norm_metric, slabs)
     return g_dense, g_rows, loss_sum.detach(), norm_metric, new_state
 
 
-def _sparse_apply(regimes, table_label, opt_names, params, opt_state, g_dense, g_rows, batch, sparse_tables,
-                  hparams, grad_clip):
+def _slab_plan(variables, batch, t):
+    """``(uids, valid)`` of table ``t``'s row update on this rank: the plan
+    itself, or on a slab the uids it owns as slab rows, every other entry
+    invalid (and pointed at slab row 0, which an invalid entry never
+    writes)."""
+    uids, valid = batch[f"sparse/{t}/uids"], batch[f"sparse/{t}/valid"]
+    slab = (variables.get("slabs") or {}).get(t)
+    if slab is None:
+        return uids, valid
+    own = valid & (uids >= slab[0]) & (uids < slab[1])
+    return torch.where(own, uids - slab[0], 0), own
+
+
+def _sparse_apply(model, regimes, table_label, opt_names, variables, opt_state, g_dense, g_rows, batch,
+                  sparse_tables, hparams, grad_clip):
     """The update of a sparse batch (or window) from its gradients -> ``(new
     params, new opt_state)``: the global-norm clip over both, the dense
     leaves through ``make_apply`` (kernel 3 for Adagrad), then one row
     update per regime group (kernel 4 for Adagrad)."""
+    params = variables["params"]
     if grad_clip is not None and grad_clip > 0:
-        clipped = clip_by_global_norm({**g_dense, **g_rows}, grad_clip)
+        clipped = clip_by_global_norm({**g_dense, **g_rows}, grad_clip, **sharded_norm(model, g_dense))
         g_dense = {k: clipped[k] for k in g_dense}
         g_rows = {t: clipped[t] for t in g_rows}
     dense = {k: v for k, v in params.items() if k not in sparse_tables}
@@ -521,10 +555,10 @@ def _sparse_apply(regimes, table_label, opt_names, params, opt_state, g_dense, g
     for t in sparse_tables:
         groups.setdefault(table_label[t], []).append(t)
     for lbl, ts in groups.items():  # one row update per regime group
+        plans = [_slab_plan(variables, batch, t) for t in ts]
         states = _SPARSE_RULES[opt_names[lbl]](
-            [g_rows[t] for t in ts], [batch[f"sparse/{t}/uids"] for t in ts],
-            [batch[f"sparse/{t}/valid"] for t in ts], [params[t] for t in ts], [opt_state[t] for t in ts],
-            hparams[lbl])
+            [g_rows[t] for t in ts], [u for u, _ in plans], [v for _, v in plans], [params[t] for t in ts],
+            [opt_state[t] for t in ts], hparams[lbl])
         for t, s in zip(ts, states):
             new_params[t], new_opt[t] = params[t], s
     return new_params, new_opt
@@ -551,9 +585,9 @@ def make_sparse_train_step(model: KGEModel, regimes: OptimizerRegimes, params_ex
         sparse_tables = tuple(t for t in table_label if f"sparse/{t}/uids" in batch)
         g_dense, g_rows, loss_sum, norm_metric, new_state = _sparse_grads(
             model, variables, batch, sparse_tables, loss_type, label_smoothing, generator)
-        new_params, new_opt = _sparse_apply(regimes, table_label, opt_names, variables["params"], opt_state,
+        new_params, new_opt = _sparse_apply(model, regimes, table_label, opt_names, variables, opt_state,
                                             g_dense, g_rows, batch, sparse_tables, hparams, grad_clip)
-        new_variables = {"params": new_params, "state": new_state, "buffers": variables["buffers"]}
+        new_variables = {**variables, "params": new_params, "state": new_state}
         return new_variables, new_opt, {"loss_sum": loss_sum, "normalizer_metric": norm_metric}
 
     return step
@@ -598,7 +632,7 @@ def make_sparse_accum_steps(model: KGEModel, regimes: OptimizerRegimes, params_e
         return new_variables, acc, {"loss_sum": loss_sum, "normalizer_metric": norm_metric}
 
     def apply_step(variables, opt_state, acc, batch, hparams):
-        new_params, new_opt = _sparse_apply(regimes, table_label, opt_names, variables["params"], opt_state,
+        new_params, new_opt = _sparse_apply(model, regimes, table_label, opt_names, variables, opt_state,
                                             acc["dense"], acc["rows"], batch, window_tables(batch), hparams,
                                             grad_clip)
         return {**variables, "params": new_params}, new_opt

@@ -25,6 +25,7 @@ from open_knowledge_graph_embeddings_tpu_torch.train.evaluate import (
     CHUNKED_ABOVE,
     eval_stats_chunked,
     filtered_topk,
+    filtered_topk_block,
     filtered_topk_chunked,
     metric_sums_from_ranks,
     ranks_from_scores,
@@ -43,44 +44,61 @@ def prefix_loss(model: KGEModel, variables, batch, loss_type: str, label_smoothi
 
     On a mesh of ranks (``model.mesh``) every rank encodes the whole batch
     (its LSTM rows split and gathered, models/model.py) and scores only its
-    block of the rows: the loss sum and the count of positives are this
-    rank's part, the regularizer counts on the first rank alone, so that
-    the sums over the ranks (:func:`reduce_over_ranks`) are the batch's."""
+    block of the rows, on a model axis against its block of the candidates
+    (the positives outside the block's columns dropped, ``col_valid`` cut
+    to it, KL's softmax over every rank's block): the loss sum and the
+    count of positives are this rank's part, the regularizer counts once
+    (models/model.py), so that the sums over the ranks
+    (:func:`reduce_over_ranks`) are the batch's."""
+    cand_ids = batch.get("candidate_ids")
     q, cand_emb, new_state, reg = model.prefix_queries_and_candidates(
-        variables, batch["ent_ids"], batch["rel_ids"], batch["is_sp"], batch.get("candidate_ids"), train=True,
+        variables, batch["ent_ids"], batch["rel_ids"], batch["is_sp"], cand_ids, train=True,
         generator=generator, ent_inv=batch.get("dedup/ent_inv"), rel_inv=batch.get("dedup/rel_inv"))
     pos_rows, pos_cols, row_valid = batch["pos_rows"], batch["pos_cols"], batch["row_valid"]
+    col_valid, group = batch.get("col_valid"), None
     if model.mesh is not None:
-        from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import DATA_AXIS
         from open_knowledge_graph_embeddings_tpu_torch.parallel.sharding import block
 
         lo, hi = block(q.shape[0], model.mesh)
         keep = (pos_rows >= lo) & (pos_rows < hi)
         q, row_valid = q[lo:hi], row_valid[lo:hi]
         pos_rows, pos_cols = torch.where(keep, pos_rows - lo, -1), torch.where(keep, pos_cols, -1)
-        if model.mesh.index(DATA_AXIS) != 0:
-            reg = torch.zeros_like(reg)
+    cb = model.cand_block(None if cand_ids is None else cand_ids.shape[0])
+    if cb is not None:
+        keep = (pos_cols >= cb.lo) & (pos_cols < cb.hi)
+        pos_rows, pos_cols = torch.where(keep, pos_rows, -1), torch.where(keep, pos_cols - cb.lo, -1)
+        col_valid = None if col_valid is None else col_valid[cb.lo : cb.hi]
+        group = cb.group
     if loss_type == "bce":
-        loss_sum = bce_over_scores(q, cand_emb, pos_rows, pos_cols, row_valid, batch.get("col_valid"),
-                                   batch["n_real_cols"], label_smoothing)
+        loss_sum = bce_over_scores(q, cand_emb, pos_rows, pos_cols, row_valid, col_valid, batch["n_real_cols"],
+                                   label_smoothing)
         return loss_sum, (pos_rows >= 0).sum().float(), new_state, reg
     loss_sum, norm_metric = one_vs_n_loss(loss_type, scoring.score_against_candidates(q, cand_emb), pos_rows,
-                                          pos_cols, row_valid, batch.get("col_valid"), batch["n_real_cols"],
-                                          label_smoothing)
+                                          pos_cols, row_valid, col_valid, batch["n_real_cols"], label_smoothing,
+                                          group=group)
     return loss_sum, norm_metric, new_state, reg
 
 
-def reduce_over_ranks(model: KGEModel, grads, loss_sum, norm_metric):
-    """On a mesh: sum every gradient (a list of trees, in place) and the
-    loss sum and count of positives over the ranks in one ``all_reduce``,
-    so every rank applies the same update -> ``(loss_sum, norm_metric)``.
-    Without a mesh: the two as they are."""
+def reduce_over_ranks(model: KGEModel, grads, loss_sum, norm_metric, slabs=()):
+    """On a mesh: sum the gradients (a list of trees, in place) and the loss
+    sum and count of positives over the ranks, so every rank applies the
+    same update -> ``(loss_sum, norm_metric)``: the gradient of a slab (a
+    top-level key in ``slabs``) over its data group (its model group's
+    ranks summed theirs in the boundary gather's backward), everything else
+    over the world in one ``all_reduce``.  Without a mesh: the two as they
+    are."""
     if model.mesh is None:
         return loss_sum, norm_metric
     from open_knowledge_graph_embeddings_tpu_torch.parallel.distributed import all_reduce_tensors, tensors_of
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import DATA_AXIS
 
+    whole, sharded = [], []
+    for tree in grads:
+        for k, g in tree.items():
+            (sharded if k in slabs else whole).extend(tensors_of([g]))
+    all_reduce_tensors(sharded, model.mesh.group(DATA_AXIS))
     stats = torch.stack([loss_sum.detach().float(), norm_metric.float()])
-    all_reduce_tensors(tensors_of(grads) + [stats])
+    all_reduce_tensors(whole + [stats])
     return stats[0], stats[1]
 
 
@@ -127,19 +145,19 @@ def make_train_step(model: KGEModel, regimes: OptimizerRegimes, params_example, 
                     label_smoothing: float = 0.0, grad_clip: Optional[float] = None):
     """``step(variables, opt_state, hparams, batch, generator) -> (variables,
     opt_state, stats)`` with dense gradients of every parameter."""
-    apply_updates = regimes.make_apply(params_example, grad_clip)
+    apply_updates = regimes.make_apply(params_example, grad_clip, **sharded_norm(model, params_example))
 
     def step(variables, opt_state, hparams, batch, generator=None):
         params = variables["params"]
         leaves = leaf_tree(params)
-        v = {"params": leaves, "state": variables["state"], "buffers": variables["buffers"]}
+        v = {**variables, "params": leaves}
         loss_sum, norm_metric, new_state, reg = prefix_loss(model, v, batch, loss_type, label_smoothing,
                                                              generator)
         ((loss_sum + reg) / batch["normalizer_loss"]).backward()
         grads = grad_tree(leaves)
-        loss_sum, norm_metric = reduce_over_ranks(model, [grads], loss_sum, norm_metric)
+        loss_sum, norm_metric = reduce_over_ranks(model, [grads], loss_sum, norm_metric, variables.get("slabs", ()))
         new_params, new_opt = apply_updates(grads, opt_state, params, hparams)
-        new_variables = {"params": new_params, "state": new_state, "buffers": variables["buffers"]}
+        new_variables = {**variables, "params": new_params, "state": new_state}
         return new_variables, new_opt, {"loss_sum": loss_sum.detach(), "normalizer_metric": norm_metric}
 
     return step
@@ -155,19 +173,19 @@ def make_accum_steps(model: KGEModel, regimes: OptimizerRegimes, params_example,
     batchnorm state is); ``apply_step(variables, opt_state, acc, hparams)
     -> (variables, opt_state)`` is one optimizer update from the sum, with
     the regime's clip."""
-    apply_updates = regimes.make_apply(params_example, grad_clip)
+    apply_updates = regimes.make_apply(params_example, grad_clip, **sharded_norm(model, params_example))
 
     def zero_grads():
         return map_tree(torch.zeros_like, params_example)
 
     def grad_step(variables, acc, batch, generator=None):
         leaves = leaf_tree(variables["params"])
-        v = {"params": leaves, "state": variables["state"], "buffers": variables["buffers"]}
+        v = {**variables, "params": leaves}
         loss_sum, norm_metric, new_state, reg = prefix_loss(model, v, batch, loss_type, label_smoothing,
                                                              generator)
         ((loss_sum + reg) / batch["normalizer_loss"]).backward()
         grads = grad_tree(leaves)
-        loss_sum, norm_metric = reduce_over_ranks(model, [grads], loss_sum, norm_metric)
+        loss_sum, norm_metric = reduce_over_ranks(model, [grads], loss_sum, norm_metric, variables.get("slabs", ()))
         add_tree(acc, grads)
         new_variables = {**variables, "state": new_state}
         return new_variables, acc, {"loss_sum": loss_sum.detach(), "normalizer_metric": norm_metric}
@@ -177,6 +195,18 @@ def make_accum_steps(model: KGEModel, regimes: OptimizerRegimes, params_example,
         return {**variables, "params": new_params}, new_opt
 
     return zero_grads, grad_step, apply_step
+
+
+def sharded_norm(model: KGEModel, params) -> Dict[str, Any]:
+    """The keywords of ``make_apply`` / ``clip_by_global_norm`` that count a
+    slab's squares over its model group: the sharded top-level ``params``
+    (every entity table on a model axis) and the group."""
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import MODEL_AXIS
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.sharding import ROW_SHARDED_TABLES
+
+    if not model.model_axis:
+        return {}
+    return {"sharded": tuple(k for k in params if k in ROW_SHARDED_TABLES), "group": model.mesh.group(MODEL_AXIS)}
 
 
 def map_tree(fn, tree):
@@ -220,7 +250,13 @@ def make_eval_step(model: KGEModel, loss_type: str = "bce", label_smoothing: flo
     score matrix); otherwise it takes the [B, N] scores (candidates encoded
     from the batch's ids when there is no cache, the batch-shared
     validation) with :func:`..train.loss.one_vs_n_loss` and
-    :func:`..train.evaluate.ranks_from_scores`."""
+    :func:`..train.evaluate.ranks_from_scores`.
+
+    On a model axis every rank of a model group takes the same batch:
+    ``cand_emb`` is this rank's block of the cache (or the step encodes its
+    block of the candidates, ``KGEModel.cand_block``), and the chunked
+    ranking runs over the blocks of the group (``eval_stats_chunked(...,
+    block=)``), so its stats are the group's, the same on every rank."""
 
     def pack(stats, loss_sum, norm_metric):
         stats.update(loss_sum=loss_sum, normalizer_metric=norm_metric)
@@ -230,6 +266,21 @@ def make_eval_step(model: KGEModel, loss_type: str = "bce", label_smoothing: flo
     def eval_step(variables, batch, cand_emb=None):
         cand_ids, col_valid = batch.get("candidate_ids"), batch.get("col_valid")
         golds = (batch["filter_rows"], batch["filter_cols"], batch["gold_rows"], batch["gold_mention_cols"])
+        cb = model.cand_block(None if cand_ids is None else cand_ids.shape[0])
+        if cb is not None:
+            if cand_emb is None:
+                q, cand_emb, _, _ = model.prefix_queries_and_candidates(
+                    variables, batch["ent_ids"], batch["rel_ids"], batch["is_sp"], cand_ids)
+            else:
+                q, _, _ = model.queries(variables, batch["ent_ids"], batch["rel_ids"], batch["is_sp"])
+            loss_sum, ranks, gold_valid = eval_stats_chunked(
+                q, cand_emb, batch["pos_rows"], batch["pos_cols"], batch["row_valid"], col_valid,
+                batch["n_real_cols"], *golds, label_smoothing, loss_type=loss_type, block=cb)
+            packed = pack(metric_sums_from_ranks(ranks, gold_valid), loss_sum,
+                          (batch["pos_rows"] >= 0).sum().float())
+            if topk > 0:
+                return (packed, *filtered_topk_block(q, cand_emb, golds[0], golds[1], col_valid, topk, cb))
+            return packed
         if cand_emb is not None and cand_ids is None and cand_emb.shape[0] > CHUNKED_ABOVE:
             q, _, _ = model.queries(variables, batch["ent_ids"], batch["rel_ids"], batch["is_sp"])
             loss_sum, ranks, gold_valid = eval_stats_chunked(

@@ -37,16 +37,20 @@ steps one after another here: the same math (``tests/test_scan_steps.py``);
 capturing them in a CUDA graph is ROADMAP Queue 1 item 10.
 
 Several processes (``parallel/``, a world set up by ``cli.train``): the
-ranks form a data-parallel mesh; every rank builds each global batch and
-its plans identically and scores its block of the rows, and the gradients
-are summed over the ranks, so the replicas stay equal
-(``train/step.py``).  Each rank evaluates a strided slice of the eval set
-(``BatchBuilder(host_shard=...)``) and the metric sums are added over the
-ranks; rank 0 writes ``results.csv``, decides early stopping for every
-rank, and every rank writes its slab of a per-shard checkpoint
+ranks form a [data, model] mesh with ``model_parallel`` ranks a model
+group.  Every rank builds each global batch and its plans identically and
+scores its block of the rows; on a model axis (``model_parallel > 1``) the
+entity tables and their optimizer state live as slabs, each rank holding
+its rows (``parallel/sharding.py``), and each rank encodes and scores its
+block of the candidates.  The gradients of replicated leaves are summed
+over the world and a slab's over its data group, so the replicas stay
+equal (``train/step.py``).  Each data group evaluates a strided slice of
+the eval set (``BatchBuilder(host_shard=...)``), a model group together
+over its slabs of the candidates, and the metric sums are added over the
+data group; rank 0 writes ``results.csv`` and decides early stopping for
+every rank, and every rank writes its part of a per-shard checkpoint
 (``train/checkpoint.py::save_checkpoint_sharded``).  ``train_scan_steps``
-is off on a mesh, as in the JAX package.  ``model_parallel > 1`` (the model
-axis) is ROADMAP Queue 1 item 16.
+is off on a mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -65,7 +69,8 @@ from open_knowledge_graph_embeddings_tpu_torch.data.dataset import OneToNMention
 from open_knowledge_graph_embeddings_tpu_torch.models.embedders import TokenEmbedderBase
 from open_knowledge_graph_embeddings_tpu_torch.models.model import KGEModel
 from open_knowledge_graph_embeddings_tpu_torch.parallel import distributed as dist
-from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import default_mesh
+from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, default_mesh
+from open_knowledge_graph_embeddings_tpu_torch.parallel.sharding import shard_variables
 from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import (
     copy_checkpoint,
     load_checkpoint,
@@ -125,16 +130,17 @@ class Trainer:
         self.loss_type = args.get("experiment_settings", {}).get("loss", "bce")
         self.label_smoothing = float(args.get("bce_label_smoothing") or 0.0)
         self.grad_clip = float(args["grad_clip"]) if args.get("grad_clip") else None
-        if int(args.get("model_parallel") or 1) > 1:
-            raise NotImplementedError(
-                "model parallelism (model_parallel > 1: row-sharded entity tables, the candidate axis over the "
-                "model axis) is not ported yet: ROADMAP Queue 1 item 16")
-        # several processes: the ranks of the world form a data-parallel mesh
+        # several processes: the ranks of the world form a [data, model] mesh
+        # (a world that model groups do not divide raises, and so does a
+        # model axis without a world)
+        model_parallel = int(args.get("model_parallel") or 1)
         self.rank, self.world = dist.process_index(), dist.process_count()
-        self.mesh = default_mesh() if dist.is_initialized() else None
+        self.mesh = default_mesh(model_parallel) if dist.is_initialized() or model_parallel > 1 else None
         model.set_mesh(self.mesh)
+        self.variables = shard_variables(self.variables, self.mesh)
         if self.mesh is not None:
-            logger.info("data-parallel mesh: rank %d of %d (backend %s)", self.rank, self.world, dist.backend())
+            logger.info("mesh %s: rank %d of %d (backend %s)%s", self.mesh.shape, self.rank, self.world,
+                        dist.backend(), f", slabs {self.variables['slabs']}" if self.mesh.model > 1 else "")
 
         frozen = args.get("resume_freeze") or []
         self.regimes = OptimizerRegimes(
@@ -190,12 +196,14 @@ class Trainer:
             eval_bs = eval_block
             logger.info("full-vocab eval device batch: %d rows (protocol batch %d)", eval_block,
                         validation_dataset.batch_size)
-        # host-sharded eval: every rank holds whole parameters, so it ranks a
-        # strided slice of the eval set alone; the metric sums are added
+        # host-sharded eval: each data group ranks a strided slice of the
+        # eval set, a model group together (its ranks each score their slab
+        # of the candidates); the metric sums are added over the data group
         val_shard = None
-        if self.world > 1 and dist.local_eval_mesh(self.mesh) is not None:
-            val_shard = (self.rank, self.world)
-            logger.info("host-sharded eval: shard %s", val_shard)
+        if self.mesh is not None and self.mesh.data > 1:
+            val_shard = (self.mesh.index(DATA_AXIS), self.mesh.data)
+            logger.info("host-sharded eval: shard %s, eval mesh %s", val_shard,
+                        dist.local_eval_mesh(self.mesh).shape)
         self.val_builder = (BatchBuilder(validation_dataset, batch_size=eval_bs, host_shard=val_shard)
                             if validation_dataset is not None else None)
         self._eval_batches_cache = None
@@ -449,7 +457,7 @@ class Trainer:
                                                   topk=int(self.args.get("log_predictions_topk") or 10))
         step_fn = self._eval_step_topk if log_preds else self.eval_step
         pred_file = None
-        if log_preds:
+        if log_preds and (self.mesh is None or self.mesh.index(MODEL_AXIS) == 0):  # a model group's are one
             suffix = f".p{self.rank}" if self.world > 1 else ""
             pred_file = open(os.path.join(self.save_path, f"predictions_step{self.training_steps}{suffix}.tsv"), "w")
             pred_file.write("direction\tent_id\trel_id\ttop_entity_ids\ttop_scores\n")
@@ -463,7 +471,7 @@ class Trainer:
                 for j, k in enumerate(self._EVAL_SUM_KEYS):
                     sums[j] += stats[k]
                 sums[-1] += normalizer_loss
-                if preds is not None:
+                if preds is not None and pred_file is not None:
                     self._write_predictions(pred_file, *preds)
             pending.clear()
 
@@ -479,7 +487,9 @@ class Trainer:
         if pred_file is not None:
             pred_file.close()
             logger.info("wrote predictions to %s", pred_file.name)
-        sums = dist.all_processes_sum(sums)  # host-sharded eval: every rank's slice
+        # host-sharded eval: every data group's slice (a model group's ranks
+        # hold the same sums)
+        sums = dist.all_processes_sum(sums, None if self.mesh is None else self.mesh.group(DATA_AXIS))
         totals = dict(zip(self._EVAL_SUM_KEYS, sums))
         result = MetricResult()
         cnt = totals["count"]
@@ -619,7 +629,8 @@ class Trainer:
 
         if self.world > 1:
             path = save_checkpoint_sharded(self.save_path, name, self.variables, meta, self.opt_state, self.rank,
-                                           self.world, dist.barrier, on_written=copies)
+                                           self.world, dist.barrier, on_written=copies,
+                                           writes_slabs=self.mesh.index(DATA_AXIS) == 0)
         else:
             path = save_checkpoint(self.save_path, name, self.variables, meta, self.opt_state)
             copies(path)

@@ -1070,3 +1070,47 @@ def test_deterministic_sites_route_only_their_callers(smoke):
     finally:
         torch.Tensor.index_put_ = orig_put
     assert torch.Tensor.index_add_ is orig_add
+
+
+def test_model_axis_gradients_are_held_by_slab_rows(smoke):
+    """``grads_against`` (the model-axis phase's first-step check): a rank's
+    slab is held to its rows of the world of one's leaf (JAX's ceil(n/M)
+    placement, 7 rows as 4 + 3), a whole leaf as it is; a slab half its
+    value (a reduction over the wrong group) fails both rules."""
+    rng = np.random.default_rng(6)
+    want = [rng.standard_normal((7, 3)), rng.standard_normal(5)]
+    ranks = [[want[0][:4] * (1 + 1e-7), want[1]], [want[0][4:], want[1]]]
+    worst, worst_max = smoke.grads_against("t", ranks, want, 2, 1e-5)
+    assert 0 < worst == worst_max < 1e-6
+    assert smoke.grads_against("t", ranks, want, 2, 1e-5, l2=True)[0] < 1e-6
+    bad = [[want[0][:4] / 2, want[1]], ranks[1]]
+    for l2 in (False, True):
+        with pytest.raises(smoke.SmokeFailure):
+            smoke.grads_against("t", bad, want, 2, 2.0 ** -4, l2=l2)
+
+
+def test_model_axis_launches_count_three_passes(smoke):
+    """``mp_launches``: a model-axis step runs three LSTM passes (the
+    candidate block, the query entities, the relations) forward and
+    backward, a batch-shared validation batch three forward passes, and a
+    test eval the cache chunks of the rank's slab and two passes a batch."""
+    from types import SimpleNamespace
+
+    from open_knowledge_graph_embeddings_tpu_torch.data.dataset import DatasetMeta
+    from open_knowledge_graph_embeddings_tpu_torch.models.embedders import LSTMEmbedder
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import Mesh
+
+    meta = DatasetMeta(100_003, 10, 2, 2, 50, 20, (10, 10), entity_token_ids=np.zeros((100_003, 10), np.int32),
+                       relation_token_ids=np.zeros((10, 10), np.int32))
+    emb = LSTMEmbedder(meta=meta, entity_slot_size=16, dtype="bfloat16")
+    log = [{"sparse_tables": ("entity_token_embedding",)}, {"sparse_tables": ()}]
+    names = ["lstm_last_fwd", "lstm_last_bwd", "adagrad_update", "scatter_adagrad"]
+    for rank, chunks in ((0, 2), (1, 2)):  # slabs of 50,002 and 50,001 rows
+        trainer = SimpleNamespace(step_log=log, model=SimpleNamespace(embedder=emb, meta=meta),
+                                  mesh=Mesh(1, 2, rank), val_builder=[0, 0, 0])
+        want = smoke.mp_launches(names, trainer, 4)
+        fwd, bwd = smoke.forward_launches(10, "bfloat16"), smoke.backward_launches(10, "bfloat16")
+        assert want == {"lstm_last_fwd": 3 * (2 + 4) * fwd, "lstm_last_bwd": 3 * 2 * bwd, "adagrad_update": 2,
+                        "scatter_adagrad": 1}
+        ev = smoke.mp_launches(names, SimpleNamespace(**{**vars(trainer), "step_log": []}), 0, evaluate=True)
+        assert ev["lstm_last_fwd"] == (chunks + 2 * 3) * fwd and ev["lstm_last_bwd"] == 0

@@ -439,7 +439,8 @@ class _SharedDropout:
             return x
         return jnp.where(jnp.asarray(self.mask(x.shape, rate)), x / (1.0 - rate), 0.0)
 
-    def port(self, x, rate, train, generator):
+    def port(self, x, rate, train, generator, block=None):
+        assert block is None  # one process: no candidate block
         if not train or rate <= 0.0:
             return x
         m = torch.from_numpy(self.mask(tuple(x.shape), rate))

@@ -21,7 +21,8 @@ def test_port_imports_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "assert p.__name__ + '.ops.lstm_scan_kernel' in names, names\n"
         "for m in ('preprocessing.jobs', 'preprocessing.avro', 'preprocessing.corpus', 'cli.create_data',\n"
-        "          'native.loader', 'parallel.distributed', 'parallel.mesh', 'parallel.sharding'):\n"
+        "          'native.loader', 'parallel.distributed', 'parallel.mesh', 'parallel.sharding',\n"
+        "          'parallel.shard_map_score'):\n"
         "    assert p.__name__ + '.' + m in names, names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
@@ -50,6 +51,7 @@ def test_no_jax_import_in_port_sources():
     assert len(files) > 20
     for sub in ("native", "parallel"):  # the host helpers and the processes' packages are checked too
         assert any(f.parent.name == sub for f in files), sub
+    assert PORT / "parallel" / "shard_map_score.py" in files
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
