@@ -174,10 +174,11 @@ class _TokenGatherScatter(torch.autograd.Function):
         (toks,) = ctx.saved_tensors
         d = ct.shape[-1]
         ids = toks.reshape(-1)
-        keep = ids != PAD
-        dtable = torch.zeros(ctx.height, d, dtype=torch.float32, device=ct.device)
-        dtable.index_add_(0, ids[keep], ct.reshape(-1, d)[keep].float())
-        return dtable, None, None
+        # PAD ids land in a spare row that is cut off (no boolean-mask
+        # indexing: its host sync would break a CUDA graph's capture)
+        dtable = torch.zeros(ctx.height + 1, d, dtype=torch.float32, device=ct.device)
+        dtable.index_add_(0, torch.where(ids != PAD, ids, ctx.height), ct.reshape(-1, d).float())
+        return dtable[: ctx.height], None, None
 
 
 class _TokenGatherPlan(torch.autograd.Function):
@@ -199,10 +200,10 @@ class _TokenGatherPlan(torch.autograd.Function):
         d = ct.shape[-1]
         g = ct.reshape(-1, d)[pos.reshape(-1)].reshape(*pos.shape, d).float()
         slot_sums = torch.where(valid[..., None], g, 0.0).sum(1)
-        keep = uid < ctx.height
-        dtable = torch.zeros(ctx.height, d, dtype=torch.float32, device=ct.device)
-        dtable.index_add_(0, uid[keep], slot_sums[keep])
-        return dtable, None, None, None, None, None
+        # padding slots land in a spare row that is cut off
+        dtable = torch.zeros(ctx.height + 1, d, dtype=torch.float32, device=ct.device)
+        dtable.index_add_(0, torch.clamp(uid, max=ctx.height), slot_sums)
+        return dtable[: ctx.height], None, None, None, None, None
 
 
 def token_gather_tm(

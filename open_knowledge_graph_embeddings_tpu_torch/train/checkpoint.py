@@ -21,6 +21,11 @@ rank is written by rank 0; on a model axis each row-sharded table and its
 accumulators (``parallel/sharding.py::slab_regions``) are written as row
 chunks by the ranks of data index 0, each its slab's rows.  Loading into a
 model axis reads each slab's rows from either format (``regions``).
+
+:class:`CheckpointManager` (the JAX package's) rotates ``checkpoint{i}``,
+makes the best-model and per-epoch copies and writes in the background:
+the arrays are fetched to the host when a save is called, the files are
+written on a thread, one write in flight.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ def flatten_arrays(tree: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
         if isinstance(leaf, dict):
             out.update(flatten_arrays(leaf, path))
         else:
-            out[path] = leaf.detach().cpu().numpy()
+            out[path] = leaf.detach().to("cpu", copy=True).numpy()  # a snapshot, never a view of a live leaf
     return out
 
 
@@ -82,13 +87,9 @@ def checkpoint_arrays(variables: Dict[str, Any], opt_state: Optional[Dict[str, A
             **flatten_arrays(variables.get("state", {}), "state"), **flatten_arrays(opt_state or {}, "opt")}
 
 
-def save_checkpoint(
-    directory: str, name: str, variables: Dict[str, Any], meta: Dict[str, Any],
-    opt_state: Optional[Dict[str, Any]] = None,
-) -> str:
-    """Write ``variables``' params and state, and ``opt_state`` under
-    ``opt/``, as ``<directory>/<name>``."""
-    arrays = checkpoint_arrays(variables, opt_state)
+def _write_checkpoint_files(directory: str, name: str, arrays: Dict[str, np.ndarray], meta: Dict[str, Any]) -> str:
+    """Write ``<directory>/<name>`` (``arrays.npz``, ``meta.json``) through a
+    temporary directory moved into place."""
     path = os.path.join(directory, name)
     tmp = path + ".tmp"
     os.makedirs(tmp, exist_ok=True)
@@ -100,6 +101,15 @@ def save_checkpoint(
     os.replace(tmp, path)
     logger.info("saved checkpoint %s", path)
     return path
+
+
+def save_checkpoint(
+    directory: str, name: str, variables: Dict[str, Any], meta: Dict[str, Any],
+    opt_state: Optional[Dict[str, Any]] = None,
+) -> str:
+    """Write ``variables``' params and state, and ``opt_state`` under
+    ``opt/``, as ``<directory>/<name>``."""
+    return _write_checkpoint_files(directory, name, checkpoint_arrays(variables, opt_state), meta)
 
 
 def local_checkpoint_chunks(arrays: Dict[str, np.ndarray], rank: int,
@@ -132,52 +142,74 @@ def local_checkpoint_chunks(arrays: Dict[str, np.ndarray], rank: int,
     return chunks, index
 
 
+def _shard_chunks(variables, opt_state, rank: int, writes_slabs: bool):
+    """This rank's chunks and index of a per-shard save, fetched to the host."""
+    from open_knowledge_graph_embeddings_tpu_torch.parallel.sharding import slab_regions
+
+    return local_checkpoint_chunks(checkpoint_arrays(variables, opt_state), rank,
+                                   slab_regions(variables, opt_state), writes_slabs)
+
+
+def _write_shard(path: str, rank: int, n_ranks: int, chunks, index, meta, on_written, timeout_s: float) -> None:
+    """Each rank's part of a per-shard save after the directory barrier: its
+    slab and ``done.p{rank}`` in ``<path>.tmp``; rank 0 then waits for every
+    sentinel, removes them, writes ``meta.json`` last, moves the directory
+    into place and calls ``on_written(path)``."""
+    import time
+
+    tmp = path + ".tmp"
+    np.savez(os.path.join(tmp, f"arrays.p{rank}.npz"), **chunks)
+    with open(os.path.join(tmp, f"index.p{rank}.json"), "w") as f:
+        json.dump(index, f)
+    open(os.path.join(tmp, f"done.p{rank}"), "w").close()
+    if rank != 0:
+        return
+    want = [os.path.join(tmp, f"done.p{r}") for r in range(n_ranks)]
+    deadline = time.time() + timeout_s
+    while not all(os.path.exists(w) for w in want):
+        if time.time() > deadline:
+            raise RuntimeError(f"per-shard save {path}: slab sentinels missing after {timeout_s} s")
+        time.sleep(0.02)
+    for w in want:
+        os.remove(w)
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump(meta, f, default=str)
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.replace(tmp, path)
+    logger.info("saved per-shard checkpoint %s (%d ranks)", path, n_ranks)
+    if on_written is not None:
+        on_written(path)
+
+
+def _make_shard_dir(path: str, rank: int, barrier) -> None:
+    """Rank 0 clears ``<path>`` and makes ``<path>.tmp``; then every rank
+    meets at ``barrier`` (JAX's one barrier of a per-shard save)."""
+    if rank == 0:
+        for d in (path, path + ".tmp"):
+            if os.path.exists(d):
+                shutil.rmtree(d)
+        os.makedirs(path + ".tmp")
+    barrier()
+
+
 def save_checkpoint_sharded(directory: str, name: str, variables: Dict[str, Any], meta: Dict[str, Any],
                             opt_state: Dict[str, Any], rank: int, n_ranks: int, barrier, on_written=None,
                             timeout_s: float = 1800.0, writes_slabs: bool = False) -> str:
-    """The collective per-shard save: every rank calls it in step on one
-    shared ``directory``.  Rank 0 makes the temporary directory; after a
-    barrier each rank writes its slab (``arrays.p{rank}.npz``,
+    """The collective per-shard save, synchronous: every rank calls it in
+    step on one shared ``directory``.  Rank 0 makes the temporary
+    directory; after a barrier each rank writes its slab (``arrays.p{rank}.npz``,
     ``index.p{rank}.json``) and a ``done.p{rank}`` sentinel; rank 0 waits for
     every sentinel, removes them, writes ``meta.json`` last, moves the
     directory into place and calls ``on_written(path)`` (the best-model and
     per-epoch copies); a last barrier returns every rank after that.
     Returns the checkpoint's path.  On a model axis the slabs of
-    ``variables["slabs"]`` are written by the ranks that ``writes_slabs``."""
-    import time
-
-    from open_knowledge_graph_embeddings_tpu_torch.parallel.sharding import slab_regions
-
+    ``variables["slabs"]`` are written by the ranks that ``writes_slabs``.
+    :meth:`CheckpointManager.save_sharded` is its background form."""
     path = os.path.join(directory, name)
-    tmp = path + ".tmp"
-    chunks, index = local_checkpoint_chunks(checkpoint_arrays(variables, opt_state), rank,
-                                            slab_regions(variables, opt_state), writes_slabs)
-    if rank == 0:
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
-    barrier()
-    np.savez(os.path.join(tmp, f"arrays.p{rank}.npz"), **chunks)
-    with open(os.path.join(tmp, f"index.p{rank}.json"), "w") as f:
-        json.dump(index, f)
-    open(os.path.join(tmp, f"done.p{rank}"), "w").close()
-    if rank == 0:
-        want = [os.path.join(tmp, f"done.p{r}") for r in range(n_ranks)]
-        deadline = time.time() + timeout_s
-        while not all(os.path.exists(w) for w in want):
-            if time.time() > deadline:
-                raise RuntimeError(f"per-shard save {path}: slab sentinels missing after {timeout_s} s")
-            time.sleep(0.02)
-        for w in want:
-            os.remove(w)
-        with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump(meta, f, default=str)
-        if os.path.exists(path):
-            shutil.rmtree(path)
-        os.replace(tmp, path)
-        logger.info("saved per-shard checkpoint %s (%d ranks)", path, n_ranks)
-        if on_written is not None:
-            on_written(path)
+    chunks, index = _shard_chunks(variables, opt_state, rank, writes_slabs)
+    _make_shard_dir(path, rank, barrier)
+    _write_shard(path, rank, n_ranks, chunks, index, meta, on_written, timeout_s)
     barrier()
     return path
 
@@ -202,6 +234,104 @@ def copy_checkpoint(directory: str, path: str, name: str, epoch, is_best: bool =
         if os.path.exists(epoch_path):
             shutil.rmtree(epoch_path)
         shutil.copytree(path, epoch_path)
+
+
+class CheckpointManager:
+    """Rotation (``checkpoint{0..keep-1}``), the best-model and per-epoch
+    copies, and the background write, as the JAX package's
+    ``CheckpointManager``: a save fetches the arrays to the host on the
+    calling thread (a snapshot: the next train step, or the next replay of a
+    CUDA graph, writes the parameters in place), then writes the files,
+    rotates and copies on a thread.  At most one write is
+    in flight (a save joins the previous one first, so rotation keeps its
+    order); :meth:`wait` before reading a just-saved checkpoint.  An error
+    of the write is raised by the next :meth:`wait`."""
+
+    def __init__(self, save_path: str, keep_checkpoints: int = 5):
+        self.save_path = save_path
+        self.keep = keep_checkpoints
+        self._counter = 0
+        self._pending = None
+        self._error: Optional[BaseException] = None
+        self._last_finalized: Optional[str] = None
+        os.makedirs(save_path, exist_ok=True)
+
+    def next_name(self) -> str:
+        name = f"checkpoint{self._counter}"
+        self._counter = (self._counter + 1) % self.keep
+        return name
+
+    def wait(self) -> None:
+        """Join the write in flight; raise its error if it failed."""
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(f"checkpoint write failed: {err}") from err
+
+    def _run(self, job) -> None:
+        self.wait()
+        import threading
+
+        def guarded():
+            try:
+                job()
+            except BaseException as e:  # surfaced by wait()
+                self._error = e
+
+        self._pending = threading.Thread(target=guarded, daemon=True)
+        self._pending.start()
+
+    def save(self, variables, opt_state, meta: Dict[str, Any], is_best: bool = False, tags=None,
+             save_all: bool = False) -> str:
+        """The next single-file checkpoint -> its path (written when
+        :meth:`wait` returns)."""
+        name = self.next_name()
+        arrays = checkpoint_arrays(variables, opt_state)
+
+        def job():
+            path = _write_checkpoint_files(self.save_path, name, arrays, meta)
+            copy_checkpoint(self.save_path, path, name, meta.get("epoch"), is_best=is_best, tags=tags,
+                            save_all=save_all)
+
+        self._run(job)
+        return os.path.join(self.save_path, name)
+
+    def save_sharded(self, variables, opt_state, meta: Dict[str, Any], rank: int, n_ranks: int, barrier,
+                     writes_slabs: bool = False, is_best: bool = False, tags=None, save_all: bool = False,
+                     timeout_s: float = 1800.0) -> str:
+        """The collective per-shard save (every rank in step, one shared
+        directory): the host fetch of this rank's chunks and the directory
+        barrier on the calling thread, the slab write (and on rank 0 the
+        finalize and the copies) in the background; :meth:`wait_finalized`
+        returns once rank 0's ``meta.json`` is there."""
+        name = self.next_name()
+        path = os.path.join(self.save_path, name)
+        self.wait()
+        chunks, index = _shard_chunks(variables, opt_state, rank, writes_slabs)
+        _make_shard_dir(path, rank, barrier)
+
+        def copies(p):
+            copy_checkpoint(self.save_path, p, name, meta.get("epoch"), is_best=is_best, tags=tags, save_all=save_all)
+
+        self._last_finalized = os.path.join(path, "meta.json")
+        self._run(lambda: _write_shard(path, rank, n_ranks, chunks, index, meta, copies, timeout_s))
+        return path
+
+    def wait_finalized(self, timeout: float = 1800.0) -> None:
+        """:meth:`wait`, then until the last per-shard save is in place
+        (rank 0 moves it there)."""
+        import time
+
+        self.wait()
+        if self._last_finalized is None:
+            return
+        deadline = time.time() + timeout
+        while not os.path.exists(self._last_finalized):
+            if time.time() > deadline:
+                raise RuntimeError(f"per-shard checkpoint {self._last_finalized} never finalized")
+            time.sleep(0.02)
 
 
 class _FullReader:

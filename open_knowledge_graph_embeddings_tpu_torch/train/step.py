@@ -6,13 +6,15 @@ Counterpart of ``open_knowledge_graph_embeddings_tpu/train/step.py``:
 :func:`prefix_loss`, :func:`train_batch_to_arrays`, the dense step
 :func:`make_train_step`, which differentiates with respect to every
 parameter and is the reference the sparse step (train/sparse.py) is held
-against, :func:`make_accum_steps` and :func:`make_eval_step`.  PyTorch runs
+against, :func:`make_scanned_step` (K steps a call, on the card one CUDA
+graph), :func:`make_accum_steps` and :func:`make_eval_step`.  PyTorch runs
 eagerly, so a step is a plain function; the parameters and optimizer state
 are updated in place.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -133,7 +135,8 @@ def arrays_to_device(arrays: Dict[str, Any], device) -> Dict[str, Any]:
     scalars as 0-d f32 tensors."""
 
     def put(a):
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        a = np.asarray(a)
+        t = torch.from_numpy(np.ascontiguousarray(a) if a.ndim else a.copy())  # ascontiguousarray makes 0-d 1-d
         if t.dtype == torch.int32:
             t = t.long()
         return t.to(device, non_blocking=True)
@@ -161,6 +164,216 @@ def make_train_step(model: KGEModel, regimes: OptimizerRegimes, params_example, 
         return new_variables, new_opt, {"loss_sum": loss_sum.detach(), "normalizer_metric": norm_metric}
 
     return step
+
+
+#: byte alignment of each leaf in a packed window (the card's allocation
+#: alignment: every view is aligned as a tensor of its own would be)
+WINDOW_ALIGN = 256
+
+
+class PackedWindow:
+    """K host array dicts of one signature stacked leaf by leaf into one
+    byte buffer (pinned when ``pin``), so that a window reaches the card in
+    one copy.  ``layout`` is ``((name, shape, numpy dtype, offset), ...)``
+    with the leading [K] axis in each shape; int32 arrays are stored as
+    int64, as :func:`arrays_to_device` gives them to a single step."""
+
+    def __init__(self, arrays: Sequence[Dict[str, Any]], pin: bool = False):
+        first = {n: np.asarray(a) for n, a in arrays[0].items()}
+        layout, off = [], 0
+        for name in sorted(first):
+            dt = np.dtype(np.int64) if first[name].dtype == np.int32 else first[name].dtype
+            shape = (len(arrays), *first[name].shape)
+            layout.append((name, shape, dt, off))
+            off += -(-int(np.prod(shape)) * dt.itemsize // WINDOW_ALIGN) * WINDOW_ALIGN
+        self.layout = tuple(layout)
+        self.host = torch.empty(off, dtype=torch.uint8, pin_memory=pin)
+        flat = self.host.numpy()
+        for name, shape, dt, o in self.layout:
+            out = flat[o : o + int(np.prod(shape)) * dt.itemsize].view(dt).reshape(shape)
+            np.stack([np.asarray(a[name]) for a in arrays], out=out)
+
+    @property
+    def signature(self):
+        """What a graph is keyed by: the names, shapes and dtypes."""
+        return tuple((name, shape, str(dt)) for name, shape, dt, _ in self.layout)
+
+
+def window_views(buf: torch.Tensor, layout) -> Dict[str, torch.Tensor]:
+    """The [K, ...] leaves of a packed window as views of the byte buffer
+    ``buf`` (its host buffer, or a copy of it on the card)."""
+    out = {}
+    for name, shape, dt, off in layout:
+        n = int(np.prod(shape)) * dt.itemsize
+        out[name] = buf[off : off + n].view(torch.from_numpy(np.empty(0, dt)).dtype).view(shape)
+    return out
+
+
+def write_back(dst, src) -> None:
+    """Copy every tensor of the tree ``src`` that is not already the tensor
+    at the same place in ``dst`` into it, so that ``dst``'s tensors hold
+    ``src``'s values (a step's new optimizer steps and batchnorm state land
+    in the persistent tensors; leaves updated in place are skipped)."""
+    for k, s in src.items():
+        if k not in dst:
+            raise KeyError(f"the step returned a leaf {k!r} its input did not have")
+        if isinstance(s, dict):
+            write_back(dst[k], s)
+        elif isinstance(s, torch.Tensor) and s is not dst[k]:
+            dst[k].copy_(s)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _stack_stats(stats: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    return {n: torch.stack([s[n] for s in stats]) for n in stats[0]}
+
+
+class _Window:
+    """A signature's static input buffer on the card, its views, and once
+    captured its graph and the graph's stacked stats."""
+
+    def __init__(self, layout, nbytes: int, device):
+        self.layout = layout
+        self.buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        self.views = window_views(self.buf, layout)
+        self.graph = None
+        self.stats = None
+
+    def load(self, window: "PackedWindow") -> None:
+        self.buf.copy_(window.host, non_blocking=True)
+
+
+class ScannedStep:
+    """K train steps per call (see :func:`make_scanned_step`).  Counters:
+    ``windows`` (every call), ``eager_windows`` (on the card a signature's
+    first window, run step by step), ``captures``, ``replays`` (a capture's
+    first replay included); ``capture_s`` and ``instantiate_s`` sum the host
+    seconds of the captures; ``last_kind`` is how the last call ran:
+    ``"loop"`` (the CPU: the steps a graph captures, run one after
+    another), ``"eager"``, ``"capture"`` (captured, then
+    replayed) or ``"replay"``."""
+
+    def __init__(self, step, scan_steps: int):
+        if scan_steps < 1:
+            raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
+        self.step, self.k = step, int(scan_steps)
+        self._windows: Dict[Any, _Window] = {}
+        self._state_key = None
+        self._pool = None
+        self.windows = self.eager_windows = self.captures = self.replays = 0
+        self.capture_s = self.instantiate_s = 0.0
+        self.last_kind: Optional[str] = None
+
+    def reset(self) -> None:
+        """Drop every graph (their memory returns with the pool)."""
+        self._windows.clear()
+        self._state_key = None
+        self._pool = None
+
+    def single(self, variables, opt_state, hparams, batch, generator=None):
+        """One step whose results are written back into ``variables`` and
+        ``opt_state`` (the tensors a graph reads stay the trainer's)."""
+        new_v, new_o, stats = self.step(variables, opt_state, hparams, batch, generator)
+        write_back(variables, new_v)
+        write_back(opt_state, new_o)
+        return variables, opt_state, stats
+
+    def _steps(self, views, variables, opt_state, hparams, generator):
+        stats = [self.single(variables, opt_state, hparams, {n: v[i] for n, v in views.items()}, generator)[2]
+                 for i in range(self.k)]
+        return _stack_stats(stats)
+
+    def __call__(self, variables, opt_state, hparams, batches, generator=None):
+        lead = {shape[0] for _, shape, *_ in batches.layout} if isinstance(batches, PackedWindow) else {
+            len(v) for v in batches.values()}
+        if lead != {self.k}:
+            raise ValueError(f"a window of {self.k} steps got leaves of leading sizes {sorted(lead)}")
+        self.windows += 1
+        device = next(_tensors(variables["params"])).device
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"no scanned step for device {device}")
+        if not isinstance(batches, PackedWindow):
+            batches = PackedWindow([{n: v[i].cpu().numpy() if isinstance(v, torch.Tensor) else v[i]
+                                     for n, v in batches.items()} for i in range(self.k)])
+        if device.type == "cpu":  # the plain version: the steps the graph captures, one after another
+            self.last_kind = "loop"
+            views = window_views(batches.host, batches.layout)
+            return variables, opt_state, self._steps(views, variables, opt_state, hparams, generator)
+        # a graph bakes in the hyperparameters (the Adagrad launches take
+        # them as float arguments) and the addresses of the state it reads
+        # and writes: when either changes, every graph goes
+        state_key = (tuple(tuple(sorted(hp.items())) for hp in hparams),
+                     tuple(t.data_ptr() for t in _tensors({"v": variables, "o": opt_state})))
+        if state_key != self._state_key:
+            self.reset()
+            self._state_key = state_key
+        sig, layout, nbytes = batches.signature, batches.layout, batches.host.numel()
+        w = self._windows.get(sig)
+        if w is None:  # the warm-up: builds, workspaces and tensor maps happen here
+            w = self._windows[sig] = _Window(layout, nbytes, device)
+            w.load(batches)
+            self.eager_windows += 1
+            self.last_kind = "eager"
+            return variables, opt_state, self._steps(w.views, variables, opt_state, hparams, generator)
+        w.load(batches)
+        self.last_kind = "replay"
+        if w.graph is None:
+            self._capture(w, variables, opt_state, hparams, generator)
+            self.last_kind = "capture"
+        w.graph.replay()
+        self.replays += 1
+        # the graph's stats are overwritten by its next replay
+        return variables, opt_state, {n: t.clone() for n, t in w.stats.items()}
+
+    def _capture(self, w: _Window, variables, opt_state, hparams, generator) -> None:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        if generator is not None:  # replays draw dropout masks as the eager steps would
+            graph.register_generator_state(generator)
+        t0 = time.perf_counter()
+        # thread_local: the prefetch threads go on allocating and copying
+        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            w.stats = self._steps(w.views, variables, opt_state, hparams, generator)
+        t1 = time.perf_counter()
+        graph.instantiate()
+        self.instantiate_s += time.perf_counter() - t1
+        self.capture_s += t1 - t0
+        self.captures += 1
+        self._pool = graph.pool()
+        w.graph = graph
+
+
+def make_scanned_step(step, scan_steps: int) -> ScannedStep:
+    """``scanned(variables, opt_state, hparams, batches, generator) ->
+    (variables, opt_state, stats)``: ``scan_steps`` (K) consecutive steps
+    of ``step`` (any step with the ``(variables, opt_state, hparams, batch,
+    generator)`` contract: :func:`make_train_step`, the sparse step) in one
+    call, the counterpart of the JAX package's ``lax.scan`` window.
+    ``batches`` is a :class:`PackedWindow` or a dict whose every leaf has a
+    leading [K] axis; ``stats`` come back stacked [K] per leaf.
+
+    On the card the K steps are captured, unrolled, into one CUDA graph per
+    batch signature, replayed once per window: a signature's first window
+    runs its steps eagerly (the warm-up: kernel builds, cuBLAS workspaces,
+    tensor maps), its second is captured (capture runs nothing) and
+    replayed.  The graph reads and writes the caller's own tensors: every
+    leaf a step returns as a new tensor is copied back into the given one
+    inside the capture, so after a call ``variables`` and ``opt_state``
+    (the same objects) hold the window's result.  The batch lands in the
+    window's static buffer in one host-to-device copy.  The generator is
+    registered with each graph, so a window draws its dropout masks as its
+    K eager steps would.  A change of the hyperparameters or of the state's
+    addresses drops every graph; all graphs share one memory pool.  A
+    failed capture raises.
+
+    On the CPU the K steps run one after another (the plain version)."""
+    return ScannedStep(step, scan_steps)
 
 
 def make_accum_steps(model: KGEModel, regimes: OptimizerRegimes, params_example, loss_type: str = "bce",

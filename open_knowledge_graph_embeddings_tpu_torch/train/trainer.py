@@ -32,9 +32,23 @@ sparse path the batches of an unfinished window) carries across epoch
 boundaries, and ``training_steps`` counts micro-batches, as in the JAX
 package.
 
-``train_scan_steps`` (K steps per device program on the TPU) runs its K
-steps one after another here: the same math (``tests/test_scan_steps.py``);
-capturing them in a CUDA graph is ROADMAP Queue 1 item 10.
+Multi-step dispatch (``train_scan_steps`` = K > 1, as in the JAX package):
+a producer thread groups the host-built batches into windows of K of one
+array signature (a batch of another signature, and the epoch's tail, flush
+as single steps), stacked into one pinned buffer; each window is one call of
+``train/step.py::make_scanned_step``, on the card one replay of a CUDA graph
+of the K steps that reads and writes the trainer's own tensors (single
+steps write back into them too).  Print, save and eval fire when a window
+crosses their cadence, at its last step; ``step_log`` gets a row per step.
+Scan mode is off under gradient accumulation, on a mesh and with
+step-keyed optimizer phases, as in the JAX package.  Loading a checkpoint
+or a new optimizer drops every graph.
+
+Checkpoints go through ``train/checkpoint.py::CheckpointManager``: the
+host fetch on the training thread, the files, rotation and copies on a
+background thread (one in flight; the in-loop ``save_freq`` saves return
+before their files are written, the others wait), and ``load`` and the
+run's end wait for the write.
 
 Several processes (``parallel/``, a world set up by ``cli.train``): the
 ranks form a [data, model] mesh with ``model_parallel`` ranks a model
@@ -49,8 +63,8 @@ the eval set (``BatchBuilder(host_shard=...)``), a model group together
 over its slabs of the candidates, and the metric sums are added over the
 data group; rank 0 writes ``results.csv`` and decides early stopping for
 every rank, and every rank writes its part of a per-shard checkpoint
-(``train/checkpoint.py::save_checkpoint_sharded``).  ``train_scan_steps``
-is off on a mesh, as in the JAX package.
+(``CheckpointManager.save_sharded``, its files written in the
+background, finalized by rank 0).
 """
 
 from __future__ import annotations
@@ -72,11 +86,9 @@ from open_knowledge_graph_embeddings_tpu_torch.parallel import distributed as di
 from open_knowledge_graph_embeddings_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, default_mesh
 from open_knowledge_graph_embeddings_tpu_torch.parallel.sharding import shard_variables
 from open_knowledge_graph_embeddings_tpu_torch.train.checkpoint import (
-    copy_checkpoint,
+    CheckpointManager,
     load_checkpoint,
     load_checkpoint_meta,
-    save_checkpoint,
-    save_checkpoint_sharded,
 )
 from open_knowledge_graph_embeddings_tpu_torch.train.metrics import MetricResult
 from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
@@ -87,10 +99,12 @@ from open_knowledge_graph_embeddings_tpu_torch.train.sparse import (
     sparse_table_names,
 )
 from open_knowledge_graph_embeddings_tpu_torch.train.step import (
+    PackedWindow,
     arrays_to_device,
     eval_batch_to_arrays,
     make_accum_steps,
     make_eval_step,
+    make_scanned_step,
     make_train_step,
     train_batch_to_arrays,
     unpack_eval_stats,
@@ -164,10 +178,6 @@ class Trainer:
             )
             logger.info("row-sparse updates for tables %s (entity_sparse=%s); token plans on the %s branch",
                         self._sparse_plan.tables, entity_sparse, self._sparse_plan.plan_path)
-        self.opt_state = self.regimes.init_state(self.variables["params"])
-        self._rebuild_steps()
-        self.train_builder = BatchBuilder(train_dataset, seed=seed)
-
         bsz = train_dataset.batch_size
         bsfb = args.get("batch_size_for_backward") or train_dataset.batch_size_for_backward
         self.accum_steps = max(1, int(round((bsfb or bsz) / bsz)))
@@ -178,13 +188,22 @@ class Trainer:
         if self.accum_steps > 1:
             logger.info("gradient accumulation over %d micro-batches%s", self.accum_steps,
                         " (row-sparse union-row windows)" if self.sparse else "")
-        if int(args.get("train_scan_steps") or 1) > 1:
-            if self.accum_steps > 1 or self.mesh is not None:
-                logger.info("train_scan_steps=%s disabled (%s)", args["train_scan_steps"],
-                            "gradient accumulation" if self.accum_steps > 1 else "device mesh")
+        # multi-step dispatch: off wherever a window could not be the K
+        # single steps (accumulation owns the step cadence, a mesh, a phase
+        # switching at a step inside a window)
+        self.scan_steps = max(1, int(args.get("train_scan_steps") or 1))
+        if self.scan_steps > 1:
+            step_phases = any("step" in p for phases in self.regimes.regimes for p in phases)
+            if self.accum_steps > 1 or self.mesh is not None or step_phases:
+                logger.info("train_scan_steps=%d disabled (%s)", self.scan_steps,
+                            "gradient accumulation" if self.accum_steps > 1
+                            else "device mesh" if self.mesh is not None else "step-keyed optimizer phases")
+                self.scan_steps = 1
             else:
-                logger.info("train_scan_steps=%s: the steps of a window run one after another",
-                            args["train_scan_steps"])
+                logger.info("multi-step dispatch: %d steps/program", self.scan_steps)
+        self.opt_state = self.regimes.init_state(self.variables["params"])
+        self._rebuild_steps()
+        self.train_builder = BatchBuilder(train_dataset, seed=seed)
 
         # full-vocab eval scores eval_block_rows prefixes per device batch
         # (the metric sums do not depend on it); batch-shared eval keeps the
@@ -209,8 +228,7 @@ class Trainer:
         self._eval_batches_cache = None
 
         self.save_path = save_path
-        self.keep_checkpoints = keep_checkpoints
-        self._ckpt_counter = 0
+        self.ckpt = CheckpointManager(save_path, keep_checkpoints)
         self.last_checkpoint: Optional[str] = None
         self.results = ResultsLog(os.path.join(save_path, "results.csv"))
         self.training_steps = 0
@@ -226,10 +244,12 @@ class Trainer:
         #: the last evaluate(): host seconds of the candidate cache encode and
         #: of the batches, and the number of batches
         self.last_eval: Optional[Dict[str, float]] = None
-        #: per step (micro-batch): host ms waiting for the next planned batch,
-        #: the loss per real cell (a device scalar), the tables that took the
-        #: row-sparse update, and whether an optimizer update ran after it
-        #: (every step without accumulation)
+        #: per step (micro-batch): host ms waiting for the next planned batch
+        #: (a window's wait on its first step), the loss per real cell (a
+        #: device scalar), the tables that took the row-sparse update,
+        #: whether an optimizer update ran after it (every step without
+        #: accumulation) and, for a step inside a window, how the window ran
+        #: (``ScannedStep.last_kind``; None for a single step)
         self.step_log: List[Dict[str, Any]] = []
         self.last_epoch: Optional[Dict[str, float]] = None
         self.profile_steps = int(args.get("profile_steps") or 0)
@@ -250,6 +270,8 @@ class Trainer:
             self.train_step = make_train_step(self.model, self.regimes, params, **kw)
             self.zero_grads, self.grad_step, self.apply_step = make_accum_steps(self.model, self.regimes, params,
                                                                                 **kw)
+        # a new step (a new optimizer, a load) drops the graphs of the old one
+        self.train_step_scan = make_scanned_step(self.train_step, self.scan_steps) if self.scan_steps > 1 else None
         self.eval_step = make_eval_step(self.model, self.loss_type, self.label_smoothing)
         self._eval_step_topk = None  # built when log_predictions is set
 
@@ -289,58 +311,87 @@ class Trainer:
                 items += float(stats["normalizer_metric"])
             pending.clear()
 
-        it = self._iter_train_arrays(workers)
         step_i = -1
-        while True:
-            t_wait = time.perf_counter()
-            try:
-                batch, arrays = next(it)
-            except StopIteration:
-                break
-            wait_ms = (time.perf_counter() - t_wait) * 1e3
-            step_i += 1
-            if self.profile_steps:
-                self._profile_before_step()
-            self.training_steps += 1
-            if self.regimes.update(self.epoch, self.training_steps):
-                # optimizer type changed: fresh state and a rebuilt step
-                self.opt_state = self.regimes.init_state(self.variables["params"])
-                self._rebuild_steps()
-            applied = True
-            if self.accum_steps <= 1:
-                self.variables, self.opt_state, stats = self.train_step(
-                    self.variables, self.opt_state, self.regimes.hparams(), arrays, self.generator)
-            else:
-                stats, applied = self._accumulate(arrays)
-            self.step_log.append({
-                "wait_ms": wait_ms,
-                "loss": stats["loss_sum"] / batch.normalizer_loss,  # stays on the device
-                "sparse_tables": tuple(t for t in self._sparse_tables if f"sparse/{t}/uids" in arrays),
-                "applied": applied,
-            })
-            pending.append((stats, batch.normalizer_loss))
-            now = time.time()
-            items_t += now - batch_start
-            batch_start = now
-            if step_i % print_freq == 0 or step_i == n_batches - 1:
-                drain()
-                logger.info(
-                    "TRAINING - EPOCH [%3d][%6d/%d]  time: %7.3f  items/sec: (%.0f)  loss: %.7f",
-                    self.epoch, step_i, n_batches, time.time() - epoch_start, items / items_t,
-                    loss_sum_total / max(norm_total, 1e-30),
-                )
-            if save_freq > 0 and step_i > 0 and step_i % save_freq == 0:
-                self.save()
-            if val_hook is not None and eval_freq > 0 and step_i > 0 and step_i % eval_freq == 0:
-                drain()
-                val_hook(last_step_of_epoch=False)
+        it = self._iter_train_entries(workers)
+        try:
+            while True:
+                t_wait = time.perf_counter()
+                try:
+                    kind, batches, arrays = next(it)
+                except StopIteration:
+                    break
+                wait_ms = (time.perf_counter() - t_wait) * 1e3
+                k = len(batches)
+                prev_step_i, step_i = step_i, step_i + k
+                if self.profile_steps:
+                    self._profile_before_step()
+                self.training_steps += k
+                # a window consumes the state its first step would (epoch-keyed
+                # phases switch only at an epoch's first entry)
+                if self.regimes.update(self.epoch, self.training_steps - k + 1):
+                    # optimizer type changed: fresh state and a rebuilt step
+                    self.opt_state = self.regimes.init_state(self.variables["params"])
+                    self._rebuild_steps()
+                applied = True
+                if kind == "w":
+                    self.variables, self.opt_state, stats = self.train_step_scan(
+                        self.variables, self.opt_state, self.regimes.hparams(), arrays, self.generator)
+                    per_step = [{n: v[i] for n, v in stats.items()} for i in range(k)]
+                    names = {name for name, *_ in arrays.layout}
+                else:
+                    if self.train_step_scan is not None:  # keeps the tensors the graphs read
+                        self.variables, self.opt_state, stats = self.train_step_scan.single(
+                            self.variables, self.opt_state, self.regimes.hparams(), arrays, self.generator)
+                    elif self.accum_steps <= 1:
+                        self.variables, self.opt_state, stats = self.train_step(
+                            self.variables, self.opt_state, self.regimes.hparams(), arrays, self.generator)
+                    else:
+                        stats, applied = self._accumulate(arrays)
+                    per_step, names = [stats], arrays
+                tables = tuple(t for t in self._sparse_tables if f"sparse/{t}/uids" in names)
+                for i, (batch, st) in enumerate(zip(batches, per_step)):
+                    self.step_log.append({
+                        "wait_ms": wait_ms if i == 0 else 0.0,
+                        "loss": st["loss_sum"] / batch.normalizer_loss,  # stays on the device
+                        "sparse_tables": tables,
+                        "applied": applied,
+                        "window": self.train_step_scan.last_kind if kind == "w" else None,
+                    })
+                    pending.append((st, batch.normalizer_loss))
+                now = time.time()
+                items_t += now - batch_start
+                batch_start = now
+
+                # a cadence fires when an entry's steps hold a multiple of its
+                # frequency above 0, a window at its last step (JAX's rule
+                # compares with prev_step_i = -1 at a pass's first entry, so
+                # a window there fires for step 0, which no single step does:
+                # an extra eval and save a pass whatever the frequency)
+                def crossed(freq):
+                    return freq > 0 and step_i > 0 and step_i // freq != max(prev_step_i, 0) // freq
+
+                if crossed(print_freq) or step_i >= n_batches - 1:
+                    drain()
+                    logger.info(
+                        "TRAINING - EPOCH [%3d][%6d/%d]  time: %7.3f  items/sec: (%.0f)  loss: %.7f",
+                        self.epoch, step_i, n_batches, time.time() - epoch_start, items / items_t,
+                        loss_sum_total / max(norm_total, 1e-30),
+                    )
+                if crossed(save_freq):
+                    self.save(wait=False)
+                if val_hook is not None and crossed(eval_freq):
+                    drain()
+                    val_hook(last_step_of_epoch=False)
+        finally:
+            it.close()  # releases the window producer when the loop leaves early
         drain()
         return {"loss": loss_sum_total / max(norm_total, 1e-30), "items_per_s": items / items_t}
 
     def _profile_before_step(self) -> None:
-        """Start the trace before the step after training step 1 and write it
-        ``profile_steps`` steps later, as the JAX package's trainer does."""
-        if self._profiler is None and self.training_steps == 1:
+        """Start the trace before the first entry after training step 1 and
+        write it at the first entry ``profile_steps`` steps later, as the JAX
+        package's trainer does (a window counts its K steps)."""
+        if self._profiler is None and self.training_steps >= 1:  # a window may pass step 1
             from torch.profiler import ProfilerActivity, profile
 
             activities = [ProfilerActivity.CPU]
@@ -403,6 +454,85 @@ class Trainer:
                 window, self._window_buf = self._window_buf, []
                 for b, d in zip(window, self._sparse_plan.plan_window(window)):
                     yield b, arrays_to_device(d, self.device)
+
+    def _iter_train_entries(self, workers: int):
+        """Training-loop entries: ``("s", [batch], device arrays)`` for a
+        single step, ``("w", [K batches], PackedWindow)`` for a window of
+        multi-step dispatch."""
+        if self.scan_steps <= 1:
+            for batch, arrays in self._iter_train_arrays(workers):
+                yield "s", [batch], arrays
+            return
+        to_arrays = self._sparse_plan if self.sparse else train_batch_to_arrays
+        yield from self._window_entries(self.train_builder.batches(
+            shuffle=True, prefetch=max(2, workers), transform=lambda b: (b, to_arrays(b)), workers=workers))
+
+    def _window_entries(self, src):
+        """Group host-built ``(batch, arrays)`` pairs into windows of
+        ``scan_steps``, each stacked into one (pinned) :class:`PackedWindow`,
+        on a thread of its own so that the training loop never waits on the
+        stacking.  A batch whose array signature differs from the window's
+        (a table whose plan fell back to dense, another bucket) and the
+        epoch's tail flush the buffer as single steps (copied to the device
+        on the thread).  Closing the generator releases the thread."""
+        import queue
+        import threading
+
+        k, device = self.scan_steps, self.device
+        q: "queue.Queue" = queue.Queue(maxsize=2)
+        stop = threading.Event()  # the consumer is gone
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            buf = []
+
+            def flush() -> bool:
+                return all(put(("s", [b], arrays_to_device(a, device))) for b, a, _ in buf)
+
+            try:
+                for batch, arrays in src:
+                    if stop.is_set():
+                        return
+                    arrays = {n: np.asarray(a) for n, a in arrays.items()}
+                    sig = tuple(sorted((n, a.shape, str(a.dtype)) for n, a in arrays.items()))
+                    if buf and sig != buf[0][2]:
+                        if not flush():
+                            return
+                        buf = []
+                    buf.append((batch, arrays, sig))
+                    if len(buf) == k:
+                        window = PackedWindow([a for _, a, _ in buf], pin=device.type == "cuda")
+                        if not put(("w", [b for b, _, _ in buf], window)):
+                            return
+                        buf = []
+                flush()
+            except BaseException as e:  # surfaced on the consumer's thread
+                put(e)
+            finally:
+                put(None)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            while not q.empty():
+                q.get_nowait()
 
     # ------------------------------------------------------------------- eval
 
@@ -604,16 +734,20 @@ class Trainer:
             self._stop_profile()
         if self.training_steps > 0:
             self.save()
+        self.ckpt.wait_finalized()
 
     def save_results(self) -> None:
         """Write results.csv: rank 0's, since the ranks share a directory."""
         if self.rank == 0:
             self.results.save()
 
-    def save(self, is_best: bool = False, tags=None, save_all: bool = False) -> str:
+    def save(self, is_best: bool = False, tags=None, save_all: bool = False, wait: bool = True) -> str:
         """Write the next ``checkpoint{i}`` (and its best-model and
-        per-epoch copies); returns its path.  Several ranks write one
-        per-shard checkpoint together, rank 0 makes the copies."""
+        per-epoch copies) through the manager; returns its path.  The host
+        fetch happens here; ``wait=False`` returns before the files are
+        written.  Several ranks write one per-shard checkpoint together
+        (never waited for here: the run's end does), rank 0 makes the
+        copies."""
         meta = {
             "epoch": self.epoch,
             "training_steps": self.training_steps,
@@ -621,19 +755,14 @@ class Trainer:
             "optimizer_host_state": self.regimes.host_state(),
             "results": self.results.to_dicts(),
         }
-        name = f"checkpoint{self._ckpt_counter}"
-        self._ckpt_counter = (self._ckpt_counter + 1) % self.keep_checkpoints
-        def copies(path):
-            copy_checkpoint(self.save_path, path, name, meta["epoch"], is_best=is_best, tags=tags,
-                            save_all=save_all)
-
         if self.world > 1:
-            path = save_checkpoint_sharded(self.save_path, name, self.variables, meta, self.opt_state, self.rank,
-                                           self.world, dist.barrier, on_written=copies,
-                                           writes_slabs=self.mesh.index(DATA_AXIS) == 0)
+            path = self.ckpt.save_sharded(self.variables, self.opt_state, meta, self.rank, self.world, dist.barrier,
+                                          writes_slabs=self.mesh.index(DATA_AXIS) == 0, is_best=is_best, tags=tags,
+                                          save_all=save_all)
         else:
-            path = save_checkpoint(self.save_path, name, self.variables, meta, self.opt_state)
-            copies(path)
+            path = self.ckpt.save(self.variables, self.opt_state, meta, is_best=is_best, tags=tags, save_all=save_all)
+            if wait:
+                self.ckpt.wait()
         self.last_checkpoint = path
         return path
 
@@ -647,7 +776,9 @@ class Trainer:
         optimizer state (unless ``reset_optimizer`` or
         ``dont_load_optimizer``), the step count and results; then
         ``freeze_param`` patterns join the frozen ones: newly frozen leaves
-        get the empty state, the others keep what was loaded."""
+        get the empty state, the others keep what was loaded.  A write in
+        flight is waited for first; the graphs of the window step go."""
+        self.ckpt.wait_finalized()  # a write in flight may be this path
         host = load_checkpoint_meta(path).get("optimizer_host_state")
         if host:
             old_names = self.regimes.opt_names()
@@ -658,6 +789,8 @@ class Trainer:
         self.variables, self.opt_state, meta = load_checkpoint(
             path, self.variables, self.opt_state, resume_filter=resume_filter, weight_map=weight_map,
             load_optimizer=not (reset_optimizer or dont_load_optimizer))
+        if self.train_step_scan is not None:  # the graphs read the old tensors
+            self.train_step_scan.reset()
         self.training_steps = int(meta.get("training_steps", 0))
         if meta.get("results"):
             self.results.rows = list(meta["results"])

@@ -1114,3 +1114,192 @@ def test_model_axis_launches_count_three_passes(smoke):
                         "scatter_adagrad": 1}
         ev = smoke.mp_launches(names, SimpleNamespace(**{**vars(trainer), "step_log": []}), 0, evaluate=True)
         assert ev["lstm_last_fwd"] == (chunks + 2 * 3) * fwd and ev["lstm_last_bwd"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "torch.float32"])
+def test_scan_device_want_splits_rows_into_functions(smoke, dtype):
+    """The device launches of kernels 1-4 by CUDA function from the counted
+    rows: at L = 10 a bf16 forward call is 10 step launches and a backward
+    21 (10 gate, 10 product, 1 dW); at f32 one more each, the weight split,
+    one function for both; a count that is no whole number of calls fails."""
+    f32 = dtype.endswith("float32")
+    rows = {"lstm_last_fwd": 6 * (10 + f32), "lstm_last_bwd": 4 * (21 + f32), "adagrad_update": 3,
+            "scatter_adagrad": 2}
+    want = smoke.scan_device_want(dtype, 10, rows)
+    if f32:
+        assert want == {"adagrad_dense_kernel": 3, "adagrad_rows_kernel": 2, "lstm_split_kernel_tf32": 10,
+                        "lstm_fwd_step_kernel_tf32": 60, "lstm_bwd_gate_kernel_tf32": 40,
+                        "lstm_bwd_product_kernel_tf32": 40, "lstm_bwd_dw_kernel_tf32": 4}
+    else:
+        assert want == {"adagrad_dense_kernel": 3, "adagrad_rows_kernel": 2, "lstm_last_step_kernel": 60,
+                        "lstm_bwd_gate_kernel_bf16": 40, "lstm_bwd_product_kernel_bf16": 40, "lstm_bwd_dw_kernel": 4}
+    with pytest.raises(smoke.SmokeFailure):
+        smoke.scan_device_want(dtype, 10, {**rows, "lstm_last_bwd": rows["lstm_last_bwd"] + 1})
+
+
+def test_counted_steps_leave_out_replays(smoke):
+    """The kernel counters see single steps, eager windows and captures; a
+    replayed window launches through no wrapper."""
+    log = [{"window": k} for k in (None, "eager", "eager", "capture", "capture", "replay", "replay", None)]
+    assert [s["window"] for s in smoke.counted_steps(log)] == [None, "eager", "eager", "capture", "capture", None]
+
+
+def test_state_gap_is_relative_to_each_leafs_largest(smoke):
+    want = {"a": torch.tensor([1.0, -4.0]), "b": torch.tensor([0.5]), "empty": torch.zeros(0)}
+    got = {"a": torch.tensor([1.5, -4.0]), "b": torch.tensor([0.5]), "empty": torch.zeros(0)}
+    assert smoke.state_gap(got, want) == (0.125, "a")
+    assert smoke.state_gap(want, want)[0] == 0.0
+
+
+@pytest.fixture(scope="module")
+def window_states(smoke, toy_dataset_dir):
+    """A toy token model (row-sparse tables, dropout, batchnorm) before a
+    window of 3 steps, after it, and after its first 2 steps, each run with
+    ``ScannedStep.single`` from the same state and generator state."""
+    from open_knowledge_graph_embeddings_tpu_torch.data.batching import BatchBuilder
+    from open_knowledge_graph_embeddings_tpu_torch.data.dataset import OneToNMentionRelationDataset
+    from open_knowledge_graph_embeddings_tpu_torch.models.model import build_model
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
+    from open_knowledge_graph_embeddings_tpu_torch.train.sparse import SparsePlanBuilder, make_sparse_train_step
+    from open_knowledge_graph_embeddings_tpu_torch.train.step import arrays_to_device, make_scanned_step
+
+    ds = OneToNMentionRelationDataset(dataset_dir=toy_dataset_dir, input_file="train.txt", is_training_data=True,
+                                      batch_size=2, use_batch_shared_entities=True, min_size_batch_labels=6)
+    model = build_model("LSTMComplexRelationModel", ds.meta, entity_slot_size=8, init_std=0.1, sparse=True,
+                        dropout=0.3, normalize="batchnorm")
+    reg = OptimizerRegimes({"optimizer": "Adagrad", "lr": 0.2})
+    reg.update(1, 0)
+    plan = SparsePlanBuilder(model.embedder, entity_sparse=True, min_rows_ratio=0.0)
+    batches = [arrays_to_device(plan(b), "cpu") for b in BatchBuilder(ds, seed=2).batches()][:3]
+    v = model.init(torch.Generator().manual_seed(0))
+    opt = reg.init_state(v["params"])
+    scanned = make_scanned_step(make_sparse_train_step(model, reg, v["params"], entity_sparse=True), 3)
+    before = {k: t.clone() for k, t in smoke.flat_state(v, opt).items()}
+
+    def run(n):
+        for k, t in smoke.flat_state(v, opt).items():
+            t.copy_(before[k])
+        gen = torch.Generator().manual_seed(5)
+        for b in batches[:n]:
+            scanned.single(v, opt, reg.hparams(), b, gen)
+        return {k: t.clone() for k, t in smoke.flat_state(v, opt).items()}
+
+    return before, run(3), run(2)
+
+
+def test_window_rule_holds_a_twin_and_fails_the_controls(smoke, window_states):
+    """``window_rule``: an eager twin of the window passes, and so does one
+    whose moved entries carry noise within the allowed gap; the state left
+    as it was, the window one step short and the window with its largest
+    table's update left out each fail it, whatever the allowed gap."""
+    before, after, short = window_states
+    assert smoke.window_rule(after, after, before, 0.0) == []
+    noisy = {k: t + 1e-7 * (t != before[k]) * t.abs() if t.is_floating_point() and not k.endswith("/step") else t
+             for k, t in after.items()}
+    gap = smoke.state_gap(noisy, after)[0]
+    assert 0 < gap and smoke.window_rule(noisy, after, before, gap / smoke.SCAN_RULE_FACTOR) == []
+    assert smoke.window_rule(noisy, after, before, 0.0)
+    reverted = smoke.largest_table_reverted(after, before)
+    largest = max((k for k in after if k.startswith("params/")), key=lambda k: after[k].numel())
+    table = largest[len("params/"):]
+    assert {k for k in after if reverted[k] is before[k]} == {largest, f"opt/{table}/sum", f"opt/{table}/step"}
+    for control in (before, short, reverted):
+        fails = smoke.window_rule(control, after, before, 1e30)
+        assert fails and all("largest leaf gap" not in f for f in fails), fails
+    assert any("step counters" in f for f in smoke.window_rule(short, after, before, 1e30))
+    assert smoke.movement_gap(before, after, before)[0] == pytest.approx(1.0)
+    assert smoke.movement_gap(after, after, before)[0] == 0.0
+
+
+def test_moved_leaves(smoke):
+    before = {"t": torch.zeros(3, 2), "b": torch.zeros(4), "s": torch.tensor(1.0), "e": torch.zeros(0, 2)}
+    after = {"t": torch.tensor([[0.0, 0.0], [0.0, 1.0], [0.0, 0.0]]), "b": torch.zeros(4), "s": torch.tensor(2.0),
+             "e": torch.zeros(0, 2)}
+    assert smoke.moved_leaves(after, before) == {"t", "s"}
+
+
+def test_backward_f64_agreement_holds_plain_and_fails_a_scaled_dw(smoke, lstm_case):
+    """The captured path's rule for kernel 2: each output against f64
+    within twice the plain version's error; the plain version passes it, a
+    dW_ih one percent off fails."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+
+    _, _, bargs = lstm_case
+    want = lk.lstm_last_backward_plain(*bargs)
+    ok, text, _ = smoke.backward_f64_agreement(torch, bargs, want, want)
+    assert ok, text
+    off = (want[0], want[1] * 1.01, want[2], want[3])
+    ok, text, _ = smoke.backward_f64_agreement(torch, bargs, off, want)
+    assert not ok, text
+
+
+def test_forward_f64_agreement_holds_plain_and_fails_a_late_hs(smoke, lstm_case):
+    """The captured path's rule for kernel 1: last, hs and cs against the
+    recurrence in f64 within twice the plain version's error; the plain
+    version passes it, residuals one step late fail."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+
+    args, _, _ = lstm_case
+    want = lk.lstm_encode_last_plain(*args, residuals=True)
+    ok, text, _ = smoke.forward_f64_agreement(torch, args, want, want)
+    assert ok, text
+    late = (want[0], torch.cat([want[1][:1], want[1][:-1]]), want[2])
+    ok, text, _ = smoke.forward_f64_agreement(torch, args, late, want)
+    assert not ok, text
+
+
+FAKE_RANK = """import json, sys, time
+rank, world, out, config = int(sys.argv[2]), int(sys.argv[3]), sys.argv[5], sys.argv[6]
+time.sleep(float(config.split(":")[1]))
+if config.startswith("fail") and rank == world - 1:
+    sys.exit(3)
+json.dump({"rank": rank, "launches": {"k": 1}, "want": {"k": 1}}, open(out, "w"))
+print(f"dp rank {rank}: done")
+"""
+
+
+def test_ranks_run_side_by_side(smoke, tmp_path, monkeypatch):
+    """``run_side_by_side``: runs of ``start_ranks`` and an in-process call
+    at once, each run's seconds ending at its own exit, each its own
+    rendezvous port; a failing rank ends every run and fails the phase
+    with its own exit first."""
+    script = tmp_path / "fake_rank.py"
+    script.write_text(FAKE_RANK)
+    monkeypatch.setattr(smoke, "RANK_SCRIPT", script)
+    monkeypatch.setattr(smoke, "ROOT", tmp_path)
+    t0 = smoke.time.perf_counter()
+    (one, two), got = smoke.run_side_by_side([("one", "ok:0.2", 1), ("two", "ok:1.5", 2)],
+                                             beside=lambda: smoke.time.sleep(1.0) or "beside")
+    took = smoke.time.perf_counter() - t0
+    assert got == "beside" and [r["rank"] for r in two[0]] == [0, 1] and one[0][0]["rank"] == 0
+    assert one[1] < 1.0 < two[1] < took < 3.0, (one[1], two[1], took)
+    assert len(smoke.PORTS_GIVEN) >= 2
+    real_start, started = smoke.start_ranks, []
+    monkeypatch.setattr(smoke, "start_ranks", lambda *a: started.append(real_start(*a)) or started[-1])
+    with pytest.raises(smoke.SmokeFailure, match="bad: rank 1 exited 3"):
+        smoke.run_side_by_side([("slow", "ok:30", 2), ("bad", "fail:0.1", 2)])
+    assert len(started) == 2 and all(p.poll() is not None for job in started for p, _ in job["procs"])
+    assert smoke.time.perf_counter() - t0 < 20
+    assert smoke.run_ranks("alone", "ok:0", 1)[0][0]["launches"] == {"k": 1}
+
+
+def test_bf16_gradients_held_against_the_f32_world_of_one(smoke, tmp_path):
+    """``bf16_against_f32``: a run on ranks passes while its distance to
+    the f32 gradients is within ``DP_BF16_FACTOR`` x the bf16 world of
+    one's, and fails past it."""
+    rng = np.random.default_rng(0)
+    ref = [rng.standard_normal((8, 4)), rng.standard_normal(8)]
+    noise = [rng.standard_normal(w.shape) for w in ref]
+
+    def write(name, scale):
+        d = tmp_path / name
+        d.mkdir(exist_ok=True)
+        for suffix in (".grads.npz", ".rows.npz"):
+            np.savez(d / f"rank0{suffix}", *[w + scale * n for w, n in zip(ref, noise)])
+        return d
+
+    ref_dir, one_dir = write("ref", 0.0), write("one", 0.01)
+    ratio = smoke.bf16_against_f32(write("two", 0.015), one_dir, ref_dir)
+    assert ratio == pytest.approx(1.5)
+    with pytest.raises(smoke.SmokeFailure, match="from the f32 world of one's"):
+        smoke.bf16_against_f32(write("far", 0.03), one_dir, ref_dir)

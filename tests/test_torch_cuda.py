@@ -1136,3 +1136,84 @@ def test_family_steps_on_card_match_cpu(cuda, tmp_path, name):
 
 def _clone(x):
     return {k: _clone(v) for k, v in x.items()} if isinstance(x, dict) else x.clone()
+
+
+# ---------------------------------------------------------- multi-step dispatch
+
+SCAN_CASES = {
+    # (model, its config, dtype, batch-shared candidates, sparse tables)
+    "lookup-dense-f32": ("LookupComplexRelationModel", dict(batch_norm=True), "float32", False),
+    "lstm-sparse-bf16": ("LSTMComplexRelationModel", dict(normalize="batchnorm", dropout=0.1, sparse=True),
+                         "bfloat16", True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_graphed_window_equals_eager_steps_on_card(cuda, tmp_path, case):
+    """``make_scanned_step`` on the card: a window's first call runs its K
+    steps eagerly, its second captures them into one CUDA graph and replays
+    it.  From the same state and generator state, the replayed window and
+    the K steps run eagerly: the first loss bit for bit (the forward has no
+    atomics; dropout draws the same masks), every loss within 1e-3, the
+    state after the window within 2^-6 of each leaf's largest (the
+    backward's atomic adds differ run to run), the generator in the same
+    state; and the graph wrote the caller's own tensors."""
+    from open_knowledge_graph_embeddings_tpu_torch.data.batching import BatchBuilder
+    from open_knowledge_graph_embeddings_tpu_torch.data.dataset import OneToNMentionRelationDataset
+    from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes, leaves
+    from open_knowledge_graph_embeddings_tpu_torch.train.sparse import SparsePlanBuilder, make_sparse_train_step
+    from open_knowledge_graph_embeddings_tpu_torch.train.step import (
+        PackedWindow,
+        make_scanned_step,
+        make_train_step,
+        train_batch_to_arrays,
+        window_views,
+    )
+
+    name, cfg, dtype, shared = SCAN_CASES[case]
+    subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "make_synth_olpbench.py"), str(tmp_path),
+         "--mentions", "600", "--relations", "40", "--triples", "600",
+         "--eval-size", "20", "--ent-tokens", "150", "--rel-tokens", "30", "--seed", "7"],
+        check=True, capture_output=True, timeout=120,
+    )
+    ds = OneToNMentionRelationDataset(dataset_dir=str(tmp_path), input_file="train.txt", is_training_data=True,
+                                      batch_size=64, use_batch_shared_entities=shared, min_size_batch_labels=128)
+    model = build_model(name, ds.meta, **{"entity_slot_size": 128, "init_std": 0.1, "dtype": dtype, **cfg})
+    v = model.init(torch.Generator(device=cuda).manual_seed(0))
+    reg = OptimizerRegimes({"optimizer": "Adagrad", "lr": 0.2})
+    reg.update(1, 0)
+    opt = reg.init_state(v["params"])
+    if shared:
+        plan = SparsePlanBuilder(model.embedder, True, min_rows_ratio=0.0)
+        step, to_arrays = make_sparse_train_step(model, reg, v["params"], True), plan
+    else:
+        step, to_arrays = make_train_step(model, reg, v["params"]), train_batch_to_arrays
+    arrays = [to_arrays(b) for b in BatchBuilder(ds, seed=1).batches(shuffle=True)]
+    K = 3
+    sig = lambda a: sorted((n, np.shape(x)) for n, x in a.items())  # noqa: E731
+    window = [a for a in arrays if sig(a) == sig(arrays[0])][:K]
+    assert len(window) == K
+    packed = PackedWindow(window, pin=True)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    scanned = make_scanned_step(step, K)
+    scanned(v, opt, reg.hparams(), packed, gen)  # a signature's first window: eager
+    state = dict(leaves({"v": {"p": v["params"], "s": v["state"]}, "o": opt}))
+    before = {k: t.clone() for k, t in state.items()}
+    gen_before = gen.get_state()
+    out_v, out_o, stats = scanned(v, opt, reg.hparams(), packed, gen)  # captured and replayed
+    assert scanned.captures == 1 and scanned.replays == 1 and out_v is v and out_o is opt
+    graphed = {k: t.clone() for k, t in state.items()}
+    gen_after = gen.get_state()
+    for k, t in state.items():
+        t.copy_(before[k])
+    gen.set_state(gen_before)
+    views = window_views(packed.host.to(cuda), packed.layout)
+    eager = [scanned.single(v, opt, reg.hparams(), {n: x[i] for n, x in views.items()}, gen)[2]["loss_sum"]
+             for i in range(K)]
+    assert torch.equal(gen.get_state(), gen_after)
+    assert stats["loss_sum"][0].item() == eager[0].item()
+    np.testing.assert_allclose(stats["loss_sum"].cpu().numpy(), torch.stack(eager).cpu().numpy(), rtol=1e-3)
+    for k, t in state.items():
+        top = float(t.abs().max()) if t.numel() else 0.0
+        assert float((graphed[k] - t).abs().max() if t.numel() else 0.0) <= 2 ** -6 * top + 1e-30, k

@@ -26,6 +26,9 @@ def test_port_imports_with_jax_blocked():
         "    assert p.__name__ + '.' + m in names, names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "step = importlib.import_module(p.__name__ + '.train.step')\n"
+        "assert callable(step.make_scanned_step) and callable(step.PackedWindow)\n"
+        "assert callable(importlib.import_module(p.__name__ + '.train.checkpoint').CheckpointManager)\n"
         "bad = [m for m in sys.modules if m == 'open_knowledge_graph_embeddings_tpu'\n"
         "       or m.startswith('open_knowledge_graph_embeddings_tpu.')]\n"
         "assert not bad, bad\n"

@@ -117,6 +117,46 @@ def test_two_ranks_accumulate_as_one_rank(toy_dataset_dir, tmp_path):
     _assert_runs_equal(single_dir, multi_dir)
 
 
+def _opt_leaves(exp_dir):
+    r = open_checkpoint_reader(_newest_checkpoint(exp_dir))
+    return {k: np.asarray(r.read_full(k)) for k in r.keys() if k.startswith("opt/")}
+
+
+def test_two_ranks_train_the_flagship_family_as_one_rank(toy_dataset_dir, tmp_path):
+    """The flagship's family on two ranks (LSTM ComplEx: row-sparse token
+    tables, dropout 0.1, batchnorm, batch-shared training) against a world
+    of one over 3 passes: the first pass's training loss, every validation
+    MRR and h10 at rtol 1e-5, every optimizer step counter equal and the
+    same rows of every table updated (a row's Adagrad sum leaves 0 when a
+    step touches it).  The parameters are held only to 5 % of max|want|:
+    Adagrad's first steps move a weight by lr whatever its gradient's size,
+    so where a gradient sums to near 0 the order of the sums (one process
+    or two ranks, or one process on another thread count) picks the sign,
+    and training carries it, while the validation metrics stay equal."""
+    single_dir, multi_dir = str(tmp_path / "single"), str(tmp_path / "multi")
+    single = _start("port", toy_dataset_dir, single_dir, 1, "model=lstm")
+    multi = _start("port", toy_dataset_dir, multi_dir, 2, "model=lstm")
+    _join(single)
+    _join(multi)
+    rows_s, rows_m = _rows(single_dir), _rows(multi_dir)
+    np.testing.assert_allclose(_column(rows_m, "training_loss")[0], _column(rows_s, "training_loss")[0], rtol=1e-5)
+    for key in ("validation_mrr", "validation_h10"):
+        col_s, col_m = _column(rows_s, key), _column(rows_m, key)
+        assert len(col_s) == len(col_m) > 0, key
+        np.testing.assert_allclose(col_m, col_s, rtol=1e-5, err_msg=key)
+    opt_s, opt_m = _opt_leaves(single_dir), _opt_leaves(multi_dir)
+    assert set(opt_s) == set(opt_m) and "opt/entity_token_embedding/sum" in opt_s
+    for k, w in opt_s.items():
+        if k.endswith("/step"):
+            np.testing.assert_array_equal(opt_m[k], w, err_msg=k)
+        elif w.ndim == 2:
+            np.testing.assert_array_equal((opt_m[k] != 0).any(1), (w != 0).any(1), err_msg=k)
+    p_s, p_m = _final_params(single_dir), _final_params(multi_dir)
+    assert set(p_s) == set(p_m)
+    for k, w in p_s.items():
+        assert np.abs(p_m[k] - w).max() <= 0.05 * np.abs(w).max(), k
+
+
 def _assert_runs_equal(single_dir, multi_dir):
     p_single, p_multi = _final_params(single_dir), _final_params(multi_dir)
     assert set(p_single) == set(p_multi)

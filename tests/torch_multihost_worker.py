@@ -1,6 +1,7 @@
 """Subprocess worker of tests/test_torch_multihost.py.
 
 Usage: python torch_multihost_worker.py PACKAGE DATASET_DIR EXP_DIR NPROC PID PORT [start=CKPT] [accum=N]
+    [model=lstm]
 
 PACKAGE ``port``: the port's ``cli.train`` on the CPU.  With NPROC > 1 the
 rank joins a ``gloo`` world through the ``OKET_*`` environment variables
@@ -14,7 +15,9 @@ PACKAGE ``jax``: the JAX package's ``cli.train`` in one process on a data =
 
 Both train lookup ComplEx on the toy set of tests/multihost_worker.py
 (batch-shared candidates, eval batch 1), from the checkpoint ``start``
-when given, with ``batch_size_for_backward`` ``accum`` x 4 when given.
+when given, with ``batch_size_for_backward`` ``accum`` x 4 when given;
+the port with ``model=lstm`` trains the flagship's family instead (LSTM
+ComplEx with row-sparse token tables, dropout 0.1 and batchnorm).
 """
 
 import os
@@ -38,6 +41,9 @@ ARGS = dict(
     val_data_config={"input_file": "valid.txt", "batch_size": 1, "use_batch_shared_entities": False},
     test_data_config={"input_file": "test.txt", "batch_size": 1, "use_batch_shared_entities": False},
 )
+if opts.get("model") == "lstm":  # the flagship's family: token LSTMs, row-sparse token tables
+    ARGS.update(model="LSTMComplexRelationModel", model_config={
+            "entity_slot_size": 16, "init_std": 0.1, "dropout": 0.1, "normalize": "batchnorm", "sparse": True})
 if start:
     ARGS.update(resume=start, resume_load_args=False)
 if "accum" in opts:
