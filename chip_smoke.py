@@ -44,7 +44,9 @@ Phases (any failure exits non-zero before the final line):
    in 3; the Adagrads' device ms from the profiler with L2 flushed before
    each launch and from a CUDA graph of 50 launches, and their host µs per
    launch), and the backward's launches by kind (gate, product,
-   dW) each beside its part of the bound; in bf16 hold the backward's recomputed
+   dW) each beside its part of the bound on both passes; in bf16 the dW
+   launch alone on the entity pass with the rows past each step's active
+   prefix zero and NaN (the same bits), and hold the backward's recomputed
    gates to kernel 1's bitwise (both in their measuring variant that stores
    the f32 pre-activation gates, on the entity pass and at B=37 with
    lengths uniform in 0..10: 0 elements may differ);
@@ -221,7 +223,11 @@ Phases (any failure exits non-zero before the final line):
 
 ``python3 chip_smoke.py --mrr-spread`` runs only the validation MRR of the
 data-parallel cut over ``MRR_SEEDS`` in every layout (a world of one, data
-parallel, the model axis; bf16 and f32).
+parallel, the model axis; bf16 and f32).  ``python3 chip_smoke.py
+--backward-split DIR`` times only the bf16 backward's launches by kind of
+the port in the checkout at DIR on seeded inputs at the flagship's pass
+shapes (``backward_split``), so that a parent and a change run in turns in
+one call.
 
 Imports nothing of JAX.  Needs one card; writes only under ``.bench_cache/``
 and the package's ``_build/``.
@@ -1674,6 +1680,7 @@ def check_lstm_backward(torch, captured):
     cases.append(("B=37, lengths uniform in 0..10", np.sort(rng.integers(0, 11, 37)).astype(np.int32)[::-1].copy()))
     if dtype == torch.bfloat16:
         check_gates_bitwise(torch, f"training entity pass B={entity[0].shape[1]}", entity[:5])
+        check_dw_poisoned_rows(torch, "training entity pass", entity)
     for label, lens in cases:
         b = len(lens)
         emb, wih, whh, bias, lens_t, _ = lstm_inputs(torch, gen, 10, b, 512, 512, lens, dtype)
@@ -1721,6 +1728,10 @@ def check_lstm_backward(torch, captured):
     if dtype == torch.float32:
         check_1xtf32_variant(torch, args, False, plain["entity pass"])
     print_backward_launch_ms(torch, f"lstm_last_bwd{sfx}", args, lambda: lk.lstm_last_backward(*args))
+    t0 = time.perf_counter()
+    print_backward_launch_ms(torch, f"lstm_last_bwd{sfx}", relation, lambda: lk.lstm_last_backward(*relation),
+                             label="relation pass")
+    print(f"lstm_last_bwd{sfx} relation pass launch split: {time.perf_counter() - t0:.1f} s")
     return {"name": "lstm_last_bwd" + sfx, "route": "cuda", "source": f"{PKG}/csrc/lstm_last_bwd.cu",
             "replaces": "open_knowledge_graph_embeddings_tpu/ops/pallas/lstm_kernel.py:569",
             "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -1809,46 +1820,84 @@ def ffma_note(ops, dtype):
 # the kinds of launch of the f32 kernels, by a part of their kernel's name
 BACKWARD_F32_KINDS = {"split": "split_kernel_tf32", "gate": "gate_kernel_tf32", "product": "product_kernel_tf32",
                       "dW": "dw_kernel_tf32"}
-# and of the bf16 backward (the f32 kernels' names hold these too, so they
-# are read only from a bf16 call)
+# and of the bf16 backward (the f32 gate and product kernels' names hold
+# these too, so they are read only from a bf16 call)
 BACKWARD_BF16_KINDS = {"gate": "lstm_bwd_gate_kernel", "product": "lstm_bwd_product_kernel",
-                       "dW": "lstm_bwd_dw_kernel"}
+                       "dW": "lstm_bwd_dw_kernel_bf16"}
+# the same kinds in any tree of the port, the dW launch by the prefix of
+# both of its kernels' names (``--backward-split``: a parent beside a change)
+BACKWARD_BF16_KINDS_ANY_TREE = {**BACKWARD_BF16_KINDS, "dW": "lstm_bwd_dw_kernel"}
 FORWARD_F32_KINDS = {"split": "split_kernel_tf32", "steps": "fwd_step_kernel_tf32"}
 
 
-def launch_ms(torch, fn, kinds=BACKWARD_F32_KINDS, reps=5):
+# traces taken of a call before its launch split is given up as not measured,
+# and the launches of a small fill that open the first (four times as many
+# each try after)
+LAUNCH_TRACE_TRIES = 3
+LAUNCH_TRACE_PAD = 128
+
+
+def launch_ms(torch, fn, kinds=BACKWARD_F32_KINDS, reps=5, want=None):
     """Device ms per call of each kind of launch of ``fn`` (all the call's
     launches of that kind; the f32 backward's split, gate, product, dW by
     default), from torch.profiler over ``reps`` calls of ``fn``; None where
-    the trace has no device time."""
+    the trace has no device time.  With ``want`` (each kind's launches a
+    call) the trace's records are counted: minutes into a busy process the
+    profiler loses a session's first GPU records (the first 6 of an f32
+    backward's trace, ~80 of a bf16 one's, on an H100; PERF.md §6), so the
+    session opens with ``LAUNCH_TRACE_PAD`` launches of a small fill that
+    no kind counts, and a trace still short of a kind's launches is taken
+    again with four times the fill, up to ``LAUNCH_TRACE_TRIES`` times;
+    None where none held them all.  A kind with no record while every
+    other kind holds all of its launches is no loss (a lost prefix of whole
+    calls takes every kind of them): it is returned at 0."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    pad = torch.empty(1, device="cuda") if want and torch.cuda.is_available() else None
+    for attempt in range(LAUNCH_TRACE_TRIES if want else 1):
+        fn()
         torch.cuda.synchronize()
-    out = {k: 0.0 for k in kinds}
-    for e in prof.key_averages():
-        for k, sub in kinds.items():
-            if sub in e.key:
-                out[k] += e.self_device_time_total / 1e3 / reps
-    return out if any(out.values()) else None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(LAUNCH_TRACE_PAD * 4 ** attempt if pad is not None else 0):
+                pad.zero_()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out, counts = {k: 0.0 for k in kinds}, {k: 0 for k in kinds}
+        for e in prof.key_averages():
+            for k, sub in kinds.items():
+                if sub in e.key:
+                    out[k] += e.self_device_time_total / 1e3 / reps
+                    if want:
+                        counts[k] += e.count
+        whole = all(not counts[k] or counts[k] >= reps * n for k, n in (want or {}).items()) and any(counts.values())
+        if not want or whole:
+            return out if any(out.values()) else None
+        print(f"launch split: the trace holds {counts} of {({k: reps * n for k, n in want.items()})} launches "
+              f"(records lost)")
+    return None
 
 
-def print_backward_launch_ms(torch, name, args, fn):
+def print_backward_launch_ms(torch, name, args, fn, kinds=None, label="entity pass"):
     """The launches of one call ``fn`` of kernel 2 or 6 on ``args`` by kind
     (device ms per call, torch.profiler): at bf16 gate, product and dW, at
-    f32 also the split; each product kind beside the bound of its part
-    (``backward_parts``, at the dtype's peak rate).  Returns the ms by kind,
-    or None where the trace has no device time."""
+    f32 also the split (``kinds`` by default); each product kind beside the
+    bound of its part (``backward_parts``, at the dtype's peak rate).
+    Returns the ms by kind, or None where no trace holds every launch
+    (``launch_ms``); a trace with all the launches of some kinds but none of
+    another fails (a kernel renamed away from its kind would be read as
+    free)."""
     emb, lens = args[0], args[4]
+    L = emb.shape[0]
     f32 = emb.dtype == torch.float32
-    by_kind = launch_ms(torch, fn, BACKWARD_F32_KINDS if f32 else BACKWARD_BF16_KINDS)
+    kinds = kinds or (BACKWARD_F32_KINDS if f32 else BACKWARD_BF16_KINDS)
+    want = {"split": 1, "gate": L, "product": L, "dW": 1}
+    by_kind = launch_ms(torch, fn, kinds, want={k: want[k] for k in kinds})
     if by_kind is None:
-        print(f"{name} launches: no device time in the trace (not measured)")
+        print(f"{name} launches: no whole trace of the call's launches (not measured)")
         return None
+    check(all(by_kind.values()), f"{name}: no device time for the kinds "
+          f"{[k for k, v in by_kind.items() if not v]} ({kinds})")
     parts = backward_parts(emb.shape[1], emb.shape[2], args[2].shape[1], int(lens.clamp(min=1).sum().item()))
     peak = peak_flops(emb.dtype)
     rate = "3xTF32" if f32 else "bf16"
@@ -1859,7 +1908,7 @@ def print_backward_launch_ms(torch, name, args, fn):
         bound = parts[k] / peak * 1e3
         return f" ({rate} bound of its part {bound:.4f}, {bound / v:.1%} of it)"
 
-    print(f"{name} launches on the entity pass B={emb.shape[1]}, device ms per call (torch.profiler): "
+    print(f"{name} launches on the {label} B={emb.shape[1]}, device ms per call (torch.profiler): "
           + ", ".join(f"{k} {v:.4f}{part(k, v)}" for k, v in by_kind.items()) + f"; sum {sum(by_kind.values()):.4f}")
     return by_kind
 
@@ -1894,6 +1943,61 @@ def check_gates_bitwise(torch, label, fwd_args, stored=None):
     print(f"gates bitwise, kernel 1 vs the backward's gate launch, {label}: {n} of {total} f32 pre-activation "
           f"gates unequal")
     check(n == 0, f"the backward's gate launch does not recompute kernel 1's gates bitwise at {label}: {n} unequal")
+
+
+def check_dw_poisoned_rows(torch, label, args):
+    """The bf16 dW launch alone (``lstm_kernel._launch_dw``) on a pass's x,
+    hs and lengths with a seeded dg and db_part, twice: with the rows of dg,
+    x and hs past each step's active prefix (and db_part's inactive row
+    tiles) zero, and filled with NaN.  The kernel zeroes a step's last
+    chunk past its prefix in shared memory (TMA zero-fills only past B), so
+    the two must be the same bits; dW is held to f32 products of the active
+    rows by the bf16 rule, db to the f32 sum of the active tiles within
+    ``DB_RTOL``."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import agreement
+
+    t0 = time.perf_counter()
+    emb, lens, hs = args[0], args[4], args[5]
+    L, B, D = emb.shape
+    H = hs.shape[2]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    lens_i = lens.to(torch.int32).contiguous()
+    nrows = [int(n) for n in (lens_i.clamp(min=1)[None, :] > torch.arange(L, device="cuda")[:, None]).sum(1)]
+    rows = torch.arange(B, device="cuda")
+    past = torch.stack([rows >= n for n in nrows])  # [L, B]: row past step t's prefix
+    past_h = torch.ones_like(past)  # hs[t] is read at step t + 1 only
+    past_h[:-1] = past[1:]
+    nrb = -(-B // 128)
+    tile_past = torch.stack([torch.arange(nrb, device="cuda") * 128 >= n for n in nrows])  # [L, nrb]
+    dg = (torch.randn(L, B, 4 * H, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    db_part = torch.randn(L, nrb, 4 * H, generator=gen, device="cuda")
+    outs = {}
+    for fill in (0.0, float("nan")):
+        filled = [x.masked_fill(m[..., None], fill) for x, m in ((dg, past), (emb, past), (hs, past_h),
+                                                                  (db_part, tile_past))]
+        out = (torch.empty(4 * H, D, dtype=torch.bfloat16, device="cuda"),
+               torch.empty(4 * H, H, dtype=torch.bfloat16, device="cuda"),
+               torch.empty(4 * H, device="cuda"))
+        lk._launch_dw(*filled[:3], lens_i, filled[3], *out, lk._sm_count(0), torch.cuda.current_stream().cuda_stream)
+        outs[fill == 0.0] = out
+    torch.cuda.synchronize()
+    zero, nan = outs[True], outs[False]
+    unequal = [int((a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32)
+                    != b.view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32)).sum().item())
+               for a, b in zip(zero, nan)]
+    dgf, xf, hf = (x.masked_fill(m[..., None], 0.0).float() for x, m in ((dg, past), (emb, past), (hs, past_h)))
+    want_ih = torch.einsum("lbg,lbd->gd", dgf, xf)
+    want_hh = torch.einsum("lbg,lbh->gh", dgf[1:], hf[:-1])
+    want_db = db_part.masked_fill(tile_past[..., None], 0.0).sum((0, 1))
+    a_ih, a_hh = agreement(zero[0], want_ih.to(torch.bfloat16)), agreement(zero[1], want_hh.to(torch.bfloat16))
+    db_err = (zero[2] - want_db).abs().max().item() / want_db.abs().max().item()
+    print(f"dW launch alone, {label} B={B}: dW_ih {a_ih}; dW_hh {a_hh}; db {db_err:.3e} of max|want|; NaN past each "
+          f"step's prefix vs zero there: {unequal} of {[x.numel() for x in zero]} elements unequal (dW_ih, dW_hh, "
+          f"db); {time.perf_counter() - t0:.1f} s")
+    check(unequal == [0, 0, 0], f"the dW launch reads rows past the active prefix at {label}: {unequal} unequal")
+    check(a_ih.ok() and a_hh.ok(), f"the dW launch disagrees with f32 products at {label}")
+    check(db_err <= DB_RTOL, f"db of the dW launch off by {db_err:.3e} of max|want| at {label}")
 
 
 def check_scan_gates_bitwise(torch, label, x_proj, w_hh, stored=None):
@@ -2046,10 +2150,17 @@ def peak_flops(dtype):
     return PEAK_3XTF32_FLOPS if str(dtype) == "torch.float32" else PEAK_BF16_FLOPS
 
 
+# rounds of 10 calls each in which cuDNN's LSTM backward is timed: one
+# round's reading moved 1.09-2.87 ms within and between calls on the same
+# seeded passes (NVIDIA H100 80GB HBM3), so its median stands for it
+LIBRARY_ROUNDS = 7
+
+
 def library_lstm_backward_ms(torch, args):
     """cuDNN's packed ``nn.LSTM`` backward on the same inputs and cotangent
     (h_n's gradient into the inputs and weights), timed alone over a
-    retained graph; never used by the port."""
+    retained graph: the median ms of ``LIBRARY_ROUNDS`` rounds of 10 calls,
+    the rounds' least and largest in the note; never used by the port."""
     emb, w_ih, w_hh, bias, lens, _, _, dlast = args
     D, H = emb.shape[2], w_hh.shape[1]
     dt = str(emb.dtype).replace("torch.", "")
@@ -2065,10 +2176,12 @@ def library_lstm_backward_ms(torch, args):
         packed = torch.nn.utils.rnn.pack_padded_sequence(x, lens.clamp(min=1).cpu(), enforce_sorted=True)
         _, (h_n, _) = lstm(packed)
         grad = dlast[None]
-        ms = cuda_ms(lambda: h_n.backward(grad, retain_graph=True), iters=10)
+        rounds = [cuda_ms(lambda: h_n.backward(grad, retain_graph=True), iters=10) for _ in range(LIBRARY_ROUNDS)]
     except RuntimeError as e:  # a library build without this dtype's LSTM backward
         return None, f"nn.LSTM {dt} backward unavailable: {str(e).splitlines()[0]}"
-    return ms, f"nn.LSTM packed {dt} backward (cuDNN), h_n cotangent into inputs and weights"
+    return float(np.median(rounds)), (f"nn.LSTM packed {dt} backward (cuDNN), h_n cotangent into inputs and weights; "
+                                      f"median of {LIBRARY_ROUNDS} rounds, least {min(rounds):.4f}, "
+                                      f"largest {max(rounds):.4f}")
 
 
 # ------------------------------------------------- kernels 7 and 8: the unfused path
@@ -2248,8 +2361,9 @@ def library_lstm_all_ms(torch, D, H, emb, lens=None, grad=None):
     """One cuDNN ``nn.LSTM`` call in ``emb``'s dtype over ``emb`` [L, B, D]:
     unpacked, or packed by ``lens`` (every output returned either way).  With
     ``grad`` (the outputs' cotangent) the backward alone, timed over a
-    retained graph.  Timed, never used by the port; returns (ms or None,
-    note)."""
+    retained graph: the median of ``LIBRARY_ROUNDS`` rounds of 10 calls, the
+    rounds' least and largest in the note.  Timed, never used by the port;
+    returns (ms or None, note)."""
     dt = str(emb.dtype).replace("torch.", "")
     lstm = torch.nn.LSTM(D, H).to(device="cuda", dtype=emb.dtype)
     # cuDNN's flat weight buffer does not take bf16, so each call packs the
@@ -2269,8 +2383,10 @@ def library_lstm_all_ms(torch, D, H, emb, lens=None, grad=None):
                 return cuda_ms(lambda: lstm(inp), iters=10), f"nn.LSTM {form} {dt} forward (cuDNN), every output"
         out, _ = lstm(inp)
         out, g = (out, grad) if lens is None else (out.data, pack(grad).data)
-        return (cuda_ms(lambda: out.backward(g, retain_graph=True), iters=10),
-                f"nn.LSTM {form} {dt} backward (cuDNN), every output's cotangent into inputs and weights")
+        rounds = [cuda_ms(lambda: out.backward(g, retain_graph=True), iters=10) for _ in range(LIBRARY_ROUNDS)]
+        return float(np.median(rounds)), (f"nn.LSTM {form} {dt} backward (cuDNN), every output's cotangent into "
+                                          f"inputs and weights; median of {LIBRARY_ROUNDS} rounds, least "
+                                          f"{min(rounds):.4f}, largest {max(rounds):.4f}")
     except RuntimeError as e:  # a library build without LSTM support in this dtype
         return None, f"nn.LSTM {dt} {form} unavailable: {str(e).splitlines()[0]}"
 
@@ -2697,21 +2813,29 @@ COLD_KERNELS = {"adagrad_dense_kernel": ("adagrad_kernel", "adagrad_update_leave
 
 
 def cold_kernel_ms(torch, name, args, n=20):
-    """Device ms a launch of the kernel ``name`` (a key of ``COLD_KERNELS``)
-    on its wrapper's ``args``, by torch.profiler, with 256 MB written before
-    each launch so that it finds L2 (50 MB) cold, as the training step finds
-    the rows and leaves it updates.  Taken in a new process that shares
-    ``args`` through CUDA IPC (the wrapper updates them in place): minutes
-    into a busy process, every profiler session of that process loses its
-    first GPU records, more the longer the process has run, while a new
-    process started at the same moment keeps them all (PERF.md §6).  The
-    trace must hold exactly ``n`` launches."""
+    """``cold_kernels_ms`` of one kernel."""
+    return cold_kernels_ms(torch, [(name, args)], n)[0]
+
+
+def cold_kernels_ms(torch, jobs, n=20):
+    """Device ms a launch of each kernel ``name`` of ``jobs`` ((name, args)
+    pairs; a name is a key of ``COLD_KERNELS``) on its wrapper's ``args``,
+    by torch.profiler, with 256 MB written before each launch so that it
+    finds L2 (50 MB) cold, as the training step finds the rows and leaves it
+    updates.  Taken in a new process, one for all of ``jobs`` (each new
+    process takes ~15 s to start on the card's host), that shares the args
+    through CUDA IPC (the wrapper updates them in place): minutes into a
+    busy process, every profiler session of that process loses its first
+    GPU records, more the longer the process has run, while a new process
+    started at the same moment keeps them all (PERF.md §6).  Each trace must
+    hold exactly ``n`` launches."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     recv, send = ctx.Pipe(duplex=False)
     torch.cuda.synchronize()
-    proc = ctx.Process(target=_cold_kernel_child, args=(name, args, n, send))
+    name = " and ".join(name for name, _ in jobs)
+    proc = ctx.Process(target=_cold_kernel_child, args=(jobs, n, send))
     proc.start()
     try:
         send.close()
@@ -2729,27 +2853,41 @@ def cold_kernel_ms(torch, name, args, n=20):
     return out
 
 
-def _cold_kernel_child(name, args, n, send):
-    """``cold_kernel_ms``'s process: sends (True, ms) or (False, why)."""
+def cold_args(captured):
+    """A recorded Adagrad launch's wrapper arguments (kernel 3: gs, ps, accs,
+    steps, hp; kernel 4: g_rows, uids, valid, ps, accs, steps, hp) with the
+    values and sums cloned, for ``cold_kernels_ms`` to update in place."""
+    *head, ps, accs, steps, hp = captured
+    return (*head, _clones(ps), _clones(accs), steps, hp)
+
+
+def _cold_kernel_child(jobs, n, send):
+    """``cold_kernels_ms``'s process: sends (True, [ms a job]) or (False,
+    why)."""
     try:
         import importlib
 
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        module, entry = COLD_KERNELS[name]
-        wrapper = getattr(importlib.import_module(f"{PKG}.ops.{module}"), entry)
         flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-        wrapper(*args)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                flush.zero_()
-                wrapper(*args)
+        out = []
+        for name, args in jobs:
+            module, entry = COLD_KERNELS[name]
+            wrapper = getattr(importlib.import_module(f"{PKG}.ops.{module}"), entry)
+            wrapper(*args)
             torch.cuda.synchronize()
-        found = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
-        check(len(found) == 1 and found[0].count == n, f"the profile has {[(e.key, e.count) for e in found]} for {name}")
-        send.send((True, found[0].self_device_time_total / n / 1e3))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    flush.zero_()
+                    wrapper(*args)
+                torch.cuda.synchronize()
+            found = [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+            check(len(found) == 1 and found[0].count == n,
+                  f"the profile has {[(e.key, e.count) for e in found]} for {name}")
+            out.append(found[0].self_device_time_total / n / 1e3)
+        send.send((True, out))
     except BaseException as e:  # noqa: BLE001 - reported to the parent, which fails
         send.send((False, f"{type(e).__name__}: {e}"))
     finally:
@@ -2850,7 +2988,7 @@ def check_adagrad_cases(torch, name, cases, kernel, plain, faults):
     return max_err
 
 
-def check_adagrad(torch, captured, table_heights):
+def check_adagrad(torch, captured, table_heights, cold_ms):
     """Kernel 3 bit-equal to its plain twin on the first training step's
     whole group (the 12 dense leaves at their shapes, as the optimizer
     launched it), on a ragged group with planted faults, and through the
@@ -2878,7 +3016,7 @@ def check_adagrad(torch, captured, table_heights):
 
     p1, a1 = _clones(ps), _clones(accs)
     run = lambda: ak.adagrad_update_leaves(gs, p1, a1, steps, hp)  # noqa: E731
-    ms = cold_kernel_ms(torch, "adagrad_dense_kernel", (gs, p1, a1, steps, hp))
+    ms = cold_ms
     warm_ms = graph_ms(torch, run)
     events_ms = cuda_ms(run, iters=50)
     launch_us = host_us(torch, run)
@@ -2956,7 +3094,7 @@ def ragged_row_tables(torch, device="cuda"):
     return (*(list(x) for x in zip(*tables)), dict(RAGGED_HP))
 
 
-def check_row_adagrad(torch, captured):
+def check_row_adagrad(torch, captured, cold_ms):
     """Kernel 4 bit-equal to its plain twin on the first training step's two
     token tables in one launch (as the sparse step launched it) and on
     ragged tables with planted faults (a padding entry written, the
@@ -2974,7 +3112,7 @@ def check_row_adagrad(torch, captured):
                                   sk.scatter_adagrad_tables_plain, padding_writer(sk))
     p1, a1 = _clones(ps), _clones(accs)
     run = lambda: sk.scatter_adagrad_tables(g_rows, uids, valid, p1, a1, steps, hp)  # noqa: E731
-    ms = cold_kernel_ms(torch, "adagrad_rows_kernel", (g_rows, uids, valid, p1, a1, steps, hp))
+    ms = cold_ms
     warm_ms = graph_ms(torch, run)
     events_ms = cuda_ms(run, iters=50)
     launch_us = host_us(torch, run)
@@ -3070,6 +3208,57 @@ def launch_cost(torch, reps=200):
     out["optimizer_12_leaves_host_ms"] = host_us(torch, step, reps // 4) / 1e3
     out["optimizer_12_leaves_wall_ms"] = float(np.median([synced_ms() for _ in range(20)]))
     print("launch cost: " + json.dumps(out))
+    return out
+
+
+# the flagship's fused passes: entity (B = 5632 rows) and relation (B = 3072
+# deduplicated rows), L = 10, D = H = 512
+SPLIT_SHAPES = {"entity pass": 5632, "relation pass": 3072}
+
+
+def backward_split(torch):
+    """The bf16 backward of the port this process imports, on seeded inputs
+    at the flagship's pass shapes (``SPLIT_SHAPES``, lengths by
+    ``synth_lengths``, kernel 1's residuals): its launches by kind (gate,
+    product, dW; device ms per call, torch.profiler) each beside its part of
+    the bound, the whole call (CUDA events) beside cuDNN's packed backward,
+    and where the port has the dW launch's measuring variants
+    (``lstm_kernel.DW_VARIANTS``) the launch alone in each.  The inputs
+    depend on the seed alone, so ``--backward-split DIR`` run on two trees
+    in turns (parent, change, change, parent) compares them in one call.
+    Returns the ms."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+
+    out = {}
+    for label, B in SPLIT_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 30 + B)
+        lens = synth_lengths(np.random.default_rng(SEED + 30 + B), B)
+        emb, wih, whh, bias, lens_t, _ = lstm_inputs(torch, gen, 10, B, 512, 512, lens)
+        _, hs, cs = lk._forward(emb, wih, whh, bias, lens_t, residuals=True)
+        dlast = (torch.randn(B, 512, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        args = (emb, wih, whh, bias, lens_t, hs, cs, dlast)
+
+        def call():
+            return lk.lstm_last_backward(*args)
+
+        row = {"by_kind": print_backward_launch_ms(torch, "lstm_last_bwd", args, call,
+                                                   kinds=BACKWARD_BF16_KINDS_ANY_TREE, label=label),
+               "ms": cuda_ms(call, iters=10)}
+        row["library_ms"], note = library_lstm_backward_ms(torch, args)
+        if hasattr(lk, "DW_VARIANTS"):
+            # the dW launch alone, and without its products (the loads alone),
+            # on a seeded dg and this pass's x, hs and lengths
+            dg = (torch.randn(10, B, 2048, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+            db_part = torch.randn(10, -(-B // 128), 2048, generator=gen, device="cuda")
+            outs = (torch.empty(2048, 512, dtype=torch.bfloat16, device="cuda"),
+                    torch.empty(2048, 512, dtype=torch.bfloat16, device="cuda"), torch.empty(2048, device="cuda"))
+            lens_i = lens_t.to(torch.int32)
+            row["dw_alone_ms"] = {v: launch_ms(torch, lambda v=v: lk._launch_dw(
+                dg, emb, hs, lens_i, db_part, *outs, lk._sm_count(0), torch.cuda.current_stream().cuda_stream,
+                variant=v), {"dW": "lstm_bwd_dw_kernel"})["dW"] for v in lk.DW_VARIANTS}
+        print(f"backward split {label} B={B}: kernel {row['ms']:.4f} ms, cuDNN packed backward "
+              f"{row['library_ms']} ms ({note}); " + json.dumps({k: v for k, v in row.items() if k.startswith("dw")}))
+        out[label] = row
     return out
 
 
@@ -4536,18 +4725,19 @@ def phase_accum(torch, timings, by_path):
         repeat_probe(torch, trainer, wcap, capture.bwd[0])
     wcap.release()
 
+    jobs = [("adagrad_dense_kernel", cold_args(capture.dense))]
+    if capture.rows is not None:
+        jobs.append(("adagrad_rows_kernel", cold_args(capture.rows)))
+    cold = cold_kernels_ms(torch, jobs)
     gs, ps, accs, steps, hp = capture.dense
-    p1, a1 = _clones(ps), _clones(accs)
-    timings["accum_adagrad_cold_ms"] = ms = cold_kernel_ms(torch, "adagrad_dense_kernel", (gs, p1, a1, steps, hp))
+    timings["accum_adagrad_cold_ms"] = ms = cold[0]
     n = sum(p.numel() for p in ps)
     bound = (5 * 4 * n + 2 * 4 * len(ps)) / PEAK_BYTES_PER_S * 1e3
     print(f"accum adagrad_update at the window's leaves {[list(p.shape) for p in ps]} ({n} elements): device {ms:.4f} "
           f"ms a launch (profiler, L2 flushed before each), bound {bound:.4f} ms ({bound / ms:.1%} of it)")
     if capture.rows is not None:
         g_rows, uids, valid, ps, accs, steps, hp = capture.rows
-        p1, a1 = _clones(ps), _clones(accs)
-        ms = cold_kernel_ms(torch, "adagrad_rows_kernel", (g_rows, uids, valid, p1, a1, steps, hp))
-        timings["accum_scatter_adagrad_cold_ms"] = ms
+        timings["accum_scatter_adagrad_cold_ms"] = ms = cold[1]
         n_valid = [int(v.sum()) for v in valid]
         bytes_ = sum(5 * 4 * k * g.shape[1] + len(u) * (u.element_size() + 1) + 8
                      for k, g, u in zip(n_valid, g_rows, uids))
@@ -6244,7 +6434,7 @@ SCAN_TIMED_REPLAYS = 5
 # profiler names them (the f32 weight split is one function for both)
 SCAN_FUNCTIONS = {
     "bf16": ("lstm_last_step_kernel", "lstm_bwd_gate_kernel_bf16", "lstm_bwd_product_kernel_bf16",
-             "lstm_bwd_dw_kernel"),
+             "lstm_bwd_dw_kernel_bf16"),
     "f32": ("lstm_split_kernel_tf32", "lstm_fwd_step_kernel_tf32", "lstm_bwd_gate_kernel_tf32",
             "lstm_bwd_product_kernel_tf32", "lstm_bwd_dw_kernel_tf32"),
 }
@@ -6506,16 +6696,21 @@ def largest_table_reverted(state, before):
 
 
 def check_probed_window(torch, tag, trainer, probe):
-    """The first captured window run again twice, eagerly, from the state
-    and the generator's state it started from, on its own batch: the
+    """The first captured window run again three times, eagerly, from the
+    state and the generator's state it started from, on its own batch: the
     graph's first loss bit-equal to the eager one (the forward has no
-    atomics); its later losses within ``SCAN_RULE_FACTOR`` times the gap of
-    the two eager runs, the state after it by ``window_rule``, which the
-    second eager run must pass and three controls must fail: the state
-    left as it was before the window, the state one step short (the
-    window's first K - 1 steps run eagerly) and the window with its largest
-    table's update left out.  Leaves the trainer holding the first eager
-    run's state -> (that state, the numbers)."""
+    atomics); its later losses within ``SCAN_RULE_FACTOR`` times the eager
+    runs' gap: the median of the graph's gaps to the three eager runs
+    against the median of the three eager pairs' gaps (both sides are
+    draws of the token scatters' atomics; with one of each, the f32
+    window's read 3.0e-4 / 4.6e-4, 8.1e-4 / 6.7e-4, 1.4e-3 / 1.3e-3, 2.8e-5
+    / 1.3e-5 and 5.9e-3 / 3.6e-4 in five calls on an H100); the state after
+    it by ``window_rule``, which the second eager run must pass and three
+    controls must fail: the state left as it was before the window, the
+    state one step short (the window's first K - 1 steps run eagerly) and
+    the window with its largest table's update left out.  Leaves the
+    trainer holding the first eager run's state -> (that state, the
+    numbers)."""
     scanned, state = trainer.train_step_scan, state_of(trainer)
 
     def eager(n):
@@ -6529,21 +6724,25 @@ def check_probed_window(torch, tag, trainer, probe):
         return ({name: torch.stack([s[name] for s in stats]) for name in stats[0]},
                 {k: t.clone() for k, t in state.items()})
 
-    (s1, e1), (s2, e2), (_, short) = eager(scanned.k), eager(scanned.k), eager(scanned.k - 1)
+    (s1, e1), (s2, e2), (s3, _), (_, short) = (eager(scanned.k), eager(scanned.k), eager(scanned.k),
+                                                eager(scanned.k - 1))
     for k, t in state.items():
         t.copy_(e1[k])
-    g_loss, e_loss, e2_loss = probe.stats["loss_sum"], s1["loss_sum"], s2["loss_sum"]
+    g_loss, e_loss, e2_loss, e3_loss = probe.stats["loss_sum"], s1["loss_sum"], s2["loss_sum"], s3["loss_sum"]
     rel = lambda a, b: ((a.double() - b.double()).abs() / b.double().abs()).max().item()  # noqa: E731
     before, spread, (gap, leaf) = probe.before, state_gap(e2, e1)[0], state_gap(probe.after, e1)
-    out = {"first_loss_equal": bool(g_loss[0] == e_loss[0]), "loss_gap": rel(g_loss, e_loss),
-           "loss_spread": rel(e2_loss, e_loss), "state_gap": gap, "state_spread": spread, "leaf": leaf,
+    gaps = [rel(g_loss, e) for e in (e_loss, e2_loss, e3_loss)]
+    spreads = [rel(a, b) for a, b in ((e2_loss, e_loss), (e3_loss, e_loss), (e3_loss, e2_loss))]
+    out = {"first_loss_equal": bool(g_loss[0] == e_loss[0]), "loss_gap": float(np.median(gaps)),
+           "loss_spread": float(np.median(spreads)), "state_gap": gap, "state_spread": spread, "leaf": leaf,
            "movement_gap": movement_gap(probe.after, e1, before)[0], "movement_spread": movement_gap(e2, e1, before)[0]}
     controls = {"unchanged": before, "one step short": short, "largest table left out":
                 largest_table_reverted(e1, before)}
     verdicts = {name: window_rule(c, e1, before, spread) for name, c in controls.items()}
     print(f"{tag}: the first captured window ({scanned.k} steps) again eagerly, twice, from its state: first loss "
           f"graph {g_loss[0].item()!r} eager {e_loss[0].item()!r} (bit-equal: {out['first_loss_equal']}); later "
-          f"losses graph vs eager {out['loss_gap']:.3e} relative (eager vs eager {out['loss_spread']:.3e}); state "
+          f"losses graph vs eager {out['loss_gap']:.3e} relative, the median of {[f'{x:.3e}' for x in gaps]} (eager "
+          f"vs eager {out['loss_spread']:.3e}, of {[f'{x:.3e}' for x in spreads]}); state "
           f"after the window graph vs eager {gap:.3e} of max|want| ({leaf}), eager vs eager {spread:.3e}; "
           f"relative to the window's movement graph {out['movement_gap']:.3e}, eager {out['movement_spread']:.3e}")
     print(f"{tag}: the state rule (step counters equal, the same leaves moved, the largest leaf gap within "
@@ -6896,6 +7095,17 @@ def main(argv) -> int:
         print(f"launch cost of the port at {tree}")
         launch_cost(torch)
         return 0
+    if argv[:1] == ["--backward-split"]:
+        # the bf16 backward's launches of the port in the checkout at argv[1]
+        # (this one by default): two trees in one call, in turns
+        tree = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
+        check((tree / PKG).is_dir(), f"no {PKG}/ under {tree}")
+        sys.path.insert(0, str(tree))
+        print(f"backward split of the port at {tree}")
+        read_peaks(torch)
+        build_kernels(torch, {})
+        backward_split(torch)
+        return 0
     sys.path.insert(0, str(ROOT))
     if argv[:1] in (["--dp-rank"], ["--mp-shard-map"], ["--scan-profile"]):
         # one rank of phase_data_parallel's or phase_model_parallel's runs
@@ -6950,9 +7160,11 @@ def main(argv) -> int:
         fwd_err = max(fwd_err, check_lstm_residuals(torch, capture.fwd))
         time_forward_passes(torch, capture.fwd)
         row_fwd["max_abs_err"] = max(row_fwd["max_abs_err"], fwd_err)
+        cold = cold_kernels_ms(torch, [("adagrad_dense_kernel", cold_args(capture.dense)),
+                                       ("adagrad_rows_kernel", cold_args(capture.rows))])
         rows = [row_fwd, row_bwd,
-                check_adagrad(torch, capture.dense, table_heights),
-                check_row_adagrad(torch, capture.rows)]
+                check_adagrad(torch, capture.dense, table_heights, cold[0]),
+                check_row_adagrad(torch, capture.rows, cold[1])]
         fused_entity_pass = capture.fwd[0][0]
         del capture
         rows += time_every_state(torch, fused_entity_pass, *check_every_state(torch, fused_entity_pass))

@@ -58,8 +58,12 @@ constexpr int STAGES = 6;
 constexpr int A_BYTES = TM * TK * 2;  // 16 KB
 constexpr int W_BYTES = TN * TK * 2;  // 16 KB
 constexpr int STAGE_BYTES = A_BYTES + W_BYTES;
-// the ring, its barriers, and slack to align the ring to 1024 bytes
-constexpr int SMEM = STAGES * STAGE_BYTES + (2 * STAGES + 2) * 8 + 1024;
+// The ring of STAGES slots (A, W) of lstm_sm90.cuh: a slot is empty again
+// when the `readers` warps that read it are done (the four of one warpgroup
+// in turns, or the eight of both on a shared tile); turn[w]: the other
+// warpgroup finished a tile's products.
+using RingBf16 = Ring<STAGE_BYTES, STAGES>;
+constexpr int SMEM = RingBf16::SMEM;
 constexpr int THREADS = 384;  // warpgroups 0 and 1 consume, warpgroup 2 produces
 
 // The sigmoid from the hardware exponential and reciprocal (ex2.approx,
@@ -79,43 +83,13 @@ __device__ __forceinline__ uint32_t f32x2_to_bf16x2(float lo, float hi) {
     return (uint32_t)oket_lstm::f32_to_bf16(lo) | ((uint32_t)oket_lstm::f32_to_bf16(hi) << 16);
 }
 
-// The ring of STAGES slots (A, W), a full and an empty mbarrier each (a slot
-// is empty again when the `readers` warps that read it are done: the four of
-// one warpgroup in turns, or the eight of both on a shared tile), and
-// turn[w]: the other warpgroup finished a tile's products.  Thread 0
-// initialises the barriers; the caller then synchronises the block.
-struct Ring {
-    uint8_t* slots;
-    uint64_t* full;
-    uint64_t* empty;
-    uint64_t* turn;
-};
-
-__device__ __forceinline__ Ring make_ring(uint8_t* smem_raw, int readers = 4) {
-    Ring r;
-    r.slots = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-    r.full = reinterpret_cast<uint64_t*>(r.slots + STAGES * STAGE_BYTES);
-    r.empty = r.full + STAGES;
-    r.turn = r.empty + STAGES;
-    if (threadIdx.x == 0) {
-        for (int s = 0; s < STAGES; ++s) {
-            mbar_init(&r.full[s], 1);
-            mbar_init(&r.empty[s], readers);
-        }
-        mbar_init(&r.turn[0], 4);
-        mbar_init(&r.turn[1], 4);
-        mbar_fence_init();
-    }
-    return r;
-}
-
 // The producer of the gate tiles of step t: nkx x stages (x_t at (t, row0),
 // W_ih) and then the h stages (h_{t-1} at (h_slot, row0) of the h map, W_hh)
 // of each tile, the unit tile fastest (so the blocks in flight share their
 // A rows in L2).  The tile's coordinates are worked out once per tile (once
 // per stage, they slowed kernel 1 at the training shapes on an H100).  With
 // nkx = 0 (D = 0) map_x and map_wih are never read and may be null.
-__device__ __forceinline__ void produce_gate_tiles(const Ring& r, int tiles, int unit_tiles, int nkx, int nk,
+__device__ __forceinline__ void produce_gate_tiles(const RingBf16& r, int tiles, int unit_tiles, int nkx, int nk,
                                                    const CUtensorMap* map_x, const CUtensorMap* map_h,
                                                    const CUtensorMap* map_wih, const CUtensorMap* map_whh, int t,
                                                    int h_slot) {
@@ -215,7 +189,7 @@ __device__ __forceinline__ void add_rows(const uint16_t* xp, int B, int H, int r
 // once).  W is the gate tile's weight rows, K-major.  Without PRODUCTS (a
 // measuring variant) the slots are taken and given back unread.
 template <bool PRODUCTS>
-__device__ __forceinline__ void tile_products(const Ring& r, int q, int nk, int wg, int lane,
+__device__ __forceinline__ void tile_products(const RingBf16& r, int q, int nk, int wg, int lane,
                                               float (&acc)[2][TN / 2]) {
     if (q > 0) mbar_wait(&r.turn[wg], ((q - 1) / 2) & 1);
     int prev = 0;
@@ -269,7 +243,7 @@ __device__ __forceinline__ void tile_products(const Ring& r, int q, int nk, int 
 // run.  (Two chunk
 // accumulators in turn, to keep a stage in flight during the fold, took 192
 // registers and spilled.)
-__device__ __forceinline__ void tile_products_folded(const Ring& r, int q, int nk, int wg, int lane,
+__device__ __forceinline__ void tile_products_folded(const RingBf16& r, int q, int nk, int wg, int lane,
                                                      float (&sum)[TN / 2]) {
     float st[TN / 2];  // the stage's tensor-core sum
     for (int kt = 0; kt < nk; ++kt) {
@@ -281,7 +255,7 @@ __device__ __forceinline__ void tile_products_folded(const Ring& r, int q, int n
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < TK / 16; ++kk)
-            wgmma_m64n128k16<1>(st, wgmma_desc(a + kk * 32), wgmma_desc_mn(w + kk * 2048, W_BYTES / 2), kk > 0);
+            wgmma_m64n128k16<0, 1>(st, wgmma_desc(a + kk * 32), wgmma_desc_mn(w + kk * 2048, W_BYTES / 2), kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
         wgmma_fence_regs(st);
@@ -348,7 +322,7 @@ struct ProductArgs {
 __device__ __forceinline__ void product_tiles(uint8_t* smem_raw, const CUtensorMap* map_dg,
                                               const CUtensorMap* map_whh, const CUtensorMap* map_wih,
                                               const ProductArgs& p, int n_act_all) {
-    const Ring r = make_ring(smem_raw, 8);
+    const RingBf16 r = make_ring<RingBf16>(smem_raw, 8);
     __syncthreads();
     const int n_act = __shfl_sync(0xffffffff, n_act_all, 0);
     const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);

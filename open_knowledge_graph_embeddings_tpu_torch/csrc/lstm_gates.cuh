@@ -1,9 +1,9 @@
 // The CUDA-core building blocks of the port's LSTM kernels that do not run
-// on a wgmma loop: the block constants, cp.async copies and the mma.sync
-// bf16 product of the backward's dW launches (lstm_last_bwd.cu); the
-// backward's cell arithmetic (bwd_cell), which every backward's gate launch
-// runs; the accurate sigmoid, the f32 -> bf16 rounding, and the search for
-// a step's active rows.
+// on a wgmma loop: the block constants and cp.async copies of the f32 dW
+// launch and the db reduction (lstm_last_bwd.cu); the backward's cell
+// arithmetic (bwd_cell), which every backward's gate launch runs; the
+// accurate sigmoid, the f32 -> bf16 rounding, and the search for a step's
+// active rows.
 
 #pragma once
 
@@ -14,7 +14,6 @@
 namespace oket_lstm {
 
 constexpr int BM = 128;  // rows per block
-constexpr int BK = 32;   // K tile
 constexpr int NT = 256;  // 8 warps
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -23,16 +22,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
 

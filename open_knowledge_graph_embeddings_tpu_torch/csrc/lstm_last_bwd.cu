@@ -51,16 +51,35 @@
 //      consumer warpgroups share each tile and fold every K stage into an
 //      f32 sum (the tensor cores' own accumulation over K = 4H flipped too
 //      many bf16 roundings of demb);
-//   3. lstm_bwd_dw_kernel, once (mma.sync m16n8k16): dW = sum over t of dg[t]^T . [x_t | hs[t-1]]
-//      over the active rows of each step, one block per 128 x 128 tile of dW
-//      that walks every (t, row chunk) in order; and db = the sum of db_part
-//      over (t, active row block), each column summed by one block in a
-//      fixed order.  Deterministic, no float atomics, so dW and db do not
-//      wobble from run to run.
+//   3. bf16::lstm_bwd_dw_kernel_bf16, once: dW_ih = sum over t of dg[t]^T .
+//      x_t and dW_hh = sum over t >= 1 of dg[t]^T . hs[t-1] over each
+//      step's active rows (the TPU kernel's VMEM accumulation, as one
+//      reduction over ~26,600 row-steps on the flagship's entity pass), and
+//      db = the fixed-order sum of db_part.  Its least time is the
+//      tensor-core operations' (2 x 4H x (D + H) per active row-step); on
+//      the card it is bound by the bytes each tile brings into shared
+//      memory: every row of dg is read by all the output column tiles and
+//      every row of x or hs by all the gate column tiles (~1.6 GB a call at
+//      D = H = 512 against ~160 MB of operands).  It replaces a first
+//      simple launch (one block per 128 x 128 tile walking every row alone,
+//      128 blocks on 132 SMs, mma.sync fed by 16-bit shared loads, a 2-slot
+//      cp.async buffer, db reduced serially in every block's prologue) with
+//      kernel 1's Hopper shape: persistent blocks, one producer thread
+//      loading each 64-row chunk of the walk by TMA into a 6-slot mbarrier
+//      ring (lstm_sm90.cuh::Ring; 64 x 64 boxes of dg and of x or hs, both
+//      MN-major, their columns contiguous), two consumer warpgroups on
+//      wgmma m64n128k16 with A and B transposed, each chunk's products from
+//      zero folded into an f32 sum.  A 128 x 128 tile a block, each
+//      walking every row of its tile alone: the flagship's 128 tiles fill
+//      the card's 132 SMs, and db runs on the blocks with no tile.  The
+//      rows of a step's last chunk past its active prefix are zeroed in
+//      shared memory before the products.  What the launch is bound by on
+//      the card, and the wider tiles, TMA multicast and split walks
+//      weighed against it, are at the kernel.
 // The rows are sorted by descending length, so the rows active at step t are
 // a prefix, found by a binary search over the lengths.  Inactive rows are
-// never read: every load of a row past the step's active prefix is
-// zero-filled.  Any B; D and H multiples of 8.
+// never read, or are zeroed before a product reads them.  Any B; D and H
+// multiples of 8.
 //
 // The f32 mode (the *_f32 entries; the TPU kernels take their inputs' dtype)
 // computes the same with the rounding points dropped: the residuals, the
@@ -89,7 +108,8 @@
 //   2. lstm_bwd_product_kernel_tf32, per step: [dh | demb[t]] = dg[t] .
 //      [W_hh | W_ih] on the same ring and loop, 128 x 128 output tiles
 //      (lstm_tf32.cuh::product_tiles, which kernel 8 runs too, with D = 0);
-//   3. lstm_bwd_dw_kernel_tf32, once: the dW walk of the bf16 kernel with
+//   3. lstm_bwd_dw_kernel_tf32, once: one block per 128 x 128 tile of dW
+//      walking every (t, row chunk) in order, with
 //      mma.sync m16n8k8 TF32 fragments loaded from the k-major shared tiles
 //      (wgmma would need K-major copies of dg, emb and hs: dW reduces over
 //      rows), 64-row chunks through a 3-slot cp.async ring, blocks of 256
@@ -109,27 +129,13 @@ namespace {
 
 using namespace oket_lstm;
 
-constexpr int WB = 128;       // dW tile: 128 gate columns x 128 output columns
-constexpr int WLD = WB + 8;   // smem row stride of the k-major tiles
+constexpr int WB = 128;  // f32 dW tile: 128 gate columns x 128 output columns
 
-constexpr int DBC = 16;  // db columns per block and pass; NT / DBC partial sums each
+constexpr int DBC = 16;  // db columns per pass; NT / DBC partial sums each
 
-struct DwArgs {
-    const uint16_t* dg;     // [L, B, 4H]
-    const uint16_t* x;      // [L, B, D]
-    const uint16_t* hs;     // [L, B, H]
-    const int* lens;        // [B], sorted descending
-    const float* db_part;   // [L, ceil(B / BM), 4H]: written for the active row blocks only
-    uint16_t* dw_ih;        // [4H, D]
-    uint16_t* dw_hh;        // [4H, H]
-    float* db;              // [4H]
-    long long B;
-    int D, H, L;
-};
-
-// Next (step, row chunk) of the K walk: row chunks of `chunk` over each
-// step's active rows (nrows at step t), steps in order, steps with no active
-// row skipped.
+// Next (step, row chunk) of the f32 dW launch's walk: row chunks of `chunk`
+// over each step's active rows (nrows at step t), steps in order, steps with
+// no active row skipped.
 template <typename Args>
 __device__ __forceinline__ void dw_advance(const Args& p, int chunk, int& t, int& k0, int& nrows) {
     k0 += chunk;
@@ -140,136 +146,32 @@ __device__ __forceinline__ void dw_advance(const Args& p, int chunk, int& t, int
     }
 }
 
-// db[c] = the sum of db_part[t][rb][c] over every step t and every row block
-// rb active at t (its first row is), for this block's columns: thread
-// (lane = tid / DBC) sums the (t, rb) entries lane, lane + NT / DBC, ... in
-// order, then one thread per column adds the partial sums in order.
-template <typename Args>
-__device__ void db_reduce(const Args& p) {
-    __shared__ float part[NT / DBC][DBC];
+// db[c0 .. c0 + DBC) = the sum of db_part[t][rb][c] over every step t and
+// every row block rb active at t (its first row is), by NT threads: thread
+// tid (lane = tid / DBC) sums the (t, rb) entries lane, lane + NT / DBC,
+// ... in order, then one thread per column adds the partial sums in order;
+// sync() synchronises the NT threads.  Both dtypes' dW launches run it, in
+// the same order, so db does not depend on how a launch divides its work.
+template <typename Args, typename Sync>
+__device__ __forceinline__ void db_columns(const Args& p, int c0, int tid, float (&part)[NT / DBC][DBC], Sync sync) {
     const int H4 = 4 * p.H;
     const int nrb = (int)((p.B + BM - 1) / BM);
     const int n_entries = p.L * nrb;
-    const int col = threadIdx.x % DBC, lane = threadIdx.x / DBC;
-    const int block = blockIdx.y * gridDim.x + blockIdx.x;
-    for (int c0 = block * DBC; c0 < H4; c0 += gridDim.x * gridDim.y * DBC) {
-        float s = 0.f;
-        for (int e = lane; e < n_entries; e += NT / DBC) {
-            const int t = e / nrb, rb = e % nrb;
-            if (max(__ldg(p.lens + (size_t)rb * BM), 1) > t && c0 + col < H4)
-                s += __ldg(p.db_part + ((size_t)t * nrb + rb) * H4 + c0 + col);
-        }
-        part[lane][col] = s;
-        __syncthreads();
-        if (threadIdx.x < DBC && c0 + threadIdx.x < H4) {
-            float v = 0.f;
-            for (int l = 0; l < NT / DBC; ++l) v += part[l][threadIdx.x];
-            p.db[c0 + threadIdx.x] = v;
-        }
-        __syncthreads();
+    const int col = tid % DBC, lane = tid / DBC;
+    float s = 0.f;
+    for (int e = lane; e < n_entries; e += NT / DBC) {
+        const int t = e / nrb, rb = e % nrb;
+        if (max(__ldg(p.lens + (size_t)rb * BM), 1) > t && c0 + col < H4)
+            s += __ldg(p.db_part + ((size_t)t * nrb + rb) * H4 + c0 + col);
     }
-}
-
-__device__ __forceinline__ uint32_t pack_pair(uint16_t lo, uint16_t hi) {
-    return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-__global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel(const DwArgs p) {
-    __shared__ __align__(16) uint16_t As[2][BK][WLD];  // dg rows (k) x gate columns (m)
-    __shared__ __align__(16) uint16_t Bs[2][BK][WLD];  // x or h rows (k) x output columns (n)
-
-    const int H4 = 4 * p.H;
-    const int nyd = (p.D + WB - 1) / WB;
-    const bool hh = (int)blockIdx.y >= nyd;
-    const int N = hh ? p.H : p.D;
-    const int m0 = blockIdx.x * WB;
-    const int n0 = (hh ? blockIdx.y - nyd : blockIdx.y) * WB;
-    uint16_t* out = hh ? p.dw_hh : p.dw_ih;
-
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int gid = lane >> 2, tig = lane & 3;
-    const int wm = warp & 3, wn = warp >> 2;  // 4 x 32 gate columns, 2 x 64 output columns
-    float acc[2][8][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-    db_reduce(p);
-
-    // dW_hh pairs dg[t] with h_{t-1} = hs[t-1]: no term at t = 0 (h_0 = 0)
-    auto load = [&](int t, int k0, int nrows, int s) {
-        const uint16_t* a = p.dg + (size_t)t * p.B * H4;
-        const uint16_t* b = hh ? p.hs + (size_t)(t - 1) * p.B * p.H : p.x + (size_t)t * p.B * p.D;
-        constexpr int CH = WB / 8;  // 16-byte chunks per tile row
-        for (int i = threadIdx.x; i < BK * CH; i += NT) {
-            const int kr = i / CH, c = (i % CH) * 8;
-            const long long row = k0 + kr;
-            const uint16_t* asrc = a + (size_t)row * H4 + m0 + c;
-            const bool aok = row < nrows && m0 + c < H4;
-            cp_async16(&As[s][kr][c], aok ? asrc : a, aok ? 16 : 0);
-            const uint16_t* bsrc = b + (size_t)row * N + n0 + c;
-            const bool bok = row < nrows && n0 + c < N;
-            cp_async16(&Bs[s][kr][c], bok ? bsrc : b, bok ? 16 : 0);
-        }
-    };
-
-    int t = hh ? 1 : 0, k0 = -BK;
-    int nrows = t < p.L ? active_rows(p.lens, p.B, t) : 0;
-    dw_advance(p, BK, t, k0, nrows);
-    if (t < p.L) {
-        int s = 0;
-        load(t, k0, nrows, s);
-        cp_async_commit();
-        dw_advance(p, BK, t, k0, nrows);
-        while (true) {
-            const bool more = t < p.L;
-            if (more) load(t, k0, nrows, s ^ 1);
-            cp_async_commit();
-            cp_async_wait_1();
-            __syncthreads();
-#pragma unroll
-            for (int kk = 0; kk < BK; kk += 16) {
-                const int k = kk + tig * 2;
-                uint32_t a[2][4], b[8][2];
-#pragma unroll
-                for (int mi = 0; mi < 2; ++mi) {
-                    const int m = wm * 32 + mi * 16 + gid;
-                    a[mi][0] = pack_pair(As[s][k][m], As[s][k + 1][m]);
-                    a[mi][1] = pack_pair(As[s][k][m + 8], As[s][k + 1][m + 8]);
-                    a[mi][2] = pack_pair(As[s][k + 8][m], As[s][k + 9][m]);
-                    a[mi][3] = pack_pair(As[s][k + 8][m + 8], As[s][k + 9][m + 8]);
-                }
-#pragma unroll
-                for (int ni = 0; ni < 8; ++ni) {
-                    const int n = wn * 64 + ni * 8 + gid;
-                    b[ni][0] = pack_pair(Bs[s][k][n], Bs[s][k + 1][n]);
-                    b[ni][1] = pack_pair(Bs[s][k + 8][n], Bs[s][k + 9][n]);
-                }
-#pragma unroll
-                for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-                    for (int ni = 0; ni < 8; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-            }
-            __syncthreads();
-            if (!more) break;
-            dw_advance(p, BK, t, k0, nrows);
-            s ^= 1;
-        }
+    part[lane][col] = s;
+    sync();
+    if (tid < DBC && c0 + tid < H4) {
+        float v = 0.f;
+        for (int l = 0; l < NT / DBC; ++l) v += part[l][tid];
+        p.db[c0 + tid] = v;
     }
-
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int m = m0 + wm * 32 + mi * 16 + gid + ((e >> 1) << 3);
-                const int n = n0 + wn * 64 + ni * 8 + tig * 2 + (e & 1);
-                if (m < H4 && n < N) out[(size_t)m * N + n] = f32_to_bf16(acc[mi][ni][e]);
-            }
+    sync();
 }
 
 // ------------------------------------------------- bf16 gate and product launches
@@ -315,7 +217,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     extern __shared__ uint8_t smem_raw[];
     __shared__ float s_db[2][4][TN];  // [consumer warpgroup][warp][gate column of the tile]
     const int n_act_all = active_prefix<THREADS>(p.lens, p.B, p.t);
-    const Ring r = make_ring(smem_raw);
+    const RingBf16 r = make_ring<RingBf16>(smem_raw, 4);
     __syncthreads();
     // block-uniform values made warp-uniform for the compiler (a wgmma on
     // what it takes for a divergent path is serialised)
@@ -431,6 +333,206 @@ __global__ void __launch_bounds__(THREADS, 1)
     product_tiles(smem_raw, &map_dg, &map_whh, &map_wih, p, active_prefix<THREADS>(lens, p.B, p.t));
 }
 
+// ------------------------------------------------------------- bf16 dW launch
+
+constexpr int DW_BOX = 64;                          // rows (K) and columns of a TMA box
+constexpr int DW_BOX_BYTES = DW_BOX * DW_BOX * 2;   // 8 KB
+constexpr int DW_TILE = 2 * DW_BOX;                 // dW tile: 128 gate columns x 128 output columns
+constexpr int DW_STAGES = 6;
+using RingDw = Ring<4 * DW_BOX_BYTES, DW_STAGES>;   // a stage: two dg boxes, then two x or hs boxes
+
+// What the dW entry launches (its `variant`): the kernel, or for measuring
+// it the kernel without its products (the loads alone).
+enum DwVariant { DW_KERNEL = 0, DW_NO_PRODUCTS = 1 };
+
+struct DwArgs16 {
+    const int* lens;       // [B], sorted descending
+    const float* db_part;  // [L, ceil(B / TM), 4H]: written for the active row tiles only
+    uint16_t* dw_ih;       // [4H, D]
+    uint16_t* dw_hh;       // [4H, H]
+    float* db;             // [4H]
+    int B, D, H, L;
+};
+
+// Tile u of dW: 128 gate columns from m0 x 128 output columns from n0 of
+// dW_ih, or of dW_hh when hh (the output-column tiles of a gate-column tile
+// in order, dW_ih's first).
+struct DwTile {
+    int m0, n0, N;
+    bool hh;
+};
+
+__device__ __forceinline__ DwTile dw_tile(const DwArgs16& p, int u, int cols, int nd) {
+    DwTile w;
+    const int j = u % cols;
+    w.hh = j >= nd;
+    w.m0 = u / cols * DW_TILE;
+    w.n0 = (w.hh ? j - nd : j) * DW_TILE;
+    w.N = w.hh ? p.H : p.D;
+    return w;
+}
+
+// dW launch, once per call: dW_ih = sum over t of dg[t]^T . x_t and dW_hh =
+// sum over t >= 1 of dg[t]^T . hs[t-1] over each step's active rows,
+// rounded to bf16 at the end, and db (db_columns).  A tile's walk is every
+// step's active rows (active_rows) in chunks of DW_BOX, steps in order;
+// dW_hh has no term at t = 0 (h_0 = 0), so its tiles start at step 1.  For
+// each chunk one producer thread loads by TMA into the ring boxes of 64
+// rows x 64 columns of dg[t] (the tile's gate columns) and of x_t or
+// hs[t-1] (its output columns), through 3-D maps over [L, B, columns], so
+// both operands arrive MN-major (their columns contiguous, the reduction
+// over rows).  The two consumer warpgroups take 64 gate columns each
+// against the tile's 128 output columns: wgmma m64n128k16 with A and B both
+// transposed, four k16 steps a chunk, from zero, folded into an f32 sum
+// (the tensor cores' own accumulation over a long K flips bf16 roundings:
+// tile_products_folded).  A step's last chunk may end inside its active
+// prefix: the rows past it hold whatever dg and hs hold there
+// (torch.empty; NaN . 0 is NaN), so the consumers zero them in the slot
+// before the products.
+//
+// The launch is bound by the bytes its tiles bring into shared memory, not
+// by the tensor cores: on an H100 its loads alone (V = DW_NO_PRODUCTS, the
+// slots taken and given back unread) take 81 % of the kernel's time
+// (chip_smoke.py --backward-split; numbers in PERF.md).  Weighed against
+// that, and not kept: wider tiles need more registers than an SM has (the
+// fold keeps two 64-register sums per consumer thread, so an SM holds the
+// sums of at most three 64 x 128 warpgroup tiles, and a 256 x 128 tile on
+// four consumer warpgroups does not fit); TMA multicast to clusters of two
+// blocks (the two gate-column tiles of one output-column tile, each block
+// loading one of a chunk's two x / hs boxes for both: a quarter fewer bytes
+// from L2) read 0.68 ms against 0.22 on the flagship's entity pass; and
+// splitting each tile's walk into slices summed in a fixed order read
+// slower at every split of the flagship's passes (S = 2 .. 8), whose 128
+// tiles fill the card's 132 SMs alone.  So a tile is one block's whole walk.
+//
+// Block b takes tiles b, b + G, ... (G = the grid: at most a block per SM);
+// db goes to the blocks with no tile where there are such (4 of 132 at the
+// flagship's widths), else to all, DBC columns a pass.  No float atomics:
+// dW and db are the same bits from run to run.
+template <int V>
+__global__ void __launch_bounds__(THREADS, 1)
+    lstm_bwd_dw_kernel_bf16(const __grid_constant__ CUtensorMap map_dg, const __grid_constant__ CUtensorMap map_x,
+                            const __grid_constant__ CUtensorMap map_hs, const DwArgs16 p) {
+    extern __shared__ uint8_t smem_raw[];
+    __shared__ float part[NT / DBC][DBC];
+    const RingDw r = make_ring<RingDw>(smem_raw, 8);
+    __syncthreads();
+    const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+    const int H4 = 4 * p.H, nd = (p.D + DW_TILE - 1) / DW_TILE;
+    const int cols = nd + (p.H + DW_TILE - 1) / DW_TILE;
+    const int tiles = (H4 + DW_TILE - 1) / DW_TILE * cols;
+
+    if (wg == 2) {
+        setmaxnreg_dec<40>();
+        if (threadIdx.x == 256) {
+            tma_prefetch_map(&map_dg);
+            tma_prefetch_map(&map_x);
+            tma_prefetch_map(&map_hs);
+            int it = 0;
+            for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
+                const DwTile w = dw_tile(p, u, cols, nd);
+                const bool a2 = w.m0 + DW_BOX < H4, b2 = w.n0 + DW_BOX < w.N;  // the second box holds a column
+                const CUtensorMap* map_b = w.hh ? &map_hs : &map_x;
+                for (int t = w.hh; t < p.L; ++t) {
+                    const int nrows = active_rows(p.lens, p.B, t);
+                    for (int k0 = 0; k0 < nrows; k0 += DW_BOX, ++it) {
+                        const int s = it % DW_STAGES;
+                        mbar_wait(&r.empty[s], ((it / DW_STAGES) & 1) ^ 1);
+                        mbar_arrive_expect_tx(&r.full[s], (2 + a2 + b2) * DW_BOX_BYTES);
+                        uint8_t* a = r.slot(s);
+                        uint8_t* b = a + 2 * DW_BOX_BYTES;
+                        tma_load_3d(a, &map_dg, &r.full[s], w.m0, k0, t);
+                        if (a2) tma_load_3d(a + DW_BOX_BYTES, &map_dg, &r.full[s], w.m0 + DW_BOX, k0, t);
+                        tma_load_3d(b, map_b, &r.full[s], w.n0, k0, t - w.hh);
+                        if (b2) tma_load_3d(b + DW_BOX_BYTES, map_b, &r.full[s], w.n0 + DW_BOX, k0, t - w.hh);
+                    }
+                }
+            }
+        }
+    } else {
+        setmaxnreg_inc<232>();
+        const int tid = threadIdx.x, wt = tid % 128, warp = wt / 32, lane = tid % 32;
+        // sum[4 n8 + e] holds gate column m0 + 64 wg + 16 warp + lane/4 + 8
+        // (e/2), output column n0 + 8 n8 + 2 (lane%4) + e%2 (the wgmma layout)
+        float sum[64], st[64];
+        int it = 0;
+        for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
+            const DwTile w = dw_tile(p, u, cols, nd);
+#pragma unroll
+            for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+            for (int t = w.hh; t < p.L; ++t) {
+                const int nrows = active_rows(p.lens, p.B, t);
+                for (int k0 = 0; k0 < nrows; k0 += DW_BOX, ++it) {
+                    const int valid = nrows - k0;  // rows of the chunk in the active prefix
+                    const int s = it % DW_STAGES;
+                    mbar_wait(&r.full[s], (it / DW_STAGES) & 1);
+                    if (V == DW_KERNEL) {
+                        uint8_t* a = r.slot(s) + wg * DW_BOX_BYTES;
+                        uint8_t* b = r.slot(s) + 2 * DW_BOX_BYTES;
+                        if (valid < DW_BOX) {
+                            // each warpgroup zeroes its dg box and one of the
+                            // two x / hs boxes, rows valid .. 63 (whole
+                            // 128-byte rows: the swizzle moves chunks only
+                            // within a row); then both see both
+                            uint4* za = reinterpret_cast<uint4*>(a + valid * 128);
+                            uint4* zb = reinterpret_cast<uint4*>(b + wg * DW_BOX_BYTES + valid * 128);
+                            for (int i = wt; i < (DW_BOX - valid) * 8; i += 128) za[i] = zb[i] = make_uint4(0, 0, 0, 0);
+                            fence_proxy_async();
+                            named_barrier(1, 256);
+                        }
+                        wgmma_fence_regs(st);
+                        wgmma_fence();
+#pragma unroll
+                        for (int kk = 0; kk < DW_BOX / 16; ++kk)
+                            wgmma_m64n128k16<1, 1>(st, wgmma_desc_mn(a + kk * 2048, DW_BOX_BYTES),
+                                                   wgmma_desc_mn(b + kk * 2048, DW_BOX_BYTES), kk > 0);
+                        wgmma_commit();
+                        wgmma_wait<0>();
+                        wgmma_fence_regs(st);
+                    }
+                    if (lane == 0) mbar_arrive(&r.empty[s]);
+                    if (V == DW_KERNEL) {
+#pragma unroll
+                        for (int i = 0; i < 64; ++i) sum[i] += st[i];
+                    }
+                }
+            }
+            uint16_t* out = w.hh ? p.dw_hh : p.dw_ih;
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+                const int m = w.m0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * hr;
+                if (m >= H4) continue;
+#pragma unroll
+                for (int n8 = 0; n8 < 16; ++n8) {
+                    const int n = w.n0 + 8 * n8 + 2 * (lane & 3);  // and n + 1: D and H are even
+                    if (n < w.N)
+                        *reinterpret_cast<uint32_t*>(out + (size_t)m * w.N + n) =
+                            f32x2_to_bf16x2(sum[4 * n8 + 2 * hr], sum[4 * n8 + 2 * hr + 1]);
+                }
+            }
+        }
+        // db: DBC columns a pass, on the blocks with no tile where there are
+        // such (the last ones), else on all, from the last back; a row block
+        // is active at t when its first row is
+        const int busy = min((int)gridDim.x, tiles);
+        const int pool = busy < (int)gridDim.x ? gridDim.x - busy : gridDim.x;
+        if ((int)blockIdx.x >= (int)gridDim.x - pool)
+            for (int c = (gridDim.x - 1 - blockIdx.x) * DBC; c < H4; c += pool * DBC)
+                db_columns(p, c, tid, part, [] { named_barrier(3, 256); });
+    }
+}
+
+// The launch of kernel V: a block per tile and per db pass, at most
+// max_blocks.
+template <int V>
+int launch_dw(const CUtensorMap* const (&maps)[3], const DwArgs16& p, int max_blocks, cudaStream_t s) {
+    const int tiles = (4 * p.H + DW_TILE - 1) / DW_TILE * ((p.D + DW_TILE - 1) / DW_TILE + (p.H + DW_TILE - 1) / DW_TILE);
+    const int grid = min(tiles + (4 * p.H + DBC - 1) / DBC, max_blocks);
+    if (const int e = allow_smem<lstm_bwd_dw_kernel_bf16<V>, RingDw::SMEM>()) return e;
+    lstm_bwd_dw_kernel_bf16<V><<<grid, THREADS, RingDw::SMEM, s>>>(*maps[0], *maps[1], *maps[2], p);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <int V>
 int launch_gate(const CUtensorMap* const (&maps)[4], const GateArgs16& p, int grid, cudaStream_t s) {
     if (const int e = allow_smem<lstm_bwd_gate_kernel_bf16<V>, SMEM>()) return e;
@@ -478,7 +580,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                               const __grid_constant__ CUtensorMap map_whh_lo, const Tf32GateArgs p) {
     extern __shared__ uint8_t smem_raw[];
     __shared__ float s_db[2][4][TN];  // [consumer warpgroup][warp][gate column of the tile]
-    const Ring r = make_ring(smem_raw);
+    const RingTf32 r = make_ring<RingTf32>(smem_raw, 8);
     const int n_act_all = active_prefix<THREADS>(p.lens, p.B, p.t);
     __syncthreads();
     // block-uniform values made warp-uniform for the compiler (a wgmma on
@@ -671,8 +773,8 @@ struct Tf32DwArgs {
 // dW launch, once per call: dW = sum over t of dg[t]^T . [x_t | hs[t-1]]
 // on mma.sync m16n8k8 in 3xTF32 (fragments read from the k-major shared
 // tiles, split in registers; the correction products first), over the
-// (t, row chunk) walk of lstm_bwd_dw_kernel, one block per 128 x 128 tile
-// of dW, blocks of 256 rows summed apart; and db by db_reduce.  Warp
+// (t, row chunk) walk of dw_advance, one block per 128 x 128 tile
+// of dW, blocks of 256 rows summed apart; and db by db_columns.  Warp
 // (wm = warp % 4, wn = warp / 4) holds gate columns m0 + 32 wm + [0, 32)
 // and output columns n0 + 64 wn + [0, 64).  The chunks stream through a
 // ring of DSTAGES slots of 64 rows (cp.async, 16-byte copies): on an H100
@@ -714,7 +816,12 @@ __global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel_tf32(const Tf32DwArgs p
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[mi][ni][e] = sum[mi][ni][e] = 0.f;
 
-    db_reduce(p);
+    {  // db: DBC columns a pass, the passes spread over the grid
+        __shared__ float part[NT / DBC][DBC];
+        const int block = blockIdx.y * gridDim.x + blockIdx.x;
+        for (int c0 = block * DBC; c0 < H4; c0 += gridDim.x * gridDim.y * DBC)
+            db_columns(p, c0, threadIdx.x, part, [] { __syncthreads(); });
+    }
 
     // dW_hh pairs dg[t] with h_{t-1} = hs[t-1]: no term at t = 0 (h_0 = 0)
     auto load = [&](int t, int k0, int nrows, int s) {
@@ -890,13 +997,14 @@ extern "C" int oket_lstm_bwd_product_bf16(const void* dg, const void* w_hh, cons
 }
 
 // After the loop: dW_ih [4H, D] and dW_hh [4H, H] in bf16, db [4H] in f32.
+// max_blocks caps the grid (the SM count); variant 0 is the kernel, 1 the
+// kernel without its products (measuring).
 extern "C" int oket_lstm_bwd_dw_bf16(const void* dg, const void* x, const void* hs, const void* lens,
-                                     const void* db_part, void* dw_ih, void* dw_hh, void* db, long long B,
-                                     int D, int H, int L, void* stream) {
-    DwArgs p;
-    p.dg = static_cast<const uint16_t*>(dg);
-    p.x = static_cast<const uint16_t*>(x);
-    p.hs = static_cast<const uint16_t*>(hs);
+                                     const void* db_part, void* dw_ih, void* dw_hh, void* db, int L, int B, int D,
+                                     int H, int max_blocks, int variant, void* stream) {
+    using namespace bf16;
+    if (L < 1 || max_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+    DwArgs16 p;
     p.lens = static_cast<const int*>(lens);
     p.db_part = static_cast<const float*>(db_part);
     p.dw_ih = static_cast<uint16_t*>(dw_ih);
@@ -906,11 +1014,21 @@ extern "C" int oket_lstm_bwd_dw_bf16(const void* dg, const void* x, const void* 
     p.D = D;
     p.H = H;
     p.L = L;
-    const dim3 grid((unsigned)((4 * H + WB - 1) / WB), (unsigned)((D + WB - 1) / WB + (H + WB - 1) / WB));
-    lstm_bwd_dw_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
-    return static_cast<int>(cudaGetLastError());
+    // dg, x and hs as [L, B, columns] in boxes of 64 columns x 64 rows (rows
+    // past B, columns past 4H, D or H read as zero)
+    static thread_local oket_sm90::CachedMap cache[3];
+    const uint64_t b = B, l = L;
+    const uint32_t box[3] = {DW_BOX, DW_BOX, 1};
+    const CUtensorMap* const maps[3] = {oket_sm90::bf16_map(cache[0], dg, {4 * (uint64_t)H, b, l}, box),
+                                        oket_sm90::bf16_map(cache[1], x, {(uint64_t)D, b, l}, box),
+                                        oket_sm90::bf16_map(cache[2], hs, {(uint64_t)H, b, l}, box)};
+    for (const CUtensorMap* m : maps)
+        if (!m) return -1;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (variant == DW_KERNEL) return launch_dw<DW_KERNEL>(maps, p, max_blocks, s);
+    if (variant == DW_NO_PRODUCTS) return launch_dw<DW_NO_PRODUCTS>(maps, p, max_blocks, s);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
-
 
 // The f32 mode (3xTF32): emb [L, B, D], hs and cs [L, B, H], the cotangent
 // (dlast [B, H] or dhs[t]), weights, dg [L, B, 4H], demb and dW in f32;

@@ -121,7 +121,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                           const StepArgs p) {
     extern __shared__ uint8_t smem_raw[];
     const int n_act_all = active_prefix<THREADS>(p.lens, p.B, p.t);
-    const Ring r = make_ring(smem_raw);
+    const RingBf16 r = make_ring<RingBf16>(smem_raw, 4);
     __syncthreads();
     // block-uniform values made warp-uniform for the compiler (a wgmma on
     // what it takes for a divergent path is serialised)

@@ -101,7 +101,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                               const __grid_constant__ CUtensorMap map_whh_hi,
                               const __grid_constant__ CUtensorMap map_whh_lo, const StepArgs p) {
     extern __shared__ uint8_t smem_raw[];
-    const Ring r = make_ring(smem_raw);
+    const RingTf32 r = make_ring<RingTf32>(smem_raw, 8);
     const int n_act_all = active_prefix<THREADS>(p.lens, p.B, p.t);
     __syncthreads();
     // block-uniform values made warp-uniform for the compiler (a wgmma on

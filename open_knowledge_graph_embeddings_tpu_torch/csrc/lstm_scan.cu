@@ -128,7 +128,7 @@ __device__ __forceinline__ void scan_gate_tiles(const CUtensorMap* map_h, const 
                                                 const uint16_t* xp, float* gates, int B, int H, int t, Pre pre,
                                                 Epilogue epilogue) {
     extern __shared__ uint8_t smem_raw[];
-    const Ring r = make_ring(smem_raw);
+    const RingBf16 r = make_ring<RingBf16>(smem_raw, 4);
     __syncthreads();
     // block-uniform made warp-uniform for the compiler (a wgmma on what it
     // takes for a divergent path is serialised)
@@ -394,7 +394,7 @@ __device__ __forceinline__ void scan_gate_tiles(const CUtensorMap* map_h, const 
                                                 const CUtensorMap* map_whh_lo, const float* xp, float* gates, int B,
                                                 int H, int t, Epilogue epilogue) {
     extern __shared__ uint8_t smem_raw[];
-    const Ring r = make_ring(smem_raw);
+    const RingTf32 r = make_ring<RingTf32>(smem_raw, 8);
     __syncthreads();
     // block-uniform made warp-uniform for the compiler (a wgmma on what it
     // takes for a divergent path is serialised)

@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks of the port's CUDA kernels, in inline PTX:
-// mbarriers, TMA tile loads (cp.async.bulk.tensor) and their tensor maps,
-// wgmma descriptors, fences, the bf16 product m64n128k16 (B K-major or
-// MN-major) and the TF32 product m64n128k8 (A from registers) with f32
-// accumulators, the TF32 split of an f32 value, named barriers,
-// setmaxnreg and the block-wide search of a step's active rows; on the host
-// the tensor maps and the dynamic shared memory opt-in.  Used by the bf16
-// gate loop of lstm_bf16.cuh (kernel 1 and the bf16 backward) and the
-// 3xTF32 gate loop of lstm_tf32.cuh (the f32 forward and backward).
+// mbarriers and the ring of TMA slots they guard (Ring, make_ring), TMA tile
+// loads (cp.async.bulk.tensor) and their tensor maps, wgmma descriptors,
+// fences, the bf16 product m64n128k16 (each operand K-major or MN-major) and
+// the TF32 product m64n128k8 (A from registers) with f32 accumulators, the
+// TF32 split of an f32 value, named barriers, setmaxnreg and the block-wide
+// search of a step's active rows; on the host the tensor maps and the
+// dynamic shared memory opt-in.  Used by the bf16 gate loop of lstm_bf16.cuh
+// (kernel 1 and the bf16 backward), the 3xTF32 gate loop of lstm_tf32.cuh
+// (the f32 forward and backward) and the bf16 dW launch of lstm_last_bwd.cu.
 //
 // Shared-memory tiles are K-major with the 128-byte swizzle: each tile row
 // is 128 bytes of K (64 bf16 or 32 f32), rows grouped by 8 into 1024-byte
@@ -15,11 +16,11 @@
 // descriptor walk along K is the same for both.  TMA writes that
 // layout (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma reads it (descriptor layout
 // type 1), both from the address bits, so every tile starts on a 1024-byte
-// boundary.  A bf16 B operand can also be MN-major (wgmma_desc_mn): each
-// tile row is then 128 bytes of N (64 columns) at one k, in the same
-// atoms.  Tensor maps are encoded on the host with the driver's
-// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
-// ctypes-loaded library needs no -lcuda.
+// boundary.  A bf16 operand can also be MN-major (wgmma_desc_mn): each
+// tile row is then 128 bytes of M or N (64 rows of A or columns of B) at one
+// k, in the same atoms.  Tensor maps are encoded on the host with the
+// driver's cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint,
+// so the ctypes-loaded library needs no -lcuda.
 
 #pragma once
 
@@ -74,6 +75,51 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     } while (!done);
 }
 
+// ------------------------------------------------------------------ the ring
+
+// A ring of STAGES slots of STAGE_BYTES in dynamic shared memory, filled by
+// TMA in order: a full mbarrier per slot (one arrival, the producer's, with
+// the slot's bytes expected) and an empty one (`readers` arrivals: the
+// consumer warps that read the slot), and two turn barriers (a warpgroup's
+// four warps each) for consumers that take tiles in turns.  The slots start
+// on a 1024-byte boundary (the swizzle's atom) and the barriers follow
+// them; SMEM bytes of dynamic shared memory hold it all.
+template <int STAGE_BYTES_, int STAGES_>
+struct Ring {
+    static constexpr int STAGE_BYTES = STAGE_BYTES_;
+    static constexpr int STAGES = STAGES_;
+    // the slots, their barriers and the turns, and slack to align the slots
+    static constexpr int SMEM = STAGES * STAGE_BYTES + (2 * STAGES + 2) * 8 + 1024;
+    uint8_t* slots;
+    uint64_t* full;
+    uint64_t* empty;
+    uint64_t* turn;
+
+    __device__ __forceinline__ uint8_t* slot(int s) const { return slots + s * STAGE_BYTES; }
+};
+
+// Lays the ring R out in `smem_raw`; thread 0 initialises its barriers (and
+// fences every barrier it has initialised before, for the async proxy); the
+// caller then synchronises the block.
+template <typename R>
+__device__ __forceinline__ R make_ring(uint8_t* smem_raw, int readers) {
+    R r;
+    r.slots = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    r.full = reinterpret_cast<uint64_t*>(r.slots + R::STAGES * R::STAGE_BYTES);
+    r.empty = r.full + R::STAGES;
+    r.turn = r.empty + R::STAGES;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < R::STAGES; ++s) {
+            mbar_init(&r.full[s], 1);
+            mbar_init(&r.empty[s], readers);
+        }
+        mbar_init(&r.turn[0], 4);
+        mbar_init(&r.turn[1], 4);
+        mbar_fence_init();
+    }
+    return r;
+}
+
 // -------------------------------------------------------------- active rows
 
 // Rows active at step t (max(len, 1) > t) of a persistent LSTM step kernel: a
@@ -124,6 +170,10 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 
+// Orders this thread's earlier generic-proxy writes to shared memory before
+// later async-proxy reads of it (a wgmma operand written by the threads).
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 
 template <int N>
@@ -139,13 +189,14 @@ __device__ __forceinline__ void wgmma_fence_regs(float (&d)[R]) {
     for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Descriptor of an MN-major, 128-byte-swizzled B tile at `p` (1024-byte
-// aligned): rows of 128 bytes, one k and 64 columns each, 8 k-rows to a
-// 1024-byte atom.  The stride byte offset steps along K from one 8-row atom
-// to the next (1024 bytes, the atoms of a 64-column block being
-// consecutive); the leading byte offset steps along N from one 64-column
-// block to the next, `lbo` bytes apart.  A k16 step is two atoms, so the
-// walk along K advances the start address by 2048 bytes.
+// Descriptor of an MN-major, 128-byte-swizzled tile at `p` (1024-byte
+// aligned), of either operand: rows of 128 bytes, one k and 64 columns of B
+// (or 64 rows of A) each, 8 k-rows to a 1024-byte atom.  The stride byte
+// offset steps along K from one 8-row atom to the next (1024 bytes, the
+// atoms of a 64-wide block being consecutive); the leading byte offset steps
+// along N (or M) from one 64-wide block to the next, `lbo` bytes apart (A's
+// 64 rows are one block, so A never reads it).  A k16 step is two atoms, so
+// the walk along K advances the start address by 2048 bytes.
 __device__ __forceinline__ uint64_t wgmma_desc_mn(const void* p, uint32_t lbo) {
     const uint64_t addr = smem_u32(p);
     return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) | ((uint64_t)(1024 >> 4) << 32) |
@@ -153,13 +204,14 @@ __device__ __forceinline__ uint64_t wgmma_desc_mn(const void* p, uint32_t lbo) {
 }
 
 // d[64 x 128] += A[64 x 16] . B[128 x 16]^T, bf16 operands from shared memory
-// (A K-major; B K-major, or with TRANS_B = 1 MN-major, as [16 x 128] with the
-// 128 columns contiguous: wgmma's transposed-B form, which 16-bit types
+// (A K-major, or with TRANS_A = 1 MN-major, as [16 x 64] with the 64 rows
+// contiguous; B K-major, or with TRANS_B = 1 MN-major, as [16 x 128] with
+// the 128 columns contiguous: wgmma's transposed forms, which 16-bit types
 // have), f32 accumulators in the wgmma register layout: register 4 * n8 + e
 // of thread (warp w, lane l) of the warpgroup holds row 16 w + l / 4 + 8
 // (e / 2), column 8 n8 + 2 (l % 4) + e % 2.  With scale_d = 0 the product
 // overwrites d instead (d = A . B^T).
-template <int TRANS_B = 0>
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -168,7 +220,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         :
           "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -178,7 +230,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d[64 x 128] += A[64 x 8] . B[128 x 8]^T, TF32 operands: A from registers

@@ -44,8 +44,10 @@ constexpr int STAGES = 4;
 constexpr int A_BYTES = TM * TK * 4;  // 16 KB
 constexpr int W_BYTES = TN * TK * 4;  // 16 KB, once for hi and once for lo
 constexpr int STAGE_BYTES = A_BYTES + 2 * W_BYTES;
-// the ring, its barriers, and slack to align the ring to 1024 bytes
-constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+// The ring of STAGES slots (A, W_hi, W_lo) of lstm_sm90.cuh; a slot is
+// empty again when the eight consumer warps have read it.
+using RingTf32 = Ring<STAGE_BYTES, STAGES>;
+constexpr int SMEM = RingTf32::SMEM;
 constexpr int THREADS = 384;  // warpgroups 0 and 1 consume, warpgroup 2 produces
 
 // What the gate loop computes: the kernel (3xTF32), hi.hi' alone (1xTF32),
@@ -54,33 +56,10 @@ constexpr int THREADS = 384;  // warpgroups 0 and 1 consume, warpgroup 2 produce
 // slots are taken and given back unread).
 enum Variant { X3 = 0, X1 = 1, NO_PRODUCTS = 2 };
 
-// The ring of STAGES slots (A, W_hi, W_lo), a full and an empty mbarrier
-// each; a slot is empty again when the eight consumer warps have read it.
-struct Ring {
-    uint8_t* slots;
-    uint64_t* full;
-    uint64_t* empty;
-};
-
-__device__ __forceinline__ Ring make_ring(uint8_t* smem_raw) {
-    Ring r;
-    r.slots = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-    r.full = reinterpret_cast<uint64_t*>(r.slots + STAGES * STAGE_BYTES);
-    r.empty = r.full + STAGES;
-    if (threadIdx.x == 0) {
-        for (int s = 0; s < STAGES; ++s) {
-            mbar_init(&r.full[s], 1);
-            mbar_init(&r.empty[s], 8);
-        }
-        mbar_fence_init();
-    }
-    return r;
-}
-
 // The producer thread: stage kt of each of the block's tiles, in order,
 // loaded by load(tile, kt, a, w_hi, w_lo, bar) into the next slot.
 template <typename Load>
-__device__ __forceinline__ void produce(const Ring& r, int tiles, int nk, Load load) {
+__device__ __forceinline__ void produce(const RingTf32& r, int tiles, int nk, Load load) {
     int it = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
         for (int kt = 0; kt < nk; ++kt, ++it) {
@@ -121,7 +100,7 @@ __device__ __forceinline__ float slot_elem(const uint8_t* a, int row, int k) {
 // cores busy.  FOLD = false keeps one chunk over all of K (for measuring
 // what the fold buys).
 template <int V, bool FOLD = true>
-__device__ __forceinline__ void tile_products(const Ring& r, int q, int nk, int wg, int warp, int lane,
+__device__ __forceinline__ void tile_products(const RingTf32& r, int q, int nk, int wg, int warp, int lane,
                                               float (&sum)[TN / 2]) {
     if constexpr (V == NO_PRODUCTS) {
         for (int kt = 0; kt < nk; ++kt) {
@@ -291,7 +270,7 @@ template <int V, bool FOLD = true>
 __device__ __forceinline__ void product_tiles(uint8_t* smem_raw, const CUtensorMap* map_dg,
                                               const CUtensorMap* map_wt_hi, const CUtensorMap* map_wt_lo,
                                               const ProductArgs& p, int n_act_all) {
-    const Ring r = make_ring(smem_raw);
+    const RingTf32 r = make_ring<RingTf32>(smem_raw, 8);
     __syncthreads();
     // block-uniform values made warp-uniform for the compiler (a wgmma on
     // what it takes for a divergent path is serialised)

@@ -286,7 +286,7 @@ def _bwd_fns():
     gate, prod, dw = (getattr(lib, f"oket_lstm_bwd_{part}_bf16") for part in ("gate", "product", "dw"))
     gate.argtypes = [_P] * 9 + [_I] + [_P] * 5 + [_I] * 7 + [_P]
     prod.argtypes = [_P] * 6 + [_I] * 6 + [_P]
-    dw.argtypes = [_P] * 8 + [_LL, _I, _I, _I, _P]
+    dw.argtypes = [_P] * 8 + [_I] * 6 + [_P]
     for fn in (gate, prod, dw):
         fn.restype = _I
     return gate, prod, dw
@@ -469,7 +469,7 @@ def _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step
         raise ValueError(f"the variant {variant!r} is the f32 backward's")
     if gates is not None:
         _check_gates_out(gates, L, B, H, emb_tm, variant)
-    gate, prod, dw = _bwd_fns()
+    gate, prod, _ = _bwd_fns()
     bias = bias.contiguous()
     if bias.data_ptr() % 8:  # the gate kernel reads the bias of a unit pair as one float2
         bias = bias.clone()
@@ -484,7 +484,7 @@ def _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step
     dw_ih = torch.empty(4 * H, D, dtype=dt, device=dev)
     dw_hh = torch.empty(4 * H, H, dtype=dt, device=dev)
     db = torch.empty(4 * H, dtype=torch.float32, device=dev)
-    if not (B and H):
+    if not (L and B and H):
         return demb.zero_(), dw_ih.zero_(), dw_hh.zero_(), db.zero_()
     stream = torch.cuda.current_stream(dev).cuda_stream
     n_sm = _sm_count(dev.index)
@@ -504,11 +504,28 @@ def _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step
                    grid_prod, stream)
         _raise_on(err, f"lstm_last_bwd product step {t}")
         counter.launches += 2
-    err = dw(dg.data_ptr(), emb, hs0, lens.data_ptr(), db_part.data_ptr(),
-             dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(), B, D, H, L, stream)
-    _raise_on(err, "lstm_last_bwd dW and db")
+    _launch_dw(dg, emb_tm, hs, lens, db_part, dw_ih, dw_hh, db, n_sm, stream)
     counter.launches += 1
     return demb, dw_ih, dw_hh, db
+
+
+# what the bf16 dW launch computes: the kernel, or for measuring it
+# (chip_smoke.py) the kernel without its products (the loads alone)
+DW_VARIANTS = {"kernel": 0, "no products": 1}
+
+
+def _launch_dw(dg, emb_tm, hs, lens, db_part, dw_ih, dw_hh, db, n_sm, stream, variant="kernel"):
+    """The bf16 dW launch into ``dw_ih``, ``dw_hh`` and ``db``: dg [L, B, 4H],
+    emb_tm [L, B, D], hs [L, B, H] (bf16), lens int32, db_part f32 as the gate
+    launches write it; the grid is at most a block per SM (the C entry sizes
+    it)."""
+    L, B, D = emb_tm.shape
+    H = hs.shape[2]
+    err = _bwd_fns()[2](
+        dg.data_ptr(), emb_tm.data_ptr(), hs.data_ptr(), lens.data_ptr(), db_part.data_ptr(), dw_ih.data_ptr(),
+        dw_hh.data_ptr(), db.data_ptr(), L, B, D, H, n_sm, DW_VARIANTS[variant], stream,
+    )
+    _raise_on(err, "lstm_last_bwd dW and db")
 
 
 def _launch_bwd_steps_f32(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step, counter, variant):

@@ -338,11 +338,12 @@ class _FakeProfile:
     def key_averages(self):
         from types import SimpleNamespace
 
-        names = {"void (anonymous namespace)::bf16::lstm_bwd_gate_kernel_bf16<0>(...)": 1500.0,
-                 "(anonymous namespace)::bf16::lstm_bwd_product_kernel_bf16(...)": 1000.0,
-                 "(anonymous namespace)::lstm_bwd_dw_kernel((anonymous namespace)::DwArgs)": 2000.0,
-                 "void at::native::vectorized_elementwise_kernel<...>": 50.0}
-        return [SimpleNamespace(key=k, self_device_time_total=v) for k, v in names.items()]
+        # (µs, launches): L = 10 gate and product launches a call, one dW
+        names = {"void (anonymous namespace)::bf16::lstm_bwd_gate_kernel_bf16<0>(...)": (1500.0, 50),
+                 "(anonymous namespace)::bf16::lstm_bwd_product_kernel_bf16(...)": (1000.0, 50),
+                 "void (anonymous namespace)::bf16::lstm_bwd_dw_kernel_bf16<0>(...)": (2000.0, 5),
+                 "void at::native::vectorized_elementwise_kernel<...>": (50.0, 5)}
+        return [SimpleNamespace(key=k, self_device_time_total=v, count=n) for k, (v, n) in names.items()]
 
 
 def test_bf16_backward_launch_split_prints_each_part_beside_its_bound(smoke, lstm_case, monkeypatch, capsys):
@@ -1132,7 +1133,8 @@ def test_scan_device_want_splits_rows_into_functions(smoke, dtype):
                         "lstm_bwd_product_kernel_tf32": 40, "lstm_bwd_dw_kernel_tf32": 4}
     else:
         assert want == {"adagrad_dense_kernel": 3, "adagrad_rows_kernel": 2, "lstm_last_step_kernel": 60,
-                        "lstm_bwd_gate_kernel_bf16": 40, "lstm_bwd_product_kernel_bf16": 40, "lstm_bwd_dw_kernel": 4}
+                        "lstm_bwd_gate_kernel_bf16": 40, "lstm_bwd_product_kernel_bf16": 40,
+                        "lstm_bwd_dw_kernel_bf16": 4}
     with pytest.raises(smoke.SmokeFailure):
         smoke.scan_device_want(dtype, 10, {**rows, "lstm_last_bwd": rows["lstm_last_bwd"] + 1})
 

@@ -327,6 +327,112 @@ def test_bf16_backward_gates_are_kernel_1s_bitwise_on_card(cuda, B, D, H):
     assert torch.equal(fwd.view(torch.int32), bwd.view(torch.int32))
 
 
+# The bf16 dW launch (csrc/lstm_last_bwd.cu: wgmma with A and B transposed,
+# a block walking every active row of its dW tile) at the flagship's
+# widths: B = 1, 37, 4099 and 5632 (the entity pass's rows), lengths
+# 0..10, so most steps' active prefixes end inside a 64-row chunk.  dW and
+# db by the backward's rules, both modes.
+DW_BATCHES = (1, 37, 4099, 5632)
+
+
+@pytest.mark.parametrize("B", DW_BATCHES, ids=[f"B{b}" for b in DW_BATCHES])
+def test_bf16_backward_at_training_widths_on_card(cuda, B):
+    emb, w_ih, w_hh, bias, lens, dhs, dlast = (x.to(cuda) for x in _bf16_inputs(B, 512, 512, seed=B + 11))
+    args = (emb, w_ih, w_hh, bias, lens)
+    L = emb.shape[0]
+    act = torch.from_numpy(_active(lens.cpu().numpy(), L)).to(cuda)
+    _, hs, cs = lstm_kernel._forward(*args, residuals=True)
+    got = {"last": lstm_kernel.lstm_last_backward(*args, hs, cs, dlast),
+           "every": lstm_kernel.lstm_all_backward(*args, hs, cs, dhs)}
+    want = {"last": lstm_kernel.lstm_last_backward_plain(*args, hs, cs, dlast),
+            "every": lstm_kernel.lstm_all_backward_plain(*args, hs, cs, dhs)}
+    torch.cuda.synchronize()
+    share = MAX_UNEQUAL_SHARE_BWD if B >= SHARE_MIN_ROWS else 1.0
+    for mode in got:
+        (demb, dw_ih, dw_hh, db), w = got[mode], want[mode]
+        assert torch.isfinite(dw_ih.float()).all() and torch.isfinite(dw_hh.float()).all(), mode
+        assert_bf16_close(demb[act], w[0][act], share)
+        assert_bf16_close(dw_ih, w[1], share)
+        assert_bf16_close(dw_hh, w[2], share)
+        assert (db - w[3]).abs().max().item() <= DB_RTOL * w[3].abs().max().item(), mode
+
+
+def _dw_operands(B, D, H, L, seed, cuda):
+    """Seeded inputs of the dW launch alone: lengths 0..L sorted descending,
+    dg [L, B, 4H], x [L, B, D], hs [L, B, H] (bf16) and db_part [L, ceil(B /
+    128), 4H] (f32), with masks of what the launch must not read: the rows
+    of dg and x past step t's active prefix, those of hs[t] past step t +
+    1's (hs[L - 1] whole), db_part's row tiles whose first row is past it."""
+    rng = np.random.default_rng(seed)
+    lens = np.sort(rng.integers(0, L + 1, B).astype(np.int32))[::-1].copy()
+    nrows = _active(lens, L).sum(1)
+    f = lambda *s: torch.from_numpy((rng.standard_normal(s) * 0.5).astype(np.float32))  # noqa: E731
+    dg, x, hs = (f(L, B, n).to(torch.bfloat16).to(cuda) for n in (4 * H, D, H))
+    nrb = -(-B // 128)
+    db_part = f(L, nrb, 4 * H).to(cuda)
+    rows = torch.arange(B, device=cuda)
+    past = torch.stack([rows >= int(n) for n in nrows])
+    past_h = torch.ones_like(past)
+    past_h[:-1] = past[1:]
+    tile_past = torch.stack([torch.arange(nrb, device=cuda) * 128 >= int(n) for n in nrows])
+    return torch.from_numpy(lens).to(cuda), (dg, x, hs, db_part), (past, past, past_h, tile_past)
+
+
+# (L, B, D, H); L = 1100: the walk is not bounded by shared memory
+DW_ALONE = [(10, 37, 512, 512), (10, 129, 40, 136), (10, 4099, 64, 40), (10, 5632, 512, 512), (1100, 37, 64, 64)]
+
+
+@pytest.mark.parametrize("L,B,D,H", DW_ALONE, ids=[f"L{n}-B{b}-D{d}-H{h}" for n, b, d, h in DW_ALONE])
+def test_bf16_dw_launch_ignores_rows_past_the_active_prefix_on_card(cuda, L, B, D, H):
+    """The dW launch alone (``lstm_kernel._launch_dw``, the dW entry of
+    ``_bwd_fns()``) with the rows it must not read zero and then NaN (dg and
+    hs come from ``torch.empty`` in a backward, so those rows may hold
+    anything): the same bits; and dW against f32 products of the active
+    rows by the bf16 rule, db against the sum of the active tiles.  The
+    narrow widths leave most blocks to db alone; D = 40, H = 136 has tails
+    of gate and output columns."""
+    lens, ops, masks = _dw_operands(B, D, H, L, B + D + H, cuda)
+    n_sm = lstm_kernel._sm_count(cuda.index or 0)
+    outs = []
+    for fill in (0.0, float("nan")):
+        dg, x, hs, db_part = (o.masked_fill(m[..., None], fill) for o, m in zip(ops, masks))
+        out = (torch.empty(4 * H, D, dtype=torch.bfloat16, device=cuda),
+               torch.empty(4 * H, H, dtype=torch.bfloat16, device=cuda), torch.empty(4 * H, device=cuda))
+        lstm_kernel._launch_dw(dg, x, hs, lens, db_part, *out, n_sm, torch.cuda.current_stream().cuda_stream)
+        outs.append(out)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dW_ih", "dW_hh", "db"), *outs):
+        bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(a.view(bits), b.view(bits)), name
+    dg, x, hs, db_part = (o.masked_fill(m[..., None], 0.0).float() for o, m in zip(ops, masks))
+    want_ih = torch.einsum("lbg,lbd->gd", dg, x)
+    want_hh = torch.einsum("lbg,lbh->gh", dg[1:], hs[:-1])
+    assert_bf16_close(outs[0][0], want_ih.to(torch.bfloat16))
+    assert_bf16_close(outs[0][1], want_hh.to(torch.bfloat16))
+    want_db = db_part.sum((0, 1))
+    assert (outs[0][2] - want_db).abs().max().item() <= DB_RTOL * want_db.abs().max().item()
+
+
+@pytest.mark.parametrize("every", [False, True], ids=["last-state", "every-state"])
+def test_bf16_backward_is_deterministic_on_card(cuda, every):
+    """Kernels 2 and 6 (bf16) twice on the same inputs at B = 4099, D = H =
+    128, where the dW launch's 8 tiles leave 32 of its blocks to db alone:
+    the same bits."""
+    B, D = 4099, 128
+    emb, w_ih, w_hh, bias, lens, dhs, dlast = (x.to(cuda) for x in _bf16_inputs(B, D, D, seed=17))
+    args = (emb, w_ih, w_hh, bias, lens)
+    L = emb.shape[0]
+    act = torch.from_numpy(_active(lens.cpu().numpy(), L)).to(cuda)
+    _, hs, cs = lstm_kernel._forward(*args, residuals=True)
+    fn = lstm_kernel.lstm_all_backward if every else lstm_kernel.lstm_last_backward
+    first, second = (fn(*args, hs, cs, dhs if every else dlast) for _ in range(2))
+    torch.cuda.synchronize()
+    first, second = (first[0][act], *first[1:]), (second[0][act], *second[1:])
+    for name, a, b in zip(("demb", "dW_ih", "dW_hh", "db"), first, second):
+        bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(a.view(bits), b.view(bits)), name
+
+
 def _adagrad_state(V, d, seed):
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731

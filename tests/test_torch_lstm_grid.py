@@ -110,13 +110,13 @@ def test_bf16_product_launch_is_wgmma_with_transposed_b():
     header = _bf16_loop()
     helpers = (CSRC / "lstm_sm90.cuh").read_text()
     mma = _body(helpers, "wgmma_m64n128k16")
-    assert "m64n128k16.f32.bf16.bf16" in mma and '"n"(TRANS_B)' in mma and "1, 1, 0, %67" in mma
+    assert "m64n128k16.f32.bf16.bf16" in mma and '"n"(TRANS_A), "n"(TRANS_B)' in mma and "1, 1, %67, %68" in mma
     folded = _body(header, "tile_products_folded")
-    assert "wgmma_m64n128k16<1>(" in folded and "wgmma_desc_mn(w + kk * 2048, W_BYTES / 2)" in folded
+    assert "wgmma_m64n128k16<0, 1>(" in folded and "wgmma_desc_mn(w + kk * 2048, W_BYTES / 2)" in folded
     assert "sum[i] +=" in folded  # the fold: each stage added to the f32 sum
     src = (CSRC / "lstm_last_bwd.cu").read_text()
     prod = _body(header, "product_tiles")
-    assert "tile_products_folded(r, q, nk, wg, lane, acc)" in prod and "make_ring(smem_raw, 8)" in prod
+    assert "tile_products_folded(r, q, nk, wg, lane, acc)" in prod and "make_ring<RingBf16>(smem_raw, 8)" in prod
     assert prod.count("tma_load_3d(") == 3 and "mbar_arrive_expect_tx(" in prod
     assert "if (p.D > 0) tma_prefetch_map(map_wih);" in prod  # no W_ih map at D = 0 (kernel 8)
     assert not re.search(r"\b(mma_bf16|ldmatrix_x4_trans|cp_async16|transpose)\w*\(", prod)
