@@ -224,10 +224,11 @@ Phases (any failure exits non-zero before the final line):
 ``python3 chip_smoke.py --mrr-spread`` runs only the validation MRR of the
 data-parallel cut over ``MRR_SEEDS`` in every layout (a world of one, data
 parallel, the model axis; bf16 and f32).  ``python3 chip_smoke.py
---backward-split DIR`` times only the bf16 backward's launches by kind of
-the port in the checkout at DIR on seeded inputs at the flagship's pass
-shapes (``backward_split``), so that a parent and a change run in turns in
-one call.
+--backward-split DIR`` times only the bf16 and f32 backwards' launches by
+kind of the port in the checkout at DIR on seeded inputs at the flagship's
+pass shapes, and the dW launch alone in its variants and at f32 against
+f64 (``backward_split``), so that a parent and a change run in turns in one
+call.
 
 Imports nothing of JAX.  Needs one card; writes only under ``.bench_cache/``
 and the package's ``_build/``.
@@ -1680,7 +1681,7 @@ def check_lstm_backward(torch, captured):
     cases.append(("B=37, lengths uniform in 0..10", np.sort(rng.integers(0, 11, 37)).astype(np.int32)[::-1].copy()))
     if dtype == torch.bfloat16:
         check_gates_bitwise(torch, f"training entity pass B={entity[0].shape[1]}", entity[:5])
-        check_dw_poisoned_rows(torch, "training entity pass", entity)
+    check_dw_poisoned_rows(torch, "training entity pass", entity)
     for label, lens in cases:
         b = len(lens)
         emb, wih, whh, bias, lens_t, _ = lstm_inputs(torch, gen, 10, b, 512, 512, lens, dtype)
@@ -1824,9 +1825,12 @@ BACKWARD_F32_KINDS = {"split": "split_kernel_tf32", "gate": "gate_kernel_tf32", 
 # these too, so they are read only from a bf16 call)
 BACKWARD_BF16_KINDS = {"gate": "lstm_bwd_gate_kernel", "product": "lstm_bwd_product_kernel",
                        "dW": "lstm_bwd_dw_kernel_bf16"}
-# the same kinds in any tree of the port, the dW launch by the prefix of
-# both of its kernels' names (``--backward-split``: a parent beside a change)
+# the same kinds in any tree of the port, the dW launch by a prefix of the
+# names of each dtype's kernels in every tree (``--backward-split``: a
+# parent beside a change; the f32 dW launch kept its name when it moved
+# from mma.sync to wgmma)
 BACKWARD_BF16_KINDS_ANY_TREE = {**BACKWARD_BF16_KINDS, "dW": "lstm_bwd_dw_kernel"}
+BACKWARD_F32_KINDS_ANY_TREE = {**BACKWARD_F32_KINDS, "dW": "lstm_bwd_dw_kernel_tf32"}
 FORWARD_F32_KINDS = {"split": "split_kernel_tf32", "steps": "fwd_step_kernel_tf32"}
 
 
@@ -1946,16 +1950,17 @@ def check_gates_bitwise(torch, label, fwd_args, stored=None):
 
 
 def check_dw_poisoned_rows(torch, label, args):
-    """The bf16 dW launch alone (``lstm_kernel._launch_dw``) on a pass's x,
-    hs and lengths with a seeded dg and db_part, twice: with the rows of dg,
-    x and hs past each step's active prefix (and db_part's inactive row
-    tiles) zero, and filled with NaN.  The kernel zeroes a step's last
-    chunk past its prefix in shared memory (TMA zero-fills only past B), so
-    the two must be the same bits; dW is held to f32 products of the active
-    rows by the bf16 rule, db to the f32 sum of the active tiles within
-    ``DB_RTOL``."""
+    """The dW launch alone (``lstm_kernel._launch_dw``, bf16 or f32 as the
+    pass) on a pass's x, hs and lengths with a seeded dg and db_part, twice:
+    with the rows of dg, x and hs past each step's active prefix (and
+    db_part's inactive row tiles) zero, and filled with NaN.  The kernel
+    zeroes a step's last chunk past its prefix (in the ring's slot at bf16,
+    in the transposed tiles it writes at f32; TMA zero-fills only past B),
+    so the two must be the same bits; dW is held to f32
+    products of the active rows by the rule of its dtype (bf16's, or the
+    f32 rule), db to the f32 sum of the active tiles within ``DB_RTOL``."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
-    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import agreement
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import agreement, f32_agreement
 
     t0 = time.perf_counter()
     emb, lens, hs = args[0], args[4], args[5]
@@ -1970,14 +1975,14 @@ def check_dw_poisoned_rows(torch, label, args):
     past_h[:-1] = past[1:]
     nrb = -(-B // 128)
     tile_past = torch.stack([torch.arange(nrb, device="cuda") * 128 >= n for n in nrows])  # [L, nrb]
-    dg = (torch.randn(L, B, 4 * H, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    dt = emb.dtype
+    dg = (torch.randn(L, B, 4 * H, generator=gen, device="cuda") * 0.05).to(dt)
     db_part = torch.randn(L, nrb, 4 * H, generator=gen, device="cuda")
     outs = {}
     for fill in (0.0, float("nan")):
         filled = [x.masked_fill(m[..., None], fill) for x, m in ((dg, past), (emb, past), (hs, past_h),
                                                                   (db_part, tile_past))]
-        out = (torch.empty(4 * H, D, dtype=torch.bfloat16, device="cuda"),
-               torch.empty(4 * H, H, dtype=torch.bfloat16, device="cuda"),
+        out = (torch.empty(4 * H, D, dtype=dt, device="cuda"), torch.empty(4 * H, H, dtype=dt, device="cuda"),
                torch.empty(4 * H, device="cuda"))
         lk._launch_dw(*filled[:3], lens_i, filled[3], *out, lk._sm_count(0), torch.cuda.current_stream().cuda_stream)
         outs[fill == 0.0] = out
@@ -1990,11 +1995,14 @@ def check_dw_poisoned_rows(torch, label, args):
     want_ih = torch.einsum("lbg,lbd->gd", dgf, xf)
     want_hh = torch.einsum("lbg,lbh->gh", dgf[1:], hf[:-1])
     want_db = db_part.masked_fill(tile_past[..., None], 0.0).sum((0, 1))
-    a_ih, a_hh = agreement(zero[0], want_ih.to(torch.bfloat16)), agreement(zero[1], want_hh.to(torch.bfloat16))
+    if dt == torch.float32:
+        a_ih, a_hh = f32_agreement(zero[0], want_ih), f32_agreement(zero[1], want_hh)
+    else:
+        a_ih, a_hh = agreement(zero[0], want_ih.to(dt)), agreement(zero[1], want_hh.to(dt))
     db_err = (zero[2] - want_db).abs().max().item() / want_db.abs().max().item()
-    print(f"dW launch alone, {label} B={B}: dW_ih {a_ih}; dW_hh {a_hh}; db {db_err:.3e} of max|want|; NaN past each "
-          f"step's prefix vs zero there: {unequal} of {[x.numel() for x in zero]} elements unequal (dW_ih, dW_hh, "
-          f"db); {time.perf_counter() - t0:.1f} s")
+    print(f"dW launch alone, {label} B={B} {dt}: dW_ih {a_ih}; dW_hh {a_hh}; db {db_err:.3e} of max|want|; NaN "
+          f"past each step's prefix vs zero there: {unequal} of {[x.numel() for x in zero]} elements unequal (dW_ih, "
+          f"dW_hh, db); {time.perf_counter() - t0:.1f} s")
     check(unequal == [0, 0, 0], f"the dW launch reads rows past the active prefix at {label}: {unequal} unequal")
     check(a_ih.ok() and a_hh.ok(), f"the dW launch disagrees with f32 products at {label}")
     check(db_err <= DB_RTOL, f"db of the dW launch off by {db_err:.3e} of max|want| at {label}")
@@ -3217,48 +3225,91 @@ SPLIT_SHAPES = {"entity pass": 5632, "relation pass": 3072}
 
 
 def backward_split(torch):
-    """The bf16 backward of the port this process imports, on seeded inputs
-    at the flagship's pass shapes (``SPLIT_SHAPES``, lengths by
-    ``synth_lengths``, kernel 1's residuals): its launches by kind (gate,
-    product, dW; device ms per call, torch.profiler) each beside its part of
-    the bound, the whole call (CUDA events) beside cuDNN's packed backward,
-    and where the port has the dW launch's measuring variants
-    (``lstm_kernel.DW_VARIANTS``) the launch alone in each.  The inputs
+    """The bf16 and the f32 backward of the port this process imports, on
+    seeded inputs at the flagship's pass shapes (``SPLIT_SHAPES``, lengths
+    by ``synth_lengths``, kernel 1's residuals): its launches by kind
+    (gate, product, dW, and at f32 the split; device ms per call,
+    torch.profiler) each beside its part of the bound, the whole call (CUDA
+    events) beside cuDNN's packed backward, and where the port has the dW
+    launch's measuring variants (``lstm_kernel.DW_VARIANTS``, and
+    ``DW_F32_VARIANTS`` at f32) the launch alone in each.  The inputs
     depend on the seed alone, so ``--backward-split DIR`` run on two trees
     in turns (parent, change, change, parent) compares them in one call.
-    Returns the ms."""
+    Returns the ms by dtype and pass."""
     from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
 
     out = {}
-    for label, B in SPLIT_SHAPES.items():
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 30 + B)
-        lens = synth_lengths(np.random.default_rng(SEED + 30 + B), B)
-        emb, wih, whh, bias, lens_t, _ = lstm_inputs(torch, gen, 10, B, 512, 512, lens)
-        _, hs, cs = lk._forward(emb, wih, whh, bias, lens_t, residuals=True)
-        dlast = (torch.randn(B, 512, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
-        args = (emb, wih, whh, bias, lens_t, hs, cs, dlast)
+    for dtype, kinds, variants in ((torch.bfloat16, BACKWARD_BF16_KINDS_ANY_TREE, "DW_VARIANTS"),
+                                   (torch.float32, BACKWARD_F32_KINDS_ANY_TREE, "DW_F32_VARIANTS")):
+        sfx = "_f32" if dtype == torch.float32 else ""
+        for label, B in SPLIT_SHAPES.items():
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 30 + B)
+            lens = synth_lengths(np.random.default_rng(SEED + 30 + B), B)
+            emb, wih, whh, bias, lens_t, _ = lstm_inputs(torch, gen, 10, B, 512, 512, lens, dtype)
+            _, hs, cs = lk._forward(emb, wih, whh, bias, lens_t, residuals=True)
+            dlast = (torch.randn(B, 512, generator=gen, device="cuda") * 0.1).to(dtype)
+            args = (emb, wih, whh, bias, lens_t, hs, cs, dlast)
 
-        def call():
-            return lk.lstm_last_backward(*args)
+            def call():
+                return lk.lstm_last_backward(*args)
 
-        row = {"by_kind": print_backward_launch_ms(torch, "lstm_last_bwd", args, call,
-                                                   kinds=BACKWARD_BF16_KINDS_ANY_TREE, label=label),
-               "ms": cuda_ms(call, iters=10)}
-        row["library_ms"], note = library_lstm_backward_ms(torch, args)
-        if hasattr(lk, "DW_VARIANTS"):
-            # the dW launch alone, and without its products (the loads alone),
-            # on a seeded dg and this pass's x, hs and lengths
-            dg = (torch.randn(10, B, 2048, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
-            db_part = torch.randn(10, -(-B // 128), 2048, generator=gen, device="cuda")
-            outs = (torch.empty(2048, 512, dtype=torch.bfloat16, device="cuda"),
-                    torch.empty(2048, 512, dtype=torch.bfloat16, device="cuda"), torch.empty(2048, device="cuda"))
-            lens_i = lens_t.to(torch.int32)
-            row["dw_alone_ms"] = {v: launch_ms(torch, lambda v=v: lk._launch_dw(
-                dg, emb, hs, lens_i, db_part, *outs, lk._sm_count(0), torch.cuda.current_stream().cuda_stream,
-                variant=v), {"dW": "lstm_bwd_dw_kernel"})["dW"] for v in lk.DW_VARIANTS}
-        print(f"backward split {label} B={B}: kernel {row['ms']:.4f} ms, cuDNN packed backward "
-              f"{row['library_ms']} ms ({note}); " + json.dumps({k: v for k, v in row.items() if k.startswith("dw")}))
-        out[label] = row
+            row = {"by_kind": print_backward_launch_ms(torch, "lstm_last_bwd" + sfx, args, call, kinds=kinds,
+                                                       label=label),
+                   "ms": cuda_ms(call, iters=10)}
+            row["library_ms"], note = library_lstm_backward_ms(torch, args)
+            if hasattr(lk, variants):
+                # the dW launch alone in each variant (the kernel, without its
+                # products: the loads alone), on a seeded dg and this pass's
+                # x, hs and lengths
+                dg = (torch.randn(10, B, 2048, generator=gen, device="cuda") * 0.05).to(dtype)
+                db_part = torch.randn(10, -(-B // 128), 2048, generator=gen, device="cuda")
+                outs = (torch.empty(2048, 512, dtype=dtype, device="cuda"),
+                        torch.empty(2048, 512, dtype=dtype, device="cuda"), torch.empty(2048, device="cuda"))
+                lens_i = lens_t.to(torch.int32)
+                row["dw_alone_ms"] = {v: launch_ms(torch, lambda v=v: lk._launch_dw(
+                    dg, emb, hs, lens_i, db_part, *outs, lk._sm_count(0), torch.cuda.current_stream().cuda_stream,
+                    variant=v), {"dW": kinds["dW"]})["dW"] for v in getattr(lk, variants)}
+                if dtype == torch.float32:
+                    row["dw_vs_f64"] = dw_accuracy(torch, dg, emb, hs, lens_i, db_part, outs)
+            print(f"backward split{sfx} {label} B={B}: kernel {row['ms']:.4f} ms, cuDNN packed backward "
+                  f"{row['library_ms']} ms ({note}); "
+                  + json.dumps({k: v for k, v in row.items() if k.startswith("dw")}))
+            out[f"{label}{sfx}"] = row
+    return out
+
+
+def dw_accuracy(torch, dg, x, hs, lens, db_part, outs):
+    """The f32 dW launch alone and the plain version's sum (per-step f32
+    products, cuBLAS, steps added in reverse as ``lstm_last_backward_plain``
+    adds them) against the f64 sum of the same operands over each step's
+    active rows: the largest difference over max|want|, and the signed
+    mean difference over mean|want| (the sum's bias), dW_ih and dW_hh.  The
+    kernel's largest must pass the f32 rule."""
+    from open_knowledge_graph_embeddings_tpu_torch.ops import lstm_kernel as lk
+    from open_knowledge_graph_embeddings_tpu_torch.utils.numerics import MAX_REL_ERR_F32
+
+    L = x.shape[0]
+    act = (lens.clamp(min=1)[None, :] > torch.arange(L, device=lens.device)[:, None])[..., None]
+    g, xa, ha = torch.where(act, dg, 0.0), torch.where(act, x, 0.0), torch.where(act[1:], hs[:-1], 0.0)
+    exact = (torch.einsum("lbg,lbd->gd", g.double(), xa.double()),
+             torch.einsum("lbg,lbh->gh", g[1:].double(), ha.double()))
+    lk._launch_dw(dg, x, hs, lens, db_part, *outs, lk._sm_count(0), torch.cuda.current_stream().cuda_stream)
+    plain = [torch.zeros_like(outs[0]), torch.zeros_like(outs[1])]
+    for t in reversed(range(L)):
+        plain[0] += g[t].t() @ xa[t]
+        if t > 0:
+            plain[1] += g[t].t() @ ha[t - 1]
+    torch.cuda.synchronize()
+
+    def rel(got):
+        return [float((a.double() - e).abs().max() / e.abs().max()) for a, e in zip(got, exact)]
+
+    def bias(got):  # signed: below 0, the sum shrinks
+        return [float(((a.double() - e) * e.sign()).sum() / e.abs().sum()) for a, e in zip(got, exact)]
+
+    out = {"kernel": rel(outs[:2]), "plain f32": rel(plain), "kernel bias": bias(outs[:2]),
+           "plain f32 bias": bias(plain)}
+    check(max(out["kernel"]) <= MAX_REL_ERR_F32, f"f32 dW launch alone vs the f64 sum: {out['kernel']}")
     return out
 
 
@@ -7066,7 +7117,7 @@ def build_kernels(torch, timings):
     cuda_build.build(CUDA_SOURCES)
     timings["build_cuda_s"] = time.perf_counter() - t0
     for name, log in cuda_build.BUILD_LOGS.items():
-        info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln or "wgmma" in ln]
         print(f"nvcc {name}: " + " | ".join(info))
     print(f"build: nvcc {timings['build_cuda_s']:.2f} s ({len(CUDA_SOURCES)} sources in parallel)")
 
@@ -7096,8 +7147,8 @@ def main(argv) -> int:
         launch_cost(torch)
         return 0
     if argv[:1] == ["--backward-split"]:
-        # the bf16 backward's launches of the port in the checkout at argv[1]
-        # (this one by default): two trees in one call, in turns
+        # the bf16 and f32 backwards' launches of the port in the checkout at
+        # argv[1] (this one by default): two trees in one call, in turns
         tree = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
         check((tree / PKG).is_dir(), f"no {PKG}/ under {tree}")
         sys.path.insert(0, str(tree))

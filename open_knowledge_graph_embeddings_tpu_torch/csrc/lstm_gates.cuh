@@ -1,9 +1,8 @@
 // The CUDA-core building blocks of the port's LSTM kernels that do not run
-// on a wgmma loop: the block constants and cp.async copies of the f32 dW
-// launch and the db reduction (lstm_last_bwd.cu); the backward's cell
-// arithmetic (bwd_cell), which every backward's gate launch runs; the
-// accurate sigmoid, the f32 -> bf16 rounding, and the search for a step's
-// active rows.
+// on a wgmma loop: the block constants of the db reduction
+// (lstm_last_bwd.cu); the backward's cell arithmetic (bwd_cell), which
+// every backward's gate launch runs; the accurate sigmoid, the f32 -> bf16
+// rounding, and the search for a step's active rows.
 
 #pragma once
 
@@ -13,15 +12,8 @@
 
 namespace oket_lstm {
 
-constexpr int BM = 128;  // rows per block
-constexpr int NT = 256;  // 8 warps
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-    uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+constexpr int BM = 128;  // rows per db_part row tile
+constexpr int NT = 256;  // the dW launches' consumer threads (8 warps)
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
 

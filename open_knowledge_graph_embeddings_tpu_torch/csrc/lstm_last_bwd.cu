@@ -108,18 +108,23 @@
 //   2. lstm_bwd_product_kernel_tf32, per step: [dh | demb[t]] = dg[t] .
 //      [W_hh | W_ih] on the same ring and loop, 128 x 128 output tiles
 //      (lstm_tf32.cuh::product_tiles, which kernel 8 runs too, with D = 0);
-//   3. lstm_bwd_dw_kernel_tf32, once: one block per 128 x 128 tile of dW
-//      walking every (t, row chunk) in order, with
-//      mma.sync m16n8k8 TF32 fragments loaded from the k-major shared tiles
-//      (wgmma would need K-major copies of dg, emb and hs: dW reduces over
-//      rows), 64-row chunks through a 3-slot cp.async ring, blocks of 256
-//      rows summed apart, then the same db reduction.
+//   3. lstm_bwd_dw_kernel_tf32, once: the bf16 dW launch's shape
+//      (persistent blocks, a block walking every active row of its 128 x
+//      128 tile of dW alone, one producer thread loading each chunk by TMA
+//      into the shared lstm_sm90.cuh::Ring, two consumer warpgroups of 64
+//      gate columns each) on wgmma m64n128k8 TF32.  dW reduces over rows,
+//      so both operands arrive MN-major, and TF32 wgmma takes only K-major
+//      ones: the consumers write both, split, into K-major hi and lo tiles
+//      in shared memory a chunk ahead (32 rows: a 3-slot ring of 32 KB
+//      stages and two 64 KB buffers, 226 KB), and multiply them there;
+//      the products of 256 rows from zero, folded into an f32 sum (the
+//      mma.sync launch's blocks before it); then the same db reduction.
 // No float atomics: dW and db do not change from run to run.  D and H
 // multiples of 4 (TMA strides are multiples of 16 bytes); K tails, rows
 // past B and units past H read as zero.  On an H100 (chip_smoke.py; numbers
 // in PERF.md) the gate and product launches reach about half of their parts
-// of the bound and the dW launch a third, and the whole backward runs below
-// cuDNN's packed f32 LSTM backward on the training passes.
+// of the bound, and the whole backward runs below cuDNN's packed f32 LSTM
+// backward on the training passes.
 
 #include "lstm_bf16.cuh"
 #include "lstm_gates.cuh"
@@ -128,21 +133,118 @@
 namespace {
 
 using namespace oket_lstm;
-
-constexpr int WB = 128;  // f32 dW tile: 128 gate columns x 128 output columns
+using namespace oket_sm90;
 
 constexpr int DBC = 16;  // db columns per pass; NT / DBC partial sums each
 
-// Next (step, row chunk) of the f32 dW launch's walk: row chunks of `chunk`
-// over each step's active rows (nrows at step t), steps in order, steps with
-// no active row skipped.
+// What both dtypes' dW launches read and write: the lengths, the gate
+// launches' db_part, and dW (T: bf16 bits or f32) and db out.
+template <typename T>
+struct DwArgs {
+    const int* lens;       // [B], sorted descending
+    const float* db_part;  // [L, ceil(B / BM), 4H]: written for the active row tiles only
+    T* dw_ih;              // [4H, D]
+    T* dw_hh;              // [4H, H]
+    float* db;             // [4H]
+    int B, D, H, L;
+};
+
+constexpr int DW_TILE = 128;  // dW tile: 128 gate columns x 128 output columns
+
+// Tile u of dW: 128 gate columns from m0 x 128 output columns from n0 of
+// dW_ih, or of dW_hh when hh (the output-column tiles of a gate-column tile
+// in order, dW_ih's first).
+struct DwTile {
+    int m0, n0, N;
+    bool hh;
+};
+
 template <typename Args>
-__device__ __forceinline__ void dw_advance(const Args& p, int chunk, int& t, int& k0, int& nrows) {
-    k0 += chunk;
-    while (t < p.L && k0 >= nrows) {
-        ++t;
-        k0 = 0;
-        nrows = t < p.L ? active_rows(p.lens, p.B, t) : 0;
+__device__ __forceinline__ DwTile dw_tile(const Args& p, int u, int cols, int nd) {
+    DwTile w;
+    const int j = u % cols;
+    w.hh = j >= nd;
+    w.m0 = u / cols * DW_TILE;
+    w.n0 = (w.hh ? j - nd : j) * DW_TILE;
+    w.N = w.hh ? p.H : p.D;
+    return w;
+}
+
+// dW tiles of a call: 128-column tiles of the 4H gate columns x those of
+// the D + H output columns (dW_ih's, then dW_hh's).
+template <typename Args>
+__host__ __device__ __forceinline__ int dw_tiles(const Args& p) {
+    return (4 * p.H + DW_TILE - 1) / DW_TILE * ((p.D + DW_TILE - 1) / DW_TILE + (p.H + DW_TILE - 1) / DW_TILE);
+}
+
+// The dW launches' grid: a block per tile and per db pass, at most
+// max_blocks (the SM count: the blocks are persistent).
+template <typename Args>
+int dw_grid(const Args& p, int max_blocks) {
+    return min(dw_tiles(p) + (4 * p.H + DBC - 1) / DBC, max_blocks);
+}
+
+// The producer thread of a dW launch: for each chunk of ROWS rows of the
+// block's walk (each of its tiles, in order: every step's active rows
+// (active_rows) in chunks, steps in order; dW_hh has no term at t = 0,
+// h_0 = 0, so its tiles start at step 1), the next slot of the ring gets
+// by TMA BOXES boxes of ROWS rows x BOX_COLS columns of dg[t] (the tile's
+// gate columns), then as many of x_t or hs[t-1] (its output columns),
+// through 3-D maps over [L, B, columns]: both operands MN-major, their
+// columns contiguous.  A box wholly past 4H or N is not loaded: what the
+// slot holds there reaches only outputs that are not written.
+template <int ROWS, int BOX_COLS, int BOXES, int BOX_BYTES, typename R, typename Args>
+__device__ __forceinline__ void produce_dw(const R& r, const Args& p, const CUtensorMap* map_dg,
+                                           const CUtensorMap* map_x, const CUtensorMap* map_hs) {
+    tma_prefetch_map(map_dg);
+    tma_prefetch_map(map_x);
+    tma_prefetch_map(map_hs);
+    const int H4 = 4 * p.H, nd = (p.D + DW_TILE - 1) / DW_TILE;
+    const int cols = nd + (p.H + DW_TILE - 1) / DW_TILE, tiles = dw_tiles(p);
+    int it = 0;
+    for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
+        const DwTile w = dw_tile(p, u, cols, nd);
+        const int na = min(BOXES, (H4 - w.m0 + BOX_COLS - 1) / BOX_COLS);
+        const int nb = min(BOXES, (w.N - w.n0 + BOX_COLS - 1) / BOX_COLS);
+        const CUtensorMap* map_b = w.hh ? map_hs : map_x;
+        for (int t = w.hh; t < p.L; ++t) {
+            const int nrows = active_rows(p.lens, p.B, t);
+            for (int k0 = 0; k0 < nrows; k0 += ROWS, ++it) {
+                const int s = it % R::STAGES;
+                mbar_wait(&r.empty[s], ((it / R::STAGES) & 1) ^ 1);
+                mbar_arrive_expect_tx(&r.full[s], (na + nb) * BOX_BYTES);
+                uint8_t* a = r.slot(s);
+                uint8_t* b = a + BOXES * BOX_BYTES;
+                for (int j = 0; j < na; ++j)
+                    tma_load_3d(a + j * BOX_BYTES, map_dg, &r.full[s], w.m0 + j * BOX_COLS, k0, t);
+                for (int j = 0; j < nb; ++j)
+                    tma_load_3d(b + j * BOX_BYTES, map_b, &r.full[s], w.n0 + j * BOX_COLS, k0, t - w.hh);
+            }
+        }
+    }
+}
+
+// A chunk of a dW launch's walk: rows k0 .. k0 + ROWS of the nrows active
+// at step t, of tile u (u past the block's last tile: the walk's end).
+struct DwChunk {
+    int u, t, k0, nrows;
+};
+
+// The chunk after c in the block's walk, in produce_dw's order (its tiles,
+// each from its first step, steps with no active row skipped); rows = 0
+// from {blockIdx.x, the first tile's first step - 1, 0, 0} finds the
+// first.  nrows is made warp-uniform: the compiler serialises a wgmma that
+// depends on what it takes for a divergent value.
+template <typename Args>
+__device__ __forceinline__ void dw_next_chunk(const Args& p, int rows, int tiles, int cols, int nd, DwChunk& c) {
+    c.k0 += rows;
+    while (c.u < tiles && c.k0 >= c.nrows) {
+        c.k0 = 0;
+        c.nrows = 0;
+        if (++c.t < p.L)
+            c.nrows = __shfl_sync(0xffffffff, active_rows(p.lens, p.B, c.t), 0);
+        else if ((c.u += gridDim.x) < tiles)
+            c.t = (int)dw_tile(p, c.u, cols, nd).hh - 1;
     }
 }
 
@@ -172,6 +274,18 @@ __device__ __forceinline__ void db_columns(const Args& p, int c0, int tid, float
         p.db[c0 + tid] = v;
     }
     sync();
+}
+
+// db in a dW launch, by its 256 consumer threads (tid), after their tiles:
+// DBC columns a pass, on the blocks with no tile where there are such (the
+// last ones), else on all, from the last back.
+template <typename Args>
+__device__ __forceinline__ void dw_db(const Args& p, int tiles, int tid, float (&part)[NT / DBC][DBC]) {
+    const int busy = min((int)gridDim.x, tiles);
+    const int pool = busy < (int)gridDim.x ? gridDim.x - busy : gridDim.x;
+    if ((int)blockIdx.x >= (int)gridDim.x - pool)
+        for (int c = (gridDim.x - 1 - blockIdx.x) * DBC; c < 4 * p.H; c += pool * DBC)
+            db_columns(p, c, tid, part, [] { named_barrier(3, 256); });
 }
 
 // ------------------------------------------------- bf16 gate and product launches
@@ -337,7 +451,6 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 constexpr int DW_BOX = 64;                          // rows (K) and columns of a TMA box
 constexpr int DW_BOX_BYTES = DW_BOX * DW_BOX * 2;   // 8 KB
-constexpr int DW_TILE = 2 * DW_BOX;                 // dW tile: 128 gate columns x 128 output columns
 constexpr int DW_STAGES = 6;
 using RingDw = Ring<4 * DW_BOX_BYTES, DW_STAGES>;   // a stage: two dg boxes, then two x or hs boxes
 
@@ -345,32 +458,7 @@ using RingDw = Ring<4 * DW_BOX_BYTES, DW_STAGES>;   // a stage: two dg boxes, th
 // it the kernel without its products (the loads alone).
 enum DwVariant { DW_KERNEL = 0, DW_NO_PRODUCTS = 1 };
 
-struct DwArgs16 {
-    const int* lens;       // [B], sorted descending
-    const float* db_part;  // [L, ceil(B / TM), 4H]: written for the active row tiles only
-    uint16_t* dw_ih;       // [4H, D]
-    uint16_t* dw_hh;       // [4H, H]
-    float* db;             // [4H]
-    int B, D, H, L;
-};
-
-// Tile u of dW: 128 gate columns from m0 x 128 output columns from n0 of
-// dW_ih, or of dW_hh when hh (the output-column tiles of a gate-column tile
-// in order, dW_ih's first).
-struct DwTile {
-    int m0, n0, N;
-    bool hh;
-};
-
-__device__ __forceinline__ DwTile dw_tile(const DwArgs16& p, int u, int cols, int nd) {
-    DwTile w;
-    const int j = u % cols;
-    w.hh = j >= nd;
-    w.m0 = u / cols * DW_TILE;
-    w.n0 = (w.hh ? j - nd : j) * DW_TILE;
-    w.N = w.hh ? p.H : p.D;
-    return w;
-}
+using DwArgs16 = DwArgs<uint16_t>;
 
 // dW launch, once per call: dW_ih = sum over t of dg[t]^T . x_t and dW_hh =
 // sum over t >= 1 of dg[t]^T . hs[t-1] over each step's active rows,
@@ -420,35 +508,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
     const int H4 = 4 * p.H, nd = (p.D + DW_TILE - 1) / DW_TILE;
     const int cols = nd + (p.H + DW_TILE - 1) / DW_TILE;
-    const int tiles = (H4 + DW_TILE - 1) / DW_TILE * cols;
+    const int tiles = dw_tiles(p);
 
     if (wg == 2) {
         setmaxnreg_dec<40>();
-        if (threadIdx.x == 256) {
-            tma_prefetch_map(&map_dg);
-            tma_prefetch_map(&map_x);
-            tma_prefetch_map(&map_hs);
-            int it = 0;
-            for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
-                const DwTile w = dw_tile(p, u, cols, nd);
-                const bool a2 = w.m0 + DW_BOX < H4, b2 = w.n0 + DW_BOX < w.N;  // the second box holds a column
-                const CUtensorMap* map_b = w.hh ? &map_hs : &map_x;
-                for (int t = w.hh; t < p.L; ++t) {
-                    const int nrows = active_rows(p.lens, p.B, t);
-                    for (int k0 = 0; k0 < nrows; k0 += DW_BOX, ++it) {
-                        const int s = it % DW_STAGES;
-                        mbar_wait(&r.empty[s], ((it / DW_STAGES) & 1) ^ 1);
-                        mbar_arrive_expect_tx(&r.full[s], (2 + a2 + b2) * DW_BOX_BYTES);
-                        uint8_t* a = r.slot(s);
-                        uint8_t* b = a + 2 * DW_BOX_BYTES;
-                        tma_load_3d(a, &map_dg, &r.full[s], w.m0, k0, t);
-                        if (a2) tma_load_3d(a + DW_BOX_BYTES, &map_dg, &r.full[s], w.m0 + DW_BOX, k0, t);
-                        tma_load_3d(b, map_b, &r.full[s], w.n0, k0, t - w.hh);
-                        if (b2) tma_load_3d(b + DW_BOX_BYTES, map_b, &r.full[s], w.n0 + DW_BOX, k0, t - w.hh);
-                    }
-                }
-            }
-        }
+        if (threadIdx.x == 256) produce_dw<DW_BOX, DW_BOX, 2, DW_BOX_BYTES>(r, p, &map_dg, &map_x, &map_hs);
     } else {
         setmaxnreg_inc<232>();
         const int tid = threadIdx.x, wt = tid % 128, warp = wt / 32, lane = tid % 32;
@@ -511,14 +575,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                 }
             }
         }
-        // db: DBC columns a pass, on the blocks with no tile where there are
-        // such (the last ones), else on all, from the last back; a row block
-        // is active at t when its first row is
-        const int busy = min((int)gridDim.x, tiles);
-        const int pool = busy < (int)gridDim.x ? gridDim.x - busy : gridDim.x;
-        if ((int)blockIdx.x >= (int)gridDim.x - pool)
-            for (int c = (gridDim.x - 1 - blockIdx.x) * DBC; c < H4; c += pool * DBC)
-                db_columns(p, c, tid, part, [] { named_barrier(3, 256); });
+        dw_db(p, tiles, tid, part);
     }
 }
 
@@ -526,8 +583,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 // max_blocks.
 template <int V>
 int launch_dw(const CUtensorMap* const (&maps)[3], const DwArgs16& p, int max_blocks, cudaStream_t s) {
-    const int tiles = (4 * p.H + DW_TILE - 1) / DW_TILE * ((p.D + DW_TILE - 1) / DW_TILE + (p.H + DW_TILE - 1) / DW_TILE);
-    const int grid = min(tiles + (4 * p.H + DBC - 1) / DBC, max_blocks);
+    const int grid = dw_grid(p, max_blocks);
     if (const int e = allow_smem<lstm_bwd_dw_kernel_bf16<V>, RingDw::SMEM>()) return e;
     lstm_bwd_dw_kernel_bf16<V><<<grid, THREADS, RingDw::SMEM, s>>>(*maps[0], *maps[1], *maps[2], p);
     return static_cast<int>(cudaGetLastError());
@@ -737,175 +793,227 @@ int launch_product(const CUtensorMap* const (&maps)[3], const ProductArgs& p, co
     return static_cast<int>(cudaGetLastError());
 }
 
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// ------------------------------------------------------------- f32 dW launch
+
+constexpr int DW32_ROWS = 32;                       // rows (K) of a chunk: 128 bytes of f32 along K
+constexpr int DW32_BOX_BYTES = DW32_ROWS * 32 * 4;  // 4 KB: a TMA box of 32 rows x 32 columns
+constexpr int DW32_OPERAND = 4 * DW32_BOX_BYTES;    // 16 KB: a chunk of 128 columns, as four boxes
+constexpr int DW32_STAGES = 3;
+using RingDw32 = Ring<2 * DW32_OPERAND, DW32_STAGES>;  // a stage: dg's four boxes, then x's or hs's
+// A chunk's operands transposed and split: A's hi and lo, then B's (16 KB
+// each), K-major; two buffers after the ring (its barriers padded to a
+// swizzle atom): 226 KB in all, so db's partial sums take the first
+// buffer at the end.
+constexpr int DW32_BUF = 4 * DW32_OPERAND;
+constexpr int DW32_SMEM = RingDw32::SMEM + 1024 + 2 * DW32_BUF;
+
+using DwArgs32 = DwArgs<float>;
+constexpr int DW32_FOLD = 8;  // chunks (256 rows) a wgmma accumulator sums before its fold
+
+// A chunk's 128 columns of dg, x or hs (the four MN-major boxes at `op`:
+// row k of box j holds columns 32 j .. 32 j + 31, 128-byte swizzled) into
+// a K-major wgmma operand, split: row n of `bt_hi` and `bt_lo` holds the
+// hi and lo parts of column n's 32 k (the 128-byte swizzle of
+// lstm_sm90.cuh), rows k at or past `valid` as zero.  Consumer thread i (0 .. 255) moves one 4 x 4
+// block: k 4 p .. 4 p + 3 by columns 32 j + 4 q .. + 3, for j = i / 64,
+// p = i % 8 and q = (p + i / 8) % 8, in 16-byte loads and stores; the
+// eight threads of a quarter warp (one p each) then hit eight different
+// 16-byte chunks of a 128-byte row both ways (p ^ 4 (q & 1) and q ^ 4 (p & 1)
+// are permutations of 0 .. 7), so no access has a bank conflict.
+__device__ __forceinline__ void dw_split_transposed(const uint8_t* op, uint8_t* bt_hi, uint8_t* bt_lo, int i,
+                                                    int valid) {
+    const int j = i >> 6, p = i & 7, q = (p + (i >> 3)) & 7;
+    float v[4][4];  // [k - 4 p][column - 32 j - 4 q]
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        const int k = 4 * p + r;
+        const float4 x = *reinterpret_cast<const float4*>(op + j * DW32_BOX_BYTES + k * 128 + ((q ^ (k & 7)) << 4));
+        const bool keep = k < valid;
+        v[r][0] = keep ? x.x : 0.f;
+        v[r][1] = keep ? x.y : 0.f;
+        v[r][2] = keep ? x.z : 0.f;
+        v[r][3] = keep ? x.w : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        const int n = 32 * j + 4 * q + c;
+        uint4 hi, lo;
+        tf32_split(v[0][c], hi.x, lo.x);
+        tf32_split(v[1][c], hi.y, lo.y);
+        tf32_split(v[2][c], hi.z, lo.z);
+        tf32_split(v[3][c], hi.w, lo.w);
+        const int off = n * 128 + ((p ^ (n & 7)) << 4);
+        *reinterpret_cast<uint4*>(bt_hi + off) = hi;
+        *reinterpret_cast<uint4*>(bt_lo + off) = lo;
+    }
 }
 
-constexpr int DBK = 64;       // dW rows per chunk: eight k8 steps between barriers
-constexpr int DSTAGES = 3;    // chunks in the cp.async ring: two in flight while one is multiplied
-constexpr int DLD = WB + 8;   // smem row stride: 136 = 8 mod 32, so a fragment load (k = lane%4, + 4;
-                              // column lane/4, + 8) reads 32 distinct banks
-constexpr int DW_SMEM = DSTAGES * 2 * DBK * DLD * 4;  // 204 KB: the ring of dg and x / h tiles
-// dW sums over every active (row, step), 26636 terms on the flagship's entity
-// pass: one f32 accumulator taking them in turn drifted from the plain
-// version's per-step products by 1.2e-5 of max|dW| on an H100, too near the
-// f32 rule's limit.  So the kernel sums blocks of DW_BLOCK chunks (256 rows)
-// apart and adds the block sums into a second accumulator.
-constexpr int DW_BLOCK = 256 / DBK;
-
-struct Tf32DwArgs {
-    const float* dg;       // [L, B, 4H]
-    const float* x;        // [L, B, D]
-    const float* hs;       // [L, B, H]
-    const int* lens;       // [B], sorted descending
-    const float* db_part;  // [L, ceil(B / BM), 4H]: written for the active row tiles only
-    float* dw_ih;          // [4H, D]
-    float* dw_hh;          // [4H, H]
-    float* db;             // [4H]
-    long long B;
-    int D, H, L;
-};
-
-// dW launch, once per call: dW = sum over t of dg[t]^T . [x_t | hs[t-1]]
-// on mma.sync m16n8k8 in 3xTF32 (fragments read from the k-major shared
-// tiles, split in registers; the correction products first), over the
-// (t, row chunk) walk of dw_advance, one block per 128 x 128 tile
-// of dW, blocks of 256 rows summed apart; and db by db_columns.  Warp
-// (wm = warp % 4, wn = warp / 4) holds gate columns m0 + 32 wm + [0, 32)
-// and output columns n0 + 64 wn + [0, 64).  The chunks stream through a
-// ring of DSTAGES slots of 64 rows (cp.async, 16-byte copies): on an H100
-// this ran faster than 16-row chunks double buffered, whose barrier every
-// two k8 steps held the eight warps back.
+// dW launch, once per call: dW_ih = sum over t of dg[t]^T . x_t and dW_hh =
+// sum over t >= 1 of dg[t]^T . hs[t-1] over each step's active rows, in
+// 3xTF32, and db (db_columns).  The bf16 launch's shape: persistent blocks,
+// a 128 x 128 tile of dW a block walking every active row of it alone, in
+// order; one producer thread (produce_dw) loading each chunk of 32 rows by
+// TMA into a ring of DW32_STAGES slots, both operands MN-major (32 x 32
+// boxes: the 128-byte swizzle holds 32 f32); two consumer warpgroups, 64
+// gate columns each against the tile's 128 output columns, on wgmma
+// m64n128k8 TF32.  TF32 wgmma reads only K-major operands (only 16-bit
+// types have the transposed form), and dW reduces over rows, so the 256
+// consumer threads write both operands of a chunk, split, into K-major hi
+// and lo tiles in shared memory (dw_split_transposed), a chunk ahead: the
+// next chunk's while this chunk's products run, into two buffers in turns,
+// fenced for the async proxy.  Both operands from shared memory, a
+// warpgroup issues a chunk's 12 products at once (per k8 step lo.B_hi +
+// hi.B_lo + hi.B_hi, the correction products first).
+//
+// The launch is bound by shared memory's bandwidth: a chunk moves ~272 KB
+// through it (the products read A 48 KB and B 96 KB, the transposes 32 KB
+// in and 64 KB out, TMA 32 KB), ~2,100 cycles at 128 bytes a cycle against
+// the tensor cores' ~1,540.  Measured on an H100 beside this form (1.18 ms
+// on the flagship's entity pass; chip_smoke.py --backward-split, PERF.md):
+// A split in registers a k8 step ahead of its products, as the gate loop
+// does, read 1.31 ms (each step's split waits for the products of the
+// step before); a chunk's A fragments split at once, 1.35-1.39 (with the
+// chunk's and the tile's sums they do not fit the 168 registers ptxas
+// gives a thread of a block of 288 or 384, setmaxnreg or not, and on a
+// block of 256 whose thread 0 loads, the loads alone read 0.51 ms against
+// 0.36).
+//
+// The products of DW32_FOLD chunks (256 rows in the walk's order, across
+// steps) accumulate on the tensor cores from zero and are then folded into
+// an f32 sum in registers; a tile's last chunk folds too.  The tensor
+// cores' f32 accumulation truncates, so a run's sum shrinks with its
+// length: one accumulator over 26,636 row-steps drifted 1.2e-5 of max|dW|
+// from f32 products on an H100, and over each step's rows alone ~2e-5.
+// 256 rows are the blocks of the mma.sync launch this one replaced: dW
+// keeps its rounding, whose small shrink a card test that trains LSTM
+// Tucker3 on the card and on the CPU passes at its seeds where a fold
+// every 32 rows, less biased, sits at the f32 rule's limit (PERF.md, PR
+// 21; test_torch_cuda.py::test_family_steps_on_card_match_cpu).  Each
+// chunk waits for its products; a named barrier of both warpgroups then
+// publishes the next chunk's tiles and frees this chunk's buffer.  Every
+// chunk reads the accumulators, unconditionally, and folds them times 1 or
+// 0: ptxas serialises every wgmma of a kernel that reads the accumulators
+// on a path it cannot prove uniform (C7518; a fold under a condition was
+// such a path).  A step's last chunk may
+// end inside its active prefix: the rows past it hold whatever dg and hs
+// hold there (torch.empty; NaN . 0 is NaN), so the tiles take zero there;
+// the slot is never written.
+//
+// Block b takes tiles b, b + G, ... (G = the grid: at most a block per SM);
+// db as in the bf16 launch (dw_db).  No float atomics: dW and db are the
+// same bits from run to run.  V: X3 (the kernel), X1 (hi.hi' alone, the
+// planted check) or NO_PRODUCTS (for measuring: the slots taken and given
+// back unread, the loads alone).
 template <int V>
-__global__ void __launch_bounds__(NT) lstm_bwd_dw_kernel_tf32(const Tf32DwArgs p) {
-    extern __shared__ __align__(16) float dw_smem[];
-    float* As = dw_smem;                         // [DSTAGES][DBK][DLD] dg rows (k) x gate columns (m)
-    float* Bs = dw_smem + DSTAGES * DBK * DLD;   // [DSTAGES][DBK][DLD] x or h rows (k) x output columns (n)
+__global__ void __launch_bounds__(THREADS, 1)
+    lstm_bwd_dw_kernel_tf32(const __grid_constant__ CUtensorMap map_dg, const __grid_constant__ CUtensorMap map_x,
+                            const __grid_constant__ CUtensorMap map_hs, const DwArgs32 p) {
+    extern __shared__ uint8_t smem_raw[];
+    const RingDw32 r = make_ring<RingDw32>(smem_raw, 8);
+    uint8_t* const bufs = r.slot(DW32_STAGES) + 1024;  // past the ring's barriers: 1024-byte aligned
+    __syncthreads();
+    const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+    const int H4 = 4 * p.H, nd = (p.D + DW_TILE - 1) / DW_TILE;
+    const int cols = nd + (p.H + DW_TILE - 1) / DW_TILE;
+    const int tiles = dw_tiles(p);
 
-    const int H4 = 4 * p.H;
-    const int nyd = (p.D + WB - 1) / WB;
-    const bool hh = (int)blockIdx.y >= nyd;
-    const int N = hh ? p.H : p.D;
-    const int m0 = blockIdx.x * WB;
-    const int n0 = (hh ? blockIdx.y - nyd : blockIdx.y) * WB;
-    float* out = hh ? p.dw_hh : p.dw_ih;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int gid = lane >> 2, tig = lane & 3;
-    const int wm = warp & 3, wn = warp >> 2;
-    float acc[2][8][4], sum[2][8][4];  // this block of chunks; the blocks before it
-    // sum += acc, acc = 0 (fixed order: the walk is the same in every thread)
-    auto flush = [&]() {
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    sum[mi][ni][e] += acc[mi][ni][e];
-                    acc[mi][ni][e] = 0.f;
-                }
-    };
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = sum[mi][ni][e] = 0.f;
-
-    {  // db: DBC columns a pass, the passes spread over the grid
-        __shared__ float part[NT / DBC][DBC];
-        const int block = blockIdx.y * gridDim.x + blockIdx.x;
-        for (int c0 = block * DBC; c0 < H4; c0 += gridDim.x * gridDim.y * DBC)
-            db_columns(p, c0, threadIdx.x, part, [] { __syncthreads(); });
+    if (wg == 2) {
+        setmaxnreg_dec<40>();
+        if (threadIdx.x == 256) produce_dw<DW32_ROWS, 32, 4, DW32_BOX_BYTES>(r, p, &map_dg, &map_x, &map_hs);
+        return;
     }
-
-    // dW_hh pairs dg[t] with h_{t-1} = hs[t-1]: no term at t = 0 (h_0 = 0)
-    auto load = [&](int t, int k0, int nrows, int s) {
-        const float* a = p.dg + (size_t)t * p.B * H4;
-        const float* b = hh ? p.hs + (size_t)(t - 1) * p.B * p.H : p.x + (size_t)t * p.B * p.D;
-        constexpr int CH = WB / 4;  // 16-byte chunks per tile row
-        for (int i = threadIdx.x; i < DBK * CH; i += NT) {
-            const int kr = i / CH, c = (i % CH) * 4;
-            const long long row = k0 + kr;
-            const float* asrc = a + (size_t)row * H4 + m0 + c;
-            const bool aok = row < nrows && m0 + c < H4;
-            cp_async16(As + (s * DBK + kr) * DLD + c, aok ? asrc : a, aok ? 16 : 0);
-            const float* bsrc = b + (size_t)row * N + n0 + c;
-            const bool bok = row < nrows && n0 + c < N;
-            cp_async16(Bs + (s * DBK + kr) * DLD + c, bok ? bsrc : b, bok ? 16 : 0);
+    setmaxnreg_inc<232>();
+    const int tid = threadIdx.x, warp = (tid / 32) % 4, lane = tid % 32;
+    // the block's walk: nx is the chunk multiplied next, `it` its place
+    // (slot it % DW32_STAGES, buffer it % 2)
+    DwChunk nx = {(int)blockIdx.x, (int)blockIdx.x < tiles ? (int)dw_tile(p, blockIdx.x, cols, nd).hh - 1 : 0, 0, 0};
+    dw_next_chunk(p, 0, tiles, cols, nd, nx);
+    int it = 0;
+    if constexpr (V == NO_PRODUCTS) {
+        for (; nx.u < tiles; ++it, dw_next_chunk(p, DW32_ROWS, tiles, cols, nd, nx)) {
+            mbar_wait(&r.full[it % DW32_STAGES], (it / DW32_STAGES) & 1);
+            if (lane == 0) mbar_arrive(&r.empty[it % DW32_STAGES]);
         }
-    };
-
-    // the loads walk DSTAGES - 1 chunks ahead of the products; rows past a
-    // step's active prefix are zero-filled, so the products need no walk
-    int t = hh ? 1 : 0, k0 = -DBK;
-    int nrows = t < p.L ? active_rows(p.lens, p.B, t) : 0;
-    dw_advance(p, DBK, t, k0, nrows);
-    int loaded = 0;
-    for (int s = 0; s < DSTAGES - 1; ++s) {
-        if (t < p.L) {
-            load(t, k0, nrows, s);
-            ++loaded;
-            dw_advance(p, DBK, t, k0, nrows);
-        }
-        cp_async_commit();
-    }
-    for (int chunk = 0; chunk < loaded; ++chunk) {
-        asm volatile("cp.async.wait_group %0;\n" ::"n"(DSTAGES - 2));
-        __syncthreads();  // the chunk has landed, and every warp is done with the slot loaded next
-        if (t < p.L) {
-            load(t, k0, nrows, (chunk + DSTAGES - 1) % DSTAGES);
-            ++loaded;
-            dw_advance(p, DBK, t, k0, nrows);
-        }
-        cp_async_commit();
-        const float* A = As + (chunk % DSTAGES) * DBK * DLD;
-        const float* Bt = Bs + (chunk % DSTAGES) * DBK * DLD;
+    } else {
+        // chunk j (the chunk nx) into its buffer once its slot is full; the
+        // slot is then free
+        auto stage = [&](int j) {
+            const int s = j % DW32_STAGES, valid = nx.nrows - nx.k0;
+            mbar_wait(&r.full[s], (j / DW32_STAGES) & 1);
+            uint8_t* buf = bufs + (j & 1) * DW32_BUF;
+            dw_split_transposed(r.slot(s), buf, buf + DW32_OPERAND, tid, valid);
+            dw_split_transposed(r.slot(s) + DW32_OPERAND, buf + 2 * DW32_OPERAND, buf + 3 * DW32_OPERAND, tid, valid);
+            fence_proxy_async();
+            if (lane == 0) mbar_arrive(&r.empty[s]);
+        };
+        // sum[4 n8 + e] holds gate column m0 + 64 wg + 16 warp + lane/4 + 8
+        // (e/2), output column n0 + 8 n8 + 2 (lane%4) + e%2 (the wgmma
+        // layout); st the chunk's tensor-core sum
+        float sum[64], st[64];
 #pragma unroll
-        for (int kk = 0; kk < DBK; kk += 8) {
-            uint32_t a_hi[2][4], a_lo[2][4];
+        for (int i = 0; i < 64; ++i) st[i] = 0.f;
+        int run = 0;  // chunks in st since its last fold: 0, st starts from zero
+        if (nx.u < tiles) stage(0);
+        named_barrier(1, 256);
+        for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
+            const DwTile w = dw_tile(p, u, cols, nd);
 #pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-                const int m = wm * 32 + mi * 16 + gid;
-                tf32_split(A[(kk + tig) * DLD + m], a_hi[mi][0], a_lo[mi][0]);
-                tf32_split(A[(kk + tig) * DLD + m + 8], a_hi[mi][1], a_lo[mi][1]);
-                tf32_split(A[(kk + tig + 4) * DLD + m], a_hi[mi][2], a_lo[mi][2]);
-                tf32_split(A[(kk + tig + 4) * DLD + m + 8], a_hi[mi][3], a_lo[mi][3]);
-            }
+            for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+            while (nx.u == u) {
+                // this warpgroup's 64 rows of A (gate columns), all of B
+                const uint8_t* a = bufs + (it & 1) * DW32_BUF + wg * (DW32_OPERAND / 2);
+                const uint8_t* b = bufs + (it & 1) * DW32_BUF + 2 * DW32_OPERAND;
+                wgmma_fence_regs(st);
+                wgmma_fence();
 #pragma unroll
-            for (int ni = 0; ni < 8; ++ni) {
-                const int n = wn * 64 + ni * 8 + gid;
-                uint32_t b_hi[2], b_lo[2];
-                tf32_split(Bt[(kk + tig) * DLD + n], b_hi[0], b_lo[0]);
-                tf32_split(Bt[(kk + tig + 4) * DLD + n], b_hi[1], b_lo[1]);
-#pragma unroll
-                for (int mi = 0; mi < 2; ++mi) {
+                for (int kk = 0; kk < DW32_ROWS / 8; ++kk) {
+                    const uint64_t a_hi = wgmma_desc(a + kk * 32), a_lo = wgmma_desc(a + DW32_OPERAND + kk * 32);
+                    const uint64_t b_hi = wgmma_desc(b + kk * 32), b_lo = wgmma_desc(b + DW32_OPERAND + kk * 32);
                     if (V == X3) {
-                        mma_tf32(acc[mi][ni], a_lo[mi], b_hi);
-                        mma_tf32(acc[mi][ni], a_hi[mi], b_lo);
+                        wgmma_m64n128k8_tf32_ss(st, a_lo, b_hi, kk > 0 || run > 0);
+                        wgmma_m64n128k8_tf32_ss(st, a_hi, b_lo);
+                        wgmma_m64n128k8_tf32_ss(st, a_hi, b_hi);
+                    } else {
+                        wgmma_m64n128k8_tf32_ss(st, a_hi, b_hi, kk > 0 || run > 0);
                     }
-                    mma_tf32(acc[mi][ni], a_hi[mi], b_hi);
+                }
+                wgmma_commit();
+                dw_next_chunk(p, DW32_ROWS, tiles, cols, nd, nx);
+                if (nx.u < tiles) stage(it + 1);  // under this chunk's products
+                ++it;
+                run = nx.u != u || run + 1 == DW32_FOLD ? 0 : run + 1;
+                const float take = run == 0 ? 1.f : 0.f;  // fold now
+                wgmma_wait<0>();
+                wgmma_fence_regs(st);
+#pragma unroll
+                for (int i = 0; i < 64; ++i) sum[i] += take * st[i];  // the sum's bits, or sum + st's
+                named_barrier(1, 256);  // the next chunk's tiles are whole; this chunk's buffer is free
+            }
+            float* out = w.hh ? p.dw_hh : p.dw_ih;
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+                const int m = w.m0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * hr;
+                if (m >= H4) continue;
+#pragma unroll
+                for (int n8 = 0; n8 < 16; ++n8) {
+                    const int n = w.n0 + 8 * n8 + 2 * (lane & 3);  // and n + 1: D and H are even
+                    if (n < w.N)
+                        *reinterpret_cast<float2*>(out + (size_t)m * w.N + n) =
+                            make_float2(sum[4 * n8 + 2 * hr], sum[4 * n8 + 2 * hr + 1]);
                 }
             }
         }
-        if ((chunk + 1) % DW_BLOCK == 0) flush();
     }
-    flush();
+    // db's partial sums in the first buffer: each chunk's products were
+    // waited for before its barrier
+    dw_db(p, tiles, tid, *reinterpret_cast<float(*)[NT / DBC][DBC]>(bufs));
+}
 
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int m = m0 + wm * 32 + mi * 16 + gid + ((e >> 1) << 3);
-                const int n = n0 + wn * 64 + ni * 8 + tig * 2 + (e & 1);
-                if (m < H4 && n < N) out[(size_t)m * N + n] = sum[mi][ni][e];
-            }
+template <int V>
+int launch_dw(const CUtensorMap* const (&maps)[3], const DwArgs32& p, int max_blocks, cudaStream_t s) {
+    if (const int e = allow_smem<lstm_bwd_dw_kernel_tf32<V>, DW32_SMEM>()) return e;
+    lstm_bwd_dw_kernel_tf32<V><<<dw_grid(p, max_blocks), THREADS, DW32_SMEM, s>>>(*maps[0], *maps[1], *maps[2], p);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tf32
@@ -1118,15 +1226,15 @@ extern "C" int oket_lstm_bwd_product_f32(const void* dg, const void* w_split, co
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// After the loop: dW_ih [4H, D], dW_hh [4H, H] and db [4H].
+// After the loop: dW_ih [4H, D], dW_hh [4H, H] and db [4H].  max_blocks
+// caps the grid (the SM count); variant 0 is 3xTF32, 1 the 1xTF32 check, 2
+// the kernel without its products (measuring).
 extern "C" int oket_lstm_bwd_dw_f32(const void* dg, const void* x, const void* hs, const void* lens,
-                                    const void* db_part, void* dw_ih, void* dw_hh, void* db, long long B, int D,
-                                    int H, int L, int variant, void* stream) {
+                                    const void* db_part, void* dw_ih, void* dw_hh, void* db, int L, int B, int D,
+                                    int H, int max_blocks, int variant, void* stream) {
     using namespace tf32;
-    Tf32DwArgs p;
-    p.dg = static_cast<const float*>(dg);
-    p.x = static_cast<const float*>(x);
-    p.hs = static_cast<const float*>(hs);
+    if (L < 1 || max_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+    DwArgs32 p;
     p.lens = static_cast<const int*>(lens);
     p.db_part = static_cast<const float*>(db_part);
     p.dw_ih = static_cast<float*>(dw_ih);
@@ -1136,16 +1244,19 @@ extern "C" int oket_lstm_bwd_dw_f32(const void* dg, const void* x, const void* h
     p.D = D;
     p.H = H;
     p.L = L;
-    const dim3 grid((unsigned)((4 * H + WB - 1) / WB), (unsigned)((D + WB - 1) / WB + (H + WB - 1) / WB));
+    // dg, x and hs as [L, B, columns] in boxes of 32 columns x 32 rows (rows
+    // past B, columns past 4H, D or H read as zero)
+    static thread_local oket_sm90::CachedMap cache[3];
+    const uint64_t b = B, l = L;
+    const uint32_t box[3] = {32, DW32_ROWS, 1};
+    const CUtensorMap* const maps[3] = {oket_sm90::f32_map(cache[0], dg, {4 * (uint64_t)H, b, l}, box),
+                                        oket_sm90::f32_map(cache[1], x, {(uint64_t)D, b, l}, box),
+                                        oket_sm90::f32_map(cache[2], hs, {(uint64_t)H, b, l}, box)};
+    for (const CUtensorMap* m : maps)
+        if (!m) return -1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (variant == KERNEL || variant == UNFOLDED) {  // dW sums apart already (blocks of 256 rows)
-        if (const int e = allow_smem<lstm_bwd_dw_kernel_tf32<X3>, DW_SMEM>()) return e;
-        lstm_bwd_dw_kernel_tf32<X3><<<grid, NT, DW_SMEM, s>>>(p);
-    } else if (variant == ONE_TF32) {
-        if (const int e = allow_smem<lstm_bwd_dw_kernel_tf32<X1>, DW_SMEM>()) return e;
-        lstm_bwd_dw_kernel_tf32<X1><<<grid, NT, DW_SMEM, s>>>(p);
-    } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return static_cast<int>(cudaGetLastError());
+    if (variant == X3) return launch_dw<X3>(maps, p, max_blocks, s);
+    if (variant == X1) return launch_dw<X1>(maps, p, max_blocks, s);
+    if (variant == NO_PRODUCTS) return launch_dw<NO_PRODUCTS>(maps, p, max_blocks, s);
+    return static_cast<int>(cudaErrorInvalidValue);
 }

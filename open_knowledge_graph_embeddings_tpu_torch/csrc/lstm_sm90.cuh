@@ -2,12 +2,13 @@
 // mbarriers and the ring of TMA slots they guard (Ring, make_ring), TMA tile
 // loads (cp.async.bulk.tensor) and their tensor maps, wgmma descriptors,
 // fences, the bf16 product m64n128k16 (each operand K-major or MN-major) and
-// the TF32 product m64n128k8 (A from registers) with f32 accumulators, the
-// TF32 split of an f32 value, named barriers, setmaxnreg and the block-wide
-// search of a step's active rows; on the host the tensor maps and the
-// dynamic shared memory opt-in.  Used by the bf16 gate loop of lstm_bf16.cuh
-// (kernel 1 and the bf16 backward), the 3xTF32 gate loop of lstm_tf32.cuh
-// (the f32 forward and backward) and the bf16 dW launch of lstm_last_bwd.cu.
+// the TF32 product m64n128k8 (A from registers or from shared memory) with
+// f32 accumulators, the TF32 split of an f32 value, named barriers,
+// setmaxnreg and the block-wide search of a step's active rows; on the host
+// the tensor maps and the dynamic shared memory opt-in.  Used by the bf16
+// gate loop of lstm_bf16.cuh (kernel 1 and the bf16 backward), the 3xTF32
+// gate loop of lstm_tf32.cuh (the f32 forward and backward) and both dW
+// launches of lstm_last_bwd.cu.
 //
 // Shared-memory tiles are K-major with the 128-byte swizzle: each tile row
 // is 128 bytes of K (64 bf16 or 32 f32), rows grouped by 8 into 1024-byte
@@ -260,6 +261,30 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint3
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d[64 x 128] += A[64 x 8] . B[128 x 8]^T, TF32 operands both K-major from
+// shared memory (descriptors as wgmma_desc's); otherwise as
+// wgmma_m64n128k8_tf32.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+        "}, %64, %65, p, 1, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // x = hi + lo + (a rest below 2^-22 |x|): hi = x rounded to nearest (ties

@@ -50,7 +50,6 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_LL = ctypes.c_longlong
 
 
 def _check(emb_tm, w_ih, w_hh, bias, lengths):
@@ -303,7 +302,7 @@ def _bwd_f32_fns():
     split.argtypes = [_P] * 3 + [_I, _I, _P]
     gate.argtypes = [_P] * 8 + [_I] + [_P] * 4 + [_I] * 7 + [_P]
     prod.argtypes = [_P] * 5 + [_I] * 7 + [_P]
-    dw.argtypes = [_P] * 8 + [_LL, _I, _I, _I, _I, _P]
+    dw.argtypes = [_P] * 8 + [_I] * 6 + [_P]
     for fn in (split, gate, prod, dw):
         fn.restype = _I
     return split, gate, prod, dw
@@ -509,23 +508,28 @@ def _launch_bwd_steps(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step
     return demb, dw_ih, dw_hh, db
 
 
-# what the bf16 dW launch computes: the kernel, or for measuring it
-# (chip_smoke.py) the kernel without its products (the loads alone)
+# what a dW launch computes: the kernel, or for measuring it (chip_smoke.py)
+# the kernel without its products (the loads alone); at f32 also the planted
+# 1xTF32 check
 DW_VARIANTS = {"kernel": 0, "no products": 1}
+DW_F32_VARIANTS = {"kernel": 0, "1xTF32": 1, "no products": 2}
 
 
 def _launch_dw(dg, emb_tm, hs, lens, db_part, dw_ih, dw_hh, db, n_sm, stream, variant="kernel"):
-    """The bf16 dW launch into ``dw_ih``, ``dw_hh`` and ``db``: dg [L, B, 4H],
-    emb_tm [L, B, D], hs [L, B, H] (bf16), lens int32, db_part f32 as the gate
-    launches write it; the grid is at most a block per SM (the C entry sizes
-    it)."""
+    """The dW launch of either dtype into ``dw_ih``, ``dw_hh`` and ``db``: dg
+    [L, B, 4H], emb_tm [L, B, D], hs [L, B, H] (bf16 or f32), lens int32,
+    db_part f32 as the gate launches write it; the grid is at most a block
+    per SM (the C entry sizes it)."""
     L, B, D = emb_tm.shape
     H = hs.shape[2]
-    err = _bwd_fns()[2](
+    f32 = emb_tm.dtype == torch.float32
+    fn = _bwd_f32_fns()[3] if f32 else _bwd_fns()[2]
+    code = (DW_F32_VARIANTS if f32 else DW_VARIANTS)[variant]
+    err = fn(
         dg.data_ptr(), emb_tm.data_ptr(), hs.data_ptr(), lens.data_ptr(), db_part.data_ptr(), dw_ih.data_ptr(),
-        dw_hh.data_ptr(), db.data_ptr(), L, B, D, H, n_sm, DW_VARIANTS[variant], stream,
+        dw_hh.data_ptr(), db.data_ptr(), L, B, D, H, n_sm, code, stream,
     )
-    _raise_on(err, "lstm_last_bwd dW and db")
+    _raise_on(err, f"lstm_last_bwd{'_f32' if f32 else ''} dW and db")
 
 
 def _launch_bwd_steps_f32(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_step, counter, variant):
@@ -533,7 +537,7 @@ def _launch_bwd_steps_f32(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_
     the weight split, a gate and a product launch per step, dW and db: 2L + 2
     launches."""
     L, B, D, H = emb_tm.shape[0], emb_tm.shape[1], emb_tm.shape[2], w_hh.shape[1]
-    split, gate, prod, dw = _bwd_f32_fns()
+    split, gate, prod, _ = _bwd_f32_fns()
     code = BACKWARD_F32_VARIANTS[variant]
     dev, f32 = emb_tm.device, torch.float32
     bias = bias.contiguous()
@@ -550,7 +554,7 @@ def _launch_bwd_steps_f32(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_
     dw_ih = torch.empty(4 * H, D, dtype=f32, device=dev)
     dw_hh = torch.empty(4 * H, H, dtype=f32, device=dev)
     db = torch.empty(4 * H, dtype=f32, device=dev)
-    if not (B and H):
+    if not (L and B and H):
         return demb.zero_(), dw_ih.zero_(), dw_hh.zero_(), db.zero_()
     # hi and lo of W_ih, W_hh (gate-major) and of [W_hh | W_ih]^T
     w_split = torch.empty(4 * 4 * H * (H + D), dtype=f32, device=dev)
@@ -572,9 +576,10 @@ def _launch_bwd_steps_f32(emb_tm, w_ih, w_hh, bias, lengths, hs, cs, cot, every_
                    grid_prod, code, stream)
         _raise_on(err, f"lstm_last_bwd_f32 product step {t}")
         counter.launches += 2
-    err = dw(dg.data_ptr(), emb, hs0, lens.data_ptr(), db_part.data_ptr(), dw_ih.data_ptr(), dw_hh.data_ptr(),
-             db.data_ptr(), B, D, H, L, code, stream)
-    _raise_on(err, "lstm_last_bwd_f32 dW and db")
+    # "one accumulator" is the gate and product launches' alone: the dW
+    # launch folds every 256 rows in every variant
+    _launch_dw(dg, emb_tm, hs, lens, db_part, dw_ih, dw_hh, db, n_sm, stream,
+               variant="1xTF32" if variant == "1xTF32" else "kernel")
     counter.launches += 1
     return demb, dw_ih, dw_hh, db
 

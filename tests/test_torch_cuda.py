@@ -357,17 +357,18 @@ def test_bf16_backward_at_training_widths_on_card(cuda, B):
         assert (db - w[3]).abs().max().item() <= DB_RTOL * w[3].abs().max().item(), mode
 
 
-def _dw_operands(B, D, H, L, seed, cuda):
+def _dw_operands(B, D, H, L, seed, cuda, dtype=torch.bfloat16):
     """Seeded inputs of the dW launch alone: lengths 0..L sorted descending,
-    dg [L, B, 4H], x [L, B, D], hs [L, B, H] (bf16) and db_part [L, ceil(B /
-    128), 4H] (f32), with masks of what the launch must not read: the rows
-    of dg and x past step t's active prefix, those of hs[t] past step t +
-    1's (hs[L - 1] whole), db_part's row tiles whose first row is past it."""
+    dg [L, B, 4H], x [L, B, D], hs [L, B, H] (``dtype``) and db_part [L,
+    ceil(B / 128), 4H] (f32), with masks of what the launch must not read:
+    the rows of dg and x past step t's active prefix, those of hs[t] past
+    step t + 1's (hs[L - 1] whole), db_part's row tiles whose first row is
+    past it."""
     rng = np.random.default_rng(seed)
     lens = np.sort(rng.integers(0, L + 1, B).astype(np.int32))[::-1].copy()
     nrows = _active(lens, L).sum(1)
     f = lambda *s: torch.from_numpy((rng.standard_normal(s) * 0.5).astype(np.float32))  # noqa: E731
-    dg, x, hs = (f(L, B, n).to(torch.bfloat16).to(cuda) for n in (4 * H, D, H))
+    dg, x, hs = (f(L, B, n).to(dtype).to(cuda) for n in (4 * H, D, H))
     nrb = -(-B // 128)
     db_part = f(L, nrb, 4 * H).to(cuda)
     rows = torch.arange(B, device=cuda)
@@ -431,6 +432,58 @@ def test_bf16_backward_is_deterministic_on_card(cuda, every):
     for name, a, b in zip(("demb", "dW_ih", "dW_hh", "db"), first, second):
         bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
         assert torch.equal(a.view(bits), b.view(bits)), name
+
+
+# (L, B, D, H) of the f32 dW launch alone: B < 64, B % 64 != 0 and B > 128,
+# D != H both ways, and D = H = 100 (multiples of 4, not of 128: boxes of
+# gate and output columns past the edge, and a tile's last box wholly
+# past it); L = 1100: a long walk.
+F32_DW_ALONE = [(10, 37, 512, 512), (10, 129, 40, 136), (10, 4099, 136, 40), (10, 333, 100, 100),
+                (10, 5632, 512, 512), (3, 4099, 100, 100), (1100, 37, 64, 64)]
+
+
+@pytest.mark.parametrize("L,B,D,H", F32_DW_ALONE, ids=[f"L{n}-B{b}-D{d}-H{h}" for n, b, d, h in F32_DW_ALONE])
+def test_f32_dw_launch_ignores_rows_past_the_active_prefix_on_card(cuda, L, B, D, H):
+    """The f32 dW launch alone (``lstm_kernel._launch_dw`` on f32 operands:
+    3xTF32 wgmma, both operands transposed and split into K-major hi / lo
+    tiles in shared memory) with the rows it must not read zero and then
+    NaN (dg and hs come from ``torch.empty`` in a backward): the same bits;
+    dW against f32 products of the active rows by the f32 rule, db against
+    the sum of the active tiles."""
+    lens, ops, masks = _dw_operands(B, D, H, L, B + D + H + 1, cuda, torch.float32)
+    n_sm = lstm_kernel._sm_count(cuda.index or 0)
+    outs = []
+    for fill in (0.0, float("nan")):
+        dg, x, hs, db_part = (o.masked_fill(m[..., None], fill) for o, m in zip(ops, masks))
+        out = (torch.empty(4 * H, D, device=cuda), torch.empty(4 * H, H, device=cuda), torch.empty(4 * H, device=cuda))
+        lstm_kernel._launch_dw(dg, x, hs, lens, db_part, *out, n_sm, torch.cuda.current_stream().cuda_stream)
+        outs.append(out)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dW_ih", "dW_hh", "db"), *outs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+    dg, x, hs, db_part = (o.masked_fill(m[..., None], 0.0) for o, m in zip(ops, masks))
+    assert_f32_close(outs[0][0], torch.einsum("lbg,lbd->gd", dg, x))
+    assert_f32_close(outs[0][1], torch.einsum("lbg,lbh->gh", dg[1:], hs[:-1]))
+    want_db = db_part.sum((0, 1))
+    assert (outs[0][2] - want_db).abs().max().item() <= DB_RTOL * want_db.abs().max().item()
+
+
+@pytest.mark.parametrize("every", [False, True], ids=["last-state", "every-state"])
+def test_f32_backward_is_deterministic_on_card(cuda, every):
+    """Kernels 2 and 6 in f32 twice on the same inputs at B = 4099, D = H =
+    128 (the dW launch's 8 tiles leave most of its blocks to db alone) and
+    at the flagship's D = H = 512 (128 tiles): the same bits."""
+    for B, D in ((4099, 128), (5632, 512)):
+        emb, w_ih, w_hh, bias, lens, dhs, dlast = (x.to(cuda) for x in _f32_inputs(B, D, D, seed=19))
+        args = (emb, w_ih, w_hh, bias, lens)
+        act = torch.from_numpy(_active(lens.cpu().numpy(), emb.shape[0])).to(cuda)
+        _, hs, cs = lstm_kernel._forward(*args, residuals=True)
+        fn = lstm_kernel.lstm_all_backward if every else lstm_kernel.lstm_last_backward
+        first, second = (fn(*args, hs, cs, dhs if every else dlast) for _ in range(2))
+        torch.cuda.synchronize()
+        first, second = (first[0][act], *first[1:]), (second[0][act], *second[1:])
+        for name, a, b in zip(("demb", "dW_ih", "dW_hh", "db"), first, second):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), (B, name)
 
 
 def _adagrad_state(V, d, seed):

@@ -238,17 +238,18 @@ def _tf32_gate_loop():
 
 def test_f32_backward_source_is_3xtf32_on_the_tensor_cores():
     """The f32 entries of the backward split their operands and multiply on
-    the tensor cores (wgmma for the gate and product launches through the
-    shared gate loop of lstm_tf32.cuh, mma.sync for dW); no FFMA product is
-    left on their path."""
+    the tensor cores: wgmma for the gate and product launches through the
+    shared gate loop of lstm_tf32.cuh, and for dW (fed by the shared TMA
+    producer, its x / hs operand transposed and split in shared memory); no
+    FFMA or mma.sync product is left on their path."""
     src = (CSRC / "lstm_last_bwd.cu").read_text()
     header = _tf32_gate_loop()
     assert '#include "lstm_tf32.cuh"' in src
     f32 = src[src.index("// ------------------------------------------------------------------ f32 mode"):] + header
-    for call in ("tf32_split(", "wgmma_m64n128k8_tf32(", "tma_load_3d(", "mma_tf32(", "setmaxnreg_inc<",
-                 "tile_products<V, FOLD>("):
+    for call in ("tf32_split(", "wgmma_m64n128k8_tf32(", "tma_load_3d(", "setmaxnreg_inc<",
+                 "tile_products<V, FOLD>(", "produce_dw<DW32_ROWS", "dw_split_transposed("):
         assert call in f32, call
-    assert not re.search(r"\b(fmaf|fma4|gate_product_f32|launch_bwd_product_f32)\(", f32)
+    assert not re.search(r"\b(fmaf|fma4|gate_product_f32|launch_bwd_product_f32|mma_tf32|cp_async16)\(", f32)
     assert '#include "lstm_f32.cuh"' not in src
     for entry in ("split", "gate", "product", "dw"):
         assert f'extern "C" int oket_lstm_bwd_{entry}_f32(' in src
