@@ -1311,10 +1311,17 @@ def check_training(torch, trainer, launches, n_steps, unfused=False):
     return str(ckpt)
 
 
+#: the sparse step's optimizer spans (``train/sparse.py::_sparse_apply``):
+#: the dense leaves' ``make_apply`` and its update, and the row update
+OPTIMIZER_SPANS = ("optim.dense", "optim.rows")
+
+
 def time_train_steps(torch, trainer, timings, n=8, pre=""):
     """Steps after warm-up with a synchronize around each (device-bound, no
     host overlap), the host plan per batch, and a profile of one step;
     timings keyed with the prefix ``pre``."""
+    from open_knowledge_graph_embeddings_tpu_torch.utils import tracing
+
     builder, plan = trainer.train_builder, trainer._sparse_plan
     order = np.random.default_rng(SEED + 1).permutation(len(builder.rec))
     batch_ms, plan_ms, batches = [], [], []
@@ -1327,18 +1334,18 @@ def time_train_steps(torch, trainer, timings, n=8, pre=""):
         plan_ms.append((time.perf_counter() - t1) * 1e3)
     dev = [trainer._to_device(b)[1] for b in batches]
     step_ms, opt_ms, positives = [], [], 0.0
-    with OptimizerClock(trainer.regimes) as opt_clock:
-        for i, arrays in enumerate(dev[:n]):
-            torch.cuda.synchronize()
-            t0, opt0 = time.perf_counter(), dict(opt_clock.ms)
+    for i, arrays in enumerate(dev[:n]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tracing.clock() as opt_clock:
             trainer.variables, trainer.opt_state, stats = trainer.train_step(
                 trainer.variables, trainer.opt_state, trainer.regimes.hparams(), arrays, trainer.generator)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            opt_ms.append({k: v - opt0[k] for k, v in opt_clock.ms.items()})
-            positives += float(stats["normalizer_metric"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        opt_ms.append({k: opt_clock.ms.get(k, 0.0) for k in OPTIMIZER_SPANS})
+        positives += float(stats["normalizer_metric"])
     timings[pre + "optimizer_host_ms_per_step"] = summary([sum(m.values()) for m in opt_ms])
-    opt_parts = {k: float(np.median([m[k] for m in opt_ms])) for k in opt_clock.ms}
+    opt_parts = {k: float(np.median([m[k] for m in opt_ms])) for k in OPTIMIZER_SPANS}
     timings[pre + "train_step_ms"] = summary(step_ms)
     timings[pre + "train_items_per_s"] = positives / (sum(step_ms) / 1e3)
     timings[pre + "host_plan_ms_per_batch"] = summary(plan_ms)
@@ -1358,40 +1365,6 @@ def time_train_steps(torch, trainer, timings, n=8, pre=""):
     print(f"{pre}optimizer: host {timings[pre + 'optimizer_host_ms_per_step']['median']:.3f} ms a step (median of "
           f"{n}, wall clock without a synchronize; by part {parts}); device {sum(adagrad.values()):.4f} ms in the "
           f"profiled step ({', '.join(f'{k} {v:.4f}' for k, v in adagrad.items())})")
-
-
-class OptimizerClock:
-    """Host time of the sparse step's optimizer calls while the block runs,
-    by wall clock, no synchronize, summed in ``ms`` by part:
-    ``regimes.make_apply``, the apply it returns (the dense update), and the
-    row update (``train/sparse.py``'s ``_SPARSE_RULES``)."""
-
-    def __init__(self, regimes):
-        from open_knowledge_graph_embeddings_tpu_torch.train import sparse
-
-        self.regimes, self.rules = regimes, sparse._SPARSE_RULES
-        self.ms = {"make_apply": 0.0, "dense apply": 0.0, "row update": 0.0}
-
-    def _timed(self, part, fn):
-        def run(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            self.ms[part] += (time.perf_counter() - t0) * 1e3
-            return out
-
-        return run
-
-    def __enter__(self):
-        make_apply = self.regimes.make_apply
-        self.regimes.make_apply = self._timed(
-            "make_apply", lambda *a, **k: self._timed("dense apply", make_apply(*a, **k)))
-        self._rules = dict(self.rules)
-        self.rules.update({k: self._timed("row update", fn) for k, fn in self._rules.items()})
-        return self
-
-    def __exit__(self, *exc):
-        del self.regimes.make_apply
-        self.rules.update(self._rules)
 
 
 def active_mask(torch, args):

@@ -32,6 +32,7 @@ from open_knowledge_graph_embeddings_tpu_torch.data.dataset import (
     PrefixRecords,
 )
 from open_knowledge_graph_embeddings_tpu_torch.utils.misc import next_bucket
+from open_knowledge_graph_embeddings_tpu_torch.utils.tracing import span
 
 PAD_COL = -1  # padding value for candidate-space column indices
 
@@ -276,6 +277,11 @@ class BatchBuilder:
     # ------------------------------------------------------------------ core
 
     def build(self, item_ids: Sequence[int], scratch: Optional[_Scratch] = None) -> Batch:
+        """The batch of ``item_ids`` (the ``batch.build`` span)."""
+        with span("batch.build"):
+            return self._build(item_ids, scratch)
+
+    def _build(self, item_ids: Sequence[int], scratch: Optional[_Scratch]) -> Batch:
         if scratch is None:
             if self._scratch is None:
                 self._scratch = self._make_scratch()

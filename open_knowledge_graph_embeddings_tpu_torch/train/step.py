@@ -34,6 +34,7 @@ from open_knowledge_graph_embeddings_tpu_torch.train.evaluate import (
 )
 from open_knowledge_graph_embeddings_tpu_torch.train.loss import bce_over_scores, one_vs_n_loss
 from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
+from open_knowledge_graph_embeddings_tpu_torch.utils.tracing import span
 
 
 def prefix_loss(model: KGEModel, variables, batch, loss_type: str, label_smoothing: float,
@@ -79,6 +80,36 @@ def prefix_loss(model: KGEModel, variables, batch, loss_type: str, label_smoothi
                                           pos_cols, row_valid, col_valid, batch["n_real_cols"], label_smoothing,
                                           group=group)
     return loss_sum, norm_metric, new_state, reg
+
+
+def loss_and_grads(model: KGEModel, inputs, batch, loss_type: str, label_smoothing: float,
+                   generator: Optional[torch.Generator], slabs=()):
+    """The forward (``train.forward``) and backward (``train.backward``) of
+    a train batch -> ``(grads, loss_sum, norm_metric, new_state)``.
+    ``inputs()`` gives ``(variables, trees)``: the variables of the forward,
+    whose params hold the autograd leaves of ``trees`` (a list of leaf
+    trees); ``grads`` has one gradient tree per tree, summed over the ranks
+    on a mesh with ``slabs`` as :func:`reduce_over_ranks` takes them."""
+    with span("train.forward"):
+        variables, trees = inputs()
+        loss_sum, norm_metric, new_state, reg = prefix_loss(model, variables, batch, loss_type, label_smoothing,
+                                                             generator)
+    with span("train.backward"):
+        ((loss_sum + reg) / batch["normalizer_loss"]).backward()
+        grads = [grad_tree(t) for t in trees]
+        loss_sum, norm_metric = reduce_over_ranks(model, grads, loss_sum, norm_metric, slabs)
+    return grads, loss_sum.detach(), norm_metric, new_state
+
+
+def optimizer_update(update):
+    """``update``, an optimizer update of any arguments, run under the
+    ``train.optimizer`` span."""
+
+    def run(*args):
+        with span("train.optimizer"):
+            return update(*args)
+
+    return run
 
 
 def reduce_over_ranks(model: KGEModel, grads, loss_sum, norm_metric, slabs=()):
@@ -132,7 +163,7 @@ def eval_batch_to_arrays(batch: Batch) -> Dict[str, Any]:
 
 def arrays_to_device(arrays: Dict[str, Any], device) -> Dict[str, Any]:
     """Numpy array dict -> tensors on ``device``: index arrays as int64,
-    scalars as 0-d f32 tensors."""
+    scalars as 0-d f32 tensors (the ``batch.copy`` span)."""
 
     def put(a):
         a = np.asarray(a)
@@ -141,27 +172,24 @@ def arrays_to_device(arrays: Dict[str, Any], device) -> Dict[str, Any]:
             t = t.long()
         return t.to(device, non_blocking=True)
 
-    return {k: put(v) for k, v in arrays.items()}
+    with span("batch.copy"):
+        return {k: put(v) for k, v in arrays.items()}
 
 
 def make_train_step(model: KGEModel, regimes: OptimizerRegimes, params_example, loss_type: str = "bce",
                     label_smoothing: float = 0.0, grad_clip: Optional[float] = None):
     """``step(variables, opt_state, hparams, batch, generator) -> (variables,
     opt_state, stats)`` with dense gradients of every parameter."""
-    apply_updates = regimes.make_apply(params_example, grad_clip, **sharded_norm(model, params_example))
+    apply_updates = optimizer_update(regimes.make_apply(params_example, grad_clip,
+                                                        **sharded_norm(model, params_example)))
 
     def step(variables, opt_state, hparams, batch, generator=None):
-        params = variables["params"]
-        leaves = leaf_tree(params)
-        v = {**variables, "params": leaves}
-        loss_sum, norm_metric, new_state, reg = prefix_loss(model, v, batch, loss_type, label_smoothing,
-                                                             generator)
-        ((loss_sum + reg) / batch["normalizer_loss"]).backward()
-        grads = grad_tree(leaves)
-        loss_sum, norm_metric = reduce_over_ranks(model, [grads], loss_sum, norm_metric, variables.get("slabs", ()))
-        new_params, new_opt = apply_updates(grads, opt_state, params, hparams)
+        (grads,), loss_sum, norm_metric, new_state = loss_and_grads(
+            model, lambda: leaf_inputs(variables), batch, loss_type, label_smoothing, generator,
+            variables.get("slabs", ()))
+        new_params, new_opt = apply_updates(grads, opt_state, variables["params"], hparams)
         new_variables = {**variables, "params": new_params, "state": new_state}
-        return new_variables, new_opt, {"loss_sum": loss_sum.detach(), "normalizer_metric": norm_metric}
+        return new_variables, new_opt, {"loss_sum": loss_sum, "normalizer_metric": norm_metric}
 
     return step
 
@@ -247,15 +275,19 @@ class _Window:
         self.stats = None
 
     def load(self, window: "PackedWindow") -> None:
-        self.buf.copy_(window.host, non_blocking=True)
+        with span("graph.load"):
+            self.buf.copy_(window.host, non_blocking=True)
 
 
 class ScannedStep:
     """K train steps per call (see :func:`make_scanned_step`).  Counters:
     ``windows`` (every call), ``eager_windows`` (on the card a signature's
     first window, run step by step), ``captures``, ``replays`` (a capture's
-    first replay included); ``capture_s`` and ``instantiate_s`` sum the host
-    seconds of the captures; ``last_kind`` is how the last call ran:
+    first replay included), ``resets`` (a changed hyperparameter or state
+    address dropped every graph, to be built again); ``capture_s`` and
+    ``instantiate_s`` sum the host seconds of the captures; spans
+    ``graph.load``, ``graph.eager``, ``graph.capture``, ``graph.replay``;
+    ``last_kind`` is how the last call ran:
     ``"loop"`` (the CPU: the steps a graph captures, run one after
     another), ``"eager"``, ``"capture"`` (captured, then
     replayed) or ``"replay"``."""
@@ -267,7 +299,7 @@ class ScannedStep:
         self._windows: Dict[Any, _Window] = {}
         self._state_key = None
         self._pool = None
-        self.windows = self.eager_windows = self.captures = self.replays = 0
+        self.windows = self.eager_windows = self.captures = self.replays = self.resets = 0
         self.capture_s = self.instantiate_s = 0.0
         self.last_kind: Optional[str] = None
 
@@ -312,6 +344,8 @@ class ScannedStep:
         state_key = (tuple(tuple(sorted(hp.items())) for hp in hparams),
                      tuple(t.data_ptr() for t in _tensors({"v": variables, "o": opt_state})))
         if state_key != self._state_key:
+            if self._state_key is not None:  # the graphs read other hparams or tensors
+                self.resets += 1
             self.reset()
             self._state_key = state_key
         sig, layout, nbytes = batches.signature, batches.layout, batches.host.numel()
@@ -321,13 +355,15 @@ class ScannedStep:
             w.load(batches)
             self.eager_windows += 1
             self.last_kind = "eager"
-            return variables, opt_state, self._steps(w.views, variables, opt_state, hparams, generator)
+            with span("graph.eager"):
+                return variables, opt_state, self._steps(w.views, variables, opt_state, hparams, generator)
         w.load(batches)
         self.last_kind = "replay"
         if w.graph is None:
             self._capture(w, variables, opt_state, hparams, generator)
             self.last_kind = "capture"
-        w.graph.replay()
+        with span("graph.replay"):
+            w.graph.replay()
         self.replays += 1
         # the graph's stats are overwritten by its next replay
         return variables, opt_state, {n: t.clone() for n, t in w.stats.items()}
@@ -336,14 +372,15 @@ class ScannedStep:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         if generator is not None:  # replays draw dropout masks as the eager steps would
             graph.register_generator_state(generator)
-        t0 = time.perf_counter()
-        # thread_local: the prefetch threads go on allocating and copying
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-            w.stats = self._steps(w.views, variables, opt_state, hparams, generator)
-        t1 = time.perf_counter()
-        graph.instantiate()
-        self.instantiate_s += time.perf_counter() - t1
-        self.capture_s += t1 - t0
+        with span("graph.capture"):
+            t0 = time.perf_counter()
+            # thread_local: the prefetch threads go on allocating and copying
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                w.stats = self._steps(w.views, variables, opt_state, hparams, generator)
+            t1 = time.perf_counter()
+            graph.instantiate()
+            self.instantiate_s += time.perf_counter() - t1
+            self.capture_s += t1 - t0
         self.captures += 1
         self._pool = graph.pool()
         w.graph = graph
@@ -386,22 +423,19 @@ def make_accum_steps(model: KGEModel, regimes: OptimizerRegimes, params_example,
     batchnorm state is); ``apply_step(variables, opt_state, acc, hparams)
     -> (variables, opt_state)`` is one optimizer update from the sum, with
     the regime's clip."""
-    apply_updates = regimes.make_apply(params_example, grad_clip, **sharded_norm(model, params_example))
+    apply_updates = optimizer_update(regimes.make_apply(params_example, grad_clip,
+                                                        **sharded_norm(model, params_example)))
 
     def zero_grads():
         return map_tree(torch.zeros_like, params_example)
 
     def grad_step(variables, acc, batch, generator=None):
-        leaves = leaf_tree(variables["params"])
-        v = {**variables, "params": leaves}
-        loss_sum, norm_metric, new_state, reg = prefix_loss(model, v, batch, loss_type, label_smoothing,
-                                                             generator)
-        ((loss_sum + reg) / batch["normalizer_loss"]).backward()
-        grads = grad_tree(leaves)
-        loss_sum, norm_metric = reduce_over_ranks(model, [grads], loss_sum, norm_metric, variables.get("slabs", ()))
+        (grads,), loss_sum, norm_metric, new_state = loss_and_grads(
+            model, lambda: leaf_inputs(variables), batch, loss_type, label_smoothing, generator,
+            variables.get("slabs", ()))
         add_tree(acc, grads)
         new_variables = {**variables, "state": new_state}
-        return new_variables, acc, {"loss_sum": loss_sum.detach(), "normalizer_metric": norm_metric}
+        return new_variables, acc, {"loss_sum": loss_sum, "normalizer_metric": norm_metric}
 
     def apply_step(variables, opt_state, acc, hparams):
         new_params, new_opt = apply_updates(acc, opt_state, variables["params"], hparams)
@@ -433,6 +467,13 @@ def add_tree(acc, grads):
             add_tree(acc[k], g)
         else:
             acc[k].add_(g)
+
+
+def leaf_inputs(variables):
+    """:func:`loss_and_grads`' inputs of a dense step: ``variables`` with
+    every parameter an autograd leaf, and the one tree of those leaves."""
+    leaves = leaf_tree(variables["params"])
+    return {**variables, "params": leaves}, [leaves]
 
 
 def leaf_tree(tree):

@@ -21,8 +21,25 @@ Semantics carried over:
   optimizer's host state, ``checkpoint_epoch_{n}`` at ``save_epoch_freq``,
   always one at the end of a run;
 * with ``profile_steps`` > 0, a torch.profiler trace (host and device
-  activity) of that many steps from training step 1 on, written as a
-  Chrome trace to ``<save_path>/profile/trace.json``.
+  activity, and every thread where the installed torch can record them
+  all) of that many steps from training step 1 on, written as a Chrome
+  trace to ``<save_path>/profile/trace.json``.
+
+Where the host time goes (``utils/tracing.py``): the loop, the prefetch
+threads and the window path run in spans, ranges of any torch profiler's
+trace while one records.  Training thread: ``train.wait_batch`` (the next
+entry), ``train.step`` (a single step or accumulation micro-batch) or
+``train.window`` (a window), ``train.log`` (the per-step stats, ``step_log``
+and the cadences), ``train.drain`` (the host reads the loss sums: a sync);
+inside a step ``train.forward``, ``train.backward``, ``train.optimizer``
+(on the row-sparse path ``optim.dense`` and ``optim.rows``); the window
+path ``graph.load``, ``graph.eager``, ``graph.capture``, ``graph.replay``.
+Prefetch and producer threads: ``batch.build``, ``batch.plan``,
+``batch.copy``, ``batch.pack``.  Their records for operators: the
+``profile_steps`` trace, ``step_log``'s ``wait_ms``, ``step_ms``, ``plan_ms``
+and ``flushed``, ``flush_counts``, and the TRAINING line at each print,
+which adds since the last print the host ms a step waiting, launching and
+planning, the steps replayed from a graph, and the flushed steps by reason.
 
 Gradient accumulation (``batch_size_for_backward`` = k x ``batch_size``):
 each micro-batch adds its gradients to an accumulator and every k-th runs
@@ -73,7 +90,8 @@ import logging
 import math
 import os
 import time
-from typing import Any, Dict, List, Optional
+from collections import Counter
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -110,12 +128,46 @@ from open_knowledge_graph_embeddings_tpu_torch.train.step import (
     unpack_eval_stats,
 )
 from open_knowledge_graph_embeddings_tpu_torch.utils.logging_utils import ResultsLog
+from open_knowledge_graph_embeddings_tpu_torch.utils.tracing import span
 
 logger = logging.getLogger(__name__)
 
 
 def running_mean(new, old=None, momentum=0.9):
     return new if old is None else momentum * old + (1 - momentum) * new
+
+
+class Entry(NamedTuple):
+    """One entry of the training loop: a single step (``kind`` "s") or a
+    window of multi-step dispatch ("w"), its batches, their device arrays
+    (a :class:`PackedWindow` for a window), each batch's host plan ms, and
+    for a single step that left its window (scan mode), why:
+    ``"tail"`` or ``"signature:<leaf>"``."""
+
+    kind: str
+    batches: List[Batch]
+    arrays: Any
+    plan_ms: List[float]
+    flushed: Optional[str] = None
+
+
+def _first_difference(a, b) -> str:
+    """The first leaf, by name, whose shape or dtype differs between two
+    array signatures, or that only one of them has."""
+    da, db = {n: rest for n, *rest in a}, {n: rest for n, *rest in b}
+    return next(n for n in sorted(da.keys() | db.keys()) if da.get(n) != db.get(n))
+
+
+def _host_summary(rows) -> str:
+    """The operator's summary of ``step_log`` rows: host ms a step waiting,
+    launching and planning, the steps replayed from a CUDA graph, and the
+    steps flushed out of a window by reason."""
+    n = max(len(rows), 1)
+    flushed = Counter(r["flushed"] for r in rows if r["flushed"] is not None)
+    return ("host ms/step: wait %.3f step %.3f plan %.3f  replayed: %d/%d  flushed: %s" % (
+        sum(r["wait_ms"] for r in rows) / n, sum(r["step_ms"] for r in rows) / n,
+        sum(r["plan_ms"] for r in rows) / n, sum(r["window"] in ("replay", "capture") for r in rows), len(rows),
+        dict(sorted(flushed.items())) or "none"))
 
 
 class Trainer:
@@ -245,12 +297,19 @@ class Trainer:
         #: of the batches, and the number of batches
         self.last_eval: Optional[Dict[str, float]] = None
         #: per step (micro-batch): host ms waiting for the next planned batch
-        #: (a window's wait on its first step), the loss per real cell (a
+        #: (``wait_ms``) and launching the step (``step_ms``; a window's both
+        #: on its first step, 0.0 on the others), host ms of its batch's plan
+        #: on a prefetch thread (``plan_ms``), the loss per real cell (a
         #: device scalar), the tables that took the row-sparse update,
         #: whether an optimizer update ran after it (every step without
-        #: accumulation) and, for a step inside a window, how the window ran
-        #: (``ScannedStep.last_kind``; None for a single step)
+        #: accumulation), for a step inside a window how the window ran
+        #: (``window``: ``ScannedStep.last_kind``; None for a single step),
+        #: and for a single step that left its window why (``flushed``, as
+        #: :class:`Entry`; else None)
         self.step_log: List[Dict[str, Any]] = []
+        #: single steps of scan mode that left their window, by reason
+        #: (``Entry.flushed``), as the loop runs them
+        self.flush_counts: Counter = Counter()
         self.last_epoch: Optional[Dict[str, float]] = None
         self.profile_steps = int(args.get("profile_steps") or 0)
         self._profiler = None
@@ -279,10 +338,27 @@ class Trainer:
     def epoch(self) -> int:
         return math.floor(self.training_steps / (self.len_train_batches + 1)) + 1
 
+    def _plan(self, batches: List[Batch]):
+        """The host plans of ``batches`` -> ``(array dicts, host ms)``: of
+        one batch, or on the row-sparse path of an accumulation window,
+        planned over one union row space."""
+        with span("batch.plan") as planned:
+            if len(batches) > 1:
+                arrays = self._sparse_plan.plan_window(batches)
+            else:
+                arrays = [self._sparse_plan(batches[0]) if self.sparse else train_batch_to_arrays(batches[0])]
+        return arrays, planned.ms
+
+    def _planned(self, batch):
+        """Runs on the prefetch threads: ``(batch, host arrays, plan ms)``."""
+        (arrays,), ms = self._plan([batch])
+        return batch, arrays, ms
+
     def _to_device(self, batch):
-        """Runs on the prefetch threads: the host plan, then the copy."""
-        arrays = self._sparse_plan(batch) if self.sparse else train_batch_to_arrays(batch)
-        return batch, arrays_to_device(arrays, self.device)
+        """Runs on the prefetch threads: the host plan, then the copy ->
+        ``(batch, device arrays, plan ms)``."""
+        batch, arrays, ms = self._planned(batch)
+        return batch, arrays_to_device(arrays, self.device), ms
 
     def train_epoch(self, val_hook=None):
         """One pass over the training data -> ``{"loss": mean loss per
@@ -302,90 +378,106 @@ class Trainer:
         loss_sum_total = norm_total = items = 0.0
         epoch_start = batch_start = time.time()
         items_t = 1e-9
+        printed = len(self.step_log)  # the first step_log row since the last print
 
         def drain():
             nonlocal loss_sum_total, norm_total, items
-            for stats, norm_loss in pending:
-                loss_sum_total += float(stats["loss_sum"])
-                norm_total += norm_loss
-                items += float(stats["normalizer_metric"])
-            pending.clear()
+            with span("train.drain"):  # the host syncs on the device here
+                for stats, norm_loss in pending:
+                    loss_sum_total += float(stats["loss_sum"])
+                    norm_total += norm_loss
+                    items += float(stats["normalizer_metric"])
+                pending.clear()
 
         step_i = -1
         it = self._iter_train_entries(workers)
         try:
             while True:
-                t_wait = time.perf_counter()
-                try:
-                    kind, batches, arrays = next(it)
-                except StopIteration:
-                    break
-                wait_ms = (time.perf_counter() - t_wait) * 1e3
-                k = len(batches)
-                prev_step_i, step_i = step_i, step_i + k
                 if self.profile_steps:
                     self._profile_before_step()
-                self.training_steps += k
-                # a window consumes the state its first step would (epoch-keyed
-                # phases switch only at an epoch's first entry)
-                if self.regimes.update(self.epoch, self.training_steps - k + 1):
-                    # optimizer type changed: fresh state and a rebuilt step
-                    self.opt_state = self.regimes.init_state(self.variables["params"])
-                    self._rebuild_steps()
-                applied = True
-                if kind == "w":
-                    self.variables, self.opt_state, stats = self.train_step_scan(
-                        self.variables, self.opt_state, self.regimes.hparams(), arrays, self.generator)
-                    per_step = [{n: v[i] for n, v in stats.items()} for i in range(k)]
-                    names = {name for name, *_ in arrays.layout}
-                else:
-                    if self.train_step_scan is not None:  # keeps the tensors the graphs read
-                        self.variables, self.opt_state, stats = self.train_step_scan.single(
-                            self.variables, self.opt_state, self.regimes.hparams(), arrays, self.generator)
-                    elif self.accum_steps <= 1:
-                        self.variables, self.opt_state, stats = self.train_step(
-                            self.variables, self.opt_state, self.regimes.hparams(), arrays, self.generator)
+                with span("train.wait_batch") as wait:
+                    entry = next(it, None)
+                if entry is None:
+                    break
+                k = len(entry.batches)
+                prev_step_i, step_i = step_i, step_i + k
+                with span("train.window" if entry.kind == "w" else "train.step") as stepped:
+                    stats, applied = self._run_entry(entry)
+
+                with span("train.log"):
+                    if entry.kind == "w":
+                        per_step = [{n: v[i] for n, v in stats.items()} for i in range(k)]
+                        names = {name for name, *_ in entry.arrays.layout}
                     else:
-                        stats, applied = self._accumulate(arrays)
-                    per_step, names = [stats], arrays
-                tables = tuple(t for t in self._sparse_tables if f"sparse/{t}/uids" in names)
-                for i, (batch, st) in enumerate(zip(batches, per_step)):
-                    self.step_log.append({
-                        "wait_ms": wait_ms if i == 0 else 0.0,
-                        "loss": st["loss_sum"] / batch.normalizer_loss,  # stays on the device
-                        "sparse_tables": tables,
-                        "applied": applied,
-                        "window": self.train_step_scan.last_kind if kind == "w" else None,
-                    })
-                    pending.append((st, batch.normalizer_loss))
-                now = time.time()
-                items_t += now - batch_start
-                batch_start = now
+                        per_step, names = [stats], entry.arrays
+                    if entry.flushed is not None:
+                        self.flush_counts[entry.flushed] += 1
+                    tables = tuple(t for t in self._sparse_tables if f"sparse/{t}/uids" in names)
+                    for i, (batch, st) in enumerate(zip(entry.batches, per_step)):
+                        self.step_log.append({
+                            "wait_ms": wait.ms if i == 0 else 0.0,
+                            "step_ms": stepped.ms if i == 0 else 0.0,
+                            "plan_ms": entry.plan_ms[i],
+                            "loss": st["loss_sum"] / batch.normalizer_loss,  # stays on the device
+                            "sparse_tables": tables,
+                            "applied": applied,
+                            "window": self.train_step_scan.last_kind if entry.kind == "w" else None,
+                            "flushed": entry.flushed,
+                        })
+                        pending.append((st, batch.normalizer_loss))
+                    now = time.time()
+                    items_t += now - batch_start
+                    batch_start = now
 
-                # a cadence fires when an entry's steps hold a multiple of its
-                # frequency above 0, a window at its last step (JAX's rule
-                # compares with prev_step_i = -1 at a pass's first entry, so
-                # a window there fires for step 0, which no single step does:
-                # an extra eval and save a pass whatever the frequency)
-                def crossed(freq):
-                    return freq > 0 and step_i > 0 and step_i // freq != max(prev_step_i, 0) // freq
+                    # a cadence fires when an entry's steps hold a multiple of
+                    # its frequency above 0, a window at its last step (JAX's
+                    # rule compares with prev_step_i = -1 at a pass's first
+                    # entry, so a window there fires for step 0, which no
+                    # single step does: an extra eval and save a pass whatever
+                    # the frequency)
+                    def crossed(freq):
+                        return freq > 0 and step_i > 0 and step_i // freq != max(prev_step_i, 0) // freq
 
-                if crossed(print_freq) or step_i >= n_batches - 1:
-                    drain()
-                    logger.info(
-                        "TRAINING - EPOCH [%3d][%6d/%d]  time: %7.3f  items/sec: (%.0f)  loss: %.7f",
-                        self.epoch, step_i, n_batches, time.time() - epoch_start, items / items_t,
-                        loss_sum_total / max(norm_total, 1e-30),
-                    )
-                if crossed(save_freq):
-                    self.save(wait=False)
-                if val_hook is not None and crossed(eval_freq):
-                    drain()
-                    val_hook(last_step_of_epoch=False)
+                    if crossed(print_freq) or step_i >= n_batches - 1:
+                        drain()
+                        logger.info(
+                            "TRAINING - EPOCH [%3d][%6d/%d]  time: %7.3f  items/sec: (%.0f)  loss: %.7f  %s",
+                            self.epoch, step_i, n_batches, time.time() - epoch_start, items / items_t,
+                            loss_sum_total / max(norm_total, 1e-30), _host_summary(self.step_log[printed:]),
+                        )
+                        printed = len(self.step_log)
+                    if crossed(save_freq):
+                        self.save(wait=False)
+                    if val_hook is not None and crossed(eval_freq):
+                        drain()
+                        val_hook(last_step_of_epoch=False)
         finally:
             it.close()  # releases the window producer when the loop leaves early
         drain()
         return {"loss": loss_sum_total / max(norm_total, 1e-30), "items_per_s": items / items_t}
+
+    def _run_entry(self, entry: Entry):
+        """The step, window or accumulation micro-batch of one loop entry ->
+        ``(stats, applied)``: its stats (stacked [K] for a window) and
+        whether an optimizer update followed."""
+        k = len(entry.batches)
+        self.training_steps += k
+        # a window consumes the state its first step would (epoch-keyed
+        # phases switch only at an epoch's first entry)
+        if self.regimes.update(self.epoch, self.training_steps - k + 1):
+            # optimizer type changed: fresh state and a rebuilt step
+            self.opt_state = self.regimes.init_state(self.variables["params"])
+            self._rebuild_steps()
+        args = (self.variables, self.opt_state, self.regimes.hparams(), entry.arrays, self.generator)
+        if entry.kind == "w":
+            self.variables, self.opt_state, stats = self.train_step_scan(*args)
+        elif self.train_step_scan is not None:  # keeps the tensors the graphs read
+            self.variables, self.opt_state, stats = self.train_step_scan.single(*args)
+        elif self.accum_steps <= 1:
+            self.variables, self.opt_state, stats = self.train_step(*args)
+        else:
+            return self._accumulate(entry.arrays)
+        return stats, True
 
     def _profile_before_step(self) -> None:
         """Start the trace before the first entry after training step 1 and
@@ -397,7 +489,7 @@ class Trainer:
             activities = [ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(ProfilerActivity.CUDA)
-            self._profiler = profile(activities=activities)
+            self._profiler = profile(activities=activities, **_every_thread())
             self._profiler.start()
             self._profiling_until = self.training_steps + self.profile_steps
         elif self._profiler is not None and self._profiling_until <= self.training_steps:
@@ -437,12 +529,13 @@ class Trainer:
         return stats, True
 
     def _iter_train_arrays(self, workers: int):
-        """``(batch, device arrays)`` of one training pass.  The batches are
+        """``(batch, device arrays, plan ms)`` of one training pass.  The batches are
         built, planned and copied on the prefetch threads; with row-sparse
         accumulation ``accum_steps`` batches form a window planned over one
         union row space on this thread (``SparsePlanBuilder.plan_window``),
         and the batches of an unfinished window at the end of a pass wait
-        in ``_window_buf`` for the next pass."""
+        in ``_window_buf`` for the next pass (a window's plan ms on its
+        first batch)."""
         prefetch = max(2, workers)
         if not (self.sparse and self.accum_steps > 1):
             yield from self.train_builder.batches(shuffle=True, prefetch=prefetch, transform=self._to_device,
@@ -452,29 +545,30 @@ class Trainer:
             self._window_buf.append(batch)
             if len(self._window_buf) == self.accum_steps:
                 window, self._window_buf = self._window_buf, []
-                for b, d in zip(window, self._sparse_plan.plan_window(window)):
-                    yield b, arrays_to_device(d, self.device)
+                arrays, ms = self._plan(window)
+                for i, (b, d) in enumerate(zip(window, arrays)):
+                    yield b, arrays_to_device(d, self.device), ms if i == 0 else 0.0
 
     def _iter_train_entries(self, workers: int):
-        """Training-loop entries: ``("s", [batch], device arrays)`` for a
-        single step, ``("w", [K batches], PackedWindow)`` for a window of
-        multi-step dispatch."""
+        """The training loop's :class:`Entry` objects of one pass."""
         if self.scan_steps <= 1:
-            for batch, arrays in self._iter_train_arrays(workers):
-                yield "s", [batch], arrays
+            for batch, arrays, plan_ms in self._iter_train_arrays(workers):
+                yield Entry("s", [batch], arrays, [plan_ms])
             return
-        to_arrays = self._sparse_plan if self.sparse else train_batch_to_arrays
         yield from self._window_entries(self.train_builder.batches(
-            shuffle=True, prefetch=max(2, workers), transform=lambda b: (b, to_arrays(b)), workers=workers))
+            shuffle=True, prefetch=max(2, workers), transform=self._planned, workers=workers))
 
     def _window_entries(self, src):
-        """Group host-built ``(batch, arrays)`` pairs into windows of
-        ``scan_steps``, each stacked into one (pinned) :class:`PackedWindow`,
-        on a thread of its own so that the training loop never waits on the
-        stacking.  A batch whose array signature differs from the window's
-        (a table whose plan fell back to dense, another bucket) and the
-        epoch's tail flush the buffer as single steps (copied to the device
-        on the thread).  Closing the generator releases the thread."""
+        """Group host-built ``(batch, arrays, plan ms)`` triples into windows
+        of ``scan_steps``, each stacked into one (pinned)
+        :class:`PackedWindow`, on a thread of its own so that the training
+        loop never waits on the stacking: :class:`Entry` objects.  A batch
+        whose array signature differs from the window's (a table whose plan
+        fell back to dense, another bucket) flushes the buffer as single
+        steps (copied to the device on the thread), flushed for
+        ``"signature:<leaf>"``, the first leaf that differed; the epoch's
+        tail flushes for ``"tail"``.  Closing the generator releases the
+        thread."""
         import queue
         import threading
 
@@ -494,26 +588,27 @@ class Trainer:
         def producer():
             buf = []
 
-            def flush() -> bool:
-                return all(put(("s", [b], arrays_to_device(a, device))) for b, a, _ in buf)
+            def flush(reason) -> bool:
+                return all(put(Entry("s", [b], arrays_to_device(a, device), [ms], reason)) for b, a, ms, _ in buf)
 
             try:
-                for batch, arrays in src:
+                for batch, arrays, plan_ms in src:
                     if stop.is_set():
                         return
                     arrays = {n: np.asarray(a) for n, a in arrays.items()}
                     sig = tuple(sorted((n, a.shape, str(a.dtype)) for n, a in arrays.items()))
-                    if buf and sig != buf[0][2]:
-                        if not flush():
+                    if buf and sig != buf[0][3]:
+                        if not flush("signature:" + _first_difference(buf[0][3], sig)):
                             return
                         buf = []
-                    buf.append((batch, arrays, sig))
+                    buf.append((batch, arrays, plan_ms, sig))
                     if len(buf) == k:
-                        window = PackedWindow([a for _, a, _ in buf], pin=device.type == "cuda")
-                        if not put(("w", [b for b, _, _ in buf], window)):
+                        with span("batch.pack"):
+                            window = PackedWindow([a for _, a, _, _ in buf], pin=device.type == "cuda")
+                        if not put(Entry("w", [b for b, *_ in buf], window, [ms for _, _, ms, _ in buf])):
                             return
                         buf = []
-                flush()
+                flush("tail")
             except BaseException as e:  # surfaced on the consumer's thread
                 put(e)
             finally:
@@ -807,6 +902,15 @@ class Trainer:
                 self._rebuild_steps()
                 logger.info("froze parameters matching %s", patterns)
         return meta
+
+
+def _every_thread() -> Dict[str, Any]:
+    """The profiler's keyword that records every thread (the batch.* spans
+    of the prefetch threads), where the installed torch has it."""
+    try:
+        return {"experimental_config": torch._C._profiler._ExperimentalConfig(profile_all_threads=True)}
+    except TypeError:
+        return {}
 
 
 def _is_state_node(x) -> bool:

@@ -648,26 +648,38 @@ def test_one_row_backward_check_reports_shares_and_f64_errors(smoke, capsys):
     assert 0 < p_err.max() < 4 * 2 ** -8
 
 
-def test_optimizer_clock_times_each_part_and_restores(smoke):
-    """The training step's optimizer clock: make_apply, the dense apply and
-    the row update each add their host time while the block runs; after it
-    the regimes and the sparse step's rules are as they were."""
-    from open_knowledge_graph_embeddings_tpu_torch.train import sparse
+def test_optimizer_spans_time_each_part_of_a_sparse_step(smoke, toy_dataset_dir):
+    """The training step's optimizer clock: a clock around one row-sparse
+    step reads both of the script's optimizer spans (the dense leaves'
+    ``make_apply`` and update, the row update) inside the step's
+    ``train.optimizer``, and after its block reads no more."""
+    from open_knowledge_graph_embeddings_tpu_torch.data.batching import BatchBuilder
+    from open_knowledge_graph_embeddings_tpu_torch.data.dataset import OneToNMentionRelationDataset
+    from open_knowledge_graph_embeddings_tpu_torch.models.model import build_model
     from open_knowledge_graph_embeddings_tpu_torch.train.optim import OptimizerRegimes
+    from open_knowledge_graph_embeddings_tpu_torch.train.sparse import SparsePlanBuilder, make_sparse_train_step
+    from open_knowledge_graph_embeddings_tpu_torch.train.step import arrays_to_device
+    from open_knowledge_graph_embeddings_tpu_torch.utils import tracing
 
+    ds = OneToNMentionRelationDataset(dataset_dir=toy_dataset_dir, input_file="train.txt", is_training_data=True,
+                                      batch_size=2, use_batch_shared_entities=True, min_size_batch_labels=6,
+                                      cache_dir=toy_dataset_dir + "/smoke_optimizer_spans")
+    model = build_model("LSTMComplexRelationModel", ds.meta, entity_slot_size=8, sparse=True)
+    variables = model.init(torch.Generator().manual_seed(0))
     regimes = OptimizerRegimes({"optimizer": "Adagrad", "lr": 0.2})
     regimes.update(1, 0)
-    params = {"w": torch.ones(8), "t": torch.ones(6, 4)}
-    state = regimes.init_state(params)
-    rules = dict(sparse._SPARSE_RULES)
-    with smoke.OptimizerClock(regimes) as clock:
-        regimes.make_apply({"w": params["w"]})({"w": torch.ones(8)}, {"w": state["w"]}, {"w": params["w"]},
-                                               regimes.hparams())
-        sparse._SPARSE_RULES["Adagrad"]([torch.ones(2, 4)], [torch.tensor([1, 3])], [torch.ones(2, dtype=torch.bool)],
-                                        [params["t"]], [state["t"]], regimes.hparams()[0])
-    assert set(clock.ms) == {"make_apply", "dense apply", "row update"} and all(v > 0 for v in clock.ms.values())
-    assert "make_apply" not in vars(regimes) and sparse._SPARSE_RULES == rules
-    assert float(params["t"][0, 0]) == 1.0 and float(params["t"][1, 0]) < 1.0
+    step = make_sparse_train_step(model, regimes, variables["params"], entity_sparse=True)
+    arrays = arrays_to_device(SparsePlanBuilder(model.embedder, True, min_rows_ratio=0.0)(
+        next(iter(BatchBuilder(ds, seed=0).batches()))), "cpu")
+    assert any(k.startswith("sparse/") for k in arrays)
+    opt_state = regimes.init_state(variables["params"])
+    with tracing.clock() as clock:
+        variables, opt_state, _ = step(variables, opt_state, regimes.hparams(), arrays)
+    assert all(clock.ms.get(k, 0.0) > 0 for k in smoke.OPTIMIZER_SPANS), clock.ms
+    assert sum(clock.ms[k] for k in smoke.OPTIMIZER_SPANS) <= clock.ms["train.optimizer"]
+    read = dict(clock.ms)
+    step(variables, opt_state, regimes.hparams(), arrays)
+    assert clock.ms == read
 
 
 @pytest.mark.parametrize("dtype,per_encode", [("bfloat16", 10), ("float32", 11)])

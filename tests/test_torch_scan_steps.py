@@ -322,12 +322,13 @@ def test_window_entries_producer_exits_on_early_consumer_exit():
         i = 0
         while True:  # endless batches of one signature
             i += 1
-            yield object(), {"x": np.full((4,), i, np.int32)}
+            yield object(), {"x": np.full((4,), i, np.int32)}, 0.5
 
     n_before = threading.active_count()
     gen = Trainer._window_entries(_fake_trainer(), src())
-    kind, batches, window = next(gen)
-    assert kind == "w" and len(batches) == 2 and isinstance(window, PackedWindow)
+    entry = next(gen)
+    assert entry.kind == "w" and len(entry.batches) == 2 and isinstance(entry.arrays, PackedWindow)
+    assert entry.plan_ms == [0.5, 0.5] and entry.flushed is None
     assert threading.active_count() == n_before + 1
     gen.close()
     deadline = time.time() + 5.0
@@ -337,21 +338,24 @@ def test_window_entries_producer_exits_on_early_consumer_exit():
 
 
 def test_window_entries_flush_on_signature_change_and_tail():
-    """A batch of another signature flushes the buffer as single steps, the
-    epoch's tail too; a full buffer is one window whose stacked leaves are
-    the batches' in order."""
-    shapes = [4, 4, 4, 4, 4, 6, 4, 4, 4]  # a window, a signature change, the tail
+    """A batch of another signature flushes the buffer as single steps,
+    naming the leaf that differed, the epoch's tail too; a full buffer is
+    one window whose stacked leaves are the batches' in order; each entry
+    carries its batches' plan ms."""
+    shapes = [4, 4, 4, 4, 4, 6, 4, 4, 4, 4]  # a window, a signature change, a window, the tail
 
     def src():
         for i, n in enumerate(shapes):
-            yield i, {"x": np.full((n,), i, np.int32), "s": np.float32(i)}
+            yield i, {"x": np.full((n,), i, np.int32), "s": np.float32(i)}, float(i)
 
     entries = list(Trainer._window_entries(_fake_trainer(3), src()))
-    kinds = [(kind, list(b)) for kind, b, _ in entries]
-    assert kinds == [("w", [0, 1, 2]), ("s", [3]), ("s", [4]), ("s", [5]), ("w", [6, 7, 8])]
-    views = window_views(entries[0][2].host, entries[0][2].layout)
+    kinds = [(e.kind, list(e.batches), e.flushed) for e in entries]
+    assert kinds == [("w", [0, 1, 2], None), ("s", [3], "signature:x"), ("s", [4], "signature:x"),
+                     ("s", [5], "signature:x"), ("w", [6, 7, 8], None), ("s", [9], "tail")]
+    assert [e.plan_ms for e in entries] == [[0.0, 1.0, 2.0], [3.0], [4.0], [5.0], [6.0, 7.0, 8.0], [9.0]]
+    views = window_views(entries[0].arrays.host, entries[0].arrays.layout)
     assert views["x"].tolist() == [[0] * 4, [1] * 4, [2] * 4] and views["s"].tolist() == [0.0, 1.0, 2.0]
-    assert entries[1][2]["x"].dtype == torch.int64 and entries[3][2]["x"].shape == (6,)
+    assert entries[1].arrays["x"].dtype == torch.int64 and entries[3].arrays["x"].shape == (6,)
 
 
 def test_cadence_fires_at_a_windows_last_step(toy_dataset_dir, tmp_path, monkeypatch):
